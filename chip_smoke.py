@@ -181,6 +181,7 @@ def phase_kernels():
     from difformer_tpu_torch.kernels.tolerance import assert_close
 
     rows = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for idx, (n, l, h, m, d, dtype, masked) in enumerate(SHAPES):
         q, k, v, mask, g = attention_case(n, l, h, m, d, dtype, masked, idx)
         label = (f"N={n} L={l} H={h} M={m} D={d} "
@@ -232,19 +233,23 @@ def phase_kernels():
         }
         unnorm_ms = cuda_ms(
             lambda: K.sigmoid_attention_fwd(q, k, v, mask, normalize=False))
+        splits, chunk = K.fwd_key_splits(n, l, h, sms)
+        fwd_grid = (f" | S={splits} ({chunk} key tiles each), "
+                    f"{-(-n // K.FWD_TILE) * h * splits} blocks")
         for name, (err, kernel, plain) in cases.items():
             ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
             bound, bound_by = bound_ms(name, n, l, h, m, d, dtype)
             say(f"phase kernels: {name:22s} {label:40s} max_abs_err "
                 f"{err:.3e} | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
                 f"bound {bound:.4f} ms by {bound_by} "
-                f"({100 * bound / ms:.1f}% of the kernel's time)")
+                f"({100 * bound / ms:.1f}% of the kernel's time)"
+                f"{fwd_grid if name == 'sigmoid_attention_fwd' else ''}")
             if idx == 0:
                 rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound, bound_by=bound_by)
         say(f"phase kernels: sigmoid_attention_fwd normalize=False "
             f"{label:40s} max_abs_err {e_unnorm:.3e} | kernel "
-            f"{unnorm_ms:.4f} ms")
+            f"{unnorm_ms:.4f} ms{fwd_grid}")
         del q, k, v, mask, g, out, den, num, den_u, dq, dk, dv
         del r_out, r_den, r_num, r_den_u, r_dq, r_dk, r_dv
         torch.cuda.empty_cache()

@@ -46,6 +46,7 @@ namespace {
 
 constexpr int kThreads = 256;  // a 16 x 16 grid of threads
 constexpr int kMaxWidth = 256;  // largest M and D the kernels take
+constexpr int kKeyTile = 64;    // K2 splits the keys in chunks of such tiles
 
 struct Strides {
   int64_t n, h, c;  // element strides of a [rows, H, C] view
@@ -144,8 +145,9 @@ __global__ void __launch_bounds__(kThreads)
                        const T* __restrict__ k, Strides sk,
                        const T* __restrict__ v, Strides sv,
                        const float* __restrict__ mask, void* __restrict__ out,
-                       float* __restrict__ den_out, int64_t N, int64_t L, int H,
-                       int M, int D, bool normalize) {
+                       float* __restrict__ den_out, float* __restrict__ ws,
+                       int64_t N, int64_t L, int H, int M, int D, int chunk,
+                       bool normalize) {
   constexpr int P = BT + 1, R = BT / 16, CW = CT * 16;
   extern __shared__ float smem[];
   float* Qs = smem;          // [M][P]   q tile
@@ -155,13 +157,17 @@ __global__ void __launch_bounds__(kThreads)
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, h = blockIdx.y;
   const int64_t q0 = static_cast<int64_t>(blockIdx.x) * BT;
+  const int64_t kb = static_cast<int64_t>(blockIdx.z) * chunk * kKeyTile;
+  const int64_t ke = kb + static_cast<int64_t>(chunk) * kKeyTile < L
+                         ? kb + static_cast<int64_t>(chunk) * kKeyTile
+                         : L;
 
   zero(Vs, BT * CW);
   load_cols<T, float, BT>(Qs, q, sq, q0, N, h, M);
 
   float acc[R][CT] = {};
   float den[R] = {};
-  for (int64_t k0 = 0; k0 < L; k0 += BT) {
+  for (int64_t k0 = kb; k0 < ke; k0 += BT) {
     __syncthreads();  // the previous tile is no longer read
     load_cols<T, float, BT>(Ks, k, sk, k0, L, h, M);
     load_rows<T, BT, CW>(Vs, v, sv, k0, L, h, D);
@@ -207,6 +213,14 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < R; ++i) {
     const int64_t row = q0 + ty * R + i;
     if (row >= N) continue;
+    if (gridDim.z > 1) {  // raw partials of this key chunk
+      const int64_t r = (blockIdx.z * N + row) * H + h;
+      if (tx == 0) ws[gridDim.z * N * H * D + r] = den[i];
+#pragma unroll
+      for (int c = 0; c < CT; ++c)
+        if (tx + 16 * c < D) ws[r * D + tx + 16 * c] = acc[i][c];
+      continue;
+    }
     const int64_t base = (row * H + h) * D;
     if (tx == 0) den_out[row * H + h] = den[i];
 #pragma unroll
@@ -219,6 +233,30 @@ __global__ void __launch_bounds__(kThreads)
         static_cast<float*>(out)[base + d] = acc[i][c];
     }
   }
+}
+
+// Sums the S key-chunk partials of K2 in chunk order (no atomics, so the
+// result is the same at every call): ws holds num [S, N, H, D] then
+// den [S, N, H], all f32. Writes den and num/den in T, or the raw f32 num.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    sigattn_fwd_combine(const float* __restrict__ ws, void* __restrict__ out,
+                        float* __restrict__ den_out, int64_t rows, int D,
+                        int S, bool normalize) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (idx >= rows * D) return;
+  const int64_t r = idx / D;
+  const float* den_ws = ws + S * rows * D;
+  float num = 0.f, den = 0.f;
+  for (int s = 0; s < S; ++s) {
+    num += ws[s * rows * D + idx];
+    den += den_ws[s * rows + r];
+  }
+  if (idx - r * D == 0) den_out[r] = den;
+  if (normalize)
+    Num<T>::store(static_cast<T*>(out) + idx, num / den);
+  else
+    static_cast<float*>(out)[idx] = num;
 }
 
 // ---------------------------------------------------------------------------
@@ -419,18 +457,24 @@ cudaError_t prepare(Kernel kernel, size_t smem_floats) {
 }
 
 template <typename T, int BT, int CT>
-cudaError_t fwd(const Problem& p, void* out, float* den, bool normalize,
-                cudaStream_t stream) {
+cudaError_t fwd(const Problem& p, void* out, float* den, float* ws,
+                int splits, int chunk, bool normalize, cudaStream_t stream) {
   constexpr int P = BT + 1, CW = CT * 16;
   const size_t smem = 2 * p.M * P + BT * CW + BT * P;
   auto kernel = sigattn_fwd_kernel<T, BT, CT>;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(static_cast<unsigned>((p.N + BT - 1) / BT), p.H);
+  const dim3 grid(static_cast<unsigned>((p.N + BT - 1) / BT), p.H, splits);
   kernel<<<grid, kThreads, smem * sizeof(float), stream>>>(
       static_cast<const T*>(p.q), p.sq, static_cast<const T*>(p.k), p.sk,
-      static_cast<const T*>(p.v), p.sv, p.mask, out, den, p.N, p.L, p.H, p.M,
-      p.D, normalize);
+      static_cast<const T*>(p.v), p.sv, p.mask, out, den, ws, p.N, p.L, p.H,
+      p.M, p.D, chunk, normalize);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  const int64_t rows = p.N * p.H;
+  sigattn_fwd_combine<T>
+      <<<static_cast<unsigned>((rows * p.D + kThreads - 1) / kThreads),
+         kThreads, 0, stream>>>(ws, out, den, rows, p.D, splits, normalize);
   return cudaGetLastError();
 }
 
@@ -493,19 +537,28 @@ bool valid(int dtype, const Problem& p) {
 
 extern "C" {
 
+// splits blocks per (query tile, head) each take chunk key tiles of
+// kKeyTile keys; with splits > 1, ws holds splits * N * H * (D + 1) floats.
 int sigattn_fwd(int dtype, int normalize, const void* q, const void* k,
                 const void* v, const void* mask, void* out, void* den,
-                int64_t N, int64_t L, int H, int M, int D, int64_t sqn,
-                int64_t sqh, int64_t sqm, int64_t skn, int64_t skh,
-                int64_t skm, int64_t svn, int64_t svh, int64_t svd,
-                void* stream) {
+                void* ws, int64_t N, int64_t L, int H, int M, int D,
+                int splits, int chunk, int64_t sqn, int64_t sqh, int64_t sqm,
+                int64_t skn, int64_t skh, int64_t skm, int64_t svn,
+                int64_t svh, int64_t svd, void* stream) {
   const Problem p{q, k, v, {sqn, sqh, sqm}, {skn, skh, skm}, {svn, svh, svd},
                   static_cast<const float*>(mask), N, L, H, M, D};
-  if (!valid(dtype, p)) return cudaErrorInvalidValue;
+  const int64_t tiles = (L + kKeyTile - 1) / kKeyTile;
+  if (!valid(dtype, p) || splits < 1 || splits > 65535 || chunk < 1 ||
+      static_cast<int64_t>(splits) * chunk < tiles ||
+      static_cast<int64_t>(splits - 1) * chunk >= tiles ||
+      (splits > 1 && ws == nullptr))
+    return cudaErrorInvalidValue;
   const int width = M > D ? M : D;
   auto* st = static_cast<cudaStream_t>(stream);
   auto* den_f = static_cast<float*>(den);
-#define SIGATTN_FWD(T, BT, CT) fwd<T, BT, CT>(p, out, den_f, normalize != 0, st)
+  auto* ws_f = static_cast<float*>(ws);
+#define SIGATTN_FWD(T, BT, CT) \
+  fwd<T, BT, CT>(p, out, den_f, ws_f, splits, chunk, normalize != 0, st)
   SIGATTN_DISPATCH(dtype, width, SIGATTN_FWD);
 #undef SIGATTN_FWD
 }

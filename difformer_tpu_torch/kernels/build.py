@@ -33,8 +33,8 @@ _I64 = ctypes.c_int64
 _STRIDES = [_I64] * 9
 # argtypes of every C entry point (see csrc/sigmoid_attention.cu)
 SIGNATURES = {
-    "sigattn_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I]
-    + _STRIDES + [_P],
+    "sigattn_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I,
+                    _I, _I, _I] + _STRIDES + [_P],
     "sigattn_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I]
     + _STRIDES + [_P],
     "sigattn_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I]

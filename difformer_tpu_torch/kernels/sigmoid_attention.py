@@ -50,6 +50,12 @@ LAUNCHES = {
 MAX_WIDTH = 256  # largest M and D the kernels take (kMaxWidth in the source)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: Query rows and keys of one K2 tile (kKeyTile in the source).
+FWD_TILE = 64
+#: Blocks per SM that K2's key split aims at: enough for every SM to hold
+#: resident blocks through the launch (see ``fwd_key_splits``).
+FWD_BLOCKS_PER_SM = 2
+
 
 def reset_launch_counts():
     for name in LAUNCHES:
@@ -163,6 +169,28 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def fwd_key_splits(n, l, h, sms, *, blocks_per_sm=FWD_BLOCKS_PER_SM):
+    """(S, key tiles per split) for K2 at N queries, L keys, H heads on a
+    card of ``sms`` SMs.
+
+    K2 launches one block per (query tile, head) and split: each of the S
+    splits takes a contiguous chunk of whole key tiles, and a second kernel
+    sums the S partials. S grows until the grid reaches ``blocks_per_sm``
+    blocks per SM, then is recomputed from the chunk size, so no split is
+    empty; S = 1 when the query tiles alone reach that target."""
+    q_blocks = _cdiv(n, FWD_TILE) * h
+    tiles = _cdiv(l, FWD_TILE)
+    target = blocks_per_sm * sms
+    if q_blocks >= target:
+        return 1, tiles
+    chunk = _cdiv(tiles, min(tiles, _cdiv(target, q_blocks)))
+    return _cdiv(tiles, chunk), chunk
+
+
 def sigmoid_attention_fwd(q, k, v, key_mask=None, *, normalize=True):
     """K2. q [N,H,M], k [L,H,M], v [L,H,D], key_mask [L] or None →
     (out [N,H,D], den [N,H] f32). ``normalize=False`` returns the raw
@@ -177,10 +205,17 @@ def sigmoid_attention_fwd(q, k, v, key_mask=None, *, normalize=True):
     out = torch.empty((n, h, d), device=q.device,
                       dtype=q.dtype if normalize else torch.float32)
     den = torch.empty((n, h), device=q.device, dtype=torch.float32)
+    splits, chunk = fwd_key_splits(
+        n, k.shape[0], h,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    # raw f32 partials of the S splits: num [S, N, H, D] then den [S, N, H]
+    ws = (torch.empty(splits * n * h * (d + 1), device=q.device,
+                      dtype=torch.float32) if splits > 1 else None)
     mask, ptrs, dims, strides = _args(q, k, v, key_mask)
     rc = load_library().sigattn_fwd(
         _DTYPES[q.dtype], int(normalize), *ptrs, out.data_ptr(),
-        den.data_ptr(), *dims, *strides, _stream(q))
+        den.data_ptr(), None if ws is None else ws.data_ptr(), *dims, splits,
+        chunk, *strides, _stream(q))
     _raise_on(rc, "sigmoid_attention_fwd")
     LAUNCHES["sigmoid_attention_fwd"] += 1
     return out, den

@@ -32,7 +32,13 @@ SHAPES = [
     ((150, 90, 3, 100, 120), True),
     ((70, 65, 1, 256, 200), False),
     ((1024, 3000, 1, 64, 64), True),  # L in the thousands: num scales by den
+    ((64, 5000, 1, 64, 64), False),  # one query tile: K2 splits the keys 79 ways
 ]
+
+
+def _splits(cuda, n, l, h):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    return K.fwd_key_splits(n, l, h, sms)[0]
 
 
 def _on(cuda, dtype, q, k, v, mask):
@@ -90,10 +96,62 @@ def test_strided_and_broadcast_inputs(cuda):
     qc, kc, vc, mc = _on(cuda, torch.float32, q, k, v, mask)
     q_view = qc.transpose(0, 1).contiguous().transpose(0, 1)  # [N,H,M] view
     v_bcast = vc[:, :1].expand(-1, 2, -1)
+    assert _splits(cuda, 128, 96, 2) > 1  # the combine runs too
     out, den = K.sigmoid_attention_fwd(q_view, kc, v_bcast, mc)
     ref, ref_den = K.sigmoid_attention_fwd_plain(q_view, kc, v_bcast, mc)
     assert_close("out", out, ref, "out")
     assert_close("den", den, ref_den, "den")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("normalize", [True, False])
+def test_fwd_split_chunk_fully_masked(cuda, normalize, dtype):
+    """A key chunk whose keys are all masked adds exact zeros to every
+    row; the other chunks' keys still count."""
+    n, l, h = 64, 2000, 1
+    splits, chunk = K.fwd_key_splits(
+        n, l, h, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert splits > 2
+    q, k, v, mask = make_inputs(23, n, l, h, m=64, d=64, masked=True)
+    lo, hi = chunk * K.FWD_TILE, 2 * chunk * K.FWD_TILE
+    mask[lo:hi] = 0.0  # the whole second chunk
+    args = _on(cuda, dtype, q, k, v, mask)
+    out, den = K.sigmoid_attention_fwd(*args, normalize=normalize)
+    ref_out, ref_den = K.sigmoid_attention_fwd_plain(*args,
+                                                     normalize=normalize)
+    kind, ref_scale = ("out", None) if normalize else ("num", ref_den)
+    assert_close("out", out, ref_out, kind, den=ref_scale)
+    assert_close("den", den, ref_den, "den")
+    # the same keys dropped from the problem give the same result
+    keep = torch.ones(l, dtype=torch.bool)
+    keep[lo:hi] = False
+    cut = [a[keep.to(cuda)] for a in args[1:]]
+    out_cut, den_cut = K.sigmoid_attention_fwd(args[0], *cut,
+                                               normalize=normalize)
+    assert_close("out", out, out_cut.to(out.dtype), kind, den=ref_scale)
+    assert_close("den", den, den_cut, "den")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,l,h", [(64, 5000, 1), (2708, 2708, 1),
+                                   (19717, 2000, 1)])
+def test_fwd_is_deterministic_and_counts_one_launch(cuda, n, l, h):
+    """Two calls give bit-equal out and den (the partials of the key split
+    are summed in a fixed order, without atomics), and each call counts one
+    launch, with the combine or without it."""
+    args = _on(cuda, torch.float32, *make_inputs(24, n, l, h, m=64, d=64,
+                                                 masked=True))
+    K.reset_launch_counts()
+    first = K.sigmoid_attention_fwd(*args)
+    second = K.sigmoid_attention_fwd(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sigmoid_attention_fwd"] == 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    num = K.sigmoid_attention_fwd(*args, normalize=False)[0]
+    assert torch.equal(num, K.sigmoid_attention_fwd(*args,
+                                                    normalize=False)[0])
 
 
 @pytest.mark.cuda
