@@ -20,9 +20,10 @@
 // deterministic. The TPU's ones-column denominator becomes a plain row sum,
 // and rows past N or L are masked by predication, not by padded copies.
 //
-// This first version multiplies with FFMA on a 16 x 16 thread grid (each
-// thread owns a BT/16 x BT/16 score sub-tile and BT/16 x CT accumulators).
-// bf16 inputs are widened to f32 in shared memory: a bf16 x bf16 product is
+// The kernels multiply with FFMA. K3 and K4 run on a 16 x 16 thread grid
+// (each thread owns a BT/16 x BT/16 score sub-tile and BT/16 x CT
+// accumulators, read as scalars from shared memory). K2 also splits the
+// keys across blocks and reads its operands as float4s (see K2). bf16 inputs are widened to f32 in shared memory: a bf16 x bf16 product is
 // exact in f32, so this reproduces "bf16 products, f32 sums", and f32 inputs
 // stay exact f32 (no TF32). The TPU kernel's rounding points are kept: s is
 // rounded to v's dtype before s v (and the denominator sums the rounded s,
@@ -44,7 +45,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads
+constexpr int kThreads = 256;  // threads of every block
 constexpr int kMaxWidth = 256;  // largest M and D the kernels take
 constexpr int kKeyTile = 64;    // K2 splits the keys in chunks of such tiles
 
@@ -137,10 +138,87 @@ __device__ __forceinline__ void tile_product(float (&acc)[BT / 16][BT / 16],
 }
 
 // ---------------------------------------------------------------------------
-// K2: forward. One block per (query tile, head), looping over key tiles.
+// K2: forward. One block per (query tile, head, key chunk): the blocks of a
+// (query tile, head) split the key tiles in S contiguous chunks, so that a
+// graph of a few thousand nodes, with fewer query tiles than SMs, still
+// fills the card. With S > 1 each block writes raw f32 partials of num and
+// den, and sigattn_fwd_combine sums them.
+//
+// Tiles are 64 queries by 64 keys. The 8 warps of a block split the score
+// tile 4 x 2, the 32 lanes of a warp 4 x 8, and a lane owns a 4 x 4 micro
+// tile: queries row0..row0+3 by keys col0..col0+3, and the same queries
+// by features col0 + 64 g + (0..3) of the output. Each operand of its
+// outer products is one float4 read from shared memory: q, k and s are
+// stored feature- (key-) major with a stride of 68 floats, v row-major. A
+// warp's float4 reads then cover 4 and 8 consecutive float4s, one
+// wavefront each, so 16 FFMAs need 2 wavefronts (the scalar reads of the
+// first version needed 8); the stride keeps the transposed float4 stores
+// at the least wavefronts their size allows.
 // ---------------------------------------------------------------------------
-template <typename T, int BT, int CT>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kFwdStride = kKeyTile + 4;  // of the q, k and s tiles
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// acc[i][j0 + j] += a_i b_j for the 4 x 4 outer product of two float4s.
+template <int C>
+__device__ __forceinline__ void outer4(float (&acc)[4][C], int j0, float4 a,
+                                       float4 b) {
+  const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      acc[i][j0 + j] = fmaf(av[i], bv[j], acc[i][j0 + j]);
+}
+
+// dst[c * kFwdStride + r] = src[r0 + r, h, c] for r < kKeyTile, c < C;
+// rows at or past nrows read as 0. Thread t takes the columns c = t mod 64
+// (+ 64 i), so a warp reads 32 neighbouring columns of a row, and four
+// rows of a column at a time, which it stores as one float4.
+template <typename S>
+__device__ __forceinline__ void load_tile_fmajor(float* dst,
+                                                 const S* __restrict__ src,
+                                                 Strides s, int64_t r0,
+                                                 int64_t nrows, int h, int C) {
+  constexpr int kCols = 64, kGroups = kThreads / kCols;
+  const int r = 4 * (threadIdx.x / kCols);
+  for (int c = threadIdx.x % kCols; c < C; c += kCols) {
+    const S* p = src + (r0 + r) * s.n + h * s.h + c * s.c;
+#pragma unroll
+    for (int i = 0; i < kKeyTile; i += 4 * kGroups) {
+      float x[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        x[u] = r0 + r + i + u < nrows ? Num<S>::load(p + (i + u) * s.n) : 0.f;
+      *reinterpret_cast<float4*>(dst + c * kFwdStride + r + i) =
+          make_float4(x[0], x[1], x[2], x[3]);
+    }
+  }
+}
+
+// dst[r * CW + c] = src[r0 + r, h, c] for r < kKeyTile, c < CW; rows at or
+// past nrows and columns at or past C read as 0.
+template <typename S, int CW>
+__device__ __forceinline__ void load_tile_rows(float* dst,
+                                               const S* __restrict__ src,
+                                               Strides s, int64_t r0,
+                                               int64_t nrows, int h, int C) {
+  constexpr int kRows = kThreads / CW;  // rows per pass of the block
+  const int r = threadIdx.x / CW, c = threadIdx.x % CW;
+  const S* p = src + (r0 + r) * s.n + h * s.h + c * s.c;
+#pragma unroll 4
+  for (int i = 0; i < kKeyTile; i += kRows)
+    dst[(r + i) * CW + c] = r0 + r + i < nrows && c < C
+                                ? Num<S>::load(p + i * s.n)
+                                : 0.f;
+}
+
+// At G = 1 the kernel keeps 80 registers a thread, so three blocks (and
+// their 69 KB of shared memory at M = 64) stay resident on an SM.
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads, G == 1 ? 3 : 1)
     sigattn_fwd_kernel(const T* __restrict__ q, Strides sq,
                        const T* __restrict__ k, Strides sk,
                        const T* __restrict__ v, Strides sv,
@@ -148,84 +226,95 @@ __global__ void __launch_bounds__(kThreads)
                        float* __restrict__ den_out, float* __restrict__ ws,
                        int64_t N, int64_t L, int H, int M, int D, int chunk,
                        bool normalize) {
-  constexpr int P = BT + 1, R = BT / 16, CW = CT * 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;          // [M][P]   q tile
-  float* Ks = Qs + M * P;    // [M][P]   k tile
-  float* Vs = Ks + M * P;    // [BT][CW] v tile, row-major; columns >= D stay 0
-  float* Ss = Vs + BT * CW;  // [BT][P]  Ss[j * P + i] = s[i, j] in v's dtype
+  constexpr int BT = kKeyTile, P = kFwdStride, CW = 64 * G;
+  extern __shared__ float4 fwd_smem[];
+  float* Qs = reinterpret_cast<float*>(fwd_smem);  // [M][P]  q tile
+  float* Ks = Qs + M * P;    // [M][P]  k tile
+  float* Vs = Ks + M * P;    // [BT][CW] v tile; columns >= D are 0
+  float* Ss = Vs + BT * CW;  // [BT][P] Ss[j * P + i] = s[i, j] in v's dtype
+  float* red = Ss + BT * P;  // [2][BT] row sums of the two warp columns
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, h = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wc = warp % 2;
+  const int row0 = (warp / 2) * 16 + (lane / 8) * 4;
+  const int col0 = wc * 32 + (lane % 8) * 4;
+  const int h = blockIdx.y;
   const int64_t q0 = static_cast<int64_t>(blockIdx.x) * BT;
-  const int64_t kb = static_cast<int64_t>(blockIdx.z) * chunk * kKeyTile;
-  const int64_t ke = kb + static_cast<int64_t>(chunk) * kKeyTile < L
-                         ? kb + static_cast<int64_t>(chunk) * kKeyTile
+  const int64_t kb = static_cast<int64_t>(blockIdx.z) * chunk * BT;
+  const int64_t ke = kb + static_cast<int64_t>(chunk) * BT < L
+                         ? kb + static_cast<int64_t>(chunk) * BT
                          : L;
 
-  zero(Vs, BT * CW);
-  load_cols<T, float, BT>(Qs, q, sq, q0, N, h, M);
+  load_tile_fmajor<T>(Qs, q, sq, q0, N, h, M);
 
-  float acc[R][CT] = {};
-  float den[R] = {};
+  float acc[4][4 * G] = {};
+  float den[4] = {};
   for (int64_t k0 = kb; k0 < ke; k0 += BT) {
     __syncthreads();  // the previous tile is no longer read
-    load_cols<T, float, BT>(Ks, k, sk, k0, L, h, M);
-    load_rows<T, BT, CW>(Vs, v, sv, k0, L, h, D);
+    load_tile_fmajor<T>(Ks, k, sk, k0, L, h, M);
+    load_tile_rows<T, CW>(Vs, v, sv, k0, L, h, D);
     __syncthreads();
 
-    float s[R][R] = {};
-    tile_product<BT>(s, Qs, Ks, M, tx, ty);
+    float s[4][4] = {};
+#pragma unroll 4
+    for (int c = 0; c < M; ++c)
+      outer4(s, 0, lds4(Qs + c * P + row0), lds4(Ks + c * P + col0));
 #pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int64_t key = k0 + tx + 16 * j;
+    for (int j = 0; j < 4; ++j) {
+      const int64_t key = k0 + col0 + j;
       const float mk = key < L ? (mask ? mask[key] : 1.f) : 0.f;
+      float p[4];
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float p = Num<T>::round(sigmoid(s[i][j]) * mk);
-        den[i] += p;
-        Ss[(tx + 16 * j) * P + ty * R + i] = p;
+      for (int i = 0; i < 4; ++i) {
+        p[i] = Num<T>::round(sigmoid(s[i][j]) * mk);
+        den[i] += p[i];
       }
+      *reinterpret_cast<float4*>(Ss + (col0 + j) * P + row0) =
+          make_float4(p[0], p[1], p[2], p[3]);
     }
     __syncthreads();
 
-#pragma unroll 4
+#pragma unroll 8
     for (int j = 0; j < BT; ++j) {
-      float a[R];
+      const float4 a = lds4(Ss + j * P + row0);
 #pragma unroll
-      for (int i = 0; i < R; ++i) a[i] = Ss[j * P + ty * R + i];
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        const float b = Vs[j * CW + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < R; ++i) acc[i][c] = fmaf(a[i], b, acc[i][c]);
-      }
+      for (int g = 0; g < G; ++g)
+        outer4(acc, 4 * g, a, lds4(Vs + j * CW + 64 * g + col0));
     }
   }
 
-  // the 16 threads of a half-warp share rows: sum their partial row sums
+  // row sums: over the 8 lanes that share rows, then the two warp columns
 #pragma unroll
-  for (int i = 0; i < R; ++i)
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
+    for (int off = 1; off < 8; off <<= 1)
       den[i] += __shfl_xor_sync(0xffffffffu, den[i], off);
-
+  if (lane % 8 == 0)
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int64_t row = q0 + ty * R + i;
+    for (int i = 0; i < 4; ++i) red[wc * BT + row0 + i] = den[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) den[i] = red[row0 + i] + red[BT + row0 + i];
+
+  const bool first = wc == 0 && lane % 8 == 0;  // one writer of each row sum
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t row = q0 + row0 + i;
     if (row >= N) continue;
     if (gridDim.z > 1) {  // raw partials of this key chunk
       const int64_t r = (blockIdx.z * N + row) * H + h;
-      if (tx == 0) ws[gridDim.z * N * H * D + r] = den[i];
+      if (first) ws[gridDim.z * N * H * D + r] = den[i];
 #pragma unroll
-      for (int c = 0; c < CT; ++c)
-        if (tx + 16 * c < D) ws[r * D + tx + 16 * c] = acc[i][c];
+      for (int c = 0; c < 4 * G; ++c) {
+        const int d = 64 * (c / 4) + col0 + c % 4;
+        if (d < D) ws[r * D + d] = acc[i][c];
+      }
       continue;
     }
     const int64_t base = (row * H + h) * D;
-    if (tx == 0) den_out[row * H + h] = den[i];
+    if (first) den_out[row * H + h] = den[i];
 #pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      const int d = tx + 16 * c;
+    for (int c = 0; c < 4 * G; ++c) {
+      const int d = 64 * (c / 4) + col0 + c % 4;
       if (d >= D) continue;
       if (normalize)
         Num<T>::store(static_cast<T*>(out) + base + d, acc[i][c] / den[i]);
@@ -437,9 +526,12 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// Launchers. The tile shape follows the wider of M and D: BT = 64 rows with
-// up to 128 accumulator columns, BT = 32 rows up to 256, so the shared
-// memory of every kernel stays under 170 KB.
+// Launchers. K2's tiles are 64 x 64, with G = 1, 2 or 4 groups of 64
+// output features for D up to 256 (at M = D = 256 its shared memory is
+// 218 KB of the 227 KB a block may have). For K3 and K4 the tile shape
+// follows the wider of M and D: BT = 64 rows with up to 128 accumulator
+// columns, BT = 32 rows up to 256, so their shared memory stays under
+// 170 KB.
 // ---------------------------------------------------------------------------
 struct Problem {
   const void *q, *k, *v;
@@ -456,12 +548,12 @@ cudaError_t prepare(Kernel kernel, size_t smem_floats) {
                               static_cast<int>(smem_floats * sizeof(float)));
 }
 
-template <typename T, int BT, int CT>
+template <typename T, int G>
 cudaError_t fwd(const Problem& p, void* out, float* den, float* ws,
                 int splits, int chunk, bool normalize, cudaStream_t stream) {
-  constexpr int P = BT + 1, CW = CT * 16;
-  const size_t smem = 2 * p.M * P + BT * CW + BT * P;
-  auto kernel = sigattn_fwd_kernel<T, BT, CT>;
+  constexpr int BT = kKeyTile, P = kFwdStride;
+  const size_t smem = 2 * p.M * P + BT * 64 * G + BT * P + 2 * BT;
+  auto kernel = sigattn_fwd_kernel<T, G>;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(static_cast<unsigned>((p.N + BT - 1) / BT), p.H, splits);
@@ -553,13 +645,19 @@ int sigattn_fwd(int dtype, int normalize, const void* q, const void* k,
       static_cast<int64_t>(splits - 1) * chunk >= tiles ||
       (splits > 1 && ws == nullptr))
     return cudaErrorInvalidValue;
-  const int width = M > D ? M : D;
   auto* st = static_cast<cudaStream_t>(stream);
   auto* den_f = static_cast<float*>(den);
   auto* ws_f = static_cast<float*>(ws);
-#define SIGATTN_FWD(T, BT, CT) \
-  fwd<T, BT, CT>(p, out, den_f, ws_f, splits, chunk, normalize != 0, st)
-  SIGATTN_DISPATCH(dtype, width, SIGATTN_FWD);
+  const bool nm = normalize != 0;
+  // G groups of 64 output features cover D
+#define SIGATTN_FWD(T)                                                   \
+  do {                                                                   \
+    if (D <= 64) return fwd<T, 1>(p, out, den_f, ws_f, splits, chunk, nm, st); \
+    if (D <= 128) return fwd<T, 2>(p, out, den_f, ws_f, splits, chunk, nm, st); \
+    return fwd<T, 4>(p, out, den_f, ws_f, splits, chunk, nm, st);        \
+  } while (0)
+  if (dtype == 0) SIGATTN_FWD(float);
+  SIGATTN_FWD(__nv_bfloat16);
 #undef SIGATTN_FWD
 }
 

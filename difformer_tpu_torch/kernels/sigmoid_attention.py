@@ -36,6 +36,8 @@ of the masked score, as the TPU kernels do.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from difformer_tpu_torch.kernels.build import load_library
@@ -52,9 +54,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Query rows and keys of one K2 tile (kKeyTile in the source).
 FWD_TILE = 64
-#: Blocks per SM that K2's key split aims at: enough for every SM to hold
-#: resident blocks through the launch (see ``fwd_key_splits``).
-FWD_BLOCKS_PER_SM = 2
+#: Blocks per SM that K2's key split aims at: one wave of the blocks an SM
+#: holds at once at M = D = 64 (three, by registers and shared memory).
+#: Timed on an H100 against targets of 1 to 6 (PERF.md, PR 3).
+FWD_BLOCKS_PER_SM = 3
 
 
 def reset_launch_counts():
@@ -191,6 +194,11 @@ def fwd_key_splits(n, l, h, sms, *, blocks_per_sm=FWD_BLOCKS_PER_SM):
     return _cdiv(tiles, chunk), chunk
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def sigmoid_attention_fwd(q, k, v, key_mask=None, *, normalize=True):
     """K2. q [N,H,M], k [L,H,M], v [L,H,D], key_mask [L] or None →
     (out [N,H,D], den [N,H] f32). ``normalize=False`` returns the raw
@@ -205,9 +213,7 @@ def sigmoid_attention_fwd(q, k, v, key_mask=None, *, normalize=True):
     out = torch.empty((n, h, d), device=q.device,
                       dtype=q.dtype if normalize else torch.float32)
     den = torch.empty((n, h), device=q.device, dtype=torch.float32)
-    splits, chunk = fwd_key_splits(
-        n, k.shape[0], h,
-        torch.cuda.get_device_properties(q.device).multi_processor_count)
+    splits, chunk = fwd_key_splits(n, k.shape[0], h, _sm_count(q.device))
     # raw f32 partials of the S splits: num [S, N, H, D] then den [S, N, H]
     ws = (torch.empty(splits * n * h * (d + 1), device=q.device,
                       dtype=torch.float32) if splits > 1 else None)

@@ -9,14 +9,46 @@ and prints its time from CUDA events beside its bound, with the key split S
 and the blocks launched, once for each target of blocks per SM given (the
 default is the package's own). ``--root`` times the package of another
 checkout instead (one without the key split times its single grid), so two
-versions can be compared on one card in one call. Imports nothing of JAX.
+versions can be compared on one card in one call. Last, two yardsticks for
+the FP32 rate: the SM clock and power that ``nvidia-smi`` reads while K2
+runs at the last shape, and the rate of cuBLAS's FP32 GEMM (TF32 off) at
+8192 x 8192 x 8192. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import statistics
+import subprocess
 import sys
+import time
 from pathlib import Path
+
+
+def sample_clocks(fn, seconds=2.0):
+    """Median SM clock (MHz) and power draw (W) that nvidia-smi reads every
+    100 ms while ``fn`` runs back to back for ``seconds``."""
+    import torch
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    # the first two samples may predate the load
+    rows = [line.split(",") for line in out.strip().splitlines()[2:]]
+    if not rows:
+        return None, None
+    return (statistics.median(float(r[0]) for r in rows),
+            statistics.median(float(r[1]) for r in rows))
 
 
 def main():
@@ -70,8 +102,17 @@ def main():
                    f"{err:.3e}")
             if splitting:
                 K.fwd_key_splits = rule
+        if idx == len(cs.SHAPES) - 1:
+            mhz, watts = sample_clocks(
+                lambda: K.sigmoid_attention_fwd(q, k, v, mask))
+            cs.say(f"time_k2: {label} under load: SM clock {mhz} MHz, "
+                   f"power {watts} W (median of nvidia-smi samples)")
         del q, k, v, mask, r_out, r_den, r_num, out, den, num
         torch.cuda.empty_cache()
+    a = torch.randn(8192, 8192, device="cuda")
+    ms = cs.cuda_ms(lambda: a @ a)
+    cs.say(f"time_k2: cuBLAS FP32 GEMM 8192^3 {ms:.4f} ms = "
+           f"{2 * 8192 ** 3 / ms / 1e9:.2f} TFLOP/s")
     cs.say(smi)
 
 
