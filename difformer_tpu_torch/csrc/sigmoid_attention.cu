@@ -144,16 +144,18 @@ __device__ __forceinline__ void tile_product(float (&acc)[BT / 16][BT / 16],
 // fills the card. With S > 1 each block writes raw f32 partials of num and
 // den, and sigattn_fwd_combine sums them.
 //
-// Tiles are 64 queries by 64 keys. The 8 warps of a block split the score
-// tile 4 x 2, the 32 lanes of a warp 4 x 8, and a lane owns a 4 x 4 micro
-// tile: queries row0..row0+3 by keys col0..col0+3, and the same queries
-// by features col0 + 64 g + (0..3) of the output. Each operand of its
-// outer products is one float4 read from shared memory: q, k and s are
-// stored feature- (key-) major with a stride of 68 floats, v row-major. A
-// warp's float4 reads then cover 4 and 8 consecutive float4s, one
-// wavefront each, so 16 FFMAs need 2 wavefronts (the scalar reads of the
-// first version needed 8); the stride keeps the transposed float4 stores
-// at the least wavefronts their size allows.
+// Tiles are 64 queries by 64 keys. Each of the 8 warps of a block owns 8
+// query rows against all 64 keys, its 32 lanes split 2 x 16, and a lane
+// owns a 4 x 4 micro tile: queries row0..row0+3 by keys col0..col0+3, and
+// the same queries by features col0 + 64 g + (0..3) of the output. Each
+// operand of its outer products is one float4 read from shared memory: q,
+// k and s are stored feature- (key-) major with a stride of 68 floats, v
+// row-major, so 16 FFMAs take 2 reads (the scalar reads of the first
+// version took 8) and a warp's reads cover 2 or 16 neighbouring float4s.
+// The stride keeps the transposed float4 stores at the least wavefronts
+// their size allows. A warp reads back only the scores it wrote, so the
+// exchange through shared memory needs __syncwarp, not a block barrier,
+// and a row's sum stays within the 16 lanes that share it.
 // ---------------------------------------------------------------------------
 constexpr int kFwdStride = kKeyTile + 4;  // of the q, k and s tiles
 
@@ -215,8 +217,8 @@ __device__ __forceinline__ void load_tile_rows(float* dst,
                                 : 0.f;
 }
 
-// At G = 1 the kernel keeps 80 registers a thread, so three blocks (and
-// their 69 KB of shared memory at M = 64) stay resident on an SM.
+// At G = 1 the kernel keeps at most 85 registers a thread, so three blocks
+// (and their 68 KB of shared memory at M = 64) stay resident on an SM.
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads, G == 1 ? 3 : 1)
     sigattn_fwd_kernel(const T* __restrict__ q, Strides sq,
@@ -232,11 +234,10 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 3 : 1)
   float* Ks = Qs + M * P;    // [M][P]  k tile
   float* Vs = Ks + M * P;    // [BT][CW] v tile; columns >= D are 0
   float* Ss = Vs + BT * CW;  // [BT][P] Ss[j * P + i] = s[i, j] in v's dtype
-  float* red = Ss + BT * P;  // [2][BT] row sums of the two warp columns
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wc = warp % 2;
-  const int row0 = (warp / 2) * 16 + (lane / 8) * 4;
-  const int col0 = wc * 32 + (lane % 8) * 4;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = warp * 8 + (lane / 16) * 4;
+  const int col0 = (lane % 16) * 4;
   const int h = blockIdx.y;
   const int64_t q0 = static_cast<int64_t>(blockIdx.x) * BT;
   const int64_t kb = static_cast<int64_t>(blockIdx.z) * chunk * BT;
@@ -271,7 +272,7 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 3 : 1)
       *reinterpret_cast<float4*>(Ss + (col0 + j) * P + row0) =
           make_float4(p[0], p[1], p[2], p[3]);
     }
-    __syncthreads();
+    __syncwarp();
 
 #pragma unroll 8
     for (int j = 0; j < BT; ++j) {
@@ -282,20 +283,14 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 3 : 1)
     }
   }
 
-  // row sums: over the 8 lanes that share rows, then the two warp columns
+  // row sums over the 16 lanes that share rows
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int off = 1; off < 8; off <<= 1)
+    for (int off = 1; off < 16; off <<= 1)
       den[i] += __shfl_xor_sync(0xffffffffu, den[i], off);
-  if (lane % 8 == 0)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) red[wc * BT + row0 + i] = den[i];
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) den[i] = red[row0 + i] + red[BT + row0 + i];
 
-  const bool first = wc == 0 && lane % 8 == 0;  // one writer of each row sum
+  const bool first = lane % 16 == 0;  // one writer of each row sum
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int64_t row = q0 + row0 + i;
@@ -528,7 +523,7 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // Launchers. K2's tiles are 64 x 64, with G = 1, 2 or 4 groups of 64
 // output features for D up to 256 (at M = D = 256 its shared memory is
-// 218 KB of the 227 KB a block may have). For K3 and K4 the tile shape
+// 217 KB of the 227 KB a block may have). For K3 and K4 the tile shape
 // follows the wider of M and D: BT = 64 rows with up to 128 accumulator
 // columns, BT = 32 rows up to 256, so their shared memory stays under
 // 170 KB.
@@ -552,7 +547,7 @@ template <typename T, int G>
 cudaError_t fwd(const Problem& p, void* out, float* den, float* ws,
                 int splits, int chunk, bool normalize, cudaStream_t stream) {
   constexpr int BT = kKeyTile, P = kFwdStride;
-  const size_t smem = 2 * p.M * P + BT * 64 * G + BT * P + 2 * BT;
+  const size_t smem = 2 * p.M * P + BT * 64 * G + BT * P;
   auto kernel = sigattn_fwd_kernel<T, G>;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
