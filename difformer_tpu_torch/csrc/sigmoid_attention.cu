@@ -14,17 +14,20 @@
 // the shapes DIFFormer-a runs (N = L in the thousands, M = D = 64) they sit
 // far above the memory roofline. The design keeps every [N, L] intermediate
 // out of device memory: a block owns one (head, tile of BT rows), loops over
-// the other side's tiles inside the block, recomputes the score tile in
-// shared memory and keeps its f32 accumulators in registers. Blocks never
-// share an output row, so no atomics are needed and results are
-// deterministic. The TPU's ones-column denominator becomes a plain row sum,
-// and rows past N or L are masked by predication, not by padded copies.
+// the other side's tiles (K2: a chunk of them) inside the block, recomputes
+// the score tile in shared memory and keeps its f32 accumulators in
+// registers. No two blocks add into one output, so no atomics are needed
+// and results are deterministic: K2's key chunks write separate partials,
+// which a second kernel sums in a fixed order. The TPU's ones-column
+// denominator becomes a plain row sum, and rows past N or L are masked by
+// predication, not by padded copies.
 //
 // The kernels multiply with FFMA. K3 and K4 run on a 16 x 16 thread grid
 // (each thread owns a BT/16 x BT/16 score sub-tile and BT/16 x CT
-// accumulators, read as scalars from shared memory). K2 also splits the
-// keys across blocks and reads its operands as float4s (see K2). bf16 inputs are widened to f32 in shared memory: a bf16 x bf16 product is
-// exact in f32, so this reproduces "bf16 products, f32 sums", and f32 inputs
+// accumulators, read as scalars from shared memory); K2 reads its operands
+// as float4s (see K2). bf16 inputs are widened to f32 in shared memory: a
+// bf16 x bf16 product is exact in f32, so this reproduces "bf16 products,
+// f32 sums", and f32 inputs
 // stay exact f32 (no TF32). The TPU kernel's rounding points are kept: s is
 // rounded to v's dtype before s v (and the denominator sums the rounded s,
 // as the TPU's ones column does), dnum to v's dtype inside ds and dv, and dl
@@ -95,19 +98,6 @@ __device__ __forceinline__ void load_cols(float* dst, const S* __restrict__ src,
         row < nrows
             ? Num<R>::round(Num<S>::load(src + row * s.n + h * s.h + c * s.c))
             : 0.f;
-  }
-}
-
-// dst[r * CW + c] = src[r0 + r, h, c] for r < BT, c < C (row-major).
-template <typename S, int BT, int CW>
-__device__ __forceinline__ void load_rows(float* dst, const S* __restrict__ src,
-                                          Strides s, int64_t r0, int64_t nrows,
-                                          int h, int C) {
-  for (int idx = threadIdx.x; idx < BT * C; idx += kThreads) {
-    const int r = idx / C, c = idx - r * C;
-    const int64_t row = r0 + r;
-    dst[r * CW + c] =
-        row < nrows ? Num<S>::load(src + row * s.n + h * s.h + c * s.c) : 0.f;
   }
 }
 
