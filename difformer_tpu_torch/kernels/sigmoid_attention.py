@@ -56,7 +56,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FWD_TILE = 64
 #: Blocks per SM that K2's key split aims at: one wave of the blocks an SM
 #: holds at once at M = D = 64 (three, by registers and shared memory).
-#: Timed on an H100 against targets of 1 to 6 (PERF.md, PR 3).
+#: Timed on an H100 against targets of 1 to 6 (``time_k2.py``, PERF.md).
 FWD_BLOCKS_PER_SM = 3
 
 
