@@ -140,8 +140,8 @@ __device__ __forceinline__ void tile_product(float (&acc)[BT / 16][BT / 16],
 // the same queries by features col0 + 64 g + (0..3) of the output. Each
 // operand of its outer products is one float4 read from shared memory: q,
 // k and s are stored feature- (key-) major with a stride of 68 floats, v
-// row-major, so 16 FFMAs take 2 reads (the scalar reads of the first
-// version took 8) and a warp's reads cover 2 or 16 neighbouring float4s.
+// row-major, so 16 FFMAs take 2 reads and a warp's reads cover 2 or 16
+// neighbouring float4s.
 // The stride keeps the transposed float4 stores at the least wavefronts
 // their size allows. A warp reads back only the scores it wrote, so the
 // exchange through shared memory needs __syncwarp, not a block barrier,
@@ -317,7 +317,8 @@ __global__ void __launch_bounds__(kThreads)
     sigattn_fwd_combine(const float* __restrict__ ws, void* __restrict__ out,
                         float* __restrict__ den_out, int64_t rows, int D,
                         int S, bool normalize) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t idx =
+      static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (idx >= rows * D) return;
   const int64_t r = idx / D;
   const float* den_ws = ws + S * rows * D;
@@ -555,6 +556,18 @@ cudaError_t fwd(const Problem& p, void* out, float* den, float* ws,
   return cudaGetLastError();
 }
 
+// G groups of 64 output features cover D.
+template <typename T>
+cudaError_t fwd_for_width(const Problem& p, void* out, float* den, float* ws,
+                          int splits, int chunk, bool normalize,
+                          cudaStream_t stream) {
+  if (p.D <= 64)
+    return fwd<T, 1>(p, out, den, ws, splits, chunk, normalize, stream);
+  if (p.D <= 128)
+    return fwd<T, 2>(p, out, den, ws, splits, chunk, normalize, stream);
+  return fwd<T, 4>(p, out, den, ws, splits, chunk, normalize, stream);
+}
+
 template <typename T, int BT, int CT>
 cudaError_t dq(const Problem& p, const float* dnum, const float* dden,
                void* dq_out, cudaStream_t stream) {
@@ -633,17 +646,10 @@ int sigattn_fwd(int dtype, int normalize, const void* q, const void* k,
   auto* st = static_cast<cudaStream_t>(stream);
   auto* den_f = static_cast<float*>(den);
   auto* ws_f = static_cast<float*>(ws);
-  const bool nm = normalize != 0;
-  // G groups of 64 output features cover D
-#define SIGATTN_FWD(T)                                                   \
-  do {                                                                   \
-    if (D <= 64) return fwd<T, 1>(p, out, den_f, ws_f, splits, chunk, nm, st); \
-    if (D <= 128) return fwd<T, 2>(p, out, den_f, ws_f, splits, chunk, nm, st); \
-    return fwd<T, 4>(p, out, den_f, ws_f, splits, chunk, nm, st);        \
-  } while (0)
-  if (dtype == 0) SIGATTN_FWD(float);
-  SIGATTN_FWD(__nv_bfloat16);
-#undef SIGATTN_FWD
+  return dtype == 0 ? fwd_for_width<float>(p, out, den_f, ws_f, splits, chunk,
+                                           normalize != 0, st)
+                    : fwd_for_width<__nv_bfloat16>(p, out, den_f, ws_f, splits,
+                                                   chunk, normalize != 0, st);
 }
 
 int sigattn_dq(int dtype, const void* q, const void* k, const void* v,
