@@ -233,9 +233,11 @@ def phase_kernels():
         }
         unnorm_ms = cuda_ms(
             lambda: K.sigmoid_attention_fwd(q, k, v, mask, normalize=False))
-        splits, chunk = K.fwd_key_splits(n, l, h, sms)
-        fwd_grid = (f" | S={splits} ({chunk} key tiles each), "
-                    f"{-(-n // K.FWD_TILE) * h * splits} blocks")
+        grids = {}
+        for name in cases:
+            per_split, splits, chunk = K.split_plan(name, n, l, h, m, d, sms)
+            grids[name] = (f" | S={splits} ({chunk} loop tiles each), "
+                           f"{per_split * splits} blocks")
         for name, (err, kernel, plain) in cases.items():
             ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
             bound, bound_by = bound_ms(name, n, l, h, m, d, dtype)
@@ -243,13 +245,13 @@ def phase_kernels():
                 f"{err:.3e} | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
                 f"bound {bound:.4f} ms by {bound_by} "
                 f"({100 * bound / ms:.1f}% of the kernel's time)"
-                f"{fwd_grid if name == 'sigmoid_attention_fwd' else ''}")
+                f"{grids[name]}")
             if idx == 0:
                 rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound, bound_by=bound_by)
         say(f"phase kernels: sigmoid_attention_fwd normalize=False "
             f"{label:40s} max_abs_err {e_unnorm:.3e} | kernel "
-            f"{unnorm_ms:.4f} ms{fwd_grid}")
+            f"{unnorm_ms:.4f} ms{grids['sigmoid_attention_fwd']}")
         del q, k, v, mask, g, out, den, num, den_u, dq, dk, dv
         del r_out, r_den, r_num, r_den_u, r_dq, r_dk, r_dv
         torch.cuda.empty_cache()

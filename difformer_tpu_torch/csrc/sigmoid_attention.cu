@@ -414,9 +414,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Sums S f32 slabs of n elements each in slab order (no atomics, so the
+// result is the same at every call) and stores the sums in T: the combine of
+// K4's query splits and K3's key splits.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    sigattn_sum_partials(const float* __restrict__ ws, T* __restrict__ out,
+                         int64_t n, int S) {
+  const int64_t idx =
+      static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (idx >= n) return;
+  float sum = 0.f;
+  for (int s = 0; s < S; ++s) sum += ws[s * n + idx];
+  Num<T>::store(out + idx, sum);
+}
+
 // ---------------------------------------------------------------------------
-// K4: dk and dv. One block per (key tile, head), looping over query tiles.
-// Queries past N carry zero dnum and dden, so they add nothing.
+// K4: dk and dv. One block per (key tile, head, query chunk), looping over
+// the query tiles of its chunk. Queries past N carry zero dnum and dden, so
+// they add nothing. With S > 1 chunks each block writes raw f32 partials.
 // ---------------------------------------------------------------------------
 template <typename T, int BT, int CT>
 __global__ void __launch_bounds__(kThreads)
@@ -426,8 +442,8 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ mask,
                        const float* __restrict__ dnum,
                        const float* __restrict__ dden, T* __restrict__ dk,
-                       T* __restrict__ dv, int64_t N, int64_t L, int H, int M,
-                       int D) {
+                       T* __restrict__ dv, float* __restrict__ ws, int64_t N,
+                       int64_t L, int H, int M, int D, int chunk) {
   constexpr int P = BT + 1, R = BT / 16, CW = CT * 16;
   extern __shared__ float smem[];
   float* Ks = smem;          // [M][P]  k tile
@@ -452,7 +468,11 @@ __global__ void __launch_bounds__(kThreads)
   // this thread's rows are keys ty * R + i, its score columns queries
   // tx + 16 j, its accumulator columns features tx + 16 c
   float dk_acc[R][CT] = {}, dv_acc[R][CT] = {};
-  for (int64_t q0 = 0; q0 < N; q0 += BT) {
+  const int64_t qb = static_cast<int64_t>(blockIdx.z) * chunk * kKeyTile;
+  const int64_t qe = qb + static_cast<int64_t>(chunk) * kKeyTile < N
+                         ? qb + static_cast<int64_t>(chunk) * kKeyTile
+                         : N;
+  for (int64_t q0 = qb; q0 < qe; q0 += BT) {
     __syncthreads();
     load_cols<T, float, BT>(Qs, q, sq, q0, N, h, M);
     load_cols<float, T, BT>(Ns, dnum, sn, q0, N, h, D);
@@ -498,6 +518,9 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
+  // raw partials of this query chunk: dk [S, L, H, M] then dv [S, L, H, D]
+  float* ws_dk = ws + blockIdx.z * L * H * M;
+  float* ws_dv = ws + gridDim.z * L * H * M + blockIdx.z * L * H * D;
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int64_t row = k0 + ty * R + i;
@@ -505,6 +528,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < CT; ++c) {
       const int f = tx + 16 * c;
+      if (gridDim.z > 1) {
+        if (f < M) ws_dk[(row * H + h) * M + f] = dk_acc[i][c];
+        if (f < D) ws_dv[(row * H + h) * D + f] = dv_acc[i][c];
+        continue;
+      }
       if (f < M) Num<T>::store(dk + (row * H + h) * M + f, dk_acc[i][c]);
       if (f < D) Num<T>::store(dv + (row * H + h) * D + f, dv_acc[i][c]);
     }
@@ -584,21 +612,38 @@ cudaError_t dq(const Problem& p, const float* dnum, const float* dden,
   return cudaGetLastError();
 }
 
+// Sums the S slabs of n partials in ws into out.
+template <typename T>
+cudaError_t sum_partials(const float* ws, void* out, int64_t n, int S,
+                         cudaStream_t stream) {
+  sigattn_sum_partials<T>
+      <<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
+         stream>>>(ws, static_cast<T*>(out), n, S);
+  return cudaGetLastError();
+}
+
 template <typename T, int BT, int CT>
 cudaError_t dkv(const Problem& p, const float* dnum, const float* dden,
-                void* dk_out, void* dv_out, cudaStream_t stream) {
+                void* dk_out, void* dv_out, float* ws, int splits, int chunk,
+                cudaStream_t stream) {
   constexpr int P = BT + 1, CW = CT * 16;
   const size_t smem = (p.M + p.D + 2 * CW + 2 * BT) * P + 2 * BT;
   auto kernel = sigattn_dkv_kernel<T, BT, CT>;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(static_cast<unsigned>((p.L + BT - 1) / BT), p.H);
+  const dim3 grid(static_cast<unsigned>((p.L + BT - 1) / BT), p.H, splits);
   kernel<<<grid, kThreads, smem * sizeof(float), stream>>>(
       static_cast<const T*>(p.q), p.sq, static_cast<const T*>(p.k), p.sk,
       static_cast<const T*>(p.v), p.sv, p.mask, dnum, dden,
-      static_cast<T*>(dk_out), static_cast<T*>(dv_out), p.N, p.L, p.H, p.M,
-      p.D);
-  return cudaGetLastError();
+      static_cast<T*>(dk_out), static_cast<T*>(dv_out), ws, p.N, p.L, p.H,
+      p.M, p.D, chunk);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  const int64_t rows = p.L * p.H;
+  e = sum_partials<T>(ws, dk_out, rows * p.M, splits, stream);
+  if (e != cudaSuccess) return e;
+  return sum_partials<T>(ws + splits * rows * p.M, dv_out, rows * p.D, splits,
+                         stream);
 }
 
 // Calls F<T, BT, CT>::run for the element type (0 f32, 1 bf16) and the
@@ -623,6 +668,16 @@ bool valid(int dtype, const Problem& p) {
          p.D <= kMaxWidth;
 }
 
+// splits chunks of chunk tiles cover the loop's rows, none of them empty,
+// and a workspace holds the partials when there is more than one.
+bool valid_split(int64_t loop_rows, int splits, int chunk, const void* ws) {
+  const int64_t tiles = (loop_rows + kKeyTile - 1) / kKeyTile;
+  return splits >= 1 && splits <= 65535 && chunk >= 1 &&
+         static_cast<int64_t>(splits) * chunk >= tiles &&
+         static_cast<int64_t>(splits - 1) * chunk < tiles &&
+         (splits == 1 || ws != nullptr);
+}
+
 }  // namespace
 
 extern "C" {
@@ -637,11 +692,7 @@ int sigattn_fwd(int dtype, int normalize, const void* q, const void* k,
                 int64_t svh, int64_t svd, void* stream) {
   const Problem p{q, k, v, {sqn, sqh, sqm}, {skn, skh, skm}, {svn, svh, svd},
                   static_cast<const float*>(mask), N, L, H, M, D};
-  const int64_t tiles = (L + kKeyTile - 1) / kKeyTile;
-  if (!valid(dtype, p) || splits < 1 || splits > 65535 || chunk < 1 ||
-      static_cast<int64_t>(splits) * chunk < tiles ||
-      static_cast<int64_t>(splits - 1) * chunk >= tiles ||
-      (splits > 1 && ws == nullptr))
+  if (!valid(dtype, p) || !valid_split(L, splits, chunk, ws))
     return cudaErrorInvalidValue;
   auto* st = static_cast<cudaStream_t>(stream);
   auto* den_f = static_cast<float*>(den);
@@ -670,20 +721,27 @@ int sigattn_dq(int dtype, const void* q, const void* k, const void* v,
 #undef SIGATTN_DQ
 }
 
+// splits blocks per (key tile, head) each take chunk query tiles of
+// kKeyTile queries; with splits > 1, ws holds splits * L * H * (M + D)
+// floats.
 int sigattn_dkv(int dtype, const void* q, const void* k, const void* v,
                 const void* mask, const void* dnum, const void* dden,
-                void* dk_out, void* dv_out, int64_t N, int64_t L, int H, int M,
-                int D, int64_t sqn, int64_t sqh, int64_t sqm, int64_t skn,
-                int64_t skh, int64_t skm, int64_t svn, int64_t svh,
-                int64_t svd, void* stream) {
+                void* dk_out, void* dv_out, void* ws, int64_t N, int64_t L,
+                int H, int M, int D, int splits, int chunk, int64_t sqn,
+                int64_t sqh, int64_t sqm, int64_t skn, int64_t skh,
+                int64_t skm, int64_t svn, int64_t svh, int64_t svd,
+                void* stream) {
   const Problem p{q, k, v, {sqn, sqh, sqm}, {skn, skh, skm}, {svn, svh, svd},
                   static_cast<const float*>(mask), N, L, H, M, D};
-  if (!valid(dtype, p)) return cudaErrorInvalidValue;
+  if (!valid(dtype, p) || !valid_split(N, splits, chunk, ws))
+    return cudaErrorInvalidValue;
   const int width = M > D ? M : D;
   auto* st = static_cast<cudaStream_t>(stream);
   auto* dn = static_cast<const float*>(dnum);
   auto* dd = static_cast<const float*>(dden);
-#define SIGATTN_DKV(T, BT, CT) dkv<T, BT, CT>(p, dn, dd, dk_out, dv_out, st)
+  auto* ws_f = static_cast<float*>(ws);
+#define SIGATTN_DKV(T, BT, CT) \
+  dkv<T, BT, CT>(p, dn, dd, dk_out, dv_out, ws_f, splits, chunk, st)
   SIGATTN_DISPATCH(dtype, width, SIGATTN_DKV);
 #undef SIGATTN_DKV
 }

@@ -37,8 +37,8 @@ SIGNATURES = {
                     _I, _I, _I] + _STRIDES + [_P],
     "sigattn_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I]
     + _STRIDES + [_P],
-    "sigattn_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I]
-    + _STRIDES + [_P],
+    "sigattn_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I,
+                    _I, _I, _I, _I] + _STRIDES + [_P],
 }
 
 _library = None

@@ -52,12 +52,15 @@ LAUNCHES = {
 MAX_WIDTH = 256  # largest M and D the kernels take (kMaxWidth in the source)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Query rows and keys of one K2 tile (kKeyTile in the source).
-FWD_TILE = 64
-#: Blocks per SM that K2's key split aims at: one wave of the blocks an SM
-#: holds at once at M = D = 64 (three, by registers and shared memory).
-#: Timed on an H100 against targets of 1 to 6 (``time_k2.py``, PERF.md).
+#: Rows of one tile, query rows or keys (kTile in the source): the kernels
+#: split their loop axis in chunks of whole tiles.
+TILE = 64
+#: Blocks per SM that each kernel's split aims at: one wave of the blocks an
+#: SM holds at once at M = D = 64 (K2 three, by registers and shared
+#: memory). Timed on an H100 against other targets (``time_kernels.py``,
+#: PERF.md).
 FWD_BLOCKS_PER_SM = 3
+DKV_BLOCKS_PER_SM = 2
 
 
 def reset_launch_counts():
@@ -176,22 +179,40 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
-def fwd_key_splits(n, l, h, sms, *, blocks_per_sm=FWD_BLOCKS_PER_SM):
-    """(S, key tiles per split) for K2 at N queries, L keys, H heads on a
-    card of ``sms`` SMs.
+def loop_splits(own, loop, per_tile, sms, blocks_per_sm):
+    """(S, loop tiles per split): the one split rule of K2–K4.
 
-    K2 launches one block per (query tile, head) and split: each of the S
-    splits takes a contiguous chunk of whole key tiles, and a second kernel
-    sums the S partials. S grows until the grid reaches ``blocks_per_sm``
-    blocks per SM, then is recomputed from the chunk size, so no split is
-    empty; S = 1 when the query tiles alone reach that target."""
-    q_blocks = _cdiv(n, FWD_TILE) * h
-    tiles = _cdiv(l, FWD_TILE)
+    A kernel launches ``per_tile`` blocks (heads, feature groups) for each
+    tile of the ``own`` rows it writes, and each block loops over the tiles
+    of the ``loop`` rows on the other side: K2 and K3 own queries and loop
+    over keys, K4 the reverse. Split S ways, each block takes a contiguous
+    chunk of whole loop tiles, and a second kernel sums the S partials. S
+    grows until the grid reaches ``blocks_per_sm`` blocks on each of the
+    card's ``sms`` SMs, then is recomputed from the chunk size, so no split
+    is empty; S = 1 when the own tiles alone reach that target."""
+    own_blocks = _cdiv(own, TILE) * per_tile
+    tiles = _cdiv(loop, TILE)
     target = blocks_per_sm * sms
-    if q_blocks >= target:
+    if own_blocks >= target:
         return 1, tiles
-    chunk = _cdiv(tiles, min(tiles, _cdiv(target, q_blocks)))
+    chunk = _cdiv(tiles, min(tiles, _cdiv(target, own_blocks)))
     return _cdiv(tiles, chunk), chunk
+
+
+def split_plan(name, n, l, h, m, d, sms):
+    """(blocks of one split, S, loop tiles per split) that the wrapper
+    ``name`` launches at N queries, L keys, H heads and widths M, D on a card
+    of ``sms`` SMs; the grid has S times the first number of blocks."""
+    if name == "sigmoid_attention_fwd":
+        own, loop, per_tile, per_sm = n, l, h, FWD_BLOCKS_PER_SM
+    elif name == "sigmoid_attention_dkv":
+        own, loop, per_tile, per_sm = l, n, h, DKV_BLOCKS_PER_SM
+    elif name == "sigmoid_attention_dq":  # not split yet
+        return _cdiv(n, TILE) * h, 1, _cdiv(l, TILE)
+    else:
+        raise ValueError(f"no split plan for {name}")
+    splits, chunk = loop_splits(own, loop, per_tile, sms, per_sm)
+    return _cdiv(own, TILE) * per_tile, splits, chunk
 
 
 @functools.lru_cache(maxsize=None)
@@ -213,7 +234,8 @@ def sigmoid_attention_fwd(q, k, v, key_mask=None, *, normalize=True):
     out = torch.empty((n, h, d), device=q.device,
                       dtype=q.dtype if normalize else torch.float32)
     den = torch.empty((n, h), device=q.device, dtype=torch.float32)
-    splits, chunk = fwd_key_splits(n, k.shape[0], h, _sm_count(q.device))
+    _, splits, chunk = split_plan("sigmoid_attention_fwd", n, k.shape[0], h,
+                                  q.shape[2], d, _sm_count(q.device))
     # raw f32 partials of the S splits: num [S, N, H, D] then den [S, N, H]
     ws = (torch.empty(splits * n * h * (d + 1), device=q.device,
                       dtype=torch.float32) if splits > 1 else None)
@@ -260,10 +282,18 @@ def sigmoid_attention_dkv(q, k, v, key_mask, dnum, dden):
     dnum, dden = _grads_in(q, dnum, dden)
     dk = torch.empty(k.shape, device=k.device, dtype=k.dtype)
     dv = torch.empty(v.shape, device=v.device, dtype=v.dtype)
+    n, h, m = q.shape
+    l, _, d = v.shape
+    _, splits, chunk = split_plan("sigmoid_attention_dkv", n, l, h, m, d,
+                                  _sm_count(q.device))
+    # raw f32 partials of the S splits: dk [S, L, H, M] then dv [S, L, H, D]
+    ws = (torch.empty(splits * l * h * (m + d), device=q.device,
+                      dtype=torch.float32) if splits > 1 else None)
     mask, ptrs, dims, strides = _args(q, k, v, key_mask)
     rc = load_library().sigattn_dkv(
         _DTYPES[q.dtype], *ptrs, dnum.data_ptr(), dden.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), *dims, *strides, _stream(q))
+        dk.data_ptr(), dv.data_ptr(), None if ws is None else ws.data_ptr(),
+        *dims, splits, chunk, *strides, _stream(q))
     _raise_on(rc, "sigmoid_attention_dkv")
     LAUNCHES["sigmoid_attention_dkv"] += 1
     return dk, dv

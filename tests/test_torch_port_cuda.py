@@ -33,12 +33,14 @@ SHAPES = [
     ((70, 65, 1, 256, 200), False),
     ((1024, 3000, 1, 64, 64), True),  # L in the thousands: num scales by den
     ((64, 5000, 1, 64, 64), False),  # one query tile: K2 splits the keys 79 ways
+    ((5000, 64, 1, 64, 64), False),  # one key tile: K4 splits the queries 79 ways
 ]
 
 
-def _splits(cuda, n, l, h):
+def _plan(cuda, name, n, l, h, m=64, d=64):
+    """(blocks of one split, S, loop tiles per split) of kernel ``name``."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    return K.fwd_key_splits(n, l, h, sms)[0]
+    return K.split_plan(name, n, l, h, m, d, sms)
 
 
 def _on(cuda, dtype, q, k, v, mask):
@@ -96,7 +98,7 @@ def test_strided_and_broadcast_inputs(cuda):
     qc, kc, vc, mc = _on(cuda, torch.float32, q, k, v, mask)
     q_view = qc.transpose(0, 1).contiguous().transpose(0, 1)  # [N,H,M] view
     v_bcast = vc[:, :1].expand(-1, 2, -1)
-    assert _splits(cuda, 128, 96, 2) > 1  # the combine runs too
+    assert _plan(cuda, "sigmoid_attention_fwd", 128, 96, 2)[1] > 1  # combine
     out, den = K.sigmoid_attention_fwd(q_view, kc, v_bcast, mc)
     ref, ref_den = K.sigmoid_attention_fwd_plain(q_view, kc, v_bcast, mc)
     assert_close("out", out, ref, "out")
@@ -110,11 +112,10 @@ def test_fwd_split_chunk_fully_masked(cuda, normalize, dtype):
     """A key chunk whose keys are all masked adds exact zeros to every
     row; the other chunks' keys still count."""
     n, l, h = 64, 2000, 1
-    splits, chunk = K.fwd_key_splits(
-        n, l, h, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    _, splits, chunk = _plan(cuda, "sigmoid_attention_fwd", n, l, h)
     assert splits > 2
     q, k, v, mask = make_inputs(23, n, l, h, m=64, d=64, masked=True)
-    lo, hi = chunk * K.FWD_TILE, 2 * chunk * K.FWD_TILE
+    lo, hi = chunk * K.TILE, 2 * chunk * K.TILE
     mask[lo:hi] = 0.0  # the whole second chunk
     args = _on(cuda, dtype, q, k, v, mask)
     out, den = K.sigmoid_attention_fwd(*args, normalize=normalize)
@@ -152,6 +153,38 @@ def test_fwd_is_deterministic_and_counts_one_launch(cuda, n, l, h):
     num = K.sigmoid_attention_fwd(*args, normalize=False)[0]
     assert torch.equal(num, K.sigmoid_attention_fwd(*args,
                                                     normalize=False)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,l,h", [(64, 5000, 1), (5000, 64, 1),
+                                   (2708, 2708, 1), (19717, 2000, 1),
+                                   (2000, 19717, 1)])
+def test_bwd_is_deterministic_and_counts_one_launch(cuda, n, l, h):
+    """Two calls give bit-equal dq, dk and dv (the partials of the key split
+    of dq and of the query split of dk/dv are summed in a fixed order,
+    without atomics), and each call counts one launch, with the combine or
+    without it; the shapes take both. The cotangents are those the
+    normalized op's backward derives (dnum = g/den), as in the model: unit
+    ones would sum over N = 19717 queries past the float32 gradient
+    tolerance's absolute limit in any order."""
+    args = _on(cuda, torch.float32, *make_inputs(25, n, l, h, m=64, d=64,
+                                                 masked=True))
+    rng = np.random.default_rng(26)
+    g = torch.from_numpy(rng.normal(size=(n, h, 64)).astype(np.float32))
+    out, den = K.sigmoid_attention_fwd_plain(*args)
+    args += [g.to(cuda) / den[..., None], -(g.to(cuda) * out).sum(-1) / den]
+    K.reset_launch_counts()
+    first = (K.sigmoid_attention_dq(*args), *K.sigmoid_attention_dkv(*args))
+    second = (K.sigmoid_attention_dq(*args), *K.sigmoid_attention_dkv(*args))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sigmoid_attention_dq"] == 2
+    assert K.LAUNCHES["sigmoid_attention_dkv"] == 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    ref = (K.sigmoid_attention_dq_plain(*args),
+           *K.sigmoid_attention_dkv_plain(*args))
+    for name, g, r in zip(("dq", "dk", "dv"), first, ref):
+        assert_close(name, g, r, "grad")
 
 
 @pytest.mark.cuda

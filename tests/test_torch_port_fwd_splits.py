@@ -1,10 +1,13 @@
-"""The key split of the flash sigmoid attention forward kernel (K2).
+"""The split of the loop axis of the flash sigmoid attention kernels.
 
-K2 launches one block per (query tile, head, split), and each split takes
-a contiguous chunk of whole key tiles. The rule that picks the number of
-splits is plain Python (``fwd_key_splits``), checked here at the shapes the
-port runs: Cora's and pubmed's sizes, a ragged two-head case, few queries
-over many keys, and a single key.
+K2 (forward) and K3 (dq) own query tiles and loop over key tiles; K4 (dk/dv)
+owns key tiles and loops over query tiles. Each launches one block per (own
+tile, head, feature group, split), and each split takes a contiguous chunk of
+whole loop tiles. The one rule that picks the number of splits is plain
+Python (``loop_splits``, through ``split_plan``), checked here for all three
+kernels at the shapes the port runs: Cora's and pubmed's sizes, a ragged
+two-head case, few queries over many keys and the transpose, a single key,
+and widths of two and four feature groups.
 """
 
 import pytest
@@ -12,36 +15,61 @@ import pytest
 from difformer_tpu_torch.kernels import sigmoid_attention as K
 
 H100_SMS = 132
+FWD, DKV = "sigmoid_attention_fwd", "sigmoid_attention_dkv"
 
-
-def _cdiv(a, b):
-    return -(-a // b)
-
-
-@pytest.mark.parametrize("n,l,h,sms", [
+CASES = [
     (2708, 2708, 1, H100_SMS),    # Cora
     (19717, 19717, 1, H100_SMS),  # pubmed
     (1000, 1300, 2, H100_SMS),    # ragged, two heads
     (64, 5000, 1, H100_SMS),      # one query tile, many key tiles
     (300, 1, 1, H100_SMS),        # a single key
     (2708, 2708, 1, 114),         # Cora on a card of fewer SMs
-])
-def test_fwd_key_splits(n, l, h, sms):
-    splits, chunk = K.fwd_key_splits(n, l, h, sms)
-    tiles = _cdiv(l, K.FWD_TILE)
-    q_blocks = _cdiv(n, K.FWD_TILE) * h
+    (5000, 64, 1, H100_SMS),      # many query tiles, one key tile
+]
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _check(name, n, l, h, sms, m=64, d=64):
+    per_split, splits, chunk = K.split_plan(name, n, l, h, m, d, sms)
+    own, loop = (l, n) if name == DKV else (n, l)
+    tiles = _cdiv(loop, K.TILE)
     assert splits >= 1 and chunk >= 1
-    # the chunks cover every key tile exactly once, and none is empty
+    assert per_split % (_cdiv(own, K.TILE) * h) == 0  # whole feature groups
+    # the chunks cover every loop tile exactly once, and none is empty
     owned = [t for s in range(splits)
              for t in range(s * chunk, min((s + 1) * chunk, tiles))]
     assert owned == list(range(tiles))
     assert (splits - 1) * chunk < tiles
-    target = K.FWD_BLOCKS_PER_SM * sms
-    if q_blocks >= target:
+    per_sm = {FWD: K.FWD_BLOCKS_PER_SM, DKV: K.DKV_BLOCKS_PER_SM}[name]
+    target = per_sm * sms
+    if per_split >= target:
         assert (splits, chunk) == (1, tiles)
     else:
-        # more blocks than the query tiles alone, up to the target
+        # more blocks than the own tiles alone, up to the target
         assert splits > 1 or tiles == 1
-        assert q_blocks * (splits - 1) < target
+        assert per_split * (splits - 1) < target
     if (n, l, h) == (2708, 2708, 1):
-        assert q_blocks * splits >= sms  # the grid reaches every SM
+        assert per_split * splits >= sms  # the grid reaches every SM
+    return per_split, splits
+
+
+@pytest.mark.parametrize("n,l,h,sms", CASES)
+def test_fwd_key_splits(n, l, h, sms):
+    per_split, _ = _check(FWD, n, l, h, sms)
+    assert per_split == _cdiv(n, K.TILE) * h  # K2 holds every width itself
+
+
+@pytest.mark.parametrize("name", [DKV])
+@pytest.mark.parametrize("n,l,h,sms", CASES)
+def test_bwd_splits(name, n, l, h, sms):
+    _check(name, n, l, h, sms)
+
+
+def test_dkv_splits_its_queries():
+    """One key tile over 79 query tiles: K4 gives each query tile a block."""
+    assert K.split_plan(DKV, 5000, 64, 1, 64, 64, H100_SMS) == (1, 79, 1)
+    # pubmed's 309 key tiles fill two blocks on each of 132 SMs alone
+    assert K.split_plan(DKV, 19717, 19717, 1, 64, 64, H100_SMS)[1] == 1
