@@ -50,7 +50,8 @@ namespace {
 
 constexpr int kThreads = 256;  // threads of every block
 constexpr int kMaxWidth = 256;  // largest M and D the kernels take
-constexpr int kKeyTile = 64;    // K2 splits the keys in chunks of such tiles
+constexpr int kTile = 64;    // rows (queries or keys) of every tile
+constexpr int kStride = kTile + 4;  // of the feature-major tiles
 
 struct Strides {
   int64_t n, h, c;  // element strides of a [rows, H, C] view
@@ -147,8 +148,6 @@ __device__ __forceinline__ void tile_product(float (&acc)[BT / 16][BT / 16],
 // exchange through shared memory needs __syncwarp, not a block barrier,
 // and a row's sum stays within the 16 lanes that share it.
 // ---------------------------------------------------------------------------
-constexpr int kFwdStride = kKeyTile + 4;  // of the q, k and s tiles
-
 __device__ __forceinline__ float4 lds4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -165,11 +164,11 @@ __device__ __forceinline__ void outer4(float (&acc)[4][C], int j0, float4 a,
       acc[i][j0 + j] = fmaf(av[i], bv[j], acc[i][j0 + j]);
 }
 
-// dst[c * kFwdStride + r] = src[r0 + r, h, c] for r < kKeyTile, c < C;
+// dst[c * kStride + r] = round_R(src[r0 + r, h, c]) for r < kTile, c < C;
 // rows at or past nrows read as 0. Thread t takes the columns c = t mod 64
 // (+ 64 i), so a warp reads 32 neighbouring columns of a row, and four
 // rows of a column at a time, which it stores as one float4.
-template <typename S>
+template <typename S, typename R = float>
 __device__ __forceinline__ void load_tile_fmajor(float* dst,
                                                  const S* __restrict__ src,
                                                  Strides s, int64_t r0,
@@ -179,18 +178,20 @@ __device__ __forceinline__ void load_tile_fmajor(float* dst,
   for (int c = threadIdx.x % kCols; c < C; c += kCols) {
     const S* p = src + (r0 + r) * s.n + h * s.h + c * s.c;
 #pragma unroll
-    for (int i = 0; i < kKeyTile; i += 4 * kGroups) {
+    for (int i = 0; i < kTile; i += 4 * kGroups) {
       float x[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u)
-        x[u] = r0 + r + i + u < nrows ? Num<S>::load(p + (i + u) * s.n) : 0.f;
-      *reinterpret_cast<float4*>(dst + c * kFwdStride + r + i) =
+        x[u] = r0 + r + i + u < nrows
+                   ? Num<R>::round(Num<S>::load(p + (i + u) * s.n))
+                   : 0.f;
+      *reinterpret_cast<float4*>(dst + c * kStride + r + i) =
           make_float4(x[0], x[1], x[2], x[3]);
     }
   }
 }
 
-// dst[r * CW + c] = src[r0 + r, h, c] for r < kKeyTile, c < CW; rows at or
+// dst[r * CW + c] = src[r0 + r, h, c] for r < kTile, c < CW; rows at or
 // past nrows and columns at or past C read as 0.
 template <typename S, int CW>
 __device__ __forceinline__ void load_tile_rows(float* dst,
@@ -201,7 +202,7 @@ __device__ __forceinline__ void load_tile_rows(float* dst,
   const int r = threadIdx.x / CW, c = threadIdx.x % CW;
   const S* p = src + (r0 + r) * s.n + h * s.h + c * s.c;
 #pragma unroll 4
-  for (int i = 0; i < kKeyTile; i += kRows)
+  for (int i = 0; i < kTile; i += kRows)
     dst[(r + i) * CW + c] = r0 + r + i < nrows && c < C
                                 ? Num<S>::load(p + i * s.n)
                                 : 0.f;
@@ -218,7 +219,7 @@ __global__ void __launch_bounds__(kThreads, G == 1 ? 3 : 1)
                        float* __restrict__ den_out, float* __restrict__ ws,
                        int64_t N, int64_t L, int H, int M, int D, int chunk,
                        bool normalize) {
-  constexpr int BT = kKeyTile, P = kFwdStride, CW = 64 * G;
+  constexpr int BT = kTile, P = kStride, CW = 64 * G;
   extern __shared__ float4 fwd_smem[];
   float* Qs = reinterpret_cast<float*>(fwd_smem);  // [M][P]  q tile
   float* Ks = Qs + M * P;    // [M][P]  k tile
@@ -430,12 +431,43 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K4: dk and dv. One block per (key tile, head, query chunk), looping over
-// the query tiles of its chunk. Queries past N carry zero dnum and dden, so
-// they add nothing. With S > 1 chunks each block writes raw f32 partials.
+// K4: dk and dv. One block per (key tile, head, feature group, query chunk):
+// the blocks of a (key tile, head) split the query tiles in S contiguous
+// chunks, as K2 splits its keys, and with S > 1 each writes raw f32
+// partials that sigattn_sum_partials sums. Queries past N carry zero dnum
+// and dden, and their scores are forced to 0, so they add nothing.
+//
+// Tiles are 64 keys by 64 queries. Each warp owns 8 keys against all 64
+// queries of a tile, its lanes split 2 x 16: a lane owns keys row0..row0+3
+// by queries col0..col0+3 of the score tiles s^T = k q^T (over M) and
+// ds^T = v dnum^T (over D), both read as float4s from feature-major tiles
+// of stride 68 (as K2's). It stores dl and s key-major, so the warp reads
+// back only the rows it wrote (__syncwarp). Then it owns the same keys by
+// features f0 + 16 u (u < 4) of its block's group of 64 output features,
+// and takes dk += dl q and dv += s dnum four queries at a time: a float4 of
+// dl (or s) along the queries of one key against a float4 of q (or dnum)
+// along the queries of one feature, 2 reads per 16 FFMAs, from the same
+// feature-major tiles that fed the scores. So no tile is held in two
+// layouts: at M = D = 64 the block takes 102 KB of shared memory and two
+// blocks fit on an SM. The q and dnum tiles hold 64 features at a time;
+// at M or D above 64 the block streams the depth of the score products
+// through them in groups of 64, its own group last, so that group stays
+// for the accumulation, and the blocks of the other groups recompute the
+// scores (the wide case is not the model's).
 // ---------------------------------------------------------------------------
-template <typename T, int BT, int CT>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__host__ __device__ __forceinline__ int feature_groups(int M, int D) {
+  return ((M > D ? M : D) + kTile - 1) / kTile;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
     sigattn_dkv_kernel(const T* __restrict__ q, Strides sq,
                        const T* __restrict__ k, Strides sk,
                        const T* __restrict__ v, Strides sv,
@@ -444,97 +476,126 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ dden, T* __restrict__ dk,
                        T* __restrict__ dv, float* __restrict__ ws, int64_t N,
                        int64_t L, int H, int M, int D, int chunk) {
-  constexpr int P = BT + 1, R = BT / 16, CW = CT * 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;          // [M][P]  k tile
-  float* Vs = Ks + M * P;    // [D][P]  v tile
-  float* Qs = Vs + D * P;    // [CW][P] q tile; rows >= M stay 0
-  float* Ns = Qs + CW * P;   // [CW][P] dnum tile in v's dtype; rows >= D stay 0
-  float* Ls = Ns + CW * P;   // [BT][P] Ls[i * P + j] = dl[i, j] in q's dtype
-  float* Ss = Ls + BT * P;   // [BT][P] Ss[i * P + j] = s[i, j] in v's dtype
-  float* dd = Ss + BT * P;   // [BT]    dden of the query tile
-  float* mk = dd + BT;       // [BT]    key mask of the key tile (0 past L)
+  constexpr int BT = kTile, P = kStride;
+  extern __shared__ float4 dkv_smem[];
+  float* Ks = reinterpret_cast<float*>(dkv_smem);  // [M][P] k tile
+  float* Vs = Ks + M * P;   // [D][P]  v tile
+  float* Qs = Vs + D * P;   // [BT][P] 64 features of the q tile
+  float* Ns = Qs + BT * P;  // [BT][P] the same of dnum, in v's dtype
+  float* Ls = Ns + BT * P;  // [BT][P] Ls[j * P + i] = dl[i, j] in q's dtype
+  float* Ss = Ls + BT * P;  // [BT][P] Ss[j * P + i] = s[i, j] in v's dtype
+  float* dd = Ss + BT * P;  // [BT]    dden of the query tile
 
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, h = blockIdx.y;
+  const int groups = feature_groups(M, D);
+  const int g = blockIdx.z % groups, split = blockIdx.z / groups;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = warp * 8 + (lane / 16) * 4;  // keys
+  const int col0 = (lane % 16) * 4;             // queries of the scores
+  const int f0 = lane % 16;                     // features f0 + 16 u
+  const int h = blockIdx.y;
   const int64_t k0 = static_cast<int64_t>(blockIdx.x) * BT;
+  const int64_t qb = static_cast<int64_t>(split) * chunk * BT;
+  const int64_t qe = qb + static_cast<int64_t>(chunk) * BT < N
+                         ? qb + static_cast<int64_t>(chunk) * BT
+                         : N;
   const Strides sn{static_cast<int64_t>(H) * D, D, 1};
 
-  zero(Qs, 2 * CW * P);
-  load_cols<T, float, BT>(Ks, k, sk, k0, L, h, M);
-  load_cols<T, float, BT>(Vs, v, sv, k0, L, h, D);
-  for (int j = threadIdx.x; j < BT; j += kThreads)
-    mk[j] = k0 + j < L ? (mask ? mask[k0 + j] : 1.f) : 0.f;
+  load_tile_fmajor<T>(Ks, k, sk, k0, L, h, M);
+  load_tile_fmajor<T>(Vs, v, sv, k0, L, h, D);
+  float mk[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t key = k0 + row0 + i;
+    mk[i] = key < L ? (mask ? mask[key] : 1.f) : 0.f;
+  }
 
-  // this thread's rows are keys ty * R + i, its score columns queries
-  // tx + 16 j, its accumulator columns features tx + 16 c
-  float dk_acc[R][CT] = {}, dv_acc[R][CT] = {};
-  const int64_t qb = static_cast<int64_t>(blockIdx.z) * chunk * kKeyTile;
-  const int64_t qe = qb + static_cast<int64_t>(chunk) * kKeyTile < N
-                         ? qb + static_cast<int64_t>(chunk) * kKeyTile
-                         : N;
+  float dk_acc[4][4] = {}, dv_acc[4][4] = {};
   for (int64_t q0 = qb; q0 < qe; q0 += BT) {
-    __syncthreads();
-    load_cols<T, float, BT>(Qs, q, sq, q0, N, h, M);
-    load_cols<float, T, BT>(Ns, dnum, sn, q0, N, h, D);
-    for (int i = threadIdx.x; i < BT; i += kThreads)
-      dd[i] = q0 + i < N ? dden[(q0 + i) * H + h] : 0.f;
-    __syncthreads();
-
-    float s[R][R] = {}, ds[R][R] = {};
-    tile_product<BT>(s, Ks, Qs, M, tx, ty);
-    tile_product<BT>(ds, Vs, Ns, D, tx, ty);
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int qi = tx + 16 * j;
-      const bool live = q0 + qi < N;
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float p = live ? sigmoid(s[i][j]) * mk[ty * R + i] : 0.f;
-        const float dl = (ds[i][j] + dd[qi]) * p * (1.f - p);
-        Ls[qi * P + ty * R + i] = Num<T>::round(dl);
-        Ss[qi * P + ty * R + i] = Num<T>::round(p);
-      }
+    float s[4][4] = {}, ds[4][4] = {};
+    for (int t = 0; t < groups; ++t) {
+      const int c0 = BT * ((g + 1 + t) % groups);  // ends with c0 = 64 g
+      const int cm = M - c0 < BT ? M - c0 : BT;
+      const int cd = D - c0 < BT ? D - c0 : BT;
+      __syncthreads();  // Qs, Ns and dd are no longer read
+      load_tile_fmajor<T>(Qs, q + c0 * sq.c, sq, q0, N, h, cm);
+      load_tile_fmajor<float, T>(Ns, dnum + c0, sn, q0, N, h, cd);
+      if (t == 0)
+        for (int i = threadIdx.x; i < BT; i += kThreads)
+          dd[i] = q0 + i < N ? dden[(q0 + i) * H + h] : 0.f;
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < cm; ++c)
+        outer4(s, 0, lds4(Ks + (c0 + c) * P + row0),
+               lds4(Qs + c * P + col0));
+#pragma unroll 4
+      for (int c = 0; c < cd; ++c)
+        outer4(ds, 0, lds4(Vs + (c0 + c) * P + row0),
+               lds4(Ns + c * P + col0));
     }
-    __syncthreads();
+
+    const float4 d4 = lds4(dd + col0);
+    const float ddq[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float p[4], l[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float pj =
+            q0 + col0 + j < N ? sigmoid(s[i][j]) * mk[i] : 0.f;
+        l[j] = Num<T>::round((ds[i][j] + ddq[j]) * pj * (1.f - pj));
+        p[j] = Num<T>::round(pj);
+      }
+      *reinterpret_cast<float4*>(Ls + (row0 + i) * P + col0) =
+          make_float4(l[0], l[1], l[2], l[3]);
+      *reinterpret_cast<float4*>(Ss + (row0 + i) * P + col0) =
+          make_float4(p[0], p[1], p[2], p[3]);
+    }
+    __syncwarp();
 
 #pragma unroll 2
-    for (int j = 0; j < BT; ++j) {
-      float a[R], b[R];
+    for (int i = 0; i < BT; i += 4) {
+      float4 a[4], b[4];
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        a[i] = Ls[j * P + ty * R + i];
-        b[i] = Ss[j * P + ty * R + i];
+      for (int u = 0; u < 4; ++u) {
+        a[u] = lds4(Ls + (row0 + u) * P + i);
+        b[u] = lds4(Qs + (f0 + 16 * u) * P + i);
       }
 #pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        const float qv = Qs[(tx + 16 * c) * P + j];
-        const float nv = Ns[(tx + 16 * c) * P + j];
+      for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-          dk_acc[i][c] = fmaf(a[i], qv, dk_acc[i][c]);
-          dv_acc[i][c] = fmaf(b[i], nv, dv_acc[i][c]);
-        }
+        for (int u = 0; u < 4; ++u)
+          dk_acc[r][u] = dot4(a[r], b[u], dk_acc[r][u]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        a[u] = lds4(Ss + (row0 + u) * P + i);
+        b[u] = lds4(Ns + (f0 + 16 * u) * P + i);
       }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          dv_acc[r][u] = dot4(a[r], b[u], dv_acc[r][u]);
     }
   }
 
   // raw partials of this query chunk: dk [S, L, H, M] then dv [S, L, H, D]
-  float* ws_dk = ws + blockIdx.z * L * H * M;
-  float* ws_dv = ws + gridDim.z * L * H * M + blockIdx.z * L * H * D;
+  const int splits = gridDim.z / groups;
+  float* ws_dk = ws + split * L * H * M;
+  float* ws_dv = ws + splits * L * H * M + split * L * H * D;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int64_t row = k0 + ty * R + i;
+  for (int r = 0; r < 4; ++r) {
+    const int64_t row = k0 + row0 + r;
     if (row >= L) continue;
 #pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      const int f = tx + 16 * c;
-      if (gridDim.z > 1) {
-        if (f < M) ws_dk[(row * H + h) * M + f] = dk_acc[i][c];
-        if (f < D) ws_dv[(row * H + h) * D + f] = dv_acc[i][c];
+    for (int u = 0; u < 4; ++u) {
+      const int f = BT * g + f0 + 16 * u;
+      if (splits > 1) {
+        if (f < M) ws_dk[(row * H + h) * M + f] = dk_acc[r][u];
+        if (f < D) ws_dv[(row * H + h) * D + f] = dv_acc[r][u];
         continue;
       }
-      if (f < M) Num<T>::store(dk + (row * H + h) * M + f, dk_acc[i][c]);
-      if (f < D) Num<T>::store(dv + (row * H + h) * D + f, dv_acc[i][c]);
+      if (f < M) Num<T>::store(dk + (row * H + h) * M + f, dk_acc[r][u]);
+      if (f < D) Num<T>::store(dv + (row * H + h) * D + f, dv_acc[r][u]);
     }
   }
 }
@@ -565,7 +626,7 @@ cudaError_t prepare(Kernel kernel, size_t smem_floats) {
 template <typename T, int G>
 cudaError_t fwd(const Problem& p, void* out, float* den, float* ws,
                 int splits, int chunk, bool normalize, cudaStream_t stream) {
-  constexpr int BT = kKeyTile, P = kFwdStride;
+  constexpr int BT = kTile, P = kStride;
   const size_t smem = 2 * p.M * P + BT * 64 * G + BT * P;
   auto kernel = sigattn_fwd_kernel<T, G>;
   cudaError_t e = prepare(kernel, smem);
@@ -622,16 +683,17 @@ cudaError_t sum_partials(const float* ws, void* out, int64_t n, int S,
   return cudaGetLastError();
 }
 
-template <typename T, int BT, int CT>
+template <typename T>
 cudaError_t dkv(const Problem& p, const float* dnum, const float* dden,
                 void* dk_out, void* dv_out, float* ws, int splits, int chunk,
                 cudaStream_t stream) {
-  constexpr int P = BT + 1, CW = CT * 16;
-  const size_t smem = (p.M + p.D + 2 * CW + 2 * BT) * P + 2 * BT;
-  auto kernel = sigattn_dkv_kernel<T, BT, CT>;
+  constexpr int BT = kTile, P = kStride;
+  const size_t smem = (p.M + p.D + 4 * BT) * P + BT;
+  auto kernel = sigattn_dkv_kernel<T>;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(static_cast<unsigned>((p.L + BT - 1) / BT), p.H, splits);
+  const dim3 grid(static_cast<unsigned>((p.L + BT - 1) / BT), p.H,
+                  splits * feature_groups(p.M, p.D));
   kernel<<<grid, kThreads, smem * sizeof(float), stream>>>(
       static_cast<const T*>(p.q), p.sq, static_cast<const T*>(p.k), p.sk,
       static_cast<const T*>(p.v), p.sv, p.mask, dnum, dden,
@@ -669,10 +731,13 @@ bool valid(int dtype, const Problem& p) {
 }
 
 // splits chunks of chunk tiles cover the loop's rows, none of them empty,
-// and a workspace holds the partials when there is more than one.
-bool valid_split(int64_t loop_rows, int splits, int chunk, const void* ws) {
-  const int64_t tiles = (loop_rows + kKeyTile - 1) / kKeyTile;
-  return splits >= 1 && splits <= 65535 && chunk >= 1 &&
+// the grid's z axis holds splits * groups blocks, and a workspace holds the
+// partials when there is more than one split.
+bool valid_split(int64_t loop_rows, int splits, int chunk, const void* ws,
+                 int groups = 1) {
+  const int64_t tiles = (loop_rows + kTile - 1) / kTile;
+  return splits >= 1 && static_cast<int64_t>(splits) * groups <= 65535 &&
+         chunk >= 1 &&
          static_cast<int64_t>(splits) * chunk >= tiles &&
          static_cast<int64_t>(splits - 1) * chunk < tiles &&
          (splits == 1 || ws != nullptr);
@@ -683,7 +748,7 @@ bool valid_split(int64_t loop_rows, int splits, int chunk, const void* ws) {
 extern "C" {
 
 // splits blocks per (query tile, head) each take chunk key tiles of
-// kKeyTile keys; with splits > 1, ws holds splits * N * H * (D + 1) floats.
+// kTile keys; with splits > 1, ws holds splits * N * H * (D + 1) floats.
 int sigattn_fwd(int dtype, int normalize, const void* q, const void* k,
                 const void* v, const void* mask, void* out, void* den,
                 void* ws, int64_t N, int64_t L, int H, int M, int D,
@@ -722,7 +787,7 @@ int sigattn_dq(int dtype, const void* q, const void* k, const void* v,
 }
 
 // splits blocks per (key tile, head) each take chunk query tiles of
-// kKeyTile queries; with splits > 1, ws holds splits * L * H * (M + D)
+// kTile queries; with splits > 1, ws holds splits * L * H * (M + D)
 // floats.
 int sigattn_dkv(int dtype, const void* q, const void* k, const void* v,
                 const void* mask, const void* dnum, const void* dden,
@@ -733,17 +798,17 @@ int sigattn_dkv(int dtype, const void* q, const void* k, const void* v,
                 void* stream) {
   const Problem p{q, k, v, {sqn, sqh, sqm}, {skn, skh, skm}, {svn, svh, svd},
                   static_cast<const float*>(mask), N, L, H, M, D};
-  if (!valid(dtype, p) || !valid_split(N, splits, chunk, ws))
+  if (!valid(dtype, p) ||
+      !valid_split(N, splits, chunk, ws, feature_groups(M, D)))
     return cudaErrorInvalidValue;
-  const int width = M > D ? M : D;
   auto* st = static_cast<cudaStream_t>(stream);
   auto* dn = static_cast<const float*>(dnum);
   auto* dd = static_cast<const float*>(dden);
   auto* ws_f = static_cast<float*>(ws);
-#define SIGATTN_DKV(T, BT, CT) \
-  dkv<T, BT, CT>(p, dn, dd, dk_out, dv_out, ws_f, splits, chunk, st)
-  SIGATTN_DISPATCH(dtype, width, SIGATTN_DKV);
-#undef SIGATTN_DKV
+  return dtype == 0 ? dkv<float>(p, dn, dd, dk_out, dv_out, ws_f, splits,
+                                 chunk, st)
+                    : dkv<__nv_bfloat16>(p, dn, dd, dk_out, dv_out, ws_f,
+                                         splits, chunk, st);
 }
 
 }  // extern "C"

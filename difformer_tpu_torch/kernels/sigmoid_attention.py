@@ -206,7 +206,9 @@ def split_plan(name, n, l, h, m, d, sms):
     if name == "sigmoid_attention_fwd":
         own, loop, per_tile, per_sm = n, l, h, FWD_BLOCKS_PER_SM
     elif name == "sigmoid_attention_dkv":
-        own, loop, per_tile, per_sm = l, n, h, DKV_BLOCKS_PER_SM
+        # one block per group of TILE output features of dk and dv
+        own, loop, per_sm = l, n, DKV_BLOCKS_PER_SM
+        per_tile = h * _cdiv(max(m, d), TILE)
     elif name == "sigmoid_attention_dq":  # not split yet
         return _cdiv(n, TILE) * h, 1, _cdiv(l, TILE)
     else:

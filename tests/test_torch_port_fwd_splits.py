@@ -68,6 +68,16 @@ def test_bwd_splits(name, n, l, h, sms):
     _check(name, n, l, h, sms)
 
 
+@pytest.mark.parametrize("m,d,groups", [(64, 64, 1), (32, 48, 1),
+                                        (100, 120, 2), (256, 200, 4)])
+def test_dkv_blocks_per_feature_group(m, d, groups):
+    """K4 gives each group of 64 output features of dk and dv its own
+    blocks; K2 keeps every width in one block."""
+    per_split, _ = _check(DKV, 2708, 2708, 2, H100_SMS, m=m, d=d)
+    assert per_split == 43 * 2 * groups
+    assert K.split_plan(FWD, 2708, 2708, 2, m, d, H100_SMS)[0] == 43 * 2
+
+
 def test_dkv_splits_its_queries():
     """One key tile over 79 query tiles: K4 gives each query tile a block."""
     assert K.split_plan(DKV, 5000, 64, 1, 64, 64, H100_SMS) == (1, 79, 1)
