@@ -336,7 +336,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K3: dq. One block per (query tile, head), looping over key tiles.
+// K3: dq. One block per (query tile, head, key chunk), looping over the key
+// tiles of its chunk. With S > 1 chunks each block writes raw f32 partials.
 // ---------------------------------------------------------------------------
 template <typename T, int BT, int CT>
 __global__ void __launch_bounds__(kThreads)
@@ -346,7 +347,8 @@ __global__ void __launch_bounds__(kThreads)
                       const float* __restrict__ mask,
                       const float* __restrict__ dnum,
                       const float* __restrict__ dden, T* __restrict__ dq,
-                      int64_t N, int64_t L, int H, int M, int D) {
+                      float* __restrict__ ws, int64_t N, int64_t L, int H,
+                      int M, int D, int chunk) {
   constexpr int P = BT + 1, R = BT / 16, CW = CT * 16;
   extern __shared__ float smem[];
   float* Qs = smem;          // [M][P]  q tile
@@ -367,7 +369,11 @@ __global__ void __launch_bounds__(kThreads)
     dd[i] = q0 + i < N ? dden[(q0 + i) * H + h] : 0.f;
 
   float acc[R][CT] = {};
-  for (int64_t k0 = 0; k0 < L; k0 += BT) {
+  const int64_t kb = static_cast<int64_t>(blockIdx.z) * chunk * kTile;
+  const int64_t ke = kb + static_cast<int64_t>(chunk) * kTile < L
+                         ? kb + static_cast<int64_t>(chunk) * kTile
+                         : L;
+  for (int64_t k0 = kb; k0 < ke; k0 += BT) {
     __syncthreads();
     load_cols<T, float, BT>(Ks, k, sk, k0, L, h, M);
     load_cols<T, float, BT>(Vs, v, sv, k0, L, h, D);
@@ -410,7 +416,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int c = 0; c < CT; ++c) {
       const int m = tx + 16 * c;
-      if (m < M) Num<T>::store(dq + (row * H + h) * M + m, acc[i][c]);
+      if (m >= M) continue;
+      if (gridDim.z > 1)  // raw partials of this key chunk: [S, N, H, M]
+        ws[((blockIdx.z * N + row) * H + h) * M + m] = acc[i][c];
+      else
+        Num<T>::store(dq + (row * H + h) * M + m, acc[i][c]);
     }
   }
 }
@@ -623,6 +633,16 @@ cudaError_t prepare(Kernel kernel, size_t smem_floats) {
                               static_cast<int>(smem_floats * sizeof(float)));
 }
 
+// Sums the S slabs of n partials in ws into out.
+template <typename T>
+cudaError_t sum_partials(const float* ws, void* out, int64_t n, int S,
+                         cudaStream_t stream) {
+  sigattn_sum_partials<T>
+      <<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
+         stream>>>(ws, static_cast<T*>(out), n, S);
+  return cudaGetLastError();
+}
+
 template <typename T, int G>
 cudaError_t fwd(const Problem& p, void* out, float* den, float* ws,
                 int splits, int chunk, bool normalize, cudaStream_t stream) {
@@ -659,28 +679,21 @@ cudaError_t fwd_for_width(const Problem& p, void* out, float* den, float* ws,
 
 template <typename T, int BT, int CT>
 cudaError_t dq(const Problem& p, const float* dnum, const float* dden,
-               void* dq_out, cudaStream_t stream) {
+               void* dq_out, float* ws, int splits, int chunk,
+               cudaStream_t stream) {
   constexpr int P = BT + 1, CW = CT * 16;
   const size_t smem = (p.M + 2 * p.D + CW + BT) * P + BT;
   auto kernel = sigattn_dq_kernel<T, BT, CT>;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(static_cast<unsigned>((p.N + BT - 1) / BT), p.H);
+  const dim3 grid(static_cast<unsigned>((p.N + BT - 1) / BT), p.H, splits);
   kernel<<<grid, kThreads, smem * sizeof(float), stream>>>(
       static_cast<const T*>(p.q), p.sq, static_cast<const T*>(p.k), p.sk,
       static_cast<const T*>(p.v), p.sv, p.mask, dnum, dden,
-      static_cast<T*>(dq_out), p.N, p.L, p.H, p.M, p.D);
-  return cudaGetLastError();
-}
-
-// Sums the S slabs of n partials in ws into out.
-template <typename T>
-cudaError_t sum_partials(const float* ws, void* out, int64_t n, int S,
-                         cudaStream_t stream) {
-  sigattn_sum_partials<T>
-      <<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
-         stream>>>(ws, static_cast<T*>(out), n, S);
-  return cudaGetLastError();
+      static_cast<T*>(dq_out), ws, p.N, p.L, p.H, p.M, p.D, chunk);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return e;
+  return sum_partials<T>(ws, dq_out, p.N * p.H * p.M, splits, stream);
 }
 
 template <typename T>
@@ -768,20 +781,25 @@ int sigattn_fwd(int dtype, int normalize, const void* q, const void* k,
                                                    chunk, normalize != 0, st);
 }
 
+// splits blocks per (query tile, head) each take chunk key tiles of kTile
+// keys; with splits > 1, ws holds splits * N * H * M floats.
 int sigattn_dq(int dtype, const void* q, const void* k, const void* v,
                const void* mask, const void* dnum, const void* dden,
-               void* dq_out, int64_t N, int64_t L, int H, int M, int D,
-               int64_t sqn, int64_t sqh, int64_t sqm, int64_t skn,
-               int64_t skh, int64_t skm, int64_t svn, int64_t svh,
-               int64_t svd, void* stream) {
+               void* dq_out, void* ws, int64_t N, int64_t L, int H, int M,
+               int D, int splits, int chunk, int64_t sqn, int64_t sqh,
+               int64_t sqm, int64_t skn, int64_t skh, int64_t skm,
+               int64_t svn, int64_t svh, int64_t svd, void* stream) {
   const Problem p{q, k, v, {sqn, sqh, sqm}, {skn, skh, skm}, {svn, svh, svd},
                   static_cast<const float*>(mask), N, L, H, M, D};
-  if (!valid(dtype, p)) return cudaErrorInvalidValue;
+  if (!valid(dtype, p) || !valid_split(L, splits, chunk, ws))
+    return cudaErrorInvalidValue;
   const int width = M > D ? M : D;
   auto* st = static_cast<cudaStream_t>(stream);
   auto* dn = static_cast<const float*>(dnum);
   auto* dd = static_cast<const float*>(dden);
-#define SIGATTN_DQ(T, BT, CT) dq<T, BT, CT>(p, dn, dd, dq_out, st)
+  auto* ws_f = static_cast<float*>(ws);
+#define SIGATTN_DQ(T, BT, CT) \
+  dq<T, BT, CT>(p, dn, dd, dq_out, ws_f, splits, chunk, st)
   SIGATTN_DISPATCH(dtype, width, SIGATTN_DQ);
 #undef SIGATTN_DQ
 }

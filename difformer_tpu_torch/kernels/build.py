@@ -35,8 +35,8 @@ _STRIDES = [_I64] * 9
 SIGNATURES = {
     "sigattn_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I,
                     _I, _I, _I] + _STRIDES + [_P],
-    "sigattn_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I]
-    + _STRIDES + [_P],
+    "sigattn_dq": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _I,
+                   _I, _I, _I] + _STRIDES + [_P],
     "sigattn_dkv": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I,
                     _I, _I, _I, _I] + _STRIDES + [_P],
 }

@@ -60,6 +60,7 @@ TILE = 64
 #: memory). Timed on an H100 against other targets (``time_kernels.py``,
 #: PERF.md).
 FWD_BLOCKS_PER_SM = 3
+DQ_BLOCKS_PER_SM = 2
 DKV_BLOCKS_PER_SM = 2
 
 
@@ -209,8 +210,8 @@ def split_plan(name, n, l, h, m, d, sms):
         # one block per group of TILE output features of dk and dv
         own, loop, per_sm = l, n, DKV_BLOCKS_PER_SM
         per_tile = h * _cdiv(max(m, d), TILE)
-    elif name == "sigmoid_attention_dq":  # not split yet
-        return _cdiv(n, TILE) * h, 1, _cdiv(l, TILE)
+    elif name == "sigmoid_attention_dq":
+        own, loop, per_tile, per_sm = n, l, h, DQ_BLOCKS_PER_SM
     else:
         raise ValueError(f"no split plan for {name}")
     splits, chunk = loop_splits(own, loop, per_tile, sms, per_sm)
@@ -267,10 +268,17 @@ def sigmoid_attention_dq(q, k, v, key_mask, dnum, dden):
         return sigmoid_attention_dq_plain(q, k, v, key_mask, dnum, dden)
     dnum, dden = _grads_in(q, dnum, dden)
     dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+    n, h, m = q.shape
+    _, splits, chunk = split_plan("sigmoid_attention_dq", n, k.shape[0], h, m,
+                                  v.shape[2], _sm_count(q.device))
+    # raw f32 partials of the S splits: dq [S, N, H, M]
+    ws = (torch.empty(splits * n * h * m, device=q.device,
+                      dtype=torch.float32) if splits > 1 else None)
     mask, ptrs, dims, strides = _args(q, k, v, key_mask)
     rc = load_library().sigattn_dq(
         _DTYPES[q.dtype], *ptrs, dnum.data_ptr(), dden.data_ptr(),
-        dq.data_ptr(), *dims, *strides, _stream(q))
+        dq.data_ptr(), None if ws is None else ws.data_ptr(), *dims, splits,
+        chunk, *strides, _stream(q))
     _raise_on(rc, "sigmoid_attention_dq")
     LAUNCHES["sigmoid_attention_dq"] += 1
     return dq

@@ -134,6 +134,40 @@ def test_fwd_split_chunk_fully_masked(cuda, normalize, dtype):
     assert_close("den", den, den_cut, "den")
 
 
+def _cotangents(cuda, seed, args, d):
+    """dnum, dden as the normalized op's backward derives them (g/den)."""
+    n, h = args[0].shape[:2]
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.normal(size=(n, h, d)).astype(np.float32))
+    out, den = K.sigmoid_attention_fwd_plain(*args)
+    g = g.to(cuda)
+    return [g / den[..., None], -(g * out.float()).sum(-1) / den]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dq_split_chunk_fully_masked(cuda, dtype):
+    """A key chunk of dq's split whose keys are all masked adds exact zeros
+    to dq; the other chunks' keys still count."""
+    n, l, h = 64, 2000, 1
+    _, splits, chunk = _plan(cuda, "sigmoid_attention_dq", n, l, h)
+    assert splits > 2
+    q, k, v, mask = make_inputs(27, n, l, h, m=64, d=64, masked=True)
+    lo, hi = chunk * K.TILE, 2 * chunk * K.TILE
+    mask[lo:hi] = 0.0  # the whole second chunk
+    args = _on(cuda, dtype, q, k, v, mask)
+    grads = _cotangents(cuda, 28, args, 64)
+    dq = K.sigmoid_attention_dq(*args, *grads)
+    assert_close("dq", dq, K.sigmoid_attention_dq_plain(*args, *grads),
+                 "grad")
+    # the same keys dropped from the problem give the same dq
+    keep = torch.ones(l, dtype=torch.bool)
+    keep[lo:hi] = False
+    cut = [a[keep.to(cuda)] for a in args[1:]]
+    assert_close("dq", dq, K.sigmoid_attention_dq(args[0], *cut, *grads),
+                 "grad")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,l,h", [(64, 5000, 1), (2708, 2708, 1),
                                    (19717, 2000, 1)])
@@ -169,10 +203,7 @@ def test_bwd_is_deterministic_and_counts_one_launch(cuda, n, l, h):
     tolerance's absolute limit in any order."""
     args = _on(cuda, torch.float32, *make_inputs(25, n, l, h, m=64, d=64,
                                                  masked=True))
-    rng = np.random.default_rng(26)
-    g = torch.from_numpy(rng.normal(size=(n, h, 64)).astype(np.float32))
-    out, den = K.sigmoid_attention_fwd_plain(*args)
-    args += [g.to(cuda) / den[..., None], -(g.to(cuda) * out).sum(-1) / den]
+    args += _cotangents(cuda, 26, args, 64)
     K.reset_launch_counts()
     first = (K.sigmoid_attention_dq(*args), *K.sigmoid_attention_dkv(*args))
     second = (K.sigmoid_attention_dq(*args), *K.sigmoid_attention_dkv(*args))

@@ -15,7 +15,8 @@ import pytest
 from difformer_tpu_torch.kernels import sigmoid_attention as K
 
 H100_SMS = 132
-FWD, DKV = "sigmoid_attention_fwd", "sigmoid_attention_dkv"
+FWD, DQ, DKV = ("sigmoid_attention_fwd", "sigmoid_attention_dq",
+                "sigmoid_attention_dkv")
 
 CASES = [
     (2708, 2708, 1, H100_SMS),    # Cora
@@ -43,7 +44,8 @@ def _check(name, n, l, h, sms, m=64, d=64):
              for t in range(s * chunk, min((s + 1) * chunk, tiles))]
     assert owned == list(range(tiles))
     assert (splits - 1) * chunk < tiles
-    per_sm = {FWD: K.FWD_BLOCKS_PER_SM, DKV: K.DKV_BLOCKS_PER_SM}[name]
+    per_sm = {FWD: K.FWD_BLOCKS_PER_SM, DQ: K.DQ_BLOCKS_PER_SM,
+              DKV: K.DKV_BLOCKS_PER_SM}[name]
     target = per_sm * sms
     if per_split >= target:
         assert (splits, chunk) == (1, tiles)
@@ -62,7 +64,7 @@ def test_fwd_key_splits(n, l, h, sms):
     assert per_split == _cdiv(n, K.TILE) * h  # K2 holds every width itself
 
 
-@pytest.mark.parametrize("name", [DKV])
+@pytest.mark.parametrize("name", [DQ, DKV])
 @pytest.mark.parametrize("n,l,h,sms", CASES)
 def test_bwd_splits(name, n, l, h, sms):
     _check(name, n, l, h, sms)
