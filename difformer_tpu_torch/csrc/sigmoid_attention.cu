@@ -13,26 +13,29 @@
 // O((N + L) H (M + D)) bytes but does O(N L H (M + D)) multiply-adds, so at
 // the shapes DIFFormer-a runs (N = L in the thousands, M = D = 64) they sit
 // far above the memory roofline. The design keeps every [N, L] intermediate
-// out of device memory: a block owns one (head, tile of BT rows), loops over
-// the other side's tiles (K2: a chunk of them) inside the block, recomputes
-// the score tile in shared memory and keeps its f32 accumulators in
-// registers. No two blocks add into one output, so no atomics are needed
-// and results are deterministic: K2's key chunks write separate partials,
-// which a second kernel sums in a fixed order. The TPU's ones-column
-// denominator becomes a plain row sum, and rows past N or L are masked by
-// predication, not by padded copies.
+// out of device memory: a block owns one (head, tile of 64 rows) of its
+// output (K2 and K3 query tiles, K4 key tiles) and loops over a chunk of
+// the other side's tiles, recomputing the score tiles in shared memory and
+// registers and keeping its f32 accumulators in registers. The split axis
+// is that loop: the S blocks of an output tile take S contiguous chunks of
+// it (S from one rule, loop_splits in kernels/sigmoid_attention.py, aimed
+// at filling the card's SMs once), and with S > 1 they write raw f32
+// partials that a second kernel sums in chunk order. No two blocks add into
+// one output, so there are no atomics and two calls give bit-equal results.
+// The TPU's ones-column denominator becomes a plain row sum, and rows past N
+// or L are masked by predication, not by padded copies.
 //
-// The kernels multiply with FFMA. K3 and K4 run on a 16 x 16 thread grid
-// (each thread owns a BT/16 x BT/16 score sub-tile and BT/16 x CT
-// accumulators, read as scalars from shared memory); K2 reads its operands
-// as float4s (see K2). bf16 inputs are widened to f32 in shared memory: a
-// bf16 x bf16 product is exact in f32, so this reproduces "bf16 products,
-// f32 sums", and f32 inputs
-// stay exact f32 (no TF32). The TPU kernel's rounding points are kept: s is
-// rounded to v's dtype before s v (and the denominator sums the rounded s,
-// as the TPU's ones column does), dnum to v's dtype inside ds and dv, and dl
-// to k's dtype for dq and to q's dtype for dk. Tensor cores (mma / wgmma),
-// TMA and pipelining are later work.
+// The kernels multiply with FFMA on one layout: 64 x 64 tiles, 256 threads,
+// each warp owning 8 rows of the output tile against the 64 rows of a loop
+// tile, each lane a 4 x 4 micro tile whose operands are single float4 reads
+// from feature-major tiles of stride 68 (see K2 and K4). bf16 inputs are
+// widened to f32 in shared memory: a bf16 x bf16 product is exact in f32, so
+// this reproduces "bf16 products, f32 sums", and f32 inputs stay exact f32
+// (no TF32). The TPU kernel's rounding points are kept: s is rounded to v's
+// dtype before s v (and the denominator sums the rounded s, as the TPU's
+// ones column does), dnum to v's dtype inside ds and dv, and dl to k's dtype
+// for dq and to q's dtype for dk. Tensor cores (mma / wgmma), TMA and
+// pipelining are later work.
 //
 // Layouts: q [N, H, M], k [L, H, M], v [L, H, D] are read through element
 // strides (a head stride of 0 broadcasts one value head over H); dnum
@@ -82,50 +85,6 @@ struct Num<__nv_bfloat16> {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
-}
-
-// dst[c * (BT + 1) + r] = round_R(src[r0 + r, h, c]) for r < BT, c < C;
-// rows at or past nrows read as 0. Column-major with a padded stride, so the
-// score loops read a row of the tile without bank conflicts.
-template <typename S, typename R, int BT>
-__device__ __forceinline__ void load_cols(float* dst, const S* __restrict__ src,
-                                          Strides s, int64_t r0, int64_t nrows,
-                                          int h, int C) {
-  constexpr int P = BT + 1;
-  for (int idx = threadIdx.x; idx < BT * C; idx += kThreads) {
-    const int r = idx / C, c = idx - r * C;
-    const int64_t row = r0 + r;
-    dst[c * P + r] =
-        row < nrows
-            ? Num<R>::round(Num<S>::load(src + row * s.n + h * s.h + c * s.c))
-            : 0.f;
-  }
-}
-
-__device__ __forceinline__ void zero(float* dst, int n) {
-  for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = 0.f;
-}
-
-// acc[i][j] += sum_c A[c * P + ty * R + i] * B[c * P + tx + 16 j]: one
-// R x R sub-tile of a BT x BT product over a depth of C, both operands
-// column-major in shared memory.
-template <int BT>
-__device__ __forceinline__ void tile_product(float (&acc)[BT / 16][BT / 16],
-                                             const float* A, const float* B,
-                                             int C, int tx, int ty) {
-  constexpr int P = BT + 1, R = BT / 16;
-#pragma unroll 4
-  for (int c = 0; c < C; ++c) {
-    float a[R], b[R];
-#pragma unroll
-    for (int i = 0; i < R; ++i) a[i] = A[c * P + ty * R + i];
-#pragma unroll
-    for (int j = 0; j < R; ++j) b[j] = B[c * P + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -335,96 +294,6 @@ __global__ void __launch_bounds__(kThreads)
     static_cast<float*>(out)[idx] = num;
 }
 
-// ---------------------------------------------------------------------------
-// K3: dq. One block per (query tile, head, key chunk), looping over the key
-// tiles of its chunk. With S > 1 chunks each block writes raw f32 partials.
-// ---------------------------------------------------------------------------
-template <typename T, int BT, int CT>
-__global__ void __launch_bounds__(kThreads)
-    sigattn_dq_kernel(const T* __restrict__ q, Strides sq,
-                      const T* __restrict__ k, Strides sk,
-                      const T* __restrict__ v, Strides sv,
-                      const float* __restrict__ mask,
-                      const float* __restrict__ dnum,
-                      const float* __restrict__ dden, T* __restrict__ dq,
-                      float* __restrict__ ws, int64_t N, int64_t L, int H,
-                      int M, int D, int chunk) {
-  constexpr int P = BT + 1, R = BT / 16, CW = CT * 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;          // [M][P]  q tile
-  float* Ns = Qs + M * P;    // [D][P]  dnum tile in v's dtype
-  float* Ks = Ns + D * P;    // [CW][P] k tile; rows >= M stay 0
-  float* Vs = Ks + CW * P;   // [D][P]  v tile
-  float* Ls = Vs + D * P;    // [BT][P] Ls[j * P + i] = dl[i, j] in k's dtype
-  float* dd = Ls + BT * P;   // [BT]    dden of the query tile
-
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, h = blockIdx.y;
-  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * BT;
-  const Strides sn{static_cast<int64_t>(H) * D, D, 1};
-
-  zero(Ks, CW * P);
-  load_cols<T, float, BT>(Qs, q, sq, q0, N, h, M);
-  load_cols<float, T, BT>(Ns, dnum, sn, q0, N, h, D);
-  for (int i = threadIdx.x; i < BT; i += kThreads)
-    dd[i] = q0 + i < N ? dden[(q0 + i) * H + h] : 0.f;
-
-  float acc[R][CT] = {};
-  const int64_t kb = static_cast<int64_t>(blockIdx.z) * chunk * kTile;
-  const int64_t ke = kb + static_cast<int64_t>(chunk) * kTile < L
-                         ? kb + static_cast<int64_t>(chunk) * kTile
-                         : L;
-  for (int64_t k0 = kb; k0 < ke; k0 += BT) {
-    __syncthreads();
-    load_cols<T, float, BT>(Ks, k, sk, k0, L, h, M);
-    load_cols<T, float, BT>(Vs, v, sv, k0, L, h, D);
-    __syncthreads();
-
-    float s[R][R] = {}, ds[R][R] = {};
-    tile_product<BT>(s, Qs, Ks, M, tx, ty);
-    tile_product<BT>(ds, Ns, Vs, D, tx, ty);
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int64_t key = k0 + tx + 16 * j;
-      const float mk = key < L ? (mask ? mask[key] : 1.f) : 0.f;
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float p = sigmoid(s[i][j]) * mk;
-        const float dl = (ds[i][j] + dd[ty * R + i]) * p * (1.f - p);
-        Ls[(tx + 16 * j) * P + ty * R + i] = Num<T>::round(dl);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BT; ++j) {
-      float a[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) a[i] = Ls[j * P + ty * R + i];
-#pragma unroll
-      for (int c = 0; c < CT; ++c) {
-        const float b = Ks[(tx + 16 * c) * P + j];
-#pragma unroll
-        for (int i = 0; i < R; ++i) acc[i][c] = fmaf(a[i], b, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int64_t row = q0 + ty * R + i;
-    if (row >= N) continue;
-#pragma unroll
-    for (int c = 0; c < CT; ++c) {
-      const int m = tx + 16 * c;
-      if (m >= M) continue;
-      if (gridDim.z > 1)  // raw partials of this key chunk: [S, N, H, M]
-        ws[((blockIdx.z * N + row) * H + h) * M + m] = acc[i][c];
-      else
-        Num<T>::store(dq + (row * H + h) * M + m, acc[i][c]);
-    }
-  }
-}
-
 // Sums S f32 slabs of n elements each in slab order (no atomics, so the
 // result is the same at every call) and stores the sums in T: the combine of
 // K4's query splits and K3's key splits.
@@ -611,12 +480,142 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ---------------------------------------------------------------------------
-// Launchers. K2's tiles are 64 x 64, with G = 1, 2 or 4 groups of 64
-// output features for D up to 256 (at M = D = 256 its shared memory is
-// 217 KB of the 227 KB a block may have). For K3 and K4 the tile shape
-// follows the wider of M and D: BT = 64 rows with up to 128 accumulator
-// columns, BT = 32 rows up to 256, so their shared memory stays under
-// 170 KB.
+// K3: dq. One block per (query tile, head, feature group, key chunk): the
+// blocks of a (query tile, head) split the key tiles in S contiguous
+// chunks, as K2 does, and with S > 1 each writes raw f32 partials that
+// sigattn_sum_partials sums. Keys past L and masked keys have p = 0, so
+// they add nothing.
+//
+// K2's layout with a second score product and dl in place of s: tiles are
+// 64 queries by 64 keys, each warp owns 8 queries against all 64 keys of a
+// tile, and a lane owns queries row0..row0+3 by keys col0..col0+3 of the
+// score tiles s = q k^T (over M) and ds = dnum v^T (over D), read as
+// float4s from feature-major tiles of stride 68. It stores dl query-major
+// for its warp alone (__syncwarp), then owns the same queries by features
+// f0 + 16 u of its block's group of 64 features of dq, and takes dq += dl k
+// four keys at a time from the feature-major k tile that fed the scores, as
+// K4 does. At M = D = 64 the block takes 85 KB of shared memory, two to an
+// SM. Wider q and dnum tiles stay whole; the k and v tiles hold 64
+// features at a time, and the block streams the depth through them with
+// its own group last.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    sigattn_dq_kernel(const T* __restrict__ q, Strides sq,
+                      const T* __restrict__ k, Strides sk,
+                      const T* __restrict__ v, Strides sv,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ dnum,
+                      const float* __restrict__ dden, T* __restrict__ dq,
+                      float* __restrict__ ws, int64_t N, int64_t L, int H,
+                      int M, int D, int chunk) {
+  constexpr int BT = kTile, P = kStride;
+  extern __shared__ float4 dq_smem[];
+  float* Qs = reinterpret_cast<float*>(dq_smem);  // [M][P] q tile
+  float* Ns = Qs + M * P;   // [D][P]  dnum tile in v's dtype
+  float* Ks = Ns + D * P;   // [BT][P] 64 features of the k tile
+  float* Vs = Ks + BT * P;  // [BT][P] 64 features of the v tile
+  float* Ls = Vs + BT * P;  // [BT][P] Ls[i * P + j] = dl[i, j] in k's dtype
+
+  const int depth = feature_groups(M, D), groups = (M + BT - 1) / BT;
+  const int g = blockIdx.z % groups, split = blockIdx.z / groups;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = warp * 8 + (lane / 16) * 4;  // queries
+  const int col0 = (lane % 16) * 4;             // keys of the scores
+  const int f0 = lane % 16;                     // features f0 + 16 u
+  const int h = blockIdx.y;
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * BT;
+  const int64_t kb = static_cast<int64_t>(split) * chunk * BT;
+  const int64_t ke = kb + static_cast<int64_t>(chunk) * BT < L
+                         ? kb + static_cast<int64_t>(chunk) * BT
+                         : L;
+  const Strides sn{static_cast<int64_t>(H) * D, D, 1};
+
+  load_tile_fmajor<T>(Qs, q, sq, q0, N, h, M);
+  load_tile_fmajor<float, T>(Ns, dnum, sn, q0, N, h, D);
+  float dd[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    dd[i] = q0 + row0 + i < N ? dden[(q0 + row0 + i) * H + h] : 0.f;
+
+  float acc[4][4] = {};
+  for (int64_t k0 = kb; k0 < ke; k0 += BT) {
+    float s[4][4] = {}, ds[4][4] = {};
+    for (int t = 0; t < depth; ++t) {
+      const int c0 = BT * ((g + 1 + t) % depth);  // ends with c0 = 64 g
+      const int cm = M - c0 < BT ? M - c0 : BT;
+      const int cd = D - c0 < BT ? D - c0 : BT;
+      __syncthreads();  // Ks and Vs are no longer read
+      load_tile_fmajor<T>(Ks, k + c0 * sk.c, sk, k0, L, h, cm);
+      load_tile_fmajor<T>(Vs, v + c0 * sv.c, sv, k0, L, h, cd);
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < cm; ++c)
+        outer4(s, 0, lds4(Qs + (c0 + c) * P + row0),
+               lds4(Ks + c * P + col0));
+#pragma unroll 4
+      for (int c = 0; c < cd; ++c)
+        outer4(ds, 0, lds4(Ns + (c0 + c) * P + row0),
+               lds4(Vs + c * P + col0));
+    }
+
+    float mk[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t key = k0 + col0 + j;
+      mk[j] = key < L ? (mask ? mask[key] : 1.f) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float l[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = sigmoid(s[i][j]) * mk[j];
+        l[j] = Num<T>::round((ds[i][j] + dd[i]) * p * (1.f - p));
+      }
+      *reinterpret_cast<float4*>(Ls + (row0 + i) * P + col0) =
+          make_float4(l[0], l[1], l[2], l[3]);
+    }
+    __syncwarp();
+
+#pragma unroll 4
+    for (int j = 0; j < BT; j += 4) {
+      float4 a[4], b[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        a[u] = lds4(Ls + (row0 + u) * P + j);
+        b[u] = lds4(Ks + (f0 + 16 * u) * P + j);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[r][u] = dot4(a[r], b[u], acc[r][u]);
+    }
+  }
+
+  const int splits = gridDim.z / groups;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int64_t row = q0 + row0 + r;
+    if (row >= N) continue;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int f = BT * g + f0 + 16 * u;
+      if (f >= M) continue;
+      if (splits > 1)  // raw partials of this key chunk: [S, N, H, M]
+        ws[((split * N + row) * H + h) * M + f] = acc[r][u];
+      else
+        Num<T>::store(dq + (row * H + h) * M + f, acc[r][u]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launchers. Every tile is 64 x 64. K2 holds G = 1, 2 or 4 groups of 64
+// output features in one block for D up to 256 (at M = D = 256 its shared
+// memory is 217 KB of the 227 KB a block may have); K3 and K4 put their
+// feature groups on the grid's z axis beside the split, and at M = D = 256
+// take 191 KB and 209 KB.
 // ---------------------------------------------------------------------------
 struct Problem {
   const void *q, *k, *v;
@@ -677,16 +676,17 @@ cudaError_t fwd_for_width(const Problem& p, void* out, float* den, float* ws,
   return fwd<T, 4>(p, out, den, ws, splits, chunk, normalize, stream);
 }
 
-template <typename T, int BT, int CT>
+template <typename T>
 cudaError_t dq(const Problem& p, const float* dnum, const float* dden,
                void* dq_out, float* ws, int splits, int chunk,
                cudaStream_t stream) {
-  constexpr int P = BT + 1, CW = CT * 16;
-  const size_t smem = (p.M + 2 * p.D + CW + BT) * P + BT;
-  auto kernel = sigattn_dq_kernel<T, BT, CT>;
+  constexpr int BT = kTile, P = kStride;
+  const size_t smem = (p.M + p.D + 3 * BT) * P;
+  auto kernel = sigattn_dq_kernel<T>;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(static_cast<unsigned>((p.N + BT - 1) / BT), p.H, splits);
+  const dim3 grid(static_cast<unsigned>((p.N + BT - 1) / BT), p.H,
+                  splits * ((p.M + BT - 1) / BT));
   kernel<<<grid, kThreads, smem * sizeof(float), stream>>>(
       static_cast<const T*>(p.q), p.sq, static_cast<const T*>(p.k), p.sk,
       static_cast<const T*>(p.v), p.sv, p.mask, dnum, dden,
@@ -720,22 +720,6 @@ cudaError_t dkv(const Problem& p, const float* dnum, const float* dden,
   return sum_partials<T>(ws + splits * rows * p.M, dv_out, rows * p.D, splits,
                          stream);
 }
-
-// Calls F<T, BT, CT>::run for the element type (0 f32, 1 bf16) and the
-// tile shape that fits max(M, D).
-#define SIGATTN_DISPATCH(dtype, width, CALL)            \
-  do {                                                  \
-    if ((dtype) == 0) {                                 \
-      using T = float;                                  \
-      if ((width) <= 64) return CALL(T, 64, 4);         \
-      if ((width) <= 128) return CALL(T, 64, 8);        \
-      return CALL(T, 32, 16);                           \
-    }                                                   \
-    using T = __nv_bfloat16;                            \
-    if ((width) <= 64) return CALL(T, 64, 4);           \
-    if ((width) <= 128) return CALL(T, 64, 8);          \
-    return CALL(T, 32, 16);                             \
-  } while (0)
 
 bool valid(int dtype, const Problem& p) {
   return (dtype == 0 || dtype == 1) && p.N > 0 && p.L > 0 && p.H > 0 &&
@@ -791,17 +775,16 @@ int sigattn_dq(int dtype, const void* q, const void* k, const void* v,
                int64_t svn, int64_t svh, int64_t svd, void* stream) {
   const Problem p{q, k, v, {sqn, sqh, sqm}, {skn, skh, skm}, {svn, svh, svd},
                   static_cast<const float*>(mask), N, L, H, M, D};
-  if (!valid(dtype, p) || !valid_split(L, splits, chunk, ws))
+  if (!valid(dtype, p) ||
+      !valid_split(L, splits, chunk, ws, (M + kTile - 1) / kTile))
     return cudaErrorInvalidValue;
-  const int width = M > D ? M : D;
   auto* st = static_cast<cudaStream_t>(stream);
   auto* dn = static_cast<const float*>(dnum);
   auto* dd = static_cast<const float*>(dden);
   auto* ws_f = static_cast<float*>(ws);
-#define SIGATTN_DQ(T, BT, CT) \
-  dq<T, BT, CT>(p, dn, dd, dq_out, ws_f, splits, chunk, st)
-  SIGATTN_DISPATCH(dtype, width, SIGATTN_DQ);
-#undef SIGATTN_DQ
+  return dtype == 0
+             ? dq<float>(p, dn, dd, dq_out, ws_f, splits, chunk, st)
+             : dq<__nv_bfloat16>(p, dn, dd, dq_out, ws_f, splits, chunk, st);
 }
 
 // splits blocks per (key tile, head) each take chunk query tiles of

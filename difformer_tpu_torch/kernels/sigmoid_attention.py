@@ -56,9 +56,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: split their loop axis in chunks of whole tiles.
 TILE = 64
 #: Blocks per SM that each kernel's split aims at: one wave of the blocks an
-#: SM holds at once at M = D = 64 (K2 three, by registers and shared
-#: memory). Timed on an H100 against other targets (``time_kernels.py``,
-#: PERF.md).
+#: SM holds at once at M = D = 64 (K2 three, by registers and shared memory;
+#: K3 and K4 two, by their 85 and 102 KB of shared memory). Timed on an H100
+#: against other targets (``time_kernels.py``, PERF.md).
 FWD_BLOCKS_PER_SM = 3
 DQ_BLOCKS_PER_SM = 2
 DKV_BLOCKS_PER_SM = 2
@@ -211,7 +211,9 @@ def split_plan(name, n, l, h, m, d, sms):
         own, loop, per_sm = l, n, DKV_BLOCKS_PER_SM
         per_tile = h * _cdiv(max(m, d), TILE)
     elif name == "sigmoid_attention_dq":
-        own, loop, per_tile, per_sm = n, l, h, DQ_BLOCKS_PER_SM
+        # one block per group of TILE features of dq
+        own, loop, per_sm = n, l, DQ_BLOCKS_PER_SM
+        per_tile = h * _cdiv(m, TILE)
     else:
         raise ValueError(f"no split plan for {name}")
     splits, chunk = loop_splits(own, loop, per_tile, sms, per_sm)
