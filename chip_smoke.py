@@ -12,7 +12,8 @@ non-zero before the last line:
    forward with and without normalisation, dq, dk/dv) against its plain
    PyTorch version on the card, at four shapes, under the one tolerance
    rule of ``difformer_tpu_torch/kernels/tolerance.py``, which is shown to
-   fail an output of zeros or of misplaced rows; with times.
+   fail an output of zeros or of misplaced rows; with times, and the split
+   S of each kernel's loop axis and the blocks it launches.
 4. slice: the cora preset as DIFFormer-a (hidden 64, 8 layers, 1 head) on a
    synthetic graph of Cora's size, trained with ``FullBatchTrainer.fit``;
    checks the losses, that every kernel ran as often as the path needs, and

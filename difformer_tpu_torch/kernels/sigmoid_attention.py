@@ -225,6 +225,22 @@ def _sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _split(name, q, v, floats):
+    """(S, chunk, workspace) for the kernel of wrapper ``name``: with S > 1
+    the workspace holds S slabs of ``floats`` raw f32 partials, else it is
+    None. The caller holds it until the kernel is launched."""
+    n, h, m = q.shape
+    l, _, d = v.shape
+    _, splits, chunk = split_plan(name, n, l, h, m, d, _sm_count(q.device))
+    ws = (torch.empty(splits * floats, device=q.device, dtype=torch.float32)
+          if splits > 1 else None)
+    return splits, chunk, ws
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def sigmoid_attention_fwd(q, k, v, key_mask=None, *, normalize=True):
     """K2. q [N,H,M], k [L,H,M], v [L,H,D], key_mask [L] or None →
     (out [N,H,D], den [N,H] f32). ``normalize=False`` returns the raw
@@ -239,16 +255,12 @@ def sigmoid_attention_fwd(q, k, v, key_mask=None, *, normalize=True):
     out = torch.empty((n, h, d), device=q.device,
                       dtype=q.dtype if normalize else torch.float32)
     den = torch.empty((n, h), device=q.device, dtype=torch.float32)
-    _, splits, chunk = split_plan("sigmoid_attention_fwd", n, k.shape[0], h,
-                                  q.shape[2], d, _sm_count(q.device))
     # raw f32 partials of the S splits: num [S, N, H, D] then den [S, N, H]
-    ws = (torch.empty(splits * n * h * (d + 1), device=q.device,
-                      dtype=torch.float32) if splits > 1 else None)
+    splits, chunk, ws = _split("sigmoid_attention_fwd", q, v, n * h * (d + 1))
     mask, ptrs, dims, strides = _args(q, k, v, key_mask)
     rc = load_library().sigattn_fwd(
         _DTYPES[q.dtype], int(normalize), *ptrs, out.data_ptr(),
-        den.data_ptr(), None if ws is None else ws.data_ptr(), *dims, splits,
-        chunk, *strides, _stream(q))
+        den.data_ptr(), _ptr(ws), *dims, splits, chunk, *strides, _stream(q))
     _raise_on(rc, "sigmoid_attention_fwd")
     LAUNCHES["sigmoid_attention_fwd"] += 1
     return out, den
@@ -270,17 +282,12 @@ def sigmoid_attention_dq(q, k, v, key_mask, dnum, dden):
         return sigmoid_attention_dq_plain(q, k, v, key_mask, dnum, dden)
     dnum, dden = _grads_in(q, dnum, dden)
     dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
-    n, h, m = q.shape
-    _, splits, chunk = split_plan("sigmoid_attention_dq", n, k.shape[0], h, m,
-                                  v.shape[2], _sm_count(q.device))
     # raw f32 partials of the S splits: dq [S, N, H, M]
-    ws = (torch.empty(splits * n * h * m, device=q.device,
-                      dtype=torch.float32) if splits > 1 else None)
+    splits, chunk, ws = _split("sigmoid_attention_dq", q, v, q.numel())
     mask, ptrs, dims, strides = _args(q, k, v, key_mask)
     rc = load_library().sigattn_dq(
         _DTYPES[q.dtype], *ptrs, dnum.data_ptr(), dden.data_ptr(),
-        dq.data_ptr(), None if ws is None else ws.data_ptr(), *dims, splits,
-        chunk, *strides, _stream(q))
+        dq.data_ptr(), _ptr(ws), *dims, splits, chunk, *strides, _stream(q))
     _raise_on(rc, "sigmoid_attention_dq")
     LAUNCHES["sigmoid_attention_dq"] += 1
     return dq
@@ -294,18 +301,14 @@ def sigmoid_attention_dkv(q, k, v, key_mask, dnum, dden):
     dnum, dden = _grads_in(q, dnum, dden)
     dk = torch.empty(k.shape, device=k.device, dtype=k.dtype)
     dv = torch.empty(v.shape, device=v.device, dtype=v.dtype)
-    n, h, m = q.shape
-    l, _, d = v.shape
-    _, splits, chunk = split_plan("sigmoid_attention_dkv", n, l, h, m, d,
-                                  _sm_count(q.device))
     # raw f32 partials of the S splits: dk [S, L, H, M] then dv [S, L, H, D]
-    ws = (torch.empty(splits * l * h * (m + d), device=q.device,
-                      dtype=torch.float32) if splits > 1 else None)
+    splits, chunk, ws = _split("sigmoid_attention_dkv", q, v,
+                               k.numel() + v.numel())
     mask, ptrs, dims, strides = _args(q, k, v, key_mask)
     rc = load_library().sigattn_dkv(
         _DTYPES[q.dtype], *ptrs, dnum.data_ptr(), dden.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), None if ws is None else ws.data_ptr(),
-        *dims, splits, chunk, *strides, _stream(q))
+        dk.data_ptr(), dv.data_ptr(), _ptr(ws), *dims, splits, chunk,
+        *strides, _stream(q))
     _raise_on(rc, "sigmoid_attention_dkv")
     LAUNCHES["sigmoid_attention_dkv"] += 1
     return dk, dv
