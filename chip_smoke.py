@@ -7,19 +7,29 @@ non-zero before the last line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 off for matmul and cuDNN.
-2. build: compile the CUDA kernels from ``difformer_tpu_torch/csrc``.
-3. kernels: every kernel of the DIFFormer-a path (flash sigmoid attention
-   forward with and without normalisation, dq, dk/dv) against its plain
-   PyTorch version on the card, at four shapes, under the one tolerance
-   rule of ``difformer_tpu_torch/kernels/tolerance.py``, which is shown to
-   fail an output of zeros or of misplaced rows; with times, and the split
-   S of each kernel's loop axis and the blocks it launches.
+2. build: compile the CUDA kernels from ``difformer_tpu_torch/csrc``, one
+   ``nvcc`` for each source, all at once.
+3. kernels: every kernel against its plain PyTorch version on the card,
+   under the one tolerance rule of
+   ``difformer_tpu_torch/kernels/tolerance.py``, which is shown to fail an
+   output of zeros or of misplaced rows: the flash sigmoid attention of
+   DIFFormer-a (forward with and without normalisation, dq, dk/dv) at four
+   shapes, with the split S of each kernel's loop axis and the blocks it
+   launches; and the GCN branch's CSR SpMM K1, forward and transposed, at
+   six shapes from Cora's to Pokec's size, with cuSPARSE's time for the
+   same product beside it. Each with its time and bound.
 4. slice: the cora preset as DIFFormer-a (hidden 64, 8 layers, 1 head) on a
    synthetic graph of Cora's size, trained with ``FullBatchTrainer.fit``;
    checks the losses, that every kernel ran as often as the path needs, and
    the logits against the same model through the plain versions; times a
    train step and an eval forward, and breaks the train step's device time
    down by operation with torch.profiler.
+5. slice-s: the same for the main path, the cora preset as DIFFormer-s
+   (``kernel="simple"``), whose one kernel is K1; the step's profile must
+   show no sort and no ``index_add_``.
+6. slice-s-h8: the cora preset at 8 heads, where every "auto" rewrite is
+   on (head mean fused, Wv factored, spmm_first with K1 at width 65), for
+   a few steps, with the logits against the plain version.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. It needs a CUDA device and
@@ -60,7 +70,17 @@ REPLACES = {
     "sigmoid_attention_dq": f"{PALLAS}:340",
     "sigmoid_attention_dkv": f"{PALLAS}:359",
 }
+# K1, the CSR SpMM of the GCN branch: one kernel, launched over the forward
+# CSR and over the transposed one (the backward), counted apart
+SPMM_SOURCE = "difformer_tpu_torch/csrc/spmm.cu"
+SPMM_REPLACES = "difformer_tpu/ops/graph_ops.py:107"
+SPMM_NAMES = ("csr_spmm", "csr_spmm_transposed")
+# Pokec's size (the pokec preset's graph, 1,632,803 nodes and 30,622,564
+# edges) at its hidden width
+POKEC_NODES, POKEC_EDGES = 1_632_803, 30_622_564
+PLAIN_EDGE_CHUNK = 1 << 22  # the plain version's messages at Pokec's size
 EPOCHS = 20
+H8_STEPS = 3
 
 
 def say(*parts):
@@ -92,6 +112,28 @@ def cuda_ms(fn, target_ms=100.0, max_iters=50):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, calls=20):
+    """Device time in ms of one call of ``fn``: the time of the device's
+    own kernels, copies and sets over ``calls`` calls (torch.profiler),
+    divided by ``calls``. Unlike :func:`cuda_ms` it leaves out the device's
+    idle gaps, which set the event time of a call whose kernels take a few
+    microseconds and whose host side takes tens."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False))
+    return total / 1e3 / calls
 
 
 def bound_ms(name, n, l, h, m, d, dtype):
@@ -136,8 +178,9 @@ def phase_build():
     t0 = time.perf_counter()
     build.load_library()
     info = build.build_info
-    say(f"phase build: {info['path']} built in {info['seconds']:.1f} s "
-        f"(cached={info['cached']}, load {time.perf_counter() - t0:.1f} s)")
+    say(f"phase build: {', '.join(info['paths'])} built in "
+        f"{info['seconds']:.1f} s (cached={info['cached']}, load "
+        f"{time.perf_counter() - t0:.1f} s)")
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "entry function" in line:
             say(f"  ptxas: {line.split(':', 1)[-1].strip()}")
@@ -259,6 +302,129 @@ def phase_kernels():
     return rows
 
 
+def spmm_bound_ms(n, e, w):
+    """(least time in ms, "bytes" or "operations", compulsory bytes) of one
+    K1 product: x and out once each, int32 columns, float32 values and
+    int32 row pointers; 2·E·W flops."""
+    nbytes = (2 * n * w + 2 * e + n + 1) * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES, 2 * e * w / PEAK_OPS[torch.float32]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes > t_ops else "operations", nbytes)
+
+
+def cora_graph(f=1433):
+    """The slice's synthetic graph of Cora's size (numpy)."""
+    from difformer_tpu_torch.data import random_graph, standard_preprocess
+
+    x, ei, y = random_graph(2708, 10556, f, 7, seed=42, homophily=0.8)
+    return x, standard_preprocess(ei, 2708), y
+
+
+def spmm_shapes():
+    """(label, plan, W, plain edge chunk) at K1's six shapes, one at a
+    time: the slice's graph at the widths the model gives K1 (64; 65 under
+    spmm_first; 8 heads of 64 unfused), a ragged graph (unsorted edges,
+    edge_mask, edge_weight, empty rows of both CSRs), a graph of PubMed's
+    size and one of Pokec's, whose edges are drawn on the card."""
+    from difformer_tpu_torch.data import random_graph, standard_preprocess
+    from difformer_tpu_torch.ops.graph_ops import build_csr_plan
+
+    def plan_of(ei, n, weight=None, mask=None):
+        t = lambda a: None if a is None else torch.as_tensor(a, device="cuda")
+        return build_csr_plan(t(ei[0]), t(ei[1]), n, t(weight), t(mask))
+
+    _, ei, _ = cora_graph()
+    cora = plan_of(ei, 2708)
+    yield "cora", cora, 64, None
+    yield "cora spmm_first", cora, 65, None
+    yield "cora H=8 unfused", cora, 8 * 64, None
+    del cora
+    rng = np.random.default_rng(5)
+    n, e = 1000, 6000
+    ei = np.stack([rng.integers(0, 950, e), rng.integers(0, 900, e)])
+    yield ("ragged", plan_of(ei, n, rng.uniform(0.2, 2.0, e).astype(
+        np.float32), rng.random(e) > 0.2), 48, None)
+    _, ei, _ = random_graph(19717, 44324, 500, 3, seed=7, homophily=0.8)
+    yield "pubmed", plan_of(standard_preprocess(ei, 19717), 19717), 64, None
+    g = torch.Generator("cuda").manual_seed(11)
+    n, e = POKEC_NODES, POKEC_EDGES
+    senders = torch.randint(0, n, (e,), device="cuda", generator=g)
+    receivers = torch.randint(0, n, (e,), device="cuda", generator=g)
+    receivers = receivers.sort().values
+    plan = build_csr_plan(senders, receivers, n)
+    del senders, receivers
+    yield "pokec", plan, 128, PLAIN_EDGE_CHUNK
+
+
+def library_spmm(row_ptr, col, val, n):
+    """cuSPARSE's CSR SpMM through one PyTorch call, for its time."""
+    a = torch.sparse_csr_tensor(row_ptr, col, val, size=(n, n))
+    return lambda x: torch.sparse.mm(a, x)
+
+
+def phase_spmm_kernels():
+    """K1 forward (the receivers' CSR) and transposed (the senders' CSR,
+    the backward) against its plain version at every shape, each
+    comparison shown to fail a wrong output; kernel, plain and cuSPARSE
+    device times (:func:`device_ms`) beside the bound, and the kernel's
+    event time (:func:`cuda_ms`, which the host's launch rate sets at the
+    small shapes)."""
+    from difformer_tpu_torch.kernels import spmm as K1
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+
+    rows = {}
+    for idx, (label, plan, w, chunk) in enumerate(spmm_shapes()):
+        n, e = plan.num_nodes, plan.num_edges
+        g = torch.Generator("cuda").manual_seed(100 + idx)
+        x = torch.randn((n, w), device="cuda", generator=g)
+        bound, bound_by, nbytes = spmm_bound_ms(n, e, w)
+        for name, (ptr, col, val) in zip(SPMM_NAMES, (
+                (plan.row_ptr, plan.col, plan.val),
+                (plan.t_row_ptr, plan.t_col, plan.t_val))):
+            transposed = name == "csr_spmm_transposed"
+            kernel = lambda: K1.csr_spmm(x, ptr, col, val,
+                                         transposed=transposed)
+            plain = lambda: K1.csr_spmm_plain(x, ptr, col, val,
+                                              edge_chunk_size=chunk)
+            library = library_spmm(ptr, col, val, n)
+            out, ref = kernel(), plain()
+            tag = f"{name} {label} N={n} E={e} W={w}"
+            err = assert_close(tag, out, ref, "spmm")
+            assert_rejects(tag, ref, "spmm")
+            lib_err = (library(x) - ref).abs().max().item()
+            del out, ref
+            torch.cuda.synchronize()
+            event_ms = cuda_ms(kernel)
+            ms = device_ms(kernel)
+            plain_ms = device_ms(plain)
+            library_ms = device_ms(lambda: library(x))
+            say(f"phase kernels: {tag:52s} max_abs_err {err:.3e} | kernel "
+                f"{ms:.4f} ms (events {event_ms:.4f} ms) | plain "
+                f"{plain_ms:.4f} ms | cuSPARSE {library_ms:.4f} ms "
+                f"(max_abs_err {lib_err:.3e}) | bound {bound:.4f} ms by "
+                f"{bound_by} ({nbytes / 1e6:.2f} MB; {100 * bound / ms:.1f}% "
+                f"of the kernel's time) | gathered rows "
+                f"{e * w * 4 / 1e9:.4f} GB")
+            if idx == 0:
+                rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound, bound_by=bound_by,
+                                  library_ms=library_ms)
+        del plan, x
+        torch.cuda.empty_cache()
+    return rows
+
+
+class PlainSpmm:
+    """K1's autograd Function with the plain version in its place, for a
+    reference forward on the card."""
+
+    @staticmethod
+    def apply(x, fwd, bwd, edge_chunk_size):
+        from difformer_tpu_torch.kernels.spmm import csr_spmm_plain
+
+        return csr_spmm_plain(x, *fwd, edge_chunk_size=edge_chunk_size)
+
+
 def plain_attention(qs, ks, vs, *, key_mask=None):
     """The model's attention through the plain version (forward only)."""
     from difformer_tpu_torch.kernels import sigmoid_attention as K
@@ -268,21 +434,45 @@ def plain_attention(qs, ks, vs, *, key_mask=None):
     return K.sigmoid_attention_fwd_plain(qs, ks, vs, key_mask)[0]
 
 
-def phase_slice():
-    import difformer_tpu_torch.nn.difformer as difformer_module
-    from difformer_tpu_torch import DIFFormer, FullBatchTrainer, GraphData
-    from difformer_tpu_torch.data import (
-        class_rand_splits,
-        random_graph,
-        standard_preprocess,
-    )
+def launch_counts():
+    """Every kernel's launches since the last reset, by wrapper name."""
     from difformer_tpu_torch.kernels import sigmoid_attention as K
-    from difformer_tpu_torch.utils.config import make_config
+    from difformer_tpu_torch.kernels import spmm as K1
 
-    cfg = make_config("cora", kernel="sigmoid")
-    n, e, f, c = 2708, 10556, 1433, 7
-    x, ei, y = random_graph(n, e, f, c, seed=42, homophily=0.8)
-    ei = standard_preprocess(ei, n)
+    return {**K.LAUNCHES, **K1.LAUNCHES}
+
+
+def reset_launch_counts():
+    from difformer_tpu_torch.kernels import sigmoid_attention as K
+    from difformer_tpu_torch.kernels import spmm as K1
+
+    K.reset_launch_counts()
+    K1.reset_launch_counts()
+
+
+def through_plain_versions():
+    """A context in which the model runs every kernel's plain version."""
+    import contextlib
+
+    import difformer_tpu_torch.nn.difformer as difformer_module
+    from difformer_tpu_torch.ops import graph_ops
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(unittest.mock.patch.object(
+        difformer_module, "sigmoid_attention", plain_attention))
+    stack.enter_context(unittest.mock.patch.object(
+        graph_ops, "CsrSpmm", PlainSpmm))
+    return stack
+
+
+def make_slice(cfg):
+    """(trainer, split, N, C) of the cora preset ``cfg`` on the slice's
+    synthetic graph of Cora's size, at full width and depth."""
+    from difformer_tpu_torch import DIFFormer, FullBatchTrainer, GraphData
+    from difformer_tpu_torch.data import class_rand_splits
+
+    x, ei, y = cora_graph()
+    (n, f), c = x.shape, int(y.max()) + 1
     split = class_rand_splits(y, cfg.label_num_per_class, rng=cfg.seed)
     graph = GraphData.from_numpy(x, ei, device="cuda")
     model = DIFFormer(
@@ -291,54 +481,37 @@ def phase_slice():
         dropout=cfg.dropout, use_bn=cfg.use_bn,
         use_residual=cfg.use_residual, use_weight=cfg.use_weight,
         use_graph=cfg.use_graph, graph_weight=cfg.graph_weight,
-        use_source=cfg.use_source, seed=cfg.seed, device="cuda")
+        use_source=cfg.use_source, spmm_first=cfg.spmm_first,
+        fuse_head_mean=cfg.fuse_head_mean, seed=cfg.seed, device="cuda")
     trainer = FullBatchTrainer(model, graph, y, lr=cfg.lr,
                                weight_decay=cfg.weight_decay, seed=cfg.seed,
                                device="cuda")
-    say(f"phase slice: cora preset as DIFFormer-a: N={n} E={graph.num_edges} "
-        f"F={f} C={c} hidden={cfg.hidden_channels} layers={cfg.num_layers} "
+    say(f"phase {cfg.kernel} slice: cora preset: N={n} "
+        f"E={graph.num_edges} F={f} C={c} kernel={cfg.kernel} "
+        f"hidden={cfg.hidden_channels} layers={cfg.num_layers} "
         f"heads={cfg.num_heads} dropout={cfg.dropout} lr={cfg.lr} "
-        f"wd={cfg.weight_decay}")
+        f"wd={cfg.weight_decay} spmm_first={cfg.spmm_first} "
+        f"fuse_head_mean={cfg.fuse_head_mean}")
+    return trainer, split, n, c
 
-    # the main path: counts set to 0 just before, read just after
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    best = trainer.fit(split, epochs=EPOCHS, eval_step=1)[0]
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
 
-    losses = best["losses"]
-    say(f"phase slice: fit {EPOCHS} epochs in {fit_s:.2f} s; losses "
-        f"{losses[0]:.4f} -> {losses[-1]:.4f}; best epoch {best['epoch']} "
-        f"train {best['train']:.4f} valid {best['valid']:.4f} "
-        f"test {best['test']:.4f}")
-    if not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite training loss: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
-    layers = cfg.num_layers
-    expect = {"sigmoid_attention_fwd": 2 * layers * EPOCHS,
-              "sigmoid_attention_dq": layers * EPOCHS,
-              "sigmoid_attention_dkv": layers * EPOCHS}
-    say(f"phase slice: launches {launches} (expected {expect})")
-    if launches != expect:
-        raise AssertionError(f"launch counts {launches} != {expect}")
-
-    # logits through the kernels against the same model through the plain
-    # versions, on the card
-    state = trainer.init_state(0)
+def check_logits(phase, trainer, state, n, c):
+    """Logits through the kernels against the same model through the plain
+    versions, on the card."""
     logits = trainer.forward_eval(state)
-    with unittest.mock.patch.object(difformer_module, "sigmoid_attention",
-                                    plain_attention):
+    with through_plain_versions():
         ref = trainer.forward_eval(state)
     if logits.shape != (n, c):
         raise AssertionError(f"logits shape {tuple(logits.shape)}")
     torch.testing.assert_close(logits, ref, rtol=1e-3, atol=1e-4)
-    logit_err = (logits - ref).abs().max().item()
-    say(f"phase slice: logits kernel vs plain max_abs_err {logit_err:.3e}")
+    say(f"phase {phase}: logits kernel vs plain max_abs_err "
+        f"{(logits - ref).abs().max().item():.3e}")
 
-    # times: host clock around synchronised work
+
+def time_steps(phase, trainer, state, split, n, steps=20):
+    """Host-clock ms of a train step and an eval forward (synchronised),
+    and peak memory while training; then the step's device time by
+    kernel. Returns the profile's rows."""
     train_mask = torch.as_tensor(
         np.isin(np.arange(n), split["train"]), device="cuda")
     gen = torch.Generator("cuda").manual_seed(0)
@@ -346,7 +519,6 @@ def phase_slice():
         trainer.train_step(state, gen, train_mask)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    steps = 20
     t0 = time.perf_counter()
     for _ in range(steps):
         trainer.train_step(state, gen, train_mask)
@@ -358,20 +530,130 @@ def phase_slice():
         trainer.forward_eval(state)
     torch.cuda.synchronize()
     eval_ms = 1e3 * (time.perf_counter() - t0) / steps
-    say(f"phase slice: train step {step_ms:.3f} ms | eval forward "
+    say(f"phase {phase}: train step {step_ms:.3f} ms | eval forward "
         f"{eval_ms:.3f} ms | peak memory {peak_mib:.1f} MiB (train)")
-    profile_steps(lambda: trainer.train_step(state, gen, train_mask),
-                  step_ms)
+    return profile_steps(lambda: trainer.train_step(state, gen, train_mask),
+                         step_ms, phase)
+
+
+def run_slice(phase, cfg, expect):
+    """Drive the path: ``FullBatchTrainer.fit`` for EPOCHS epochs with the
+    launch counts set to 0 just before and read just after; check the
+    losses, the launches and the logits; time and profile the step.
+    Returns (launches, profile rows)."""
+    trainer, split, n, c = make_slice(cfg)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    best = trainer.fit(split, epochs=EPOCHS, eval_step=1)[0]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = launch_counts()
+
+    losses = best["losses"]
+    say(f"phase {phase}: fit {EPOCHS} epochs in {fit_s:.2f} s; losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; best epoch {best['epoch']} "
+        f"train {best['train']:.4f} valid {best['valid']:.4f} "
+        f"test {best['test']:.4f}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    say(f"phase {phase}: launches {launches} (expected {expect})")
+    if launches != expect:
+        raise AssertionError(f"launch counts {launches} != {expect}")
+
+    state = trainer.init_state(0)
+    check_logits(phase, trainer, state, n, c)
+    return launches, time_steps(phase, trainer, state, split, n)
+
+
+def expected_launches(layers, attention):
+    """Launches of a 20-epoch fit: each layer runs its attention and its
+    graph branch forward in every train step and every eval, and their
+    backward in every train step."""
+    fwd, bwd = 2 * layers * EPOCHS, layers * EPOCHS
+    sig = fwd if attention else 0
+    return {"sigmoid_attention_fwd": sig,
+            "sigmoid_attention_dq": sig // 2,
+            "sigmoid_attention_dkv": sig // 2,
+            "csr_spmm": fwd, "csr_spmm_transposed": bwd}
+
+
+def phase_slice():
+    """DIFFormer-a: K2–K4 in the attention, K1 in the GCN branch."""
+    from difformer_tpu_torch.utils.config import make_config
+
+    cfg = make_config("cora", kernel="sigmoid")
+    return run_slice("slice", cfg, expected_launches(cfg.num_layers, True))[0]
+
+
+def phase_slice_s():
+    """DIFFormer-s, the main path: K1 in the GCN branch, the linear
+    attention in torch matmuls. The step must do no sort and no
+    ``index_add_`` (the plan is built once, at the trainer's start)."""
+    from difformer_tpu_torch.utils.config import make_config
+
+    cfg = make_config("cora")
+    launches, rows = run_slice("slice-s", cfg,
+                               expected_launches(cfg.num_layers, False))
+    found = [key for _, _, key in rows
+             if "sort" in key.lower() or "indexfunc" in key.lower()]
+    say(f"phase slice-s: sort or index_add_ kernels in the step: "
+        f"{found or 'none'}")
+    if found:
+        raise AssertionError(f"the step sorts or scatters: {found}")
     return launches
 
 
-def profile_steps(step, step_ms, steps=5, top=12):
+def phase_slice_s_h8():
+    """The cora preset at 8 heads: fused head mean, Wv factored through the
+    key aggregates, spmm_first (K1 at F+1 = 65). A few train steps, then
+    the logits against the plain versions."""
+    from difformer_tpu_torch.ops import graph_ops
+    from difformer_tpu_torch.utils.config import make_config
+
+    cfg = make_config("cora", num_heads=8)
+    trainer, split, n, c = make_slice(cfg)
+    state = trainer.init_state(0)
+    train_mask = torch.as_tensor(
+        np.isin(np.arange(n), split["train"]), device="cuda")
+    gen = torch.Generator("cuda").manual_seed(0)
+    widths = []
+    real = graph_ops.CsrSpmm
+
+    def recording(x, fwd, bwd, edge_chunk_size):
+        widths.append(x.shape[1])
+        return real.apply(x, fwd, bwd, edge_chunk_size)
+
+    reset_launch_counts()
+    with unittest.mock.patch.object(
+            graph_ops, "CsrSpmm", unittest.mock.Mock(apply=recording)):
+        losses = [trainer.train_step(state, gen, train_mask)[1].item()
+                  for _ in range(H8_STEPS)]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    layers = cfg.num_layers
+    expect = dict(expected_launches(layers, False),
+                  csr_spmm=layers * H8_STEPS,
+                  csr_spmm_transposed=layers * H8_STEPS)
+    say(f"phase slice-s-h8: {H8_STEPS} steps, losses {losses}; K1 widths "
+        f"{sorted(set(widths))}; launches {launches} (expected {expect})")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    if launches != expect or set(widths) != {cfg.hidden_channels + 1}:
+        raise AssertionError("the spmm_first path did not run through K1")
+    check_logits("slice-s-h8", trainer, state, n, c)
+    time_steps("slice-s-h8", trainer, state, split, n, steps=5)
+
+
+def profile_steps(step, step_ms, phase, steps=5, top=12):
     """Device time by kernel over ``steps`` train steps (torch.profiler),
     and its share of ``step_ms``, the step's time measured without the
     profiler. Only the device's own kernels and copies are summed: the
     CPU-side ranges of the autograd Functions also carry the ctypes-launched
     kernels' time as theirs, and the optimizer's range is mirrored on the
-    device as an annotation spanning its kernels."""
+    device as an annotation spanning its kernels. Returns the rows
+    (ms per step, launches per step, kernel name), longest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -388,22 +670,31 @@ def profile_steps(step, step_ms, steps=5, top=12):
                    and not getattr(e, "is_user_annotation", False)
                    and e.self_device_time_total > 0), reverse=True)
     if not rows:
-        say("phase profile: the profiler saw no device time (not measured)")
-        return
+        say(f"phase {phase} profile: the profiler saw no device time (not "
+            f"measured)")
+        return rows
     busy = sum(r[0] for r in rows)
-    say(f"phase profile: device time {busy:.4f} ms per train step over "
-        f"{steps} steps = {100 * busy / step_ms:.1f}% of the "
-        f"{step_ms:.3f} ms step (idle {100 * (1 - busy / step_ms):.1f}%)")
+    say(f"phase {phase} profile: device time {busy:.4f} ms per train step "
+        f"over {steps} steps = {100 * busy / step_ms:.1f}% of the "
+        f"{step_ms:.3f} ms step (idle {100 * (1 - busy / step_ms):.1f}%), "
+        f"{sum(r[1] for r in rows)} launches per step")
     for ms, count, key in rows[:top]:
-        say(f"phase profile: {ms:9.4f} ms/step {100 * ms / busy:5.1f}% "
-            f"x{count:<3d} {key[:100]}")
+        say(f"phase {phase} profile: {ms:9.4f} ms/step "
+            f"{100 * ms / busy:5.1f}% x{count:<3d} {key[:100]}")
+    return rows
 
 
 def main():
+    t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
     rows = phase_kernels()
+    spmm_rows = phase_spmm_kernels()
+    say(f"phase kernels: done at {time.perf_counter() - t0:.1f} s")
     launches = phase_slice()
+    launches_s = phase_slice_s()
+    phase_slice_s_h8()
+    say(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name], "launches": launches[name],
@@ -411,6 +702,11 @@ def main():
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": None}
         for name, row in rows.items()
+    ] + [
+        # K1 on the main path, DIFFormer-s; times at the slice's shape
+        {"name": name, "route": "cuda", "source": SPMM_SOURCE,
+         "replaces": SPMM_REPLACES, "launches": launches_s[name], **row}
+        for name, row in spmm_rows.items()
     ]
     say(json.dumps({"kernels": kernels}))
     say(smi)

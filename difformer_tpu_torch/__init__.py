@@ -7,8 +7,9 @@ Pallas TPU kernel becomes a hand-written Hopper kernel (``csrc/``), built at
 first use and bound with ctypes. Entry points run on the GPU unless given
 ``device="cpu"``; on the CPU every kernel runs as its plain PyTorch version.
 
-Ported so far: full-batch node classification with DIFFormer-a
-(``kernel="sigmoid"``). ROADMAP.md lists what is still to port.
+Ported so far: full-batch node classification with DIFFormer-s
+(``kernel="simple"``, the main path) and DIFFormer-a (``kernel="sigmoid"``).
+ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"
@@ -16,9 +17,17 @@ __version__ = "0.1.0"
 from difformer_tpu_torch.data.graph import GraphData  # noqa: F401
 from difformer_tpu_torch.nn.difformer import DIFFormer, DIFFormerConv  # noqa: F401
 from difformer_tpu_torch.ops.graph_ops import (  # noqa: F401
+    CsrPlan,
+    build_csr_plan,
     degree,
     gcn_conv,
     gcn_norm_weights,
+    spmm,
+)
+from difformer_tpu_torch.ops.linear_attention import (  # noqa: F401
+    simple_attention,
+    simple_attention_aggregates,
+    simple_attention_head_mean_factored,
 )
 from difformer_tpu_torch.ops.segment import segment_sum  # noqa: F401
 from difformer_tpu_torch.ops.sigmoid_attention import (  # noqa: F401

@@ -2,6 +2,8 @@
 
 Edges are held as (senders, receivers) int64 tensors, stably sorted by
 receiver: the reference's ``row`` and ``col``, in CSR order.
+:meth:`GraphData.csr_plan` builds the graph's CSR plan for the GCN branch's
+kernel once and keeps it.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from difformer_tpu_torch.ops.graph_ops import CsrPlan, build_csr_plan
 from difformer_tpu_torch.utils.device import resolve_device
 
 
@@ -24,6 +27,8 @@ class GraphData:
     edge_mask: Optional[torch.Tensor] = None     # bool [E], False on padding
     node_mask: Optional[torch.Tensor] = None     # bool [N], False on padding
     num_nodes: int = 0
+    _csr_plan: Optional[CsrPlan] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def num_edges(self):
@@ -58,11 +63,23 @@ class GraphData:
             num_nodes=int(node_feat.shape[0]),
         )
 
+    def csr_plan(self) -> CsrPlan:
+        """The CSR plan of the edges, with their GCN values (from
+        ``edge_weight`` and ``edge_mask``), built at the first call on the
+        graph's device and kept: build a new graph, not a changed one, for
+        other edges."""
+        if self._csr_plan is None:
+            self._csr_plan = build_csr_plan(
+                self.senders, self.receivers, self.num_nodes,
+                self.edge_weight, self.edge_mask)
+        return self._csr_plan
+
     def to(self, device=None) -> "GraphData":
-        """A copy with every tensor on ``device`` (the GPU when None)."""
+        """A copy with every tensor on ``device`` (the GPU when None); its
+        CSR plan is built anew."""
         dev = resolve_device(device)
         moved = {f.name: getattr(self, f.name)
-                 for f in dataclasses.fields(self)}
+                 for f in dataclasses.fields(self) if f.init}
         for name, value in moved.items():
             if isinstance(value, torch.Tensor):
                 moved[name] = value.to(dev)

@@ -7,3 +7,8 @@ from difformer_tpu_torch.kernels.sigmoid_attention import (  # noqa: F401
     sigmoid_attention_flash,
     sigmoid_attention_flash_unnormalized,
 )
+from difformer_tpu_torch.kernels.spmm import (  # noqa: F401
+    CsrSpmm,
+    csr_spmm,
+    csr_spmm_plain,
+)

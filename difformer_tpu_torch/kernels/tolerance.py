@@ -1,9 +1,9 @@
 """How closely a kernel's output must agree with its plain version.
 
-One rule for every comparison of the flash sigmoid attention kernels with
-their plain versions (``chip_smoke.py``, ``tests/test_torch_port_cuda.py``)
-and of the plain versions with the JAX package's Pallas kernels: ``got``
-passes when ``|got - ref| <= atol·scale + rtol·|ref|`` everywhere.
+One rule for every comparison of the port's kernels with their plain
+versions (``chip_smoke.py``, ``tests/test_torch_port_cuda.py``) and of the
+plain versions with the JAX package's Pallas kernels: ``got`` passes when
+``|got - ref| <= atol·scale + rtol·|ref|`` everywhere.
 
 * float32 outputs take the JAX package's own tolerances for this kernel
   (``tests/test_pallas_kernels.py``): rtol 1e-4 / atol 1e-5 for the
@@ -12,6 +12,11 @@ passes when ``|got - ref| <= atol·scale + rtol·|ref|`` everywhere.
   is a raw sum over L keys, which float32 rounds in proportion to L, so its
   scale is its row's denominator. That holds ``num`` to what ``num/den`` is
   held to, per unit of ``den``, at any L.
+* The CSR SpMM (K1, kind "spmm") is float32 only and takes the forward's
+  rtol 1e-4 / atol 1e-5: the kernel and its plain version sum the same
+  products of a row (at most a few hundred edges, each value at most
+  1/√deg times the edge weight) in another order, so they differ by a few
+  float32 steps of the row's sum of |w·x|.
 * bfloat16 outputs (``out`` and the gradients at bfloat16 inputs) take
   rtol 2e-2 and an atol of 1e-2 of the largest ``|ref|``. The plain version
   rounds at the kernel's points, so the two differ by float32 summation
@@ -34,6 +39,7 @@ FLOAT32 = {
     "num": (1e-4, 1e-5),
     "den": (1e-4, 1e-5),
     "grad": (1e-3, 1e-4),
+    "spmm": (1e-4, 1e-5),
 }
 #: (rtol, atol as a share of max |ref|) for bfloat16 outputs.
 BFLOAT16 = (2e-2, 1e-2)
@@ -41,8 +47,8 @@ BFLOAT16 = (2e-2, 1e-2)
 
 def limit(ref, kind, den=None):
     """Largest |got - ref| allowed at each element of ``ref`` (float32).
-    ``kind`` is "out", "num", "den" or "grad"; "num" needs its rows'
-    denominators ``den`` [..., H]."""
+    ``kind`` is "out", "num", "den", "grad" or "spmm"; "num" needs its
+    rows' denominators ``den`` [..., H]."""
     if kind not in FLOAT32:
         raise ValueError(f"kind must be one of {sorted(FLOAT32)}, got {kind!r}")
     mag = ref.float().abs()

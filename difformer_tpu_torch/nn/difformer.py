@@ -3,8 +3,8 @@
 Reference: ``node classification/difformer.py:81-226``. Per layer:
 
     q, k, v = Wq(x), Wk(x), Wv(x)          # [N, H, D]
-    a = sigmoid_attention(q, k, v)         # DIFFormer-a, O(N²)
-    g = gcn_conv(v, edge_index)            # optional graph branch
+    a = global_attention(q, k, v)          # 'simple' (O(N)) or 'sigmoid' (O(N²))
+    g = gcn_conv(v, edge_index)            # optional graph branch (K1)
     h = a + g   |   (1-w)·a + w·g          # graph_weight blend
     h = mean over heads [+ x_0]            # use_source adds layer-0 features
     x = α·h + (1-α)·x_prev                 # residual vs the previous layer
@@ -16,7 +16,14 @@ dropout; the mean over heads is taken after the branch sum. Submodules are
 named after the reference's ``state_dict`` (``fcs.{0,1}``, ``bns.{i}``,
 ``convs.{i}.W{q,k,v}``), so ``utils/weights.py`` carries weights across.
 
-Only ``kernel="sigmoid"`` runs so far; the other options raise
+Both kernels run (``simple``, DIFFormer-s, and ``sigmoid``, DIFFormer-a),
+with the JAX package's two rewrites that change only the order of float
+sums: ``fuse_head_mean`` (the head mean folded into the attention and the
+linear graph branch; with a value projection, Wv is factored through the
+key aggregates) and ``spmm_first`` (the graph branch as (ÂX)·Wv, gathering
+F+1-wide rows instead of H·D). The model's forward takes the graph's CSR
+plan (``GraphData.csr_plan()``) and builds one per call without it.
+``compute_dtype``, ``remat``, ``axis_name``, ``ell`` and ``halo`` raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -29,7 +36,11 @@ from torch import nn
 
 from difformer_tpu_torch.nn.common import LayerNorm, dropout
 from difformer_tpu_torch.nn.init import torch_linear_init_
-from difformer_tpu_torch.ops.graph_ops import gcn_conv
+from difformer_tpu_torch.ops.graph_ops import build_csr_plan, gcn_conv
+from difformer_tpu_torch.ops.linear_attention import (
+    simple_attention,
+    simple_attention_head_mean_factored,
+)
 from difformer_tpu_torch.ops.sigmoid_attention import (
     sigmoid_attention,
     sigmoid_attention_dense,
@@ -37,15 +48,11 @@ from difformer_tpu_torch.ops.sigmoid_attention import (
 from difformer_tpu_torch.utils.device import resolve_device
 
 _NOT_PORTED = {
-    "kernel='simple'": "DIFFormer-s, ROADMAP.md queue A item 1",
-    "spmm_first": "ROADMAP.md queue A item 1 (DIFFormer-s variants)",
-    "fuse_head_mean": "ROADMAP.md queue A item 1 (DIFFormer-s variants)",
     "compute_dtype": "bf16 compute_dtype, ROADMAP.md queue A item 3",
     "remat": "ROADMAP.md queue A item 3",
     "ell": "TPU-shaped sparse layouts, ROADMAP.md queue A item 9 (slice 8)",
     "halo": "the parallel layer, ROADMAP.md queue A item 10 (slice 9)",
     "axis_name": "the parallel layer, ROADMAP.md queue A item 10 (slice 9)",
-    "edge_chunk_size": "the rest of the graph ops, ROADMAP.md queue A item 1",
 }
 
 
@@ -56,18 +63,11 @@ def _not_ported(option):
 
 
 def _check_kernel(kernel):
-    if kernel == "simple":
-        raise _not_ported("kernel='simple'")
-    if kernel != "sigmoid":
+    if kernel not in ("simple", "sigmoid"):
         raise ValueError(f"unknown kernel {kernel!r}")
 
 
-def _check_options(spmm_first, fuse_head_mean, compute_dtype, remat,
-                   axis_name):
-    if spmm_first:
-        raise _not_ported("spmm_first")
-    if fuse_head_mean is True:
-        raise _not_ported("fuse_head_mean")
+def _check_options(compute_dtype, remat, axis_name):
     if compute_dtype is not None:
         raise _not_ported("compute_dtype")
     if remat:
@@ -76,20 +76,29 @@ def _check_options(spmm_first, fuse_head_mean, compute_dtype, remat,
         raise _not_ported("axis_name")
 
 
-def _check_call(ell, halo, edge_chunk_size):
-    for name, value in (("ell", ell), ("halo", halo),
-                        ("edge_chunk_size", edge_chunk_size)):
+def _check_call(ell, halo):
+    for name, value in (("ell", ell), ("halo", halo)):
         if value is not None:
             raise _not_ported(name)
 
 
 class DIFFormerConv(nn.Module):
     """One DIFFormer layer (reference ``DIFFormerConv``,
-    difformer.py:81-145)."""
+    difformer.py:81-145).
+
+    ``fuse_head_mean`` (False | True | "auto"): emit the layer's mean over
+    heads [N, D] without the [N, H, D] branch outputs; "auto" fuses at
+    H > 1. It applies to the simple kernel without ``output_attn`` and needs
+    ``use_weight`` or H = 1; elsewhere it is ignored, as in the JAX package.
+    ``spmm_first`` (False | True | "auto"): the graph branch as
+    (ÂX)·Wv + (Â1)·bᵀ over [x, 1] rows of width F+1; "auto" turns it on
+    when H·D ≥ 2·(F+1). It needs ``use_graph`` and ``use_weight`` and no
+    ``output_attn``."""
 
     def __init__(self, in_channels, out_channels, num_heads=1,
                  kernel="simple", use_graph=True, use_weight=True,
-                 graph_weight=-1.0, use_source=False):
+                 graph_weight=-1.0, use_source=False, spmm_first=False,
+                 fuse_head_mean="auto"):
         super().__init__()
         _check_kernel(kernel)
         self.out_channels = out_channels
@@ -99,6 +108,8 @@ class DIFFormerConv(nn.Module):
         self.use_weight = use_weight
         self.graph_weight = graph_weight
         self.use_source = use_source
+        self.spmm_first = spmm_first
+        self.fuse_head_mean = fuse_head_mean
         width = out_channels * num_heads
         self.Wq = nn.Linear(in_channels, width)
         self.Wk = nn.Linear(in_channels, width)
@@ -111,27 +122,92 @@ class DIFFormerConv(nn.Module):
 
     def forward(self, query_input, source_input, senders=None, receivers=None,
                 edge_weight=None, x_0=None, *, node_mask=None, edge_mask=None,
-                output_attn=False):
+                num_nodes_global=None, indices_are_sorted=False,
+                output_attn=False, edge_chunk_size=None, plan=None):
         H, D = self.num_heads, self.out_channels
+        fuse_mean = self.fuse_head_mean
+        if fuse_mean == "auto":
+            fuse_mean = H > 1
+        fuse_mean = (bool(fuse_mean) and self.kernel == "simple"
+                     and not output_attn and (self.use_weight or H == 1))
+        # under fusion with a value projection, Wv is factored through the
+        # key aggregates and through the head-averaged graph branch: the
+        # [N, H, D] value tensor never exists
+        factored = fuse_mean and self.use_weight
+
         query = self.Wq(query_input).reshape(-1, H, D)
         key = self.Wk(source_input).reshape(-1, H, D)
-        if self.use_weight:
-            value = self.Wv(source_input).reshape(-1, H, D)
-        else:
+        value = None
+        if not self.use_weight:
             # reference difformer.py:120: raw features as a single head
             value = source_input.reshape(-1, 1, D)
+        elif not factored:
+            value = self.Wv(source_input).reshape(-1, H, D)
+        if fuse_mean and self.use_weight:
+            wv_k3 = self.Wv.weight.t().reshape(-1, H, D)    # [F, H, D]
+            wv_b2 = self.Wv.bias.reshape(H, D)              # [H, D]
 
         attn = None
-        if output_attn:
+        if self.kernel == "simple":
+            if output_attn:
+                attention_output, attn = simple_attention(
+                    query, key, value, key_mask=node_mask,
+                    num_queries=num_nodes_global, output_attn=True)
+            elif factored:
+                attention_output = simple_attention_head_mean_factored(
+                    query, key, source_input, wv_k3, wv_b2,
+                    key_mask=node_mask, num_queries=num_nodes_global)
+            else:
+                attention_output = simple_attention(
+                    query, key, value, key_mask=node_mask,
+                    num_queries=num_nodes_global, head_mean=fuse_mean)
+        elif output_attn:
             attention_output, attn = sigmoid_attention_dense(
                 query, key, value, key_mask=node_mask, output_attn=True)
         else:
             attention_output = sigmoid_attention(query, key, value,
                                                  key_mask=node_mask)
 
+        spmm_first = self.spmm_first
+        if spmm_first == "auto":
+            # on when the rewrite cuts the gathered width at least in half
+            spmm_first = H * D >= 2 * (source_input.shape[-1] + 1)
+        spmm_first = (bool(spmm_first) and self.use_graph and self.use_weight
+                      and not output_attn)
+
+        def conv(x):
+            return gcn_conv(x, senders, receivers, edge_weight,
+                            edge_mask=edge_mask,
+                            indices_are_sorted=indices_are_sorted,
+                            edge_chunk_size=edge_chunk_size, plan=plan)
+
         if self.use_graph:
-            graph_output = gcn_conv(value, senders, receivers, edge_weight,
-                                    edge_mask=edge_mask)
+            if spmm_first:
+                ones = source_input.new_ones((source_input.shape[0], 1))
+                u = conv(torch.cat([source_input, ones], -1)[:, None, :])[:, 0]
+                u_x, rowsum = u[:, :-1], u[:, -1:]       # ÂX, Â1
+                if fuse_mean:
+                    # the head mean folded into the projection:
+                    # mean_h((ÂX)W_h + r·b_h) = (ÂX)·W̄ + r·b̄
+                    graph_output = (u_x @ wv_k3.mean(1)
+                                    + rowsum * wv_b2.mean(0))
+                else:
+                    # Wv(ÂX) carries +b once; (ÂX)W + (Â1)bᵀ needs (r−1)·b
+                    graph_output = (self.Wv(u_x) + (rowsum - 1.0)
+                                    * self.Wv.bias).reshape(-1, H, D)
+            else:
+                # the conv is linear per channel, so the head mean commutes
+                # with it: conv the head-averaged value ([N, 1, D])
+                if factored:
+                    conv_in = (source_input @ wv_k3.mean(1)
+                               + wv_b2.mean(0))[:, None, :]
+                elif fuse_mean:
+                    conv_in = value.mean(1, keepdim=True)
+                else:
+                    conv_in = value
+                graph_output = conv(conv_in)
+                if fuse_mean:
+                    graph_output = graph_output[:, 0]           # [N, D]
             if self.graph_weight > 0:
                 final_output = ((1 - self.graph_weight) * attention_output
                                 + self.graph_weight * graph_output)
@@ -140,7 +216,8 @@ class DIFFormerConv(nn.Module):
         else:
             final_output = attention_output
 
-        final_output = final_output.mean(dim=1)
+        if not fuse_mean:
+            final_output = final_output.mean(dim=1)
         if self.use_source:
             final_output = final_output + x_0
         if output_attn:
@@ -153,7 +230,10 @@ class DIFFormer(nn.Module):
 
     Parameters are drawn from ``torch.Generator().manual_seed(seed)`` and
     placed on ``device`` (the GPU unless told otherwise).
-    ``forward(..., generator=g)`` draws the dropout masks from ``g``."""
+    ``forward(..., generator=g)`` draws the dropout masks from ``g``;
+    ``forward(..., plan=graph.csr_plan())`` runs every layer's graph branch
+    on that plan (which replaces senders, receivers, edge_weight and
+    edge_mask there); without one, a plan is built once for the call."""
 
     def __init__(self, in_channels, hidden_channels, out_channels,
                  num_layers=2, num_heads=1, kernel="simple", alpha=0.5,
@@ -164,13 +244,7 @@ class DIFFormer(nn.Module):
                  seed=0, device=None):
         super().__init__()
         _check_kernel(kernel)
-        if spmm_first == "auto":
-            # the JAX package's rule (nn/difformer.py:191-199): on when it
-            # cuts the gather width at least in half
-            spmm_first = (use_graph and use_weight and num_heads
-                          * hidden_channels >= 2 * (hidden_channels + 1))
-        _check_options(spmm_first, fuse_head_mean, compute_dtype, remat,
-                       axis_name)
+        _check_options(compute_dtype, remat, axis_name)
         dev = resolve_device(device)
         self.num_layers = num_layers
         self.alpha = alpha
@@ -186,7 +260,9 @@ class DIFFormer(nn.Module):
             DIFFormerConv(hidden_channels, hidden_channels,
                           num_heads=num_heads, kernel=kernel,
                           use_graph=use_graph, use_weight=use_weight,
-                          graph_weight=graph_weight, use_source=use_source)
+                          graph_weight=graph_weight, use_source=use_source,
+                          spmm_first=spmm_first,
+                          fuse_head_mean=fuse_head_mean)
             for _ in range(num_layers)
         ])
         self.reset_parameters(torch.Generator().manual_seed(seed))
@@ -202,11 +278,15 @@ class DIFFormer(nn.Module):
             ln.reset_parameters()
 
     def forward(self, x, senders=None, receivers=None, edge_weight=None, *,
-                node_mask=None, edge_mask=None, output_attn=False,
+                node_mask=None, edge_mask=None, num_nodes_global=None,
+                indices_are_sorted=False, output_attn=False,
                 generator: Optional[torch.Generator] = None, ell=None,
-                halo=None, edge_chunk_size=None):
-        _check_call(ell, halo, edge_chunk_size)
+                halo=None, edge_chunk_size=None, plan=None):
+        _check_call(ell, halo)
         drop = lambda h: dropout(h, self.dropout, self.training, generator)
+        if plan is None and self.convs and self.convs[0].use_graph:
+            plan = build_csr_plan(senders, receivers, x.shape[0],
+                                  edge_weight, edge_mask)
 
         # input block (difformer.py:188-192)
         x = self.fcs[0](x)
@@ -219,7 +299,10 @@ class DIFFormer(nn.Module):
         for i, conv in enumerate(self.convs):
             out = conv(x, x, senders, receivers, edge_weight, x_0,
                        node_mask=node_mask, edge_mask=edge_mask,
-                       output_attn=output_attn)
+                       num_nodes_global=num_nodes_global,
+                       indices_are_sorted=indices_are_sorted,
+                       output_attn=output_attn,
+                       edge_chunk_size=edge_chunk_size, plan=plan)
             if output_attn:
                 x, attn = out
                 attentions.append(attn)

@@ -1,4 +1,14 @@
-from difformer_tpu_torch.ops.graph_ops import gcn_conv  # noqa: F401
+from difformer_tpu_torch.ops.graph_ops import (  # noqa: F401
+    CsrPlan,
+    build_csr_plan,
+    gcn_conv,
+    spmm,
+)
+from difformer_tpu_torch.ops.linear_attention import (  # noqa: F401
+    simple_attention,
+    simple_attention_aggregates,
+    simple_attention_head_mean_factored,
+)
 from difformer_tpu_torch.ops.segment import segment_sum  # noqa: F401
 from difformer_tpu_torch.ops.sigmoid_attention import (  # noqa: F401
     sigmoid_attention,

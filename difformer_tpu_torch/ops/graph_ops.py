@@ -1,16 +1,28 @@
-"""Graph convolution, as ``difformer_tpu/ops/graph_ops.py:23-125``.
+"""Graph convolution, as ``difformer_tpu/ops/graph_ops.py:23-125, 224-236``.
 
 The reference (``node classification/difformer.py:63-79``) builds the
 normalised adjacency transposed, so each edge (s, r) adds
 ``value · x[s]`` into ``out[r]``, with
 ``value = w · (1/deg[r]).sqrt() · (1/deg[s]).sqrt()``, ``deg`` counted over
 receivers and non-finite values set to 0.
+
+Both products here, :func:`gcn_conv` and :func:`spmm`, run the CSR SpMM K1
+(``kernels/spmm.py``) over a :class:`CsrPlan`: the receivers' CSR, the
+senders' (transposed) CSR for the backward, and the normalised values in
+both orders. The plan depends only on the graph's indices, ``edge_weight``
+and ``edge_mask``, so a caller that runs many products on one graph builds
+it once (``GraphData.csr_plan()``) and passes it; without one, each call
+builds its own, with a sort and a degree pass.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
 import torch
 
+from difformer_tpu_torch.kernels.spmm import CsrSpmm
 from difformer_tpu_torch.ops.segment import segment_sum
 
 
@@ -50,15 +62,111 @@ def gcn_norm_weights_masked(senders, receivers, num_nodes, edge_weight,
     return _nan_to_num(value) * ones
 
 
-def gcn_conv(x, senders, receivers, edge_weight=None, *, num_nodes=None,
-             edge_mask=None):
-    """``out[r] += value · x[s]`` over every edge, for x of any trailing
-    shape (e.g. [N, H, D]: all heads in one gather and one scatter).
-    ``edge_mask`` marks real edges; padded edges point at a valid node and
-    are zeroed."""
-    if num_nodes is None:
-        num_nodes = x.shape[0]
+@dataclasses.dataclass(frozen=True)
+class CsrPlan:
+    """The two CSRs of one graph's edges, for K1 and its backward.
+
+    ``order`` and ``t_order`` are the stable permutations of the edges (as
+    given) into receiver order and into sender order; ``row_ptr``/``col``
+    are the receivers' row pointers and the senders in receiver order,
+    ``t_row_ptr``/``t_col`` the senders' row pointers and the receivers in
+    sender order; ``val``/``t_val`` the GCN values of
+    :func:`gcn_norm_weights_masked` in the two orders."""
+
+    num_nodes: int
+    order: torch.Tensor        # int64 [E]
+    row_ptr: torch.Tensor      # int32 [N + 1]
+    col: torch.Tensor          # int32 [E]
+    val: torch.Tensor          # float32 [E]
+    t_order: torch.Tensor      # int64 [E]
+    t_row_ptr: torch.Tensor    # int32 [N + 1]
+    t_col: torch.Tensor        # int32 [E]
+    t_val: torch.Tensor        # float32 [E]
+
+    @property
+    def num_edges(self):
+        return self.col.numel()
+
+
+def _row_ptr(index, num_nodes):
+    counts = torch.bincount(index, minlength=num_nodes)
+    ptr = torch.zeros(num_nodes + 1, dtype=torch.int64, device=index.device)
+    ptr[1:] = torch.cumsum(counts, 0)
+    return ptr.to(torch.int32)
+
+
+def build_csr_plan(senders, receivers, num_nodes, edge_weight=None,
+                   edge_mask=None) -> CsrPlan:
+    """The :class:`CsrPlan` of edges (senders, receivers), in any order, on
+    their device. Checks that every index lies in [0, num_nodes) and that
+    E < 2³¹ (the kernel's int32 columns and row pointers)."""
+    e = senders.numel()
+    if receivers.shape != senders.shape or senders.dim() != 1:
+        raise ValueError(f"senders and receivers must be [E], got "
+                         f"{tuple(senders.shape)}, {tuple(receivers.shape)}")
+    if e >= 2**31:
+        raise ValueError(f"the CSR plan takes fewer than 2**31 edges, got {e}")
+    senders, receivers = senders.long(), receivers.long()
+    if e and (int(torch.minimum(senders.min(), receivers.min())) < 0
+              or int(torch.maximum(senders.max(), receivers.max()))
+              >= num_nodes):
+        raise ValueError(f"edge indices must lie in [0, {num_nodes})")
     value = gcn_norm_weights_masked(senders, receivers, num_nodes,
-                                    edge_weight, edge_mask)
-    msg = x[senders] * value.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
-    return segment_sum(msg, receivers, num_nodes)
+                                    edge_weight, edge_mask).float()
+    order = torch.argsort(receivers, stable=True)
+    t_order = torch.argsort(senders, stable=True)
+    return CsrPlan(
+        num_nodes=num_nodes,
+        order=order, row_ptr=_row_ptr(receivers, num_nodes),
+        col=senders[order].to(torch.int32), val=value[order],
+        t_order=t_order, t_row_ptr=_row_ptr(senders, num_nodes),
+        t_col=receivers[t_order].to(torch.int32), t_val=value[t_order])
+
+
+def _csr_product(x, plan, val, t_val, edge_chunk_size):
+    """K1 over ``plan`` with values ``val``/``t_val``, for x of any trailing
+    shape [N, ...] (all heads and channels in one product)."""
+    if x.shape[0] != plan.num_nodes:
+        raise ValueError(f"x has {x.shape[0]} rows; the plan has "
+                         f"{plan.num_nodes} nodes")
+    flat = x.reshape(x.shape[0], -1)
+    out = CsrSpmm.apply(flat, (plan.row_ptr, plan.col, val),
+                        (plan.t_row_ptr, plan.t_col, t_val), edge_chunk_size)
+    return out.reshape(x.shape)
+
+
+def gcn_conv(x, senders, receivers, edge_weight=None, *, num_nodes=None,
+             edge_mask=None, indices_are_sorted=False, edge_chunk_size=None,
+             plan: Optional[CsrPlan] = None):
+    """``out[r] += value · x[s]`` over every edge, for float32 x of any
+    trailing shape (e.g. [N, H, D]: all heads in one product), through K1.
+
+    ``edge_mask`` marks real edges; padded edges point at a valid node and
+    are zeroed. ``indices_are_sorted`` is accepted as in the JAX package;
+    the plan's own sort makes it moot. ``edge_chunk_size`` keeps the JAX
+    package's meaning, at most that many [E, ...] messages at once: the
+    plain version streams the edges in chunks of it, and the kernel never
+    makes the messages at all. ``plan``, the graph's :class:`CsrPlan`
+    (``GraphData.csr_plan()``), replaces senders, receivers, edge_weight
+    and edge_mask, which are then not read; without it the call builds
+    one."""
+    del indices_are_sorted
+    if plan is None:
+        plan = build_csr_plan(senders, receivers,
+                              x.shape[0] if num_nodes is None else num_nodes,
+                              edge_weight, edge_mask)
+    return _csr_product(x, plan, plan.val, plan.t_val, edge_chunk_size)
+
+
+def spmm(values, senders, receivers, x, num_nodes=None, *,
+         indices_are_sorted=False, plan: Optional[CsrPlan] = None):
+    """Generic sparse @ dense: ``out[r] += values[e] · x[s]`` (COO), through
+    K1 with the caller's values, which get no gradient. ``plan`` (of the
+    same edges) saves the sort; its GCN values are not used."""
+    del indices_are_sorted
+    if plan is None:
+        plan = build_csr_plan(senders, receivers,
+                              x.shape[0] if num_nodes is None else num_nodes)
+    values = values.detach().float()
+    return _csr_product(x, plan, values[plan.order], values[plan.t_order],
+                        None)

@@ -1,0 +1,153 @@
+"""DIFFormer-s linear global attention ("simple" kernel), as
+``difformer_tpu/ops/linear_attention.py:28-224``.
+
+The O(N·d²) form: the N×L attention ``(1 + q·kᵀ) / (N + q·Σk)`` is never
+made; only the aggregates ``Σ_l k_l ⊗ v_l`` [H, M, D], ``Σ_l k_l`` [H, M]
+and ``Σ_l v_l`` [H, D] are, and each query is rescaled on its own.
+Reference semantics: ``node classification/difformer.py:10-43``.
+
+Kept from the reference on purpose: q and k are each divided by one
+Frobenius norm over the whole tensor (``torch.norm(qs, p=2)``), and the
+numerator adds the raw ``Σv`` and the denominator the query count N.
+
+These are dense contractions with no kernel of their own (the JAX package
+leaves them to XLA): ``torch.einsum`` and matmuls in float32, TF32 off.
+The node-sharded form (``axis_name``, one all-reduce per aggregate) belongs
+to the parallel layer and is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _no_axis(axis_name):
+    if axis_name is not None:
+        raise NotImplementedError(
+            "axis_name is not ported to difformer_tpu_torch yet (the parallel "
+            "layer, ROADMAP.md queue A item 10)")
+
+
+def _scalar(value, like):
+    """``jnp.asarray(value, dtype=like.dtype)`` on ``like``'s device."""
+    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+
+
+def _frobenius_normalize(t, axis_name=None):
+    """t / ||t||_F over the entire tensor, the sum of squares in float32."""
+    _no_axis(axis_name)
+    norm = torch.sqrt(t.float().square().sum())
+    return (t.float() / norm).to(t.dtype)
+
+
+def _key_count(ks, key_mask):
+    """The number of real keys, a float32 scalar tensor."""
+    if key_mask is not None:
+        return key_mask.float().sum()
+    return torch.tensor(float(ks.shape[0]), device=ks.device)
+
+
+def simple_attention_aggregates(ks, vs, key_mask=None):
+    """The global aggregates. ks [L,H,M] (already normalised), vs [L,H,D]
+    (or [L,1,D], broadcast over the heads).
+
+    Returns (kv [H,M,D], k_sum [H,M], v_sum [H,D], count []); with a
+    ``key_mask`` the padded rows are left out."""
+    count = _key_count(ks, key_mask)
+    if key_mask is not None:
+        m = key_mask.to(ks.dtype)[:, None, None]
+        ks = ks * m
+        vs = vs * m
+    kv = torch.einsum("lhm,lhd->hmd", ks, vs)
+    return kv, ks.sum(0), vs.sum(0), count
+
+
+def _rescale(qs, kv, k_sum, v_sum, num_queries):
+    """The head-averaged output [N, D]: each head divides by its own
+    denominator (q is scaled by it), then h and m contract in one matmul."""
+    denominator = torch.einsum("nhm,hm->nh", qs, k_sum) + _scalar(
+        num_queries, qs)
+    inv_den = 1.0 / denominator                       # [N, H]
+    q_scaled = qs * inv_den[..., None]
+    return (torch.einsum("nhm,hmd->nd", q_scaled, kv)
+            + inv_den @ v_sum) / qs.shape[1]
+
+
+def simple_attention_head_mean_factored(qs, ks, x, w, b, *, key_mask=None,
+                                        num_queries=None, axis_name=None):
+    """Head-mean DIFFormer-s attention with the value projection factored
+    through the key aggregates: ``simple_attention(qs, ks, x @ w + b,
+    head_mean=True)`` up to float reassociation, without the [N, H, D] value
+    tensor:
+
+        kv[h,m,d] = (Σ_l k[l,h,m]·x[l,f])·w[f,h,d] + k_sum[h,m]·b[h,d]
+        Σv[h,d]   = (Σ_l x[l])·w_h + count·b_h
+
+    qs/ks [N, H, M]; x [N, F]; w [F, H, D]; b [H, D] or None → [N, D]."""
+    _no_axis(axis_name)
+    count = _key_count(ks, key_mask)
+    if key_mask is not None:
+        m = key_mask.to(qs.dtype)[:, None, None]
+        ks = ks * m
+        if qs.shape[0] == ks.shape[0]:
+            qs = qs * m
+        x = x * key_mask.to(x.dtype)[:, None]
+    sumsq_q = qs.float().square().sum()
+    sumsq_k = ks.float().square().sum()
+    kx = torch.einsum("lhm,lf->hmf", ks, x)          # [H, M, F]
+    k_sum = ks.sum(0)                                 # [H, M]
+    x_sum = x.sum(0)                                  # [F]
+    if num_queries is None:
+        num_queries = qs.shape[0]
+    inv_scale = torch.rsqrt(sumsq_q) * torch.rsqrt(sumsq_k)
+
+    w = w.to(qs.dtype)
+    kv = torch.einsum("hmf,fhd->hmd", kx, w)
+    v_sum = torch.einsum("f,fhd->hd", x_sum.to(qs.dtype), w)
+    if b is not None:
+        b = b.to(qs.dtype)
+        kv = kv + k_sum[..., None] * b[:, None, :]
+        v_sum = v_sum + count.to(qs.dtype) * b
+    kv = (kv.float() * inv_scale).to(qs.dtype)
+    k_sum = (k_sum.float() * inv_scale).to(qs.dtype)
+    return _rescale(qs, kv, k_sum, v_sum, num_queries)
+
+
+def simple_attention(qs, ks, vs, *, key_mask=None, num_queries=None,
+                     output_attn=False, axis_name=None, head_mean=False):
+    """DIFFormer-s attention. qs [N,H,M], ks [L,H,M], vs [L,H,D] → [N,H,D].
+
+    ``num_queries`` overrides the ``+N`` denominator term. ``key_mask``
+    zeroes padded keys (and the queries too when N = L) before the norms,
+    so padding does not move them. ``head_mean=True`` returns the
+    head-averaged [N, D] directly, with the Frobenius scalars folded onto
+    the small aggregates (float reassociation only). ``output_attn`` also
+    returns the explicit [N, L, H] attention, divided by the intended
+    [N, 1, H] normaliser (the reference's [N, H, 1] fails for H > 1)."""
+    _no_axis(axis_name)
+    if key_mask is not None:
+        m = key_mask.to(qs.dtype)[:, None, None]
+        ks = ks * m
+        if qs.shape[0] == ks.shape[0]:  # queries == keys on every model path
+            qs = qs * m
+    if num_queries is None:
+        num_queries = qs.shape[0]
+    if head_mean and not output_attn:
+        inv_scale = (torch.rsqrt(qs.float().square().sum())
+                     * torch.rsqrt(ks.float().square().sum()))
+        kv, k_sum, v_sum, _ = simple_attention_aggregates(ks, vs, key_mask)
+        kv = (kv.float() * inv_scale).to(qs.dtype)
+        k_sum = (k_sum.float() * inv_scale).to(qs.dtype)
+        return _rescale(qs, kv, k_sum, v_sum, num_queries)
+    qs = _frobenius_normalize(qs)
+    ks = _frobenius_normalize(ks)
+    kv, k_sum, v_sum, _ = simple_attention_aggregates(ks, vs, key_mask)
+    denominator = torch.einsum("nhm,hm->nh", qs, k_sum) + _scalar(
+        num_queries, qs)
+    numerator = torch.einsum("nhm,hmd->nhd", qs, kv) + v_sum[None]
+    out = numerator / denominator[..., None]
+    if output_attn:
+        attn = (torch.einsum("nhm,lhm->nlh", qs, ks)
+                / denominator[:, None, :])
+        return out, attn
+    return out

@@ -1,8 +1,8 @@
 """Segment reductions, as ``difformer_tpu/ops/segment.py:18``.
 
 The JAX package uses XLA's scatter-add (``jax.ops.segment_sum``); here it is
-``index_add_``. A hand-written CSR SpMM for the GCN branch is later work
-(ROADMAP.md, queue B, K1).
+``index_add_``. It counts degrees when a graph's CSR plan is built; the GCN
+branch itself runs the CSR SpMM K1 (``kernels/spmm.py``).
 """
 
 from __future__ import annotations

@@ -4,11 +4,13 @@
 Replaces the reference's script loop (``node classification/main.py:104-158``):
 seeded runs, a full-graph forward and backward per epoch, an eval every
 ``eval_step`` epochs with best-validation tracking. The graph stays on the
-device for the whole run.
+device for the whole run, and so does its CSR plan, built once for the
+GCN branch's kernel: a step does no sort and no degree pass.
 
 Ported so far: ``init_state``, ``train_step``, ``evaluate``, the per-epoch
 ``fit`` and ``evaluate_params``, with the NLL loss and accuracy (the only
-loss and metric of node classification's DIFFormer-a path). The
+loss and metric of node classification's DIFFormer-s and DIFFormer-a
+paths). The
 epoch-scanned path, checkpointing, ``manireg``, the BCE/MSE losses, the other
 metrics and extra model keywords are later work (ROADMAP.md, queue A
 item 2).
@@ -56,9 +58,11 @@ def idx_to_mask(idx, n):
 class FullBatchTrainer:
     """Train a node-level model on one (full) graph.
 
-    ``model(x, senders, receivers, edge_weight, generator=g)`` gives the
-    logits; in train mode it draws its dropout masks from ``g``. The graph
-    and the model are moved to ``device`` (the GPU unless told otherwise).
+    ``model(x, senders, receivers, edge_weight, generator=g, plan=p)``
+    gives the logits; in train mode it draws its dropout masks from ``g``,
+    and its graph branch runs on ``p``, the graph's CSR plan. The graph and
+    the model are moved to ``device`` (the GPU unless told otherwise), and
+    the plan is built there once.
     """
 
     def __init__(self, model, graph: GraphData, labels, *, lr: float = 1e-2,
@@ -66,6 +70,7 @@ class FullBatchTrainer:
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.graph = graph.to(self.device)
+        self.plan = self.graph.csr_plan()
         self.lr = lr
         self.weight_decay = weight_decay
         self.seed = seed
@@ -93,7 +98,7 @@ class FullBatchTrainer:
         g = self.graph
         return self.model(g.node_feat, g.senders, g.receivers, g.edge_weight,
                           node_mask=g.node_mask, edge_mask=g.edge_mask,
-                          generator=generator)
+                          generator=generator, plan=self.plan)
 
     # -- public API ----------------------------------------------------------
     def train_step(self, state: TrainState, generator, train_mask):

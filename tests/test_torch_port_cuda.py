@@ -9,9 +9,10 @@ machine without it:
 Tolerances: each kernel against its plain version under the one rule of
 ``difformer_tpu_torch/kernels/tolerance.py`` (float32 at the JAX package's
 own tolerances, the unnormalized numerator per unit of its row's
-denominator, bfloat16 relative to the largest reference value); the model's
-logits and gradients rtol 1e-3 / atol 1e-4 (layers of kernel-vs-plain
-float32 rounding).
+denominator, bfloat16 relative to the largest reference value, the CSR
+SpMM K1 at the forward's float32 tolerance); the model's logits and
+gradients rtol 1e-3 / atol 1e-4 (layers of kernel-vs-plain float32
+rounding).
 """
 
 import numpy as np
@@ -21,7 +22,9 @@ import torch
 from difformer_tpu_torch import DIFFormer, FullBatchTrainer, GraphData
 from difformer_tpu_torch.data import random_graph, standard_preprocess
 from difformer_tpu_torch.kernels import sigmoid_attention as K
+from difformer_tpu_torch.kernels import spmm as K1
 from difformer_tpu_torch.kernels.tolerance import assert_close
+from difformer_tpu_torch.ops.graph_ops import build_csr_plan, gcn_conv
 from torch_port_helpers import cuda, make_inputs  # noqa: F401
 from torch_port_helpers import to_torch as _t
 
@@ -266,6 +269,164 @@ def test_trainer_steps_match_cpu(cuda):
     losses = []
     for device in (cuda, "cpu"):
         model, g, y = _model_and_graph(device)
+        trainer = FullBatchTrainer(model, g, y, lr=1e-3, weight_decay=0.01,
+                                   device=device)
+        state = trainer.init_state(0)
+        mask = torch.zeros(500, dtype=torch.bool, device=device)
+        mask[:100] = True
+        run = []
+        for _ in range(3):
+            state, loss = trainer.train_step(state, None, mask)
+            run.append(loss.item())
+        losses.append(run)
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-3, atol=1e-4)
+
+
+# --- K1, the CSR SpMM of the GCN branch -------------------------------------
+
+def _spmm_graph(kind):
+    """(senders, receivers, N, edge_weight, edge_mask) as numpy: the
+    synthetic graphs of Cora's and PubMed's size that chip_smoke.py uses,
+    or a ragged one (unsorted edges, weights, a mask, rows empty in both
+    CSRs)."""
+    if kind == "ragged":
+        rng = np.random.default_rng(5)
+        n, e = 1000, 6000
+        return (rng.integers(0, 950, e), rng.integers(0, 900, e), n,
+                rng.uniform(0.2, 2.0, e).astype(np.float32),
+                rng.random(e) > 0.2)
+    n, e, f = (2708, 10556, 1433) if kind == "cora" else (19717, 44324, 500)
+    _, ei, _ = random_graph(n, e, f, 7, seed=42, homophily=0.8)
+    ei = standard_preprocess(ei, n)
+    return ei[0], ei[1], n, None, None
+
+
+def _spmm_plan(cuda, kind):
+    s, r, n, w, mask = _spmm_graph(kind)
+    t = lambda a: None if a is None else torch.as_tensor(a).to(cuda)
+    return build_csr_plan(t(s), t(r), n, t(w), t(mask))
+
+
+SPMM_SHAPES = [("cora", 64), ("cora", 65), ("cora", 512), ("cora", 1),
+               ("cora", 6), ("ragged", 48), ("pubmed", 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,width", SPMM_SHAPES)
+def test_spmm_kernel_matches_plain(cuda, kind, width):
+    """Forward and transposed CSR, float4 rows (W % 4 == 0) and scalar
+    ones (W = 1, 6, 65), each launch counted once."""
+    plan = _spmm_plan(cuda, kind)
+    x = torch.randn((plan.num_nodes, width),
+                    generator=torch.Generator().manual_seed(width)).to(cuda)
+    K1.reset_launch_counts()
+    for name, csr in (("csr_spmm", (plan.row_ptr, plan.col, plan.val)),
+                      ("csr_spmm_transposed",
+                       (plan.t_row_ptr, plan.t_col, plan.t_val))):
+        out = K1.csr_spmm(x, *csr, transposed=name != "csr_spmm")
+        torch.cuda.synchronize()
+        assert_close(name, out, K1.csr_spmm_plain(x, *csr), "spmm")
+    assert K1.LAUNCHES == {"csr_spmm": 1, "csr_spmm_transposed": 1}
+
+
+@pytest.mark.cuda
+def test_spmm_reads_strided_and_offset_inputs(cuda):
+    """Strided views are copied to rows; a contiguous view that starts 4
+    bytes in (no 16-byte alignment) takes the scalar loads at W = 64."""
+    plan = _spmm_plan(cuda, "ragged")
+    n = plan.num_nodes
+    base = torch.randn((n, 65), device=cuda)
+    offset = torch.randn(n * 64 + 1, device=cuda)[1:].view(n, 64)
+    assert offset.is_contiguous() and offset.data_ptr() % 16 != 0
+    csr = (plan.row_ptr, plan.col, plan.val)
+    for x in (base[:, 1:], base.t().contiguous().t()[:, :64], offset):
+        assert_close("strided", K1.csr_spmm(x, *csr),
+                     K1.csr_spmm_plain(x, *csr), "spmm")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cora", "ragged"])
+def test_spmm_is_deterministic(cuda, kind):
+    """Each row is summed by one group of lanes in CSR order, without
+    atomics: two launches are bit-equal."""
+    plan = _spmm_plan(cuda, kind)
+    x = torch.randn((plan.num_nodes, 64), device=cuda)
+    for csr in ((plan.row_ptr, plan.col, plan.val),
+                (plan.t_row_ptr, plan.t_col, plan.t_val)):
+        assert torch.equal(K1.csr_spmm(x, *csr), K1.csr_spmm(x, *csr))
+
+
+@pytest.mark.cuda
+def test_spmm_zero_edges_launch_nothing(cuda):
+    empty = torch.zeros(0, dtype=torch.long, device=cuda)
+    x = torch.randn((5, 3), device=cuda, requires_grad=True)
+    K1.reset_launch_counts()
+    out = gcn_conv(x, empty, empty)
+    out.sum().backward()
+    assert not out.any() and not x.grad.any()
+    assert K1.LAUNCHES == {"csr_spmm": 0, "csr_spmm_transposed": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trailing", [(64,), (8, 64), (65,)])
+def test_gcn_conv_backward_matches_autograd_through_plain(cuda, trailing):
+    """The backward's transposed CSR on the card against the CPU, where
+    the same autograd Function runs the plain version."""
+    s, r, n, w, mask = _spmm_graph("ragged")
+    x = torch.randn((n,) + trailing, generator=torch.Generator().manual_seed(1))
+    cot = torch.randn((n,) + trailing,
+                      generator=torch.Generator().manual_seed(2))
+    results = []
+    for device in (cuda, "cpu"):
+        t = lambda a: torch.as_tensor(a).to(device)
+        xs = x.to(device).requires_grad_()
+        K1.reset_launch_counts()
+        out = gcn_conv(xs, t(s), t(r), t(w), edge_mask=t(mask))
+        out.backward(cot.to(device))
+        results.append((out.detach().cpu(), xs.grad.cpu(), dict(K1.LAUNCHES)))
+    (out_g, dx_g, launches), (out_c, dx_c, _) = results
+    assert launches == {"csr_spmm": 1, "csr_spmm_transposed": 1}
+    assert_close("out", out_g, out_c, "spmm")
+    assert_close("dx", dx_g, dx_c, "spmm")
+
+
+def _simple_model_and_graph(device, heads, **flags):
+    x, ei, y = random_graph(500, 2000, 32, 5, seed=1, homophily=0.7)
+    ei = standard_preprocess(ei, 500)
+    model = DIFFormer(32, 64, 5, num_layers=3, num_heads=heads,
+                      kernel="simple", dropout=0.0, seed=5, device=device,
+                      **flags)
+    return model, GraphData.from_numpy(x, ei, device=device), y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,flags", [(1, {}), (8, {"spmm_first": "auto"}),
+                                         (2, {"fuse_head_mean": False})])
+def test_simple_model_logits_and_grads_match_cpu(cuda, heads, flags):
+    """DIFFormer-s through K1 on the card against the CPU; every layer
+    launches K1 once forward and once transposed."""
+    results = []
+    for device in (cuda, "cpu"):
+        model, g, _ = _simple_model_and_graph(device, heads, **flags)
+        K1.reset_launch_counts()
+        out = model(g.node_feat, g.senders, g.receivers, plan=g.csr_plan())
+        out.square().sum().backward()
+        results.append((out.detach().cpu(),
+                        {n: p.grad.cpu() for n, p in model.named_parameters()},
+                        dict(K1.LAUNCHES)))
+    (out_g, grads_g, launches), (out_c, grads_c, _) = results
+    assert launches == {"csr_spmm": 3, "csr_spmm_transposed": 3}
+    torch.testing.assert_close(out_g, out_c, **GRAD)
+    for name in grads_c:
+        torch.testing.assert_close(grads_g[name], grads_c[name], **GRAD,
+                                   msg=name)
+
+
+@pytest.mark.cuda
+def test_simple_trainer_steps_match_cpu(cuda):
+    losses = []
+    for device in (cuda, "cpu"):
+        model, g, y = _simple_model_and_graph(device, 1)
         trainer = FullBatchTrainer(model, g, y, lr=1e-3, weight_decay=0.01,
                                    device=device)
         state = trainer.init_state(0)

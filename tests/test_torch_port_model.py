@@ -1,4 +1,5 @@
-"""DIFFormer-a in the port against the JAX package's, on carried weights.
+"""DIFFormer-s and DIFFormer-a in the port against the JAX package's, on
+carried weights.
 
 Both models get the same weights (the JAX init, carried over with
 ``difformer_tpu_torch.utils.weights``) and the same numpy inputs; the port
@@ -33,8 +34,8 @@ def _graph():
             y)
 
 
-def _models(heads, **flags):
-    kw = dict(num_layers=2, num_heads=heads, kernel="sigmoid", dropout=0.0,
+def _models(heads, kernel="sigmoid", **flags):
+    kw = dict(num_layers=2, num_heads=heads, kernel=kernel, dropout=0.0,
               **flags)
     jm = JDIFFormer(hidden_channels=HIDDEN, out_channels=C, **kw)
     jg, tg, y = _graph()
@@ -56,18 +57,47 @@ VARIANTS = [
 ]
 
 
-@pytest.mark.parametrize("heads,flags", VARIANTS)
-def test_logits_and_grads_match_jax(heads, flags):
-    jm, params, jg, tm, tg, y = _models(heads, **flags)
+# DIFFormer-s at HIDDEN = 16: spmm_first's "auto" is on from H = 3
+# (H·D ≥ 2·(F+1) = 34) and fuse_head_mean's from H = 2; a fused layer with
+# a value projection factors Wv through the key aggregates
+SIMPLE_VARIANTS = [
+    (1, {}),
+    (2, {}),
+    (2, {"fuse_head_mean": False}),
+    (1, {"fuse_head_mean": True}),
+    (2, {"use_graph": False}),
+    (1, {"graph_weight": 0.7}),
+    (2, {"graph_weight": 0.7, "use_source": True}),
+    (1, {"use_weight": False}),
+    (2, {"use_weight": False, "fuse_head_mean": True}),
+    (1, {"use_weight": False, "use_residual": False, "use_bn": False}),
+    (1, {"spmm_first": True}),
+    (2, {"spmm_first": True}),
+    (2, {"spmm_first": True, "fuse_head_mean": False, "graph_weight": 0.7}),
+    (4, {"spmm_first": "auto"}),
+    (2, {"spmm_first": "auto", "fuse_head_mean": "auto"}),
+]
+
+
+def _check_logits_and_grads(heads, kernel, flags, call_t=None, **call):
+    """Logits and every parameter's gradient of ``sum(out * w)``; the JAX
+    model gets ``call``, the port's ``call_t`` (default: the same)."""
+    jm, params, jg, tm, tg, y = _models(heads, kernel, **flags)
     w = np.random.default_rng(0).normal(size=(N, C)).astype(np.float32)
+    call_j = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+              for k, v in call.items()}
+    if call_t is None:
+        call_t = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                  for k, v in call.items()}
 
     def loss_j(p):
-        out = jm.apply({"params": p}, jg.node_feat, jg.senders, jg.receivers)
+        out = jm.apply({"params": p}, jg.node_feat, jg.senders, jg.receivers,
+                       **call_j)
         return jnp.sum(out * w), out
 
     (_, out_j), grads_j = jax.value_and_grad(loss_j, has_aux=True)(params)
 
-    out_t = tm(tg.node_feat, tg.senders, tg.receivers)
+    out_t = tm(tg.node_feat, tg.senders, tg.receivers, **call_t)
     (out_t * torch.from_numpy(w)).sum().backward()
     np.testing.assert_allclose(out_t.detach().numpy(), np.asarray(out_j),
                                **TOL)
@@ -82,8 +112,68 @@ def test_logits_and_grads_match_jax(heads, flags):
                                    err_msg=jax.tree_util.keystr(path))
 
 
-def test_output_attn_matches_jax():
-    jm, params, jg, tm, tg, _ = _models(2, graph_weight=0.7)
+@pytest.mark.parametrize("heads,flags", VARIANTS)
+def test_logits_and_grads_match_jax(heads, flags):
+    _check_logits_and_grads(heads, "sigmoid", flags)
+
+
+@pytest.mark.parametrize("heads,flags", SIMPLE_VARIANTS)
+def test_simple_logits_and_grads_match_jax(heads, flags):
+    _check_logits_and_grads(heads, "simple", flags)
+
+
+def _call_options():
+    rng = np.random.default_rng(3)
+    node_mask = rng.random(N) > 0.2
+    _, tg, _ = _graph()
+    edge_mask = rng.random(tg.num_edges) > 0.3
+    return {
+        "node_mask": dict(node_mask=node_mask),
+        "num_nodes_global": dict(num_nodes_global=57),
+        "edge_mask": dict(edge_mask=edge_mask),
+        "edge_chunk_size": dict(edge_chunk_size=64),
+        "indices_are_sorted": dict(indices_are_sorted=True),
+    }
+
+
+@pytest.mark.parametrize("option", sorted(_call_options()))
+@pytest.mark.parametrize("heads,flags", [(1, {}), (2, {"spmm_first": True})])
+def test_simple_call_options_match_jax(heads, flags, option):
+    _check_logits_and_grads(heads, "simple", flags,
+                            **_call_options()[option])
+
+
+@pytest.mark.parametrize("heads", [1, 2])
+def test_graph_plan_replaces_the_edges(heads):
+    """The graph's CSR plan, passed in, gives what the edges give."""
+    _, tg, _ = _graph()
+    edge_mask = np.random.default_rng(4).random(tg.num_edges) > 0.3
+    tg.edge_mask = torch.from_numpy(edge_mask)
+    _check_logits_and_grads(heads, "simple", {"spmm_first": True},
+                            call_t=dict(plan=tg.csr_plan()),
+                            edge_mask=edge_mask)
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(kernel="simple"),
+    dict(kernel="sigmoid", spmm_first=True),
+    dict(kernel="sigmoid", num_heads=4, spmm_first="auto"),
+    dict(kernel="sigmoid", fuse_head_mean=True),
+    dict(kernel="sigmoid", call=dict(edge_chunk_size=64)),
+])
+def test_formerly_unported_options_match_jax(kwargs):
+    """Options the port raised on before DIFFormer-s was ported. The JAX
+    package runs the sigmoid kernel with spmm_first, and with
+    fuse_head_mean=True simply does not fuse (fusion needs the simple
+    kernel)."""
+    kwargs = dict(kwargs)
+    call = kwargs.pop("call", {})
+    _check_logits_and_grads(kwargs.pop("num_heads", 1), kwargs.pop("kernel"),
+                            kwargs, **call)
+
+
+def _check_output_attn(kernel):
+    jm, params, jg, tm, tg, _ = _models(2, kernel, graph_weight=0.7)
     out_j, attn_j = jm.apply({"params": params}, jg.node_feat, jg.senders,
                              jg.receivers, output_attn=True)
     out_t, attn_t = tm(tg.node_feat, tg.senders, tg.receivers,
@@ -93,6 +183,16 @@ def test_output_attn_matches_jax():
                                **TOL)
     np.testing.assert_allclose(attn_t.detach().numpy(), np.asarray(attn_j),
                                **TOL)
+
+
+def test_output_attn_matches_jax():
+    _check_output_attn("sigmoid")
+
+
+def test_simple_output_attn_matches_jax():
+    """DIFFormer-s's [L, N, N, H] attention, with the [N, 1, H] normaliser
+    (fusion and spmm_first are off under output_attn)."""
+    _check_output_attn("simple")
 
 
 def test_weight_carry_round_trips_exactly():
@@ -136,10 +236,10 @@ def test_init_is_seeded_and_uniform():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(kernel="simple"),
-    dict(kernel="sigmoid", spmm_first=True),
-    dict(kernel="sigmoid", num_heads=4, spmm_first="auto"),
-    dict(kernel="sigmoid", fuse_head_mean=True),
+    dict(kernel="simple", compute_dtype="bfloat16"),
+    dict(kernel="simple", remat=True),
+    dict(kernel="simple", axis_name="graph"),
+    dict(kernel="simple", num_heads=2, fuse_head_mean=True, remat=True),
     dict(kernel="sigmoid", compute_dtype="bfloat16"),
     dict(kernel="sigmoid", remat=True),
     dict(kernel="sigmoid", axis_name="graph"),
@@ -150,12 +250,13 @@ def test_unsupported_options_raise(kwargs):
 
 
 @pytest.mark.parametrize("call_kw", [dict(ell=(1, 2)), dict(halo=(1,)),
-                                     dict(edge_chunk_size=64)])
+                                     dict(halo={"send_idx": 1})])
 def test_unsupported_call_options_raise(call_kw):
-    tm = DIFFormer(F, HIDDEN, C, kernel="sigmoid", device="cpu")
     _, tg, _ = _graph()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm(tg.node_feat, tg.senders, tg.receivers, **call_kw)
+    for kernel in ("sigmoid", "simple"):
+        tm = DIFFormer(F, HIDDEN, C, kernel=kernel, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tm(tg.node_feat, tg.senders, tg.receivers, **call_kw)
 
 
 def test_spmm_first_auto_stays_off_at_one_head():

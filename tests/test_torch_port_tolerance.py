@@ -2,15 +2,17 @@
 (difformer_tpu_torch/kernels/tolerance.py) must tell a wrong output from a
 right one at the sizes the kernels are checked at: an output of zeros, or
 one whose rows are each moved one place down, fails; the plain version with
-a rounding step's noise passes. Runs on the CPU through the plain versions;
-imports no JAX.
+a rounding step's noise passes. Runs on the CPU through the plain versions
+(the flash sigmoid attention's K2–K4 and the CSR SpMM K1); imports no JAX.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from difformer_tpu_torch.data import random_graph, standard_preprocess
 from difformer_tpu_torch.kernels import sigmoid_attention as K
+from difformer_tpu_torch.kernels import spmm as K1
 from difformer_tpu_torch.kernels.tolerance import assert_close, limit
 from torch_port_helpers import make_inputs
 from torch_port_helpers import to_torch as _t
@@ -74,6 +76,44 @@ def test_accepts_rounding_noise(dtype, name):
         [-1.0, 1.0], size=tuple(ref.shape)).astype(np.float32))
     noisy = (ref.float() * (1 + step * sign)).to(ref.dtype)
     assert assert_close(name, noisy, ref, KIND[name], den=den_u) >= 0
+
+
+def _spmm_outputs():
+    """K1's forward and transposed outputs (plain version) on a graph of
+    Cora's size at W = 64, as the GCN branch runs them."""
+    from difformer_tpu_torch.ops.graph_ops import build_csr_plan
+
+    n = 2708
+    _, ei, _ = random_graph(n, 10556, 1, 7, seed=42, homophily=0.8)
+    ei = torch.from_numpy(standard_preprocess(ei, n))
+    plan = build_csr_plan(ei[0], ei[1], n)
+    x = torch.from_numpy(
+        np.random.default_rng(33).normal(size=(n, 64)).astype(np.float32))
+    return {"forward": K1.csr_spmm_plain(x, plan.row_ptr, plan.col, plan.val),
+            "transposed": K1.csr_spmm_plain(x, plan.t_row_ptr, plan.t_col,
+                                            plan.t_val)}
+
+
+@pytest.mark.parametrize("wrong", ["zeros", "rows moved"])
+@pytest.mark.parametrize("direction", ["forward", "transposed"])
+def test_spmm_rejects_a_wrong_output(direction, wrong):
+    if "spmm" not in _CACHE:
+        _CACHE["spmm"] = _spmm_outputs()
+    ref = _CACHE["spmm"][direction]
+    bad = torch.zeros_like(ref) if wrong == "zeros" else ref.roll(1, 0)
+    with pytest.raises(AssertionError, match="out of the"):
+        assert_close(direction, bad, ref, "spmm")
+
+
+@pytest.mark.parametrize("direction", ["forward", "transposed"])
+def test_spmm_accepts_rounding_noise(direction):
+    if "spmm" not in _CACHE:
+        _CACHE["spmm"] = _spmm_outputs()
+    ref = _CACHE["spmm"][direction]
+    sign = torch.from_numpy(np.random.default_rng(34).choice(
+        [-1.0, 1.0], size=tuple(ref.shape)).astype(np.float32))
+    noisy = ref * (1 + 2.0 ** -24 * sign)
+    assert assert_close(direction, noisy, ref, "spmm") >= 0
 
 
 def test_numerator_limit_grows_with_its_denominator():
