@@ -41,6 +41,7 @@ import functools
 import torch
 
 from difformer_tpu_torch.kernels.build import load_library
+from difformer_tpu_torch.utils.device import on_cuda
 
 #: Kernel launches since the last :func:`reset_launch_counts`, by wrapper.
 LAUNCHES = {
@@ -120,17 +121,6 @@ def sigmoid_attention_dkv_plain(q, k, v, key_mask, dnum, dden):
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
-
-def _on_cuda(*tensors):
-    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
-    kinds = {t.device.type for t in tensors if t is not None}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"}:
-        return True
-    raise ValueError(f"sigmoid attention needs all tensors on one CUDA device "
-                     f"or all on the CPU, got {sorted(kinds)}")
-
 
 def _check(q, k, v, key_mask):
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
@@ -247,7 +237,7 @@ def sigmoid_attention_fwd(q, k, v, key_mask=None, *, normalize=True):
     numerator Σσ(q·k)·v in f32 instead of num/den (the form that partial
     results over key shards can be summed in)."""
     _check(q, k, v, key_mask)
-    if not _on_cuda(q, k, v, key_mask):
+    if not on_cuda("sigmoid attention", q, k, v, key_mask):
         return sigmoid_attention_fwd_plain(q, k, v, key_mask,
                                            normalize=normalize)
     n, h, _ = q.shape
@@ -278,7 +268,7 @@ def sigmoid_attention_dq(q, k, v, key_mask, dnum, dden):
     """K3. dq [N,H,M] in q's dtype from the cotangents dnum [N,H,D] and
     dden [N,H] of the raw numerator and denominator."""
     _check(q, k, v, key_mask)
-    if not _on_cuda(q, k, v, key_mask, dnum, dden):
+    if not on_cuda("sigmoid attention", q, k, v, key_mask, dnum, dden):
         return sigmoid_attention_dq_plain(q, k, v, key_mask, dnum, dden)
     dnum, dden = _grads_in(q, dnum, dden)
     dq = torch.empty(q.shape, device=q.device, dtype=q.dtype)
@@ -296,7 +286,7 @@ def sigmoid_attention_dq(q, k, v, key_mask, dnum, dden):
 def sigmoid_attention_dkv(q, k, v, key_mask, dnum, dden):
     """K4. (dk [L,H,M], dv [L,H,D]) in k's and v's dtype."""
     _check(q, k, v, key_mask)
-    if not _on_cuda(q, k, v, key_mask, dnum, dden):
+    if not on_cuda("sigmoid attention", q, k, v, key_mask, dnum, dden):
         return sigmoid_attention_dkv_plain(q, k, v, key_mask, dnum, dden)
     dnum, dden = _grads_in(q, dnum, dden)
     dk = torch.empty(k.shape, device=k.device, dtype=k.dtype)

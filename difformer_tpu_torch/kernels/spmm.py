@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from difformer_tpu_torch.kernels.build import load_library
+from difformer_tpu_torch.utils.device import on_cuda
 
 #: Kernel launches since the last :func:`reset_launch_counts`, by wrapper
 #: and direction.
@@ -53,8 +54,9 @@ def csr_spmm_plain(x, row_ptr, col, val, *, edge_chunk_size=None):
     rows = row_ptr.numel() - 1
     out = torch.zeros((rows, x.shape[1]), dtype=torch.float32,
                       device=x.device)
-    row = torch.repeat_interleave(
-        torch.arange(rows, device=x.device), (row_ptr[1:] - row_ptr[:-1]).long())
+    degrees = (row_ptr[1:] - row_ptr[:-1]).long()
+    row = torch.repeat_interleave(torch.arange(rows, device=x.device),
+                                  degrees)
     e = col.numel()
     step = edge_chunk_size or max(e, 1)
     for lo in range(0, e, step):
@@ -62,18 +64,6 @@ def csr_spmm_plain(x, row_ptr, col, val, *, edge_chunk_size=None):
         msg = x[col[lo:hi].long()] * val[lo:hi, None]
         out.index_add_(0, row[lo:hi], msg)
     return out
-
-
-def _on_cuda(*tensors):
-    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
-    devices = {t.device for t in tensors}
-    kinds = {d.type for d in devices}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"} and len(devices) == 1:
-        return True
-    raise ValueError(f"csr_spmm needs all tensors on one CUDA device or all "
-                     f"on the CPU, got {sorted(map(str, devices))}")
 
 
 def _check(x, row_ptr, col, val):
@@ -99,15 +89,15 @@ def csr_spmm(x, row_ptr, col, val, *, transposed=False, edge_chunk_size=None):
     applies to the plain version only, as the kernel never makes the
     [E, W] messages."""
     _check(x, row_ptr, col, val)
-    if not _on_cuda(x, row_ptr, col, val):
+    if not on_cuda("csr_spmm", x, row_ptr, col, val):
         return csr_spmm_plain(x, row_ptr, col, val,
                               edge_chunk_size=edge_chunk_size)
     rows, width = row_ptr.numel() - 1, x.shape[1]
     if col.numel() == 0 or rows == 0 or width == 0:
         return torch.zeros((rows, width), dtype=torch.float32,
                            device=x.device)
-    x = x.contiguous()
-    row_ptr, col, val = row_ptr.contiguous(), col.contiguous(), val.contiguous()
+    x, row_ptr = x.contiguous(), row_ptr.contiguous()
+    col, val = col.contiguous(), val.contiguous()
     out = torch.empty((rows, width), dtype=torch.float32, device=x.device)
     rc = load_library().csr_spmm(
         row_ptr.data_ptr(), col.data_ptr(), val.data_ptr(), x.data_ptr(),

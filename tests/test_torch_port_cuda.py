@@ -373,7 +373,8 @@ def test_gcn_conv_backward_matches_autograd_through_plain(cuda, trailing):
     """The backward's transposed CSR on the card against the CPU, where
     the same autograd Function runs the plain version."""
     s, r, n, w, mask = _spmm_graph("ragged")
-    x = torch.randn((n,) + trailing, generator=torch.Generator().manual_seed(1))
+    x = torch.randn((n,) + trailing,
+                    generator=torch.Generator().manual_seed(1))
     cot = torch.randn((n,) + trailing,
                       generator=torch.Generator().manual_seed(2))
     results = []

@@ -31,12 +31,15 @@ def _edges(seed, e=150, with_weight=False, with_mask=False):
     rng = np.random.default_rng(seed)
     s = rng.integers(0, N - 3, size=e).astype(np.int32)
     r = rng.integers(0, N - 5, size=e).astype(np.int32)
-    w = rng.uniform(0.2, 2.0, size=e).astype(np.float32) if with_weight else None
+    w = (rng.uniform(0.2, 2.0, size=e).astype(np.float32) if with_weight
+         else None)
     mask = (rng.random(e) > 0.25) if with_mask else None
     return s, r, w, mask
 
 
-def _t(a, dtype=None):
+def _t(a):
+    """numpy → torch, int32 indices widened to int64 as GraphData holds
+    them."""
     if a is None:
         return None
     t = torch.from_numpy(np.asarray(a))
