@@ -84,7 +84,8 @@ def _check(x, row_ptr, col, val):
 
 def csr_spmm(x, row_ptr, col, val, *, transposed=False, edge_chunk_size=None):
     """K1. x [*, W] float32 → out [R, W] float32 for the CSR
-    (``row_ptr`` [R+1], ``col`` [E], ``val`` [E]). ``transposed`` names the
+    (``row_ptr`` [R+1], ``col`` [E], ``val`` [E]), whose columns index rows
+    of x (``build_csr_plan`` checks its indices). ``transposed`` names the
     launch (the backward's CSR) in :data:`LAUNCHES`; ``edge_chunk_size``
     applies to the plain version only, as the kernel never makes the
     [E, W] messages."""
