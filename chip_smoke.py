@@ -16,8 +16,9 @@ non-zero before the last line:
    DIFFormer-a (forward with and without normalisation, dq, dk/dv) at four
    shapes, with the split S of each kernel's loop axis and the blocks it
    launches; and the GCN branch's CSR SpMM K1, forward and transposed, at
-   six shapes from Cora's to Pokec's size, with cuSPARSE's time for the
-   same product beside it. Each with its time and bound.
+   seven shapes from Cora's to Pokec's size (at Pokec's, with uniform and
+   with power-law degrees), with cuSPARSE's time for the same product
+   beside it. Each with its time and bound.
 4. slice: the cora preset as DIFFormer-a (hidden 64, 8 layers, 1 head) on a
    synthetic graph of Cora's size, trained with ``FullBatchTrainer.fit``;
    checks the losses, that every kernel ran as often as the path needs, and
@@ -78,6 +79,9 @@ SPMM_NAMES = ("csr_spmm", "csr_spmm_transposed")
 # Pokec's size (the pokec preset's graph, 1,632,803 nodes and 30,622,564
 # edges) at its hidden width
 POKEC_NODES, POKEC_EDGES = 1_632_803, 30_622_564
+# the power-law graph of Pokec's size: node ids drawn as floor(N·u^2) of a
+# uniform u, so a node's degree falls as its rank^(-1/2)
+POWER_LAW_EXPONENT = 2
 PLAIN_EDGE_CHUNK = 1 << 22  # the plain version's messages at Pokec's size
 EPOCHS = 20
 H8_STEPS = 3
@@ -119,21 +123,27 @@ def device_ms(fn, calls=20):
     own kernels, copies and sets over ``calls`` calls (torch.profiler),
     divided by ``calls``. Unlike :func:`cuda_ms` it leaves out the device's
     idle gaps, which set the event time of a call whose kernels take a few
-    microseconds and whose host side takes tens."""
+    microseconds and whose host side takes tens. A session that records
+    fewer device operations than calls lost some (the profiler now and then
+    returns none at all) and is run again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False))
-    return total / 1e3 / calls
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        if sum(e.count for e in events) >= calls:
+            return sum(e.self_device_time_total for e in events) / 1e3 / calls
+    raise RuntimeError(f"the profiler recorded fewer than {calls} device "
+                       f"operations in each of three sessions")
 
 
 def bound_ms(name, n, l, h, m, d, dtype):
@@ -200,7 +210,7 @@ def attention_case(n, l, h, m, d, dtype, masked, seed):
     return q, k, v, mask, cot
 
 
-def assert_rejects(label, ref, kind, den=None):
+def assert_rejects(label, ref, kind, den=None, scale=None):
     """The comparison must fail an output of zeros and one whose rows are
     each moved one place down: a check that passes either cannot tell a
     wrong kernel from a right one at this shape."""
@@ -209,7 +219,7 @@ def assert_rejects(label, ref, kind, den=None):
     for wrong, what in ((torch.zeros_like(ref), "zeros"),
                         (ref.roll(1, 0), "rows moved one place")):
         try:
-            assert_close(label, wrong, ref, kind, den)
+            assert_close(label, wrong, ref, kind, den, scale)
         except AssertionError:
             continue
         raise AssertionError(f"{label}: the tolerance passes {what}")
@@ -220,7 +230,9 @@ def phase_kernels():
     ``kernels/tolerance.py``: float32 at the JAX package's tolerances, the
     unnormalized numerator per unit of its row's denominator, bfloat16
     relative to the largest reference value. Each comparison is shown to
-    fail a wrong output of the same shape."""
+    fail a wrong output of the same shape. Times from CUDA events at every
+    shape, and at the slice's shape also the device time
+    (:func:`device_ms`), which the JSON line reports for every kernel."""
     from difformer_tpu_torch.kernels import sigmoid_attention as K
     from difformer_tpu_torch.kernels.tolerance import assert_close
 
@@ -285,14 +297,20 @@ def phase_kernels():
         for name, (err, kernel, plain) in cases.items():
             ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
             bound, bound_by = bound_ms(name, n, l, h, m, d, dtype)
+            device = ""
+            if idx == 0:
+                # the JSON line's times are device times, as K1's
+                dev_ms, dev_plain_ms = device_ms(kernel), device_ms(plain)
+                rows[name] = dict(max_abs_err=err, ms=dev_ms,
+                                  plain_ms=dev_plain_ms, bound_ms=bound,
+                                  bound_by=bound_by)
+                device = (f" | device {dev_ms:.4f} ms, plain "
+                          f"{dev_plain_ms:.4f} ms")
             say(f"phase kernels: {name:22s} {label:40s} max_abs_err "
                 f"{err:.3e} | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
                 f"bound {bound:.4f} ms by {bound_by} "
                 f"({100 * bound / ms:.1f}% of the kernel's time)"
-                f"{grids[name]}")
-            if idx == 0:
-                rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound, bound_by=bound_by)
+                f"{device}{grids[name]}")
         say(f"phase kernels: sigmoid_attention_fwd normalize=False "
             f"{label:40s} max_abs_err {e_unnorm:.3e} | kernel "
             f"{unnorm_ms:.4f} ms{grids['sigmoid_attention_fwd']}")
@@ -321,11 +339,14 @@ def cora_graph(f=1433):
 
 
 def spmm_shapes():
-    """(label, plan, W, plain edge chunk) at K1's six shapes, one at a
+    """(label, plan, W, plain edge chunk) at K1's seven shapes, one at a
     time: the slice's graph at the widths the model gives K1 (64; 65 under
     spmm_first; 8 heads of 64 unfused), a ragged graph (unsorted edges,
     edge_mask, edge_weight, empty rows of both CSRs), a graph of PubMed's
-    size and one of Pokec's, whose edges are drawn on the card."""
+    size, and two of Pokec's, whose edges are drawn on the card: one with
+    uniform senders and receivers (every row near the mean degree, 18.8)
+    and one with power-law in- and out-degrees, where one group of lanes
+    walks a row of tens of thousands of edges."""
     from difformer_tpu_torch.data import random_graph, standard_preprocess
     from difformer_tpu_torch.ops.graph_ops import build_csr_plan
 
@@ -354,6 +375,24 @@ def spmm_shapes():
     plan = build_csr_plan(senders, receivers, n)
     del senders, receivers
     yield "pokec", plan, 128, PLAIN_EDGE_CHUNK
+    del plan
+    senders = power_law_nodes(n, e, g)
+    receivers = power_law_nodes(n, e, g).sort().values
+    plan = build_csr_plan(senders, receivers, n)
+    del senders, receivers
+    most = [int((p[1:] - p[:-1]).max()) for p in (plan.row_ptr,
+                                                   plan.t_row_ptr)]
+    yield (f"pokec power-law (max in {most[0]}, out {most[1]})", plan, 128,
+           PLAIN_EDGE_CHUNK)
+
+
+def power_law_nodes(n, e, g):
+    """``e`` node ids on the card, rank ``floor(n·u^2)`` of a uniform u, so
+    the rank-i node is drawn with probability √(i+1) − √i ≈ 1/(2√i); the
+    ranks are shuffled over the ids."""
+    u = torch.rand(e, device="cuda", generator=g, dtype=torch.float64)
+    rank = (n * u.pow_(POWER_LAW_EXPONENT)).long().clamp_(max=n - 1)
+    return torch.randperm(n, device="cuda", generator=g)[rank]
 
 
 def library_spmm(row_ptr, col, val, n):
@@ -388,11 +427,12 @@ def phase_spmm_kernels():
                                               edge_chunk_size=chunk)
             library = library_spmm(ptr, col, val, n)
             out, ref = kernel(), plain()
+            scale = K1.csr_spmm_abs(x, ptr, col, val, edge_chunk_size=chunk)
             tag = f"{name} {label} N={n} E={e} W={w}"
-            err = assert_close(tag, out, ref, "spmm")
-            assert_rejects(tag, ref, "spmm")
+            err = assert_close(tag, out, ref, "spmm", scale=scale)
+            assert_rejects(tag, ref, "spmm", scale=scale)
             lib_err = (library(x) - ref).abs().max().item()
-            del out, ref
+            del out, ref, scale
             torch.cuda.synchronize()
             event_ms = cuda_ms(kernel)
             ms = device_ms(kernel)
@@ -695,6 +735,8 @@ def main():
     launches_s = phase_slice_s()
     phase_slice_s_h8()
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
+    # every ms, plain_ms and library_ms is a device time (device_ms) at the
+    # slice's shape
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name], "launches": launches[name],
@@ -703,7 +745,7 @@ def main():
          "bound_by": row["bound_by"], "library_ms": None}
         for name, row in rows.items()
     ] + [
-        # K1 on the main path, DIFFormer-s; times at the slice's shape
+        # K1 on the main path, DIFFormer-s
         {"name": name, "route": "cuda", "source": SPMM_SOURCE,
          "replaces": SPMM_REPLACES, "launches": launches_s[name], **row}
         for name, row in spmm_rows.items()

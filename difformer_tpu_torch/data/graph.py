@@ -17,6 +17,10 @@ import torch
 from difformer_tpu_torch.ops.graph_ops import CsrPlan, build_csr_plan
 from difformer_tpu_torch.utils.device import resolve_device
 
+# the fields the CSR plan is built from: assigning one drops the kept plan
+_PLAN_FIELDS = frozenset(
+    ("senders", "receivers", "edge_weight", "edge_mask", "num_nodes"))
+
 
 @dataclasses.dataclass
 class GraphData:
@@ -29,6 +33,11 @@ class GraphData:
     num_nodes: int = 0
     _csr_plan: Optional[CsrPlan] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+
+    def __setattr__(self, name, value):
+        if name in _PLAN_FIELDS:
+            object.__setattr__(self, "_csr_plan", None)
+        object.__setattr__(self, name, value)
 
     @property
     def num_edges(self):
@@ -66,8 +75,8 @@ class GraphData:
     def csr_plan(self) -> CsrPlan:
         """The CSR plan of the edges, with their GCN values (from
         ``edge_weight`` and ``edge_mask``), built at the first call on the
-        graph's device and kept: build a new graph, not a changed one, for
-        other edges."""
+        graph's device and kept until one of those fields is assigned anew
+        (a tensor changed in place is not seen)."""
         if self._csr_plan is None:
             self._csr_plan = build_csr_plan(
                 self.senders, self.receivers, self.num_nodes,

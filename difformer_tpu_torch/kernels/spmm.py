@@ -66,6 +66,14 @@ def csr_spmm_plain(x, row_ptr, col, val, *, edge_chunk_size=None):
     return out
 
 
+def csr_spmm_abs(x, row_ptr, col, val, *, edge_chunk_size=None):
+    """[R, W] float32: ``Σ |val[e]·x[col[e]]|`` over the edges of row r,
+    the scale of float32's rounding of K1's sums (the "spmm" kind of
+    ``kernels/tolerance.py``)."""
+    return csr_spmm_plain(x.abs(), row_ptr, col, val.abs(),
+                          edge_chunk_size=edge_chunk_size)
+
+
 def _check(x, row_ptr, col, val):
     if x.dim() != 2:
         raise ValueError(f"x must be [rows, W], got {tuple(x.shape)}")

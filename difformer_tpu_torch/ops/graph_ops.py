@@ -8,11 +8,13 @@ receivers and non-finite values set to 0.
 
 Both products here, :func:`gcn_conv` and :func:`spmm`, run the CSR SpMM K1
 (``kernels/spmm.py``) over a :class:`CsrPlan`: the receivers' CSR, the
-senders' (transposed) CSR for the backward, and the normalised values in
-both orders. The plan depends only on the graph's indices, ``edge_weight``
-and ``edge_mask``, so a caller that runs many products on one graph builds
-it once (``GraphData.csr_plan()``) and passes it; without one, each call
-builds its own, with a sort and a degree pass.
+senders' (transposed) CSR for the backward, and the values in both orders.
+``gcn_conv``'s plan, with the normalised values, depends only on the
+graph's indices, ``edge_weight`` and ``edge_mask``, so a caller that runs
+many convolutions on one graph builds it once (``GraphData.csr_plan()``)
+and passes it; without one, each call builds its own, with a sort and a
+degree pass. ``spmm`` takes its values from the caller and sorts its edges
+on every call.
 """
 
 from __future__ import annotations
@@ -66,19 +68,15 @@ def gcn_norm_weights_masked(senders, receivers, num_nodes, edge_weight,
 class CsrPlan:
     """The two CSRs of one graph's edges, for K1 and its backward.
 
-    ``order`` and ``t_order`` are the stable permutations of the edges (as
-    given) into receiver order and into sender order; ``row_ptr``/``col``
-    are the receivers' row pointers and the senders in receiver order,
-    ``t_row_ptr``/``t_col`` the senders' row pointers and the receivers in
-    sender order; ``val``/``t_val`` the GCN values of
-    :func:`gcn_norm_weights_masked` in the two orders."""
+    ``row_ptr``/``col`` are the receivers' row pointers and the senders in
+    receiver order, ``t_row_ptr``/``t_col`` the senders' row pointers and
+    the receivers in sender order (both orders stable); ``val``/``t_val``
+    the per-edge values in the two orders."""
 
     num_nodes: int
-    order: torch.Tensor        # int64 [E]
     row_ptr: torch.Tensor      # int32 [N + 1]
     col: torch.Tensor          # int32 [E]
     val: torch.Tensor          # float32 [E]
-    t_order: torch.Tensor      # int64 [E]
     t_row_ptr: torch.Tensor    # int32 [N + 1]
     t_col: torch.Tensor        # int32 [E]
     t_val: torch.Tensor        # float32 [E]
@@ -95,11 +93,10 @@ def _row_ptr(index, num_nodes):
     return ptr.to(torch.int32)
 
 
-def build_csr_plan(senders, receivers, num_nodes, edge_weight=None,
-                   edge_mask=None) -> CsrPlan:
-    """The :class:`CsrPlan` of edges (senders, receivers), in any order, on
-    their device. Checks that every index lies in [0, num_nodes) and that
-    E < 2³¹ (the kernel's int32 columns and row pointers)."""
+def _checked_edges(senders, receivers, num_nodes):
+    """(senders, receivers) as int64, after checking that every index lies
+    in [0, num_nodes) and that E < 2³¹ (the kernel's int32 columns and row
+    pointers)."""
     e = senders.numel()
     if receivers.shape != senders.shape or senders.dim() != 1:
         raise ValueError(f"senders and receivers must be [E], got "
@@ -111,27 +108,41 @@ def build_csr_plan(senders, receivers, num_nodes, edge_weight=None,
               or int(torch.maximum(senders.max(), receivers.max()))
               >= num_nodes):
         raise ValueError(f"edge indices must lie in [0, {num_nodes})")
-    value = gcn_norm_weights_masked(senders, receivers, num_nodes,
-                                    edge_weight, edge_mask).float()
+    return senders, receivers
+
+
+def _plan(senders, receivers, num_nodes, value) -> CsrPlan:
     order = torch.argsort(receivers, stable=True)
     t_order = torch.argsort(senders, stable=True)
     return CsrPlan(
         num_nodes=num_nodes,
-        order=order, row_ptr=_row_ptr(receivers, num_nodes),
+        row_ptr=_row_ptr(receivers, num_nodes),
         col=senders[order].to(torch.int32), val=value[order],
-        t_order=t_order, t_row_ptr=_row_ptr(senders, num_nodes),
+        t_row_ptr=_row_ptr(senders, num_nodes),
         t_col=receivers[t_order].to(torch.int32), t_val=value[t_order])
 
 
-def _csr_product(x, plan, val, t_val, edge_chunk_size):
-    """K1 over ``plan`` with values ``val``/``t_val``, for x of any trailing
-    shape [N, ...] (all heads and channels in one product)."""
+def build_csr_plan(senders, receivers, num_nodes, edge_weight=None,
+                   edge_mask=None) -> CsrPlan:
+    """The :class:`CsrPlan` of edges (senders, receivers), in any order, on
+    their device, with the GCN values of :func:`gcn_norm_weights_masked`.
+    Checks that every index lies in [0, num_nodes) and that E < 2³¹."""
+    senders, receivers = _checked_edges(senders, receivers, num_nodes)
+    value = gcn_norm_weights_masked(senders, receivers, num_nodes,
+                                    edge_weight, edge_mask).float()
+    return _plan(senders, receivers, num_nodes, value)
+
+
+def _csr_product(x, plan, edge_chunk_size):
+    """K1 over ``plan``, for x of any trailing shape [N, ...] (all heads and
+    channels in one product)."""
     if x.shape[0] != plan.num_nodes:
         raise ValueError(f"x has {x.shape[0]} rows; the plan has "
                          f"{plan.num_nodes} nodes")
     flat = x.reshape(x.shape[0], -1)
-    out = CsrSpmm.apply(flat, (plan.row_ptr, plan.col, val),
-                        (plan.t_row_ptr, plan.t_col, t_val), edge_chunk_size)
+    out = CsrSpmm.apply(flat, (plan.row_ptr, plan.col, plan.val),
+                        (plan.t_row_ptr, plan.t_col, plan.t_val),
+                        edge_chunk_size)
     return out.reshape(x.shape)
 
 
@@ -155,18 +166,16 @@ def gcn_conv(x, senders, receivers, edge_weight=None, *, num_nodes=None,
         plan = build_csr_plan(senders, receivers,
                               x.shape[0] if num_nodes is None else num_nodes,
                               edge_weight, edge_mask)
-    return _csr_product(x, plan, plan.val, plan.t_val, edge_chunk_size)
+    return _csr_product(x, plan, edge_chunk_size)
 
 
 def spmm(values, senders, receivers, x, num_nodes=None, *,
-         indices_are_sorted=False, plan: Optional[CsrPlan] = None):
+         indices_are_sorted=False):
     """Generic sparse @ dense: ``out[r] += values[e] · x[s]`` (COO), through
-    K1 with the caller's values, which get no gradient. ``plan`` (of the
-    same edges) saves the sort; its GCN values are not used."""
+    K1 with the caller's values, which get no gradient. Each call sorts the
+    edges into the two CSRs it needs."""
     del indices_are_sorted
-    if plan is None:
-        plan = build_csr_plan(senders, receivers,
-                              x.shape[0] if num_nodes is None else num_nodes)
-    values = values.detach().float()
-    return _csr_product(x, plan, values[plan.order], values[plan.t_order],
-                        None)
+    n = x.shape[0] if num_nodes is None else num_nodes
+    senders, receivers = _checked_edges(senders, receivers, n)
+    plan = _plan(senders, receivers, n, values.detach().float())
+    return _csr_product(x, plan, None)

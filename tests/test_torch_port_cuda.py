@@ -325,7 +325,8 @@ def test_spmm_kernel_matches_plain(cuda, kind, width):
                        (plan.t_row_ptr, plan.t_col, plan.t_val))):
         out = K1.csr_spmm(x, *csr, transposed=name != "csr_spmm")
         torch.cuda.synchronize()
-        assert_close(name, out, K1.csr_spmm_plain(x, *csr), "spmm")
+        assert_close(name, out, K1.csr_spmm_plain(x, *csr), "spmm",
+                     scale=K1.csr_spmm_abs(x, *csr))
     assert K1.LAUNCHES == {"csr_spmm": 1, "csr_spmm_transposed": 1}
 
 
@@ -341,7 +342,8 @@ def test_spmm_reads_strided_and_offset_inputs(cuda):
     csr = (plan.row_ptr, plan.col, plan.val)
     for x in (base[:, 1:], base.t().contiguous().t()[:, :64], offset):
         assert_close("strided", K1.csr_spmm(x, *csr),
-                     K1.csr_spmm_plain(x, *csr), "spmm")
+                     K1.csr_spmm_plain(x, *csr), "spmm",
+                     scale=K1.csr_spmm_abs(x, *csr))
 
 
 @pytest.mark.cuda
@@ -387,8 +389,14 @@ def test_gcn_conv_backward_matches_autograd_through_plain(cuda, trailing):
         results.append((out.detach().cpu(), xs.grad.cpu(), dict(K1.LAUNCHES)))
     (out_g, dx_g, launches), (out_c, dx_c, _) = results
     assert launches == {"csr_spmm": 1, "csr_spmm_transposed": 1}
-    assert_close("out", out_g, out_c, "spmm")
-    assert_close("dx", dx_g, dx_c, "spmm")
+    plan = _spmm_plan("cpu", "ragged")
+    flat = lambda a: a.reshape(n, -1)
+    scale_out = K1.csr_spmm_abs(flat(x), plan.row_ptr, plan.col, plan.val)
+    scale_dx = K1.csr_spmm_abs(flat(cot), plan.t_row_ptr, plan.t_col,
+                               plan.t_val)
+    assert_close("out", out_g, out_c, "spmm",
+                 scale=scale_out.reshape(out_c.shape))
+    assert_close("dx", dx_g, dx_c, "spmm", scale=scale_dx.reshape(dx_c.shape))
 
 
 def _simple_model_and_graph(device, heads, **flags):

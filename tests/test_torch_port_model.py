@@ -259,6 +259,23 @@ def test_unsupported_call_options_raise(call_kw):
             tm(tg.node_feat, tg.senders, tg.receivers, **call_kw)
 
 
-def test_spmm_first_auto_stays_off_at_one_head():
-    DIFFormer(F, HIDDEN, C, kernel="sigmoid", spmm_first="auto",
-              device="cpu")
+@pytest.mark.parametrize("kernel", ["sigmoid", "simple"])
+def test_spmm_first_auto_stays_off_at_one_head(kernel, monkeypatch):
+    """The layers' input is HIDDEN wide, so "auto" is on only when
+    H·HIDDEN ≥ 2·(HIDDEN+1): never at one head. The graph branch then
+    convolves the [N, 1, HIDDEN] values, not the HIDDEN+1 wide rows of
+    [x, 1]."""
+    from difformer_tpu_torch.nn import difformer as module
+    widths = []
+    real = module.gcn_conv
+
+    def recording(x, *args, **kwargs):
+        widths.append(tuple(x.shape[1:]))
+        return real(x, *args, **kwargs)
+
+    monkeypatch.setattr(module, "gcn_conv", recording)
+    _, tg, _ = _graph()
+    tm = DIFFormer(F, HIDDEN, C, kernel=kernel, spmm_first="auto",
+                   device="cpu")
+    tm(tg.node_feat, tg.senders, tg.receivers)
+    assert widths == [(1, HIDDEN)] * tm.num_layers

@@ -91,9 +91,14 @@ def test_gcn_conv_with_a_plan_matches_jax(trailing):
         _x(5, trailing), seed=6)
 
 
+@pytest.mark.parametrize("swapped", [False, True])
 @pytest.mark.parametrize("trailing", WIDTHS)
-def test_spmm_matches_jax(trailing):
+def test_spmm_matches_jax(trailing, swapped):
+    """Either orientation of the same edges (callers such as LINK pass
+    receivers as senders): spmm sorts whatever it is given."""
     s, r, _, _ = _edges(7)
+    if swapped:
+        s, r = r, s
     vals = np.random.default_rng(8).normal(size=s.shape).astype(np.float32)
     _check_vjp(lambda x: jops.spmm(_j(vals), _j(s), _j(r), x),
                lambda x: tops.spmm(_t(vals), _t(s), _t(r), x),
@@ -150,12 +155,11 @@ def test_plan_holds_both_csrs():
     s, r, w, mask = _edges(16, with_weight=True, with_mask=True)
     plan = tops.build_csr_plan(_t(s), _t(r), N, _t(w), _t(mask))
     value = tops.gcn_norm_weights_masked(_t(s), _t(r), N, _t(w), _t(mask))
-    for ptr, col, val, order, rows, cols in (
-            (plan.row_ptr, plan.col, plan.val, plan.order, r, s),
-            (plan.t_row_ptr, plan.t_col, plan.t_val, plan.t_order, s, r)):
+    for ptr, col, val, rows, cols in (
+            (plan.row_ptr, plan.col, plan.val, r, s),
+            (plan.t_row_ptr, plan.t_col, plan.t_val, s, r)):
         assert ptr.dtype == col.dtype == torch.int32
         want = np.argsort(rows, kind="stable")
-        np.testing.assert_array_equal(order.numpy(), want)
         np.testing.assert_array_equal(col.numpy(), cols[want])
         np.testing.assert_array_equal(val.numpy(), value.numpy()[want])
         np.testing.assert_array_equal(
@@ -182,6 +186,25 @@ def test_graph_data_keeps_its_plan():
     torch.testing.assert_close(moved.csr_plan().val, plan.val)
 
 
+@pytest.mark.parametrize("field", ["edge_mask", "edge_weight", "senders"])
+def test_graph_data_drops_its_plan_when_the_edges_change(field):
+    s, r, w, mask = _edges(23, with_weight=True, with_mask=True)
+    g = GraphData.from_numpy(np.zeros((N, 3), np.float32), np.stack([s, r]),
+                             w, device="cpu")
+    plan = g.csr_plan()
+    new = {"edge_mask": torch.from_numpy(mask),
+           "edge_weight": g.edge_weight * 2.0,
+           "senders": g.senders.flip(0)}[field]
+    setattr(g, field, new)
+    fresh = g.csr_plan()
+    assert fresh is not plan
+    want = tops.build_csr_plan(g.senders, g.receivers, N, g.edge_weight,
+                               g.edge_mask)
+    for name in ("col", "val", "t_col", "t_val"):
+        torch.testing.assert_close(getattr(fresh, name), getattr(want, name))
+    assert not torch.equal(fresh.val, plan.val)
+
+
 def test_plain_version_is_the_dense_product():
     s, r, _, _ = _edges(19)
     vals = np.random.default_rng(20).normal(size=s.shape).astype(np.float32)
@@ -189,11 +212,11 @@ def test_plain_version_is_the_dense_product():
     np.add.at(dense, (r, s), vals)
     x = _x(21, (6,))
     plan = tops.build_csr_plan(_t(s), _t(r), N)
-    for ptr, col, order, a in ((plan.row_ptr, plan.col, plan.order, dense),
-                               (plan.t_row_ptr, plan.t_col, plan.t_order,
-                                dense.T)):
+    for ptr, col, rows, a in ((plan.row_ptr, plan.col, r, dense),
+                              (plan.t_row_ptr, plan.t_col, s, dense.T)):
+        order = np.argsort(rows, kind="stable")
         out = K.csr_spmm_plain(torch.from_numpy(x), ptr, col,
-                               torch.from_numpy(vals)[order])
+                               torch.from_numpy(vals[order]))
         np.testing.assert_allclose(out.numpy(), a @ x, rtol=1e-5, atol=1e-5)
 
 

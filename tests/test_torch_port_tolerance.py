@@ -89,9 +89,10 @@ def _spmm_outputs():
     plan = build_csr_plan(ei[0], ei[1], n)
     x = torch.from_numpy(
         np.random.default_rng(33).normal(size=(n, 64)).astype(np.float32))
-    return {"forward": K1.csr_spmm_plain(x, plan.row_ptr, plan.col, plan.val),
-            "transposed": K1.csr_spmm_plain(x, plan.t_row_ptr, plan.t_col,
-                                            plan.t_val)}
+    csrs = {"forward": (plan.row_ptr, plan.col, plan.val),
+            "transposed": (plan.t_row_ptr, plan.t_col, plan.t_val)}
+    return {direction: (K1.csr_spmm_plain(x, *csr), K1.csr_spmm_abs(x, *csr))
+            for direction, csr in csrs.items()}
 
 
 @pytest.mark.parametrize("wrong", ["zeros", "rows moved"])
@@ -99,21 +100,34 @@ def _spmm_outputs():
 def test_spmm_rejects_a_wrong_output(direction, wrong):
     if "spmm" not in _CACHE:
         _CACHE["spmm"] = _spmm_outputs()
-    ref = _CACHE["spmm"][direction]
+    ref, scale = _CACHE["spmm"][direction]
     bad = torch.zeros_like(ref) if wrong == "zeros" else ref.roll(1, 0)
     with pytest.raises(AssertionError, match="out of the"):
-        assert_close(direction, bad, ref, "spmm")
+        assert_close(direction, bad, ref, "spmm", scale=scale)
 
 
 @pytest.mark.parametrize("direction", ["forward", "transposed"])
 def test_spmm_accepts_rounding_noise(direction):
     if "spmm" not in _CACHE:
         _CACHE["spmm"] = _spmm_outputs()
-    ref = _CACHE["spmm"][direction]
+    ref, scale = _CACHE["spmm"][direction]
     sign = torch.from_numpy(np.random.default_rng(34).choice(
         [-1.0, 1.0], size=tuple(ref.shape)).astype(np.float32))
     noisy = ref * (1 + 2.0 ** -24 * sign)
-    assert assert_close(direction, noisy, ref, "spmm") >= 0
+    assert assert_close(direction, noisy, ref, "spmm", scale=scale) >= 0
+
+
+def test_spmm_limit_grows_with_its_rows_sum_of_magnitudes():
+    """A hub row whose terms cancel: float32 may round its sum by steps of
+    the terms' magnitude sum, which the limit follows; without the sums
+    the limit cannot be formed."""
+    ref = torch.ones((2, 3))
+    scale = torch.tensor([[1.0], [1000.0]]).expand(2, 3)
+    lim = limit(ref, "spmm", scale=scale)
+    assert torch.allclose(lim[0], torch.full((3,), 1e-5 + 1e-4))
+    assert torch.allclose(lim[1], torch.full((3,), 1e-2 + 1e-4))
+    with pytest.raises(ValueError, match="sums of"):
+        limit(ref, "spmm")
 
 
 def test_numerator_limit_grows_with_its_denominator():

@@ -3,6 +3,7 @@ one GPU.
 
     python3 time_kernels.py [--kernel fwd dq dkv] [--blocks-per-sm 1 2 4]
                             [--root DIR]
+    python3 time_kernels.py --builds [ROUNDS]
 
 Builds the kernels, prints the compiler's register and spill report, then
 at each shape of ``chip_smoke.SHAPES`` and for each kernel chosen (all three
@@ -17,11 +18,20 @@ card in one call. Last, two yardsticks for the FP32 rate: the SM clock and
 power that ``nvidia-smi`` reads while the last kernel chosen runs at the
 last shape, and the rate of cuBLAS's FP32 GEMM (TF32 off) at 8192 x 8192 x
 8192. Imports nothing of JAX.
+
+``--builds`` times instead how long the CUDA sources take to compile, cold,
+by two designs, in ROUNDS rounds (default 2) of one then the other: every
+``csrc/*.cu`` in one ``nvcc`` into one library, and one ``nvcc`` for each
+source, all at once (``kernels/build.py``'s); and each source alone (what
+the second design recompiles after that source changes, where the first
+recompiles everything). It builds into a scratch directory under
+``difformer_tpu_torch/_build/`` and removes it.
 """
 
 from __future__ import annotations
 
 import argparse
+import shutil
 import statistics
 import subprocess
 import sys
@@ -94,15 +104,69 @@ def cases(K, q, k, v, mask, g):
     }
 
 
+def nvcc_seconds(*jobs):
+    """Wall seconds of ``jobs`` [(library, sources)], one ``nvcc`` each, all
+    started together."""
+    from difformer_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib),
+         *map(str, srcs)], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True) for lib, srcs in jobs]
+    try:
+        for proc in procs:
+            err = proc.communicate()[1]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {err}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return time.perf_counter() - t0
+
+
+def time_builds(rounds):
+    import chip_smoke as cs
+    from difformer_tpu_torch.kernels import build
+
+    smi = cs.nvidia_smi_line()
+    sources = sorted(build.SOURCE_DIR.glob("*.cu"))
+    scratch = build.BUILD_DIR / f"timing.{time.time_ns()}"
+    scratch.mkdir(parents=True)
+    try:
+        designs = {
+            "one nvcc, one library": [(scratch / "all.so", sources)],
+            "one nvcc per source, at once": [
+                (scratch / f"{src.stem}.so", [src]) for src in sources],
+        }
+        for r in range(rounds):
+            for name, jobs in (designs.items() if r % 2 == 0
+                               else reversed(designs.items())):
+                cs.say(f"time_kernels: cold build, {name}: "
+                       f"{nvcc_seconds(*jobs):.2f} s (round {r + 1})")
+        for src in sources:
+            cs.say(f"time_kernels: {src.name} alone: "
+                   f"{nvcc_seconds((scratch / 'one.so', [src])):.2f} s")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    cs.say(smi)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernel", nargs="+", choices=sorted(KERNELS),
                         default=list(KERNELS))
     parser.add_argument("--blocks-per-sm", type=int, nargs="*", default=[])
     parser.add_argument("--root", type=Path, default=None)
+    parser.add_argument("--builds", type=int, nargs="?", const=2,
+                        metavar="ROUNDS")
     args = parser.parse_args()
     if args.root is not None:
         sys.path.insert(0, str(args.root.resolve()))
+    if args.builds is not None:
+        return time_builds(args.builds)
 
     import torch
 
