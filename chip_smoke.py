@@ -17,8 +17,10 @@ non-zero before the last line:
    shapes, with the split S of each kernel's loop axis and the blocks it
    launches; and the GCN branch's CSR SpMM K1, forward and transposed, at
    seven shapes from Cora's to Pokec's size (at Pokec's, with uniform and
-   with power-law degrees), with cuSPARSE's time for the same product
-   beside it. Each with its time and bound.
+   with power-law degrees), with its split schedule of heavy rows, its
+   device kernels a call, two calls bit-equal, and cuSPARSE's time for the
+   same product beside it. Each with its time, its bound and (K1) the
+   gather floor.
 4. slice: the cora preset as DIFFormer-a (hidden 64, 8 layers, 1 head) on a
    synthetic graph of Cora's size, trained with ``FullBatchTrainer.fit``;
    checks the losses, that every kernel ran as often as the path needs, and
@@ -76,6 +78,9 @@ REPLACES = {
 SPMM_SOURCE = "difformer_tpu_torch/csrc/spmm.cu"
 SPMM_REPLACES = "difformer_tpu/ops/graph_ops.py:107"
 SPMM_NAMES = ("csr_spmm", "csr_spmm_transposed")
+# the K1 shapes of the JSON line, by label, with the suffix of their names
+SPMM_JSON = {"cora": "", "pokec": " pokec",
+             "pokec power-law": " pokec power-law"}
 # Pokec's size (the pokec preset's graph, 1,632,803 nodes and 30,622,564
 # edges) at its hidden width
 POKEC_NODES, POKEC_EDGES = 1_632_803, 30_622_564
@@ -85,6 +90,9 @@ POWER_LAW_EXPONENT = 2
 PLAIN_EDGE_CHUNK = 1 << 22  # the plain version's messages at Pokec's size
 EPOCHS = 20
 H8_STEPS = 3
+# device launches per train step of the slices with K1 before its split
+# schedule (commit 17d4e95), for comparison
+UNSPLIT_LAUNCHES = {"slice": 498, "slice-s": 938}
 
 
 def say(*parts):
@@ -118,14 +126,15 @@ def cuda_ms(fn, target_ms=100.0, max_iters=50):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, calls=20):
-    """Device time in ms of one call of ``fn``: the time of the device's
-    own kernels, copies and sets over ``calls`` calls (torch.profiler),
-    divided by ``calls``. Unlike :func:`cuda_ms` it leaves out the device's
-    idle gaps, which set the event time of a call whose kernels take a few
-    microseconds and whose host side takes tens. A session that records
-    fewer device operations than calls lost some (the profiler now and then
-    returns none at all) and is run again, up to three times."""
+def device_profile(fn, calls=20):
+    """(device ms, device operations) of one call of ``fn``: the time of the
+    device's own kernels, copies and sets over ``calls`` calls
+    (torch.profiler), and their number, each divided by ``calls``. Unlike
+    :func:`cuda_ms` the time leaves out the device's idle gaps, which set the
+    event time of a call whose kernels take a few microseconds and whose host
+    side takes tens. A session that records fewer device operations than
+    calls lost some (the profiler now and then returns none at all) and is
+    run again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -140,10 +149,17 @@ def device_ms(fn, calls=20):
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
-        if sum(e.count for e in events) >= calls:
-            return sum(e.self_device_time_total for e in events) / 1e3 / calls
+        count = sum(e.count for e in events)
+        if count >= calls:
+            return (sum(e.self_device_time_total for e in events) / 1e3
+                    / calls, count / calls)
     raise RuntimeError(f"the profiler recorded fewer than {calls} device "
                        f"operations in each of three sessions")
+
+
+def device_ms(fn, calls=20):
+    """Device time in ms of one call of ``fn`` (:func:`device_profile`)."""
+    return device_profile(fn, calls)[0]
 
 
 def bound_ms(name, n, l, h, m, d, dtype):
@@ -330,6 +346,14 @@ def spmm_bound_ms(n, e, w):
             "bytes" if t_bytes > t_ops else "operations", nbytes)
 
 
+def spmm_gather_floor_ms(n, e, w):
+    """The gather floor of one K1 product in ms, a diagnostic beside its
+    bound: every gathered row x[col[e]] (E·W floats), out, col, val and
+    row_ptr, each moved once from HBM with no reuse in L2. K1 can beat it
+    only where L2 holds rows that many edges gather."""
+    return 1e3 * (e * w + n * w + 2 * e + n + 1) * 4 / PEAK_BYTES
+
+
 def cora_graph(f=1433):
     """The slice's synthetic graph of Cora's size (numpy)."""
     from difformer_tpu_torch.data import random_graph, standard_preprocess
@@ -380,10 +404,7 @@ def spmm_shapes():
     receivers = power_law_nodes(n, e, g).sort().values
     plan = build_csr_plan(senders, receivers, n)
     del senders, receivers
-    most = [int((p[1:] - p[:-1]).max()) for p in (plan.row_ptr,
-                                                   plan.t_row_ptr)]
-    yield (f"pokec power-law (max in {most[0]}, out {most[1]})", plan, 128,
-           PLAIN_EDGE_CHUNK)
+    yield "pokec power-law", plan, 128, PLAIN_EDGE_CHUNK
 
 
 def power_law_nodes(n, e, g):
@@ -404,10 +425,14 @@ def library_spmm(row_ptr, col, val, n):
 def phase_spmm_kernels():
     """K1 forward (the receivers' CSR) and transposed (the senders' CSR,
     the backward) against its plain version at every shape, each
-    comparison shown to fail a wrong output; kernel, plain and cuSPARSE
-    device times (:func:`device_ms`) beside the bound, and the kernel's
-    event time (:func:`cuda_ms`, which the host's launch rate sets at the
-    small shapes)."""
+    comparison shown to fail a wrong output and two calls shown bit-equal;
+    the split schedule (T, heavy rows, segments) and the device kernels a
+    call, which must be one without heavy rows and two with them (the
+    segments' combine); kernel, plain and cuSPARSE device times
+    (:func:`device_profile`) beside the bound and the gather floor, and the
+    kernel's event time (:func:`cuda_ms`, which the host's launch rate sets
+    at the small shapes). Returns the JSON rows of the shapes in
+    ``SPMM_JSON``."""
     from difformer_tpu_torch.kernels import spmm as K1
     from difformer_tpu_torch.kernels.tolerance import assert_close
 
@@ -417,11 +442,13 @@ def phase_spmm_kernels():
         g = torch.Generator("cuda").manual_seed(100 + idx)
         x = torch.randn((n, w), device="cuda", generator=g)
         bound, bound_by, nbytes = spmm_bound_ms(n, e, w)
-        for name, (ptr, col, val) in zip(SPMM_NAMES, (
+        floor = spmm_gather_floor_ms(n, e, w)
+        for name, (ptr, col, val), split in zip(SPMM_NAMES, (
                 (plan.row_ptr, plan.col, plan.val),
-                (plan.t_row_ptr, plan.t_col, plan.t_val))):
+                (plan.t_row_ptr, plan.t_col, plan.t_val)),
+                (plan.split, plan.t_split)):
             transposed = name == "csr_spmm_transposed"
-            kernel = lambda: K1.csr_spmm(x, ptr, col, val,
+            kernel = lambda: K1.csr_spmm(x, ptr, col, val, split=split,
                                          transposed=transposed)
             plain = lambda: K1.csr_spmm_plain(x, ptr, col, val,
                                               edge_chunk_size=chunk)
@@ -431,24 +458,36 @@ def phase_spmm_kernels():
             tag = f"{name} {label} N={n} E={e} W={w}"
             err = assert_close(tag, out, ref, "spmm", scale=scale)
             assert_rejects(tag, ref, "spmm", scale=scale)
+            if not torch.equal(out, kernel()):
+                raise AssertionError(f"{tag}: two calls differ")
             lib_err = (library(x) - ref).abs().max().item()
+            most = int((ptr[1:] - ptr[:-1]).max())
             del out, ref, scale
             torch.cuda.synchronize()
             event_ms = cuda_ms(kernel)
-            ms = device_ms(kernel)
+            ms, kernels = device_profile(kernel)
             plain_ms = device_ms(plain)
             library_ms = device_ms(lambda: library(x))
-            say(f"phase kernels: {tag:52s} max_abs_err {err:.3e} | kernel "
-                f"{ms:.4f} ms (events {event_ms:.4f} ms) | plain "
+            expect = 2 if split.num_heavy else 1
+            say(f"phase kernels: {tag:52s} max_abs_err {err:.3e}, two calls "
+                f"bit-equal | largest degree {most}, T={split.threshold}: "
+                f"{split.num_heavy} heavy rows, {split.num_segments} "
+                f"segments | kernel {ms:.4f} ms in {kernels:g} device "
+                f"kernels a call (events {event_ms:.4f} ms) | plain "
                 f"{plain_ms:.4f} ms | cuSPARSE {library_ms:.4f} ms "
                 f"(max_abs_err {lib_err:.3e}) | bound {bound:.4f} ms by "
                 f"{bound_by} ({nbytes / 1e6:.2f} MB; {100 * bound / ms:.1f}% "
-                f"of the kernel's time) | gathered rows "
-                f"{e * w * 4 / 1e9:.4f} GB")
-            if idx == 0:
-                rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=bound, bound_by=bound_by,
-                                  library_ms=library_ms)
+                f"of the kernel's time) | gather floor {floor:.4f} ms "
+                f"({e * w * 4 / 1e9:.4f} GB of gathered rows; "
+                f"{100 * floor / ms:.1f}% of the kernel's time)")
+            if kernels != expect:
+                raise AssertionError(f"{tag}: {kernels:g} device kernels a "
+                                     f"call, expected {expect}")
+            if label in SPMM_JSON:
+                rows[f"{name}{SPMM_JSON[label]}"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=bound_by,
+                    library_ms=library_ms)
         del plan, x
         torch.cuda.empty_cache()
     return rows
@@ -462,7 +501,7 @@ class PlainSpmm:
     def apply(x, fwd, bwd, edge_chunk_size):
         from difformer_tpu_torch.kernels.spmm import csr_spmm_plain
 
-        return csr_spmm_plain(x, *fwd, edge_chunk_size=edge_chunk_size)
+        return csr_spmm_plain(x, *fwd[:3], edge_chunk_size=edge_chunk_size)
 
 
 def plain_attention(qs, ks, vs, *, key_mask=None):
@@ -714,10 +753,12 @@ def profile_steps(step, step_ms, phase, steps=5, top=12):
             f"measured)")
         return rows
     busy = sum(r[0] for r in rows)
+    before = (f" ({UNSPLIT_LAUNCHES[phase]} before K1's split schedule)"
+              if phase in UNSPLIT_LAUNCHES else "")
     say(f"phase {phase} profile: device time {busy:.4f} ms per train step "
         f"over {steps} steps = {100 * busy / step_ms:.1f}% of the "
         f"{step_ms:.3f} ms step (idle {100 * (1 - busy / step_ms):.1f}%), "
-        f"{sum(r[1] for r in rows)} launches per step")
+        f"{sum(r[1] for r in rows)} launches per step{before}")
     for ms, count, key in rows[:top]:
         say(f"phase {phase} profile: {ms:9.4f} ms/step "
             f"{100 * ms / busy:5.1f}% x{count:<3d} {key[:100]}")
@@ -736,7 +777,7 @@ def main():
     phase_slice_s_h8()
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     # every ms, plain_ms and library_ms is a device time (device_ms) at the
-    # slice's shape
+    # slice's shape (K1 also at Pokec's)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name], "launches": launches[name],
@@ -745,9 +786,11 @@ def main():
          "bound_by": row["bound_by"], "library_ms": None}
         for name, row in rows.items()
     ] + [
-        # K1 on the main path, DIFFormer-s
+        # K1 on the main path, DIFFormer-s, at the slice's graph and at
+        # Pokec's size; launches are the main path's
         {"name": name, "route": "cuda", "source": SPMM_SOURCE,
-         "replaces": SPMM_REPLACES, "launches": launches_s[name], **row}
+         "replaces": SPMM_REPLACES, "launches": launches_s[name.split()[0]],
+         **row}
         for name, row in spmm_rows.items()
     ]
     say(json.dumps({"kernels": kernels}))

@@ -44,7 +44,8 @@ SIGNATURES = {
                         _I, _I, _I, _I, _I] + _STRIDES + [_P],
     },
     "spmm.cu": {
-        "csr_spmm": [_P, _P, _P, _P, _P, _I64, _I64, _P],
+        "csr_spmm": [_P, _P, _P, _P, _P, _I64, _I64, _I, _P, _P, _P, _P,
+                     _I64, _I64, _P, _P],
     },
 }
 

@@ -8,7 +8,8 @@ receivers and non-finite values set to 0.
 
 Both products here, :func:`gcn_conv` and :func:`spmm`, run the CSR SpMM K1
 (``kernels/spmm.py``) over a :class:`CsrPlan`: the receivers' CSR, the
-senders' (transposed) CSR for the backward, and the values in both orders.
+senders' (transposed) CSR for the backward, the values in both orders, and
+each CSR's split schedule of heavy rows.
 ``gcn_conv``'s plan, with the normalised values, depends only on the
 graph's indices, ``edge_weight`` and ``edge_mask``, so a caller that runs
 many convolutions on one graph builds it once (``GraphData.csr_plan()``)
@@ -24,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from difformer_tpu_torch.kernels.spmm import CsrSpmm
+from difformer_tpu_torch.kernels.spmm import CsrSpmm, RowSplit, row_split
 from difformer_tpu_torch.ops.segment import segment_sum
 
 
@@ -71,7 +72,9 @@ class CsrPlan:
     ``row_ptr``/``col`` are the receivers' row pointers and the senders in
     receiver order, ``t_row_ptr``/``t_col`` the senders' row pointers and
     the receivers in sender order (both orders stable); ``val``/``t_val``
-    the per-edge values in the two orders."""
+    the per-edge values in the two orders; ``split``/``t_split`` the two
+    CSRs' schedules of heavy rows for K1 (``kernels/spmm.py``,
+    :func:`row_split` at ``SPLIT_THRESHOLD``)."""
 
     num_nodes: int
     row_ptr: torch.Tensor      # int32 [N + 1]
@@ -80,6 +83,8 @@ class CsrPlan:
     t_row_ptr: torch.Tensor    # int32 [N + 1]
     t_col: torch.Tensor        # int32 [E]
     t_val: torch.Tensor        # float32 [E]
+    split: RowSplit
+    t_split: RowSplit
 
     @property
     def num_edges(self):
@@ -114,12 +119,14 @@ def _checked_edges(senders, receivers, num_nodes):
 def _plan(senders, receivers, num_nodes, value) -> CsrPlan:
     order = torch.argsort(receivers, stable=True)
     t_order = torch.argsort(senders, stable=True)
+    row_ptr = _row_ptr(receivers, num_nodes)
+    t_row_ptr = _row_ptr(senders, num_nodes)
     return CsrPlan(
-        num_nodes=num_nodes,
-        row_ptr=_row_ptr(receivers, num_nodes),
+        num_nodes=num_nodes, row_ptr=row_ptr,
         col=senders[order].to(torch.int32), val=value[order],
-        t_row_ptr=_row_ptr(senders, num_nodes),
-        t_col=receivers[t_order].to(torch.int32), t_val=value[t_order])
+        t_row_ptr=t_row_ptr,
+        t_col=receivers[t_order].to(torch.int32), t_val=value[t_order],
+        split=row_split(row_ptr), t_split=row_split(t_row_ptr))
 
 
 def build_csr_plan(senders, receivers, num_nodes, edge_weight=None,
@@ -140,9 +147,10 @@ def _csr_product(x, plan, edge_chunk_size):
         raise ValueError(f"x has {x.shape[0]} rows; the plan has "
                          f"{plan.num_nodes} nodes")
     flat = x.reshape(x.shape[0], -1)
-    out = CsrSpmm.apply(flat, (plan.row_ptr, plan.col, plan.val),
-                        (plan.t_row_ptr, plan.t_col, plan.t_val),
-                        edge_chunk_size)
+    out = CsrSpmm.apply(
+        flat, (plan.row_ptr, plan.col, plan.val, plan.split),
+        (plan.t_row_ptr, plan.t_col, plan.t_val, plan.t_split),
+        edge_chunk_size)
     return out.reshape(x.shape)
 
 

@@ -287,8 +287,16 @@ def test_trainer_steps_match_cpu(cuda):
 def _spmm_graph(kind):
     """(senders, receivers, N, edge_weight, edge_mask) as numpy: the
     synthetic graphs of Cora's and PubMed's size that chip_smoke.py uses,
-    or a ragged one (unsorted edges, weights, a mask, rows empty in both
-    CSRs)."""
+    a ragged one (unsorted edges, weights, a mask, rows empty in both
+    CSRs), or one with power-law in- and out-degrees whose hubs hold a few
+    thousand edges (rank floor(n·u²) over shuffled ids, as chip_smoke.py's
+    graph of Pokec's size), so K1 splits rows in both directions."""
+    if kind == "hubs":
+        rng = np.random.default_rng(9)
+        n, e = 10000, 300000
+        nodes = lambda: rng.permutation(n)[np.minimum(  # noqa: E731
+            (n * rng.random(e) ** 2).astype(np.int64), n - 1)]
+        return nodes(), nodes(), n, None, None
     if kind == "ragged":
         rng = np.random.default_rng(5)
         n, e = 1000, 6000
@@ -308,22 +316,28 @@ def _spmm_plan(cuda, kind):
 
 
 SPMM_SHAPES = [("cora", 64), ("cora", 65), ("cora", 512), ("cora", 1),
-               ("cora", 6), ("ragged", 48), ("pubmed", 64)]
+               ("cora", 6), ("ragged", 48), ("pubmed", 64), ("hubs", 1),
+               ("hubs", 6), ("hubs", 64), ("hubs", 65), ("hubs", 512)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,width", SPMM_SHAPES)
 def test_spmm_kernel_matches_plain(cuda, kind, width):
     """Forward and transposed CSR, float4 rows (W % 4 == 0) and scalar
-    ones (W = 1, 6, 65), each launch counted once."""
+    ones (W = 1, 6, 65), with heavy rows split into segments on the hubs
+    graph, each call counted once."""
     plan = _spmm_plan(cuda, kind)
+    heavy = (plan.split.num_heavy, plan.t_split.num_heavy)
+    assert all(heavy) if kind == "hubs" else not any(heavy)
     x = torch.randn((plan.num_nodes, width),
                     generator=torch.Generator().manual_seed(width)).to(cuda)
     K1.reset_launch_counts()
-    for name, csr in (("csr_spmm", (plan.row_ptr, plan.col, plan.val)),
-                      ("csr_spmm_transposed",
-                       (plan.t_row_ptr, plan.t_col, plan.t_val))):
-        out = K1.csr_spmm(x, *csr, transposed=name != "csr_spmm")
+    for name, csr, split in (
+            ("csr_spmm", (plan.row_ptr, plan.col, plan.val), plan.split),
+            ("csr_spmm_transposed", (plan.t_row_ptr, plan.t_col, plan.t_val),
+             plan.t_split)):
+        out = K1.csr_spmm(x, *csr, split=split,
+                          transposed=name != "csr_spmm")
         torch.cuda.synchronize()
         assert_close(name, out, K1.csr_spmm_plain(x, *csr), "spmm",
                      scale=K1.csr_spmm_abs(x, *csr))
@@ -331,31 +345,59 @@ def test_spmm_kernel_matches_plain(cuda, kind, width):
 
 
 @pytest.mark.cuda
-def test_spmm_reads_strided_and_offset_inputs(cuda):
+@pytest.mark.parametrize("kind", ["ragged", "hubs"])
+def test_spmm_reads_strided_and_offset_inputs(cuda, kind):
     """Strided views are copied to rows; a contiguous view that starts 4
     bytes in (no 16-byte alignment) takes the scalar loads at W = 64."""
-    plan = _spmm_plan(cuda, "ragged")
+    plan = _spmm_plan(cuda, kind)
     n = plan.num_nodes
     base = torch.randn((n, 65), device=cuda)
     offset = torch.randn(n * 64 + 1, device=cuda)[1:].view(n, 64)
     assert offset.is_contiguous() and offset.data_ptr() % 16 != 0
     csr = (plan.row_ptr, plan.col, plan.val)
     for x in (base[:, 1:], base.t().contiguous().t()[:, :64], offset):
-        assert_close("strided", K1.csr_spmm(x, *csr),
+        assert_close("strided", K1.csr_spmm(x, *csr, split=plan.split),
                      K1.csr_spmm_plain(x, *csr), "spmm",
                      scale=K1.csr_spmm_abs(x, *csr))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["cora", "ragged"])
+@pytest.mark.parametrize("kind", ["cora", "ragged", "hubs"])
 def test_spmm_is_deterministic(cuda, kind):
-    """Each row is summed by one group of lanes in CSR order, without
-    atomics: two launches are bit-equal."""
+    """Each row is summed in CSR order, a heavy row by segments combined in
+    segment order, without atomics: two calls are bit-equal."""
     plan = _spmm_plan(cuda, kind)
     x = torch.randn((plan.num_nodes, 64), device=cuda)
-    for csr in ((plan.row_ptr, plan.col, plan.val),
-                (plan.t_row_ptr, plan.t_col, plan.t_val)):
-        assert torch.equal(K1.csr_spmm(x, *csr), K1.csr_spmm(x, *csr))
+    for *csr, split in ((plan.row_ptr, plan.col, plan.val, plan.split),
+                        (plan.t_row_ptr, plan.t_col, plan.t_val,
+                         plan.t_split)):
+        assert torch.equal(K1.csr_spmm(x, *csr, split=split),
+                           K1.csr_spmm(x, *csr, split=split))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cora", "hubs"])
+def test_spmm_launches_the_combine_only_with_heavy_rows(cuda, kind):
+    """One device kernel a call without heavy rows, two with them (the
+    segments' combine), whichever the wrapper counts as one call; the
+    same schedule is built when the caller passes none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    plan = _spmm_plan(cuda, kind)
+    x = torch.randn((plan.num_nodes, 64), device=cuda)
+    csr = (plan.row_ptr, plan.col, plan.val)
+    K1.csr_spmm(x, *csr, split=plan.split)
+    torch.cuda.synchronize()
+    K1.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = K1.csr_spmm(x, *csr, split=plan.split)
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    assert kernels == (2 if kind == "hubs" else 1)
+    assert K1.LAUNCHES == {"csr_spmm": 1, "csr_spmm_transposed": 0}
+    assert torch.equal(K1.csr_spmm(x, *csr), out)
 
 
 @pytest.mark.cuda
@@ -370,11 +412,13 @@ def test_spmm_zero_edges_launch_nothing(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ragged", "hubs"])
 @pytest.mark.parametrize("trailing", [(64,), (8, 64), (65,)])
-def test_gcn_conv_backward_matches_autograd_through_plain(cuda, trailing):
+def test_gcn_conv_backward_matches_autograd_through_plain(cuda, trailing,
+                                                          kind):
     """The backward's transposed CSR on the card against the CPU, where
     the same autograd Function runs the plain version."""
-    s, r, n, w, mask = _spmm_graph("ragged")
+    s, r, n, w, mask = _spmm_graph(kind)
     x = torch.randn((n,) + trailing,
                     generator=torch.Generator().manual_seed(1))
     cot = torch.randn((n,) + trailing,
@@ -389,7 +433,7 @@ def test_gcn_conv_backward_matches_autograd_through_plain(cuda, trailing):
         results.append((out.detach().cpu(), xs.grad.cpu(), dict(K1.LAUNCHES)))
     (out_g, dx_g, launches), (out_c, dx_c, _) = results
     assert launches == {"csr_spmm": 1, "csr_spmm_transposed": 1}
-    plan = _spmm_plan("cpu", "ragged")
+    plan = _spmm_plan("cpu", kind)
     flat = lambda a: a.reshape(n, -1)
     scale_out = K1.csr_spmm_abs(flat(x), plan.row_ptr, plan.col, plan.val)
     scale_dx = K1.csr_spmm_abs(flat(cot), plan.t_row_ptr, plan.t_col,

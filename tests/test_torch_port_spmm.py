@@ -235,3 +235,126 @@ def test_wrapper_checks_and_counts_no_launch_on_the_cpu():
         K.csr_spmm(x[None], plan.row_ptr, plan.col, plan.val)
     with pytest.raises(ValueError, match="one CUDA device"):
         K.csr_spmm(x.to("meta"), plan.row_ptr, plan.col, plan.val)
+
+
+# --- K1's split schedule: heavy rows cut into segments -----------------------
+
+def _power_law_edges(seed, n=300, e=4000, isolated=20):
+    """Unsorted edges whose senders and receivers are drawn as rank
+    floor(m·u²) of a uniform u, m = n - isolated, over shuffled ids (as
+    chip_smoke.py's power-law graph): hubs of a few hundred edges in both
+    directions, and ``isolated`` ids that no edge of a direction uses."""
+    rng = np.random.default_rng(seed)
+    m = n - isolated
+
+    def nodes():
+        rank = np.minimum((m * rng.random(e) ** 2).astype(np.int64), m - 1)
+        return rng.permutation(n)[rank]
+
+    return nodes(), nodes(), n
+
+
+def _csrs(plan):
+    return ((plan.row_ptr, plan.col, plan.val, plan.split),
+            (plan.t_row_ptr, plan.t_col, plan.t_val, plan.t_split))
+
+
+@pytest.mark.parametrize("threshold", [4, 16, 64])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_plan_splits_heavy_rows_into_segments(monkeypatch, threshold,
+                                              transposed):
+    """At a low T, every edge of a heavy row lies in exactly one segment of
+    at most T edges, the segments run in CSR order, and the light rows are
+    exactly the rows of degree <= T."""
+    monkeypatch.setattr(K, "SPLIT_THRESHOLD", threshold)
+    s, r, n = _power_law_edges(30)
+    ptr, _, _, split = _csrs(tops.build_csr_plan(_t(s), _t(r), n))[
+        int(transposed)]
+    degrees = np.diff(ptr.numpy())
+    assert degrees.max() > 3 * threshold and (degrees == 0).any()
+    assert split.threshold == threshold
+    for a in split.tensors():
+        assert a.dtype == torch.int32
+    rows, seg_ptr = split.rows.numpy(), split.seg_ptr.numpy()
+    begin, end = split.seg_begin.numpy(), split.seg_end.numpy()
+    np.testing.assert_array_equal(rows, np.flatnonzero(degrees > threshold))
+    assert split.num_heavy == rows.size > 0
+    assert seg_ptr[0] == 0 and seg_ptr[-1] == split.num_segments == begin.size
+    assert ((end - begin >= 1) & (end - begin <= threshold)).all()
+    covered = np.zeros(int(ptr[-1]), np.int64)
+    for h, row in enumerate(rows):
+        segs = np.arange(seg_ptr[h], seg_ptr[h + 1])
+        assert segs.size == -(-degrees[row] // threshold)
+        np.testing.assert_array_equal(begin[segs[1:]], end[segs[:-1]])
+        assert begin[segs[0]] == ptr[row] and end[segs[-1]] == ptr[row + 1]
+        for b, e in zip(begin[segs], end[segs]):
+            covered[b:e] += 1
+    heavy_edges = np.repeat(degrees > threshold, degrees)
+    np.testing.assert_array_equal(covered, heavy_edges.astype(np.int64))
+
+
+def test_citation_graphs_have_no_heavy_rows():
+    """At the package's T the slices' synthetic Cora and PubMed graphs
+    split no row, so K1 is one launch there."""
+    from difformer_tpu_torch.data import random_graph, standard_preprocess
+
+    assert K.SPLIT_THRESHOLD >= 256
+    for n, e, f, c, seed in ((2708, 10556, 1433, 7, 42),
+                             (19717, 44324, 500, 3, 7)):
+        _, ei, _ = random_graph(n, e, f, c, seed=seed, homophily=0.8)
+        ei = standard_preprocess(ei, n)
+        plan = tops.build_csr_plan(_t(ei[0]), _t(ei[1]), n)
+        for split in (plan.split, plan.t_split):
+            assert split.threshold == K.SPLIT_THRESHOLD
+            assert split.num_heavy == split.num_segments == 0
+
+
+def _split_product(x, row_ptr, col, val, split):
+    """K1's order in plain torch: the light rows as the plain version sums
+    them, each segment summed edge by edge in CSR order, then each heavy
+    row's segment sums added in segment order."""
+    out = K.csr_spmm_plain(x, row_ptr, col, val)
+    rows, seg_ptr, begin, end = (a.tolist() for a in split.tensors())
+    for h, row in enumerate(rows):
+        total = torch.zeros(x.shape[1])
+        for s in range(seg_ptr[h], seg_ptr[h + 1]):
+            part = torch.zeros(x.shape[1])
+            for e in range(begin[s], end[s]):
+                part = part + val[e] * x[col[e]]
+            total = total + part
+        out[row] = total
+    return out
+
+
+@pytest.mark.parametrize("threshold", [4, 16, 64])
+@pytest.mark.parametrize("width", [1, 6, 65])
+def test_segment_sums_combined_in_order_match_plain(monkeypatch, threshold,
+                                                    width):
+    """The split order of summation agrees with the plain version under
+    the unchanged "spmm" kind, which still rejects zeros and moved rows."""
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+
+    monkeypatch.setattr(K, "SPLIT_THRESHOLD", threshold)
+    s, r, n = _power_law_edges(31)
+    vals = np.random.default_rng(32).normal(size=s.shape).astype(np.float32)
+    plan = tops._plan(_t(s), _t(r), n, torch.from_numpy(vals))
+    x = torch.from_numpy(np.random.default_rng(33).normal(
+        size=(n, width)).astype(np.float32))
+    for row_ptr, col, val, split in _csrs(plan):
+        ref = K.csr_spmm_plain(x, row_ptr, col, val)
+        scale = K.csr_spmm_abs(x, row_ptr, col, val)
+        assert_close("split", _split_product(x, row_ptr, col, val, split),
+                     ref, "spmm", scale=scale)
+        for wrong in (torch.zeros_like(ref), ref.roll(1, 0)):
+            with pytest.raises(AssertionError):
+                assert_close("wrong", wrong, ref, "spmm", scale=scale)
+
+
+def test_row_split_checks_its_threshold():
+    ptr = torch.tensor([0, 3, 3, 10], dtype=torch.int32)
+    with pytest.raises(ValueError, match="at least 1"):
+        K.row_split(ptr, 0)
+    split = K.row_split(ptr, 3)
+    assert split.rows.tolist() == [2]
+    assert list(zip(split.seg_begin.tolist(), split.seg_end.tolist())) == [
+        (3, 5), (5, 7), (7, 10)]
