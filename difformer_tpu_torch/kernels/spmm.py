@@ -62,9 +62,11 @@ LAUNCHES = {"csr_spmm": 0, "csr_spmm_transposed": 0}
 #: T: a row of more than T edges is heavy and is summed in segments of at
 #: most T edges. Chosen by a sweep on the card of 256, 512, 1024 and 2048
 #: at Pokec's size with power-law degrees (``time_kernels.py --kernel spmm
-#: --spmm-threshold``); at least 256, so that a citation graph, whose
-#: largest degree is in the tens or low hundreds, never splits.
-SPLIT_THRESHOLD = 512
+#: --spmm-threshold``): the smallest was the fastest, as a light row of up
+#: to T edges that starts in the last wave sets the tail. At least 256, so
+#: that a citation graph, whose largest degree is in the tens or low
+#: hundreds, never splits.
+SPLIT_THRESHOLD = 256
 
 
 def reset_launch_counts():

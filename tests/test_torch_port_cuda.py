@@ -425,7 +425,7 @@ def test_gcn_conv_backward_matches_autograd_through_plain(cuda, trailing,
                       generator=torch.Generator().manual_seed(2))
     results = []
     for device in (cuda, "cpu"):
-        t = lambda a: torch.as_tensor(a).to(device)
+        t = lambda a: None if a is None else torch.as_tensor(a).to(device)
         xs = x.to(device).requires_grad_()
         K1.reset_launch_counts()
         out = gcn_conv(xs, t(s), t(r), t(w), edge_mask=t(mask))
