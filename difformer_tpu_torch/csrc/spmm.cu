@@ -60,8 +60,7 @@
 namespace {
 
 constexpr int kThreads = 256;  // threads of every block
-constexpr int kUnroll = 8;     // edges whose gathers are in flight at once
-constexpr int kMinGroupLog2 = 3;  // at least 8 lanes, 8 edges, a group
+constexpr int kUnroll = 4;     // edges whose gathers are in flight at once
 
 __device__ __forceinline__ float zero(float*) { return 0.0f; }
 __device__ __forceinline__ float4 zero(float4*) {
@@ -88,58 +87,35 @@ __device__ __forceinline__ void add_into(float4& acc, float4 x) {
 
 // dst[c] = sum over edges begin .. end - 1, in order, of val[e] *
 // x[col[e] * vecs + c], for the columns c = lane, lane + group, ... of a
-// row of vecs values of T (float or float4). The group's lanes (mask, a
-// group of at least 8) load group consecutive columns and values at once,
-// one each, and the next chunk's while they sum this one, and hand them out
-// with __shfl_sync; kUnroll gathers are in flight. A lane past the row's
-// vecs gathers column 0 beside lane 0 (the same bytes) and writes nothing,
-// so every lane of the group takes every shuffle.
+// row of vecs values of T (float or float4).
 template <typename T>
 __device__ __forceinline__ void sum_edges(const int* __restrict__ col,
                                           const float* __restrict__ val,
                                           const T* __restrict__ x,
                                           T* __restrict__ dst, int begin,
                                           int end, int64_t vecs, int lane,
-                                          int group, unsigned mask) {
-  for (int64_t base = 0; base < vecs; base += group) {
-    const int64_t c = base + lane;
-    const T* xc = x + (c < vecs ? c : 0);
+                                          int group) {
+  for (int64_t c = lane; c < vecs; c += group) {
     T acc = zero(static_cast<T*>(nullptr));
-    int col_next = 0;
-    float val_next = 0.0f;
-    if (begin + lane < end) {
-      col_next = __ldg(col + begin + lane);
-      val_next = __ldg(val + begin + lane);
-    }
-    for (int e = begin; e < end; e += group) {
-      const int col_mine = col_next;
-      const float val_mine = val_next;
-      if (e + group + lane < end) {
-        col_next = __ldg(col + e + group + lane);
-        val_next = __ldg(val + e + group + lane);
+    int e = begin;
+    for (; e + kUnroll <= end; e += kUnroll) {
+      int s[kUnroll];
+      float w[kUnroll];
+      T xs[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        s[u] = __ldg(col + e + u);
+        w[u] = __ldg(val + e + u);
       }
-      const int n = min(group, end - e);
-      // rounds of kUnroll edges, the last one cut to the chunk
-      for (int u = 0; u < n; u += kUnroll) {
-        int s[kUnroll];
-        float w[kUnroll];
-        T xs[kUnroll];
 #pragma unroll
-        for (int k = 0; k < kUnroll; ++k) {
-          s[k] = __shfl_sync(mask, col_mine, u + k, group);
-          w[k] = __shfl_sync(mask, val_mine, u + k, group);
-        }
+      for (int u = 0; u < kUnroll; ++u) xs[u] = __ldg(x + s[u] * vecs + c);
+      // in CSR order, one edge after the other
 #pragma unroll
-        for (int k = 0; k < kUnroll; ++k)
-          xs[k] = u + k < n ? __ldg(xc + s[k] * vecs)
-                            : zero(static_cast<T*>(nullptr));
-        // in CSR order, one edge after the other
-#pragma unroll
-        for (int k = 0; k < kUnroll; ++k)
-          if (u + k < n) fma_into(acc, w[k], xs[k]);
-      }
+      for (int u = 0; u < kUnroll; ++u) fma_into(acc, w[u], xs[u]);
     }
-    if (c < vecs) dst[c] = acc;
+    for (; e < end; ++e)
+      fma_into(acc, __ldg(val + e), __ldg(x + __ldg(col + e) * vecs + c));
+    dst[c] = acc;
   }
 }
 
@@ -157,15 +133,12 @@ __global__ void __launch_bounds__(kThreads)
                     int64_t segments, int seg_blocks) {
   const int group = 1 << group_log2;
   const int lane = threadIdx.x & (group - 1);
-  const unsigned mask =
-      group == 32 ? 0xffffffffu
-                  : ((1u << group) - 1u) << (threadIdx.x & 31 & ~(group - 1));
   if (int(blockIdx.x) < seg_blocks) {
     const int64_t seg =
         (int64_t(blockIdx.x) * kThreads + threadIdx.x) >> group_log2;
     if (seg >= segments) return;
     sum_edges(col, val, x, ws + seg * vecs, __ldg(seg_begin + seg),
-              __ldg(seg_end + seg), vecs, lane, group, mask);
+              __ldg(seg_end + seg), vecs, lane, group);
     return;
   }
   const int64_t row =
@@ -175,8 +148,7 @@ __global__ void __launch_bounds__(kThreads)
   const int begin = __ldg(row_ptr + row);
   const int end = __ldg(row_ptr + row + 1);
   if (end - begin > threshold) return;  // heavy: csr_spmm_combine writes it
-  sum_edges(col, val, x, out + row * vecs, begin, end, vecs, lane, group,
-            mask);
+  sum_edges(col, val, x, out + row * vecs, begin, end, vecs, lane, group);
 }
 
 // out[heavy_rows[h]] = the sum of ws[seg_ptr[h]] .. ws[seg_ptr[h + 1] - 1],
@@ -216,8 +188,7 @@ int launch(const int* row_ptr, const int* col, const float* val,
            int threshold, const int* heavy_rows, const int* seg_ptr,
            const int* seg_begin, const int* seg_end, int64_t heavy,
            int64_t segments, void* ws, cudaStream_t stream) {
-  // lanes per row or segment: the power of two >= vecs, from 8 up to 32
-  int group_log2 = kMinGroupLog2;
+  int group_log2 = 0;  // lanes per row: the power of two >= vecs, up to 32
   while ((int64_t(1) << group_log2) < vecs && group_log2 < 5) ++group_log2;
   const int64_t seg_blocks = blocks_for(segments, group_log2);
   const int64_t blocks = seg_blocks + blocks_for(rows, group_log2);
