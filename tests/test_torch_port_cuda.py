@@ -401,6 +401,29 @@ def test_spmm_launches_the_combine_only_with_heavy_rows(cuda, kind):
 
 
 @pytest.mark.cuda
+def test_spmm_is_captured_by_a_cuda_graph(cuda):
+    """Given its plan's schedule, K1 reads nothing back from the device
+    (a host sync would fail the capture), so a CUDA graph holds both of its
+    kernels; replays match a direct call bit for bit."""
+    plan = _spmm_plan(cuda, "hubs")
+    x = torch.randn((plan.num_nodes, 64), device=cuda)
+    csr = (plan.row_ptr, plan.col, plan.val)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K1.csr_spmm(x, *csr, split=plan.split)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K1.csr_spmm(x, *csr, split=plan.split)
+    for scale in (1.0, -2.0):
+        x.mul_(scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, K1.csr_spmm(x, *csr, split=plan.split))
+
+
+@pytest.mark.cuda
 def test_spmm_zero_edges_launch_nothing(cuda):
     empty = torch.zeros(0, dtype=torch.long, device=cuda)
     x = torch.randn((5, 3), device=cuda, requires_grad=True)
