@@ -33,6 +33,14 @@ non-zero before the last line:
 6. slice-s-h8: the cora preset at 8 heads, where every "auto" rewrite is
    on (head mean fused, Wv factored, spmm_first with K1 at width 65), for
    a few steps, with the logits against the plain version.
+7. slice-s-graph and 8. slice-graph: cora-s and cora-a trained by the
+   epoch-block fit (``fit(epoch_block=10)``: the train step and the eval
+   captured as CUDA graphs and replayed), against the per-epoch fit of an
+   identically built trainer in the same process: the same best epoch,
+   losses and split metrics within rtol 1e-5 (and whether bit-equal), every
+   kernel launched as often as the loop's path needs (counted at capture,
+   times the replays), host ms per epoch and peak memory of both paths, and
+   the device idle share of a replayed block and of a loop epoch.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. It needs a CUDA device and
@@ -90,6 +98,8 @@ POWER_LAW_EXPONENT = 2
 PLAIN_EDGE_CHUNK = 1 << 22  # the plain version's messages at Pokec's size
 EPOCHS = 20
 H8_STEPS = 3
+GRAPH_BLOCK = 10  # epoch_block of the graph phases (eval every epoch)
+GRAPH_RTOL = 1e-5
 # device launches per train step of the slices with K1 before its split
 # schedule (commit 17d4e95), for comparison
 UNSPLIT_LAUNCHES = {"slice": 498, "slice-s": 938}
@@ -126,33 +136,39 @@ def cuda_ms(fn, target_ms=100.0, max_iters=50):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, calls=20):
-    """(device ms, device operations) of one call of ``fn``: the time of the
-    device's own kernels, copies and sets over ``calls`` calls
-    (torch.profiler), and their number, each divided by ``calls``. Unlike
-    :func:`cuda_ms` the time leaves out the device's idle gaps, which set the
-    event time of a call whose kernels take a few microseconds and whose host
-    side takes tens. A session that records fewer device operations than
-    calls lost some (the profiler now and then returns none at all) and is
-    run again, up to three times."""
+def profile_window(fn, calls):
+    """(device ms, device operations) per call of ``fn`` over one
+    torch.profiler session of ``calls`` calls, after one unprofiled call:
+    the device's own kernels, copies and sets, without annotations."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    return (sum(e.self_device_time_total for e in events) / 1e3 / calls,
+            sum(e.count for e in events) / calls)
+
+
+def device_profile(fn, calls=20):
+    """(device ms, device operations) of one call of ``fn``
+    (:func:`profile_window`). Unlike :func:`cuda_ms` the time leaves out
+    the device's idle gaps, which set the event time of a call whose
+    kernels take a few microseconds and whose host side takes tens. A
+    session that records fewer device operations than calls lost some (the
+    profiler now and then returns none at all) and is run again, up to
+    three times."""
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
-        count = sum(e.count for e in events)
-        if count >= calls:
-            return (sum(e.self_device_time_total for e in events) / 1e3
-                    / calls, count / calls)
+        ms, count = profile_window(fn, calls)
+        if count >= 1:
+            return ms, count
     raise RuntimeError(f"the profiler recorded fewer than {calls} device "
                        f"operations in each of three sessions")
 
@@ -725,6 +741,129 @@ def phase_slice_s_h8():
     time_steps("slice-s-h8", trainer, state, split, n, steps=5)
 
 
+class RowLog:
+    """A ``fit`` logger: every eval's (train, valid, test)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add_result(self, run, result):
+        self.rows.append(result)
+
+
+def largest_rel_diff(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def host_ms(fn, reps=3):
+    """The median host-clock ms of ``fn`` ending in a synchronise."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[len(times) // 2]
+
+
+def fit_path(cfg, epoch_block):
+    """Build the cora preset ``cfg`` and fit it for EPOCHS epochs with an
+    eval every epoch; the fit's host-clock seconds and its peak memory."""
+    trainer, split, n, c = make_slice(cfg)
+    log = RowLog()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    best = trainer.fit(split, epochs=EPOCHS, eval_step=1,
+                       epoch_block=epoch_block, logger=log)[0]
+    torch.cuda.synchronize()
+    return dict(trainer=trainer, split=split, n=n, best=best,
+                rows=np.asarray(log.rows, np.float64),
+                fit_s=time.perf_counter() - t0,
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                counted=launch_counts())
+
+
+def phase_graph(phase, cfg, attention):
+    """The epoch-block fit (CUDA graphs) of the cora preset ``cfg`` against
+    the per-epoch fit of an identically built trainer in this process."""
+    loop = fit_path(cfg, 0)
+    graph = fit_path(cfg, GRAPH_BLOCK)
+    runner = graph["trainer"].epoch_runner
+    if runner is None:
+        raise AssertionError("the epoch-block fit did not run")
+    lb, gb = loop["best"], graph["best"]
+    say(f"phase {phase}: best epoch loop {lb['epoch']} graph {gb['epoch']}; "
+        f"valid {lb['valid']:.6f} / {gb['valid']:.6f}; losses "
+        f"{gb['losses'][0]:.4f} -> {gb['losses'][-1]:.4f}")
+    if gb["epoch"] != lb["epoch"]:
+        raise AssertionError("the graph fit picked another best epoch")
+    for what, a, b in (("losses", gb["losses"], lb["losses"]),
+                       ("split metrics", graph["rows"], loop["rows"])):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if a.shape != b.shape or not np.all(np.isfinite(a)):
+            raise AssertionError(f"{what}: shapes {a.shape} {b.shape} or "
+                                 f"non-finite values")
+        rel = largest_rel_diff(a, b)
+        say(f"phase {phase}: {what} graph vs loop largest relative "
+            f"difference {rel:.3e} (bit-equal: "
+            f"{bool(np.array_equal(a, b))})")
+        if not rel <= GRAPH_RTOL:
+            raise AssertionError(f"{what} differ by {rel:.3e} > {GRAPH_RTOL}")
+
+    launches = runner.launches()
+    expect = expected_launches(cfg.num_layers, attention)
+    for name, g in runner.graphs.items():
+        captured = {k: v for k, v in g["captured"].items() if v}
+        say(f"phase {phase}: {name} graph captured {captured} x "
+            f"{g['replays']} replays")
+    say(f"phase {phase}: launches (captured x replays) {launches} "
+        f"(expected {expect}); the wrappers counted {graph['counted']} "
+        f"(warm-up and capture) against the loop's {loop['counted']}")
+    if launches != expect or loop["counted"] != expect:
+        raise AssertionError("launch counts differ from the path's")
+
+    # steady state: a replayed block of GRAPH_BLOCK epochs (a step and an
+    # eval each), and an epoch of the per-epoch loop, on the host clock and
+    # under the profiler
+    def block():
+        runner.rewind()
+        runner.block(GRAPH_BLOCK, 1)
+
+    trainer, split, n = loop["trainer"], loop["split"], loop["n"]
+    state = trainer.init_state(0)
+    gen = torch.Generator("cuda").manual_seed(0)
+    mask = torch.as_tensor(np.isin(np.arange(n), split["train"]),
+                           device="cuda")
+
+    def loop_epoch():
+        _, loss = trainer.train_step(state, gen, mask)
+        float(loss)
+        trainer.evaluate(state, split)
+
+    per_epoch = {"graph": host_ms(block) / GRAPH_BLOCK,
+                 "loop": host_ms(loop_epoch)}
+    busy = {"graph": profile_window(block, 1),
+            "loop": profile_window(loop_epoch, 3)}
+    for path, run in (("loop", loop), ("graph", graph)):
+        ms = per_epoch[path]
+        dev_ms, ops = busy[path]
+        if path == "graph":
+            dev_ms, ops = dev_ms / GRAPH_BLOCK, ops / GRAPH_BLOCK
+        idle = (f"idle {100 * (1 - dev_ms / ms):.1f}%" if ops > 0 else
+                "the profiler saw no device operation (idle not measured)")
+        say(f"phase {phase}: {path}: fit {1e3 * run['fit_s'] / EPOCHS:.3f} "
+            f"ms per epoch over the {EPOCHS}-epoch fit (capture included); "
+            f"steady {ms:.3f} ms per epoch (a step and an eval); device "
+            f"{dev_ms:.4f} ms over {ops:g} device operations per epoch, "
+            f"{idle}; peak memory {run['peak_mib']:.1f} MiB")
+    return dict(per_epoch=per_epoch, busy=busy)
+
+
 def profile_steps(step, step_ms, phase, steps=5, top=12):
     """Device time by kernel over ``steps`` train steps (torch.profiler),
     and its share of ``step_ms``, the step's time measured without the
@@ -775,6 +914,11 @@ def main():
     launches = phase_slice()
     launches_s = phase_slice_s()
     phase_slice_s_h8()
+    from difformer_tpu_torch.utils.config import make_config
+
+    phase_graph("slice-s-graph", make_config("cora"), attention=False)
+    phase_graph("slice-graph", make_config("cora", kernel="sigmoid"),
+                attention=True)
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     # every ms, plain_ms and library_ms is a device time (device_ms) at the
     # slice's shape (K1 also at Pokec's)

@@ -29,8 +29,13 @@ def _no_axis(axis_name):
 
 
 def _scalar(value, like):
-    """``jnp.asarray(value, dtype=like.dtype)`` on ``like``'s device."""
-    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+    """``jnp.asarray(value, dtype=like.dtype)`` on ``like``'s device. A
+    Python number is filled in on the device, not copied from the host: a
+    host copy would block the stream and cannot be captured in a CUDA
+    graph."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=like.device, dtype=like.dtype)
+    return like.new_full((), value)
 
 
 def _frobenius_normalize(t, axis_name=None):
@@ -41,10 +46,11 @@ def _frobenius_normalize(t, axis_name=None):
 
 
 def _key_count(ks, key_mask):
-    """The number of real keys, a float32 scalar tensor."""
+    """The number of real keys, a float32 scalar tensor (filled in on the
+    device, as :func:`_scalar`)."""
     if key_mask is not None:
         return key_mask.float().sum()
-    return torch.tensor(float(ks.shape[0]), device=ks.device)
+    return ks.new_full((), float(ks.shape[0]), dtype=torch.float32)
 
 
 def simple_attention_aggregates(ks, vs, key_mask=None):

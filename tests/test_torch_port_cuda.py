@@ -514,3 +514,247 @@ def test_simple_trainer_steps_match_cpu(cuda):
             run.append(loss.item())
         losses.append(run)
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-3, atol=1e-4)
+
+
+# --- CUDA graphs: the kernels, the model and the epoch-block fit -----------
+
+ATTENTION_CALLS = {
+    "fwd": lambda args, grads: K.sigmoid_attention_fwd(*args),
+    "fwd-unnormalized": lambda args, grads: K.sigmoid_attention_fwd(
+        *args, normalize=False),
+    "dq": lambda args, grads: (K.sigmoid_attention_dq(*args, *grads),),
+    "dkv": lambda args, grads: K.sigmoid_attention_dkv(*args, *grads),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call,n,l", [
+    ("fwd", 64, 5000), ("fwd-unnormalized", 64, 5000), ("dq", 64, 5000),
+    ("dkv", 5000, 64), ("fwd", 2708, 2708), ("dq", 2708, 2708),
+    ("dkv", 2708, 2708)])
+def test_attention_kernels_are_captured_by_a_cuda_graph(cuda, call, n, l):
+    """K2–K4 read nothing back from the device and allocate only through
+    torch, so a CUDA graph holds each with its combine (the shapes split
+    the loop axis, S > 1); replays match a direct call bit for bit, and the
+    wrapper counts the kernel once, at the capture."""
+    name = {"fwd": "sigmoid_attention_fwd", "dq": "sigmoid_attention_dq",
+            "dkv": "sigmoid_attention_dkv"}[call.split("-")[0]]
+    assert _plan(cuda, name, n, l, 1)[1] > 1
+    args = _on(cuda, torch.float32, *make_inputs(29, n, l, 1, m=64, d=64,
+                                                 masked=True))
+    grads = _cotangents(cuda, 30, args, 64)
+    run = lambda: ATTENTION_CALLS[call](args, grads)  # noqa: E731
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    K.reset_launch_counts()
+    with torch.cuda.graph(graph):
+        out = run()
+    assert K.LAUNCHES[name] == 1
+    for scale in (1.0, -0.5):
+        args[0].mul_(scale)
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(out, run()):
+            assert torch.equal(got, want)
+
+
+class _Log:
+    def __init__(self):
+        self.rows = []
+
+    def add_result(self, run, result):
+        self.rows.append(result)
+
+
+def _trainer_on(device, kernel, dropout=0.2, layers=3):
+    """A small trainer of ``kernel`` with dropout on, and a split."""
+    from difformer_tpu_torch.data import class_rand_splits
+
+    x, ei, y = random_graph(500, 2000, 32, 5, seed=1, homophily=0.7)
+    ei = standard_preprocess(ei, 500)
+    model = DIFFormer(32, 64, 5, num_layers=layers, num_heads=1,
+                      kernel=kernel, dropout=dropout, seed=5, device=device)
+    trainer = FullBatchTrainer(model, GraphData.from_numpy(x, ei,
+                                                           device=device),
+                               y, lr=1e-3, weight_decay=0.01, device=device)
+    return trainer, class_rand_splits(y, 20, valid_num=100, test_num=200,
+                                      rng=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["simple", "sigmoid"])
+def test_model_forward_is_captured_by_a_cuda_graph(cuda, kernel):
+    """DIFFormer-s and DIFFormer-a's eval forward in a CUDA graph: nothing
+    on the path copies from the host (the linear attention fills its key
+    count and query count in on the device), and replays match eager."""
+    trainer, _ = _trainer_on(cuda, kernel)
+    state = trainer.init_state(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        trainer.forward_eval(state)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = trainer.forward_eval(state)
+    for _ in range(2):
+        with torch.no_grad():
+            for p in state.model.parameters():
+                p.mul_(0.9)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, trainer.forward_eval(state))
+
+
+@pytest.mark.cuda
+def test_dropout_replays_draw_new_masks_as_eager_calls_do(cuda):
+    """With its generator registered, each replay of a captured dropout
+    draws the next masks: two replays differ, and the replays' stream is
+    the stream of eager calls from the same seed."""
+    from difformer_tpu_torch.nn.common import dropout
+
+    x = torch.ones(4096, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(3)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        out = dropout(x, 0.5, True, gen)
+    replays = []
+    for _ in range(3):
+        graph.replay()
+        replays.append(out.clone())
+    assert not torch.equal(replays[0], replays[1])
+    eager_gen = torch.Generator(cuda).manual_seed(3)
+    for got in replays:
+        assert torch.equal(got, dropout(x, 0.5, True, eager_gen))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["simple", "sigmoid"])
+def test_captured_train_steps_match_eager_steps(cuda, kernel):
+    """The step graph of the epoch-block fit against eager train steps of
+    an identical trainer from the same dropout seed: the same losses and
+    weights, so every replay advanced the dropout stream as eager steps
+    do and the warm-up before the capture left no trace."""
+    from difformer_tpu_torch.train.trainer import EpochRunner, idx_to_mask
+
+    results = []
+    for graphed in (True, False):
+        trainer, split = _trainer_on(cuda, kernel)
+        state = trainer.init_state(0)
+        gen = torch.Generator(cuda).manual_seed(11)
+        mask = torch.as_tensor(idx_to_mask(split["train"], 500), device=cuda)
+        if graphed:
+            masks = torch.stack([mask] * 3)
+            runner = EpochRunner(trainer, state, gen, mask, masks, 4)
+            for _ in range(4):
+                runner.step()
+            losses = runner.fetch(0, 4)[:, 0].tolist()
+            assert runner.graphs["step"]["replays"] == 4
+        else:
+            losses = [trainer.train_step(state, gen, mask)[1].item()
+                      for _ in range(4)]
+        results.append((losses, [p.detach().clone()
+                                 for p in state.model.parameters()]))
+    (graph_losses, graph_params), (eager_losses, eager_params) = results
+    np.testing.assert_allclose(graph_losses, eager_losses, rtol=1e-5)
+    for a, b in zip(graph_params, eager_params):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["simple", "sigmoid"])
+def test_epoch_block_fit_matches_the_loop_on_the_card(cuda, kernel):
+    """``fit(epoch_block=4)`` (graph replays) against the per-epoch loop
+    on the card, dropout on: the same best epoch, losses at rtol 1e-5,
+    logged metrics at atol 1e-6; each kernel launched, as captured count ×
+    replays, exactly as often as the loop's 10 steps and 6 evals need."""
+    results = []
+    for block in (0, 4):
+        trainer, split = _trainer_on(cuda, kernel)
+        log = _Log()
+        best = trainer.fit(split, epochs=10, eval_step=2, epoch_block=block,
+                           logger=log)[0]
+        results.append((best, np.asarray(log.rows), trainer.epoch_runner))
+    (loop, loop_rows, _), (blk, blk_rows, runner) = results
+    assert blk["epoch"] == loop["epoch"]
+    np.testing.assert_allclose(blk["losses"], loop["losses"], rtol=1e-5)
+    np.testing.assert_allclose(blk_rows, loop_rows, rtol=0, atol=1e-6)
+    assert runner.graphs["step"]["replays"] == 10
+    assert runner.graphs["eval"]["replays"] == 6
+    steps, evals, layers = 10, 6, 3
+    attention = kernel == "sigmoid"
+    assert runner.launches() == {
+        "sigmoid_attention_fwd": layers * (steps + evals) * attention,
+        "sigmoid_attention_dq": layers * steps * attention,
+        "sigmoid_attention_dkv": layers * steps * attention,
+        "csr_spmm": layers * (steps + evals),
+        "csr_spmm_transposed": layers * steps}
+
+
+@pytest.mark.cuda
+def test_resume_on_the_card(cuda, tmp_path):
+    """A run stopped after a checkpoint and resumed on the card gives the
+    uninterrupted run's losses and best record (the capturable Adam's
+    device step and the CUDA generator restored)."""
+    trainer, split = _trainer_on(cuda, "simple")
+    full = trainer.fit(split, epochs=8, ckpt_dir=str(tmp_path / "full"),
+                       checkpoint_every=3)[0]
+    trainer, split = _trainer_on(cuda, "simple")
+    trainer.fit(split, epochs=5, ckpt_dir=str(tmp_path / "cut"),
+                checkpoint_every=3)
+    trainer, split = _trainer_on(cuda, "simple")
+    resumed = trainer.fit(split, epochs=8, ckpt_dir=str(tmp_path / "cut"),
+                          checkpoint_every=3, resume=True)[0]
+    assert resumed["losses"] == full["losses"]
+    for k in ("train", "valid", "test", "epoch"):
+        assert resumed[k] == full[k]
+
+
+@pytest.mark.cuda
+def test_capturable_adam_trajectory_matches_cpu(cuda):
+    """On the card the trainer's Adam is capturable (its step on the
+    device); 5 steps at dropout 0 reach the CPU's weights."""
+    weights = []
+    for device in (cuda, "cpu"):
+        trainer, split = _trainer_on(device, "simple", dropout=0.0)
+        state = trainer.init_state(0)
+        assert state.optimizer.defaults["capturable"] == (device == cuda)
+        mask = torch.zeros(500, dtype=torch.bool, device=device)
+        mask[:100] = True
+        for _ in range(5):
+            trainer.train_step(state, None, mask)
+        weights.append({n: p.detach().cpu()
+                        for n, p in state.model.named_parameters()})
+    for name in weights[1]:
+        torch.testing.assert_close(weights[0][name], weights[1][name],
+                                   **GRAD, msg=name)
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(cuda):
+    """A host sync in the step makes its capture fail, and the epoch-block
+    fit raises instead of running eagerly. In a process of its own, as a
+    failed capture may leave the allocator's capture state behind."""
+    import pathlib
+    import subprocess
+    import sys
+
+    code = (
+        "import pytest, torch\n"
+        "import test_torch_port_cuda as t\n"
+        "trainer, split = t._trainer_on(torch.device('cuda'), 'simple')\n"
+        "real = trainer._loss\n"
+        "trainer._loss = lambda out, m: real(out, m) * float(out.sum() > 0)\n"
+        "with pytest.raises(RuntimeError):\n"
+        "    trainer.fit(split, epochs=4, epoch_block=2)\n")
+    tests = pathlib.Path(__file__).resolve().parent
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tests.parent,
+                          env={**__import__("os").environ,
+                               "PYTHONPATH": f"{tests}:{tests.parent}"},
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -22,9 +22,11 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import difformer_tpu_torch, difformer_tpu_torch.train, "
         "difformer_tpu_torch.kernels, difformer_tpu_torch.utils.weights, "
-        "difformer_tpu_torch.utils.config\n"
+        "difformer_tpu_torch.utils.config, "
+        "difformer_tpu_torch.train.checkpoint\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'difformer_tpu.')) "
+        "m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'orbax', "
+        "'difformer_tpu.')) "
         "or m == 'difformer_tpu')\n"
         "assert not bad, bad\n"
     )
@@ -42,7 +44,7 @@ def _imports(path):
             yield node.module
 
 
-@pytest.mark.parametrize("forbidden", ["jax", "flax", "optax",
+@pytest.mark.parametrize("forbidden", ["jax", "flax", "optax", "orbax",
                                        "difformer_tpu"])
 def test_no_source_imports(forbidden):
     sources = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
