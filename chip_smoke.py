@@ -49,6 +49,7 @@ the repository around it; it imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -100,9 +101,10 @@ EPOCHS = 20
 H8_STEPS = 3
 GRAPH_BLOCK = 10  # epoch_block of the graph phases (eval every epoch)
 GRAPH_RTOL = 1e-5
-# device launches per train step of the slices with K1 before its split
-# schedule (commit 17d4e95), for comparison
-UNSPLIT_LAUNCHES = {"slice": 498, "slice-s": 938}
+GRAPH_TOP = 15  # kernels of a replayed block's profile to print
+# device launches per train step of the slices with the host-stepped
+# (non-capturable) Adam of commit dad714c, for comparison
+HOST_ADAM_LAUNCHES = {"slice": 498, "slice-s": 938}
 
 
 def say(*parts):
@@ -136,10 +138,12 @@ def cuda_ms(fn, target_ms=100.0, max_iters=50):
     return start.elapsed_time(end) / iters
 
 
-def profile_window(fn, calls):
+def profile_window(fn, calls, rows=False):
     """(device ms, device operations) per call of ``fn`` over one
     torch.profiler session of ``calls`` calls, after one unprofiled call:
-    the device's own kernels, copies and sets, without annotations."""
+    the device's own kernels, copies and sets, without annotations. With
+    ``rows``, also each kernel's (ms per call, launches per call, name),
+    longest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -153,8 +157,13 @@ def profile_window(fn, calls):
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA
               and not getattr(e, "is_user_annotation", False)]
-    return (sum(e.self_device_time_total for e in events) / 1e3 / calls,
-            sum(e.count for e in events) / calls)
+    total = (sum(e.self_device_time_total for e in events) / 1e3 / calls,
+             sum(e.count for e in events) / calls)
+    if not rows:
+        return total
+    return total, sorted(((e.self_device_time_total / 1e3 / calls,
+                           e.count / calls, e.key) for e in events),
+                         reverse=True)
 
 
 def device_profile(fn, calls=20):
@@ -481,10 +490,13 @@ def phase_spmm_kernels():
             del out, ref, scale
             torch.cuda.synchronize()
             event_ms = cuda_ms(kernel)
-            ms, kernels = device_profile(kernel)
+            expect = 2 if split.num_heavy else 1
+            for _ in range(3):  # a session now and then drops one event
+                ms, kernels = device_profile(kernel)
+                if kernels == expect:
+                    break
             plain_ms = device_ms(plain)
             library_ms = device_ms(lambda: library(x))
-            expect = 2 if split.num_heavy else 1
             say(f"phase kernels: {tag:52s} max_abs_err {err:.3e}, two calls "
                 f"bit-equal | largest degree {most}, T={split.threshold}: "
                 f"{split.num_heavy} heavy rows, {split.num_segments} "
@@ -770,12 +782,19 @@ def host_ms(fn, reps=3):
 
 def fit_path(cfg, epoch_block):
     """Build the cora preset ``cfg`` and fit it for EPOCHS epochs with an
-    eval every epoch; the fit's host-clock seconds and its peak memory."""
-    trainer, split, n, c = make_slice(cfg)
-    log = RowLog()
+    eval every epoch; the fit's host-clock seconds, and its peak memory
+    allocated and reserved (the caching allocator's segments, which hold a
+    CUDA graph's memory pool) above what was allocated and reserved before
+    the trainer was built (``held_mib``: above all cuBLAS's workspaces of
+    the streams used so far, which no trainer frees)."""
+    gc.collect()  # an earlier trainer's graphs (a trainer-runner cycle)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    held_reserved = torch.cuda.memory_reserved()
+    trainer, split, n, c = make_slice(cfg)
+    log = RowLog()
     reset_launch_counts()
     t0 = time.perf_counter()
     best = trainer.fit(split, epochs=EPOCHS, eval_step=1,
@@ -783,8 +802,10 @@ def fit_path(cfg, epoch_block):
     torch.cuda.synchronize()
     return dict(trainer=trainer, split=split, n=n, best=best,
                 rows=np.asarray(log.rows, np.float64),
-                fit_s=time.perf_counter() - t0,
-                peak_mib=torch.cuda.max_memory_allocated() / 2**20,
+                fit_s=time.perf_counter() - t0, held_mib=held / 2**20,
+                peak_mib=(torch.cuda.max_memory_allocated() - held) / 2**20,
+                reserved_mib=(torch.cuda.max_memory_reserved()
+                              - held_reserved) / 2**20,
                 counted=launch_counts())
 
 
@@ -847,8 +868,9 @@ def phase_graph(phase, cfg, attention):
 
     per_epoch = {"graph": host_ms(block) / GRAPH_BLOCK,
                  "loop": host_ms(loop_epoch)}
-    busy = {"graph": profile_window(block, 1),
-            "loop": profile_window(loop_epoch, 3)}
+    busy, by_kernel = {}, {}
+    busy["graph"], by_kernel["graph"] = profile_window(block, 1, rows=True)
+    busy["loop"] = profile_window(loop_epoch, 3)
     for path, run in (("loop", loop), ("graph", graph)):
         ms = per_epoch[path]
         dev_ms, ops = busy[path]
@@ -860,8 +882,14 @@ def phase_graph(phase, cfg, attention):
             f"ms per epoch over the {EPOCHS}-epoch fit (capture included); "
             f"steady {ms:.3f} ms per epoch (a step and an eval); device "
             f"{dev_ms:.4f} ms over {ops:g} device operations per epoch, "
-            f"{idle}; peak memory {run['peak_mib']:.1f} MiB")
-    return dict(per_epoch=per_epoch, busy=busy)
+            f"{idle}; peak memory {run['peak_mib']:.1f} MiB allocated, "
+            f"{run['reserved_mib']:.1f} MiB reserved (above "
+            f"{run['held_mib']:.1f} MiB held before the trainer)")
+    dev_ms = busy["graph"][0]
+    for ms, count, key in by_kernel["graph"][:GRAPH_TOP]:
+        say(f"phase {phase} replay profile: {ms / GRAPH_BLOCK:9.4f} ms/epoch "
+            f"{100 * ms / dev_ms:5.1f}% x{count / GRAPH_BLOCK:<6g} "
+            f"{key[:100]}")
 
 
 def profile_steps(step, step_ms, phase, steps=5, top=12):
@@ -892,8 +920,8 @@ def profile_steps(step, step_ms, phase, steps=5, top=12):
             f"measured)")
         return rows
     busy = sum(r[0] for r in rows)
-    before = (f" ({UNSPLIT_LAUNCHES[phase]} before K1's split schedule)"
-              if phase in UNSPLIT_LAUNCHES else "")
+    before = (f" ({HOST_ADAM_LAUNCHES[phase]} with the host-stepped Adam)"
+              if phase in HOST_ADAM_LAUNCHES else "")
     say(f"phase {phase} profile: device time {busy:.4f} ms per train step "
         f"over {steps} steps = {100 * busy / step_ms:.1f}% of the "
         f"{step_ms:.3f} ms step (idle {100 * (1 - busy / step_ms):.1f}%), "

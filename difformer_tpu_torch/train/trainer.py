@@ -32,6 +32,7 @@ has no ``extra`` and ``evaluate_params`` takes none.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -129,6 +130,15 @@ def _launch_counts():
     return {**_attention_kernels.LAUNCHES, **_spmm_kernels.LAUNCHES}
 
 
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device):
+    """The one side stream of ``device`` on which every run's warm-up and
+    capture run: cuBLAS keeps a workspace for each stream it has run on,
+    for the life of the process, so a new stream per run would hold more
+    device memory with every run."""
+    return torch.cuda.Stream(device)
+
+
 class FullBatchTrainer:
     """Train a node-level model on one (full) graph.
 
@@ -156,7 +166,6 @@ class FullBatchTrainer:
         self.lr = lr
         self.weight_decay = weight_decay
         self.seed = seed
-        self.loss_name = loss
         self.loss_fn = LOSSES[loss]
         self.metric_name = metric
         self.metric_fn = METRICS[metric]
@@ -335,7 +344,7 @@ class FullBatchTrainer:
             runner.evaluate()
             take(0, runner.fetch(0, 1)[0])
             last_eval = 0
-            for epoch in range(1, epochs):
+            for _ in range(1, epochs):
                 runner.step()
             epoch = epochs
         # the remaining epochs, one at a time, with the same device metrics
@@ -464,7 +473,8 @@ class EpochRunner:
 
     On the CPU :meth:`step` and :meth:`evaluate` run eagerly. On CUDA the
     constructor captures each once as a CUDA graph and they replay it:
-    first :data:`WARMUP_STEPS` steps and evals on a side stream, whose
+    first :data:`WARMUP_STEPS` steps and evals on the device's capture
+    stream (one for every run, :func:`_capture_stream`), whose
     effect on the weights (copied back in place), on Adam (its moments and
     step count zeroed in place, as a fresh Adam has them) and on the dropout
     generator (its state restored) is undone; then the step is captured with
@@ -512,7 +522,7 @@ class EpochRunner:
         weights = {k: v.detach().clone()
                    for k, v in model.state_dict().items()}
         dropout_state = self.generator.get_state()
-        side = torch.cuda.Stream(self.record.device)
+        side = _capture_stream(self.record.device)
         side.wait_stream(torch.cuda.current_stream(self.record.device))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
@@ -529,16 +539,17 @@ class EpochRunner:
 
         self._step_graph = torch.cuda.CUDAGraph()
         self._step_graph.register_generator_state(self.generator)
-        self.graphs["step"] = self._captured(self._step_graph, self._run_step)
+        self.graphs["step"] = self._captured(self._step_graph, self._run_step,
+                                             side)
         self._eval_graph = torch.cuda.CUDAGraph()
         self.graphs["eval"] = self._captured(self._eval_graph, self._run_eval,
-                                             pool=self._step_graph.pool())
+                                             side, self._step_graph.pool())
         self.state.step = 0  # the warm-up's and the capture's count
 
     @staticmethod
-    def _captured(graph, fn, pool=None):
+    def _captured(graph, fn, stream, pool=None):
         before = _launch_counts()
-        with torch.cuda.graph(graph, pool=pool):
+        with torch.cuda.graph(graph, pool=pool, stream=stream):
             fn()
         after = _launch_counts()
         return {"captured": {k: after[k] - before[k] for k in after},

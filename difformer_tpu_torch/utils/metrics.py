@@ -145,7 +145,8 @@ def device_rocauc_tasks(scores, labels, mask):
     run_end = torch.ones_like(key, dtype=torch.bool)
     run_end[:-1] = new_run[1:]
     first = torch.cummax(torch.where(new_run, pos, 0), dim=0).values
-    last = torch.where(run_end, pos, n - 1).flip(0).cummin(dim=0).values.flip(0)
+    last = torch.where(run_end, pos, n - 1).flip(0)
+    last = last.cummin(dim=0).values.flip(0)
     mid_sorted = (first + last).float() / 2 + 1
     ranks = torch.empty_like(mid_sorted).scatter_(0, order, mid_sorted)
     m = mask[:, None]

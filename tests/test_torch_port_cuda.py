@@ -25,7 +25,7 @@ from difformer_tpu_torch.kernels import sigmoid_attention as K
 from difformer_tpu_torch.kernels import spmm as K1
 from difformer_tpu_torch.kernels.tolerance import assert_close
 from difformer_tpu_torch.ops.graph_ops import build_csr_plan, gcn_conv
-from torch_port_helpers import cuda, make_inputs  # noqa: F401
+from torch_port_helpers import RowLog, cuda, make_inputs  # noqa: F401
 from torch_port_helpers import to_torch as _t
 
 GRAD = dict(rtol=1e-3, atol=1e-4)
@@ -562,14 +562,6 @@ def test_attention_kernels_are_captured_by_a_cuda_graph(cuda, call, n, l):
             assert torch.equal(got, want)
 
 
-class _Log:
-    def __init__(self):
-        self.rows = []
-
-    def add_result(self, run, result):
-        self.rows.append(result)
-
-
 def _trainer_on(device, kernel, dropout=0.2, layers=3):
     """A small trainer of ``kernel`` with dropout on, and a split."""
     from difformer_tpu_torch.data import class_rand_splits
@@ -676,7 +668,7 @@ def test_epoch_block_fit_matches_the_loop_on_the_card(cuda, kernel):
     results = []
     for block in (0, 4):
         trainer, split = _trainer_on(cuda, kernel)
-        log = _Log()
+        log = RowLog()
         best = trainer.fit(split, epochs=10, eval_step=2, epoch_block=block,
                            logger=log)[0]
         results.append((best, np.asarray(log.rows), trainer.epoch_runner))
@@ -717,13 +709,15 @@ def test_resume_on_the_card(cuda, tmp_path):
 
 @pytest.mark.cuda
 def test_capturable_adam_trajectory_matches_cpu(cuda):
-    """On the card the trainer's Adam is capturable (its step on the
-    device); 5 steps at dropout 0 reach the CPU's weights."""
+    """On the card the trainer's Adam is capturable and fused (its step on
+    the device, one kernel for the update); 5 steps at dropout 0 reach the
+    CPU's weights."""
     weights = []
     for device in (cuda, "cpu"):
         trainer, split = _trainer_on(device, "simple", dropout=0.0)
         state = trainer.init_state(0)
         assert state.optimizer.defaults["capturable"] == (device == cuda)
+        assert bool(state.optimizer.defaults["fused"]) == (device == cuda)
         mask = torch.zeros(500, dtype=torch.bool, device=device)
         mask[:100] = True
         for _ in range(5):
@@ -740,6 +734,7 @@ def test_a_failed_capture_raises(cuda):
     """A host sync in the step makes its capture fail, and the epoch-block
     fit raises instead of running eagerly. In a process of its own, as a
     failed capture may leave the allocator's capture state behind."""
+    import os
     import pathlib
     import subprocess
     import sys
@@ -754,7 +749,7 @@ def test_a_failed_capture_raises(cuda):
         "    trainer.fit(split, epochs=4, epoch_block=2)\n")
     tests = pathlib.Path(__file__).resolve().parent
     proc = subprocess.run([sys.executable, "-c", code], cwd=tests.parent,
-                          env={**__import__("os").environ,
+                          env={**os.environ,
                                "PYTHONPATH": f"{tests}:{tests.parent}"},
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -27,17 +27,17 @@ from difformer_tpu_torch import DIFFormer, FullBatchTrainer, GraphData
 from difformer_tpu_torch.train.trainer import nll_loss
 from difformer_tpu_torch.utils import weights as W
 from difformer_tpu_torch.utils.metrics import eval_acc
+from torch_port_helpers import RowLog
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 N, F, C = 200, 16, 4
 LR, WD = 1e-3, 0.01
 
 
-def _task(task):
-    """(labels, out_channels, trainer options) of a task on the test graph:
-    classes with NLL, the classes as one-hot BCE targets, float regression
-    targets with MSE, and multilabel BCE with ROC-AUC."""
-    _, _, y = random_graph(N, 800, F, C, seed=0, homophily=0.8)
+def _task(task, y):
+    """(labels, out_channels, trainer options) of a task on the test graph
+    with classes ``y``: the classes with NLL, as one-hot BCE targets, float
+    regression targets with MSE, and multilabel BCE with ROC-AUC."""
     rng = np.random.default_rng(4)
     if task == "nll":
         return y, C, {}
@@ -54,7 +54,7 @@ def _setup(task="nll", trainer_kw=None, **kw):
     x, ei, y = random_graph(N, 800, F, C, seed=0, homophily=0.8)
     ei = standard_preprocess(ei, N)
     split = class_rand_splits(y, 10, valid_num=60, test_num=80, rng=0)
-    labels, out, opts = _task(task)
+    labels, out, opts = _task(task, y)
     opts = dict(opts, **(trainer_kw or {}))
     kw = dict(dict(num_layers=2, dropout=0.0), **kw)
     jm = JDIFFormer(hidden_channels=16, out_channels=out, **kw)
@@ -310,16 +310,6 @@ def test_scan_eligible_matches_jax(task):
                                                             "acc-multilabel"))
 
 
-class _Log:
-    """A logger: every eval's (train, valid, test)."""
-
-    def __init__(self):
-        self.rows = []
-
-    def add_result(self, run, result):
-        self.rows.append(result)
-
-
 # (task, epochs, eval_step, epoch_block): blocks of groups with a
 # remainder and the forced final eval; the eval-free branch
 # (eval_step >= epochs); and the BCE, MSE and ROC-AUC paths
@@ -362,7 +352,7 @@ def test_epoch_block_fit_matches_per_epoch_fit(case, monkeypatch):
     results = []
     for epoch_block in (0, block):
         _, tt, _, split = _setup(task, num_heads=1, dropout=0.3)
-        log = _Log()
+        log = RowLog()
         best = tt.fit(split, epochs=epochs, eval_step=eval_step,
                       epoch_block=epoch_block, logger=log)[0]
         results.append((best, np.asarray(log.rows)))
@@ -382,7 +372,7 @@ def test_epoch_block_fit_matches_jax_scanned_fit(case):
     fit: the same best epoch, logged metrics at the JAX tolerance."""
     task, epochs, eval_step, block = BLOCK_CASES[case]
     jt, tt, params, split = _setup(task, num_heads=1)
-    logs = (_Log(), _Log())
+    logs = (RowLog(), RowLog())
     jbest = jt.fit(split, epochs=epochs, eval_step=eval_step,
                    epoch_block=block, logger=logs[0], init_params=params)[0]
     tbest = tt.fit(split, epochs=epochs, eval_step=eval_step,

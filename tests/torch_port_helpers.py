@@ -34,6 +34,16 @@ def to_jax(a, dtype=None):
     return None if a is None else jnp.asarray(a, dtype or jnp.float32)
 
 
+class RowLog:
+    """A ``fit`` logger: every eval's (train, valid, test)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add_result(self, run, result):
+        self.rows.append(result)
+
+
 @pytest.fixture
 def cuda():
     """The GPU, with TF32 off; skips where there is none (the CUDA kernels
