@@ -41,6 +41,21 @@ non-zero before the last line:
    kernel launched as often as the loop's path needs (counted at capture,
    times the replays), host ms per epoch and peak memory of both paths, and
    the device idle share of a replayed block and of a loop epoch.
+9. kernels-wide (run right after the kernels phase): K2-K4 on their wide
+   path at the set track's widths, M = D = 300 and 400 at N = L = 15000
+   (f32 with and without a key mask, and bf16), each against its plain
+   version on the same inputs, with device times, bound and split.
+10. cli: the cora preset unchanged (DIFFormer-s, 500 epochs, 5 runs) through
+   ``difformer_tpu_torch.cli.main`` on Planetoid raw files written for the
+   slice's synthetic graph; again with --kernel sigmoid and with
+   --reorder rcm; then --save_model cut to 50 epochs and 1 run, and
+   --eval_only, which must give the saved run's metrics. Each run's test
+   accuracy above chance, its kernels launched, host seconds of load and
+   preprocess and of the fit, ms per epoch.
+11. cli-set: the cifar10 preset unchanged (hidden 300, 2 layers, no graph,
+   600 epochs, 5 runs) on stand-in embeddings [15000, 512]; then
+   --kernel sigmoid --use_graph true cut to 20 epochs and 1 run (K1 on the
+   kNN graph and the wide K2-K4), with the kNN graph's host seconds.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. It needs a CUDA device and
@@ -49,6 +64,7 @@ the repository around it; it imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -102,6 +118,19 @@ H8_STEPS = 3
 GRAPH_BLOCK = 10  # epoch_block of the graph phases (eval every epoch)
 GRAPH_RTOL = 1e-5
 GRAPH_TOP = 15  # kernels of a replayed block's profile to print
+# K2-K4 on their wide path at the set track's widths (hidden 300 for cifar10
+# and 20news, 400 for stl10, one head), N = L = 15000 (cifar10's cut)
+WIDE_SHAPES = [
+    (15000, 15000, 1, 300, 300, torch.float32, False),
+    (15000, 15000, 1, 300, 300, torch.float32, True),
+    (15000, 15000, 1, 400, 400, torch.float32, False),
+    (15000, 15000, 1, 400, 400, torch.float32, True),
+    (15000, 15000, 1, 300, 300, torch.bfloat16, False),
+]
+WIDE_JSON = WIDE_SHAPES[0]  # the shape of the JSON line's wide rows
+# cifar10 as load_image_text reads it: 15000 rows (its cut) of ResNet-18
+# embeddings (512 wide), 10 classes
+CIFAR10_NODES, CIFAR10_WIDTH, CIFAR10_CLASSES = 15000, 512, 10
 # device launches per train step of the slices with the host-stepped
 # (non-capturable) Adam of commit dad714c, for comparison
 HOST_ADAM_LAUNCHES = {"slice": 498, "slice-s": 938}
@@ -237,10 +266,12 @@ def phase_build():
             say(f"  ptxas: {line.split(':', 1)[-1].strip()}")
 
 
-def attention_case(n, l, h, m, d, dtype, masked, seed):
+def attention_case(n, l, h, m, d, dtype, masked, seed, scale=1.0):
+    """q, k, v, a key mask (or None) and an output cotangent on the card;
+    q and k are ``scale`` times standard normal."""
     g = torch.Generator().manual_seed(seed)
-    q = torch.randn((n, h, m), generator=g).to("cuda", dtype)
-    k = torch.randn((l, h, m), generator=g).to("cuda", dtype)
+    q = (scale * torch.randn((n, h, m), generator=g)).to("cuda", dtype)
+    k = (scale * torch.randn((l, h, m), generator=g)).to("cuda", dtype)
     v = torch.randn((l, h, d), generator=g).to("cuda", dtype)
     mask = None
     if masked:
@@ -559,8 +590,6 @@ def reset_launch_counts():
 
 def through_plain_versions():
     """A context in which the model runs every kernel's plain version."""
-    import contextlib
-
     import difformer_tpu_torch.nn.difformer as difformer_module
     from difformer_tpu_torch.ops import graph_ops
 
@@ -892,6 +921,311 @@ def phase_graph(phase, cfg, attention):
             f"{key[:100]}")
 
 
+# ---------------------------------------------------------------------------
+# kernels-wide: K2-K4 at the set track's widths
+# ---------------------------------------------------------------------------
+
+def phase_kernels_wide():
+    """K2-K4 on their wide path (M or D above ``NARROW_WIDTH``) at the set
+    track's shapes, each against its plain version on the same inputs under
+    ``kernels/tolerance.py``, each comparison shown to fail a wrong output:
+    the device times (:func:`device_ms`) of kernel and plain version, the
+    FP32 operation bound and the split chosen. q and k are scaled so that
+    q·k has unit variance, which keeps the scores off the sigmoid's flat
+    ends. The unnormalized numerator is checked at float32 only: at
+    bfloat16 inputs, a one-ulp change of q·k flips s's bfloat16 rounding
+    now and then, which moves a raw sum of L terms by more than the float32
+    rule allows (``out``, normalised, is held to the bfloat16 rule).
+    Returns the JSON rows of ``WIDE_JSON``."""
+    from difformer_tpu_torch.kernels import sigmoid_attention as K
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+
+    rows = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for idx, shape in enumerate(WIDE_SHAPES):
+        n, l, h, m, d, dtype, masked = shape
+        if not K.is_wide(m, d):
+            raise AssertionError(f"{shape} is not on the wide path")
+        q, k, v, mask, g = attention_case(n, l, h, m, d, dtype, masked,
+                                          100 + idx, scale=m ** -0.25)
+        label = (f"N={n} L={l} H={h} M={m} D={d} "
+                 f"{str(dtype).split('.')[-1]}{' mask' if masked else ''}")
+        out, den = K.sigmoid_attention_fwd(q, k, v, mask)
+        r_out, r_den = K.sigmoid_attention_fwd_plain(q, k, v, mask)
+        errs = {"sigmoid_attention_fwd": max(
+            assert_close(f"wide out {label}", out, r_out, "out"),
+            assert_close(f"wide den {label}", den, r_den, "den"))}
+        checks = [("out", r_out, "out", None), ("den", r_den, "den", None)]
+        if dtype == torch.float32:
+            num, _ = K.sigmoid_attention_fwd(q, k, v, mask, normalize=False)
+            r_num, _ = K.sigmoid_attention_fwd_plain(q, k, v, mask,
+                                                     normalize=False)
+            errs["sigmoid_attention_fwd"] = max(
+                errs["sigmoid_attention_fwd"],
+                assert_close(f"wide num {label}", num, r_num, "num",
+                             den=r_den))
+            checks.append(("num", r_num, "num", r_den))
+            del num, r_num
+        dnum = g / den[..., None]
+        dden = -(g * out.float()).sum(-1) / den
+        dq = K.sigmoid_attention_dq(q, k, v, mask, dnum, dden)
+        r_dq = K.sigmoid_attention_dq_plain(q, k, v, mask, dnum, dden)
+        errs["sigmoid_attention_dq"] = assert_close(f"wide dq {label}", dq,
+                                                    r_dq, "grad")
+        dk, dv = K.sigmoid_attention_dkv(q, k, v, mask, dnum, dden)
+        r_dk, r_dv = K.sigmoid_attention_dkv_plain(q, k, v, mask, dnum, dden)
+        errs["sigmoid_attention_dkv"] = max(
+            assert_close(f"wide dk {label}", dk, r_dk, "grad"),
+            assert_close(f"wide dv {label}", dv, r_dv, "grad"))
+        checks += [("dq", r_dq, "grad", None), ("dk", r_dk, "grad", None),
+                   ("dv", r_dv, "grad", None)]
+        for name, ref, kind, den_ref in checks:
+            assert_rejects(f"wide {name} {label}", ref, kind, den_ref)
+        del out, r_out, r_den, dq, r_dq, dk, r_dk, dv, r_dv, checks
+        torch.cuda.empty_cache()
+
+        calls = {
+            "sigmoid_attention_fwd": (
+                lambda: K.sigmoid_attention_fwd(q, k, v, mask),
+                lambda: K.sigmoid_attention_fwd_plain(q, k, v, mask)),
+            "sigmoid_attention_dq": (
+                lambda: K.sigmoid_attention_dq(q, k, v, mask, dnum, dden),
+                lambda: K.sigmoid_attention_dq_plain(q, k, v, mask, dnum,
+                                                     dden)),
+            "sigmoid_attention_dkv": (
+                lambda: K.sigmoid_attention_dkv(q, k, v, mask, dnum, dden),
+                lambda: K.sigmoid_attention_dkv_plain(q, k, v, mask, dnum,
+                                                      dden)),
+        }
+        for name, (kernel, plain) in calls.items():
+            per_split, splits, chunk = K.split_plan(name, n, l, h, m, d, sms)
+            ms, plain_ms = device_ms(kernel, calls=3), device_ms(plain,
+                                                                 calls=3)
+            bound, bound_by = bound_ms(name, n, l, h, m, d, dtype)
+            say(f"phase kernels-wide: {name:22s} {label:40s} max_abs_err "
+                f"{errs[name]:.3e} | device {ms:.4f} ms | plain "
+                f"{plain_ms:.4f} ms | bound {bound:.4f} ms by {bound_by} "
+                f"({100 * bound / ms:.1f}% of the kernel's time) | S={splits}"
+                f" ({chunk} loop tiles each), {per_split * splits} blocks")
+            if shape == WIDE_JSON:
+                rows[f"{name} wide"] = dict(
+                    max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=bound_by, library_ms=None)
+        del q, k, v, mask, g, dnum, dden, calls
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# cli and cli-set: the command line, end to end
+# ---------------------------------------------------------------------------
+
+def write_planetoid_cora(root, num_nodes=2708, num_edges=10556,
+                         feat_dim=1433, classes=7):
+    """Planetoid raw files (``ind.cora.*``, the layout ``load_planetoid``
+    reads) under ``root/Planetoid/cora/raw`` for
+    ``random_graph(num_nodes, num_edges, feat_dim, classes, seed=42,
+    homophily=0.8)``, its features made 0/1 (x > 1) as Cora's bag of words
+    is. The split is Cora's: 140 labelled rows (``x``, ``y``), the first
+    ``num_nodes - 1000`` rows in ``allx``, the last 1000 (or a third of a
+    smaller graph) in ``tx`` with their ids in ``test.index``. Returns
+    (features, edge_index as written, labels)."""
+    import os
+    import pickle
+
+    import scipy.sparse as sp
+
+    from difformer_tpu_torch.data import random_graph
+
+    x, ei, y = random_graph(num_nodes, num_edges, feat_dim, classes,
+                            seed=42, homophily=0.8)
+    x = (x > 1.0).astype(np.float32)
+    onehot = np.eye(classes)[y]
+    n_test = min(1000, num_nodes // 3)
+    n_all = num_nodes - n_test
+    n_train = min(140, n_all)
+    raw = os.path.join(root, "Planetoid", "cora", "raw")
+    os.makedirs(raw, exist_ok=True)
+    adjacency = {i: [] for i in range(num_nodes)}
+    for src, dst in ei.T:
+        adjacency[int(src)].append(int(dst))
+    parts = {"x": sp.csr_matrix(x[:n_train]), "y": onehot[:n_train],
+             "allx": sp.csr_matrix(x[:n_all]), "ally": onehot[:n_all],
+             "tx": sp.csr_matrix(x[n_all:]), "ty": onehot[n_all:],
+             "graph": adjacency}
+    for part, obj in parts.items():
+        with open(os.path.join(raw, f"ind.cora.{part}"), "wb") as f:
+            pickle.dump(obj, f)
+    np.savetxt(os.path.join(raw, "ind.cora.test.index"),
+               np.arange(n_all, num_nodes), fmt="%d")
+    written = np.asarray([(s, t) for s in adjacency for t in adjacency[s]],
+                         np.int64).reshape(-1, 2).T
+    return x, written, y
+
+
+def cifar10_embeddings(num=CIFAR10_NODES, dim=CIFAR10_WIDTH,
+                       classes=CIFAR10_CLASSES, seed=0):
+    """Stand-ins for cifar10's image embeddings: ``num`` rows of ``dim``
+    ReLU features (non-negative, as a ResNet's pooled output is) around
+    one standard normal centre per class, with noise of 5 times its
+    scale, so that 20 labels a class do not separate them all, and their
+    labels."""
+    noise = 5.0
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, classes, num)
+    centres = rng.normal(size=(classes, dim))
+    x = np.maximum(centres[y] + noise * rng.normal(size=(num, dim)), 0.0)
+    return x.astype(np.float32), y.astype(np.int64)
+
+
+def write_cifar10_embeddings(root, x, y):
+    """``root/cifar10_embeddings.pkl`` as ``load_image_text`` reads it."""
+    import os
+    import pickle
+
+    with open(os.path.join(root, "cifar10_embeddings.pkl"), "wb") as f:
+        pickle.dump((x, y), f)
+
+
+class CliRun:
+    """Drives ``difformer_tpu_torch.cli.main`` once with the launch counts
+    set to 0 just before and read just after; times, on the host clock,
+    what comes before the trainer (load and preprocess, the model), each
+    ``fit`` and the kNN graph."""
+
+    def __init__(self, phase, argv):
+        from difformer_tpu_torch import cli
+
+        self.phase, self.argv = phase, argv
+        times = self.times = {"fit_s": 0.0, "knn_s": 0.0, "epochs": 0}
+        real_fit, real_knn = cli.FullBatchTrainer.fit, cli.knn_graph
+        start = [0.0]
+
+        def timed_fit(trainer, split_idx, **kw):
+            if "prep_s" not in times:
+                times["prep_s"] = time.perf_counter() - start[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real_fit(trainer, split_idx, **kw)
+            torch.cuda.synchronize()
+            times["fit_s"] += time.perf_counter() - t0
+            times["epochs"] += kw["epochs"] * kw.get("runs", 1)
+            self.trainer = trainer
+            return res
+
+        def timed_knn(*args, **kw):
+            t0 = time.perf_counter()
+            out = real_knn(*args, **kw)
+            times["knn_s"] += time.perf_counter() - t0
+            return out
+
+        stack = contextlib.ExitStack()
+        stack.enter_context(unittest.mock.patch.object(
+            cli.FullBatchTrainer, "fit", timed_fit))
+        stack.enter_context(unittest.mock.patch.object(
+            cli, "knn_graph", timed_knn))
+        with stack:
+            reset_launch_counts()
+            start[0] = time.perf_counter()
+            self.res = cli.main(argv)
+            torch.cuda.synchronize()
+            self.launches = launch_counts()
+        self.total_s = time.perf_counter() - start[0]
+
+    def check(self, classes, path):
+        """Every run's test metric finite and above chance (1/classes);
+        every kernel of ``path`` launched and no other."""
+        tests = [r["test"] for r in self.res]
+        say(f"phase {self.phase}: {' '.join(self.argv)} -> test "
+            f"{[round(t, 4) for t in tests]}; launches {self.launches}")
+        if not all(math.isfinite(t) and t > 1.0 / classes for t in tests):
+            raise AssertionError(f"test metrics at or below chance "
+                                 f"({1.0 / classes:.3f}): {tests}")
+        off = {k: v for k, v in self.launches.items()
+               if (v > 0) != (k in path)}
+        if off:
+            raise AssertionError(f"kernels launched against the path "
+                                 f"{sorted(path)}: {off}")
+
+    def report(self, cut=""):
+        t = self.times
+        epochs = max(t["epochs"], 1)
+        knn = f", kNN graph {t['knn_s']:.3f} s" if t["knn_s"] else ""
+        say(f"phase {self.phase}: host seconds: load and preprocess "
+            f"{t.get('prep_s', float('nan')):.3f} s{knn} (within it), fit "
+            f"{t['fit_s']:.3f} s for {t['epochs']} epochs = "
+            f"{1e3 * t['fit_s'] / epochs:.3f} ms per epoch (captures "
+            f"included), whole command {self.total_s:.3f} s{cut}")
+
+
+SIGMOID_PATH = ("sigmoid_attention_fwd", "sigmoid_attention_dq",
+                "sigmoid_attention_dkv")
+K1_PATH = ("csr_spmm", "csr_spmm_transposed")
+
+
+def phase_cli(tmp):
+    """The cora preset through the command line, unchanged (DIFFormer-s,
+    hidden 64, 8 layers, 500 epochs, 5 runs, epoch_block 8) on Planetoid
+    files of a synthetic graph of Cora's size; then with --kernel sigmoid
+    and with --reorder rcm; then a --save_model run cut to 50 epochs and 1
+    run, and --eval_only on what it saved. Returns the main path's
+    launches (the first run)."""
+    from difformer_tpu_torch.utils.config import make_config
+
+    write_planetoid_cora(tmp)
+    base = ["--dataset", "cora", "--data_dir", tmp]
+    main_run = CliRun("cli", base)
+    main_run.check(7, K1_PATH)
+    main_run.report()
+    for extra, path in ((["--kernel", "sigmoid"], K1_PATH + SIGMOID_PATH),
+                        (["--reorder", "rcm"], K1_PATH)):
+        run = CliRun("cli", base + extra)
+        run.check(7, path)
+        run.report()
+
+    cfg = make_config("cora")
+    cut = ["--epochs", "50", "--runs", "1"]
+    saved = CliRun("cli", base + ["--save_model", "true", "--model_dir",
+                                  tmp] + cut)
+    saved.check(7, K1_PATH)
+    saved.report(f"; cut from {cfg.epochs} epochs and {cfg.runs} runs: "
+                 f"save_best takes the per-epoch loop")
+    evaluated = CliRun("cli", base + ["--eval_only", "true", "--model_dir",
+                                      tmp] + cut)
+    best, got = saved.res[-1], evaluated.res[0]
+    say(f"phase cli: eval_only {got} against the saved best epoch "
+        f"{best['epoch']}: train {best['train']} valid {best['valid']} "
+        f"test {best['test']}")
+    for split in ("train", "valid", "test"):
+        if got[split] != best[split]:
+            raise AssertionError(f"eval_only {split} {got[split]} != the "
+                                 f"saved run's {best[split]}")
+    return main_run.launches
+
+
+def phase_cli_set(tmp):
+    """The cifar10 preset through the command line, unchanged (hidden 300,
+    2 layers, k = 5, use_graph false, 600 epochs, 5 runs) on stand-in
+    embeddings [15000, 512]; then --kernel sigmoid --use_graph true, cut
+    to 20 epochs and 1 run, which runs K1 on the kNN graph and the wide
+    K2-K4. Returns that run's launches."""
+    from difformer_tpu_torch.utils.config import make_config
+
+    x, y = cifar10_embeddings()
+    write_cifar10_embeddings(tmp, x, y)
+    base = ["--dataset", "cifar10", "--data_dir", tmp]
+    preset = CliRun("cli-set", base)
+    preset.check(CIFAR10_CLASSES, ())
+    preset.report()
+    cfg = make_config("cifar10")
+    wide = CliRun("cli-set", base + ["--kernel", "sigmoid", "--use_graph",
+                                     "true", "--epochs", "20", "--runs",
+                                     "1"])
+    wide.check(CIFAR10_CLASSES, K1_PATH + SIGMOID_PATH)
+    wide.report(f"; cut from {cfg.epochs} epochs and {cfg.runs} runs")
+    return wide.launches
+
+
 def profile_steps(step, step_ms, phase, steps=5, top=12):
     """Device time by kernel over ``steps`` train steps (torch.profiler),
     and its share of ``step_ms``, the step's time measured without the
@@ -938,6 +1272,7 @@ def main():
     phase_build()
     rows = phase_kernels()
     spmm_rows = phase_spmm_kernels()
+    wide_rows = phase_kernels_wide()
     say(f"phase kernels: done at {time.perf_counter() - t0:.1f} s")
     launches = phase_slice()
     launches_s = phase_slice_s()
@@ -947,6 +1282,14 @@ def main():
     phase_graph("slice-s-graph", make_config("cora"), attention=False)
     phase_graph("slice-graph", make_config("cora", kernel="sigmoid"),
                 attention=True)
+    say(f"phase graph: done at {time.perf_counter() - t0:.1f} s")
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_cli(tmp)
+    say(f"phase cli: done at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_set = phase_cli_set(tmp)
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     # every ms, plain_ms and library_ms is a device time (device_ms) at the
     # slice's shape (K1 also at Pokec's)
@@ -964,6 +1307,13 @@ def main():
          "replaces": SPMM_REPLACES, "launches": launches_s[name.split()[0]],
          **row}
         for name, row in spmm_rows.items()
+    ] + [
+        # K2-K4 on their wide path at the set track's shape; launches are
+        # the cli-set phase's run with --kernel sigmoid (hidden 300)
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[name.split()[0]],
+         "launches": launches_set[name.split()[0]], **row}
+        for name, row in wide_rows.items()
     ]
     say(json.dumps({"kernels": kernels}))
     say(smi)

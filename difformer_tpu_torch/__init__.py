@@ -7,9 +7,12 @@ Pallas TPU kernel becomes a hand-written Hopper kernel (``csrc/``), built at
 first use and bound with ctypes. Entry points run on the GPU unless given
 ``device="cpu"``; on the CPU every kernel runs as its plain PyTorch version.
 
-Ported so far: full-batch node classification with DIFFormer-s
-(``kernel="simple"``, the main path) and DIFFormer-a (``kernel="sigmoid"``).
-ROADMAP.md lists what is still to port.
+Ported so far: full-batch node classification and the set track with
+DIFFormer-s (``kernel="simple"``, the main path) and DIFFormer-a
+(``kernel="sigmoid"``), started from the command line
+(``python -m difformer_tpu_torch.cli``, ``cli.py``) with the dataset
+readers, transforms, loggers and ``sweep.py``. ROADMAP.md lists what is
+still to port.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,275 @@
+"""Command-line entry point of the port, as ``difformer_tpu/cli.py``: one
+flag surface for the reference's ``main.py`` scripts, with the same flags,
+presets and data path. It runs on the GPU.
+
+Usage:
+  python -m difformer_tpu_torch.cli --dataset cora --data_dir data
+  python -m difformer_tpu_torch.cli --dataset cifar10 --kernel sigmoid
+  python -m difformer_tpu_torch.cli --dataset synthetic-2000-8000-32-4
+
+From Python, ``main(argv, device="cpu")`` runs on the CPU instead (every
+kernel as its plain version), as the tests do.
+
+Ported: full-batch node classification and the set track (``--task set``:
+a kNN graph of the features) with ``--method difformer``, both kernels,
+``--reorder``, the three split modes, ``--save_model`` and
+``--eval_only``. The GCN branch always runs the CSR SpMM kernel (K1): the
+JAX package's default ``--use_ell`` ELL layout is a TPU layout of the same
+product. ``--eval_only`` reads a checkpoint the port wrote with
+``--save_model``, or a reference ``.pt``/``.pth``/``.pkl`` state_dict; it
+does not read the JAX package's orbax checkpoints. Every other route raises
+``NotImplementedError`` naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+import numpy as np
+
+from difformer_tpu_torch.data.graph import GraphData
+from difformer_tpu_torch.data.loaders import load_dataset
+from difformer_tpu_torch.data.transforms import (
+    add_self_loops,
+    knn_graph,
+    locality_reorder,
+    permute_graph,
+    remove_self_loops,
+    to_undirected,
+)
+from difformer_tpu_torch.nn.difformer import DIFFormer
+from difformer_tpu_torch.train.checkpoint import (
+    restore_checkpoint,
+    save_checkpoint,
+)
+from difformer_tpu_torch.train.trainer import FullBatchTrainer
+from difformer_tpu_torch.utils.config import Config, make_config
+from difformer_tpu_torch.utils.logger import RunLogger
+from difformer_tpu_torch.utils.weights import load_torch_checkpoint
+
+# the JAX package's methods that the port does not run yet, by ROADMAP.md
+# queue A item
+_ZOO = ("mlp", "manireg", "gcn", "gat", "sgc", "link", "mixhop", "gcnjk",
+        "gatjk", "h2gcn", "appnp", "gprgnn", "lp", "multilp")
+_TEMPORAL_MODELS = ("dcrnn", "mpnn_lstm")
+_ITEMS = {
+    8: "the baseline zoo, ROADMAP.md queue A item 8",
+    7: "the temporal track, ROADMAP.md queue A item 7",
+    6: "the graph-level track, ROADMAP.md queue A item 6",
+    5: "mini-batch training, ROADMAP.md queue A item 5",
+    9: "the TPU-shaped sparse layouts, ROADMAP.md queue A item 9",
+    10: "the parallel layer, ROADMAP.md queue A item 10",
+}
+# the reference's sparse product: the port's CSR SpMM kernel
+_PORTED_SPMM = ("", "coo")
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported to difformer_tpu_torch yet ({_ITEMS[item]})")
+
+
+def _method_error(method):
+    """The error for a ``--method`` other than difformer."""
+    if method.lower() in _ZOO:
+        return _not_ported(f"--method {method}", 8)
+    if method.lower() in _TEMPORAL_MODELS:
+        return _not_ported(f"--method {method}", 7)
+    return ValueError(f"unknown method {method!r}")
+
+
+def parse_method(cfg: Config, n_nodes: int, n_classes: int,
+                 in_channels: int, *, device=None):
+    """The model of ``--method`` (``node classification/parse.py:4-10``);
+    the port builds DIFFormer, whose input width it needs."""
+    if cfg.method.lower() != "difformer":
+        raise _method_error(cfg.method)
+    if cfg.n_shards > 1:
+        raise _not_ported("--n_shards > 1", 10)
+    return DIFFormer(
+        in_channels, cfg.hidden_channels, n_classes,
+        num_layers=cfg.num_layers, num_heads=cfg.num_heads,
+        kernel=cfg.kernel, alpha=cfg.alpha, dropout=cfg.dropout,
+        use_bn=cfg.use_bn, use_residual=cfg.use_residual,
+        use_weight=cfg.use_weight, use_graph=cfg.use_graph,
+        graph_weight=cfg.graph_weight, use_source=cfg.use_source,
+        spmm_first=cfg.spmm_first, fuse_head_mean=cfg.fuse_head_mean,
+        seed=cfg.seed, device=device)
+
+
+BCE_DATASETS = {"yelp-chi", "deezer-europe", "twitch-e", "fb100",
+                "ogbn-proteins"}  # main.py:119-125
+
+
+def _check_ported(cfg: Config):
+    """Raise for the routes of ``run_node_task`` that are not ported,
+    before any data is read."""
+    if cfg.method.lower() != "difformer":
+        raise _method_error(cfg.method)
+    if cfg.n_shards > 1:
+        raise _not_ported("--n_shards > 1", 10)
+    if cfg.use_minibatch:
+        raise _not_ported("--use_minibatch", 5)
+    if cfg.spmm not in _PORTED_SPMM:
+        raise _not_ported(f"--spmm {cfg.spmm}", 9)
+
+
+def _restore(cfg: Config, trainer: FullBatchTrainer, split):
+    """Metrics of the weights ``--eval_only`` names on ``split``
+    (reference test_large_dataset.py:85-98)."""
+    path = cfg.ckpt_path
+    if path and os.path.splitext(path)[1] in (".pkl", ".pt", ".pth"):
+        # a reference-layout torch state_dict
+        res, _ = trainer.evaluate_params(load_torch_checkpoint(path), split)
+        return res
+    path = path or f"{cfg.model_dir}/{cfg.dataset}-{cfg.method}"
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory, as the JAX package's orbax checkpoints "
+            f"are; the port reads only the checkpoint files it writes with "
+            f"--save_model and reference .pt/.pth/.pkl state_dicts")
+    state = trainer.init_state(0)
+    state.model.load_state_dict(
+        restore_checkpoint(path, map_location=trainer.device))
+    res, _ = trainer.evaluate(state, split)
+    return res
+
+
+def run_node_task(cfg: Config, device=None):
+    """Load ``cfg.dataset``, preprocess its graph as the reference does and
+    train (or, with ``eval_only``, evaluate) DIFFormer full-batch on
+    ``device`` (the GPU unless told otherwise). Returns one summary per
+    run."""
+    _check_ported(cfg)
+    ds = load_dataset(cfg.data_dir, cfg.dataset, cfg.sub_dataset)
+    x = ds.graph["node_feat"]
+    n = ds.graph["num_nodes"]
+    label = np.asarray(ds.label)
+    n_classes = (
+        label.shape[1] if label.ndim > 1 and label.shape[1] > 1
+        else int(label.max()) + 1
+    )
+
+    if cfg.task == "set" or ds.graph["edge_index"] is None:
+        ei = knn_graph(x, cfg.knn_k, include_self=True)  # image-text/main.py:51-54
+    else:
+        ei = ds.graph["edge_index"]
+    # reference main.py:71-76: only the symmetrisation is gated (skipped for
+    # --directed and always for ogbn-proteins); self loops are removed and
+    # added back in every case
+    if not cfg.directed and cfg.dataset != "ogbn-proteins":
+        ei = to_undirected(ei)
+    ei, _ = remove_self_loops(ei)
+    ei, _ = add_self_loops(ei, n)
+
+    perm = None
+    if cfg.reorder:
+        # renumber the nodes so that neighbours sit close in memory
+        perm = locality_reorder(ei, n, method=cfg.reorder)
+        ei, x, label = permute_graph(perm, ei, x, label)
+
+    loss = "bce" if cfg.dataset in BCE_DATASETS else "nll"
+    model = parse_method(cfg, n, n_classes, x.shape[1], device=device)
+    logger = RunLogger(cfg.runs)
+
+    def split_for(run):
+        if cfg.rand_split_class:
+            split = ds.get_idx_split(
+                "class", label_num_per_class=cfg.label_num_per_class, rng=run)
+        elif cfg.rand_split:
+            split = ds.get_idx_split("random", cfg.train_prop,
+                                     cfg.valid_prop, rng=run)
+        else:
+            try:
+                fixed = ds.get_idx_split("fixed")
+                split = (fixed[run % len(fixed)]
+                         if isinstance(fixed, list) else fixed)
+            except ValueError:
+                split = ds.get_idx_split("random", cfg.train_prop,
+                                         cfg.valid_prop, rng=run)
+        if perm is not None:
+            # the split's indices are in the original numbering
+            split = {k: perm[np.asarray(v)] for k, v in split.items()}
+        return split
+
+    graph = GraphData.from_numpy(x, ei, device=device)
+    trainer = FullBatchTrainer(
+        model, graph, label, lr=cfg.lr, weight_decay=cfg.weight_decay,
+        loss=loss, metric=cfg.metric, seed=cfg.seed, device=device)
+    if cfg.eval_only:
+        res = _restore(cfg, trainer, split_for(0))
+        print(f"Eval-only: {res}")
+        return [res]
+    res = []
+    for run in range(cfg.runs):
+        r = trainer.fit(split_for(run), epochs=cfg.epochs, runs=1,
+                        logger=logger, eval_step=cfg.eval_step,
+                        verbose=True, display_step=cfg.display_step,
+                        print_prop=cfg.print_prop,
+                        save_best=cfg.save_model,
+                        epoch_block=cfg.epoch_block)
+        if cfg.save_model and r[-1].get("params") is not None:
+            save_checkpoint(f"{cfg.model_dir}/{cfg.dataset}-{cfg.method}",
+                            r[-1].pop("params"))
+        res.extend(r)
+
+    tests = np.asarray([r["test"] for r in res])
+    print(f"Final Test: {100 * tests.mean():.2f} ± {100 * tests.std():.2f}")
+    return res
+
+
+def _tri_state(s):
+    """'auto' or a bool-like string, for spmm_first and fuse_head_mean."""
+    s = s.lower()
+    if s == "auto":
+        return "auto"
+    return s in ("1", "true", "yes")
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        description="difformer_tpu_torch command line (DIFFormer on the GPU)",
+        epilog="--eval_only reads a checkpoint written by --save_model or a "
+               "reference .pt/.pth/.pkl state_dict (--ckpt_path); the JAX "
+               "package's orbax checkpoints are not read.")
+    for f in dataclasses.fields(Config):
+        arg = "--" + f.name
+        if f.name in ("spmm_first", "fuse_head_mean"):
+            p.add_argument(arg, type=_tri_state, default=None)
+        elif f.type == "bool" or isinstance(f.default, bool):
+            p.add_argument(arg, type=lambda s: s.lower() in ("1", "true", "yes"),
+                           default=None)
+        elif f.default is None or f.type == "Optional[int]":
+            p.add_argument(arg, type=int, default=None)
+        elif isinstance(f.default, int):
+            p.add_argument(arg, type=int, default=None)
+        elif isinstance(f.default, float):
+            p.add_argument(arg, type=float, default=None)
+        else:
+            p.add_argument(arg, type=str, default=None)
+    return p
+
+
+def main(argv=None, *, device=None):
+    """Parse ``argv`` (the process's arguments when None), apply the
+    dataset's preset and run it on ``device`` (the GPU unless told
+    otherwise)."""
+    args = build_parser().parse_args(argv)
+    overrides = {k: v for k, v in vars(args).items() if v is not None}
+    if overrides.get("use_ell"):
+        # the ELL layout, which the JAX package's default also takes
+        raise _not_ported("--use_ell", 9)
+    dataset = overrides.pop("dataset", "cora")
+    cfg = make_config(dataset, **overrides)
+    print(cfg)
+    if cfg.task == "temporal":
+        raise _not_ported("--task temporal", 7)
+    if cfg.task == "graph":
+        raise _not_ported("--task graph", 6)
+    return run_node_task(cfg, device=device)
+
+
+if __name__ == "__main__":
+    main()

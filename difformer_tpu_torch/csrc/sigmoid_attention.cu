@@ -8,6 +8,8 @@
 //   sigattn_dkv_kernel  <- _bwd_dkv_kernel (K4)  dk = dl^T q, dv = s^T dnum
 //
 // with s = sigma(q k^T) * key_mask, ds = dnum v^T + dden, dl = ds s (1 - s).
+// Above M or D = 256 (the set track's widths) each takes its wide variant,
+// sigattn_{fwd,dq,dkv}_wide_kernel (see "The wide path" below).
 //
 // What bounds them on this card: operations. Each kernel reads and writes
 // O((N + L) H (M + D)) bytes but does O(N L H (M + D)) multiply-adds, so at
@@ -52,7 +54,9 @@
 namespace {
 
 constexpr int kThreads = 256;  // threads of every block
-constexpr int kMaxWidth = 256;  // largest M and D the kernels take
+// widest M and D of the narrow path, whose blocks hold whole feature
+// columns of their own tile; wider problems take the wide path (below)
+constexpr int kNarrowWidth = 256;
 constexpr int kTile = 64;    // rows (queries or keys) of every tile
 constexpr int kStride = kTile + 4;  // of the feature-major tiles
 
@@ -332,7 +336,7 @@ __global__ void __launch_bounds__(kThreads)
 // at M or D above 64 the block streams the depth of the score products
 // through them in groups of 64, its own group last, so that group stays
 // for the accumulation, and the blocks of the other groups recompute the
-// scores (the wide case is not the model's).
+// scores (above M or D = 256, the wide path below takes over).
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
@@ -611,11 +615,414 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ---------------------------------------------------------------------------
+// The wide path: M or D above kNarrowWidth (the set track's hidden 300 and
+// 400 at one head). A block can no longer hold whole feature columns of its
+// own tile (2 M 68 floats of q and k alone pass the 227 KB a block may have
+// at M = 400), so every tile goes through shared memory 64 features at a
+// time, and each loop tile takes two passes:
+//
+//   1. the score tiles (s over M, and for K3 and K4 ds over D), summed over
+//      the 64-feature chunks of both operands before the sigmoid;
+//   2. the products that use them, one 64-feature chunk of the block's
+//      output at a time, streaming that chunk of the other operand.
+//
+// A block keeps WG chunks of its output in registers (acc [4][4 WG] a
+// lane), so the scores are computed once for every WG x 64 output features,
+// not once for every 64 as the narrow path's feature groups would: 512
+// features, one z group up to M, D = 512 (K4: one group of dk and one of
+// dv). Wider outputs take more z groups.
+// The accumulators need up to 255 registers a thread, so one block runs
+// on an SM; the tile layouts and the rounding points are the narrow path's.
+// ---------------------------------------------------------------------------
+constexpr int kWideFwdGroups = 8;  // K2: 512 output features a block
+constexpr int kWideDqGroups = 8;   // K3: 512 features of dq a block
+constexpr int kWideDkvGroups = 8;  // K4: 512 features of dk or dv a block
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+// The number of 64-feature chunks of the block's output range that start
+// below C, at most WG; the range starts at z WG 64.
+__device__ __forceinline__ int chunks_in_range(int C, int z, int WG) {
+  const int left = C - z * WG * kTile;
+  return left <= 0 ? 0 : (cdiv(left, kTile) < WG ? cdiv(left, kTile) : WG);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    sigattn_fwd_wide_kernel(const T* __restrict__ q, Strides sq,
+                            const T* __restrict__ k, Strides sk,
+                            const T* __restrict__ v, Strides sv,
+                            const float* __restrict__ mask,
+                            void* __restrict__ out,
+                            float* __restrict__ den_out,
+                            float* __restrict__ ws, int64_t N, int64_t L,
+                            int H, int M, int D, int chunk, bool normalize) {
+  constexpr int BT = kTile, P = kStride, WG = kWideFwdGroups;
+  extern __shared__ float4 fwdw_smem[];
+  float* Qs = reinterpret_cast<float*>(fwdw_smem);  // [BT][P] 64 features
+  float* Ks = Qs + BT * P;   // [BT][P] the same features of the k tile
+  float* Vs = Ks + BT * P;   // [BT][BT] 64 features of the v tile
+  float* Ss = Vs + BT * BT;  // [BT][P] Ss[j * P + i] = s[i, j] in v's dtype
+
+  const int zgroups = cdiv(D, WG * BT);
+  const int z = blockIdx.z % zgroups, split = blockIdx.z / zgroups;
+  const int splits = gridDim.z / zgroups;
+  const int d0 = z * WG * BT, groups = chunks_in_range(D, z, WG);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = warp * 8 + (lane / 16) * 4;
+  const int col0 = (lane % 16) * 4;
+  const int h = blockIdx.y;
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * BT;
+  const int64_t kb = static_cast<int64_t>(split) * chunk * BT;
+  const int64_t ke = kb + static_cast<int64_t>(chunk) * BT < L
+                         ? kb + static_cast<int64_t>(chunk) * BT
+                         : L;
+
+  float acc[4][4 * WG] = {};
+  float den[4] = {};
+  for (int64_t k0 = kb; k0 < ke; k0 += BT) {
+    float s[4][4] = {};
+    for (int c0 = 0; c0 < M; c0 += BT) {  // pass 1: s over M
+      const int cm = M - c0 < BT ? M - c0 : BT;
+      __syncthreads();  // Qs, Ks (and Ss, Vs) are no longer read
+      load_tile_fmajor<T>(Qs, q + c0 * sq.c, sq, q0, N, h, cm);
+      load_tile_fmajor<T>(Ks, k + c0 * sk.c, sk, k0, L, h, cm);
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < cm; ++c)
+        outer4(s, 0, lds4(Qs + c * P + row0), lds4(Ks + c * P + col0));
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t key = k0 + col0 + j;
+      const float mk = key < L ? (mask ? mask[key] : 1.f) : 0.f;
+      float p[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        p[i] = Num<T>::round(sigmoid(s[i][j]) * mk);
+        den[i] += p[i];
+      }
+      *reinterpret_cast<float4*>(Ss + (col0 + j) * P + row0) =
+          make_float4(p[0], p[1], p[2], p[3]);
+    }
+#pragma unroll
+    for (int g = 0; g < WG; ++g) {  // pass 2: num += s v, 64 features a time
+      if (g < groups) {
+        const int c0 = d0 + g * BT;
+        __syncthreads();  // Vs is no longer read; Ss is written
+        load_tile_rows<T, BT>(Vs, v + c0 * sv.c, sv, k0, L, h, D - c0);
+        __syncthreads();
+#pragma unroll 8
+        for (int j = 0; j < BT; ++j)
+          outer4(acc, 4 * g, lds4(Ss + j * P + row0),
+                 lds4(Vs + j * BT + col0));
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+      den[i] += __shfl_xor_sync(0xffffffffu, den[i], off);
+
+  const bool first = lane % 16 == 0 && z == 0;  // one writer of a row sum
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t row = q0 + row0 + i;
+    if (row >= N) continue;
+    const int64_t r = splits > 1 ? (split * N + row) * H + h : row * H + h;
+    if (splits > 1 && first) ws[splits * N * H * D + r] = den[i];
+    if (splits == 1 && first) den_out[r] = den[i];
+#pragma unroll
+    for (int c = 0; c < 4 * WG; ++c) {
+      const int d = d0 + 64 * (c / 4) + col0 + c % 4;
+      if (c / 4 >= groups || d >= D) continue;
+      if (splits > 1)  // raw partials of this key chunk
+        ws[r * D + d] = acc[i][c];
+      else if (normalize)
+        Num<T>::store(static_cast<T*>(out) + r * D + d, acc[i][c] / den[i]);
+      else
+        static_cast<float*>(out)[r * D + d] = acc[i][c];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    sigattn_dq_wide_kernel(const T* __restrict__ q, Strides sq,
+                           const T* __restrict__ k, Strides sk,
+                           const T* __restrict__ v, Strides sv,
+                           const float* __restrict__ mask,
+                           const float* __restrict__ dnum,
+                           const float* __restrict__ dden,
+                           T* __restrict__ dq, float* __restrict__ ws,
+                           int64_t N, int64_t L, int H, int M, int D,
+                           int chunk) {
+  constexpr int BT = kTile, P = kStride, WG = kWideDqGroups;
+  extern __shared__ float4 dqw_smem[];
+  float* Qs = reinterpret_cast<float*>(dqw_smem);  // [BT][P] 64 features
+  float* Ns = Qs + BT * P;  // [BT][P] 64 features of dnum in v's dtype
+  float* Ks = Ns + BT * P;  // [BT][P] 64 features of the k tile
+  float* Vs = Ks + BT * P;  // [BT][P] 64 features of the v tile
+  float* Ls = Vs + BT * P;  // [BT][P] Ls[i * P + j] = dl[i, j] in k's dtype
+
+  const int zgroups = cdiv(M, WG * BT);
+  const int z = blockIdx.z % zgroups, split = blockIdx.z / zgroups;
+  const int splits = gridDim.z / zgroups;
+  const int m0 = z * WG * BT, groups = chunks_in_range(M, z, WG);
+  const int depth = feature_groups(M, D);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = warp * 8 + (lane / 16) * 4;  // queries
+  const int col0 = (lane % 16) * 4;             // keys of the scores
+  const int f0 = lane % 16;                     // features f0 + 16 u
+  const int h = blockIdx.y;
+  const int64_t q0 = static_cast<int64_t>(blockIdx.x) * BT;
+  const int64_t kb = static_cast<int64_t>(split) * chunk * BT;
+  const int64_t ke = kb + static_cast<int64_t>(chunk) * BT < L
+                         ? kb + static_cast<int64_t>(chunk) * BT
+                         : L;
+  const Strides sn{static_cast<int64_t>(H) * D, D, 1};
+
+  float dd[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    dd[i] = q0 + row0 + i < N ? dden[(q0 + row0 + i) * H + h] : 0.f;
+
+  float acc[4][4 * WG] = {};
+  for (int64_t k0 = kb; k0 < ke; k0 += BT) {
+    float s[4][4] = {}, ds[4][4] = {};
+    for (int t = 0; t < depth; ++t) {  // pass 1: s over M, ds over D
+      const int c0 = BT * t;
+      const int cm = M - c0 < BT ? M - c0 : BT;
+      const int cd = D - c0 < BT ? D - c0 : BT;
+      __syncthreads();  // the tiles (and Ks after pass 2) are no longer read
+      load_tile_fmajor<T>(Qs, q + c0 * sq.c, sq, q0, N, h, cm);
+      load_tile_fmajor<float, T>(Ns, dnum + c0, sn, q0, N, h, cd);
+      load_tile_fmajor<T>(Ks, k + c0 * sk.c, sk, k0, L, h, cm);
+      load_tile_fmajor<T>(Vs, v + c0 * sv.c, sv, k0, L, h, cd);
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < cm; ++c)
+        outer4(s, 0, lds4(Qs + c * P + row0), lds4(Ks + c * P + col0));
+#pragma unroll 4
+      for (int c = 0; c < cd; ++c)
+        outer4(ds, 0, lds4(Ns + c * P + row0), lds4(Vs + c * P + col0));
+    }
+
+    float mk[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t key = k0 + col0 + j;
+      mk[j] = key < L ? (mask ? mask[key] : 1.f) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float l[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = sigmoid(s[i][j]) * mk[j];
+        l[j] = Num<T>::round((ds[i][j] + dd[i]) * p * (1.f - p));
+      }
+      *reinterpret_cast<float4*>(Ls + (row0 + i) * P + col0) =
+          make_float4(l[0], l[1], l[2], l[3]);
+    }
+
+#pragma unroll
+    for (int g = 0; g < WG; ++g) {  // pass 2: dq += dl k, 64 features a time
+      if (g < groups) {
+        const int c0 = m0 + g * BT;
+        __syncthreads();  // Ks is no longer read; Ls is written
+        load_tile_fmajor<T>(Ks, k + c0 * sk.c, sk, k0, L, h,
+                            M - c0 < BT ? M - c0 : BT);
+        __syncthreads();
+#pragma unroll 4
+        for (int j = 0; j < BT; j += 4) {
+          float4 a[4], b[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            a[u] = lds4(Ls + (row0 + u) * P + j);
+            b[u] = lds4(Ks + (f0 + 16 * u) * P + j);
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              acc[r][4 * g + u] = dot4(a[r], b[u], acc[r][4 * g + u]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int64_t row = q0 + row0 + r;
+    if (row >= N) continue;
+#pragma unroll
+    for (int c = 0; c < 4 * WG; ++c) {
+      const int f = m0 + BT * (c / 4) + f0 + 16 * (c % 4);
+      if (c / 4 >= groups || f >= M) continue;
+      if (splits > 1)  // raw partials of this key chunk: [S, N, H, M]
+        ws[((split * N + row) * H + h) * M + f] = acc[r][c];
+      else
+        Num<T>::store(dq + (row * H + h) * M + f, acc[r][c]);
+    }
+  }
+}
+
+// K4 takes two launches, one for dk (ForDv false) and one for dv: a dv
+// block needs only s (over M), a dk block s and ds, and neither holds the
+// other's accumulators. Each puts its groups of 512 features of dk (or dv)
+// on the z axis.
+template <typename T, bool ForDv>
+__global__ void __launch_bounds__(kThreads, 1)
+    sigattn_dkv_wide_kernel(const T* __restrict__ q, Strides sq,
+                            const T* __restrict__ k, Strides sk,
+                            const T* __restrict__ v, Strides sv,
+                            const float* __restrict__ mask,
+                            const float* __restrict__ dnum,
+                            const float* __restrict__ dden,
+                            T* __restrict__ dk, T* __restrict__ dv,
+                            float* __restrict__ ws, int64_t N, int64_t L,
+                            int H, int M, int D, int chunk) {
+  constexpr int BT = kTile, P = kStride, WG = kWideDkvGroups;
+  extern __shared__ float4 dkvw_smem[];
+  float* Ks = reinterpret_cast<float*>(dkvw_smem);  // [BT][P] 64 features
+  float* Vs = Ks + BT * P;  // [BT][P] 64 features of the v tile
+  float* Qs = Vs + BT * P;  // [BT][P] 64 features of q (pass 2: q or dnum)
+  float* Ns = Qs + BT * P;  // [BT][P] 64 features of dnum, in v's dtype
+  float* Ls = Ns + BT * P;  // [BT][P] Ls[j * P + i] = dl[i, j] in q's dtype
+  //                           (dk) or s[i, j] in v's dtype (dv)
+  float* dd = Ls + BT * P;  // [BT]    dden of the query tile
+
+  constexpr bool for_dv = ForDv;
+  const int C = for_dv ? D : M;  // width of the output
+  const int zgroups = cdiv(C, WG * BT);
+  const int z = blockIdx.z % zgroups, split = blockIdx.z / zgroups;
+  const int splits = gridDim.z / zgroups;
+  const int f_base = z * WG * BT, groups = chunks_in_range(C, z, WG);
+  // a dv block's scores are s over M only
+  const int depth = for_dv ? cdiv(M, BT) : feature_groups(M, D);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = warp * 8 + (lane / 16) * 4;  // keys
+  const int col0 = (lane % 16) * 4;             // queries of the scores
+  const int f0 = lane % 16;                     // features f0 + 16 u
+  const int h = blockIdx.y;
+  const int64_t k0 = static_cast<int64_t>(blockIdx.x) * BT;
+  const int64_t qb = static_cast<int64_t>(split) * chunk * BT;
+  const int64_t qe = qb + static_cast<int64_t>(chunk) * BT < N
+                         ? qb + static_cast<int64_t>(chunk) * BT
+                         : N;
+  const Strides sn{static_cast<int64_t>(H) * D, D, 1};
+
+  float mk[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int64_t key = k0 + row0 + i;
+    mk[i] = key < L ? (mask ? mask[key] : 1.f) : 0.f;
+  }
+
+  float acc[4][4 * WG] = {};
+  for (int64_t q0 = qb; q0 < qe; q0 += BT) {
+    float s[4][4] = {}, ds[4][4] = {};
+    for (int t = 0; t < depth; ++t) {  // pass 1: s^T over M, ds^T over D
+      const int c0 = BT * t;
+      const int cm = M - c0 < BT ? M - c0 : BT;
+      const int cd = for_dv ? 0 : (D - c0 < BT ? D - c0 : BT);
+      __syncthreads();  // the tiles and dd are no longer read
+      load_tile_fmajor<T>(Ks, k + c0 * sk.c, sk, k0, L, h, cm);
+      load_tile_fmajor<T>(Qs, q + c0 * sq.c, sq, q0, N, h, cm);
+      load_tile_fmajor<T>(Vs, v + c0 * sv.c, sv, k0, L, h, cd);
+      load_tile_fmajor<float, T>(Ns, dnum + c0, sn, q0, N, h, cd);
+      if (t == 0 && !for_dv)
+        for (int i = threadIdx.x; i < BT; i += kThreads)
+          dd[i] = q0 + i < N ? dden[(q0 + i) * H + h] : 0.f;
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < cm; ++c)
+        outer4(s, 0, lds4(Ks + c * P + row0), lds4(Qs + c * P + col0));
+#pragma unroll 4
+      for (int c = 0; c < cd; ++c)
+        outer4(ds, 0, lds4(Vs + c * P + row0), lds4(Ns + c * P + col0));
+    }
+
+    // dden of the score tile's queries (a dv block does not read it)
+    const float4 d4 = for_dv ? make_float4(0.f, 0.f, 0.f, 0.f)
+                             : lds4(dd + col0);
+    const float ddq[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float pj =
+            q0 + col0 + j < N ? sigmoid(s[i][j]) * mk[i] : 0.f;
+        w[j] = for_dv ? Num<T>::round(pj)
+                      : Num<T>::round((ds[i][j] + ddq[j]) * pj * (1.f - pj));
+      }
+      *reinterpret_cast<float4*>(Ls + (row0 + i) * P + col0) =
+          make_float4(w[0], w[1], w[2], w[3]);
+    }
+
+#pragma unroll
+    for (int g = 0; g < WG; ++g) {  // pass 2: dk += dl q or dv += s dnum
+      if (g < groups) {
+        const int c0 = f_base + g * BT;
+        const int cw = C - c0 < BT ? C - c0 : BT;
+        __syncthreads();  // Qs is no longer read; Ls is written
+        if (for_dv)
+          load_tile_fmajor<float, T>(Qs, dnum + c0, sn, q0, N, h, cw);
+        else
+          load_tile_fmajor<T>(Qs, q + c0 * sq.c, sq, q0, N, h, cw);
+        __syncthreads();
+#pragma unroll 4
+        for (int i = 0; i < BT; i += 4) {
+          float4 a[4], b[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            a[u] = lds4(Ls + (row0 + u) * P + i);
+            b[u] = lds4(Qs + (f0 + 16 * u) * P + i);
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              acc[r][4 * g + u] = dot4(a[r], b[u], acc[r][4 * g + u]);
+        }
+      }
+    }
+  }
+
+  // raw partials of this query chunk: dk [S, L, H, M] then dv [S, L, H, D]
+  T* out = for_dv ? dv : dk;
+  float* part = for_dv ? ws + splits * L * H * M + split * L * H * D
+                       : ws + split * L * H * M;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int64_t row = k0 + row0 + r;
+    if (row >= L) continue;
+#pragma unroll
+    for (int c = 0; c < 4 * WG; ++c) {
+      const int f = f_base + BT * (c / 4) + f0 + 16 * (c % 4);
+      if (c / 4 >= groups || f >= C) continue;
+      if (splits > 1)
+        part[(row * H + h) * C + f] = acc[r][c];
+      else
+        Num<T>::store(out + (row * H + h) * C + f, acc[r][c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers. Every tile is 64 x 64. K2 holds G = 1, 2 or 4 groups of 64
 // output features in one block for D up to 256 (at M = D = 256 its shared
 // memory is 217 KB of the 227 KB a block may have); K3 and K4 put their
 // feature groups on the grid's z axis beside the split, and at M = D = 256
-// take 191 KB and 209 KB.
+// take 191 KB and 209 KB. The wide kernels take 69, 87 and 87 KB at any
+// width, and put their groups of 512 output features on the z axis; K4's
+// wide path is two launches, dk's and dv's.
 // ---------------------------------------------------------------------------
 struct Problem {
   const void *q, *k, *v;
@@ -642,15 +1049,34 @@ cudaError_t sum_partials(const float* ws, void* out, int64_t n, int S,
   return cudaGetLastError();
 }
 
-template <typename T, int G>
-cudaError_t fwd(const Problem& p, void* out, float* den, float* ws,
-                int splits, int chunk, bool normalize, cudaStream_t stream) {
-  constexpr int BT = kTile, P = kStride;
-  const size_t smem = 2 * p.M * P + BT * 64 * G + BT * P;
-  auto kernel = sigattn_fwd_kernel<T, G>;
+bool wide(const Problem& p) {
+  return p.M > kNarrowWidth || p.D > kNarrowWidth;
+}
+
+// The groups of output features that each kernel puts on the z axis.
+int fwd_groups(const Problem& p) {
+  return wide(p) ? cdiv(p.D, kWideFwdGroups * kTile) : 1;
+}
+int dq_groups(const Problem& p) {
+  return cdiv(p.M, (wide(p) ? kWideDqGroups : 1) * kTile);
+}
+// (the wide path's two launches: the larger of dk's and dv's groups)
+int dkv_groups(const Problem& p) {
+  const int widest = p.M > p.D ? p.M : p.D;
+  return wide(p) ? cdiv(widest, kWideDkvGroups * kTile)
+                 : feature_groups(p.M, p.D);
+}
+
+// Launches a K2 kernel, and with splits > 1 the combine of its partials.
+template <typename T, typename Kernel>
+cudaError_t fwd_launch(Kernel kernel, size_t smem, const Problem& p,
+                       void* out, float* den, float* ws, int splits,
+                       int chunk, bool normalize, cudaStream_t stream) {
+  constexpr int BT = kTile;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(static_cast<unsigned>((p.N + BT - 1) / BT), p.H, splits);
+  const dim3 grid(static_cast<unsigned>((p.N + BT - 1) / BT), p.H,
+                  splits * fwd_groups(p));
   kernel<<<grid, kThreads, smem * sizeof(float), stream>>>(
       static_cast<const T*>(p.q), p.sq, static_cast<const T*>(p.k), p.sk,
       static_cast<const T*>(p.v), p.sv, p.mask, out, den, ws, p.N, p.L, p.H,
@@ -664,11 +1090,24 @@ cudaError_t fwd(const Problem& p, void* out, float* den, float* ws,
   return cudaGetLastError();
 }
 
-// G groups of 64 output features cover D.
+template <typename T, int G>
+cudaError_t fwd(const Problem& p, void* out, float* den, float* ws,
+                int splits, int chunk, bool normalize, cudaStream_t stream) {
+  constexpr int BT = kTile, P = kStride;
+  return fwd_launch<T>(sigattn_fwd_kernel<T, G>,
+                       2 * p.M * P + BT * 64 * G + BT * P, p, out, den, ws,
+                       splits, chunk, normalize, stream);
+}
+
+// The wide kernel, or G groups of 64 output features that cover D.
 template <typename T>
 cudaError_t fwd_for_width(const Problem& p, void* out, float* den, float* ws,
                           int splits, int chunk, bool normalize,
                           cudaStream_t stream) {
+  constexpr int BT = kTile, P = kStride;
+  if (wide(p))
+    return fwd_launch<T>(sigattn_fwd_wide_kernel<T>, 3 * BT * P + BT * BT,
+                         p, out, den, ws, splits, chunk, normalize, stream);
   if (p.D <= 64)
     return fwd<T, 1>(p, out, den, ws, splits, chunk, normalize, stream);
   if (p.D <= 128)
@@ -681,12 +1120,12 @@ cudaError_t dq(const Problem& p, const float* dnum, const float* dden,
                void* dq_out, float* ws, int splits, int chunk,
                cudaStream_t stream) {
   constexpr int BT = kTile, P = kStride;
-  const size_t smem = (p.M + p.D + 3 * BT) * P;
-  auto kernel = sigattn_dq_kernel<T>;
+  const size_t smem = (wide(p) ? 5 * BT : p.M + p.D + 3 * BT) * P;
+  auto kernel = wide(p) ? sigattn_dq_wide_kernel<T> : sigattn_dq_kernel<T>;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(static_cast<unsigned>((p.N + BT - 1) / BT), p.H,
-                  splits * ((p.M + BT - 1) / BT));
+                  splits * dq_groups(p));
   kernel<<<grid, kThreads, smem * sizeof(float), stream>>>(
       static_cast<const T*>(p.q), p.sq, static_cast<const T*>(p.k), p.sk,
       static_cast<const T*>(p.v), p.sv, p.mask, dnum, dden,
@@ -696,23 +1135,45 @@ cudaError_t dq(const Problem& p, const float* dnum, const float* dden,
   return sum_partials<T>(ws, dq_out, p.N * p.H * p.M, splits, stream);
 }
 
-template <typename T>
-cudaError_t dkv(const Problem& p, const float* dnum, const float* dden,
-                void* dk_out, void* dv_out, float* ws, int splits, int chunk,
-                cudaStream_t stream) {
-  constexpr int BT = kTile, P = kStride;
-  const size_t smem = (p.M + p.D + 4 * BT) * P + BT;
-  auto kernel = sigattn_dkv_kernel<T>;
+// Launches one K4 kernel over splits x groups z blocks.
+template <typename T, typename Kernel>
+cudaError_t dkv_launch(Kernel kernel, size_t smem, int groups,
+                       const Problem& p, const float* dnum, const float* dden,
+                       void* dk_out, void* dv_out, float* ws, int splits,
+                       int chunk, cudaStream_t stream) {
+  constexpr int BT = kTile;
   cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(static_cast<unsigned>((p.L + BT - 1) / BT), p.H,
-                  splits * feature_groups(p.M, p.D));
+                  splits * groups);
   kernel<<<grid, kThreads, smem * sizeof(float), stream>>>(
       static_cast<const T*>(p.q), p.sq, static_cast<const T*>(p.k), p.sk,
       static_cast<const T*>(p.v), p.sv, p.mask, dnum, dden,
       static_cast<T*>(dk_out), static_cast<T*>(dv_out), ws, p.N, p.L, p.H,
       p.M, p.D, chunk);
-  e = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dkv(const Problem& p, const float* dnum, const float* dden,
+                void* dk_out, void* dv_out, float* ws, int splits, int chunk,
+                cudaStream_t stream) {
+  constexpr int BT = kTile, P = kStride, G = kWideDkvGroups * kTile;
+  cudaError_t e;
+  if (wide(p)) {  // dk, then dv
+    const size_t smem = 5 * BT * P + BT;
+    e = dkv_launch<T>(sigattn_dkv_wide_kernel<T, false>, smem, cdiv(p.M, G),
+                      p, dnum, dden, dk_out, dv_out, ws, splits, chunk,
+                      stream);
+    if (e == cudaSuccess)
+      e = dkv_launch<T>(sigattn_dkv_wide_kernel<T, true>, smem, cdiv(p.D, G),
+                        p, dnum, dden, dk_out, dv_out, ws, splits, chunk,
+                        stream);
+  } else {
+    e = dkv_launch<T>(sigattn_dkv_kernel<T>, (p.M + p.D + 4 * BT) * P + BT,
+                      feature_groups(p.M, p.D), p, dnum, dden, dk_out, dv_out,
+                      ws, splits, chunk, stream);
+  }
   if (e != cudaSuccess || splits == 1) return e;
   const int64_t rows = p.L * p.H;
   e = sum_partials<T>(ws, dk_out, rows * p.M, splits, stream);
@@ -723,8 +1184,7 @@ cudaError_t dkv(const Problem& p, const float* dnum, const float* dden,
 
 bool valid(int dtype, const Problem& p) {
   return (dtype == 0 || dtype == 1) && p.N > 0 && p.L > 0 && p.H > 0 &&
-         p.H <= 65535 && p.M > 0 && p.D > 0 && p.M <= kMaxWidth &&
-         p.D <= kMaxWidth;
+         p.H <= 65535 && p.M > 0 && p.D > 0;
 }
 
 // splits chunks of chunk tiles cover the loop's rows, none of them empty,
@@ -744,8 +1204,9 @@ bool valid_split(int64_t loop_rows, int splits, int chunk, const void* ws,
 
 extern "C" {
 
-// splits blocks per (query tile, head) each take chunk key tiles of
-// kTile keys; with splits > 1, ws holds splits * N * H * (D + 1) floats.
+// splits blocks per (query tile, head, and on the wide path group of 512
+// output features) each take chunk key tiles of kTile keys; with
+// splits > 1, ws holds splits * N * H * (D + 1) floats.
 int sigattn_fwd(int dtype, int normalize, const void* q, const void* k,
                 const void* v, const void* mask, void* out, void* den,
                 void* ws, int64_t N, int64_t L, int H, int M, int D,
@@ -754,7 +1215,7 @@ int sigattn_fwd(int dtype, int normalize, const void* q, const void* k,
                 int64_t svh, int64_t svd, void* stream) {
   const Problem p{q, k, v, {sqn, sqh, sqm}, {skn, skh, skm}, {svn, svh, svd},
                   static_cast<const float*>(mask), N, L, H, M, D};
-  if (!valid(dtype, p) || !valid_split(L, splits, chunk, ws))
+  if (!valid(dtype, p) || !valid_split(L, splits, chunk, ws, fwd_groups(p)))
     return cudaErrorInvalidValue;
   auto* st = static_cast<cudaStream_t>(stream);
   auto* den_f = static_cast<float*>(den);
@@ -776,7 +1237,7 @@ int sigattn_dq(int dtype, const void* q, const void* k, const void* v,
   const Problem p{q, k, v, {sqn, sqh, sqm}, {skn, skh, skm}, {svn, svh, svd},
                   static_cast<const float*>(mask), N, L, H, M, D};
   if (!valid(dtype, p) ||
-      !valid_split(L, splits, chunk, ws, (M + kTile - 1) / kTile))
+      !valid_split(L, splits, chunk, ws, dq_groups(p)))
     return cudaErrorInvalidValue;
   auto* st = static_cast<cudaStream_t>(stream);
   auto* dn = static_cast<const float*>(dnum);
@@ -800,7 +1261,7 @@ int sigattn_dkv(int dtype, const void* q, const void* k, const void* v,
   const Problem p{q, k, v, {sqn, sqh, sqm}, {skn, skh, skm}, {svn, svh, svd},
                   static_cast<const float*>(mask), N, L, H, M, D};
   if (!valid(dtype, p) ||
-      !valid_split(N, splits, chunk, ws, feature_groups(M, D)))
+      !valid_split(N, splits, chunk, ws, dkv_groups(p)))
     return cudaErrorInvalidValue;
   auto* st = static_cast<cudaStream_t>(stream);
   auto* dn = static_cast<const float*>(dnum);

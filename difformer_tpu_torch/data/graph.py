@@ -1,15 +1,24 @@
-"""The single-graph container, as ``difformer_tpu/data/graph.py:24-60``.
+"""Graph containers, as ``difformer_tpu/data/graph.py:24-115``.
 
-Edges are held as (senders, receivers) int64 tensors, stably sorted by
-receiver: the reference's ``row`` and ``col``, in CSR order.
-:meth:`GraphData.csr_plan` builds the graph's CSR plan for the GCN branch's
-kernel once and keeps it.
+``GraphData`` is the single graph on the device. Its edges are held as
+(senders, receivers) int64 tensors, always stably sorted by receiver: the
+reference's ``row`` and ``col``, in CSR order. Unlike the JAX package's,
+``from_numpy`` takes no ``sort_edges`` flag and the graph has no
+``edges_sorted`` field: every graph is sorted, which is what the JAX
+package's default (``sort_edges=True``) gives. :meth:`GraphData.csr_plan`
+builds the graph's CSR plan for the GCN branch's kernel once and keeps it.
+
+``NodeDataset`` mirrors the reference's ``NCDataset``
+(``node classification/dataset.py:25-83``: ``.graph = {edge_index,
+node_feat, edge_feat, num_nodes}``, ``.label``, ``get_idx_split``) and holds
+numpy on the host; :meth:`NodeDataset.to_graph_data` moves it to the
+device once.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -93,3 +102,57 @@ class GraphData:
             if isinstance(value, torch.Tensor):
                 moved[name] = value.to(dev)
         return GraphData(**moved)
+
+
+class NodeDataset:
+    """Host-side dataset container (the reference's ``NCDataset``).
+
+    graph: dict with 'edge_index' int [2, E] numpy (None for a set without
+    a graph), 'node_feat' [N, F] numpy, 'edge_feat' (optional), 'num_nodes'.
+    label: [N] or [N, T].
+    """
+
+    def __init__(self, name: str):
+        self.name = name
+        self.graph: Dict[str, Any] = {
+            "edge_index": None,
+            "node_feat": None,
+            "edge_feat": None,
+            "num_nodes": 0,
+        }
+        self.label = None
+        self._fixed_splits = None
+
+    def __len__(self):
+        return 1
+
+    def __repr__(self):
+        return (f"{self.__class__.__name__}({self.name}, "
+                f"N={self.graph['num_nodes']})")
+
+    def get_idx_split(self, split_type="random", train_prop=0.5,
+                      valid_prop=0.25, label_num_per_class=20, rng=None):
+        """'random': a proportional split that leaves out label -1
+        (``data_utils.py:13-42``); 'class': a class-balanced split
+        (``data_utils.py:75-107``); 'fixed': the splits the loader read
+        (a dict, or a list of dicts)."""
+        from difformer_tpu_torch.data import splits as S
+
+        label = np.asarray(self.label)
+        if split_type == "random":
+            return S.rand_train_test_idx(
+                label, train_prop=train_prop, valid_prop=valid_prop, rng=rng)
+        if split_type == "class":
+            return S.class_rand_splits(
+                label, label_num_per_class=label_num_per_class, rng=rng)
+        if split_type == "fixed":
+            if self._fixed_splits is None:
+                raise ValueError(f"{self.name} has no fixed splits loaded")
+            return self._fixed_splits
+        raise ValueError(split_type)
+
+    def to_graph_data(self, device=None) -> GraphData:
+        """The dataset's graph as a :class:`GraphData` on ``device`` (the
+        GPU unless told otherwise), its edges sorted by receiver."""
+        return GraphData.from_numpy(self.graph["node_feat"],
+                                    self.graph["edge_index"], device=device)

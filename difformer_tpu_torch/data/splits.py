@@ -1,7 +1,9 @@
-"""Split generators (numpy), as ``difformer_tpu/data/splits.py:15-74``
-(reference ``node classification/data_utils.py:91-107``)."""
+"""Split generators (numpy), as ``difformer_tpu/data/splits.py:15-87``
+(reference ``node classification/data_utils.py:13-132``)."""
 
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 
@@ -12,6 +14,28 @@ def _rng(rng):
     if isinstance(rng, (int, np.integer)):
         return np.random.default_rng(rng)
     return rng
+
+
+def rand_train_test_idx(label, train_prop=0.5, valid_prop=0.25,
+                        ignore_negative=True, rng=None) -> Dict[str, np.ndarray]:
+    """Random proportional split, ignoring label -1
+    (``data_utils.py:13-37``)."""
+    label = np.asarray(label)
+    flat = label.reshape(label.shape[0], -1)[:, 0] if label.ndim > 1 else label
+    rng = _rng(rng)
+    if ignore_negative:
+        labeled_nodes = np.where(flat != -1)[0]
+    else:
+        labeled_nodes = np.arange(label.shape[0])
+    n = labeled_nodes.shape[0]
+    train_num = int(n * train_prop)
+    valid_num = int(n * valid_prop)
+    perm = rng.permutation(n)
+    return {
+        "train": labeled_nodes[perm[:train_num]],
+        "valid": labeled_nodes[perm[train_num:train_num + valid_num]],
+        "test": labeled_nodes[perm[train_num + valid_num:]],
+    }
 
 
 def class_rand_splits(label, label_num_per_class, valid_num=500,
@@ -40,3 +64,17 @@ def class_rand_splits(label, label_num_per_class, valid_num=500,
         "valid": valid_idx,
         "test": test_idx,
     }
+
+
+def even_quantile_labels(vals, nclasses):
+    """Quantile-bucketed class labels (the arxiv-year and snap-patents
+    targets, ``data_utils.py:109-132``)."""
+    vals = np.asarray(vals)
+    label = -1 * np.ones(vals.shape[0], dtype=np.int64)
+    lower = -np.inf
+    for k in range(nclasses - 1):
+        upper = np.quantile(vals, (k + 1) / nclasses)
+        label[(vals >= lower) & (vals < upper)] = k
+        lower = upper
+    label[vals >= lower] = nclasses - 1
+    return label

@@ -32,6 +32,12 @@ and in q's dtype for dk, with f32 products and sums otherwise.
 
 ``key_mask`` must be binary (0/1): the backward takes the sigmoid derivative
 of the masked score, as the TPU kernels do.
+
+The kernels take any widths M and D, as the TPU kernels do. Up to
+:data:`NARROW_WIDTH` a block holds whole feature columns of its own tile;
+above it (the set track's hidden 300 and 400) each kernel takes its wide
+path, which streams every tile through shared memory 64 features at a
+time.
 """
 
 from __future__ import annotations
@@ -50,7 +56,18 @@ LAUNCHES = {
     "sigmoid_attention_dkv": 0,
 }
 
-MAX_WIDTH = 256  # largest M and D the kernels take (kMaxWidth in the source)
+#: Widest M and D of the kernels' narrow path (kNarrowWidth in the source),
+#: whose blocks hold whole feature columns of their own tile in shared
+#: memory. Wider problems (the set track's hidden 300 and 400) take the wide
+#: path, which streams every tile through shared memory 64 features at a
+#: time.
+NARROW_WIDTH = 256
+#: Output features a block of the wide path holds (kWide*Groups x 64 in the
+#: source): more go to further blocks, which compute the same scores again.
+#: K4's blocks each take dk or dv.
+WIDE_COLUMNS = 512
+#: The wide kernels keep up to 255 registers a thread: one block to an SM.
+WIDE_BLOCKS_PER_SM = 1
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Rows of one tile, query rows or keys (kTile in the source): the kernels
@@ -132,9 +149,6 @@ def _check(q, k, v, key_mask):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the kernels take float32 or bfloat16 q, k, v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if m > MAX_WIDTH or d > MAX_WIDTH:
-        raise ValueError(f"the kernels take M, D <= {MAX_WIDTH}, got M={m}, "
-                         f"D={d}")
     if n == 0 or l == 0:
         raise ValueError("sigmoid attention needs at least one query and key")
     if key_mask is not None and key_mask.shape != (l,):
@@ -168,6 +182,11 @@ def _stream(t):
 
 def _cdiv(a, b):
     return -(-a // b)
+
+
+def is_wide(m, d):
+    """Whether widths M, D take the kernels' wide path."""
+    return max(m, d) > NARROW_WIDTH
 
 
 def loop_splits(own, loop, per_tile, sms, blocks_per_sm):
@@ -206,6 +225,14 @@ def split_plan(name, n, l, h, m, d, sms):
         per_tile = h * _cdiv(m, TILE)
     else:
         raise ValueError(f"no split plan for {name}")
+    if is_wide(m, d):
+        # one block per group of WIDE_COLUMNS output features (K4: of dk,
+        # then of dv)
+        groups = {"sigmoid_attention_fwd": _cdiv(d, WIDE_COLUMNS),
+                  "sigmoid_attention_dq": _cdiv(m, WIDE_COLUMNS),
+                  "sigmoid_attention_dkv": _cdiv(m, WIDE_COLUMNS)
+                  + _cdiv(d, WIDE_COLUMNS)}[name]
+        per_tile, per_sm = h * groups, WIDE_BLOCKS_PER_SM
     splits, chunk = loop_splits(own, loop, per_tile, sms, per_sm)
     return _cdiv(own, TILE) * per_tile, splits, chunk
 

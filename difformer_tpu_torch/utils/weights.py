@@ -1,6 +1,6 @@
 """Carry weights between the JAX package and the port.
 
-A copy of ``difformer_tpu/utils/torch_import.py:24-92``. The port's
+A copy of ``difformer_tpu/utils/torch_import.py:24-128``. The port's
 DIFFormer names its parameters as the reference's ``state_dict`` does
 (``node classification/difformer.py:147-226``):
 
@@ -97,3 +97,35 @@ def load_params(model: torch.nn.Module, params) -> None:
     sd = torch_state_dict_from_params(params)
     model.load_state_dict({k: torch.from_numpy(np.array(v))
                            for k, v in sd.items()})
+
+
+def load_torch_checkpoint(path: str) -> dict:
+    """A reference checkpoint file (``.pkl``/``.pt``/``.pth``, a pickled
+    ``state_dict`` or module, ``node classification/
+    test_large_dataset.py:85-98``) as a flax params tree, as
+    ``difformer_tpu/utils/torch_import.py:load_torch_checkpoint``.
+
+    The safe tensor-only loader goes first. Only for the errors of a
+    legacy-format file or of an object the safe loader refuses does it
+    unpickle in full, with a warning: a file made to fail the safe loader
+    must not be unpickled silently."""
+    import pickle
+    import warnings
+
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    except (pickle.UnpicklingError, RuntimeError) as e:
+        msg = str(e)
+        legacy = ("weights_only" in msg or "Unsupported" in msg
+                  or "legacy" in msg.lower()
+                  or isinstance(e, pickle.UnpicklingError))
+        if not legacy:
+            raise
+        warnings.warn(
+            f"safe (weights_only) load of {path!r} failed with: {msg!r}; "
+            "falling back to full unpickling: only do this for checkpoint "
+            "files you trust", stacklevel=2)
+        sd = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(sd, "state_dict"):  # a whole module was saved
+        sd = sd.state_dict()
+    return params_from_torch_state_dict(sd)

@@ -108,6 +108,13 @@ def test_wrapper_rejects_bad_inputs():
         K.sigmoid_attention_fwd(_t(q), _t(k[:4]), _t(v))
     with pytest.raises(TypeError):
         K.sigmoid_attention_fwd(_t(q, torch.float64), _t(k), _t(v))
-    wide = np.zeros((8, 1, K.MAX_WIDTH + 1), np.float32)
-    with pytest.raises(ValueError):
-        K.sigmoid_attention_fwd(_t(wide), _t(wide), _t(v))
+    # widths above the narrow path's are taken (the wide path), as the JAX
+    # package takes any width, and give the plain version's result
+    wide_q, wide_k, wide_v, _ = make_inputs(5, 8, 8, 1, m=K.NARROW_WIDTH + 1,
+                                            d=K.NARROW_WIDTH + 1)
+    out, den = K.sigmoid_attention_fwd(_t(wide_q), _t(wide_k), _t(wide_v))
+    ref_out, ref_den = K.sigmoid_attention_fwd_plain(
+        _t(wide_q), _t(wide_k), _t(wide_v))
+    assert out.shape == (8, 1, K.NARROW_WIDTH + 1)
+    assert_close("wide out", out, ref_out, "out")
+    assert_close("wide den", den, ref_den, "den")

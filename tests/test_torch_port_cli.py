@@ -1,0 +1,294 @@
+"""The port's command line (difformer_tpu_torch/cli.py) against the JAX
+package's: the same presets and flags, a golden synthetic run with the JAX
+test's floor, exactly what each CLI hands its trainer (features, edges,
+labels, each run's split and the fit options) on the same files,
+``NotImplementedError`` for every route the port does not run yet, and the
+``--save_model``/``--eval_only`` round trip, also from a reference ``.pt``
+state_dict.
+"""
+
+import dataclasses
+import functools
+import pickle
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import difformer_tpu.train as jax_train
+from difformer_tpu import cli as jax_cli
+from difformer_tpu.data import transforms as jax_T
+from difformer_tpu.utils import config as jax_config
+from difformer_tpu_torch import DIFFormer, cli
+from difformer_tpu_torch.utils import config
+
+import chip_smoke
+
+CPU = dict(device="cpu")
+
+
+def test_presets_and_defaults_match_the_jax_package():
+    assert set(config.PRESETS) == set(jax_config.PRESETS)
+    for name in list(config.PRESETS) + ["synthetic-10-20-3-2"]:
+        assert (dataclasses.asdict(config.make_config(name))
+                == dataclasses.asdict(jax_config.make_config(name))), name
+    cfg = config.make_config("cora", num_layers=2)
+    assert cfg.num_layers == 2 and cfg.hidden_channels == 64
+
+
+def test_parser_takes_the_jax_package_flags():
+    ours = {a.dest: a for a in cli.build_parser()._actions}
+    theirs = {a.dest: a for a in jax_cli.build_parser()._actions}
+    assert set(ours) == set(theirs)
+    argv = ["--dataset", "cora", "--epochs", "7", "--lr", "0.5",
+            "--use_bn", "false", "--spmm_first", "auto", "--reorder", "rcm",
+            "--fuse_head_mean", "yes", "--max_nodes", "9"]
+    assert (vars(cli.build_parser().parse_args(argv))
+            == vars(jax_cli.build_parser().parse_args(argv)))
+
+
+def test_help_names_what_eval_only_reads():
+    proc = subprocess.run([sys.executable, "-m", "difformer_tpu_torch.cli",
+                           "--help"], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "orbax" in proc.stdout and "--eval_only" in proc.stdout
+
+
+def test_golden_fixed_seed_accuracy():
+    """As the JAX package's test_golden_fixed_seed_accuracy, with its
+    floor."""
+    res = cli.main([
+        "--dataset", "synthetic-500-2000-16-3", "--epochs", "40", "--runs",
+        "1", "--rand_split", "true", "--hidden_channels", "16", "--seed",
+        "123", "--dropout", "0.0", "--display_step", "100",
+    ], **CPU)
+    assert res[0]["test"] >= 0.9, res
+
+
+def test_golden_sigmoid_kernel_accuracy():
+    """As the JAX package's test_golden_sigmoid_kernel_accuracy, with its
+    floor."""
+    res = cli.main([
+        "--dataset", "synthetic-400-1600-16-3", "--epochs", "40", "--runs",
+        "1", "--rand_split", "true", "--kernel", "sigmoid",
+        "--hidden_channels", "16", "--seed", "123", "--dropout", "0.0",
+        "--display_step", "100",
+    ], **CPU)
+    assert res[0]["test"] >= 0.85, res
+
+
+def test_without_device_it_needs_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--dataset", "synthetic-50-100-4-2", "--epochs", "1"])
+
+
+# --------------------------------------------------------------------------
+# what each CLI hands its trainer
+# --------------------------------------------------------------------------
+
+class Recorder:
+    """A stand-in trainer that keeps what it is given."""
+
+    def __init__(self, model, graph, labels, **kw):
+        self.graph, self.labels, self.kw = graph, np.asarray(labels), kw
+        self.splits, self.fits = [], []
+        self.made.append(self)
+
+    def fit(self, split_idx, **kw):
+        self.splits.append({k: np.asarray(v) for k, v in split_idx.items()})
+        self.fits.append({k: kw[k] for k in ("epochs", "runs", "eval_step",
+                                              "save_best", "epoch_block",
+                                              "print_prop")})
+        return [{"train": 0.5, "valid": 0.5, "test": 0.5, "epoch": 0}]
+
+
+def recorders(monkeypatch):
+    ours = type("OurRecorder", (Recorder,), {"made": []})
+    theirs = type("TheirRecorder", (Recorder,), {"made": []})
+    monkeypatch.setattr(cli, "FullBatchTrainer", ours)
+    monkeypatch.setattr(jax_train, "FullBatchTrainer", theirs)
+    # the JAX package's C++ label propagation agrees with its numpy path
+    # only in part; the port has only the numpy path
+    monkeypatch.setattr(jax_T, "label_propagation", functools.partial(
+        jax_T.label_propagation, use_native=False))
+    return ours, theirs
+
+
+def assert_same_hand_over(ours, theirs):
+    assert len(ours.made) == len(theirs.made) == 1
+    a, b = ours.made[0], theirs.made[0]
+    np.testing.assert_array_equal(a.graph.node_feat.numpy(),
+                                  np.asarray(b.graph.node_feat))
+    np.testing.assert_array_equal(a.graph.senders.numpy(),
+                                  np.asarray(b.graph.senders))
+    np.testing.assert_array_equal(a.graph.receivers.numpy(),
+                                  np.asarray(b.graph.receivers))
+    assert a.graph.num_nodes == b.graph.num_nodes
+    assert a.labels.dtype == b.labels.dtype
+    np.testing.assert_array_equal(a.labels, b.labels)
+    for key in ("lr", "weight_decay", "loss", "metric", "seed"):
+        assert a.kw[key] == b.kw[key], key
+    assert len(a.splits) == len(b.splits) > 0
+    for sa, sb in zip(a.splits, b.splits):
+        assert set(sa) == set(sb)
+        for k in sa:
+            np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
+    assert a.fits == b.fits
+
+
+def run_both(monkeypatch, argv):
+    ours, theirs = recorders(monkeypatch)
+    res = cli.main(argv, **CPU)
+    ref = jax_cli.main(argv)
+    assert_same_hand_over(ours, theirs)
+    assert len(res) == len(ref)
+    return ours.made[0]
+
+
+@pytest.fixture
+def cora_dir(tmp_path):
+    chip_smoke.write_planetoid_cora(str(tmp_path), num_nodes=300,
+                                    num_edges=900, feat_dim=24)
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--reorder", "rcm"], ["--reorder", "degree"], ["--reorder", "bfs"],
+    ["--reorder", "community"], ["--directed", "true"],
+    ["--rand_split", "true", "--rand_split_class", "false"],
+    ["--rand_split_class", "false"],  # the dataset's fixed split
+])
+def test_node_task_hands_the_same_data(monkeypatch, cora_dir, extra):
+    run_both(monkeypatch, ["--dataset", "cora", "--data_dir", cora_dir,
+                           "--runs", "3"] + extra)
+
+
+def test_fixed_split_lists_cycle_through_runs(monkeypatch, tmp_path):
+    n = 40
+    rng = np.random.default_rng(8)
+    (tmp_path / "heterophilous").mkdir()
+    masks = rng.random((3, 10, n)) > 0.5
+    np.savez(tmp_path / "heterophilous" / "roman_empire.npz",
+             edges=rng.integers(0, n, (120, 2)),
+             node_features=rng.random((n, 5)).astype(np.float32),
+             node_labels=rng.integers(0, 3, n), train_masks=masks[0],
+             val_masks=masks[1], test_masks=masks[2])
+    made = run_both(monkeypatch, ["--dataset", "roman-empire", "--data_dir",
+                                  str(tmp_path), "--runs", "12",
+                                  "--reorder", "rcm"])
+    assert len(made.splits) == 12
+
+
+@pytest.mark.parametrize("extra", [[], ["--reorder", "rcm"]])
+def test_set_task_hands_the_same_knn_graph(monkeypatch, tmp_path, extra):
+    x, y = chip_smoke.cifar10_embeddings(num=300, dim=16, classes=10)
+    chip_smoke.write_cifar10_embeddings(str(tmp_path), x, y)
+    made = run_both(monkeypatch, ["--dataset", "cifar10", "--data_dir",
+                                  str(tmp_path), "--runs", "2"] + extra)
+    assert made.graph.num_edges > 300 * 5  # kNN, symmetrised, self loops
+
+
+def test_edgeless_dataset_gets_a_knn_graph(monkeypatch, tmp_path):
+    rng = np.random.default_rng(2)
+    with open(tmp_path / "stl10_embeddings.pkl", "wb") as f:
+        pickle.dump((rng.normal(size=(80, 6)), rng.integers(0, 4, 80)), f)
+    run_both(monkeypatch, ["--dataset", "stl10", "--data_dir", str(tmp_path),
+                           "--task", "node", "--knn_k", "3"])
+
+
+def test_bce_datasets_use_bce(monkeypatch, tmp_path):
+    from scipy.io import savemat
+    import scipy.sparse as sp
+
+    n = 30
+    rng = np.random.default_rng(3)
+    savemat(tmp_path / "YelpChi.mat", {
+        "homo": sp.random(n, n, density=0.2, format="csc", random_state=3),
+        "features": sp.csr_matrix(rng.random((n, 4))),
+        "label": rng.integers(0, 2, (1, n))})
+    made = run_both(monkeypatch, ["--dataset", "yelp-chi", "--data_dir",
+                                  str(tmp_path), "--rand_split", "true"])
+    assert made.kw["loss"] == "bce"
+
+
+# --------------------------------------------------------------------------
+# routes not ported yet
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("extra,item", [
+    (["--method", "gcn"], 8), (["--method", "gat"], 8),
+    (["--method", "lp"], 8), (["--method", "multilp"], 8),
+    (["--method", "manireg"], 8), (["--method", "dcrnn"], 7),
+    (["--n_shards", "2"], 10), (["--use_minibatch", "true"], 5),
+    (["--spmm", "ell"], 9), (["--spmm", "bsr"], 9),
+    (["--spmm", "bsr-sorted"], 9), (["--spmm", "auto"], 9),
+    (["--use_ell", "true"], 9), (["--task", "temporal"], 7),
+    (["--task", "graph"], 6), (["--dataset", "chickenpox"], 7),
+    (["--dataset", "actstrack"], 6), (["--dataset", "pokec"], 5),
+])
+def test_unported_routes_raise_naming_their_item(tmp_path, extra, item):
+    argv = ["--dataset", "synthetic-60-200-4-3", "--epochs", "1",
+            "--data_dir", str(tmp_path)] + extra
+    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
+        cli.main(argv, **CPU)
+
+
+def test_unknown_method_raises():
+    with pytest.raises(ValueError, match="unknown method"):
+        cli.main(["--dataset", "synthetic-60-200-4-3", "--method", "nope"],
+                 **CPU)
+
+
+def test_sweep_of_an_unported_method_raises():
+    from difformer_tpu_torch.sweep import run_sweep
+
+    with pytest.raises(NotImplementedError, match="item 8"):
+        run_sweep("synthetic-60-200-4-3", {"method": ["sgc"]}, **CPU)
+
+
+# --------------------------------------------------------------------------
+# save, and evaluate what was saved
+# --------------------------------------------------------------------------
+
+COMMON = ["--dataset", "synthetic-120-480-8-3", "--rand_split", "true",
+          "--hidden_channels", "8", "--num_layers", "2", "--display_step",
+          "100", "--epochs", "6", "--runs", "1"]
+
+
+def test_save_model_then_eval_only(tmp_path):
+    saved = cli.main(COMMON + ["--save_model", "true", "--model_dir",
+                               str(tmp_path)], **CPU)
+    path = tmp_path / "synthetic-120-480-8-3-difformer"
+    assert path.is_file()
+    got = cli.main(COMMON + ["--eval_only", "true", "--model_dir",
+                             str(tmp_path)], **CPU)
+    best = saved[-1]
+    assert "params" not in best
+    for split in ("train", "valid", "test"):
+        assert got[0][split] == best[split], split
+
+
+def test_eval_only_refuses_an_orbax_directory(tmp_path):
+    (tmp_path / "synthetic-120-480-8-3-difformer").mkdir()
+    with pytest.raises(ValueError, match="orbax"):
+        cli.main(COMMON + ["--eval_only", "true", "--model_dir",
+                           str(tmp_path)], **CPU)
+
+
+@pytest.mark.parametrize("suffix", [".pt", ".pkl"])
+def test_eval_only_reads_a_reference_state_dict(tmp_path, suffix):
+    """A reference-layout state_dict, evaluated by both CLIs: the same
+    metrics."""
+    model = DIFFormer(8, 8, 3, num_layers=2, seed=5, device="cpu")
+    path = str(tmp_path / f"reference{suffix}")
+    torch.save(model.state_dict(), path)
+    argv = COMMON + ["--eval_only", "true", "--ckpt_path", path]
+    got = cli.main(argv, **CPU)[0]
+    ref = jax_cli.main(argv)[0]
+    assert set(got) == set(ref) == {"train", "valid", "test"}
+    for split in got:
+        assert got[split] == pytest.approx(float(ref[split]), abs=1e-12)

@@ -753,3 +753,116 @@ def test_a_failed_capture_raises(cuda):
                                "PYTHONPATH": f"{tests}:{tests.parent}"},
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# --------------------------------------------------------------------------
+# the wide path (M or D above NARROW_WIDTH: the set track's hidden 300 and
+# 400) and the command line on the card
+# --------------------------------------------------------------------------
+
+WIDE_SHAPES = [
+    ((150, 170, 1, 257, 257), True),
+    ((300, 260, 1, 300, 300), True),
+    ((200, 330, 1, 400, 400), False),
+    ((130, 140, 2, 512, 512), True),
+    ((100, 120, 1, 300, 64), False),
+    ((100, 120, 1, 64, 400), True),
+]
+
+
+def _wide_inputs(cuda, dtype, n, l, h, m, d, masked, seed):
+    """Inputs of the wide cases, q and k scaled for unit-variance scores
+    (off the sigmoid's flat ends)."""
+    q, k, v, mask = make_inputs(seed, n, l, h, m=m, d=d, masked=masked)
+    q, k = q * m ** -0.25, k * m ** -0.25
+    return _on(cuda, dtype, q, k, v, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,masked", WIDE_SHAPES)
+def test_wide_fwd_kernel_matches_plain(cuda, shape, masked, dtype):
+    """K2's wide path, normalised, and (float32) the raw numerator. At
+    bfloat16 inputs the raw numerator is left out: a one-ulp change of q·k
+    flips s's bfloat16 rounding now and then, which moves a raw sum by more
+    than the float32 rule allows; the normalised output keeps the bfloat16
+    rule."""
+    n, l, h, m, d = shape
+    assert K.is_wide(m, d)
+    args = _wide_inputs(cuda, dtype, n, l, h, m, d, masked, 31)
+    K.reset_launch_counts()
+    out, den = K.sigmoid_attention_fwd(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sigmoid_attention_fwd"] == 1
+    ref_out, ref_den = K.sigmoid_attention_fwd_plain(*args)
+    assert_close("out", out, ref_out, "out")
+    assert_close("den", den, ref_den, "den")
+    if dtype == torch.float32:
+        num, _ = K.sigmoid_attention_fwd(*args, normalize=False)
+        ref_num, _ = K.sigmoid_attention_fwd_plain(*args, normalize=False)
+        assert_close("num", num, ref_num, "num", den=ref_den)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,masked", WIDE_SHAPES)
+def test_wide_bwd_kernels_match_plain(cuda, shape, masked, dtype):
+    n, l, h, m, d = shape
+    args = _wide_inputs(cuda, dtype, n, l, h, m, d, masked, 32)
+    g = torch.Generator().manual_seed(3)
+    dnum = torch.randn((n, h, d), generator=g).to(cuda)
+    dden = torch.randn((n, h), generator=g).to(cuda)
+    dq = K.sigmoid_attention_dq(*args, dnum, dden)
+    dk, dv = K.sigmoid_attention_dkv(*args, dnum, dden)
+    assert_close("dq", dq, K.sigmoid_attention_dq_plain(*args, dnum, dden),
+                 "grad")
+    ref_dk, ref_dv = K.sigmoid_attention_dkv_plain(*args, dnum, dden)
+    assert_close("dk", dk, ref_dk, "grad")
+    assert_close("dv", dv, ref_dv, "grad")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,l", [(64, 5000), (5000, 64)])
+def test_wide_split_is_deterministic(cuda, n, l):
+    """The wide path with its loop axis split (K2 and K3 over keys, K4
+    over queries): two calls bit-equal, one launch each, against the
+    plain version."""
+    args = _wide_inputs(cuda, torch.float32, n, l, 1, 300, 300, True, 33)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    dnum = torch.ones((n, 1, 300), device=cuda)
+    dden = torch.zeros((n, 1), device=cuda)
+    calls = {
+        "sigmoid_attention_fwd": lambda: K.sigmoid_attention_fwd(*args)[0],
+        "sigmoid_attention_dq": lambda: K.sigmoid_attention_dq(
+            *args, dnum, dden),
+        "sigmoid_attention_dkv": lambda: K.sigmoid_attention_dkv(
+            *args, dnum, dden)[0],
+    }
+    assert any(K.split_plan(name, n, l, 1, 300, 300, sms)[1] > 1
+               for name in calls)
+    for name, call in calls.items():
+        K.reset_launch_counts()
+        assert torch.equal(call(), call())
+        assert K.LAUNCHES[name] == 2
+    assert_close("out", calls["sigmoid_attention_fwd"](),
+                 K.sigmoid_attention_fwd_plain(*args)[0], "out")
+
+
+@pytest.mark.cuda
+def test_cli_runs_on_the_card(cuda, tmp_path):
+    """The command line with its default device, the card: a synthetic
+    graph with the sigmoid kernel at hidden 300 (the wide path), K1 and
+    K2-K4 launched."""
+    from difformer_tpu_torch import cli
+    from difformer_tpu_torch.kernels import spmm as K1
+
+    K.reset_launch_counts()
+    K1.reset_launch_counts()
+    res = cli.main(["--dataset", "synthetic-400-1600-16-3", "--epochs", "20",
+                    "--runs", "1", "--rand_split", "true", "--kernel",
+                    "sigmoid", "--hidden_channels", "300", "--lr", "0.001",
+                    "--dropout", "0.0", "--display_step", "100",
+                    "--data_dir", str(tmp_path)])
+    assert res[0]["test"] >= 0.8, res  # 0.99 on the CPU
+    assert all(K.LAUNCHES[name] > 0 for name in K.LAUNCHES)
+    assert all(K1.LAUNCHES[name] > 0 for name in K1.LAUNCHES)

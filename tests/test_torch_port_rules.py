@@ -23,7 +23,11 @@ def test_import_loads_no_jax():
         "import difformer_tpu_torch, difformer_tpu_torch.train, "
         "difformer_tpu_torch.kernels, difformer_tpu_torch.utils.weights, "
         "difformer_tpu_torch.utils.config, "
-        "difformer_tpu_torch.train.checkpoint\n"
+        "difformer_tpu_torch.train.checkpoint, difformer_tpu_torch.cli, "
+        "difformer_tpu_torch.sweep, difformer_tpu_torch.data.loaders, "
+        "difformer_tpu_torch.utils.logger, "
+        "difformer_tpu_torch.utils.profiling, "
+        "difformer_tpu_torch.utils.debug\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'orbax', "
         "'difformer_tpu.')) "

@@ -3,6 +3,7 @@
 
     python3 time_kernels.py [--kernel fwd dq dkv spmm] [--blocks-per-sm 1 2 4]
                             [--root DIR]
+    python3 time_kernels.py --kernel spmm --reorder rcm degree
     python3 time_kernels.py --builds [ROUNDS]
 
 Builds the kernels, prints the compiler's register and spill report, then
@@ -16,7 +17,11 @@ chosen kernel's split rule; the default is the package's own). With
 ``chip_smoke.spmm_shapes()``: checked against its plain version, its device
 time and device kernels per call (torch.profiler, ``chip_smoke.device_ms``)
 beside cuSPARSE's device time for the same product, its byte bound and the
-gather floor. ``--root`` times the package of another checkout instead (one
+gather floor. With ``--reorder``, K1 instead at Pokec's size with
+power-law degrees only, in the order its nodes were drawn and renumbered
+by each ``locality_reorder`` method given (on the host, timed), at hidden
+128: whether a node order that puts neighbours close lets the gathers hit
+L2, against the gather floor and the byte bound. ``--root`` times the package of another checkout instead (one
 without a split, or with K2's only, times its own grid; shapes, bounds and
 timers stay this checkout's), so two versions can be compared on one card
 in one call. Last, two yardsticks: the SM clock and power that
@@ -218,11 +223,47 @@ def spmm_call(K1, x, csr, transposed, split):
     return lambda: K1.csr_spmm(x, *csr, transposed=transposed, **kw)
 
 
-def time_spmm(cs, thresholds):
-    """K1 forward and transposed at every shape of ``cs.spmm_shapes()``,
-    once for each split threshold T given (a package from before the split
-    has none and times its own kernel); returns the last call timed at the
-    package's own T."""
+def reordered_shapes(cs, methods):
+    """(label, plan, W, plain edge chunk) of a graph of Pokec's size with
+    power-law degrees (``cs.power_law_nodes``), first in the order its
+    nodes were drawn, then renumbered by each ``locality_reorder`` method
+    (``permute_graph``'s relabelling), at hidden 128."""
+    import numpy as np
+    import torch
+
+    from difformer_tpu_torch.data.transforms import locality_reorder
+    from difformer_tpu_torch.ops.graph_ops import build_csr_plan
+
+    n, e = cs.POKEC_NODES, cs.POKEC_EDGES
+    g = torch.Generator("cuda").manual_seed(11)
+    senders = cs.power_law_nodes(n, e, g)
+    receivers = cs.power_law_nodes(n, e, g)
+    yield ("pokec power-law", build_csr_plan(senders, receivers, n), 128,
+           cs.PLAIN_EDGE_CHUNK)
+    edges = torch.stack([senders, receivers]).cpu().numpy()
+    del senders, receivers
+    for method in methods:
+        t0 = time.perf_counter()
+        perm = locality_reorder(edges, n, method=method)
+        seconds = time.perf_counter() - t0
+        renumbered = torch.as_tensor(perm, device="cuda")[
+            torch.as_tensor(edges, device="cuda")]
+        band = np.abs(perm[edges[0]] - perm[edges[1]])
+        cs.say(f"time_kernels: locality_reorder {method!r} of N={n} "
+               f"E={e}: {seconds:.1f} s on the host; median |new id of "
+               f"sender - of receiver| {int(np.median(band))} (drawn order "
+               f"{int(np.median(np.abs(edges[0] - edges[1])))})")
+        plan = build_csr_plan(renumbered[0], renumbered[1], n)
+        del renumbered
+        yield f"pokec power-law {method}", plan, 128, cs.PLAIN_EDGE_CHUNK
+        del plan
+
+
+def time_spmm(cs, thresholds, shapes=None):
+    """K1 forward and transposed at every shape of ``shapes`` (by default
+    ``cs.spmm_shapes()``), once for each split threshold T given (a package
+    from before the split has none and times its own kernel); returns the
+    last call timed at the package's own T."""
     import torch
 
     from difformer_tpu_torch.kernels import spmm as K1
@@ -230,7 +271,8 @@ def time_spmm(cs, thresholds):
 
     cs.say(f"time_kernels: package {Path(K1.__file__).resolve()}")
     sweep = thresholds if hasattr(K1, "row_split") else []
-    for idx, (label, plan, w, chunk) in enumerate(cs.spmm_shapes()):
+    shapes = cs.spmm_shapes() if shapes is None else shapes
+    for idx, (label, plan, w, chunk) in enumerate(shapes):
         n, e = plan.num_nodes, plan.num_edges
         x = torch.randn((n, w), device="cuda",
                         generator=torch.Generator("cuda").manual_seed(idx))
@@ -275,6 +317,8 @@ def main():
                         default=list(KERNELS))
     parser.add_argument("--blocks-per-sm", type=int, nargs="*", default=[])
     parser.add_argument("--spmm-threshold", type=int, nargs="*", default=[])
+    parser.add_argument("--reorder", nargs="+", default=[],
+                        choices=("rcm", "bfs", "degree", "community"))
     parser.add_argument("--root", type=Path, default=None)
     parser.add_argument("--builds", type=int, nargs="?", const=2,
                         metavar="ROUNDS")
@@ -293,7 +337,9 @@ def main():
     if attention:
         label, call = time_attention(cs, attention, args.blocks_per_sm)
     if "spmm" in args.kernel:
-        label, call = time_spmm(cs, args.spmm_threshold)
+        shapes = (reordered_shapes(cs, args.reorder) if args.reorder
+                  else None)
+        label, call = time_spmm(cs, args.spmm_threshold, shapes)
     mhz, watts = sample_clocks(call)
     cs.say(f"time_kernels: {label} under load: SM clock {mhz} MHz, power "
            f"{watts} W (median of nvidia-smi samples)")
