@@ -56,6 +56,23 @@ non-zero before the last line:
    600 epochs, 5 runs) on stand-in embeddings [15000, 512]; then
    --kernel sigmoid --use_graph true cut to 20 epochs and 1 run (K1 on the
    kNN graph and the wide K2-K4), with the kNN graph's host seconds.
+12. minibatch-pokec: the pokec preset (mini-batch training, batch 100000,
+   hidden 128, 3 layers) through the command line on a stand-in
+   ``pokec.mat`` of Pokec's size (1,632,803 nodes, 30,622,564 power-law
+   edges, 65 features, 2 classes), cut to 3 epochs and 1 run: each chunk's
+   step replayed as a CUDA graph; the first epoch again through the
+   per-chunk loop, bit-equal; the native library loaded; host seconds of
+   load and preprocess and of the chunk plans, ms per epoch and per chunk
+   step for both paths, the device idle share, the chunks with heavy rows.
+13. minibatch-proteins: ``MiniBatchTrainer`` at ogbn-proteins' shape
+   (132,534 nodes, 79,122,504 directed edges, 8 features, 112 binary
+   tasks, BCE and ROC-AUC, batch 10000, hidden 64, 3 layers), 3 epochs:
+   the same numbers, the host's share of the epoch in view.
+
+The kernels phase also runs K1 as the mini-batch trainer launches it (its
+plan packed at a fixed capacity, counts read on the device) on the Pokec
+chunk that holds the largest hub, against its plain version and bit-equal
+to the exact-count launch.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. It needs a CUDA device and
@@ -1226,6 +1243,437 @@ def phase_cli_set(tmp):
     return wide.launches
 
 
+# ---------------------------------------------------------------------------
+# minibatch-pokec and minibatch-proteins: MiniBatchTrainer at the presets'
+# sizes, and K1's capacity launch on a Pokec chunk
+# ---------------------------------------------------------------------------
+
+POKEC_FEATURES, POKEC_CLASSES, POKEC_BATCH = 65, 2, 100_000
+# the pokec preset is 500 epochs x 5 runs with an eval every 9th epoch:
+# cut to 3 epochs of 1 run, which keeps the evals at epochs 0 and 2
+POKEC_CUT = ["--epochs", "3", "--runs", "1"]
+# ogbn-proteins' shape: nodes, features (the mean of its 8 edge features),
+# binary tasks, undirected edges (each also inverted by the loader)
+PROTEINS_NODES, PROTEINS_FEATURES, PROTEINS_TASKS = 132_534, 8, 112
+PROTEINS_UNDIRECTED = 39_561_252
+PROTEINS_EPOCHS = 3  # of the preset's 1000 x 5 runs; evals at 0 and 2
+
+
+def pokec_standin(seed=21):
+    """(features [N, 65] float32, edge_index [2, E] int32, labels [N]
+    int64) of Pokec's size, drawn on the card: power-law senders and
+    receivers (:func:`power_law_nodes`), standard normal features, and two
+    classes from a noisy linear rule of the features."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    n, e = POKEC_NODES, POKEC_EDGES
+    ei = torch.stack([power_law_nodes(n, e, g), power_law_nodes(n, e, g)])
+    x = torch.randn((n, POKEC_FEATURES), device="cuda", generator=g)
+    w = torch.randn(POKEC_FEATURES, device="cuda", generator=g)
+    score = x @ w + 0.5 * w.norm() * torch.randn(n, device="cuda",
+                                                  generator=g)
+    return (x.cpu().numpy(), ei.int().cpu().numpy(),
+            (score > 0).long().cpu().numpy())
+
+
+def write_pokec_mat(root, x, ei, y):
+    """``root/pokec/pokec.mat`` as ``load_pokec`` reads it."""
+    import os
+
+    from scipy.io import savemat
+
+    os.makedirs(os.path.join(root, "pokec"), exist_ok=True)
+    savemat(os.path.join(root, "pokec", "pokec.mat"),
+            {"node_feat": x, "edge_index": ei, "label": y[None]})
+
+
+def proteins_standin(seed=31):
+    """(features [N, 8] float32, edge_index int32, labels [N, 112] int64)
+    at ogbn-proteins' shape, drawn on the card: 39,561,252 uniform pairs of
+    distinct nodes, each in both directions (as the loader adds the
+    inverses), then a self loop on every node (as the command line adds
+    them); features in [0, 1) and 112 tasks, each a linear threshold of the
+    features."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    n, m = PROTEINS_NODES, PROTEINS_UNDIRECTED
+    s = torch.randint(0, n, (m,), device="cuda", generator=g)
+    r = torch.randint(0, n - 1, (m,), device="cuda", generator=g)
+    r += (r >= s).long()  # uniform over the other n - 1 nodes
+    loops = torch.arange(n, device="cuda")
+    ei = torch.stack([torch.cat([s, r, loops]), torch.cat([r, s, loops])])
+    x = torch.rand((n, PROTEINS_FEATURES), device="cuda", generator=g)
+    w = torch.randn((PROTEINS_FEATURES, PROTEINS_TASKS), device="cuda",
+                    generator=g)
+    y = ((x - 0.5) @ w > 0).long()
+    return x.cpu().numpy(), ei.int().cpu().numpy(), y.cpu().numpy()
+
+
+def phase_spmm_chunk():
+    """K1 as the mini-batch trainer launches it, on the Pokec chunk that
+    holds the largest hub of the power-law graph of Pokec's size: the
+    chunk's plan packed at capacity (the trainer's rule: 1.5 times its
+    edges, up to the edge bucket), forward and transposed, each bit-equal
+    to the exact-count launch on the chunk's own CSRs and within the
+    "spmm" rule of the plain version, the rule shown to fail a wrong
+    output; device times of both launches, the plain version and
+    cuSPARSE, beside the bound. Returns the JSON rows."""
+    from difformer_tpu_torch import native
+    from difformer_tpu_torch.data.transforms import edge_bucket
+    from difformer_tpu_torch.kernels import spmm as K1
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+    from difformer_tpu_torch.train import minibatch as M
+
+    g = torch.Generator("cuda").manual_seed(12)
+    n, e, batch, w = POKEC_NODES, POKEC_EDGES, POKEC_BATCH, 128
+    senders, receivers = power_law_nodes(n, e, g), power_law_nodes(n, e, g)
+    hub = int(torch.bincount(receivers, minlength=n).argmax())
+    senders, receivers = senders.int().cpu().numpy(), receivers.int().cpu(
+        ).numpy()
+    perm = np.random.default_rng(0).permutation(n)
+    c = int(np.flatnonzero(perm == hub)[0]) // batch
+    nodes = perm[c * batch:(c + 1) * batch]
+    t0 = time.perf_counter()
+    sub = native.induced_subgraph(senders, receivers, nodes, n)
+    sub_s = time.perf_counter() - t0
+    del senders, receivers
+    layout = M.ChunkLayout(batch, edge_bucket(int(sub.shape[1] * 1.5)))
+    host = np.zeros(layout.size, np.int32)
+    t0 = time.perf_counter()
+    M.pack_chunk(layout, host, nodes, sub)
+    pack_s = time.perf_counter() - t0
+    plan = M.chunk_plan(layout, torch.from_numpy(host).to("cuda"))
+    exact = [torch.as_tensor(a, device="cuda")
+             for a in native.chunk_csr(sub[0], sub[1], batch)]
+    x = torch.randn((batch, w), device="cuda", generator=g)
+    real = sub.shape[1]
+    bound, bound_by, nbytes = spmm_bound_ms(batch, real, w)
+    rows = {}
+    for name, cap, (ptr, col, val) in (
+            ("csr_spmm", (plan.row_ptr, plan.col, plan.val, plan.split),
+             exact[:3]),
+            ("csr_spmm_transposed", (plan.t_row_ptr, plan.t_col, plan.t_val,
+                                     plan.t_split), exact[3:])):
+        transposed = name == "csr_spmm_transposed"
+        split = K1.row_split(ptr)
+        kernel = lambda: K1.csr_spmm(x, *cap[:3], split=cap[3],  # noqa: E731
+                                     transposed=transposed)
+        exact_call = lambda: K1.csr_spmm(x, ptr, col, val,  # noqa: E731
+                                         split=split, transposed=transposed)
+        plain = lambda: K1.csr_spmm_plain(x, ptr, col, val)  # noqa: E731
+        library = library_spmm(ptr, col, val, batch)
+        out, ref = kernel(), plain()
+        scale = K1.csr_spmm_abs(x, ptr, col, val)
+        tag = (f"{name} pokec chunk N={batch} E={real} (capacity "
+               f"{layout.edges}) W={w}")
+        err = assert_close(tag, out, ref, "spmm", scale=scale)
+        assert_rejects(tag, ref, "spmm", scale=scale)
+        if not torch.equal(out, exact_call()):
+            raise AssertionError(f"{tag}: the capacity launch differs from "
+                                 f"the exact-count launch")
+        heavy, segments = cap[3].counts.tolist()
+        del out, ref, scale
+        ms, kernels = device_profile(kernel)
+        exact_ms, plain_ms = device_ms(exact_call), device_ms(plain)
+        library_ms = device_ms(lambda: library(x))
+        say(f"phase kernels: {tag} max_abs_err {err:.3e}, bit-equal to the "
+            f"exact-count launch | {heavy} heavy rows, {segments} segments "
+            f"(capacity {cap[3].num_heavy}, {cap[3].num_segments}) | "
+            f"capacity launch {ms:.4f} ms in {kernels:g} device kernels a "
+            f"call | exact-count launch {exact_ms:.4f} ms | plain "
+            f"{plain_ms:.4f} ms | cuSPARSE {library_ms:.4f} ms | bound "
+            f"{bound:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB)")
+        rows[f"{name} pokec chunk"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=bound_by, library_ms=library_ms)
+    say(f"phase kernels: the Pokec chunk's host plan: induced subgraph "
+        f"{sub_s:.3f} s (one chunk, one pass over {e} edges), packing "
+        f"(CSRs, values, schedule) {pack_s:.4f} s")
+    return rows
+
+
+def check_native():
+    from difformer_tpu_torch import native
+
+    if not native.available():
+        raise AssertionError(f"the native library did not load: "
+                             f"{native.load_error}")
+    say(f"phase minibatch: native library loaded "
+        f"({native.library_path().name})")
+
+
+def steady_epochs(trainer, epochs=3, seed=7):
+    """Host ms per epoch of ``epochs`` epochs as ``fit`` runs them without
+    its evals: the next epoch's plans packed by a worker thread while the
+    device replays this one's, and the chunk losses read once an epoch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    runner, rng = trainer.runner, np.random.default_rng(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as pool:
+        future = pool.submit(trainer.pack_epoch, rng.permutation(trainer.n), 0)
+        for epoch in range(epochs):
+            packed, _ = future.result()
+            if epoch + 1 < epochs:
+                future = pool.submit(trainer.pack_epoch,
+                                     rng.permutation(trainer.n),
+                                     (epoch + 1) % 2)
+            runner.epoch(packed).cpu()
+    return 1e3 * (time.perf_counter() - t0) / epochs
+
+
+def chunk_timings(phase, trainer, seed=99, top=0):
+    """The steady state of a trainer after its fit: one epoch of chunk
+    plans packed on the host (host ms), then that epoch replayed through
+    the run's graphs, and the same chunks as eager steps on exact plans
+    (the loop), each on the host clock around synchronised work and under
+    the profiler (device ms and operations, the idle share, and with
+    ``top`` the replay's longest kernels); last, epochs as ``fit`` runs
+    them, with the packing overlapped."""
+    from difformer_tpu_torch.train.minibatch import pack_chunk
+
+    runner = trainer.runner
+    perm = np.random.default_rng(seed).permutation(trainer.n)
+    packed, stats = trainer.pack_epoch(perm)
+    chunks = trainer.n_chunks
+    # the same plans packed one chunk after another, for the pool's gain
+    t0 = time.perf_counter()
+    bufs = trainer._host_buffers(1)
+    for c, (nodes, sub) in enumerate(trainer._subgraphs(perm)):
+        m = nodes.shape[0]
+        pack_chunk(trainer.layouts[m], bufs[m][c if m == trainer.batch_size
+                                              else 0].numpy(), nodes, sub)
+    serial_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exact = [(torch.as_tensor(nodes, device="cuda"),
+              trainer._exact_plan(nodes.shape[0], sub)[0])
+             for nodes, sub in trainer._subgraphs(perm)]
+    exact_s = time.perf_counter() - t0
+
+    def graph_epoch():
+        runner.epoch(packed)
+
+    def loop_epoch():
+        for nodes, plan in exact:
+            trainer.train_step(runner.state, runner.generator, nodes, plan)
+
+    out = {}
+    for path, fn in (("graph", graph_epoch), ("loop", loop_epoch)):
+        ms = host_ms(fn)
+        if path == "graph" and top:
+            (dev_ms, ops), rows = profile_window(fn, 1, rows=True)
+            for k_ms, count, key in rows[:top]:
+                say(f"phase {phase} replay profile: {k_ms / chunks:8.4f} ms "
+                    f"per chunk step {100 * k_ms / dev_ms:5.1f}% "
+                    f"x{count / chunks:<6g} {key[:90]}")
+        else:
+            dev_ms, ops = profile_window(fn, 1)
+        idle = (f"idle {100 * (1 - dev_ms / ms):.1f}%" if ops > 0 else
+                "the profiler saw no device operation (idle not measured)")
+        out[path] = ms / chunks
+        say(f"phase {phase}: {path}: {ms:.3f} ms per epoch of {chunks} "
+            f"chunks = {ms / chunks:.3f} ms per chunk step; device "
+            f"{dev_ms:.3f} ms over {ops:g} device operations "
+            f"({ops / chunks:g} per chunk step), {idle}")
+    say(f"phase {phase}: host chunk plans of an epoch: packed at capacity "
+        f"{1e3 * stats['host_s']:.1f} ms ({1e3 * stats['host_s'] / chunks:.2f}"
+        f" ms per chunk), of which the induced subgraphs (one pass for all "
+        f"chunks) {1e3 * stats['subgraph_s']:.1f} ms; {1e3 * serial_s:.1f} "
+        f"ms with the chunks packed one after another; exact plans for the "
+        f"loop {1e3 * exact_s:.1f} ms")
+    out["steady"] = steady_epochs(trainer)
+    say(f"phase {phase}: steady epochs as fit runs them (packing "
+        f"overlapped, no eval): {out['steady']:.1f} ms per epoch")
+    return out
+
+
+def report_plans(phase, trainer):
+    stats = trainer.plan_stats
+    say(f"phase {phase}: {trainer.n_chunks} chunks of {trainer.batch_size} "
+        f"(last {trainer.last_size}); edge capacity {trainer.edge_capacity}, "
+        f"split capacity {trainer.layouts[trainer.batch_size].capacity}; per "
+        f"epoch: host seconds of the chunk plans "
+        f"{[round(s['host_s'], 3) for s in stats]}, chunks with heavy rows "
+        f"{[s['heavy_chunks'] for s in stats]}, segments "
+        f"{[s['segments'] for s in stats]}, most edges in a chunk "
+        f"{[s['max_edges'] for s in stats]}")
+
+
+def check_minibatch_result(phase, trainer, best):
+    """Finite losses that fall from the first epoch to the last (at the
+    presets' lr the first steps overshoot, and 3 epochs do not reach the
+    data's accuracy), finite metrics, and the full graph's logits through
+    the kernels against the same weights through the plain versions (the
+    plain K1 in chunks of edges, as the eval asks)."""
+    losses = best["losses"]
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite or not falling: {losses}")
+    if not all(math.isfinite(best[k]) for k in ("train", "valid", "test")):
+        raise AssertionError(f"non-finite metrics: {best}")
+    state = trainer.runner.state
+    logits = trainer.forward_full(state)
+    with through_plain_versions():
+        ref = trainer.forward_full(state)
+    if logits.shape != ref.shape or logits.shape[0] != trainer.n:
+        raise AssertionError(f"logits shape {tuple(logits.shape)}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite logits")
+    torch.testing.assert_close(logits, ref, rtol=1e-3, atol=1e-4)
+    say(f"phase {phase}: full-graph logits {tuple(logits.shape)} kernel vs "
+        f"plain max_abs_err {(logits - ref).abs().max().item():.3e}")
+    del logits, ref
+    torch.cuda.empty_cache()
+
+
+def check_minibatch_launches(phase, trainer, counted):
+    """K1 counted in both directions and no attention kernel; the device
+    launches of the replays beside the wrappers' counts."""
+    say(f"phase {phase}: launches counted by the wrappers {counted} "
+        f"(warm-up, capture and the eager evals); replayed on the device "
+        f"{trainer.runner.launches()}; graphs "
+        f"{ {k: (v['captured']['csr_spmm'], v['replays']) for k, v in trainer.runner.graphs.items()} }"
+        f" (K1 forward captured, replays)")
+    off = {k: v for k, v in counted.items() if (v > 0) != (k in K1_PATH)}
+    if off:
+        raise AssertionError(f"kernels launched against the path "
+                             f"{K1_PATH}: {off}")
+
+
+def phase_minibatch_pokec(tmp):
+    """The pokec preset through the command line (DIFFormer-s, hidden 128,
+    3 layers, batch 100000, lr 0.01, a random 50/25/25 split) on a stand-in
+    ``pokec.mat`` of Pokec's size, cut to 3 epochs and 1 run; the first
+    epoch again through the loop (``use_scan=False``), whose chunk losses
+    must equal the graphs' bit for bit; the steady state of both paths.
+    Returns the path's launches."""
+    from difformer_tpu_torch import cli
+    from difformer_tpu_torch.train import minibatch as M
+
+    check_native()
+    t0 = time.perf_counter()
+    x, ei, y = pokec_standin()
+    write_pokec_mat(tmp, x, ei, y)
+    del x, ei, y
+    say(f"phase minibatch-pokec: stand-in written in "
+        f"{time.perf_counter() - t0:.1f} s: N={POKEC_NODES} "
+        f"E={POKEC_EDGES} directed (power-law) F={POKEC_FEATURES} "
+        f"C={POKEC_CLASSES}")
+    times, made = {"fit_s": 0.0}, []
+    real_init, real_fit = M.MiniBatchTrainer.__init__, M.MiniBatchTrainer.fit
+    start = [0.0]
+
+    def timed_init(self, *args, **kw):
+        times["prep_s"] = time.perf_counter() - start[0]
+        t = time.perf_counter()
+        real_init(self, *args, **kw)
+        torch.cuda.synchronize()
+        times["init_s"] = time.perf_counter() - t
+        made.append(self)
+
+    def timed_fit(self, split_idx, **kw):
+        times["split"] = split_idx
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real_fit(self, split_idx, **kw)
+        torch.cuda.synchronize()
+        times["fit_s"] += time.perf_counter() - t
+        return res
+
+    argv = ["--dataset", "pokec", "--data_dir", tmp] + POKEC_CUT
+    with unittest.mock.patch.object(M.MiniBatchTrainer, "__init__",
+                                    timed_init), \
+            unittest.mock.patch.object(M.MiniBatchTrainer, "fit", timed_fit):
+        reset_launch_counts()
+        start[0] = time.perf_counter()
+        res = cli.main(argv)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    trainer, best = made[0], res[0]
+    epochs = len(best["losses"])
+    say(f"phase minibatch-pokec: {' '.join(argv)} -> best epoch "
+        f"{best['epoch']} train {best['train']:.4f} valid "
+        f"{best['valid']:.4f} test {best['test']:.4f}; losses "
+        f"{best['losses']}")
+    say(f"phase minibatch-pokec: host seconds: load and preprocess "
+        f"{times['prep_s']:.3f} s, the trainer (edge capacity, features and "
+        f"the full graph's plan on the card) {times['init_s']:.3f} s, fit "
+        f"{times['fit_s']:.3f} s for {epochs} epochs = "
+        f"{1e3 * times['fit_s'] / epochs:.1f} ms per epoch (2 evals and the "
+        f"captures included); cut from 500 epochs and 5 runs")
+    report_plans("minibatch-pokec", trainer)
+    check_minibatch_launches("minibatch-pokec", trainer, launches)
+    check_minibatch_result("minibatch-pokec", trainer, best)
+
+    trainer.use_scan = False
+    t = time.perf_counter()
+    loop = trainer.fit(times["split"], epochs=1, eval_step=9)[0]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    trainer.use_scan = True
+    same = loop["chunk_losses"][0] == best["chunk_losses"][0]
+    say(f"phase minibatch-pokec: first epoch through the loop in "
+        f"{loop_s:.3f} s (an eval included): chunk losses bit-equal to the "
+        f"graphs': {same}")
+    if not same:
+        raise AssertionError(f"loop {loop['chunk_losses'][0]} != graphs "
+                             f"{best['chunk_losses'][0]}")
+    chunk_timings("minibatch-pokec", trainer, top=GRAPH_TOP)
+    return launches
+
+
+def phase_minibatch_proteins():
+    """MiniBatchTrainer called directly at ogbn-proteins' shape with the
+    preset's model (DIFFormer-s, hidden 64, 3 layers, batch 10000, lr
+    0.01, BCE and multi-task ROC-AUC), on a random 50/25/25 split, for 3
+    epochs of 1 run; the steady state of both paths, per chunk step."""
+    from difformer_tpu_torch.cli import parse_method
+    from difformer_tpu_torch.data import rand_train_test_idx
+    from difformer_tpu_torch.train.minibatch import MiniBatchTrainer
+    from difformer_tpu_torch.utils.config import make_config
+
+    cfg = make_config("ogbn-proteins")
+    t0 = time.perf_counter()
+    x, ei, y = proteins_standin()
+    gen_s = time.perf_counter() - t0
+    split = rand_train_test_idx(y, cfg.train_prop, cfg.valid_prop, rng=0)
+    model = parse_method(cfg, PROTEINS_NODES, PROTEINS_TASKS,
+                         PROTEINS_FEATURES, device="cuda")
+    t0 = time.perf_counter()
+    trainer = MiniBatchTrainer(
+        model, x, ei, y, batch_size=cfg.batch_size, lr=cfg.lr,
+        weight_decay=cfg.weight_decay, loss="bce", metric=cfg.metric,
+        seed=cfg.seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    say(f"phase minibatch-proteins: N={PROTEINS_NODES} E={ei.shape[1]} "
+        f"({2 * PROTEINS_UNDIRECTED} directed + self loops) "
+        f"F={PROTEINS_FEATURES} tasks={PROTEINS_TASKS} hidden "
+        f"{cfg.hidden_channels} layers {cfg.num_layers} batch "
+        f"{cfg.batch_size}; stand-in drawn in {gen_s:.1f} s; the trainer "
+        f"{init_s:.3f} s")
+    del x, ei
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    best = trainer.fit(split, epochs=PROTEINS_EPOCHS, eval_step=cfg.eval_step)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = launch_counts()
+    best = best[0]
+    say(f"phase minibatch-proteins: fit {PROTEINS_EPOCHS} epochs in "
+        f"{fit_s:.3f} s = {1e3 * fit_s / PROTEINS_EPOCHS:.1f} ms per epoch "
+        f"(2 evals and the captures included; cut from "
+        f"{cfg.epochs} epochs and {cfg.runs} runs); best epoch "
+        f"{best['epoch']} ROC-AUC train {best['train']:.4f} valid "
+        f"{best['valid']:.4f} test {best['test']:.4f}; losses "
+        f"{best['losses']}")
+    report_plans("minibatch-proteins", trainer)
+    check_minibatch_launches("minibatch-proteins", trainer, launches)
+    check_minibatch_result("minibatch-proteins", trainer, best)
+    chunk_timings("minibatch-proteins", trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def profile_steps(step, step_ms, phase, steps=5, top=12):
     """Device time by kernel over ``steps`` train steps (torch.profiler),
     and its share of ``step_ms``, the step's time measured without the
@@ -1272,6 +1720,7 @@ def main():
     phase_build()
     rows = phase_kernels()
     spmm_rows = phase_spmm_kernels()
+    chunk_rows = phase_spmm_chunk()
     wide_rows = phase_kernels_wide()
     say(f"phase kernels: done at {time.perf_counter() - t0:.1f} s")
     launches = phase_slice()
@@ -1290,6 +1739,11 @@ def main():
     say(f"phase cli: done at {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         launches_set = phase_cli_set(tmp)
+    say(f"phase cli-set: done at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_mb = phase_minibatch_pokec(tmp)
+    say(f"phase minibatch-pokec: done at {time.perf_counter() - t0:.1f} s")
+    phase_minibatch_proteins()
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     # every ms, plain_ms and library_ms is a device time (device_ms) at the
     # slice's shape (K1 also at Pokec's)
@@ -1314,6 +1768,14 @@ def main():
          "replaces": REPLACES[name.split()[0]],
          "launches": launches_set[name.split()[0]], **row}
         for name, row in wide_rows.items()
+    ] + [
+        # K1 through the mini-batch trainer's capacity launch on a Pokec
+        # chunk; launches are the minibatch-pokec phase's (counted at
+        # warm-up, capture and the eager evals)
+        {"name": name, "route": "cuda", "source": SPMM_SOURCE,
+         "replaces": SPMM_REPLACES,
+         "launches": launches_mb[name.split()[0]], **row}
+        for name, row in chunk_rows.items()
     ]
     say(json.dumps({"kernels": kernels}))
     say(smi)

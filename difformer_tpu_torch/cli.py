@@ -13,7 +13,11 @@ kernel as its plain version), as the tests do.
 Ported: full-batch node classification and the set track (``--task set``:
 a kNN graph of the features) with ``--method difformer``, both kernels,
 ``--reorder``, the three split modes, ``--save_model`` and
-``--eval_only``. The GCN branch always runs the CSR SpMM kernel (K1): the
+``--eval_only``; and mini-batch training on large graphs
+(``--use_minibatch``, which the pokec and ogbn-proteins presets set) with
+``MiniBatchTrainer``, routed as the JAX command line routes it (its
+``--save_model``, ``--eval_only`` and sparse-layout flags are not read
+there). The GCN branch always runs the CSR SpMM kernel (K1): the
 JAX package's default ``--use_ell`` ELL layout is a TPU layout of the same
 product. ``--eval_only`` reads a checkpoint the port wrote with
 ``--save_model``, or a reference ``.pt``/``.pth``/``.pkl`` state_dict; it
@@ -44,6 +48,7 @@ from difformer_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
+from difformer_tpu_torch.train.minibatch import MiniBatchTrainer
 from difformer_tpu_torch.train.trainer import FullBatchTrainer
 from difformer_tpu_torch.utils.config import Config, make_config
 from difformer_tpu_torch.utils.logger import RunLogger
@@ -58,7 +63,6 @@ _ITEMS = {
     8: "the baseline zoo, ROADMAP.md queue A item 8",
     7: "the temporal track, ROADMAP.md queue A item 7",
     6: "the graph-level track, ROADMAP.md queue A item 6",
-    5: "mini-batch training, ROADMAP.md queue A item 5",
     9: "the TPU-shaped sparse layouts, ROADMAP.md queue A item 9",
     10: "the parallel layer, ROADMAP.md queue A item 10",
 }
@@ -110,9 +114,8 @@ def _check_ported(cfg: Config):
         raise _method_error(cfg.method)
     if cfg.n_shards > 1:
         raise _not_ported("--n_shards > 1", 10)
-    if cfg.use_minibatch:
-        raise _not_ported("--use_minibatch", 5)
-    if cfg.spmm not in _PORTED_SPMM:
+    if not cfg.use_minibatch and cfg.spmm not in _PORTED_SPMM:
+        # the mini-batch route reads no sparse layout
         raise _not_ported(f"--spmm {cfg.spmm}", 9)
 
 
@@ -140,8 +143,8 @@ def _restore(cfg: Config, trainer: FullBatchTrainer, split):
 def run_node_task(cfg: Config, device=None):
     """Load ``cfg.dataset``, preprocess its graph as the reference does and
     train (or, with ``eval_only``, evaluate) DIFFormer full-batch on
-    ``device`` (the GPU unless told otherwise). Returns one summary per
-    run."""
+    ``device`` (the GPU unless told otherwise), or in node chunks with
+    ``use_minibatch``. Returns one summary per run."""
     _check_ported(cfg)
     ds = load_dataset(cfg.data_dir, cfg.dataset, cfg.sub_dataset)
     x = ds.graph["node_feat"]
@@ -194,6 +197,18 @@ def run_node_task(cfg: Config, device=None):
             split = {k: perm[np.asarray(v)] for k, v in split.items()}
         return split
 
+    if cfg.use_minibatch:
+        trainer = MiniBatchTrainer(
+            model, x, ei, label, batch_size=cfg.batch_size, lr=cfg.lr,
+            weight_decay=cfg.weight_decay, loss=loss, metric=cfg.metric,
+            seed=cfg.seed, device=device)
+        res = []
+        for run in range(cfg.runs):
+            res.extend(trainer.fit(split_for(run), epochs=cfg.epochs, runs=1,
+                                   eval_step=cfg.eval_step, logger=logger,
+                                   verbose=True))
+        return _final(res)
+
     graph = GraphData.from_numpy(x, ei, device=device)
     trainer = FullBatchTrainer(
         model, graph, label, lr=cfg.lr, weight_decay=cfg.weight_decay,
@@ -214,7 +229,11 @@ def run_node_task(cfg: Config, device=None):
             save_checkpoint(f"{cfg.model_dir}/{cfg.dataset}-{cfg.method}",
                             r[-1].pop("params"))
         res.extend(r)
+    return _final(res)
 
+
+def _final(res):
+    """Print the runs' mean and spread of the test metric; returns them."""
     tests = np.asarray([r["test"] for r in res])
     print(f"Final Test: {100 * tests.mean():.2f} ± {100 * tests.std():.2f}")
     return res
@@ -258,11 +277,11 @@ def main(argv=None, *, device=None):
     otherwise)."""
     args = build_parser().parse_args(argv)
     overrides = {k: v for k, v in vars(args).items() if v is not None}
-    if overrides.get("use_ell"):
-        # the ELL layout, which the JAX package's default also takes
-        raise _not_ported("--use_ell", 9)
     dataset = overrides.pop("dataset", "cora")
     cfg = make_config(dataset, **overrides)
+    if overrides.get("use_ell") and not cfg.use_minibatch:
+        # the ELL layout, which the JAX package's default also takes
+        raise _not_ported("--use_ell", 9)
     print(cfg)
     if cfg.task == "temporal":
         raise _not_ported("--task temporal", 7)

@@ -42,12 +42,24 @@
 // rows (every citation graph at the package's T) it is one launch, as
 // before the split. Empty rows write 0.
 //
+// Capture in a CUDA graph for a changing graph (the mini-batch trainer
+// replays one graph of a chunk's train step for every chunk of an epoch,
+// each with its own CSRs): the grids must not depend on the data. Such a
+// caller gives the schedule at a fixed capacity, H_cap heavy rows and S_cap
+// segments, sizes the grids from those, and passes counts, a device array
+// holding the real heavy-row and segment counts; blocks past them exit at
+// once. Light rows need no count: a row is heavy by its degree, which the
+// kernel reads. Without counts (the graph of a whole run, whose schedule is
+// known when the plan is built) the counts are the host's and the launch is
+// the exact one.
+//
 // Layouts: row_ptr int32 [rows + 1], col int32 [E], val float32 [E],
 // x float32 [*, W] and out float32 [rows, W], all contiguous; the schedule's
 // heavy_rows int32 [H], seg_ptr int32 [H + 1] (the segments of heavy row h
 // are seg_ptr[h] .. seg_ptr[h + 1] - 1), seg_begin and seg_end int32 [S]
-// (edge offsets) and the workspace ws float32 [S, W]. Offsets into x, out
-// and ws are 64-bit.
+// (edge offsets) and the workspace ws float32 [S, W]; counts, when given,
+// int32 [2] on the device: the heavy rows and segments in use, at most H
+// and S. Offsets into x, out and ws are 64-bit.
 //
 // C interface (loaded with ctypes): the entry returns cudaGetLastError()
 // after its launches, so a refused launch is reported to the caller.
@@ -130,13 +142,14 @@ __global__ void __launch_bounds__(kThreads)
                     int group_log2, int threshold,
                     const int* __restrict__ seg_begin,
                     const int* __restrict__ seg_end, T* __restrict__ ws,
-                    int64_t segments, int seg_blocks) {
+                    int64_t segments, int seg_blocks,
+                    const int* __restrict__ counts) {
   const int group = 1 << group_log2;
   const int lane = threadIdx.x & (group - 1);
   if (int(blockIdx.x) < seg_blocks) {
     const int64_t seg =
         (int64_t(blockIdx.x) * kThreads + threadIdx.x) >> group_log2;
-    if (seg >= segments) return;
+    if (seg >= (counts ? int64_t(__ldg(counts + 1)) : segments)) return;
     sum_edges(col, val, x, ws + seg * vecs, __ldg(seg_begin + seg),
               __ldg(seg_end + seg), vecs, lane, group);
     return;
@@ -152,16 +165,18 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // out[heavy_rows[h]] = the sum of ws[seg_ptr[h]] .. ws[seg_ptr[h + 1] - 1],
-// in segment order; a group of 2^group_log2 lanes per heavy row.
+// in segment order; a group of 2^group_log2 lanes per heavy row, for the
+// first counts[0] heavy rows when counts is given, else the first heavy.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     csr_spmm_combine(const int* __restrict__ heavy_rows,
                      const int* __restrict__ seg_ptr,
                      const T* __restrict__ ws, T* __restrict__ out,
-                     int64_t heavy, int64_t vecs, int group_log2) {
+                     int64_t heavy, int64_t vecs, int group_log2,
+                     const int* __restrict__ counts) {
   const int64_t h =
       (int64_t(blockIdx.x) * kThreads + threadIdx.x) >> group_log2;
-  if (h >= heavy) return;
+  if (h >= (counts ? int64_t(__ldg(counts)) : heavy)) return;
   const int group = 1 << group_log2;
   const int lane = threadIdx.x & (group - 1);
   const int first = __ldg(seg_ptr + h);
@@ -187,7 +202,8 @@ int launch(const int* row_ptr, const int* col, const float* val,
            const void* x, void* out, int64_t rows, int64_t vecs,
            int threshold, const int* heavy_rows, const int* seg_ptr,
            const int* seg_begin, const int* seg_end, int64_t heavy,
-           int64_t segments, void* ws, cudaStream_t stream) {
+           int64_t segments, const int* counts, void* ws,
+           cudaStream_t stream) {
   int group_log2 = 0;  // lanes per row: the power of two >= vecs, up to 32
   while ((int64_t(1) << group_log2) < vecs && group_log2 < 5) ++group_log2;
   const int64_t seg_blocks = blocks_for(segments, group_log2);
@@ -196,14 +212,14 @@ int launch(const int* row_ptr, const int* col, const float* val,
   csr_spmm_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       row_ptr, col, val, static_cast<const T*>(x), static_cast<T*>(out), rows,
       vecs, group_log2, threshold, seg_begin, seg_end, static_cast<T*>(ws),
-      segments, static_cast<int>(seg_blocks));
+      segments, static_cast<int>(seg_blocks), counts);
   if (heavy == 0) return cudaGetLastError();
   const int rc = cudaGetLastError();
   if (rc != cudaSuccess) return rc;
   csr_spmm_combine<T><<<static_cast<unsigned>(blocks_for(heavy, group_log2)),
                         kThreads, 0, stream>>>(
       heavy_rows, seg_ptr, static_cast<const T*>(ws), static_cast<T*>(out),
-      heavy, vecs, group_log2);
+      heavy, vecs, group_log2, counts);
   return cudaGetLastError();
 }
 
@@ -214,13 +230,15 @@ extern "C" {
 // out [rows, width] = CSR(row_ptr, col, val) @ x [*, width]. The rows of
 // more than threshold edges (heavy_rows, heavy of them) are summed by
 // segments (seg_ptr, seg_begin, seg_end; segments in all) into ws
-// [segments, width], then combined. Nothing is launched for rows == 0 (the
+// [segments, width], then combined. With counts (int32 [2] on the device)
+// heavy and segments are capacities, and the first counts[0] heavy rows and
+// counts[1] segments are used. Nothing is launched for rows == 0 (the
 // caller returns zeros for an empty graph).
 int csr_spmm(const void* row_ptr, const void* col, const void* val,
              const void* x, void* out, int64_t rows, int64_t width,
              int threshold, const void* heavy_rows, const void* seg_ptr,
              const void* seg_begin, const void* seg_end, int64_t heavy,
-             int64_t segments, void* ws, void* stream) {
+             int64_t segments, const void* counts, void* ws, void* stream) {
   if (rows < 0 || width <= 0 || rows > (int64_t(1) << 40) || threshold < 1 ||
       heavy < 0 || segments < heavy || segments > (int64_t(1) << 40))
     return cudaErrorInvalidValue;
@@ -233,11 +251,12 @@ int csr_spmm(const void* row_ptr, const void* col, const void* val,
   const auto* sp = static_cast<const int*>(seg_ptr);
   const auto* sb = static_cast<const int*>(seg_begin);
   const auto* se = static_cast<const int*>(seg_end);
+  const auto* ct = static_cast<const int*>(counts);
   if (width % 4 == 0 && aligned16(x) && aligned16(out) && aligned16(ws))
     return launch<float4>(rp, cl, vl, x, out, rows, width / 4, threshold, hr,
-                          sp, sb, se, heavy, segments, ws, st);
+                          sp, sb, se, heavy, segments, ct, ws, st);
   return launch<float>(rp, cl, vl, x, out, rows, width, threshold, hr, sp, sb,
-                       se, heavy, segments, ws, st);
+                       se, heavy, segments, ct, ws, st);
 }
 
 }  // extern "C"

@@ -3,16 +3,18 @@
 
 - the reference's canonical prep (``node classification/main.py:72-76``):
   symmetrise, drop self loops, add self loops;
+- CSR order, induced subgraphs and the edge capacities of the
+  mini-batch trainer (``sort_edges_by_receiver``, ``subgraph``,
+  ``pad_edges``, ``edge_bucket``);
 - row feature normalisation (``data_utils.py:229-236``);
 - the kNN graph of the set track (``image and text/main.py:51-54``);
 - node reorderings for gather locality (``locality_reorder``,
   ``permute_graph``), with the numpy label propagation behind the
   ``community`` order.
 
-The JAX package's C++ label propagation (``difformer_tpu/native``) has no
-counterpart here yet (ROADMAP.md queue A item 5): ``label_propagation``
-always runs the numpy version, which is what the JAX function gives with
-``use_native=False``.
+The port's native library (``native/``) has no label propagation:
+``label_propagation`` always runs the numpy version, which is what the JAX
+function gives with ``use_native=False``.
 """
 
 from __future__ import annotations
@@ -58,6 +60,68 @@ def standard_preprocess(edge_index, num_nodes):
     ei, _ = remove_self_loops(ei)
     ei, _ = add_self_loops(ei, num_nodes)
     return ei
+
+
+def sort_edges_by_receiver(edge_index, edge_weight=None):
+    """The edges in CSR order: stably sorted by receiver."""
+    ei = np.asarray(edge_index)
+    order = np.argsort(ei[1], kind="stable")
+    ei = ei[:, order]
+    if edge_weight is not None:
+        return ei, edge_weight[order]
+    return ei, None
+
+
+def subgraph(node_idx, edge_index, num_nodes, relabel_nodes=True):
+    """The subgraph induced by ``node_idx`` (PyG ``subgraph``): the edges
+    whose two ends are both in it, in their order, relabelled to positions
+    in ``node_idx`` when asked; returns (edges, edge mask). The mini-batch
+    trainer's chunks drop cross-chunk edges so (``main-batch.py:131``)."""
+    node_idx = np.asarray(node_idx)
+    mask = np.zeros(num_nodes, dtype=bool)
+    mask[node_idx] = True
+    ei = np.asarray(edge_index)
+    emask = mask[ei[0]] & mask[ei[1]]
+    sub = ei[:, emask]
+    if relabel_nodes:
+        remap = -np.ones(num_nodes, dtype=np.int64)
+        remap[node_idx] = np.arange(node_idx.shape[0])
+        sub = remap[sub]
+    return sub, emask
+
+
+def pad_edges(edge_index, edge_weight, target_e, *, pad_index=0):
+    """Pad an edge list to ``target_e`` edges; returns (edges, weights,
+    mask). Padded edges point at ``pad_index`` and have mask False; more
+    than ``target_e`` edges raise."""
+    ei = np.asarray(edge_index)
+    e = ei.shape[1]
+    if e > target_e:
+        raise ValueError(f"edge count {e} exceeds bucket {target_e}")
+    mask = np.zeros(target_e, dtype=bool)
+    mask[:e] = True
+    out = np.full((2, target_e), pad_index, dtype=ei.dtype)
+    out[:, :e] = ei
+    w = None
+    if edge_weight is not None:
+        w = np.zeros(target_e, dtype=np.float32)
+        w[:e] = edge_weight
+    return out, w, mask
+
+
+def edge_bucket(e, buckets=None, *, growth=1.3, minimum=128):
+    """The static capacity for ``e`` edges: the first of ``buckets`` that
+    holds them, else the first of the geometric ladder ``minimum``,
+    ⌈·growth⌉ (in multiples of ``minimum``), ... that does."""
+    if buckets is not None:
+        for b in buckets:
+            if e <= b:
+                return b
+        raise ValueError(f"{e} edges exceed largest bucket {buckets[-1]}")
+    b = minimum
+    while b < e:
+        b = int(np.ceil(b * growth / minimum) * minimum)
+    return b
 
 
 def normalize_feat(feat):

@@ -45,7 +45,7 @@ SIGNATURES = {
     },
     "spmm.cu": {
         "csr_spmm": [_P, _P, _P, _P, _P, _I64, _I64, _I, _P, _P, _P, _P,
-                     _I64, _I64, _P, _P],
+                     _I64, _I64, _P, _P, _P],
     },
 }
 

@@ -43,12 +43,24 @@ edges if asked). There is no fallback from the card to the plain version.
 It reads nothing back from the device when given its schedule: whether and
 how much it launches comes from tensor shapes and Python ints, so it can be
 captured in a CUDA graph.
+
+A graph replayed for graphs that change between replays (the mini-batch
+trainer's chunk steps, ``train/minibatch.py``) needs grids that do not
+depend on the data. Such a caller holds each CSR at a fixed edge capacity
+(the row pointers end at the real edge count; the columns and values past
+it are never read) and its schedule at the capacity of
+:func:`split_capacity`, with ``RowSplit.counts``, a device array of the
+real heavy-row and segment counts, which the kernel reads: blocks past them
+exit. :func:`row_split_host` builds such a schedule on the host, equal to
+:func:`row_split`'s, and :func:`padded_split` lays it out at capacity.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
 
 from difformer_tpu_torch.kernels.build import load_library
@@ -81,13 +93,20 @@ class RowSplit:
     ``threshold`` edges, in CSR order, of nearly equal length. The segments
     of heavy row ``rows[h]`` are ``seg_ptr[h]`` to ``seg_ptr[h + 1] - 1``;
     segment s covers the edges ``seg_begin[s]`` to ``seg_end[s] - 1``. All
-    int32, on the CSR's device."""
+    int32, on the CSR's device.
+
+    With ``counts`` (int32 [2]: the heavy rows and segments in use) the
+    arrays are held at a capacity of H and S entries, of which the first
+    ``counts[0]`` and ``counts[1]`` count, and ``num_heavy`` and
+    ``num_segments`` are the capacities: the kernel's grids are sized from
+    them and its blocks read the real counts."""
 
     threshold: int
     rows: torch.Tensor       # int32 [H]
     seg_ptr: torch.Tensor    # int32 [H + 1]
     seg_begin: torch.Tensor  # int32 [S]
     seg_end: torch.Tensor    # int32 [S]
+    counts: Optional[torch.Tensor] = None  # int32 [2], at capacity only
 
     @property
     def num_heavy(self):
@@ -124,6 +143,51 @@ def row_split(row_ptr, threshold=None) -> RowSplit:
     return RowSplit(threshold=t, rows=as32(rows), seg_ptr=as32(seg_ptr),
                     seg_begin=as32(start + k * d // m),
                     seg_end=as32(start + (k + 1) * d // m))
+
+
+def split_capacity(edges, threshold=None):
+    """(H, S): the most heavy rows and segments that a CSR of at most
+    ``edges`` edges can have at ``threshold`` (default
+    :data:`SPLIT_THRESHOLD`). A heavy row has d > T edges and
+    ⌈d/T⌉ < 2·d/T segments, so H ≤ E/(T+1) and S < 2·E/T."""
+    t = SPLIT_THRESHOLD if threshold is None else int(threshold)
+    return edges // (t + 1), 2 * edges // t + 1
+
+
+def row_split_host(row_ptr, threshold=None):
+    """:func:`row_split` on the host: (rows, seg_ptr, seg_begin, seg_end),
+    int32 numpy arrays, for the CSR with row pointers ``row_ptr`` (numpy
+    [R + 1]), equal to the device schedule's."""
+    t = SPLIT_THRESHOLD if threshold is None else int(threshold)
+    if t < 1:
+        raise ValueError(f"the split threshold must be at least 1, got {t}")
+    ptr = np.asarray(row_ptr, np.int64)
+    degrees = ptr[1:] - ptr[:-1]
+    rows = np.flatnonzero(degrees > t)
+    counts = (degrees[rows] + t - 1) // t
+    seg_ptr = np.zeros(rows.size + 1, np.int64)
+    np.cumsum(counts, out=seg_ptr[1:])
+    owner = np.repeat(np.arange(rows.size), counts)
+    k = np.arange(owner.size) - seg_ptr[owner]
+    start, d, m = ptr[rows][owner], degrees[rows][owner], counts[owner]
+    as32 = lambda a: a.astype(np.int32)  # noqa: E731
+    return (as32(rows), as32(seg_ptr), as32(start + k * d // m),
+            as32(start + (k + 1) * d // m))
+
+
+def padded_split(host_split, capacity, out):
+    """Lay out a :func:`row_split_host` schedule at ``capacity`` (H, S, as
+    :func:`split_capacity` gives) in ``out``, four int32 numpy arrays [H],
+    [H + 1], [S], [S], and return its (heavy rows, segments): the values of
+    ``RowSplit.counts``. Entries past the counts are left as they are."""
+    rows, seg_ptr, begin, end = host_split
+    h, s = rows.size, begin.size
+    if h > capacity[0] or s > capacity[1]:
+        raise ValueError(f"{h} heavy rows and {s} segments exceed the "
+                         f"capacity {capacity}")
+    for dst, src in zip(out, host_split):
+        dst[:src.size] = src
+    return h, s
 
 
 def csr_spmm_plain(x, row_ptr, col, val, *, edge_chunk_size=None):
@@ -175,14 +239,19 @@ def csr_spmm(x, row_ptr, col, val, *, split=None, transposed=False,
     (``row_ptr`` [R+1], ``col`` [E], ``val`` [E]), whose columns index rows
     of x (``build_csr_plan`` checks its indices). ``split`` is the CSR's
     :class:`RowSplit` (the plan's ``split`` or ``t_split``); without one,
-    a call on the card builds it, reading the degrees back. ``transposed``
+    a call on the card builds it, reading the degrees back. col and val
+    may be longer than ``row_ptr[-1]``, a CSR held at a capacity: the
+    entries past it are not read. ``transposed``
     names the launch (the backward's CSR) in :data:`LAUNCHES`;
     ``edge_chunk_size`` applies to the plain version only, as the kernel
     never makes the [E, W] messages."""
     _check(x, row_ptr, col, val)
     schedule = () if split is None else split.tensors()
+    if split is not None and split.counts is not None:
+        schedule += (split.counts,)
     if not on_cuda("csr_spmm", x, row_ptr, col, val, *schedule):
-        return csr_spmm_plain(x, row_ptr, col, val,
+        end = int(row_ptr[-1])
+        return csr_spmm_plain(x, row_ptr, col[:end], val[:end],
                               edge_chunk_size=edge_chunk_size)
     rows, width = row_ptr.numel() - 1, x.shape[1]
     if col.numel() == 0 or rows == 0 or width == 0:
@@ -199,7 +268,9 @@ def csr_spmm(x, row_ptr, col, val, *, split=None, transposed=False,
         row_ptr.data_ptr(), col.data_ptr(), val.data_ptr(), x.data_ptr(),
         out.data_ptr(), rows, width, split.threshold,
         *(t.data_ptr() for t in split.tensors()), split.num_heavy,
-        split.num_segments, ws.data_ptr(),
+        split.num_segments,
+        None if split.counts is None else split.counts.data_ptr(),
+        ws.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"csr_spmm kernel launch failed: CUDA error {rc}")

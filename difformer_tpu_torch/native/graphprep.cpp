@@ -1,0 +1,186 @@
+// graphprep: host-side graph preparation of the mini-batch trainer, in C++
+// for speed, loaded with ctypes (native/__init__.py). The port's own copy of
+// difformer_tpu/native/graphprep.cpp's sort_edges_by_receiver,
+// gcn_norm_values and induced_subgraph, with the same arithmetic, and two
+// entries of its own for the trainer's chunk plans:
+//
+// - chunk_subgraphs: the induced subgraphs of every node chunk of an epoch
+//   in one pass over the edges (a pass per chunk walks all E edges once per
+//   chunk: 17 times at Pokec's size, 14 at ogbn-proteins'). Each chunk's
+//   edges come out in their order in the input, relabelled to positions in
+//   the chunk, exactly as induced_subgraph gives them one chunk at a time.
+// - chunk_csr: a chunk's two CSRs (by receiver, and the transposed one by
+//   sender) with their GCN values, by two stable counting sorts: the arrays
+//   that sort_edges_by_receiver and gcn_norm_values give, in one call.
+//
+// The reference delegates this work to PyG's subgraph and torch_sparse
+// (node classification/main-batch.py:131, data_utils.py:183-200).
+//
+// Build: g++ -O3 -shared -fPIC -std=c++17 graphprep.cpp -o libgraphprep.so -pthread
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+extern "C" {
+
+// Counting sort of edges by receiver; fills order (positions into the
+// original arrays) and indptr (receiver CSR offsets, length n+1).
+void sort_edges_by_receiver(const int32_t* receivers, int64_t e, int64_t n,
+                            int64_t* order, int64_t* indptr) {
+  std::vector<int64_t> count(n + 1, 0);
+  for (int64_t i = 0; i < e; ++i) count[receivers[i] + 1]++;
+  for (int64_t i = 0; i < n; ++i) count[i + 1] += count[i];
+  std::memcpy(indptr, count.data(), sizeof(int64_t) * (n + 1));
+  std::vector<int64_t> cursor(count.begin(), count.end() - 1);
+  for (int64_t i = 0; i < e; ++i) order[cursor[receivers[i]]++] = i;
+}
+
+// 1 / sqrt(in-degree) of every node in float32 (0 for no in-edges), the
+// degrees counted in double.
+static std::vector<float> inv_sqrt_degrees(const int32_t* receivers,
+                                           int64_t e, int64_t n) {
+  std::vector<double> deg(n, 0.0);
+  for (int64_t i = 0; i < e; ++i) deg[receivers[i]] += 1.0;
+  std::vector<float> inv(n);
+  for (int64_t i = 0; i < n; ++i)
+    inv[i] = deg[i] > 0.0 ? (float)(1.0 / std::sqrt(deg[i])) : 0.0f;
+  return inv;
+}
+
+static inline float gcn_value(float w, float inv_r, float inv_s) {
+  float v = w * inv_r * inv_s;
+  return std::isfinite(v) ? v : 0.0f;
+}
+
+// The reference's normalised GCN edge values:
+// val = w * rsqrt(deg[recv]) * rsqrt(deg[send]); non-finite -> 0
+void gcn_norm_values(const int32_t* senders, const int32_t* receivers,
+                     const float* edge_weight, int64_t e, int64_t n,
+                     float* out) {
+  const std::vector<float> inv = inv_sqrt_degrees(receivers, e, n);
+  for (int64_t i = 0; i < e; ++i)
+    out[i] = gcn_value(edge_weight ? edge_weight[i] : 1.0f, inv[receivers[i]],
+                       inv[senders[i]]);
+}
+
+// Induced subgraph: keep edges with both endpoints selected; relabel via
+// remap (remap[node] = position in chunk, -1 otherwise). Returns kept count.
+int64_t induced_subgraph(const int32_t* senders, const int32_t* receivers,
+                         int64_t e, const int64_t* remap, int32_t* out_s,
+                         int32_t* out_r) {
+  int64_t kept = 0;
+  for (int64_t i = 0; i < e; ++i) {
+    int64_t rs = remap[senders[i]];
+    int64_t rr = remap[receivers[i]];
+    if (rs >= 0 && rr >= 0) {
+      out_s[kept] = (int32_t)rs;
+      out_r[kept] = (int32_t)rr;
+      ++kept;
+    }
+  }
+  return kept;
+}
+
+// The induced subgraph of every chunk of perm (chunk c holds the nodes
+// perm[c * batch .. (c + 1) * batch - 1], n nodes in all), in one pass:
+// chunk c's edges, relabelled to positions in the chunk and in input order,
+// land in out_s/out_r [offsets[c], offsets[c + 1]). offsets has
+// n_chunks + 1 entries; out_s and out_r room for every kept edge (at most
+// e). Each of `threads` threads takes a contiguous range of edges; their
+// outputs are placed in range order, so the result does not depend on the
+// thread count. Returns the number of kept edges.
+int64_t chunk_subgraphs(const int32_t* senders, const int32_t* receivers,
+                        int64_t e, const int64_t* perm, int64_t n,
+                        int64_t batch, int64_t n_chunks, int threads,
+                        int64_t* offsets, int32_t* out_s, int32_t* out_r) {
+  std::vector<int32_t> chunk_of(n), local(n);
+  for (int64_t i = 0; i < n; ++i) {
+    chunk_of[perm[i]] = (int32_t)(i / batch);
+    local[perm[i]] = (int32_t)(i % batch);
+  }
+  const int t_count = std::max(1, threads);
+  std::vector<int64_t> count(int64_t(t_count) * n_chunks, 0);
+  auto range = [&](int t, int64_t* lo, int64_t* hi) {
+    *lo = e * t / t_count;
+    *hi = e * (t + 1) / t_count;
+  };
+  auto run = [&](auto&& body) {
+    std::vector<std::thread> pool;
+    for (int t = 1; t < t_count; ++t) pool.emplace_back(body, t);
+    body(0);
+    for (auto& th : pool) th.join();
+  };
+  run([&](int t) {
+    int64_t lo, hi;
+    range(t, &lo, &hi);
+    std::vector<int64_t> mine(n_chunks, 0);  // a thread's own cache lines
+    for (int64_t i = lo; i < hi; ++i) {
+      const int32_t c = chunk_of[senders[i]];
+      if (c == chunk_of[receivers[i]]) mine[c]++;
+    }
+    std::copy(mine.begin(), mine.end(),
+              count.begin() + int64_t(t) * n_chunks);
+  });
+  // place each thread's edges of a chunk after the earlier threads'
+  int64_t total = 0;
+  for (int64_t c = 0; c < n_chunks; ++c) {
+    offsets[c] = total;
+    for (int t = 0; t < t_count; ++t) {
+      const int64_t k = count[int64_t(t) * n_chunks + c];
+      count[int64_t(t) * n_chunks + c] = total;
+      total += k;
+    }
+  }
+  offsets[n_chunks] = total;
+  run([&](int t) {
+    int64_t lo, hi;
+    range(t, &lo, &hi);
+    std::vector<int64_t> cursor(count.begin() + int64_t(t) * n_chunks,
+                                count.begin() + int64_t(t + 1) * n_chunks);
+    for (int64_t i = lo; i < hi; ++i) {
+      const int32_t c = chunk_of[senders[i]];
+      if (c != chunk_of[receivers[i]]) continue;
+      const int64_t p = cursor[c]++;
+      out_s[p] = local[senders[i]];
+      out_r[p] = local[receivers[i]];
+    }
+  });
+  return total;
+}
+
+// Stable counting sort of the edges by key: ptr [n + 1] the CSR offsets,
+// and in CSR order other[i] into col and value[i] into val.
+static void csr_by(const int32_t* key, const int32_t* other,
+                   const float* value, int64_t e, int64_t n, int32_t* ptr,
+                   int32_t* col, float* val) {
+  std::vector<int32_t> cursor(n + 1, 0);
+  for (int64_t i = 0; i < e; ++i) cursor[key[i] + 1]++;
+  for (int64_t i = 0; i < n; ++i) cursor[i + 1] += cursor[i];
+  std::memcpy(ptr, cursor.data(), sizeof(int32_t) * (n + 1));
+  for (int64_t i = 0; i < e; ++i) {
+    const int32_t p = cursor[key[i]]++;
+    col[p] = other[i];
+    val[p] = value[i];
+  }
+}
+
+// A chunk's CSR plan (e < 2^31 edges among n nodes): the receivers' CSR
+// (row_ptr [n + 1], col = senders, val) and the senders' (t_row_ptr,
+// t_col = receivers, t_val), both stable, with the GCN values of
+// gcn_norm_values (unit weights).
+void chunk_csr(const int32_t* senders, const int32_t* receivers, int64_t e,
+               int64_t n, int32_t* row_ptr, int32_t* col, float* val,
+               int32_t* t_row_ptr, int32_t* t_col, float* t_val) {
+  const std::vector<float> inv = inv_sqrt_degrees(receivers, e, n);
+  std::vector<float> value(e);
+  for (int64_t i = 0; i < e; ++i)
+    value[i] = gcn_value(1.0f, inv[receivers[i]], inv[senders[i]]);
+  csr_by(receivers, senders, value.data(), e, n, row_ptr, col, val);
+  csr_by(senders, receivers, value.data(), e, n, t_row_ptr, t_col, t_val);
+}
+
+}  // extern "C"

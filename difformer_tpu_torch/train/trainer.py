@@ -130,6 +130,50 @@ def _launch_counts():
     return {**_attention_kernels.LAUNCHES, **_spmm_kernels.LAUNCHES}
 
 
+def captured(graph, fn, stream, pool=None):
+    """Capture ``fn`` into ``graph`` on ``stream`` (in ``pool``, another
+    graph's memory pool, when given); returns the graph's record: the
+    kernel launches the wrappers counted during the capture
+    (``captured``) and its ``replays`` (0 so far)."""
+    before = _launch_counts()
+    with torch.cuda.graph(graph, pool=pool, stream=stream):
+        fn()
+    after = _launch_counts()
+    return {"captured": {k: after[k] - before[k] for k in after},
+            "replays": 0}
+
+
+def graph_launches(graphs):
+    """Each kernel's device launches over the replays of ``graphs`` (records
+    of :func:`captured`): captured count × replays, summed."""
+    total = dict.fromkeys(_launch_counts(), 0)
+    for g in graphs.values():
+        for name, count in g["captured"].items():
+            total[name] += count * g["replays"]
+    return total
+
+
+def device_split_metrics(metric, out, labels, split_masks):
+    """The ``metric`` of each split on the device, [S] float32 for bool
+    ``split_masks`` [S, N]: acc on int labels or on one-hot targets
+    (argmax), mse on dense targets, rocauc on multilabel targets
+    (:func:`device_rocauc_tasks`)."""
+    if metric == "rocauc":
+        return torch.stack([
+            device_rocauc_tasks(out.float(), labels, split_masks[s])
+            for s in range(split_masks.shape[0])])
+    if metric == "acc":
+        pred = out.argmax(-1)
+        true = labels if labels.dim() == 1 else labels.argmax(-1)
+        val = (pred == true).float()
+    else:  # mse
+        val = (out.reshape(labels.shape).float() - labels.float()) ** 2
+        if val.dim() > 1:
+            val = val.mean(-1)
+    m = split_masks.float()
+    return (m @ val) / torch.clamp(m.sum(1), min=1.0)
+
+
 @functools.lru_cache(maxsize=None)
 def _capture_stream(device):
     """The one side stream of ``device`` on which every run's warm-up and
@@ -250,25 +294,10 @@ class FullBatchTrainer:
 
     # -- device metrics and the epoch-block fit -----------------------------
     def _device_split_metrics(self, out, labels, split_masks):
-        """The metric of each split on the device, [S] float32 for bool
-        ``split_masks`` [S, N]. Equal to the host metric for the cases
-        :meth:`_scan_eligible` admits: acc on int labels or on the one-hot
-        targets derived from them, mse on dense targets, rocauc on
-        multilabel targets (:func:`device_rocauc_tasks`)."""
-        if self.metric_name == "rocauc":
-            return torch.stack([
-                device_rocauc_tasks(out.float(), labels, split_masks[s])
-                for s in range(split_masks.shape[0])])
-        if self.metric_name == "acc":
-            pred = out.argmax(-1)
-            true = labels if labels.dim() == 1 else labels.argmax(-1)
-            val = (pred == true).float()
-        else:  # mse
-            val = (out.reshape(labels.shape).float() - labels.float()) ** 2
-            if val.dim() > 1:
-                val = val.mean(-1)
-        m = split_masks.float()
-        return (m @ val) / torch.clamp(m.sum(1), min=1.0)
+        """:func:`device_split_metrics` of the trainer's metric; equal to
+        the host metric for the cases :meth:`_scan_eligible` admits."""
+        return device_split_metrics(self.metric_name, out, labels,
+                                    split_masks)
 
     def _scan_eligible(self, epoch_block, eval_step, save_best, print_prop,
                        ckpt_dir, checkpoint_every, resume):
@@ -539,21 +568,12 @@ class EpochRunner:
 
         self._step_graph = torch.cuda.CUDAGraph()
         self._step_graph.register_generator_state(self.generator)
-        self.graphs["step"] = self._captured(self._step_graph, self._run_step,
-                                             side)
+        self.graphs["step"] = captured(self._step_graph, self._run_step,
+                                       side)
         self._eval_graph = torch.cuda.CUDAGraph()
-        self.graphs["eval"] = self._captured(self._eval_graph, self._run_eval,
-                                             side, self._step_graph.pool())
+        self.graphs["eval"] = captured(self._eval_graph, self._run_eval,
+                                       side, self._step_graph.pool())
         self.state.step = 0  # the warm-up's and the capture's count
-
-    @staticmethod
-    def _captured(graph, fn, stream, pool=None):
-        before = _launch_counts()
-        with torch.cuda.graph(graph, pool=pool, stream=stream):
-            fn()
-        after = _launch_counts()
-        return {"captured": {k: after[k] - before[k] for k in after},
-                "replays": 0}
 
     def step(self):
         """One train step (a replay of the step graph on CUDA)."""
@@ -596,8 +616,4 @@ class EpochRunner:
     def launches(self):
         """Each kernel's device launches over the replays so far: captured
         count × replays, summed over the graphs."""
-        total = dict.fromkeys(_launch_counts(), 0)
-        for g in self.graphs.values():
-            for name, count in g["captured"].items():
-                total[name] += count * g["replays"]
-        return total
+        return graph_launches(self.graphs)

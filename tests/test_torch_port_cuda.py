@@ -866,3 +866,125 @@ def test_cli_runs_on_the_card(cuda, tmp_path):
     assert res[0]["test"] >= 0.8, res  # 0.99 on the CPU
     assert all(K.LAUNCHES[name] > 0 for name in K.LAUNCHES)
     assert all(K1.LAUNCHES[name] > 0 for name in K1.LAUNCHES)
+
+
+# --- the mini-batch trainer: K1 at capacity, chunk steps as CUDA graphs -------
+
+def _hub_chunks(count=3, batch=2500):
+    """The hubs graph's first ``count`` chunks of a random permutation, as
+    (nodes, induced subgraph): a few thousand to tens of thousands of edges
+    each, with hub rows of more than T edges in the chunks that hold a
+    hub."""
+    from difformer_tpu_torch import native
+
+    s, r, n, _, _ = _spmm_graph("hubs")
+    perm = np.random.default_rng(3).permutation(n)
+    # the chunks of the largest in-degree nodes first, so they split rows
+    top = np.argsort(-np.bincount(r, minlength=n))[:count]
+    subs = native.chunk_subgraphs(s, r, perm, batch)
+    chunk_of = np.empty(n, np.int64)
+    chunk_of[perm] = np.arange(n) // batch
+    order = list(dict.fromkeys(chunk_of[top].tolist()))
+    order += [c for c in range(len(subs)) if c not in order]
+    return [(perm[c * batch:(c + 1) * batch], subs[c])
+            for c in order[:count]]
+
+
+@pytest.mark.cuda
+def test_capacity_launch_replayed_over_chunks_matches_eager_launches(cuda):
+    """One CUDA graph of K1 (forward and transposed) over a static chunk
+    buffer at capacity, replayed for three chunks of different edge counts
+    and heavy rows: each replay bit-equal to the eager exact-count launch
+    on that chunk's own CSRs, and within the "spmm" rule of the plain
+    version."""
+    from difformer_tpu_torch import native
+    from difformer_tpu_torch.train import minibatch as M
+
+    chunks = _hub_chunks()
+    edges = [sub.shape[1] for _, sub in chunks]
+    assert len(set(edges)) == 3
+    layout = M.ChunkLayout(2500, max(edges) + 1000)
+    buf = torch.zeros(layout.size, dtype=torch.int32, device=cuda)
+    plan = M.chunk_plan(layout, buf)
+    x = torch.randn((2500, 64), device=cuda)
+    csrs = ((plan.row_ptr, plan.col, plan.val, plan.split, False),
+            (plan.t_row_ptr, plan.t_col, plan.t_val, plan.t_split, True))
+    host = np.zeros(layout.size, np.int32)
+    heavy = []
+    for nodes, sub in chunks[:1]:  # warm-up with a real plan in place
+        M.pack_chunk(layout, host, nodes, sub)
+        buf.copy_(torch.from_numpy(host))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for ptr, col, val, split, t in csrs:
+            K1.csr_spmm(x, ptr, col, val, split=split, transposed=t)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [K1.csr_spmm(x, ptr, col, val, split=split, transposed=t)
+                for ptr, col, val, split, t in csrs]
+    for nodes, sub in chunks:
+        heavy.append(M.pack_chunk(layout, host, nodes, sub)[0])
+        buf.copy_(torch.from_numpy(host))
+        graph.replay()
+        arrays = [torch.as_tensor(a, device=cuda)
+                  for a in native.chunk_csr(sub[0], sub[1], 2500)]
+        for out, (ptr, col, val) in zip(outs, (arrays[:3], arrays[3:])):
+            split = K1.row_split(ptr)
+            exact = K1.csr_spmm(x, ptr, col, val, split=split)
+            assert torch.equal(out, exact)
+            assert_close("capacity", out, K1.csr_spmm_plain(x, ptr, col, val),
+                         "spmm", scale=K1.csr_spmm_abs(x, ptr, col, val))
+    assert heavy[0] > 0  # the first chunk holds the largest hub
+
+
+def _minibatch(device, use_scan, dropout=0.0, n=2000, batch=600):
+    from difformer_tpu_torch.train.minibatch import MiniBatchTrainer
+
+    x, ei, y = random_graph(n, 8 * n, 16, 4, seed=2, homophily=0.8)
+    ei = standard_preprocess(ei, n)
+    model = DIFFormer(16, 32, 4, num_layers=2, dropout=dropout,
+                      device=device)
+    return MiniBatchTrainer(model, x, ei, y, batch_size=batch,
+                            use_scan=use_scan, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.3])
+def test_minibatch_graphs_match_the_loop_on_the_card(cuda, dropout):
+    """use_scan=True (each chunk a replay of the full-size or the last
+    chunk's graph) against use_scan=False (eager steps on exact plans): the
+    same chunk losses bit for bit, the same logged metrics and best epoch;
+    K1 captured in both graphs, replayed for every chunk."""
+    split = {k: np.arange(i, 2000, 3) for i, k in enumerate(
+        ("train", "valid", "test"))}
+    runs = []
+    for use_scan in (False, True):
+        trainer = _minibatch(cuda, use_scan, dropout)
+        log = RowLog()
+        best = trainer.fit(split, epochs=3, eval_step=1, logger=log)[0]
+        runs.append((best, log.rows, trainer))
+    (loop, loop_rows, _), (scan, scan_rows, trainer) = runs
+    assert scan["chunk_losses"] == loop["chunk_losses"]
+    assert scan_rows == loop_rows and scan["epoch"] == loop["epoch"]
+    graphs = trainer.runner.graphs
+    assert set(graphs) == {"step", "last step"}
+    assert [g["replays"] for g in graphs.values()] == [9, 3]
+    for g in graphs.values():
+        assert g["captured"]["csr_spmm"] == 2
+        assert g["captured"]["csr_spmm_transposed"] == 2
+    assert trainer.runner.launches()["csr_spmm"] == 2 * 12
+
+
+@pytest.mark.cuda
+def test_minibatch_trainer_matches_cpu(cuda):
+    """The same fit on the card and on the CPU: losses and the eval's
+    metrics at the model's float32 tolerance."""
+    split = {k: np.arange(i, 2000, 3) for i, k in enumerate(
+        ("train", "valid", "test"))}
+    res = [_minibatch(device, True).fit(split, epochs=2, eval_step=1)[0]
+           for device in (cuda, "cpu")]
+    np.testing.assert_allclose(res[0]["losses"], res[1]["losses"], **GRAD)
+    for k in ("train", "valid", "test"):
+        np.testing.assert_allclose(res[0][k], res[1][k], atol=2e-3)

@@ -27,7 +27,8 @@ def test_import_loads_no_jax():
         "difformer_tpu_torch.sweep, difformer_tpu_torch.data.loaders, "
         "difformer_tpu_torch.utils.logger, "
         "difformer_tpu_torch.utils.profiling, "
-        "difformer_tpu_torch.utils.debug\n"
+        "difformer_tpu_torch.utils.debug, "
+        "difformer_tpu_torch.train.minibatch, difformer_tpu_torch.native\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'orbax', "
         "'difformer_tpu.')) "
