@@ -63,16 +63,18 @@ non-zero before the last line:
    step replayed as a CUDA graph; the first epoch again through the
    per-chunk loop, bit-equal; the native library loaded; host seconds of
    load and preprocess and of the chunk plans, ms per epoch and per chunk
-   step for both paths, the device idle share, the chunks with heavy rows.
+   step for both paths, the device idle share, the chunks with heavy rows;
+   K1's replays equal to layers x chunks x epochs in each direction.
 13. minibatch-proteins: ``MiniBatchTrainer`` at ogbn-proteins' shape
-   (132,534 nodes, 79,122,504 directed edges, 8 features, 112 binary
-   tasks, BCE and ROC-AUC, batch 10000, hidden 64, 3 layers), 3 epochs:
-   the same numbers, the host's share of the epoch in view.
+   (132,534 nodes, 79,122,504 directed edges with hubs of thousands, 8
+   features, 112 binary tasks, BCE and ROC-AUC, batch 10000, hidden 64, 3
+   layers), 3 epochs: the same numbers, the host's share of the epoch in
+   view.
 
-The kernels phase also runs K1 as the mini-batch trainer launches it (its
-plan packed at a fixed capacity, counts read on the device) on the Pokec
-chunk that holds the largest hub, against its plain version and bit-equal
-to the exact-count launch.
+The minibatch-pokec phase also holds K1 as the trainer launches it (the
+chunk's plan packed at a fixed capacity, counts read on the device) on the
+trainer's own chunk with the most segments against its plain version, and
+bit-equal to the exact-count launch, and times it.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. It needs a CUDA device and
@@ -409,11 +411,13 @@ def phase_kernels():
     return rows
 
 
-def spmm_bound_ms(n, e, w):
+def spmm_bound_ms(n, e, w, x_rows=None):
     """(least time in ms, "bytes" or "operations", compulsory bytes) of one
-    K1 product: x and out once each, int32 columns, float32 values and
+    K1 product: the ``x_rows`` rows of x that some edge gathers (all ``n``
+    unless given) and out once each, int32 columns, float32 values and
     int32 row pointers; 2·E·W flops."""
-    nbytes = (2 * n * w + 2 * e + n + 1) * 4
+    x_rows = n if x_rows is None else x_rows
+    nbytes = ((n + x_rows) * w + 2 * e + n + 1) * 4
     t_bytes, t_ops = nbytes / PEAK_BYTES, 2 * e * w / PEAK_OPS[torch.float32]
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes > t_ops else "operations", nbytes)
@@ -480,12 +484,13 @@ def spmm_shapes():
     yield "pokec power-law", plan, 128, PLAIN_EDGE_CHUNK
 
 
-def power_law_nodes(n, e, g):
-    """``e`` node ids on the card, rank ``floor(n·u^2)`` of a uniform u, so
-    the rank-i node is drawn with probability √(i+1) − √i ≈ 1/(2√i); the
+def power_law_nodes(n, e, g, exponent=POWER_LAW_EXPONENT):
+    """``e`` node ids on the card, rank ``floor(n·u^a)`` of a uniform u
+    (a = ``exponent``), so the rank-i node is drawn with probability
+    ((i+1)/n)^(1/a) − (i/n)^(1/a) (at a = 2, √(i+1) − √i over √n); the
     ranks are shuffled over the ids."""
     u = torch.rand(e, device="cuda", generator=g, dtype=torch.float64)
-    rank = (n * u.pow_(POWER_LAW_EXPONENT)).long().clamp_(max=n - 1)
+    rank = (n * u.pow_(exponent)).long().clamp_(max=n - 1)
     return torch.randperm(n, device="cuda", generator=g)[rank]
 
 
@@ -1256,6 +1261,10 @@ POKEC_CUT = ["--epochs", "3", "--runs", "1"]
 # binary tasks, undirected edges (each also inverted by the loader)
 PROTEINS_NODES, PROTEINS_FEATURES, PROTEINS_TASKS = 132_534, 8, 112
 PROTEINS_UNDIRECTED = 39_561_252
+# the stand-in's degree skew: ends drawn by power_law_nodes at this
+# exponent give degrees from about 460 to about 9,000 (mean 597, as the
+# dataset's), so some 10000-node chunks keep rows above SPLIT_THRESHOLD
+PROTEINS_EXPONENT = 1.3
 PROTEINS_EPOCHS = 3  # of the preset's 1000 x 5 runs; evals at 0 and 2
 
 
@@ -1288,16 +1297,18 @@ def write_pokec_mat(root, x, ei, y):
 
 def proteins_standin(seed=31):
     """(features [N, 8] float32, edge_index int32, labels [N, 112] int64)
-    at ogbn-proteins' shape, drawn on the card: 39,561,252 uniform pairs of
-    distinct nodes, each in both directions (as the loader adds the
-    inverses), then a self loop on every node (as the command line adds
-    them); features in [0, 1) and 112 tasks, each a linear threshold of the
-    features."""
+    at ogbn-proteins' shape, drawn on the card: 39,561,252 pairs of
+    distinct nodes with skewed degrees (both ends by
+    :func:`power_law_nodes` at ``PROTEINS_EXPONENT``; a pair drawn with
+    one node twice takes the next id as its second end), each in both
+    directions (as the loader adds the inverses), then a self loop on
+    every node (as the command line adds them); features in [0, 1) and
+    112 tasks, each a linear threshold of the features."""
     g = torch.Generator("cuda").manual_seed(seed)
     n, m = PROTEINS_NODES, PROTEINS_UNDIRECTED
-    s = torch.randint(0, n, (m,), device="cuda", generator=g)
-    r = torch.randint(0, n - 1, (m,), device="cuda", generator=g)
-    r += (r >= s).long()  # uniform over the other n - 1 nodes
+    s = power_law_nodes(n, m, g, PROTEINS_EXPONENT)
+    r = power_law_nodes(n, m, g, PROTEINS_EXPONENT)
+    r = torch.where(r == s, (r + 1) % n, r)
     loops = torch.arange(n, device="cuda")
     ei = torch.stack([torch.cat([s, r, loops]), torch.cat([r, s, loops])])
     x = torch.rand((n, PROTEINS_FEATURES), device="cuda", generator=g)
@@ -1307,86 +1318,90 @@ def proteins_standin(seed=31):
     return x.cpu().numpy(), ei.int().cpu().numpy(), y.cpu().numpy()
 
 
-def phase_spmm_chunk():
-    """K1 as the mini-batch trainer launches it, on the Pokec chunk that
-    holds the largest hub of the power-law graph of Pokec's size: the
-    chunk's plan packed at capacity (the trainer's rule: 1.5 times its
-    edges, up to the edge bucket), forward and transposed, each bit-equal
-    to the exact-count launch on the chunk's own CSRs and within the
-    "spmm" rule of the plain version, the rule shown to fail a wrong
-    output; device times of both launches, the plain version and
-    cuSPARSE, beside the bound. Returns the JSON rows."""
-    from difformer_tpu_torch import native
-    from difformer_tpu_torch.data.transforms import edge_bucket
+def phase_spmm_chunk(trainer, w, seed=5):
+    """K1 as the mini-batch trainer launches it, on the trainer's own chunk
+    with the most segments: an epoch's plans packed as ``fit`` packs them
+    (induced subgraphs of the symmetrised graph with self loops, CSRs at
+    the edge capacity, K1's schedule at capacity), that chunk's buffer on
+    the card, forward and transposed at width ``w``, each bit-equal to the
+    exact-count launch on the same CSRs cut to the chunk's edges and within
+    the "spmm" rule of the plain version, the rule shown to fail a wrong
+    output; CUDA-event times of both launches, the plain version and
+    cuSPARSE, beside the bound (x counted by the rows some edge gathers).
+    Returns the JSON rows."""
     from difformer_tpu_torch.kernels import spmm as K1
     from difformer_tpu_torch.kernels.tolerance import assert_close
-    from difformer_tpu_torch.train import minibatch as M
+    from difformer_tpu_torch.train.minibatch import chunk_plan
 
+    batch = trainer.batch_size
+    layout = trainer.layouts[batch]
+    perm = np.random.default_rng(seed).permutation(trainer.n)
+    packed, stats = trainer.pack_epoch(perm)
+    full = [host for m, host in packed if m == batch]
+    segments = [int(layout.views(h.numpy())["counts"][[1, 3]].sum())
+                for h in full]
+    c = int(np.argmax(segments))
+    buf = full[c].to("cuda")
+    plan = chunk_plan(layout, buf)
+    views = layout.views(buf)
     g = torch.Generator("cuda").manual_seed(12)
-    n, e, batch, w = POKEC_NODES, POKEC_EDGES, POKEC_BATCH, 128
-    senders, receivers = power_law_nodes(n, e, g), power_law_nodes(n, e, g)
-    hub = int(torch.bincount(receivers, minlength=n).argmax())
-    senders, receivers = senders.int().cpu().numpy(), receivers.int().cpu(
-        ).numpy()
-    perm = np.random.default_rng(0).permutation(n)
-    c = int(np.flatnonzero(perm == hub)[0]) // batch
-    nodes = perm[c * batch:(c + 1) * batch]
-    t0 = time.perf_counter()
-    sub = native.induced_subgraph(senders, receivers, nodes, n)
-    sub_s = time.perf_counter() - t0
-    del senders, receivers
-    layout = M.ChunkLayout(batch, edge_bucket(int(sub.shape[1] * 1.5)))
-    host = np.zeros(layout.size, np.int32)
-    t0 = time.perf_counter()
-    M.pack_chunk(layout, host, nodes, sub)
-    pack_s = time.perf_counter() - t0
-    plan = M.chunk_plan(layout, torch.from_numpy(host).to("cuda"))
-    exact = [torch.as_tensor(a, device="cuda")
-             for a in native.chunk_csr(sub[0], sub[1], batch)]
     x = torch.randn((batch, w), device="cuda", generator=g)
-    real = sub.shape[1]
-    bound, bound_by, nbytes = spmm_bound_ms(batch, real, w)
     rows = {}
-    for name, cap, (ptr, col, val) in (
-            ("csr_spmm", (plan.row_ptr, plan.col, plan.val, plan.split),
-             exact[:3]),
-            ("csr_spmm_transposed", (plan.t_row_ptr, plan.t_col, plan.t_val,
-                                     plan.t_split), exact[3:])):
+    for name, prefix, cap in (("csr_spmm", "", plan.split),
+                              ("csr_spmm_transposed", "t_", plan.t_split)):
         transposed = name == "csr_spmm_transposed"
+        ptr = views[f"{prefix}row_ptr"]
+        real = int(ptr[-1])
+        col, val = views[f"{prefix}col"][:real], views[f"{prefix}val"][:real]
         split = K1.row_split(ptr)
-        kernel = lambda: K1.csr_spmm(x, *cap[:3], split=cap[3],  # noqa: E731
-                                     transposed=transposed)
+        bound, bound_by, nbytes = spmm_bound_ms(
+            batch, real, w, x_rows=int(torch.unique(col).numel()))
+        kernel = lambda: K1.csr_spmm(  # noqa: E731
+            x, ptr, views[f"{prefix}col"], views[f"{prefix}val"], split=cap,
+            transposed=transposed)
         exact_call = lambda: K1.csr_spmm(x, ptr, col, val,  # noqa: E731
                                          split=split, transposed=transposed)
         plain = lambda: K1.csr_spmm_plain(x, ptr, col, val)  # noqa: E731
         library = library_spmm(ptr, col, val, batch)
         out, ref = kernel(), plain()
         scale = K1.csr_spmm_abs(x, ptr, col, val)
-        tag = (f"{name} pokec chunk N={batch} E={real} (capacity "
-               f"{layout.edges}) W={w}")
+        tag = (f"{name} pokec chunk {c} of the trainer's epoch N={batch} "
+               f"E={real} (capacity {layout.edges}) W={w}")
         err = assert_close(tag, out, ref, "spmm", scale=scale)
         assert_rejects(tag, ref, "spmm", scale=scale)
         if not torch.equal(out, exact_call()):
             raise AssertionError(f"{tag}: the capacity launch differs from "
                                  f"the exact-count launch")
-        heavy, segments = cap[3].counts.tolist()
+        heavy, segs = cap.counts.tolist()
+        if (heavy, segs) != (split.num_heavy, split.num_segments):
+            raise AssertionError(f"{tag}: packed schedule ({heavy}, {segs}) "
+                                 f"!= row_split's ({split.num_heavy}, "
+                                 f"{split.num_segments})")
         del out, ref, scale
-        ms, kernels = device_profile(kernel)
-        exact_ms, plain_ms = device_ms(exact_call), device_ms(plain)
-        library_ms = device_ms(lambda: library(x))
-        say(f"phase kernels: {tag} max_abs_err {err:.3e}, bit-equal to the "
-            f"exact-count launch | {heavy} heavy rows, {segments} segments "
-            f"(capacity {cap[3].num_heavy}, {cap[3].num_segments}) | "
-            f"capacity launch {ms:.4f} ms in {kernels:g} device kernels a "
-            f"call | exact-count launch {exact_ms:.4f} ms | plain "
+        # CUDA events over back-to-back calls, the two launches alternated:
+        # at this shape the profiler's sessions dropped whole calls' kernels
+        # (1.5 of the capacity launch's 2 a call), so its sums undercount
+        cap_ms, exact_ms, cap2_ms, exact2_ms = (
+            cuda_ms(f) for f in (kernel, exact_call, kernel, exact_call))
+        ms = (cap_ms + cap2_ms) / 2
+        plain_ms, library_ms = cuda_ms(plain), cuda_ms(lambda: library(x))
+        say(f"phase minibatch-pokec: K1 {tag} max_abs_err {err:.3e}, "
+            f"bit-equal to the exact-count launch | {heavy} heavy rows, "
+            f"{segs} segments (capacity {cap.num_heavy}, "
+            f"{cap.num_segments}) | CUDA events: capacity launch "
+            f"{cap_ms:.4f}, {cap2_ms:.4f} ms, exact-count launch "
+            f"{exact_ms:.4f}, {exact2_ms:.4f} ms (alternated) | plain "
             f"{plain_ms:.4f} ms | cuSPARSE {library_ms:.4f} ms | bound "
             f"{bound:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB)")
         rows[f"{name} pokec chunk"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_by=bound_by, library_ms=library_ms)
-    say(f"phase kernels: the Pokec chunk's host plan: induced subgraph "
-        f"{sub_s:.3f} s (one chunk, one pass over {e} edges), packing "
-        f"(CSRs, values, schedule) {pack_s:.4f} s")
+    say(f"phase minibatch-pokec: K1's chunk is the one with the most "
+        f"segments of an epoch whose {trainer.n_chunks} chunks hold "
+        f"{stats['segments']} segments ({stats['heavy_chunks']} with heavy "
+        f"rows); segments of its full-size chunks {segments}")
+    del buf, plan, views, x
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1524,18 +1539,30 @@ def check_minibatch_result(phase, trainer, best):
     torch.cuda.empty_cache()
 
 
-def check_minibatch_launches(phase, trainer, counted):
-    """K1 counted in both directions and no attention kernel; the device
-    launches of the replays beside the wrappers' counts."""
+def check_minibatch_launches(phase, trainer, counted, layers, epochs):
+    """K1 counted in both directions and no attention kernel; K1's device
+    launches by the replays (captured x replays) equal to one a layer in
+    each direction for every chunk step of the fit. Returns the path's
+    launches: the wrappers' counts (warm-up, capture and the eager evals)
+    plus the replays'."""
+    replayed = trainer.runner.launches()
+    expect = layers * trainer.n_chunks * epochs
     say(f"phase {phase}: launches counted by the wrappers {counted} "
         f"(warm-up, capture and the eager evals); replayed on the device "
-        f"{trainer.runner.launches()}; graphs "
+        f"{replayed} (expected {expect} for each K1 direction: {layers} "
+        f"layers x {trainer.n_chunks} chunks x {epochs} epochs); graphs "
         f"{ {k: (v['captured']['csr_spmm'], v['replays']) for k, v in trainer.runner.graphs.items()} }"
         f" (K1 forward captured, replays)")
     off = {k: v for k, v in counted.items() if (v > 0) != (k in K1_PATH)}
     if off:
         raise AssertionError(f"kernels launched against the path "
                              f"{K1_PATH}: {off}")
+    wrong = {k: v for k, v in replayed.items()
+             if v != (expect if k in K1_PATH else 0)}
+    if wrong:
+        raise AssertionError(f"replayed launches {wrong} differ from the "
+                             f"path's ({expect} for each of {K1_PATH})")
+    return {k: counted[k] + replayed[k] for k in counted}
 
 
 def phase_minibatch_pokec(tmp):
@@ -1543,10 +1570,12 @@ def phase_minibatch_pokec(tmp):
     3 layers, batch 100000, lr 0.01, a random 50/25/25 split) on a stand-in
     ``pokec.mat`` of Pokec's size, cut to 3 epochs and 1 run; the first
     epoch again through the loop (``use_scan=False``), whose chunk losses
-    must equal the graphs' bit for bit; the steady state of both paths.
-    Returns the path's launches."""
+    must equal the graphs' bit for bit; K1's capacity launch on the
+    trainer's chunk (:func:`phase_spmm_chunk`); the steady state of both
+    paths. Returns the path's launches and K1's JSON rows."""
     from difformer_tpu_torch import cli
     from difformer_tpu_torch.train import minibatch as M
+    from difformer_tpu_torch.utils.config import make_config
 
     check_native()
     t0 = time.perf_counter()
@@ -1600,8 +1629,12 @@ def phase_minibatch_pokec(tmp):
         f"{1e3 * times['fit_s'] / epochs:.1f} ms per epoch (2 evals and the "
         f"captures included); cut from 500 epochs and 5 runs")
     report_plans("minibatch-pokec", trainer)
-    check_minibatch_launches("minibatch-pokec", trainer, launches)
+    cfg = make_config("pokec")
+    launches = check_minibatch_launches("minibatch-pokec", trainer, launches,
+                                        cfg.num_layers, epochs)
     check_minibatch_result("minibatch-pokec", trainer, best)
+    # the width the preset's model gives K1: hidden 128, one head
+    rows = phase_spmm_chunk(trainer, cfg.hidden_channels * cfg.num_heads)
 
     trainer.use_scan = False
     t = time.perf_counter()
@@ -1617,7 +1650,7 @@ def phase_minibatch_pokec(tmp):
         raise AssertionError(f"loop {loop['chunk_losses'][0]} != graphs "
                              f"{best['chunk_losses'][0]}")
     chunk_timings("minibatch-pokec", trainer, top=GRAPH_TOP)
-    return launches
+    return launches, rows
 
 
 def phase_minibatch_proteins():
@@ -1666,7 +1699,8 @@ def phase_minibatch_proteins():
         f"{best['valid']:.4f} test {best['test']:.4f}; losses "
         f"{best['losses']}")
     report_plans("minibatch-proteins", trainer)
-    check_minibatch_launches("minibatch-proteins", trainer, launches)
+    check_minibatch_launches("minibatch-proteins", trainer, launches,
+                             cfg.num_layers, PROTEINS_EPOCHS)
     check_minibatch_result("minibatch-proteins", trainer, best)
     chunk_timings("minibatch-proteins", trainer)
     del trainer
@@ -1720,7 +1754,6 @@ def main():
     phase_build()
     rows = phase_kernels()
     spmm_rows = phase_spmm_kernels()
-    chunk_rows = phase_spmm_chunk()
     wide_rows = phase_kernels_wide()
     say(f"phase kernels: done at {time.perf_counter() - t0:.1f} s")
     launches = phase_slice()
@@ -1741,12 +1774,13 @@ def main():
         launches_set = phase_cli_set(tmp)
     say(f"phase cli-set: done at {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
-        launches_mb = phase_minibatch_pokec(tmp)
+        launches_mb, chunk_rows = phase_minibatch_pokec(tmp)
     say(f"phase minibatch-pokec: done at {time.perf_counter() - t0:.1f} s")
     phase_minibatch_proteins()
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
-    # every ms, plain_ms and library_ms is a device time (device_ms) at the
-    # slice's shape (K1 also at Pokec's)
+    # every ms, plain_ms and library_ms is a device time at the slice's
+    # shape (K1 also at Pokec's and a Pokec chunk's): the profiler's sum
+    # (device_ms), for the chunk's rows CUDA events (phase_spmm_chunk)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[name], "launches": launches[name],
@@ -1769,9 +1803,9 @@ def main():
          "launches": launches_set[name.split()[0]], **row}
         for name, row in wide_rows.items()
     ] + [
-        # K1 through the mini-batch trainer's capacity launch on a Pokec
-        # chunk; launches are the minibatch-pokec phase's (counted at
-        # warm-up, capture and the eager evals)
+        # K1 through the mini-batch trainer's capacity launch on its Pokec
+        # chunk with the most segments; launches are the minibatch-pokec
+        # phase's (warm-up, capture and the eager evals, plus the replays)
         {"name": name, "route": "cuda", "source": SPMM_SOURCE,
          "replaces": SPMM_REPLACES,
          "launches": launches_mb[name.split()[0]], **row}

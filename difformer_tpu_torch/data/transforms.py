@@ -5,7 +5,9 @@
   symmetrise, drop self loops, add self loops;
 - CSR order, induced subgraphs and the edge capacities of the
   mini-batch trainer (``sort_edges_by_receiver``, ``subgraph``,
-  ``pad_edges``, ``edge_bucket``);
+  ``pad_edges``, ``edge_bucket``; the trainer calls the last two, and
+  takes its CSR order and induced subgraphs from ``native/``, which gives
+  the same arrays in one pass over the edges);
 - row feature normalisation (``data_utils.py:229-236``);
 - the kNN graph of the set track (``image and text/main.py:51-54``);
 - node reorderings for gather locality (``locality_reorder``,

@@ -2,6 +2,14 @@
 the host side of the mini-batch trainer: induced subgraphs, counting-sort
 CSRs and GCN values.
 
+The mini-batch trainer calls :func:`induced_subgraph` (its edge capacity),
+:func:`chunk_subgraphs` and :func:`chunk_csr` (every epoch's chunk plans).
+:func:`sort_edges_by_receiver` and :func:`gcn_norm_values` are the JAX
+package's other native entries with their signatures: nothing in the port
+calls them; they keep the port's native API the JAX package's
+(``chunk_csr`` gives the values of ``gcn_norm_values``), and
+``tests/test_torch_port_native.py`` holds them equal to the JAX ones.
+
 The library is compiled with ``g++`` at first use into
 ``difformer_tpu_torch/_build/`` (listed in ``.gitignore``), under a name
 that carries a hash of the source and the flags; the compiler writes a
