@@ -218,16 +218,22 @@ def device_profile(fn, calls=20):
     """(device ms, device operations) of one call of ``fn``
     (:func:`profile_window`). Unlike :func:`cuda_ms` the time leaves out
     the device's idle gaps, which set the event time of a call whose
-    kernels take a few microseconds and whose host side takes tens. A
-    session that records fewer device operations than calls lost some (the
-    profiler now and then returns none at all) and is run again, up to
-    three times."""
-    for _ in range(3):
-        ms, count = profile_window(fn, calls)
-        if count >= 1:
+    kernels take a few microseconds and whose host side takes tens. The
+    profiler now and then returns no device operation at all: such a
+    session is run again after a pause, with twice the calls, up to five
+    sessions. If none records any, the time is :func:`cuda_ms`'s, idle
+    gaps included, the operations are None (not measured), and a line
+    says so."""
+    for attempt in range(5):
+        ms, count = profile_window(fn, calls << attempt)
+        if count > 0:
             return ms, count
-    raise RuntimeError(f"the profiler recorded fewer than {calls} device "
-                       f"operations in each of three sessions")
+        time.sleep(0.2)
+    ms = cuda_ms(fn)
+    say(f"the profiler recorded no device operation in five sessions: "
+        f"{ms:.4f} ms from CUDA events (idle gaps included), device "
+        f"operations not measured")
+    return ms, None
 
 
 def device_ms(fn, calls=20):
@@ -235,11 +241,10 @@ def device_ms(fn, calls=20):
     return device_profile(fn, calls)[0]
 
 
-def bound_ms(name, n, l, h, m, d, dtype):
-    """(least time for the work in ms, "bytes" or "operations"): the larger
-    of bytes over the HBM rate and flops over the peak rate for the dtype.
-    Each input is read once and each output written once; the N·L·H
-    sigmoids are not counted."""
+def attention_work(name, n, l, h, m, d, dtype):
+    """(flops, bytes) of one call of attention kernel ``name``: each input
+    read once and each output written once; the N·L·H sigmoids are not
+    counted."""
     e = torch.tensor([], dtype=dtype).element_size()
     qkv = (n * m + l * m + l * d) * h * e
     grads_in = (n * d + n) * h * 4
@@ -252,9 +257,37 @@ def bound_ms(name, n, l, h, m, d, dtype):
     else:
         flops = 2 * n * l * h * (2 * m + 2 * d)
         nbytes = qkv + grads_in + l * h * (m + d) * e
+    return flops, nbytes
+
+
+def bound_ms(name, n, l, h, m, d, dtype):
+    """(least time for the work in ms, "bytes" or "operations"): the larger
+    of :func:`attention_work`'s bytes over the HBM rate and flops over the
+    peak rate for the dtype."""
+    flops, nbytes = attention_work(name, n, l, h, m, d, dtype)
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_OPS[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops
                                         else "operations")
+
+
+# Dense TF32 rate of one H100 SXM's tensor cores, and the wide kernels that
+# run on them (mma.sync TF32: three passes at float32 inputs, 3xTF32, one at
+# bfloat16, whose values TF32 holds exactly); the wide K3 runs on FFMA.
+PEAK_TF32 = 495e12
+TENSOR_CORE_WIDE = ("sigmoid_attention_fwd", "sigmoid_attention_dkv")
+
+
+def tensor_bound_ms(name, n, l, h, m, d, dtype):
+    """(least time in ms, what it assumes) of a wide kernel at the rate of
+    the instructions it multiplies with: :func:`bound_ms`'s operations at
+    the TF32 rate, times three passes at float32 inputs, against the same
+    bytes; for a kernel on FFMA, :func:`bound_ms` itself."""
+    if name not in TENSOR_CORE_WIDE:
+        return bound_ms(name, n, l, h, m, d, dtype)[0], "FFMA at 67 TFLOP/s"
+    flops, nbytes = attention_work(name, n, l, h, m, d, dtype)
+    passes = 3 if dtype == torch.float32 else 1
+    return (1e3 * max(nbytes / PEAK_BYTES, passes * flops / PEAK_TF32),
+            f"{passes}xTF32 at 495 TFLOP/s")
 
 
 def phase_device():
@@ -546,14 +579,16 @@ def phase_spmm_kernels():
             expect = 2 if split.num_heavy else 1
             for _ in range(3):  # a session now and then drops one event
                 ms, kernels = device_profile(kernel)
-                if kernels == expect:
+                if kernels in (expect, None):
                     break
             plain_ms = device_ms(plain)
             library_ms = device_ms(lambda: library(x))
+            counted = "an unmeasured number of" if kernels is None else (
+                f"{kernels:g}")
             say(f"phase kernels: {tag:52s} max_abs_err {err:.3e}, two calls "
                 f"bit-equal | largest degree {most}, T={split.threshold}: "
                 f"{split.num_heavy} heavy rows, {split.num_segments} "
-                f"segments | kernel {ms:.4f} ms in {kernels:g} device "
+                f"segments | kernel {ms:.4f} ms in {counted} device "
                 f"kernels a call (events {event_ms:.4f} ms) | plain "
                 f"{plain_ms:.4f} ms | cuSPARSE {library_ms:.4f} ms "
                 f"(max_abs_err {lib_err:.3e}) | bound {bound:.4f} ms by "
@@ -561,7 +596,7 @@ def phase_spmm_kernels():
                 f"of the kernel's time) | gather floor {floor:.4f} ms "
                 f"({e * w * 4 / 1e9:.4f} GB of gathered rows; "
                 f"{100 * floor / ms:.1f}% of the kernel's time)")
-            if kernels != expect:
+            if kernels is not None and kernels != expect:
                 raise AssertionError(f"{tag}: {kernels:g} device kernels a "
                                      f"call, expected {expect}")
             if label in SPMM_JSON:
@@ -952,7 +987,10 @@ def phase_kernels_wide():
     track's shapes, each against its plain version on the same inputs under
     ``kernels/tolerance.py``, each comparison shown to fail a wrong output:
     the device times (:func:`device_ms`) of kernel and plain version, the
-    FP32 operation bound and the split chosen. q and k are scaled so that
+    FP32 operation bound (the JSON rows' ``bound_ms``), the bound at the
+    rate of the instructions the kernel multiplies with
+    (:func:`tensor_bound_ms`: K2 and K4 on TF32 tensor cores) and the
+    split chosen. q and k are scaled so that
     q·k has unit variance, which keeps the scores off the sigmoid's flat
     ends. The unnormalized numerator is checked at float32 only: at
     bfloat16 inputs, a one-ulp change of q·k flips s's bfloat16 rounding
@@ -1024,10 +1062,12 @@ def phase_kernels_wide():
             ms, plain_ms = device_ms(kernel, calls=3), device_ms(plain,
                                                                  calls=3)
             bound, bound_by = bound_ms(name, n, l, h, m, d, dtype)
+            tc, instr = tensor_bound_ms(name, n, l, h, m, d, dtype)
             say(f"phase kernels-wide: {name:22s} {label:40s} max_abs_err "
                 f"{errs[name]:.3e} | device {ms:.4f} ms | plain "
                 f"{plain_ms:.4f} ms | bound {bound:.4f} ms by {bound_by} "
-                f"({100 * bound / ms:.1f}% of the kernel's time) | S={splits}"
+                f"({100 * bound / ms:.1f}% of the kernel's time) | "
+                f"{instr}: {tc:.4f} ms ({100 * tc / ms:.1f}%) | S={splits}"
                 f" ({chunk} loop tiles each), {per_split * splits} blocks")
             if shape == WIDE_JSON:
                 rows[f"{name} wide"] = dict(

@@ -21,8 +21,9 @@ and widths M, D, K2 does 2·N·L·H·(M+D+1) flops, K3 2·N·L·H·(2M+D) and K4
 2·N·L·H·(2M+2D), plus N·L·H sigmoids each, while moving only
 O((N+L)·H·(M+D)) bytes. The kernels keep every [N, L] score tile in shared
 memory and registers (recomputed in the backward, as the TPU kernels do), so
-device memory traffic stays at that floor; this first version multiplies
-with FFMA, not tensor cores (see the source's header).
+device memory traffic stays at that floor. The narrow kernels and the wide
+K3 multiply with FFMA; the wide K2 and K4 on the tensor cores, in
+split-precision TF32 at float32 inputs (see the source's header).
 
 Each wrapper runs its kernel on a CUDA tensor and counts the launch in
 :data:`LAUNCHES`; on a CPU tensor it runs the plain PyTorch version beside
@@ -36,8 +37,9 @@ of the masked score, as the TPU kernels do.
 The kernels take any widths M and D, as the TPU kernels do. Up to
 :data:`NARROW_WIDTH` a block holds whole feature columns of its own tile;
 above it (the set track's hidden 300 and 400) each kernel takes its wide
-path, which streams every tile through shared memory 64 features at a
-time.
+path, which streams the other side's tiles through shared memory 64
+features at a time (K2 and K4 through a ring of cp.async stages, with the
+block's own tiles resident where they fit).
 """
 
 from __future__ import annotations
@@ -62,12 +64,38 @@ LAUNCHES = {
 #: path, which streams every tile through shared memory 64 features at a
 #: time.
 NARROW_WIDTH = 256
-#: Output features a block of the wide path holds (kWide*Groups x 64 in the
-#: source): more go to further blocks, which compute the same scores again.
-#: K4's blocks each take dk or dv.
-WIDE_COLUMNS = 512
-#: The wide kernels keep up to 255 registers a thread: one block to an SM.
-WIDE_BLOCKS_PER_SM = 1
+#: Output features a block of the wide path holds, by wrapper: K2's 7
+#: chunks of 64 (kFwdChunks in the source: 112 f32 accumulators a thread in
+#: tensor-core fragments), K3's 8 (kWideDqGroups), and K4's 7 chunks of dk
+#: and 7 of dv side by side (kDkvChunks: one block takes both from one pass
+#: over s up to M, D = 448). Wider outputs go to further blocks on the
+#: grid's z axis, which compute the same scores again.
+WIDE_COLUMNS = {
+    "sigmoid_attention_fwd": 448,
+    "sigmoid_attention_dq": 512,
+    "sigmoid_attention_dkv": 448,
+}
+#: Rows of the tiles each wide kernel owns: K4's blocks own 32 keys (with
+#: 448 features of dk and of dv a block, 64 keys would need 224 f32 a
+#: thread), the others 64 rows.
+WIDE_OWN_TILE = {
+    "sigmoid_attention_fwd": 64,
+    "sigmoid_attention_dq": 64,
+    "sigmoid_attention_dkv": 32,
+}
+#: Blocks per SM that each wide kernel's split aims at (loop_splits). One
+#: block runs on an SM at a time (K2 and K4: 156–211 KB of shared memory and
+#: 224–232 registers a thread; K3: 255 registers), so the target sets the
+#: waves: at N = L = 15000 on 132 SMs, K2's 235 row tiles split 5 ways make
+#: 8.9 waves (1.8 unsplit) and K4's 469 tiles of 32 keys 17.8 (3.6). Timed
+#: on an H100 against targets of 1, 4, 8 and 15 (``time_kernels.py --wide
+#: --blocks-per-sm``, PERF.md): unsplit, the last wave's idle SMs cost up
+#: to 11 %.
+WIDE_BLOCKS_PER_SM = {
+    "sigmoid_attention_fwd": 8,
+    "sigmoid_attention_dq": 1,
+    "sigmoid_attention_dkv": 15,
+}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: Rows of one tile, query rows or keys (kTile in the source): the kernels
@@ -189,7 +217,7 @@ def is_wide(m, d):
     return max(m, d) > NARROW_WIDTH
 
 
-def loop_splits(own, loop, per_tile, sms, blocks_per_sm):
+def loop_splits(own, loop, per_tile, sms, blocks_per_sm, own_tile=TILE):
     """(S, loop tiles per split): the one split rule of K2–K4.
 
     A kernel launches ``per_tile`` blocks (heads, feature groups) for each
@@ -199,8 +227,9 @@ def loop_splits(own, loop, per_tile, sms, blocks_per_sm):
     chunk of whole loop tiles, and a second kernel sums the S partials. S
     grows until the grid reaches ``blocks_per_sm`` blocks on each of the
     card's ``sms`` SMs, then is recomputed from the chunk size, so no split
-    is empty; S = 1 when the own tiles alone reach that target."""
-    own_blocks = _cdiv(own, TILE) * per_tile
+    is empty; S = 1 when the own tiles alone reach that target. Own tiles
+    are ``own_tile`` rows (K4's wide path: 32 keys), loop tiles ``TILE``."""
+    own_blocks = _cdiv(own, own_tile) * per_tile
     tiles = _cdiv(loop, TILE)
     target = blocks_per_sm * sms
     if own_blocks >= target:
@@ -225,16 +254,17 @@ def split_plan(name, n, l, h, m, d, sms):
         per_tile = h * _cdiv(m, TILE)
     else:
         raise ValueError(f"no split plan for {name}")
+    own_tile = TILE
     if is_wide(m, d):
-        # one block per group of WIDE_COLUMNS output features (K4: of dk,
-        # then of dv)
-        groups = {"sigmoid_attention_fwd": _cdiv(d, WIDE_COLUMNS),
-                  "sigmoid_attention_dq": _cdiv(m, WIDE_COLUMNS),
-                  "sigmoid_attention_dkv": _cdiv(m, WIDE_COLUMNS)
-                  + _cdiv(d, WIDE_COLUMNS)}[name]
-        per_tile, per_sm = h * groups, WIDE_BLOCKS_PER_SM
-    splits, chunk = loop_splits(own, loop, per_tile, sms, per_sm)
-    return _cdiv(own, TILE) * per_tile, splits, chunk
+        # one block per group of WIDE_COLUMNS output features, counted in
+        # whole chunks of TILE (K4: of dk and of dv side by side)
+        chunks = {"sigmoid_attention_fwd": _cdiv(d, TILE),
+                  "sigmoid_attention_dq": _cdiv(m, TILE),
+                  "sigmoid_attention_dkv": _cdiv(max(m, d), TILE)}[name]
+        per_tile = h * _cdiv(chunks, WIDE_COLUMNS[name] // TILE)
+        per_sm, own_tile = WIDE_BLOCKS_PER_SM[name], WIDE_OWN_TILE[name]
+    splits, chunk = loop_splits(own, loop, per_tile, sms, per_sm, own_tile)
+    return _cdiv(own, own_tile) * per_tile, splits, chunk
 
 
 @functools.lru_cache(maxsize=None)

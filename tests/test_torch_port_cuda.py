@@ -767,6 +767,14 @@ WIDE_SHAPES = [
     ((130, 140, 2, 512, 512), True),
     ((100, 120, 1, 300, 64), False),
     ((100, 120, 1, 64, 400), True),
+    # ragged for the tensor-core tiles: N and L past whole tiles of 64 (and
+    # K4's 32 keys), M and D not multiples of the product depth of 8
+    ((301, 301, 1, 257, 300), True),
+    ((301, 97, 1, 300, 257), False),
+    # too wide for the resident tiles: K2's q tile (M above 640) and K4's k
+    # and v tiles (M + D above about 1090) come through the ring instead
+    ((70, 90, 1, 700, 200), True),
+    ((90, 70, 1, 640, 640), False),
 ]
 
 
@@ -819,6 +827,34 @@ def test_wide_bwd_kernels_match_plain(cuda, shape, masked, dtype):
     ref_dk, ref_dv = K.sigmoid_attention_dkv_plain(*args, dnum, dden)
     assert_close("dk", dk, ref_dk, "grad")
     assert_close("dv", dv, ref_dv, "grad")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_kernels_take_strided_inputs(cuda, dtype):
+    """The wide path on views: q with a feature stride of H (its heads
+    innermost), k offset by one element (rows not 16-byte aligned), and one
+    value head broadcast over H = 2 (a head stride of 0)."""
+    n, l, h, m, d = 130, 150, 2, 300, 260
+    q, k, v, mask = _wide_inputs(cuda, dtype, n, l, h, m, d, True, 34)
+    q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    k = torch.cat([k.new_zeros(1), k.flatten()])[1:].view(l, h, m)
+    v = v[:, :1].expand(l, h, d)
+    assert q.stride(2) == h and k.data_ptr() % 16 and v.stride(1) == 0
+    g = torch.Generator().manual_seed(4)
+    dnum = torch.randn((n, h, d), generator=g).to(cuda)
+    dden = torch.randn((n, h), generator=g).to(cuda)
+    out, den = K.sigmoid_attention_fwd(q, k, v, mask)
+    ref_out, ref_den = K.sigmoid_attention_fwd_plain(q, k, v, mask)
+    assert_close("out", out, ref_out, "out")
+    assert_close("den", den, ref_den, "den")
+    dk, dv = K.sigmoid_attention_dkv(q, k, v, mask, dnum, dden)
+    ref_dk, ref_dv = K.sigmoid_attention_dkv_plain(q, k, v, mask, dnum, dden)
+    assert_close("dk", dk, ref_dk, "grad")
+    assert_close("dv", dv, ref_dv, "grad")
+    assert_close("dq", K.sigmoid_attention_dq(q, k, v, mask, dnum, dden),
+                 K.sigmoid_attention_dq_plain(q, k, v, mask, dnum, dden),
+                 "grad")
 
 
 @pytest.mark.cuda

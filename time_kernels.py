@@ -2,17 +2,22 @@
 (K2 fwd, K3 dq, K4 dkv) and the CSR SpMM (K1, spmm).
 
     python3 time_kernels.py [--kernel fwd dq dkv spmm] [--blocks-per-sm 1 2 4]
-                            [--root DIR]
+                            [--wide] [--root DIR]
     python3 time_kernels.py --kernel spmm --reorder rcm degree
     python3 time_kernels.py --builds [ROUNDS]
 
 Builds the kernels, prints the compiler's register and spill report, then
 at each shape of ``chip_smoke.SHAPES`` and for each attention kernel chosen
 (all three by default): checks it against its plain version under
-``difformer_tpu_torch/kernels/tolerance.py`` and prints its time from CUDA
-events beside its bound, with the split S of its loop axis and the blocks
-launched, once for each target of blocks per SM given (applied to the
-chosen kernel's split rule; the default is the package's own). With
+``difformer_tpu_torch/kernels/tolerance.py`` and prints its time and its
+plain version's from CUDA events beside its FP32 bound, with the split S of
+its loop axis and the blocks launched, once for each target of blocks per
+SM given (applied to the chosen kernel's split rule; the default is the
+package's own). ``--wide`` does the same at ``chip_smoke.WIDE_SHAPES``, the
+set track's widths, where K2-K4 take their wide path (q and k scaled for
+unit-variance scores, as chip_smoke's phase kernels-wide does), and adds
+each kernel's bound at the tensor-core rate of the instructions it runs
+(``chip_smoke.tensor_bound_ms``). With
 ``spmm`` chosen, K1 forward and transposed at each shape of
 ``chip_smoke.spmm_shapes()``: checked against its plain version, its device
 time and device kernels per call (torch.profiler, ``chip_smoke.device_ms``)
@@ -51,9 +56,32 @@ from pathlib import Path
 
 KERNELS = {"fwd": "sigmoid_attention_fwd", "dq": "sigmoid_attention_dq",
            "dkv": "sigmoid_attention_dkv", "spmm": "csr_spmm"}
-# the module constant each kernel's split rule reads
+# the module constant each kernel's split rule reads (the wide path's is
+# WIDE_BLOCKS_PER_SM, one number for all three before it became a dict by
+# wrapper)
 TARGETS = {"fwd": "FWD_BLOCKS_PER_SM", "dq": "DQ_BLOCKS_PER_SM",
            "dkv": "DKV_BLOCKS_PER_SM"}
+
+
+def target(K, short, wide):
+    """(get, set) of the split target that kernel ``short`` reads in
+    package ``K``, or None where it has none."""
+    name = KERNELS[short]
+    if not hasattr(K, "split_plan"):
+        return None
+    if not wide:
+        attr = TARGETS[short]
+        if not hasattr(K, attr):
+            return None
+        return (lambda: getattr(K, attr),
+                lambda x: setattr(K, attr, x))
+    if not hasattr(K, "WIDE_BLOCKS_PER_SM"):
+        return None
+    if isinstance(K.WIDE_BLOCKS_PER_SM, dict):
+        return (lambda: K.WIDE_BLOCKS_PER_SM[name],
+                lambda x: K.WIDE_BLOCKS_PER_SM.__setitem__(name, x))
+    return (lambda: K.WIDE_BLOCKS_PER_SM,
+            lambda x: setattr(K, "WIDE_BLOCKS_PER_SM", x))
 
 
 def sample_clocks(fn, seconds=2.0):
@@ -97,20 +125,25 @@ def grid(K, name, n, l, h, m, d, sms):
 
 
 def cases(K, q, k, v, mask, g):
-    """name -> (kernel call, plain references as (tensor, kind, den))."""
+    """name -> (kernel call, plain call, plain references as (tensor, kind,
+    den))."""
     r_out, r_den = K.sigmoid_attention_fwd_plain(q, k, v, mask)
     dnum = g / r_den[..., None]
     dden = -(g * r_out.float()).sum(-1) / r_den
+    fwd = (q, k, v, mask)
     bwd = (q, k, v, mask, dnum, dden)
     return {
         "sigmoid_attention_fwd": (
-            lambda: K.sigmoid_attention_fwd(q, k, v, mask),
+            lambda: K.sigmoid_attention_fwd(*fwd),
+            lambda: K.sigmoid_attention_fwd_plain(*fwd),
             [(r_out, "out", None), (r_den, "den", None)]),
         "sigmoid_attention_dq": (
             lambda: (K.sigmoid_attention_dq(*bwd),),
+            lambda: K.sigmoid_attention_dq_plain(*bwd),
             [(K.sigmoid_attention_dq_plain(*bwd), "grad", None)]),
         "sigmoid_attention_dkv": (
             lambda: K.sigmoid_attention_dkv(*bwd),
+            lambda: K.sigmoid_attention_dkv_plain(*bwd),
             [(r, "grad", None) for r in K.sigmoid_attention_dkv_plain(*bwd)]),
     }
 
@@ -176,8 +209,9 @@ def tree_smoke():
     return module
 
 
-def time_attention(cs, shorts, blocks_per_sm):
-    """K2-K4 at every shape of ``cs.SHAPES``; returns the last call timed."""
+def time_attention(cs, shorts, blocks_per_sm, wide=False):
+    """K2-K4 at every shape of ``cs.SHAPES`` (``cs.WIDE_SHAPES`` with
+    ``wide``); returns the last call timed."""
     import torch
 
     from difformer_tpu_torch.kernels import sigmoid_attention as K
@@ -185,21 +219,28 @@ def time_attention(cs, shorts, blocks_per_sm):
 
     cs.say(f"time_kernels: package {Path(K.__file__).resolve()}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for idx, (n, l, h, m, d, dtype, masked) in enumerate(cs.SHAPES):
-        q, k, v, mask, g = cs.attention_case(n, l, h, m, d, dtype, masked,
-                                             idx)
+    for idx, (n, l, h, m, d, dtype, masked) in enumerate(
+            cs.WIDE_SHAPES if wide else cs.SHAPES):
+        q, k, v, mask, g = cs.attention_case(
+            n, l, h, m, d, dtype, masked, idx,
+            scale=m ** -0.25 if wide else 1.0)
         label = (f"N={n} L={l} H={h} M={m} D={d} "
                  f"{str(dtype).split('.')[-1]}{' mask' if masked else ''}")
         calls = cases(K, q, k, v, mask, g)
         for short in shorts:
-            name, attr = KERNELS[short], TARGETS[short]
-            call, refs = calls[name]
+            name = KERNELS[short]
+            call, plain, refs = calls[name]
             bound, _ = cs.bound_ms(name, n, l, h, m, d, dtype)
-            sweep = hasattr(K, "split_plan") and hasattr(K, attr)
-            own = getattr(K, attr) if sweep else None
-            for per_sm in (blocks_per_sm if sweep else []) or [None]:
+            tc = ""
+            if wide:
+                tc_ms, instr = cs.tensor_bound_ms(name, n, l, h, m, d, dtype)
+                tc = f" | tensor-core bound {tc_ms:.4f} ms ({instr})"
+            plain_ms = cs.cuda_ms(plain)
+            knob = target(K, short, wide)
+            own = knob[0]() if knob else None
+            for per_sm in (blocks_per_sm if knob else []) or [None]:
                 if per_sm is not None:
-                    setattr(K, attr, per_sm)
+                    knob[1](per_sm)
                 err = max(assert_close(f"{short} {label}", got, ref, kind,
                                        den_ref)
                           for got, (ref, kind, den_ref) in zip(call(), refs))
@@ -207,10 +248,11 @@ def time_attention(cs, shorts, blocks_per_sm):
                 blocks, splits = grid(K, name, n, l, h, m, d, sms)
                 cs.say(f"time_kernels: {short:3s} {label:40s} blocks/SM "
                        f"target {per_sm or own} | S={splits}, {blocks} "
-                       f"blocks | {ms:.4f} ms | bound {bound:.4f} ms "
-                       f"({100 * bound / ms:.1f}%) | max_abs_err {err:.3e}")
-            if sweep:
-                setattr(K, attr, own)
+                       f"blocks | {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+                       f"bound {bound:.4f} ms ({100 * bound / ms:.1f}%)"
+                       f"{tc} | max_abs_err {err:.3e}")
+            if knob:
+                knob[1](own)
         del q, k, v, mask, g, calls
         torch.cuda.empty_cache()
     return f"{shorts[-1]} {label}", call
@@ -319,6 +361,7 @@ def main():
     parser.add_argument("--spmm-threshold", type=int, nargs="*", default=[])
     parser.add_argument("--reorder", nargs="+", default=[],
                         choices=("rcm", "bfs", "degree", "community"))
+    parser.add_argument("--wide", action="store_true")
     parser.add_argument("--root", type=Path, default=None)
     parser.add_argument("--builds", type=int, nargs="?", const=2,
                         metavar="ROUNDS")
@@ -335,7 +378,8 @@ def main():
     cs.phase_build()
     attention = [k for k in args.kernel if k != "spmm"]
     if attention:
-        label, call = time_attention(cs, attention, args.blocks_per_sm)
+        label, call = time_attention(cs, attention, args.blocks_per_sm,
+                                     args.wide)
     if "spmm" in args.kernel:
         shapes = (reordered_shapes(cs, args.reorder) if args.reorder
                   else None)
