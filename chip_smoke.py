@@ -19,7 +19,8 @@ non-zero before the last line:
    seven shapes from Cora's to Pokec's size (at Pokec's, with uniform and
    with power-law degrees), with its split schedule of heavy rows, its
    device kernels a call, two calls bit-equal, and cuSPARSE's time for the
-   same product beside it. Each with its time, its bound and (K1) the
+   same product beside it; K1's device kernels a call are counted in the
+   CUDA graph of one call. Each with its time, its bound and (K1) the
    gather floor.
 4. slice: the cora preset as DIFFormer-a (hidden 64, 8 layers, 1 head) on a
    synthetic graph of Cora's size, trained with ``FullBatchTrainer.fit``;
@@ -44,7 +45,8 @@ non-zero before the last line:
 9. kernels-wide (run right after the kernels phase): K2-K4 on their wide
    path at the set track's widths, M = D = 300 and 400 at N = L = 15000
    (f32 with and without a key mask, and bf16), each against its plain
-   version on the same inputs, with device times, bound and split.
+   version on the same inputs, two calls bit-equal, with device times,
+   bound (FP32 and 3xTF32) and split.
 10. cli: the cora preset unchanged (DIFFormer-s, 500 epochs, 5 runs) through
    ``difformer_tpu_torch.cli.main`` on Planetoid raw files written for the
    slice's synthetic graph; again with --kernel sigmoid and with
@@ -84,9 +86,12 @@ the repository around it; it imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -271,10 +276,11 @@ def bound_ms(name, n, l, h, m, d, dtype):
 
 
 # Dense TF32 rate of one H100 SXM's tensor cores, and the wide kernels that
-# run on them (mma.sync TF32: three passes at float32 inputs, 3xTF32, one at
-# bfloat16, whose values TF32 holds exactly); the wide K3 runs on FFMA.
+# run on them, all three (mma.sync TF32: three passes at float32 inputs,
+# 3xTF32, one at bfloat16, whose values TF32 holds exactly)
 PEAK_TF32 = 495e12
-TENSOR_CORE_WIDE = ("sigmoid_attention_fwd", "sigmoid_attention_dkv")
+TENSOR_CORE_WIDE = ("sigmoid_attention_fwd", "sigmoid_attention_dq",
+                    "sigmoid_attention_dkv")
 
 
 def tensor_bound_ms(name, n, l, h, m, d, dtype):
@@ -313,9 +319,21 @@ def phase_build():
     say(f"phase build: {', '.join(info['paths'])} built in "
         f"{info['seconds']:.1f} s (cached={info['cached']}, load "
         f"{time.perf_counter() - t0:.1f} s)")
+    name, spills = None, "?"
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "entry function" in line:
             say(f"  ptxas: {line.split(':', 1)[-1].strip()}")
+        if "spill stores" in line:
+            spills = line.split("bytes spill stores")[0].split(",")[-1].strip()
+        wide = re.search(r"(sigattn_\w+_wide_kernel)I(f|13__nv_bfloat16)",
+                         line)
+        if wide:
+            name = f"{wide[1]}<{'float' if wide[2] == 'f' else 'bf16'}>"
+        elif "registers" in line and name:
+            registers = line.split("Used")[1].split("registers")[0].strip()
+            say(f"phase build: {name}: {registers} registers, {spills} "
+                f"bytes spilled")
+            name = None
 
 
 def attention_case(n, l, h, m, d, dtype, masked, seed, scale=1.0):
@@ -444,6 +462,59 @@ def phase_kernels():
     return rows
 
 
+def cudart():
+    """The CUDA runtime library that PyTorch loaded, through ctypes (the
+    toolkit's where a name alone does not find it)."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for name in ("libcudart.so.12", "libcudart.so",
+                 f"{home}/lib64/libcudart.so"):
+        try:
+            lib = ctypes.CDLL(name)
+        except OSError:
+            continue
+        lib.cudaGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.POINTER(ctypes.c_size_t)]
+        lib.cudaGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                             ctypes.POINTER(ctypes.c_int)]
+        return lib
+    raise RuntimeError("libcudart was not found")
+
+
+CUDA_GRAPH_NODE_KERNEL = 0  # cudaGraphNodeTypeKernel
+
+
+def graph_kernels(fn):
+    """(kernel nodes, all nodes) of the CUDA graph that one call of ``fn``
+    captures: the device kernels a call launches, counted from the graph
+    itself (cudaGraphGetNodes, cudaGraphNodeGetType), not by the profiler
+    or the wrappers. ``fn`` must be capturable (no host sync); the graph is
+    never replayed."""
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    lib, raw = cudart(), ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+
+    def check(rc, what):
+        if rc != 0:
+            raise RuntimeError(f"{what} failed: CUDA error {rc}")
+
+    check(lib.cudaGraphGetNodes(raw, None, ctypes.byref(count)),
+          "cudaGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(lib.cudaGraphGetNodes(raw, nodes, ctypes.byref(count)),
+          "cudaGraphGetNodes")
+    kinds = []
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int(-1)
+        check(lib.cudaGraphNodeGetType(ctypes.c_void_p(node),
+                                       ctypes.byref(kind)),
+              "cudaGraphNodeGetType")
+        kinds.append(kind.value)
+    del graph
+    return kinds.count(CUDA_GRAPH_NODE_KERNEL), len(kinds)
+
+
 def spmm_bound_ms(n, e, w, x_rows=None):
     """(least time in ms, "bytes" or "operations", compulsory bytes) of one
     K1 product: the ``x_rows`` rows of x that some edge gathers (all ``n``
@@ -538,8 +609,9 @@ def phase_spmm_kernels():
     the backward) against its plain version at every shape, each
     comparison shown to fail a wrong output and two calls shown bit-equal;
     the split schedule (T, heavy rows, segments) and the device kernels a
-    call, which must be one without heavy rows and two with them (the
-    segments' combine); kernel, plain and cuSPARSE device times
+    call, counted in the CUDA graph of one call (:func:`graph_kernels`),
+    which must be one without heavy rows and two with them (the segments'
+    combine), at every shape; kernel, plain and cuSPARSE device times
     (:func:`device_profile`) beside the bound and the gather floor, and the
     kernel's event time (:func:`cuda_ms`, which the host's launch rate sets
     at the small shapes). Returns the JSON rows of the shapes in
@@ -577,28 +649,30 @@ def phase_spmm_kernels():
             torch.cuda.synchronize()
             event_ms = cuda_ms(kernel)
             expect = 2 if split.num_heavy else 1
+            kernels, nodes = graph_kernels(kernel)
             for _ in range(3):  # a session now and then drops one event
-                ms, kernels = device_profile(kernel)
-                if kernels in (expect, None):
+                ms, profiled = device_profile(kernel)
+                if profiled in (kernels, None):
                     break
             plain_ms = device_ms(plain)
             library_ms = device_ms(lambda: library(x))
-            counted = "an unmeasured number of" if kernels is None else (
-                f"{kernels:g}")
+            profiled = "none" if profiled is None else f"{profiled:g}"
             say(f"phase kernels: {tag:52s} max_abs_err {err:.3e}, two calls "
                 f"bit-equal | largest degree {most}, T={split.threshold}: "
                 f"{split.num_heavy} heavy rows, {split.num_segments} "
-                f"segments | kernel {ms:.4f} ms in {counted} device "
-                f"kernels a call (events {event_ms:.4f} ms) | plain "
+                f"segments | kernel {ms:.4f} ms in {kernels} device "
+                f"kernels a call ({nodes} graph nodes; the profiler's "
+                f"count {profiled}; events {event_ms:.4f} ms) | plain "
                 f"{plain_ms:.4f} ms | cuSPARSE {library_ms:.4f} ms "
                 f"(max_abs_err {lib_err:.3e}) | bound {bound:.4f} ms by "
                 f"{bound_by} ({nbytes / 1e6:.2f} MB; {100 * bound / ms:.1f}% "
                 f"of the kernel's time) | gather floor {floor:.4f} ms "
                 f"({e * w * 4 / 1e9:.4f} GB of gathered rows; "
                 f"{100 * floor / ms:.1f}% of the kernel's time)")
-            if kernels is not None and kernels != expect:
-                raise AssertionError(f"{tag}: {kernels:g} device kernels a "
-                                     f"call, expected {expect}")
+            if kernels != expect or nodes != expect:
+                raise AssertionError(f"{tag}: {kernels} device kernels in "
+                                     f"{nodes} graph nodes a call, "
+                                     f"expected {expect}")
             if label in SPMM_JSON:
                 rows[f"{name}{SPMM_JSON[label]}"] = dict(
                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -985,11 +1059,11 @@ def phase_graph(phase, cfg, attention):
 def phase_kernels_wide():
     """K2-K4 on their wide path (M or D above ``NARROW_WIDTH``) at the set
     track's shapes, each against its plain version on the same inputs under
-    ``kernels/tolerance.py``, each comparison shown to fail a wrong output:
-    the device times (:func:`device_ms`) of kernel and plain version, the
-    FP32 operation bound (the JSON rows' ``bound_ms``), the bound at the
-    rate of the instructions the kernel multiplies with
-    (:func:`tensor_bound_ms`: K2 and K4 on TF32 tensor cores) and the
+    ``kernels/tolerance.py``, each comparison shown to fail a wrong output
+    and two calls shown bit-equal: the device times (:func:`device_ms`) of
+    kernel and plain version, the FP32 operation bound (the JSON rows'
+    ``bound_ms``), the bound at the rate of the instructions the kernel
+    multiplies with (:func:`tensor_bound_ms`: TF32 tensor cores) and the
     split chosen. q and k are scaled so that
     q·k has unit variance, which keeps the scores off the sigmoid's flat
     ends. The unnormalized numerator is checked at float32 only: at
@@ -1041,6 +1115,14 @@ def phase_kernels_wide():
                    ("dv", r_dv, "grad", None)]
         for name, ref, kind, den_ref in checks:
             assert_rejects(f"wide {name} {label}", ref, kind, den_ref)
+        again = (*K.sigmoid_attention_fwd(q, k, v, mask),
+                 K.sigmoid_attention_dq(q, k, v, mask, dnum, dden),
+                 *K.sigmoid_attention_dkv(q, k, v, mask, dnum, dden))
+        for name, first, second in zip(("out", "den", "dq", "dk", "dv"),
+                                       (out, den, dq, dk, dv), again):
+            if not torch.equal(first, second):
+                raise AssertionError(f"wide {name} {label}: two calls differ")
+        del again
         del out, r_out, r_den, dq, r_dq, dk, r_dk, dv, r_dv, checks
         torch.cuda.empty_cache()
 

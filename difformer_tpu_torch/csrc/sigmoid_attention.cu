@@ -27,12 +27,12 @@
 // The TPU's ones-column denominator becomes a plain row sum, and rows past N
 // or L are masked by predication, not by padded copies.
 //
-// Two designs. The narrow kernels and the wide K3 multiply with FFMA on one
-// layout: 64 x 64 tiles, 256 threads, each warp owning 8 rows of the output
-// tile against the 64 rows of a loop tile, each lane a 4 x 4 micro tile
-// whose operands are single float4 reads from feature-major tiles of stride
-// 68 (see K2 and K4), loaded synchronously. The wide K2 and K4 multiply on
-// the tensor cores, in split-precision TF32 at f32 inputs (three mma.sync
+// Two designs. The narrow kernels multiply with FFMA on one layout: 64 x 64
+// tiles, 256 threads, each warp owning 8 rows of the output tile against
+// the 64 rows of a loop tile, each lane a 4 x 4 micro tile whose operands
+// are single float4 reads from feature-major tiles of stride 68 (see K2
+// and K4), loaded synchronously. The wide K2, K3 and K4 multiply on the
+// tensor cores, in split-precision TF32 at f32 inputs (three mma.sync
 // passes, f32's accuracy) and one TF32 pass at bf16, from a ring of
 // shared-memory stages filled by cp.async ("The wide path" below). bf16
 // inputs are widened to f32 in shared memory: a bf16 x bf16 product is
@@ -639,9 +639,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // ---------------------------------------------------------------------------
 // The wide path: M or D above kNarrowWidth (the set track's hidden 300 and
-// 400 at one head). K2 and K4 multiply on the tensor cores
-// (mma.sync.m16n8k8 TF32 with f32 sums) from a ring of cp.async stages; K3
-// keeps the FFMA design of the narrow path (sigattn_dq_wide_kernel, below).
+// 400 at one head). K2, K3 and K4 multiply on the tensor cores
+// (mma.sync.m16n8k8 TF32 with f32 sums) from a ring of cp.async stages.
 //
 // What bounds them: operations, and on this path the instructions around
 // each product. mma.sync TF32 peaks near 320 TFLOP/s on an H100 (about 65 %
@@ -708,31 +707,42 @@ __global__ void __launch_bounds__(kThreads, 2)
 // 211 KB of shared memory at M = D = 300 (three stages), 207 KB at 400 (two
 // fit, which ran as fast as three with the tiles streamed).
 //
-// Both run one block of 256 threads on an SM (224 and 232 registers at
+// K3 (sigattn_dq_wide_kernel) replaces an FFMA design of the narrow
+// kernel's layout (20 % of the FP32 bound, 255 registers, unsplit). It is
+// K2's block and warp layout with a second score product and a second
+// pass over k: a block owns 64 queries and up to kDqChunks x 64 = 448
+// features of dq, with its q and dnum tiles resident (dnum rounded to v's
+// dtype). For each key tile the items are the k tile's chunks (s = q k^T,
+// M deep), the v tile's chunks (ds = dnum v^T, D deep), then the k tile's
+// chunks of the block's features again, now in the product layout (dq +=
+// dl k; k is read twice from L2, as K4 reads q and dnum). s and ds share
+// one fragment: after s each lane writes p = sigma(s) x mask into its own
+// entries of the dl tile, and after ds reads them back and writes dl =
+// (ds + dden) p (1 - p) in k's dtype, so a lane holds 112 accumulators and
+// 16 scores, as K2. At M = D = 300 the resident tiles leave room for two
+// stages (220 KB); at 400 q stays resident and dnum's chunks come through
+// the ring with v's; wider, both stream (dq_ring). On an H100 both tiles
+// resident with two stages ran 3 % faster at 300 than q alone with three,
+// and 7 % faster than neither; at 400 q alone 4 % faster than neither.
+//
+// All three run one block of 256 threads on an SM (224 to 235 registers at
 // f32, none spilled), so the split of the loop axis sets the waves: S = 5
 // at N = L = 15000 (WIDE_BLOCKS_PER_SM in kernels/sigmoid_attention.py).
 // Where the resident tiles and two stages do not fit (M above 640 in K2,
 // M + D above about 1090 in K4), the block's own tiles come chunk by
 // chunk through the ring with the others instead (`resident` false).
 // ---------------------------------------------------------------------------
-constexpr int kWideDqGroups = 8;   // K3: 512 features of dq a block
-constexpr int kRing = 3;           // shared-memory stages of K2 and K4
+constexpr int kRing = 3;           // shared-memory stages of K2-K4
 constexpr int kLdN = kTile + 4;    // tiles read as B[k][n] = X[n][k]
 constexpr int kLdK = kTile + 8;    // tiles read as B[k][n] = X[k][n]
 constexpr int kStage = kTile * kLdK;  // floats of one stage
 constexpr int kFwdChunks = 7;      // K2: 448 output features a block
+constexpr int kDqChunks = 7;       // K3: 448 features of dq a block
 constexpr int kDkvChunks = 7;      // K4: 448 features of dk and of dv a block
 constexpr int kKeyTile = 32;       // K4: keys of a block
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) {
   return (a + b - 1) / b;
-}
-
-// The number of 64-feature chunks of the block's output range that start
-// below C, at most WG; the range starts at z WG 64.
-__device__ __forceinline__ int chunks_in_range(int C, int z, int WG) {
-  const int left = C - z * WG * kTile;
-  return left <= 0 ? 0 : (cdiv(left, kTile) < WG ? cdiv(left, kTile) : WG);
 }
 
 // Stride of a resident [rows][C] tile read as A: C rounded up to whole
@@ -952,6 +962,8 @@ __device__ __forceinline__ void ring_wait(int stages) {
 
 // Which inputs fill_tile may copy 16 bytes at a time.
 enum VecFlags { kVecQ = 1, kVecK = 2, kVecV = 4, kVecDnum = 8 };
+// Which of its tiles the wide K3 keeps resident.
+enum DqResident { kResQ = 1, kResDnum = 2 };
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -1111,6 +1123,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// K3's wide path (see "The wide path" above): s over M, then ds over D, in
+// the same registers (p = sigma(s) x mask waits in the dl tile), then
+// dq += dl k. Keys past L and masked keys have p = 0, so they add nothing.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     sigattn_dq_wide_kernel(const T* __restrict__ q, Strides sq,
@@ -1121,114 +1136,163 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const float* __restrict__ dden,
                            T* __restrict__ dq, float* __restrict__ ws,
                            int64_t N, int64_t L, int H, int M, int D,
-                           int chunk) {
-  constexpr int BT = kTile, P = kStride, WG = kWideDqGroups;
+                           int chunk, int vec, int stages, int stage,
+                           int resident) {
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int BT = kTile;
   extern __shared__ float4 dqw_smem[];
-  float* Qs = reinterpret_cast<float*>(dqw_smem);  // [BT][P] 64 features
-  float* Ns = Qs + BT * P;  // [BT][P] 64 features of dnum in v's dtype
-  float* Ks = Ns + BT * P;  // [BT][P] 64 features of the k tile
-  float* Vs = Ks + BT * P;  // [BT][P] 64 features of the v tile
-  float* Ls = Vs + BT * P;  // [BT][P] Ls[i * P + j] = dl[i, j] in k's dtype
+  // the q and dnum tiles stay in shared memory, or (too wide) their chunks
+  // come with k's and v's in the ring
+  const bool res_q = resident & kResQ, res_n = resident & kResDnum;
+  const int ldq = res_q ? resident_ld(M) : kLdN;
+  const int ldn = res_n ? resident_ld(D) : kLdN;
+  float* Ls = reinterpret_cast<float*>(dqw_smem);  // [BT][kLdN] p, then dl
+  float* Qs = Ls + BT * kLdN;                 // [BT][ldq] q tile
+  float* Ns = Qs + (res_q ? BT * ldq : 0);    // [BT][ldn] dnum in v's dtype
+  float* ring = Ns + (res_n ? BT * ldn : 0);  // stages of `stage` floats
 
-  const int zgroups = cdiv(M, WG * BT);
+  const int m_chunks = cdiv(M, BT), d_chunks = cdiv(D, BT);
+  const int zgroups = cdiv(m_chunks, kDqChunks);
   const int z = blockIdx.z % zgroups, split = blockIdx.z / zgroups;
   const int splits = gridDim.z / zgroups;
-  const int m0 = z * WG * BT, groups = chunks_in_range(M, z, WG);
-  const int depth = feature_groups(M, D);
+  const int m0 = z * kDqChunks * BT;
+  const int chunks = m_chunks - z * kDqChunks < kDqChunks
+                         ? m_chunks - z * kDqChunks
+                         : kDqChunks;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row0 = warp * 8 + (lane / 16) * 4;  // queries
-  const int col0 = (lane % 16) * 4;             // keys of the scores
-  const int f0 = lane % 16;                     // features f0 + 16 u
+  const int g = lane / 4, t = lane % 4;
+  const int rg = warp % 4, half = warp / 4;  // rows 16 rg, half of keys
   const int h = blockIdx.y;
   const int64_t q0 = static_cast<int64_t>(blockIdx.x) * BT;
   const int64_t kb = static_cast<int64_t>(split) * chunk * BT;
   const int64_t ke = kb + static_cast<int64_t>(chunk) * BT < L
                          ? kb + static_cast<int64_t>(chunk) * BT
                          : L;
+  const int scores = m_chunks + d_chunks;  // items of s and ds
+  const int per_tile = scores + chunks;    // items of one key tile
+  const int items = static_cast<int>((ke - kb + BT - 1) / BT) * per_tile;
   const Strides sn{static_cast<int64_t>(H) * D, D, 1};
 
-  float dd[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    dd[i] = q0 + row0 + i < N ? dden[(q0 + row0 + i) * H + h] : 0.f;
+  // item i of key tile i / per_tile: chunk j of k (j < m_chunks) or of v,
+  // with the same chunk of q or dnum where it streams, in the score
+  // layout; then chunk c of the block's features of k in the product
+  // layout
+  auto fill = [&](int i) {
+    if (i < items) {
+      const int j = i % per_tile;
+      const int64_t k0 = kb + static_cast<int64_t>(i / per_tile) * BT;
+      float* dst = ring + (i % stages) * stage;
+      if (j < m_chunks) {
+        fill_tile<BT>(dst, kLdN, k, sk, k0, L, h, j * BT, M, BT,
+                      vec & kVecK);
+        if (!res_q)
+          fill_tile<BT>(dst + kStage, kLdN, q, sq, q0, N, h, j * BT, M, BT,
+                        vec & kVecQ);
+      } else if (j < scores) {
+        const int c0 = (j - m_chunks) * BT;
+        fill_tile<BT>(dst, kLdN, v, sv, k0, L, h, c0, D, BT, vec & kVecV);
+        if (!res_n)
+          fill_tile<BT, float, T>(dst + kStage, kLdN, dnum, sn, q0, N, h, c0,
+                                  D, BT, vec & kVecDnum);
+      } else
+        fill_tile<BT>(dst, kLdK, k, sk, k0, L, h, m0 + (j - scores) * BT, M,
+                      BT, vec & kVecK);
+    }
+    cp_async_commit();
+  };
 
-  float acc[4][4 * WG] = {};
-  for (int64_t k0 = kb; k0 < ke; k0 += BT) {
-    float s[4][4] = {}, ds[4][4] = {};
-    for (int t = 0; t < depth; ++t) {  // pass 1: s over M, ds over D
-      const int c0 = BT * t;
-      const int cm = M - c0 < BT ? M - c0 : BT;
-      const int cd = D - c0 < BT ? D - c0 : BT;
-      __syncthreads();  // the tiles (and Ks after pass 2) are no longer read
-      load_tile_fmajor<T>(Qs, q + c0 * sq.c, sq, q0, N, h, cm);
-      load_tile_fmajor<float, T>(Ns, dnum + c0, sn, q0, N, h, cd);
-      load_tile_fmajor<T>(Ks, k + c0 * sk.c, sk, k0, L, h, cm);
-      load_tile_fmajor<T>(Vs, v + c0 * sv.c, sv, k0, L, h, cd);
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < cm; ++c)
-        outer4(s, 0, lds4(Qs + c * P + row0), lds4(Ks + c * P + col0));
-#pragma unroll 4
-      for (int c = 0; c < cd; ++c)
-        outer4(ds, 0, lds4(Ns + c * P + row0), lds4(Vs + c * P + col0));
-    }
+  for (int c0 = 0; res_q && c0 < m_chunks * BT; c0 += BT)
+    fill_tile<BT>(Qs + c0, ldq, q, sq, q0, N, h, c0, M, BT, vec & kVecQ);
+  for (int c0 = 0; res_n && c0 < d_chunks * BT; c0 += BT)
+    fill_tile<BT, float, T>(Ns + c0, ldn, dnum, sn, q0, N, h, c0, D, BT,
+                            vec & kVecDnum);
+  for (int i = 0; i < stages - 1; ++i) fill(i);
 
-    float mk[4];
+  float dd[2];  // dden of rows g and g + 8 of the warp's 16
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t key = k0 + col0 + j;
-      mk[j] = key < L ? (mask ? mask[key] : 1.f) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float l[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = sigmoid(s[i][j]) * mk[j];
-        l[j] = Num<T>::round((ds[i][j] + dd[i]) * p * (1.f - p));
-      }
-      *reinterpret_cast<float4*>(Ls + (row0 + i) * P + col0) =
-          make_float4(l[0], l[1], l[2], l[3]);
-    }
-
-#pragma unroll
-    for (int g = 0; g < WG; ++g) {  // pass 2: dq += dl k, 64 features a time
-      if (g < groups) {
-        const int c0 = m0 + g * BT;
-        __syncthreads();  // Ks is no longer read; Ls is written
-        load_tile_fmajor<T>(Ks, k + c0 * sk.c, sk, k0, L, h,
-                            M - c0 < BT ? M - c0 : BT);
-        __syncthreads();
-#pragma unroll 4
-        for (int j = 0; j < BT; j += 4) {
-          float4 a[4], b[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            a[u] = lds4(Ls + (row0 + u) * P + j);
-            b[u] = lds4(Ks + (f0 + 16 * u) * P + j);
-          }
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int u = 0; u < 4; ++u)
-              acc[r][4 * g + u] = dot4(a[r], b[u], acc[r][4 * g + u]);
-        }
-      }
-    }
+  for (int e = 0; e < 2; ++e) {
+    const int64_t row = q0 + 16 * rg + g + 8 * e;
+    dd[e] = row < N ? dden[row * H + h] : 0.f;
   }
 
+  float acc[kDqChunks][4][4] = {};
+  float sc[4][4] = {};  // s, then ds
+  const float* Lw = Ls + rg * 16 * kLdN;
+  for (int i = 0; i < items; ++i) {
+    ring_wait(stages);
+    __syncthreads();  // item i is in; item i - 1's stage is free
+    fill(i + stages - 1);
+    const float* st = ring + (i % stages) * stage;
+    const int j = i % per_tile;
+    if (j < scores) {  // s += q k^T (j < m_chunks), ds += dnum v^T
+      const bool ds = j >= m_chunks;
+      const int c0 = (ds ? j - m_chunks : j) * BT;
+      const bool res = ds ? res_n : res_q;
+      warp_mma<kSplit, true>(
+          sc,
+          res ? (ds ? Ns + rg * 16 * ldn : Qs + rg * 16 * ldq) + c0
+              : st + kStage + rg * 16 * kLdN,
+          res ? (ds ? ldn : ldq) : kLdN, st + 32 * half * kLdN, kLdN);
+      if (j == m_chunks - 1 || j == scores - 1) {
+        // the lane's own entries of the dl tile: p = sigma(s) x mask
+        // after s, then dl = (ds + dden) p (1 - p) in k's dtype after ds
+        const int64_t k0 = kb + static_cast<int64_t>(i / per_tile) * BT;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int64_t row = q0 + row0 + r;
+        for (int nt = 0; nt < 4; ++nt) {
+          const int col = 32 * half + 8 * nt + 2 * t;
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            float2* dst = reinterpret_cast<float2*>(
+                Ls + (16 * rg + g + 8 * e2) * kLdN + col);
+            float x[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float a = sc[nt][2 * e2 + e];
+              if (ds) {
+                const float p = e == 0 ? dst->x : dst->y;
+                x[e] = Num<T>::round((a + dd[e2]) * p * (1.f - p));
+              } else {
+                const int64_t key = k0 + col + e;
+                const float mk = key < L ? (mask ? mask[key] : 1.f) : 0.f;
+                x[e] = sigmoid(a) * mk;
+              }
+              sc[nt][2 * e2 + e] = 0.f;
+            }
+            *dst = make_float2(x[0], x[1]);
+          }
+        }
+      }
+    } else {  // dq += dl k over this chunk of the block's features
+      const int c = j - scores;
+#pragma unroll
+      for (int cc = 0; cc < kDqChunks; ++cc)
+        if (cc == c)
+          warp_mma<kSplit, false>(acc[cc], Lw, kLdN, st + 32 * half, kLdK);
+    }
+  }
+  cp_async_wait<0>();
+
+  // dq [N, H, M], or with S > 1 raw partials of this key chunk [S, N, H, M]
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int64_t row = q0 + 16 * rg + g + 8 * e2;
     if (row >= N) continue;
+    const int64_t o = splits > 1 ? (split * N + row) * H + h : row * H + h;
 #pragma unroll
-    for (int c = 0; c < 4 * WG; ++c) {
-      const int f = m0 + BT * (c / 4) + f0 + 16 * (c % 4);
-      if (c / 4 >= groups || f >= M) continue;
-      if (splits > 1)  // raw partials of this key chunk: [S, N, H, M]
-        ws[((split * N + row) * H + h) * M + f] = acc[r][c];
-      else
-        Num<T>::store(dq + (row * H + h) * M + f, acc[r][c]);
+    for (int cc = 0; cc < kDqChunks; ++cc) {
+      if (cc >= chunks) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int f = m0 + cc * BT + 32 * half + 8 * nt + 2 * t + e;
+          if (f >= M) continue;
+          const float x = acc[cc][nt][2 * e2 + e];
+          if (splits > 1)
+            ws[o * M + f] = x;
+          else
+            Num<T>::store(dq + o * M + f, x);
+        }
     }
   }
 }
@@ -1424,11 +1488,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 // output features in one block for D up to 256 (at M = D = 256 its shared
 // memory is 217 KB of the 227 KB a block may have); K3 and K4 put their
 // feature groups on the grid's z axis beside the split, and at M = D = 256
-// take 191 KB and 209 KB. On the wide path K3 takes 87 KB at any width and
-// puts its groups of 512 features on the z axis; K2 and K4 put their groups
-// of 7 and 14 chunks of 64 output features there, and their shared memory
-// grows with the resident tiles (wide_fwd_smem, wide_dkv_smem): K4's wide
-// blocks own 32 keys, every other block 64 rows.
+// take 191 KB and 209 KB. On the wide path K2, K3 and K4 put their groups
+// of 7 chunks of 64 output features (K4: of dk and of dv) there, and their
+// shared memory grows with the resident tiles (fwd_ring, dq_ring,
+// dkv_ring): K4's wide blocks own 32 keys, every other block 64 rows.
 // ---------------------------------------------------------------------------
 struct Problem {
   const void *q, *k, *v;
@@ -1496,6 +1559,31 @@ Ring dkv_ring(const Problem& p) {
                    2 * kStage, 2 * kStage + 2 * kKeyTile * kLdN);
 }
 
+// The ring of the wide K3: the q and dnum tiles resident beside two
+// stages or more where they fit (M = D = 300: two stages, 220 KB), else
+// the q tile alone, its stages holding a v chunk and the same chunk of
+// dnum, else neither; `resident` holds the DqResident flags.
+struct DqRing {
+  int stages, stage, resident;
+  size_t floats;
+};
+DqRing dq_ring(const Problem& p) {
+  const size_t fixed = kTile * kLdN;  // the dl tile
+  const size_t q_tile = kTile * resident_ld(p.M);
+  const size_t n_tile = kTile * resident_ld(p.D);
+  const int stream_stage = kStage + kTile * kLdN;
+  DqRing r{ring_stages(fixed + q_tile + n_tile, kStage), kStage,
+           kResQ | kResDnum, 0};
+  if (r.stages == 0)
+    r = DqRing{ring_stages(fixed + q_tile, stream_stage), stream_stage,
+               kResQ, 0};
+  if (r.stages == 0)
+    r = DqRing{ring_stages(fixed, stream_stage), stream_stage, 0, 0};
+  r.floats = fixed + (r.resident & kResQ ? q_tile : 0) +
+             (r.resident & kResDnum ? n_tile : 0) +
+             static_cast<size_t>(r.stages) * r.stage;
+  return r;
+}
 
 // Which of q, k, v and dnum fill_tile may copy 16 bytes at a time.
 int vec_flags(const Problem& p, const float* dnum) {
@@ -1511,7 +1599,7 @@ int fwd_groups(const Problem& p) {
   return wide(p) ? cdiv(cdiv(p.D, kTile), kFwdChunks) : 1;
 }
 int dq_groups(const Problem& p) {
-  return cdiv(p.M, (wide(p) ? kWideDqGroups : 1) * kTile);
+  return wide(p) ? cdiv(cdiv(p.M, kTile), kDqChunks) : cdiv(p.M, kTile);
 }
 int dkv_groups(const Problem& p) {
   return wide(p) ? cdiv(feature_groups(p.M, p.D), kDkvChunks)
@@ -1575,16 +1663,30 @@ cudaError_t dq(const Problem& p, const float* dnum, const float* dden,
                void* dq_out, float* ws, int splits, int chunk,
                cudaStream_t stream) {
   constexpr int BT = kTile, P = kStride;
-  const size_t smem = (wide(p) ? 5 * BT : p.M + p.D + 3 * BT) * P;
-  auto kernel = wide(p) ? sigattn_dq_wide_kernel<T> : sigattn_dq_kernel<T>;
-  cudaError_t e = prepare(kernel, smem);
-  if (e != cudaSuccess) return e;
   const dim3 grid(static_cast<unsigned>((p.N + BT - 1) / BT), p.H,
                   splits * dq_groups(p));
-  kernel<<<grid, kThreads, smem * sizeof(float), stream>>>(
-      static_cast<const T*>(p.q), p.sq, static_cast<const T*>(p.k), p.sk,
-      static_cast<const T*>(p.v), p.sv, p.mask, dnum, dden,
-      static_cast<T*>(dq_out), ws, p.N, p.L, p.H, p.M, p.D, chunk);
+  const auto* q = static_cast<const T*>(p.q);
+  const auto* k = static_cast<const T*>(p.k);
+  const auto* v = static_cast<const T*>(p.v);
+  auto* out = static_cast<T*>(dq_out);
+  cudaError_t e;
+  if (wide(p)) {
+    const DqRing r = dq_ring(p);
+    e = prepare(sigattn_dq_wide_kernel<T>, r.floats);
+    if (e != cudaSuccess) return e;
+    sigattn_dq_wide_kernel<T>
+        <<<grid, kThreads, r.floats * sizeof(float), stream>>>(
+            q, p.sq, k, p.sk, v, p.sv, p.mask, dnum, dden, out, ws, p.N, p.L,
+            p.H, p.M, p.D, chunk, vec_flags(p, dnum), r.stages, r.stage,
+            r.resident);
+  } else {
+    const size_t smem = (p.M + p.D + 3 * BT) * P;
+    e = prepare(sigattn_dq_kernel<T>, smem);
+    if (e != cudaSuccess) return e;
+    sigattn_dq_kernel<T><<<grid, kThreads, smem * sizeof(float), stream>>>(
+        q, p.sq, k, p.sk, v, p.sv, p.mask, dnum, dden, out, ws, p.N, p.L, p.H,
+        p.M, p.D, chunk);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   return sum_partials<T>(ws, dq_out, p.N * p.H * p.M, splits, stream);

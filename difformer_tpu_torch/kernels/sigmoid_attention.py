@@ -21,9 +21,9 @@ and widths M, D, K2 does 2·N·L·H·(M+D+1) flops, K3 2·N·L·H·(2M+D) and K4
 2·N·L·H·(2M+2D), plus N·L·H sigmoids each, while moving only
 O((N+L)·H·(M+D)) bytes. The kernels keep every [N, L] score tile in shared
 memory and registers (recomputed in the backward, as the TPU kernels do), so
-device memory traffic stays at that floor. The narrow kernels and the wide
-K3 multiply with FFMA; the wide K2 and K4 on the tensor cores, in
-split-precision TF32 at float32 inputs (see the source's header).
+device memory traffic stays at that floor. The narrow kernels multiply
+with FFMA; the wide K2, K3 and K4 on the tensor cores, in split-precision
+TF32 at float32 inputs (see the source's header).
 
 Each wrapper runs its kernel on a CUDA tensor and counts the launch in
 :data:`LAUNCHES`; on a CPU tensor it runs the plain PyTorch version beside
@@ -38,8 +38,8 @@ The kernels take any widths M and D, as the TPU kernels do. Up to
 :data:`NARROW_WIDTH` a block holds whole feature columns of its own tile;
 above it (the set track's hidden 300 and 400) each kernel takes its wide
 path, which streams the other side's tiles through shared memory 64
-features at a time (K2 and K4 through a ring of cp.async stages, with the
-block's own tiles resident where they fit).
+features at a time, through a ring of cp.async stages, with the block's own
+tiles resident where they fit.
 """
 
 from __future__ import annotations
@@ -64,15 +64,15 @@ LAUNCHES = {
 #: path, which streams every tile through shared memory 64 features at a
 #: time.
 NARROW_WIDTH = 256
-#: Output features a block of the wide path holds, by wrapper: K2's 7
-#: chunks of 64 (kFwdChunks in the source: 112 f32 accumulators a thread in
-#: tensor-core fragments), K3's 8 (kWideDqGroups), and K4's 7 chunks of dk
+#: Output features a block of the wide path holds, by wrapper: K2's and
+#: K3's 7 chunks of 64 (kFwdChunks and kDqChunks in the source: 112 f32
+#: accumulators a thread in tensor-core fragments), and K4's 7 chunks of dk
 #: and 7 of dv side by side (kDkvChunks: one block takes both from one pass
 #: over s up to M, D = 448). Wider outputs go to further blocks on the
 #: grid's z axis, which compute the same scores again.
 WIDE_COLUMNS = {
     "sigmoid_attention_fwd": 448,
-    "sigmoid_attention_dq": 512,
+    "sigmoid_attention_dq": 448,
     "sigmoid_attention_dkv": 448,
 }
 #: Rows of the tiles each wide kernel owns: K4's blocks own 32 keys (with
@@ -84,16 +84,16 @@ WIDE_OWN_TILE = {
     "sigmoid_attention_dkv": 32,
 }
 #: Blocks per SM that each wide kernel's split aims at (loop_splits). One
-#: block runs on an SM at a time (K2 and K4: 156–211 KB of shared memory and
-#: 224–232 registers a thread; K3: 255 registers), so the target sets the
-#: waves: at N = L = 15000 on 132 SMs, K2's 235 row tiles split 5 ways make
-#: 8.9 waves (1.8 unsplit) and K4's 469 tiles of 32 keys 17.8 (3.6). Timed
-#: on an H100 against targets of 1, 4, 8 and 15 (``time_kernels.py --wide
-#: --blocks-per-sm``, PERF.md): unsplit, the last wave's idle SMs cost up
-#: to 11 %.
+#: block runs on an SM at a time (156–220 KB of shared memory and up to
+#: 235 registers a thread), so the target sets the waves: at N = L = 15000
+#: on 132 SMs, K2's and K3's 235 row tiles split 5 ways make 8.9 waves (1.8
+#: unsplit) and K4's 469 tiles of 32 keys 17.8 (3.6). Timed on an H100
+#: against targets of 1, 4, 8 and 15 (K3 also 6, 10 and 12;
+#: ``time_kernels.py --wide --blocks-per-sm``, PERF.md): unsplit, the last
+#: wave's idle SMs cost up to 11 %.
 WIDE_BLOCKS_PER_SM = {
     "sigmoid_attention_fwd": 8,
-    "sigmoid_attention_dq": 1,
+    "sigmoid_attention_dq": 8,
     "sigmoid_attention_dkv": 15,
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -885,6 +885,31 @@ def test_wide_split_is_deterministic(cuda, n, l):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_dq_split_chunk_fully_masked(cuda, dtype):
+    """A key chunk of the wide K3's split whose keys are all masked adds
+    exact zeros to dq; the other chunks' keys still count."""
+    n, l, h, m, d = 64, 2000, 1, 300, 300
+    _, splits, chunk = _plan(cuda, "sigmoid_attention_dq", n, l, h, m, d)
+    assert splits > 2
+    q, k, v, mask = make_inputs(35, n, l, h, m=m, d=d, masked=True)
+    q, k = q * m ** -0.25, k * m ** -0.25
+    lo, hi = chunk * K.TILE, 2 * chunk * K.TILE
+    mask[lo:hi] = 0.0  # the whole second chunk
+    args = _on(cuda, dtype, q, k, v, mask)
+    grads = _cotangents(cuda, 36, args, d)
+    dq = K.sigmoid_attention_dq(*args, *grads)
+    assert_close("dq", dq, K.sigmoid_attention_dq_plain(*args, *grads),
+                 "grad")
+    # the same keys dropped from the problem give the same dq
+    keep = torch.ones(l, dtype=torch.bool)
+    keep[lo:hi] = False
+    cut = [a[keep.to(cuda)] for a in args[1:]]
+    assert_close("dq", dq, K.sigmoid_attention_dq(args[0], *cut, *grads),
+                 "grad")
+
+
+@pytest.mark.cuda
 def test_cli_runs_on_the_card(cuda, tmp_path):
     """The command line with its default device, the card: a synthetic
     graph with the sigmoid kernel at hidden 300 (the wide path), K1 and

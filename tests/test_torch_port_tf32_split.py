@@ -1,7 +1,7 @@
-"""The split-precision TF32 products ("3xTF32") that the wide K2 and K4
-run on the tensor cores at float32 inputs, emulated on the CPU and held
+"""The split-precision TF32 products ("3xTF32") that the wide K2, K3 and
+K4 run on the tensor cores at float32 inputs, emulated on the CPU and held
 against the JAX package's ``sigmoid_attention`` under
-``kernels/tolerance.py``: the forward's output, and dk and dv from the
+``kernels/tolerance.py``: the forward's output, and dq, dk and dv from the
 cotangents that the port's autograd Function derives. It shows that the
 tolerance admits the kernels' arithmetic before a card runs it.
 
@@ -44,9 +44,10 @@ def _mm(a, b, passes):
 
 
 def _emulated(q, k, v, mask, w, passes):
-    """(out, dk, dv) of one head, [N, M] x [L, M] x [L, D], with the
+    """(out, dq, dk, dv) of one head, [N, M] x [L, M] x [L, D], with the
     kernels' products; the cotangents dnum, dden as the autograd Function
-    derives them from g = w."""
+    derives them from g = w. dl enters dq in k's dtype and dk in q's, which
+    at float32 inputs leaves it as it is."""
     s = torch.sigmoid(_mm(q, k.t(), passes))
     if mask is not None:
         s = s * mask
@@ -56,7 +57,8 @@ def _emulated(q, k, v, mask, w, passes):
     dden = -(w * out).sum(-1) / den
     ds = _mm(dnum, v.t(), passes) + dden[:, None]
     dl = ds * s * (1 - s)
-    return out, _mm(dl.t(), q, passes), _mm(s.t(), dnum, passes)
+    return (out, _mm(dl.to(k.dtype), k, passes),
+            _mm(dl.to(q.dtype).t(), q, passes), _mm(s.t(), dnum, passes))
 
 
 def _case(n, l, width, masked, seed):
@@ -70,9 +72,9 @@ def _case(n, l, width, masked, seed):
         out = jax_sigmoid_attention(q_, k_, v_, key_mask=_j(mask))
         return jnp.sum(out * w), out
 
-    (_, out_j), (_, dk_j, dv_j) = jax.value_and_grad(
+    (_, out_j), grads = jax.value_and_grad(
         loss, argnums=(0, 1, 2), has_aux=True)(_j(q), _j(k), _j(v))
-    ref = [torch.from_numpy(np.array(a))[:, 0] for a in (out_j, dk_j, dv_j)]
+    ref = [torch.from_numpy(np.array(a))[:, 0] for a in (out_j, *grads)]
     args = [torch.from_numpy(a)[:, 0] for a in (q, k, v, w)]
     m = None if mask is None else torch.from_numpy(mask)
     return args[:3] + [m, args[3]], ref
@@ -81,16 +83,28 @@ def _case(n, l, width, masked, seed):
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("n,l,width", [(48, 56, 300), (56, 48, 400)])
 def test_three_tf32_passes_meet_the_float32_rule(n, l, width, masked):
-    args, (out_j, dk_j, dv_j) = _case(n, l, width, masked, width + n)
-    out, dk, dv = _emulated(*args, passes=3)
+    args, (out_j, _, dk_j, dv_j) = _case(n, l, width, masked, width + n)
+    out, _, dk, dv = _emulated(*args, passes=3)
     assert_close("out", out, out_j, "out")
     assert_close("dk", dk, dk_j, "grad")
     assert_close("dv", dv, dv_j, "grad")
 
 
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("n,l,width", [(48, 56, 300), (56, 48, 400)])
+def test_three_tf32_passes_meet_the_float32_rule_for_dq(n, l, width,
+                                                        masked):
+    """The wide K3's products: s = q·kᵀ and ds = dnum·vᵀ, then dq = dl·k."""
+    args, (_, dq_j, _, _) = _case(n, l, width, masked, 2 * width + n)
+    _, dq, _, _ = _emulated(*args, passes=3)
+    assert_close("dq", dq, dq_j, "grad")
+
+
 @pytest.mark.parametrize("width", [300, 400])
 def test_one_tf32_pass_does_not(width):
-    args, (out_j, _, _) = _case(48, 56, width, False, width)
-    out, _, _ = _emulated(*args, passes=1)
+    args, (out_j, dq_j, _, _) = _case(48, 56, width, False, width)
+    out, dq, _, _ = _emulated(*args, passes=1)
     with pytest.raises(AssertionError):
         assert_close("out", out, out_j, "out")
+    with pytest.raises(AssertionError):
+        assert_close("dq", dq, dq_j, "grad")

@@ -86,8 +86,9 @@ def test_wide_blocks_cover_rows_features_and_loop_once(name, shape):
 @pytest.mark.parametrize("name,plan", [
     # K2: 235 row tiles of 64 split 5 ways, 8.9 waves of 132 SMs
     (FWD, (235, 5, 47)),
-    # K3 (unchanged): 235 row tiles, one block an SM, unsplit
-    (DQ, (235, 1, 235)),
+    # K3: on the tensor cores since its redesign, K2's grid: 235 row tiles
+    # of 64 (448 features of dq a block) split 5 ways, 8.9 waves
+    (DQ, (235, 5, 47)),
     # K4: 469 tiles of 32 keys (dk and dv in one block) split 5 ways
     (DKV, (469, 5, 47)),
 ])

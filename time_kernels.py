@@ -20,7 +20,8 @@ each kernel's bound at the tensor-core rate of the instructions it runs
 (``chip_smoke.tensor_bound_ms``). With
 ``spmm`` chosen, K1 forward and transposed at each shape of
 ``chip_smoke.spmm_shapes()``: checked against its plain version, its device
-time and device kernels per call (torch.profiler, ``chip_smoke.device_ms``)
+time (torch.profiler, ``chip_smoke.device_ms``) and device kernels per call
+(``chip_smoke.graph_kernels``, from the CUDA graph of one call)
 beside cuSPARSE's device time for the same product, its byte bound and the
 gather floor. With ``--reorder``, K1 instead at Pokec's size with
 power-law degrees only, in the order its nodes were drawn and renumbered
@@ -336,12 +337,13 @@ def time_spmm(cs, thresholds, shapes=None):
                 split = own if t is None else K1.row_split(csr[0], t)
                 call = spmm_call(K1, x, csr, transposed, split)
                 err = assert_close(tag, call(), ref, "spmm", scale=scale)
-                ms, kernels = cs.device_profile(call)
+                ms = cs.device_ms(call)
+                kernels = cs.graph_kernels(call)[0]
                 shape = ("no split" if split is None else
                          f"T={split.threshold}: {split.num_heavy} heavy rows,"
                          f" {split.num_segments} segments")
                 cs.say(f"time_kernels: {tag:60s} {shape} | {ms:.4f} ms, "
-                       f"{kernels:g} device kernels a call | cuSPARSE "
+                       f"{kernels} device kernels a call | cuSPARSE "
                        f"{library_ms:.4f} ms | bound {bound:.4f} ms "
                        f"({100 * bound / ms:.1f}%) | gather floor "
                        f"{floor:.4f} ms ({100 * floor / ms:.1f}%) | "
