@@ -17,10 +17,12 @@ non-zero before the last line:
    shapes, with the split S of each kernel's loop axis and the blocks it
    launches; and the GCN branch's CSR SpMM K1, forward and transposed, at
    seven shapes from Cora's to Pokec's size (at Pokec's, with uniform and
-   with power-law degrees), with its split schedule of heavy rows, its
-   device kernels a call, two calls bit-equal, and cuSPARSE's time for the
-   same product beside it; K1's device kernels a call are counted in the
-   CUDA graph of one call. Each with its time, its bound and (K1) the
+   with power-law degrees), at float32 and at bfloat16 (the model at
+   ``compute_dtype="bfloat16"``: bf16 x and out, f32 sums), with its split
+   schedule of heavy rows, its device kernels a call, two calls
+   bit-equal, and cuSPARSE's time for the same product beside it; K1's
+   device kernels a call are counted in the CUDA graph of one call. Each
+   with its time, its bound (x and out at the type's bytes) and (K1) the
    gather floor.
 4. slice: the cora preset as DIFFormer-a (hidden 64, 8 layers, 1 head) on a
    synthetic graph of Cora's size, trained with ``FullBatchTrainer.fit``;
@@ -33,7 +35,9 @@ non-zero before the last line:
    show no sort and no ``index_add_``.
 6. slice-s-h8: the cora preset at 8 heads, where every "auto" rewrite is
    on (head mean fused, Wv factored, spmm_first with K1 at width 65), for
-   a few steps, with the logits against the plain version.
+   a few steps, with the logits against the plain version; then the same
+   steps with ``remat=True``: the same losses bit for bit, and K1's
+   forward once more a layer (the spmm_first branch's recomputation).
 7. slice-s-graph and 8. slice-graph: cora-s and cora-a trained by the
    epoch-block fit (``fit(epoch_block=10)``: the train step and the eval
    captured as CUDA graphs and replayed), against the per-epoch fit of an
@@ -42,6 +46,10 @@ non-zero before the last line:
    kernel launched as often as the loop's path needs (counted at capture,
    times the replays), host ms per epoch and peak memory of both paths, and
    the device idle share of a replayed block and of a loop epoch.
+   slice-s-bf16-graph and slice-bf16-graph: the same two at
+   ``compute_dtype="bfloat16"``, and the trained bf16 model's logits
+   against the same weights at f32 (within ``BF16_LOGIT_SHARE`` of the
+   largest logit), ms per epoch and peak memory beside the f32 phases'.
 9. kernels-wide (run right after the kernels phase): K2-K4 on their wide
    path at the set track's widths, M = D = 300 and 400 at N = L = 15000
    (f32 with and without a key mask, and bf16), each against its plain
@@ -67,11 +75,25 @@ non-zero before the last line:
    load and preprocess and of the chunk plans, ms per epoch and per chunk
    step for both paths, the device idle share, the chunks with heavy rows;
    K1's replays equal to layers x chunks x epochs in each direction.
+   minibatch-pokec-remat: the pokec preset's trainer on the same stand-in
+   with the model at bf16, one epoch with ``remat=True`` and one without:
+   K1's replays against the remat-aware count, K1's bf16 capacity launch
+   on the chunk with the most segments, peak memory and ms per chunk
+   step of both, and the chunk losses of both compared.
 13. minibatch-proteins: ``MiniBatchTrainer`` at ogbn-proteins' shape
    (132,534 nodes, 79,122,504 directed edges with hubs of thousands, 8
    features, 112 binary tasks, BCE and ROC-AUC, batch 10000, hidden 64, 3
    layers), 3 epochs: the same numbers, the host's share of the epoch in
    view.
+14. temporal-chickenpox and temporal-wikimath: the temporal presets
+   through the command line on stand-in JSON files of the published
+   shapes (chickenpox: 20 nodes, 102 edges, 522 weeks, cumulative mode;
+   wikimath: 1,068 nodes, 27,079 weighted edges, 731 days, incremental),
+   cut to 3 epochs: DIFFormer on both, MPNN-LSTM on chickenpox, DCRNN with
+   K = 3 on wikimath; each epoch's steps and evals replayed as CUDA
+   graphs, K1's replays against the model's count, the same fit through
+   the per-snapshot loop bit-equal, ms per epoch, the capture's seconds
+   and the graphs' kernel nodes.
 
 The minibatch-pokec phase also holds K1 as the trainer launches it (the
 chunk's plan packed at a fixed capacity, counts read on the device) on the
@@ -492,6 +514,14 @@ def graph_kernels(fn):
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
+    kinds = graph_node_kinds(graph)
+    del graph
+    return kinds.count(CUDA_GRAPH_NODE_KERNEL), len(kinds)
+
+
+def graph_node_kinds(graph):
+    """The node types of a captured ``torch.cuda.CUDAGraph`` made with
+    ``keep_graph=True`` (cudaGraphGetNodes, cudaGraphNodeGetType)."""
     lib, raw = cudart(), ctypes.c_void_p(graph.raw_cuda_graph())
     count = ctypes.c_size_t(0)
 
@@ -511,17 +541,18 @@ def graph_kernels(fn):
                                        ctypes.byref(kind)),
               "cudaGraphNodeGetType")
         kinds.append(kind.value)
-    del graph
-    return kinds.count(CUDA_GRAPH_NODE_KERNEL), len(kinds)
+    return kinds
 
 
-def spmm_bound_ms(n, e, w, x_rows=None):
+def spmm_bound_ms(n, e, w, x_rows=None, elem=4):
     """(least time in ms, "bytes" or "operations", compulsory bytes) of one
     K1 product: the ``x_rows`` rows of x that some edge gathers (all ``n``
-    unless given) and out once each, int32 columns, float32 values and
-    int32 row pointers; 2·E·W flops."""
+    unless given) and out once each at ``elem`` bytes an element (4 at
+    float32, 2 at bfloat16), int32 columns, float32 values and int32 row
+    pointers; 2·E·W flops at the FP32 rate (K1 sums in float32 at either
+    type)."""
     x_rows = n if x_rows is None else x_rows
-    nbytes = ((n + x_rows) * w + 2 * e + n + 1) * 4
+    nbytes = (n + x_rows) * w * elem + (2 * e + n + 1) * 4
     t_bytes, t_ops = nbytes / PEAK_BYTES, 2 * e * w / PEAK_OPS[torch.float32]
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes > t_ops else "operations", nbytes)
@@ -598,24 +629,30 @@ def power_law_nodes(n, e, g, exponent=POWER_LAW_EXPONENT):
     return torch.randperm(n, device="cuda", generator=g)[rank]
 
 
-def library_spmm(row_ptr, col, val, n):
-    """cuSPARSE's CSR SpMM through one PyTorch call, for its time."""
-    a = torch.sparse_csr_tensor(row_ptr, col, val, size=(n, n))
+def library_spmm(row_ptr, col, val, n, dtype=torch.float32):
+    """cuSPARSE's CSR SpMM through one PyTorch call, for its time; the
+    values in ``dtype``, as the call takes them of x's type."""
+    a = torch.sparse_csr_tensor(row_ptr, col, val.to(dtype), size=(n, n))
     return lambda x: torch.sparse.mm(a, x)
 
 
 def phase_spmm_kernels():
     """K1 forward (the receivers' CSR) and transposed (the senders' CSR,
-    the backward) against its plain version at every shape, each
-    comparison shown to fail a wrong output and two calls shown bit-equal;
-    the split schedule (T, heavy rows, segments) and the device kernels a
-    call, counted in the CUDA graph of one call (:func:`graph_kernels`),
-    which must be one without heavy rows and two with them (the segments'
-    combine), at every shape; kernel, plain and cuSPARSE device times
-    (:func:`device_profile`) beside the bound and the gather floor, and the
-    kernel's event time (:func:`cuda_ms`, which the host's launch rate sets
-    at the small shapes). Returns the JSON rows of the shapes in
-    ``SPMM_JSON``."""
+    the backward) against its plain version at every shape, at float32 and
+    at bfloat16 (bf16 x and out, f32 sums, one rounding: the model at
+    ``compute_dtype="bfloat16"``), each comparison shown to fail a wrong
+    output and two calls shown bit-equal; the split schedule (T, heavy
+    rows, segments) and the device kernels a call, counted in the CUDA
+    graph of one call (:func:`graph_kernels`), which must be one without
+    heavy rows and two with them (the segments' combine), at every shape
+    and type; kernel, plain and cuSPARSE device times
+    (:func:`device_profile`) beside the bound (x and out at the type's
+    bytes) and the gather floor, and the kernel's event time
+    (:func:`cuda_ms`, which the host's launch rate sets at the small
+    shapes). Where cuSPARSE refuses the type through ``torch.sparse.mm``,
+    the row prints its error and has no library time. Returns the JSON
+    rows of the shapes in ``SPMM_JSON``, the bf16 rows named with a
+    " bf16" suffix."""
     from difformer_tpu_torch.kernels import spmm as K1
     from difformer_tpu_torch.kernels.tolerance import assert_close
 
@@ -623,62 +660,78 @@ def phase_spmm_kernels():
     for idx, (label, plan, w, chunk) in enumerate(spmm_shapes()):
         n, e = plan.num_nodes, plan.num_edges
         g = torch.Generator("cuda").manual_seed(100 + idx)
-        x = torch.randn((n, w), device="cuda", generator=g)
-        bound, bound_by, nbytes = spmm_bound_ms(n, e, w)
+        x32 = torch.randn((n, w), device="cuda", generator=g)
         floor = spmm_gather_floor_ms(n, e, w)
-        for name, (ptr, col, val), split in zip(SPMM_NAMES, (
-                (plan.row_ptr, plan.col, plan.val),
-                (plan.t_row_ptr, plan.t_col, plan.t_val)),
-                (plan.split, plan.t_split)):
-            transposed = name == "csr_spmm_transposed"
-            kernel = lambda: K1.csr_spmm(x, ptr, col, val, split=split,
-                                         transposed=transposed)
-            plain = lambda: K1.csr_spmm_plain(x, ptr, col, val,
-                                              edge_chunk_size=chunk)
-            library = library_spmm(ptr, col, val, n)
-            out, ref = kernel(), plain()
-            scale = K1.csr_spmm_abs(x, ptr, col, val, edge_chunk_size=chunk)
-            tag = f"{name} {label} N={n} E={e} W={w}"
-            err = assert_close(tag, out, ref, "spmm", scale=scale)
-            assert_rejects(tag, ref, "spmm", scale=scale)
-            if not torch.equal(out, kernel()):
-                raise AssertionError(f"{tag}: two calls differ")
-            lib_err = (library(x) - ref).abs().max().item()
-            most = int((ptr[1:] - ptr[:-1]).max())
-            del out, ref, scale
-            torch.cuda.synchronize()
-            event_ms = cuda_ms(kernel)
-            expect = 2 if split.num_heavy else 1
-            kernels, nodes = graph_kernels(kernel)
-            for _ in range(3):  # a session now and then drops one event
-                ms, profiled = device_profile(kernel)
-                if profiled in (kernels, None):
-                    break
-            plain_ms = device_ms(plain)
-            library_ms = device_ms(lambda: library(x))
-            profiled = "none" if profiled is None else f"{profiled:g}"
-            say(f"phase kernels: {tag:52s} max_abs_err {err:.3e}, two calls "
-                f"bit-equal | largest degree {most}, T={split.threshold}: "
-                f"{split.num_heavy} heavy rows, {split.num_segments} "
-                f"segments | kernel {ms:.4f} ms in {kernels} device "
-                f"kernels a call ({nodes} graph nodes; the profiler's "
-                f"count {profiled}; events {event_ms:.4f} ms) | plain "
-                f"{plain_ms:.4f} ms | cuSPARSE {library_ms:.4f} ms "
-                f"(max_abs_err {lib_err:.3e}) | bound {bound:.4f} ms by "
-                f"{bound_by} ({nbytes / 1e6:.2f} MB; {100 * bound / ms:.1f}% "
-                f"of the kernel's time) | gather floor {floor:.4f} ms "
-                f"({e * w * 4 / 1e9:.4f} GB of gathered rows; "
-                f"{100 * floor / ms:.1f}% of the kernel's time)")
-            if kernels != expect or nodes != expect:
-                raise AssertionError(f"{tag}: {kernels} device kernels in "
-                                     f"{nodes} graph nodes a call, "
-                                     f"expected {expect}")
-            if label in SPMM_JSON:
-                rows[f"{name}{SPMM_JSON[label]}"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bound, bound_by=bound_by,
-                    library_ms=library_ms)
-        del plan, x
+        for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, " bf16")):
+            x = x32.to(dtype)
+            elem = x.element_size()
+            bound, bound_by, nbytes = spmm_bound_ms(n, e, w, elem=elem)
+            for name, (ptr, col, val), split in zip(SPMM_NAMES, (
+                    (plan.row_ptr, plan.col, plan.val),
+                    (plan.t_row_ptr, plan.t_col, plan.t_val)),
+                    (plan.split, plan.t_split)):
+                transposed = name == "csr_spmm_transposed"
+                kernel = lambda: K1.csr_spmm(  # noqa: E731
+                    x, ptr, col, val, split=split, transposed=transposed)
+                plain = lambda: K1.csr_spmm_plain(  # noqa: E731
+                    x, ptr, col, val, edge_chunk_size=chunk)
+                out, ref = kernel(), plain()
+                scale = K1.csr_spmm_abs(x, ptr, col, val,
+                                        edge_chunk_size=chunk)
+                tag = f"{name}{suffix} {label} N={n} E={e} W={w}"
+                err = assert_close(tag, out, ref, "spmm", scale=scale)
+                assert_rejects(tag, ref, "spmm", scale=scale)
+                if not torch.equal(out, kernel()):
+                    raise AssertionError(f"{tag}: two calls differ")
+                try:
+                    library = library_spmm(ptr, col, val, n, dtype)
+                    lib_err = (library(x).float() - ref.float()).abs().max()
+                    library_note = f"(max_abs_err {lib_err.item():.3e})"
+                except RuntimeError as ex:
+                    library = None
+                    library_note = (f"refused {str(dtype)[6:]}: "
+                                    f"{str(ex).splitlines()[0][:160]}")
+                most = int((ptr[1:] - ptr[:-1]).max())
+                del out, ref, scale
+                torch.cuda.synchronize()
+                event_ms = cuda_ms(kernel)
+                expect = 2 if split.num_heavy else 1
+                kernels, nodes = graph_kernels(kernel)
+                for _ in range(3):  # a session now and then drops one event
+                    ms, profiled = device_profile(kernel)
+                    if profiled in (kernels, None):
+                        break
+                plain_ms = device_ms(plain)
+                library_ms = (None if library is None
+                              else device_ms(lambda: library(x)))
+                profiled = "none" if profiled is None else f"{profiled:g}"
+                lib_ms = ("none" if library_ms is None
+                          else f"{library_ms:.4f} ms")
+                say(f"phase kernels: {tag:57s} max_abs_err {err:.3e}, two "
+                    f"calls bit-equal | largest degree {most}, "
+                    f"T={split.threshold}: {split.num_heavy} heavy rows, "
+                    f"{split.num_segments} segments | kernel {ms:.4f} ms in "
+                    f"{kernels} device kernels a call ({nodes} graph nodes; "
+                    f"the profiler's count {profiled}; events "
+                    f"{event_ms:.4f} ms) | plain {plain_ms:.4f} ms | "
+                    f"cuSPARSE {lib_ms} {library_note} | bound "
+                    f"{bound:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB; "
+                    f"{100 * bound / ms:.1f}% of the kernel's time) | "
+                    f"gather floor {floor:.4f} ms at float32 "
+                    f"({e * w * 4 / 1e9:.4f} GB of gathered rows; "
+                    f"{100 * floor / ms:.1f}% of the kernel's time)")
+                if kernels != expect or nodes != expect:
+                    raise AssertionError(f"{tag}: {kernels} device kernels "
+                                         f"in {nodes} graph nodes a call, "
+                                         f"expected {expect}")
+                if label in SPMM_JSON:
+                    rows[f"{name}{SPMM_JSON[label]}{suffix}"] = dict(
+                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=bound_by,
+                        library_ms=library_ms)
+                del library
+            del x
+        del plan, x32
         torch.cuda.empty_cache()
     return rows
 
@@ -732,24 +785,48 @@ def through_plain_versions():
     return stack
 
 
-def make_slice(cfg):
-    """(trainer, split, N, C) of the cora preset ``cfg`` on the slice's
-    synthetic graph of Cora's size, at full width and depth."""
-    from difformer_tpu_torch import DIFFormer, FullBatchTrainer, GraphData
-    from difformer_tpu_torch.data import class_rand_splits
+def preset_model(cfg, f, c, **model_kw):
+    """DIFFormer as the command line builds it for preset ``cfg`` (``f``
+    features, ``c`` outputs) on the card, with the model options
+    ``model_kw`` (``compute_dtype``, ``remat``), which the command line
+    does not set."""
+    from difformer_tpu_torch import DIFFormer
 
-    x, ei, y = cora_graph()
-    (n, f), c = x.shape, int(y.max()) + 1
-    split = class_rand_splits(y, cfg.label_num_per_class, rng=cfg.seed)
-    graph = GraphData.from_numpy(x, ei, device="cuda")
-    model = DIFFormer(
+    return DIFFormer(
         f, cfg.hidden_channels, c, num_layers=cfg.num_layers,
         num_heads=cfg.num_heads, kernel=cfg.kernel, alpha=cfg.alpha,
         dropout=cfg.dropout, use_bn=cfg.use_bn,
         use_residual=cfg.use_residual, use_weight=cfg.use_weight,
         use_graph=cfg.use_graph, graph_weight=cfg.graph_weight,
         use_source=cfg.use_source, spmm_first=cfg.spmm_first,
-        fuse_head_mean=cfg.fuse_head_mean, seed=cfg.seed, device="cuda")
+        fuse_head_mean=cfg.fuse_head_mean, seed=cfg.seed, device="cuda",
+        **model_kw)
+
+
+def remat_recomputed(cfg, f):
+    """K1 forward launches that remat adds to a train step of preset
+    ``cfg`` on ``f`` features: one a layer where the graph branch is
+    spmm_first (its region keeps K1's product for the matmul after it, so
+    the backward re-runs it), none on the plain branch (it keeps no tensor;
+    K1's backward needs only the plan)."""
+    on = cfg.spmm_first
+    if on == "auto":
+        on = cfg.num_heads * cfg.hidden_channels >= 2 * (f + 1)
+    return cfg.num_layers if on and cfg.use_graph and cfg.use_weight else 0
+
+
+def make_slice(cfg, **model_kw):
+    """(trainer, split, N, C) of the cora preset ``cfg`` on the slice's
+    synthetic graph of Cora's size, at full width and depth; ``model_kw``
+    adds options of the model (``compute_dtype``, ``remat``)."""
+    from difformer_tpu_torch import FullBatchTrainer, GraphData
+    from difformer_tpu_torch.data import class_rand_splits
+
+    x, ei, y = cora_graph()
+    (n, f), c = x.shape, int(y.max()) + 1
+    split = class_rand_splits(y, cfg.label_num_per_class, rng=cfg.seed)
+    graph = GraphData.from_numpy(x, ei, device="cuda")
+    model = preset_model(cfg, f, c, **model_kw)
     trainer = FullBatchTrainer(model, graph, y, lr=cfg.lr,
                                weight_decay=cfg.weight_decay, seed=cfg.seed,
                                device="cuda")
@@ -758,7 +835,8 @@ def make_slice(cfg):
         f"hidden={cfg.hidden_channels} layers={cfg.num_layers} "
         f"heads={cfg.num_heads} dropout={cfg.dropout} lr={cfg.lr} "
         f"wd={cfg.weight_decay} spmm_first={cfg.spmm_first} "
-        f"fuse_head_mean={cfg.fuse_head_mean}")
+        f"fuse_head_mean={cfg.fuse_head_mean}"
+        f"{''.join(f' {k}={v}' for k, v in model_kw.items())}")
     return trainer, split, n, c
 
 
@@ -912,6 +990,25 @@ def phase_slice_s_h8():
     check_logits("slice-s-h8", trainer, state, n, c)
     time_steps("slice-s-h8", trainer, state, split, n, steps=5)
 
+    # remat: the same steps from the same weights and dropout stream; the
+    # spmm_first branch keeps K1's product for its matmul, so the backward
+    # re-runs its forward K1 once a layer (the plain graph branch keeps
+    # nothing and re-runs nothing: tests/test_torch_port_bf16.py)
+    trainer, split, n, c = make_slice(cfg, remat=True)
+    state = trainer.init_state(0)
+    gen = torch.Generator("cuda").manual_seed(0)
+    reset_launch_counts()
+    remat = [trainer.train_step(state, gen, train_mask)[1].item()
+             for _ in range(H8_STEPS)]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    expect = dict(expect, csr_spmm=2 * layers * H8_STEPS)
+    say(f"phase slice-s-h8: remat: losses {remat} (bit-equal to the "
+        f"steps without: {remat == losses}); launches {launches} (expected "
+        f"{expect}: the forward K1 again in each layer's backward)")
+    if remat != losses or launches != expect:
+        raise AssertionError("remat changed the losses or K1's launches")
+
 
 class RowLog:
     """A ``fit`` logger: every eval's (train, valid, test)."""
@@ -940,7 +1037,7 @@ def host_ms(fn, reps=3):
     return sorted(times)[len(times) // 2]
 
 
-def fit_path(cfg, epoch_block):
+def fit_path(cfg, epoch_block, **model_kw):
     """Build the cora preset ``cfg`` and fit it for EPOCHS epochs with an
     eval every epoch; the fit's host-clock seconds, and its peak memory
     allocated and reserved (the caching allocator's segments, which hold a
@@ -953,7 +1050,7 @@ def fit_path(cfg, epoch_block):
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     held_reserved = torch.cuda.memory_reserved()
-    trainer, split, n, c = make_slice(cfg)
+    trainer, split, n, c = make_slice(cfg, **model_kw)
     log = RowLog()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -969,11 +1066,14 @@ def fit_path(cfg, epoch_block):
                 counted=launch_counts())
 
 
-def phase_graph(phase, cfg, attention):
-    """The epoch-block fit (CUDA graphs) of the cora preset ``cfg`` against
-    the per-epoch fit of an identically built trainer in this process."""
-    loop = fit_path(cfg, 0)
-    graph = fit_path(cfg, GRAPH_BLOCK)
+def phase_graph(phase, cfg, attention, **model_kw):
+    """The epoch-block fit (CUDA graphs) of the cora preset ``cfg`` (with
+    the model options ``model_kw``) against the per-epoch fit of an
+    identically built trainer in this process. Returns the graph path's
+    launches, its trainer, the steady ms per epoch of both paths and their
+    peak memory."""
+    loop = fit_path(cfg, 0, **model_kw)
+    graph = fit_path(cfg, GRAPH_BLOCK, **model_kw)
     runner = graph["trainer"].epoch_runner
     if runner is None:
         raise AssertionError("the epoch-block fit did not run")
@@ -1050,6 +1150,65 @@ def phase_graph(phase, cfg, attention):
         say(f"phase {phase} replay profile: {ms / GRAPH_BLOCK:9.4f} ms/epoch "
             f"{100 * ms / dev_ms:5.1f}% x{count / GRAPH_BLOCK:<6g} "
             f"{key[:100]}")
+    return dict(launches=launches, trainer=graph["trainer"],
+                ms=per_epoch, peak_mib={"loop": loop["peak_mib"],
+                                        "graph": graph["peak_mib"]})
+
+
+# the largest |bf16 - f32| difference of the cora preset's logits allowed,
+# as a share of the largest f32 logit: bf16 keeps 8 bits of mantissa and
+# the 8 layers add their roundings (0.8 % and 1.4 % measured on the CPU
+# for the two kernels after a few epochs)
+BF16_LOGIT_SHARE = 0.05
+
+
+def phase_graph_bf16(phase, cfg, attention, f32):
+    """:func:`phase_graph` at ``compute_dtype="bfloat16"``, then the
+    trained bf16 model's logits against the same weights in an f32 model
+    (within ``BF16_LOGIT_SHARE`` of the largest f32 logit, and the argmax
+    of at least 99 % of the nodes the same), and ms per epoch and peak
+    memory beside the f32 phase's (``f32``, :func:`phase_graph`'s
+    result). Returns the bf16 path's launches."""
+    from difformer_tpu_torch import DIFFormer
+
+    res = phase_graph(phase, cfg, attention, compute_dtype="bfloat16")
+    trainer = res["trainer"]
+    model = trainer.model
+    twin = DIFFormer(
+        trainer.graph.node_feat.shape[1], cfg.hidden_channels,
+        model.fcs[1].out_features, num_layers=cfg.num_layers,
+        num_heads=cfg.num_heads, kernel=cfg.kernel, alpha=cfg.alpha,
+        dropout=cfg.dropout, use_bn=cfg.use_bn,
+        use_residual=cfg.use_residual, use_weight=cfg.use_weight,
+        use_graph=cfg.use_graph, graph_weight=cfg.graph_weight,
+        use_source=cfg.use_source, spmm_first=cfg.spmm_first,
+        fuse_head_mean=cfg.fuse_head_mean, device="cuda")
+    twin.load_state_dict(model.state_dict())
+    g = trainer.graph
+    model.eval()
+    twin.eval()
+    with torch.no_grad():
+        got = model(g.node_feat, g.senders, g.receivers, plan=trainer.plan)
+        ref = twin(g.node_feat, g.senders, g.receivers, plan=trainer.plan)
+    if got.dtype != torch.float32 or not torch.isfinite(got).all():
+        raise AssertionError(f"bf16 logits {got.dtype}, finite "
+                             f"{bool(torch.isfinite(got).all())}")
+    diff = (got - ref).abs().max().item()
+    top = ref.abs().max().item()
+    agree = (got.argmax(1) == ref.argmax(1)).float().mean().item()
+    say(f"phase {phase}: trained bf16 logits against the same weights at "
+        f"f32: max_abs_err {diff:.4e} = {100 * diff / top:.2f}% of the "
+        f"largest f32 logit {top:.4f} (bound {100 * BF16_LOGIT_SHARE:.0f}%)"
+        f"; argmax the same on {100 * agree:.2f}% of the nodes")
+    if diff > BF16_LOGIT_SHARE * top or agree < 0.99:
+        raise AssertionError(f"bf16 logits off the f32 model's: {diff} of "
+                             f"{top}, argmax agreement {agree}")
+    for path in ("graph", "loop"):
+        say(f"phase {phase}: {path}: steady {res['ms'][path]:.3f} ms per "
+            f"epoch at bf16 against {f32['ms'][path]:.3f} at f32; peak "
+            f"memory {res['peak_mib'][path]:.1f} MiB against "
+            f"{f32['peak_mib'][path]:.1f} MiB")
+    return res["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -1229,6 +1388,66 @@ def write_cifar10_embeddings(root, x, y):
 
     with open(os.path.join(root, "cifar10_embeddings.pkl"), "wb") as f:
         pickle.dump((x, y), f)
+
+
+# the temporal presets' datasets as torch_geometric_temporal publishes them:
+# Hungary chickenpox (20 counties, 102 directed edges, 522 weekly readings)
+# and Wikipedia mathematics (1,068 pages, 27,079 weighted links, 731 days)
+CHICKENPOX_NODES, CHICKENPOX_EDGES, CHICKENPOX_WEEKS = 20, 102, 522
+WIKIMATH_NODES, WIKIMATH_EDGES, WIKIMATH_DAYS = 1068, 27_079, 731
+
+
+def _distinct_pairs(rng, n, e):
+    """``e`` distinct directed pairs of ``n`` nodes (numpy [E, 2])."""
+    codes = rng.choice(n * n, size=e, replace=False)
+    return np.stack([codes // n, codes % n], axis=1)
+
+
+def write_chickenpox_json(root, nodes=CHICKENPOX_NODES,
+                          edges=CHICKENPOX_EDGES, weeks=CHICKENPOX_WEEKS,
+                          seed=41):
+    """``root/chickenpox.json`` as ``load_chickenpox`` reads it: a stand-in
+    of the published shapes (``edges`` [E, 2], ``FX`` [weeks, nodes]) with
+    standardised weekly readings from a seasonal AR(1) process per
+    county."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    fx = np.zeros((weeks, nodes))
+    season = np.sin(2 * np.pi * np.arange(weeks) / 52.0)
+    for t in range(1, weeks):
+        fx[t] = 0.7 * fx[t - 1] + 0.5 * season[t] + 0.4 * rng.normal(
+            size=nodes)
+    fx = (fx - fx.mean()) / fx.std()
+    data = {"edges": _distinct_pairs(rng, nodes, edges).tolist(),
+            "FX": fx.tolist()}
+    with open(os.path.join(root, "chickenpox.json"), "w") as f:
+        json.dump(data, f)
+
+
+def write_wikimath_json(root, nodes=WIKIMATH_NODES, edges=WIKIMATH_EDGES,
+                        days=WIKIMATH_DAYS, seed=43):
+    """``root/wikivital_mathematics.json`` as ``load_wikimath`` reads it: a
+    stand-in of the published shapes (``edges`` [E, 2] with ``weights``,
+    ``time_periods`` and each day's ``y`` [nodes]) with heavy-tailed daily
+    visit counts (a log-normal level per page, a weekly cycle and noise);
+    node ``nodes - 1`` has an edge, as the loader sizes the graph by the
+    largest id."""
+    import os
+
+    rng = np.random.default_rng(seed)
+    pairs = _distinct_pairs(rng, nodes, edges)
+    pairs[0] = (nodes - 1, 0)
+    level = rng.normal(5.0, 1.5, nodes)
+    week = 0.2 * np.sin(2 * np.pi * np.arange(days) / 7.0)
+    data = {"edges": pairs.tolist(),
+            "weights": rng.integers(1, 10, edges).astype(float).tolist(),
+            "time_periods": days}
+    for t in range(days):
+        data[str(t)] = {"y": np.round(np.exp(
+            level + week[t] + 0.3 * rng.normal(size=nodes))).tolist()}
+    with open(os.path.join(root, "wikivital_mathematics.json"), "w") as f:
+        json.dump(data, f)
 
 
 class CliRun:
@@ -1440,7 +1659,7 @@ def proteins_standin(seed=31):
     return x.cpu().numpy(), ei.int().cpu().numpy(), y.cpu().numpy()
 
 
-def phase_spmm_chunk(trainer, w, seed=5):
+def phase_spmm_chunk(trainer, w, seed=5, dtype=torch.float32):
     """K1 as the mini-batch trainer launches it, on the trainer's own chunk
     with the most segments: an epoch's plans packed as ``fit`` packs them
     (induced subgraphs of the symmetrised graph with self loops, CSRs at
@@ -1450,6 +1669,7 @@ def phase_spmm_chunk(trainer, w, seed=5):
     the "spmm" rule of the plain version, the rule shown to fail a wrong
     output; CUDA-event times of both launches, the plain version and
     cuSPARSE, beside the bound (x counted by the rows some edge gathers).
+    x is of ``dtype`` (the rows' names end in " bf16" at bfloat16).
     Returns the JSON rows."""
     from difformer_tpu_torch.kernels import spmm as K1
     from difformer_tpu_torch.kernels.tolerance import assert_close
@@ -1467,7 +1687,8 @@ def phase_spmm_chunk(trainer, w, seed=5):
     plan = chunk_plan(layout, buf)
     views = layout.views(buf)
     g = torch.Generator("cuda").manual_seed(12)
-    x = torch.randn((batch, w), device="cuda", generator=g)
+    x = torch.randn((batch, w), device="cuda", generator=g).to(dtype)
+    suffix = "" if dtype == torch.float32 else " bf16"
     rows = {}
     for name, prefix, cap in (("csr_spmm", "", plan.split),
                               ("csr_spmm_transposed", "t_", plan.t_split)):
@@ -1477,18 +1698,25 @@ def phase_spmm_chunk(trainer, w, seed=5):
         col, val = views[f"{prefix}col"][:real], views[f"{prefix}val"][:real]
         split = K1.row_split(ptr)
         bound, bound_by, nbytes = spmm_bound_ms(
-            batch, real, w, x_rows=int(torch.unique(col).numel()))
+            batch, real, w, x_rows=int(torch.unique(col).numel()),
+            elem=x.element_size())
         kernel = lambda: K1.csr_spmm(  # noqa: E731
             x, ptr, views[f"{prefix}col"], views[f"{prefix}val"], split=cap,
             transposed=transposed)
         exact_call = lambda: K1.csr_spmm(x, ptr, col, val,  # noqa: E731
                                          split=split, transposed=transposed)
         plain = lambda: K1.csr_spmm_plain(x, ptr, col, val)  # noqa: E731
-        library = library_spmm(ptr, col, val, batch)
+        try:
+            library = library_spmm(ptr, col, val, batch, dtype)
+            library(x)
+        except RuntimeError as ex:
+            library = None
+            say(f"phase minibatch-pokec: cuSPARSE through torch.sparse.mm "
+                f"refused {str(dtype)[6:]}: {str(ex).splitlines()[0][:160]}")
         out, ref = kernel(), plain()
         scale = K1.csr_spmm_abs(x, ptr, col, val)
-        tag = (f"{name} pokec chunk {c} of the trainer's epoch N={batch} "
-               f"E={real} (capacity {layout.edges}) W={w}")
+        tag = (f"{name}{suffix} pokec chunk {c} of the trainer's epoch "
+               f"N={batch} E={real} (capacity {layout.edges}) W={w}")
         err = assert_close(tag, out, ref, "spmm", scale=scale)
         assert_rejects(tag, ref, "spmm", scale=scale)
         if not torch.equal(out, exact_call()):
@@ -1506,16 +1734,18 @@ def phase_spmm_chunk(trainer, w, seed=5):
         cap_ms, exact_ms, cap2_ms, exact2_ms = (
             cuda_ms(f) for f in (kernel, exact_call, kernel, exact_call))
         ms = (cap_ms + cap2_ms) / 2
-        plain_ms, library_ms = cuda_ms(plain), cuda_ms(lambda: library(x))
+        plain_ms = cuda_ms(plain)
+        library_ms = None if library is None else cuda_ms(lambda: library(x))
+        lib_ms = "none" if library_ms is None else f"{library_ms:.4f} ms"
         say(f"phase minibatch-pokec: K1 {tag} max_abs_err {err:.3e}, "
             f"bit-equal to the exact-count launch | {heavy} heavy rows, "
             f"{segs} segments (capacity {cap.num_heavy}, "
             f"{cap.num_segments}) | CUDA events: capacity launch "
             f"{cap_ms:.4f}, {cap2_ms:.4f} ms, exact-count launch "
             f"{exact_ms:.4f}, {exact2_ms:.4f} ms (alternated) | plain "
-            f"{plain_ms:.4f} ms | cuSPARSE {library_ms:.4f} ms | bound "
+            f"{plain_ms:.4f} ms | cuSPARSE {lib_ms} | bound "
             f"{bound:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB)")
-        rows[f"{name} pokec chunk"] = dict(
+        rows[f"{name} pokec chunk{suffix}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_by=bound_by, library_ms=library_ms)
     say(f"phase minibatch-pokec: K1's chunk is the one with the most "
@@ -1661,18 +1891,22 @@ def check_minibatch_result(phase, trainer, best):
     torch.cuda.empty_cache()
 
 
-def check_minibatch_launches(phase, trainer, counted, layers, epochs):
+def check_minibatch_launches(phase, trainer, counted, layers, epochs,
+                             recomputed=0):
     """K1 counted in both directions and no attention kernel; K1's device
     launches by the replays (captured x replays) equal to one a layer in
-    each direction for every chunk step of the fit. Returns the path's
-    launches: the wrappers' counts (warm-up, capture and the eager evals)
-    plus the replays'."""
+    each direction for every chunk step of the fit, and ``recomputed``
+    more forward ones a step (remat re-running a layer's K1 in the
+    backward). Returns the path's launches: the wrappers' counts (warm-up,
+    capture and the eager evals) plus the replays'."""
     replayed = trainer.runner.launches()
     expect = layers * trainer.n_chunks * epochs
+    extra = {"csr_spmm": recomputed * trainer.n_chunks * epochs}
     say(f"phase {phase}: launches counted by the wrappers {counted} "
         f"(warm-up, capture and the eager evals); replayed on the device "
         f"{replayed} (expected {expect} for each K1 direction: {layers} "
-        f"layers x {trainer.n_chunks} chunks x {epochs} epochs); graphs "
+        f"layers x {trainer.n_chunks} chunks x {epochs} epochs, plus "
+        f"{extra} recomputed by remat); graphs "
         f"{ {k: (v['captured']['csr_spmm'], v['replays']) for k, v in trainer.runner.graphs.items()} }"
         f" (K1 forward captured, replays)")
     off = {k: v for k, v in counted.items() if (v > 0) != (k in K1_PATH)}
@@ -1680,10 +1914,11 @@ def check_minibatch_launches(phase, trainer, counted, layers, epochs):
         raise AssertionError(f"kernels launched against the path "
                              f"{K1_PATH}: {off}")
     wrong = {k: v for k, v in replayed.items()
-             if v != (expect if k in K1_PATH else 0)}
+             if v != (expect + extra.get(k, 0) if k in K1_PATH else 0)}
     if wrong:
         raise AssertionError(f"replayed launches {wrong} differ from the "
-                             f"path's ({expect} for each of {K1_PATH})")
+                             f"path's ({expect} for each of {K1_PATH}, "
+                             f"plus {extra})")
     return {k: counted[k] + replayed[k] for k in counted}
 
 
@@ -1772,7 +2007,241 @@ def phase_minibatch_pokec(tmp):
         raise AssertionError(f"loop {loop['chunk_losses'][0]} != graphs "
                              f"{best['chunk_losses'][0]}")
     chunk_timings("minibatch-pokec", trainer, top=GRAPH_TOP)
+    return launches, rows, trainer, times["split"]
+
+
+def phase_minibatch_remat(base, split):
+    """The pokec preset's trainer (on the stand-in the minibatch-pokec
+    phase loaded, ``base`` its trainer, ``split`` its run's split) with the
+    model at ``compute_dtype="bfloat16"``, one epoch with ``remat=True``,
+    then one with ``remat=False``: each chunk step a CUDA-graph replay;
+    K1's replays held to the remat-aware count; K1's bf16 capacity launch
+    on the remat trainer's chunk with the most segments
+    (:func:`phase_spmm_chunk`); peak memory of each fit and the steady ms
+    per chunk step of each; the chunk losses with and without remat
+    compared. Returns the remat run's launches and K1's bf16 chunk rows."""
+    from difformer_tpu_torch.train.minibatch import MiniBatchTrainer
+    from difformer_tpu_torch.utils.config import make_config
+
+    phase = "minibatch-pokec-remat"
+    cfg = make_config("pokec")
+    x = base.x_dev.cpu().numpy()
+    ei = np.stack([base.senders, base.receivers])
+    y = base.labels_eval
+    classes = int(y.max()) + 1
+    recomputed = remat_recomputed(cfg, x.shape[1])
+    runs, launches, rows = {}, None, {}
+    for remat in (True, False):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        trainer = MiniBatchTrainer(
+            preset_model(cfg, x.shape[1], classes, compute_dtype="bfloat16",
+                         remat=remat), x, ei, y, batch_size=cfg.batch_size,
+            lr=cfg.lr, weight_decay=cfg.weight_decay, loss="nll",
+            metric=cfg.metric, seed=cfg.seed, device="cuda")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        best = trainer.fit(split, epochs=1, eval_step=cfg.eval_step)[0]
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counted = launch_counts()
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**20
+        if not all(math.isfinite(v) for v in best["chunk_losses"][0]):
+            raise AssertionError(f"non-finite chunk losses: {best}")
+        tag = f"{phase} remat={remat}"
+        run_launches = check_minibatch_launches(
+            tag, trainer, counted, cfg.num_layers, 1,
+            recomputed=recomputed if remat else 0)
+        perm = np.random.default_rng(17).permutation(trainer.n)
+        packed, _ = trainer.pack_epoch(perm)
+        step_ms = host_ms(lambda: trainer.runner.epoch(packed)) / len(packed)
+        # one eager step on a full chunk: its peak is the activations the
+        # backward keeps, which remat trades for recomputation (the fit's
+        # peak is the full graph's eval)
+        nodes, sub = trainer._subgraphs(perm)[0]
+        plan = trainer._exact_plan(nodes.shape[0], sub)[0]
+        nodes = torch.as_tensor(nodes, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        trainer.train_step(trainer.runner.state, trainer.runner.generator,
+                           nodes, plan)
+        torch.cuda.synchronize()
+        step_peak = (torch.cuda.max_memory_allocated() - before) / 2**20
+        say(f"phase {tag}: bf16, fit of 1 epoch in {fit_s:.3f} s (an eval "
+            f"and the captures included); peak memory {peak:.1f} MiB "
+            f"allocated above the {held / 2**20:.1f} MiB held before; an "
+            f"eager chunk step's peak {step_peak:.1f} MiB above what it "
+            f"found; steady {step_ms:.3f} ms per chunk step (host clock, "
+            f"{len(packed)} chunks replayed); best valid {best['valid']:.4f}")
+        runs[remat] = dict(losses=best["chunk_losses"][0], peak=peak,
+                           step_peak=step_peak, step_ms=step_ms)
+        del plan, nodes
+        if remat:
+            launches = run_launches
+            rows = phase_spmm_chunk(trainer,
+                                    cfg.hidden_channels * cfg.num_heads,
+                                    dtype=torch.bfloat16)
+        del trainer
+    a, b = (np.asarray(runs[k]["losses"], np.float64) for k in (True, False))
+    say(f"phase {phase}: chunk losses with and without remat bit-equal: "
+        f"{bool(np.array_equal(a, b))} (largest difference "
+        f"{np.abs(a - b).max():.3e}); peak memory of the fit "
+        f"{runs[True]['peak']:.1f} MiB with remat against "
+        f"{runs[False]['peak']:.1f} MiB without, of an eager chunk step "
+        f"{runs[True]['step_peak']:.1f} against "
+        f"{runs[False]['step_peak']:.1f} MiB; "
+        f"{runs[True]['step_ms']:.3f} against {runs[False]['step_ms']:.3f} "
+        f"ms per chunk step; remat re-runs {recomputed} forward K1 a step "
+        f"at this preset ("
+        f"{'spmm_first' if recomputed else 'the plain graph branch'})")
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches, rows
+
+
+# ---------------------------------------------------------------------------
+# temporal-chickenpox and temporal-wikimath: the temporal presets through the
+# command line on stand-in JSON files of the published shapes
+# ---------------------------------------------------------------------------
+
+TEMPORAL_EPOCHS = 3  # of the presets' 500 epochs x 1 run
+
+
+def temporal_k1_per_pass(model):
+    """(K1 forward launches of one forward, K1 transposed launches of one
+    train step's backward) of a temporal model: DIFFormer one of each a
+    layer; MPNN-LSTM one of each per GCN layer (2); DCRNN 2·(K−1) products
+    per DConv, three DConvs, and a backward only through the candidate
+    state's DConv, whose input [x ‖ h·r] carries a gradient (the gates'
+    [x ‖ h] with h = 0 carries none)."""
+    from difformer_tpu_torch.nn.temporal import DCRNN, MPNNLSTM
+
+    if isinstance(model, DCRNN):
+        hops = 2 * (model.conv_x_h.K - 1)
+        return 3 * hops, hops
+    if isinstance(model, MPNNLSTM):
+        return 2, 2
+    graph = bool(model.convs) and model.convs[0].use_graph
+    return (model.num_layers,) * 2 if graph else (0, 0)
+
+
+def graph_kernel_nodes(runner):
+    """Kernel nodes of each captured graph of a ``SnapshotRunner``."""
+    return {name: graph_node_kinds(g).count(CUDA_GRAPH_NODE_KERNEL)
+            for name, g in runner.cuda_graphs.items()}
+
+
+def phase_temporal(phase, tmp, argv):
+    """A temporal preset through the command line (``argv``, cut to
+    ``TEMPORAL_EPOCHS`` epochs) on the stand-in files in ``tmp``: every
+    epoch's steps and evals replayed as CUDA graphs; K1's replays equal to
+    the model's launches per pass times the snapshots of the fit; the same
+    fit again through the per-snapshot loop, whose train and validation
+    costs and test cost must equal the graphs' bit for bit; ms per epoch
+    of both, the capture's seconds and the graphs' kernel nodes."""
+    from difformer_tpu_torch import cli
+    from difformer_tpu_torch.train import temporal as T
+
+    made = []
+    real_init, real_fit = T.TemporalTrainer.__init__, T.TemporalTrainer.fit
+
+    def recording_init(self, *args, **kw):
+        real_init(self, *args, **kw)
+        made.append(self)
+
+    def recording_fit(self, train, val, test, **kw):
+        self.recorded = (train, val, test, kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_fit(self, train, val, test, **kw)
+        torch.cuda.synchronize()
+        self.fit_s = time.perf_counter() - t0
+        self.result = res
+        return res
+
+    argv = argv + ["--data_dir", tmp, "--epochs", str(TEMPORAL_EPOCHS),
+                   "--runs", "1"]
+    with unittest.mock.patch.object(T.TemporalTrainer, "__init__",
+                                    recording_init), \
+            unittest.mock.patch.object(T.TemporalTrainer, "fit",
+                                       recording_fit):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        costs = cli.main(argv)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        counted = launch_counts()
+    trainer = made[0]
+    res, runner = trainer.result, trainer.runner
+    train, val, test, fit_kw = trainer.recorded
+    epochs = len(res["losses"])
+    say(f"phase {phase}: {' '.join(argv)} -> test cost {costs.tolist()}; "
+        f"{type(trainer.model).__name__}, {trainer.mode} mode, "
+        f"{len(train)}/{len(val)}/{len(test)} snapshots of "
+        f"{train[0].node_feat.shape[0]} nodes and "
+        f"{train[0].edge_index.shape[1]} edges, {len(runner.data.plans)} "
+        f"plan(s); losses {res['losses']}")
+    if not (np.all(np.isfinite(res["losses"])) and np.isfinite(costs).all()):
+        raise AssertionError(f"non-finite costs: {res}")
+    fwd, bwd = temporal_k1_per_pass(trainer.model)
+    n_tr, n_va, n_te = len(train), len(val), len(test)
+    expect = {"csr_spmm": epochs * (n_tr + n_va) * fwd + n_te * fwd,
+              "csr_spmm_transposed": epochs * n_tr * bwd}
+    replayed = runner.launches()
+    nodes = graph_kernel_nodes(runner)
+    say(f"phase {phase}: graphs {sorted(runner.graphs)} captured in "
+        f"{runner.capture_s:.3f} s (warm-up included), kernel nodes "
+        f"{nodes}; K1 replayed {replayed} (expected {expect}: "
+        f"{fwd} forward and {bwd} backward a snapshot: "
+        f"{expect['csr_spmm'] / epochs:.1f} forward launches per epoch, the "
+        f"test eval included); the wrappers counted {counted} (warm-up and "
+        f"capture)")
+    if {k: replayed[k] for k in expect} != expect or any(
+            v for k, v in replayed.items() if k not in expect):
+        raise AssertionError(f"K1 replays {replayed} != {expect}")
+
+    graph_epoch_ms = 1e3 * trainer.fit_s / epochs
+    steady = host_ms(lambda: (runner.train_epoch(0, n_tr).item(),
+                              runner.evaluate(n_tr, n_tr + n_va).item()))
+    trainer.use_scan = False
+    t0 = time.perf_counter()
+    loop = trainer.fit(train, val, test, **fit_kw)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    trainer.use_scan = True
+    same = (loop["losses"] == res["losses"]
+            and loop["val_costs"] == res["val_costs"]
+            and loop["test"] == res["test"])
+    say(f"phase {phase}: graphs {graph_epoch_ms:.3f} ms per epoch over "
+        f"the fit (capture included), steady {steady:.3f} ms per epoch "
+        f"(train and validation); loop {1e3 * loop_s / epochs:.3f} ms per "
+        f"epoch over the fit; the loop's costs bit-equal to the graphs': "
+        f"{same}; whole command {total_s:.3f} s (cut from 500 epochs)")
+    if not same:
+        raise AssertionError(f"loop {loop['losses']} {loop['val_costs']} "
+                             f"{loop['test']} != graphs {res['losses']} "
+                             f"{res['val_costs']} {res['test']}")
+    del made, trainer, runner
+    gc.collect()
+
+
+def phase_temporal_all(tmp):
+    """The chickenpox preset (DIFFormer, cumulative; then MPNN-LSTM) and
+    the wikimath preset (DIFFormer, incremental; then DCRNN with K = 3) on
+    stand-in files of their published shapes."""
+    write_chickenpox_json(tmp)
+    write_wikimath_json(tmp)
+    phase_temporal("temporal-chickenpox", tmp, ["--dataset", "chickenpox"])
+    phase_temporal("temporal-chickenpox", tmp, ["--dataset", "chickenpox",
+                                                "--method", "mpnn_lstm"])
+    phase_temporal("temporal-wikimath", tmp, ["--dataset", "wikimath"])
+    phase_temporal("temporal-wikimath", tmp, ["--dataset", "wikimath",
+                                              "--method", "dcrnn",
+                                              "--dcrnn_filters", "3"])
 
 
 def phase_minibatch_proteins():
@@ -1883,10 +2352,17 @@ def main():
     phase_slice_s_h8()
     from difformer_tpu_torch.utils.config import make_config
 
-    phase_graph("slice-s-graph", make_config("cora"), attention=False)
-    phase_graph("slice-graph", make_config("cora", kernel="sigmoid"),
-                attention=True)
+    f32_s = phase_graph("slice-s-graph", make_config("cora"),
+                        attention=False)
+    f32_a = phase_graph("slice-graph", make_config("cora", kernel="sigmoid"),
+                        attention=True)
     say(f"phase graph: done at {time.perf_counter() - t0:.1f} s")
+    launches_bf16 = phase_graph_bf16("slice-s-bf16-graph", make_config("cora"),
+                                     False, f32_s)
+    phase_graph_bf16("slice-bf16-graph", make_config("cora", kernel="sigmoid"),
+                     True, f32_a)
+    del f32_s, f32_a
+    say(f"phase bf16 graph: done at {time.perf_counter() - t0:.1f} s")
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1896,9 +2372,17 @@ def main():
         launches_set = phase_cli_set(tmp)
     say(f"phase cli-set: done at {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
-        launches_mb, chunk_rows = phase_minibatch_pokec(tmp)
+        launches_mb, chunk_rows, base, split = phase_minibatch_pokec(tmp)
     say(f"phase minibatch-pokec: done at {time.perf_counter() - t0:.1f} s")
+    launches_remat, chunk_bf16_rows = phase_minibatch_remat(base, split)
+    del base
+    say(f"phase minibatch-pokec-remat: done at "
+        f"{time.perf_counter() - t0:.1f} s")
     phase_minibatch_proteins()
+    say(f"phase minibatch-proteins: done at "
+        f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_temporal_all(tmp)
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     # every ms, plain_ms and library_ms is a device time at the slice's
     # shape (K1 also at Pokec's and a Pokec chunk's): the profiler's sum
@@ -1912,9 +2396,13 @@ def main():
         for name, row in rows.items()
     ] + [
         # K1 on the main path, DIFFormer-s, at the slice's graph and at
-        # Pokec's size; launches are the main path's
+        # Pokec's size; launches are the main path's, at f32 and, for the
+        # bf16 rows, at compute_dtype="bfloat16" (the slice-s-bf16-graph
+        # phase: captured x replays)
         {"name": name, "route": "cuda", "source": SPMM_SOURCE,
-         "replaces": SPMM_REPLACES, "launches": launches_s[name.split()[0]],
+         "replaces": SPMM_REPLACES,
+         "launches": (launches_bf16 if name.endswith(" bf16")
+                      else launches_s)[name.split()[0]],
          **row}
         for name, row in spmm_rows.items()
     ] + [
@@ -1932,6 +2420,13 @@ def main():
          "replaces": SPMM_REPLACES,
          "launches": launches_mb[name.split()[0]], **row}
         for name, row in chunk_rows.items()
+    ] + [
+        # the same at bf16 on the minibatch-pokec-remat phase's trainer;
+        # launches are that phase's remat run's
+        {"name": name, "route": "cuda", "source": SPMM_SOURCE,
+         "replaces": SPMM_REPLACES,
+         "launches": launches_remat[name.split()[0]], **row}
+        for name, row in chunk_bf16_rows.items()
     ]
     say(json.dumps({"kernels": kernels}))
     say(smi)

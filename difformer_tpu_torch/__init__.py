@@ -7,10 +7,11 @@ Pallas TPU kernel becomes a hand-written Hopper kernel (``csrc/``), built at
 first use and bound with ctypes. Entry points run on the GPU unless given
 ``device="cpu"``; on the CPU every kernel runs as its plain PyTorch version.
 
-Ported so far: full-batch node classification and the set track with
-DIFFormer-s (``kernel="simple"``, the main path) and DIFFormer-a
-(``kernel="sigmoid"``), started from the command line
-(``python -m difformer_tpu_torch.cli``, ``cli.py``) with the dataset
+Ported so far: full-batch and mini-batch node classification and the set
+track with DIFFormer-s (``kernel="simple"``, the main path) and DIFFormer-a
+(``kernel="sigmoid"``), at f32 or bf16 and with ``remat``; the temporal
+track (DCRNN, MPNN-LSTM, ``TemporalTrainer``); all started from the command
+line (``python -m difformer_tpu_torch.cli``, ``cli.py``) with the dataset
 readers, transforms, loggers and ``sweep.py``. ROADMAP.md lists what is
 still to port.
 """

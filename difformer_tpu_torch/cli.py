@@ -6,21 +6,27 @@ Usage:
   python -m difformer_tpu_torch.cli --dataset cora --data_dir data
   python -m difformer_tpu_torch.cli --dataset cifar10 --kernel sigmoid
   python -m difformer_tpu_torch.cli --dataset synthetic-2000-8000-32-4
+  python -m difformer_tpu_torch.cli --dataset chickenpox --method dcrnn
 
 From Python, ``main(argv, device="cpu")`` runs on the CPU instead (every
 kernel as its plain version), as the tests do.
 
-Ported: full-batch node classification and the set track (``--task set``:
-a kNN graph of the features) with ``--method difformer``, both kernels,
-``--reorder``, the three split modes, ``--save_model`` and
-``--eval_only``; and mini-batch training on large graphs
-(``--use_minibatch``, which the pokec and ogbn-proteins presets set) with
-``MiniBatchTrainer``, routed as the JAX command line routes it (its
-``--save_model``, ``--eval_only`` and sparse-layout flags are not read
-there). The GCN branch always runs the CSR SpMM kernel (K1): the
-JAX package's default ``--use_ell`` ELL layout is a TPU layout of the same
-product. ``--eval_only`` reads a checkpoint the port wrote with
-``--save_model``, or a reference ``.pt``/``.pth``/``.pkl`` state_dict; it
+Ported: full-batch node classification and the set track (``--task set``: a kNN
+graph of the features) with ``--method difformer``, both kernels,
+``--reorder``, the three split modes, ``--save_model`` and ``--eval_only``; and
+mini-batch training on large graphs (``--use_minibatch``, which the pokec and
+ogbn-proteins presets set) with ``MiniBatchTrainer``, routed as the JAX command
+line routes it (its ``--save_model``, ``--eval_only`` and sparse-layout flags
+are not read there); and the temporal track (``--task temporal``, which the
+chickenpox, covid and wikimath presets set) with ``TemporalTrainer`` and
+``--method difformer``, ``dcrnn`` or ``mpnn_lstm``, reading
+torch_geometric_temporal's JSON files from ``--data_dir`` (a synthetic
+stand-in, with a warning, where the file is missing, as the JAX command line
+does). ``--method dcrnn`` and ``mpnn_lstm`` build the temporal models on the
+node task too, as the JAX command line does. The GCN branch always runs the CSR
+SpMM kernel (K1): the JAX package's default ``--use_ell`` ELL layout is a TPU
+layout of the same product. ``--eval_only`` reads a checkpoint the port wrote
+with ``--save_model``, or a reference ``.pt``/``.pth``/``.pkl`` state_dict; it
 does not read the JAX package's orbax checkpoints. Every other route raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
@@ -44,6 +50,7 @@ from difformer_tpu_torch.data.transforms import (
     to_undirected,
 )
 from difformer_tpu_torch.nn.difformer import DIFFormer
+from difformer_tpu_torch.nn.temporal import DCRNN, MPNNLSTM
 from difformer_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
@@ -58,10 +65,8 @@ from difformer_tpu_torch.utils.weights import load_torch_checkpoint
 # queue A item
 _ZOO = ("mlp", "manireg", "gcn", "gat", "sgc", "link", "mixhop", "gcnjk",
         "gatjk", "h2gcn", "appnp", "gprgnn", "lp", "multilp")
-_TEMPORAL_MODELS = ("dcrnn", "mpnn_lstm")
 _ITEMS = {
     8: "the baseline zoo, ROADMAP.md queue A item 8",
-    7: "the temporal track, ROADMAP.md queue A item 7",
     6: "the graph-level track, ROADMAP.md queue A item 6",
     9: "the TPU-shaped sparse layouts, ROADMAP.md queue A item 9",
     10: "the parallel layer, ROADMAP.md queue A item 10",
@@ -75,23 +80,34 @@ def _not_ported(what, item):
         f"{what} is not ported to difformer_tpu_torch yet ({_ITEMS[item]})")
 
 
+_PORTED_METHODS = ("difformer", "dcrnn", "mpnn_lstm")
+
+
 def _method_error(method):
-    """The error for a ``--method`` other than difformer."""
+    """The error for a ``--method`` the port does not build."""
     if method.lower() in _ZOO:
         return _not_ported(f"--method {method}", 8)
-    if method.lower() in _TEMPORAL_MODELS:
-        return _not_ported(f"--method {method}", 7)
     return ValueError(f"unknown method {method!r}")
 
 
 def parse_method(cfg: Config, n_nodes: int, n_classes: int,
                  in_channels: int, *, device=None):
-    """The model of ``--method`` (``node classification/parse.py:4-10``);
-    the port builds DIFFormer, whose input width it needs."""
-    if cfg.method.lower() != "difformer":
+    """The model of ``--method`` (``node classification/parse.py:4-10``,
+    ``difformer_tpu/cli.py:25-82``): DIFFormer, DCRNN (``K =
+    --dcrnn_filters``) or MPNN-LSTM (a window of 1), each of which needs
+    its input width."""
+    m = cfg.method.lower()
+    if m not in _PORTED_METHODS:
         raise _method_error(cfg.method)
     if cfg.n_shards > 1:
         raise _not_ported("--n_shards > 1", 10)
+    if m == "dcrnn":
+        return DCRNN(in_channels, cfg.hidden_channels, n_classes,
+                     K=cfg.dcrnn_filters, seed=cfg.seed, device=device)
+    if m == "mpnn_lstm":
+        return MPNNLSTM(in_channels, cfg.hidden_channels, n_classes,
+                        num_nodes=n_nodes, window=1, dropout=cfg.dropout,
+                        seed=cfg.seed, device=device)
     return DIFFormer(
         in_channels, cfg.hidden_channels, n_classes,
         num_layers=cfg.num_layers, num_heads=cfg.num_heads,
@@ -110,7 +126,7 @@ BCE_DATASETS = {"yelp-chi", "deezer-europe", "twitch-e", "fb100",
 def _check_ported(cfg: Config):
     """Raise for the routes of ``run_node_task`` that are not ported,
     before any data is read."""
-    if cfg.method.lower() != "difformer":
+    if cfg.method.lower() not in _PORTED_METHODS:
         raise _method_error(cfg.method)
     if cfg.n_shards > 1:
         raise _not_ported("--n_shards > 1", 10)
@@ -232,6 +248,53 @@ def run_node_task(cfg: Config, device=None):
     return _final(res)
 
 
+def run_temporal_task(cfg: Config, device=None):
+    """The temporal track (``difformer_tpu/cli.py:306-339``): the dataset's
+    snapshots (or the synthetic stand-in), split in time, and ``runs``
+    runs of ``TemporalTrainer`` on ``device`` (the GPU unless told
+    otherwise). Returns the runs' test costs."""
+    from difformer_tpu_torch.data.synthetic import random_temporal_sequence
+    from difformer_tpu_torch.data.temporal_loaders import (
+        load_temporal_dataset,
+    )
+    from difformer_tpu_torch.train.temporal import (
+        TemporalTrainer,
+        temporal_signal_split,
+    )
+
+    if cfg.method.lower() not in _PORTED_METHODS:
+        raise _method_error(cfg.method)
+    if cfg.dataset.startswith("synthetic"):
+        snaps = random_temporal_sequence(20, 100, 4, seed=cfg.seed)
+    else:
+        try:
+            snaps = load_temporal_dataset(cfg.dataset, cfg.data_dir)
+        except (FileNotFoundError, ValueError) as e:
+            print(f"[warn] {e}; using synthetic temporal stand-in")
+            snaps = random_temporal_sequence(20, 100, 4, seed=cfg.seed)
+    train, vt = temporal_signal_split(snaps, cfg.train_ratio)
+    val, test = temporal_signal_split(
+        vt, cfg.val_ratio / (1 - cfg.train_ratio))
+    mode = ("incremental" if cfg.temporal_mode == "incremental"
+            or (cfg.temporal_mode == "auto" and cfg.dataset == "wikimath")
+            else "cumulative")
+    n, f = snaps[0].node_feat.shape
+    model = parse_method(cfg, n, 1, f, device=device)
+    costs = []
+    for run in range(cfg.runs):
+        tr = TemporalTrainer(model, lr=cfg.lr, weight_decay=cfg.weight_decay,
+                             mode=mode, rebuild=cfg.special_treat.lower(),
+                             seed=cfg.seed, device=device)
+        r = tr.fit(train, val, test, epochs=cfg.epochs,
+                   early_stopping=cfg.early_stopping, run=run, verbose=True,
+                   display_step=cfg.display_step)
+        print(f"Test Cost: {r['test']:.4f}")
+        costs.append(r["test"])
+    costs = np.asarray(costs)
+    print(f"Final Test: {costs.mean():.4f} ± {costs.std():.4f}")
+    return costs
+
+
 def _final(res):
     """Print the runs' mean and spread of the test metric; returns them."""
     tests = np.asarray([r["test"] for r in res])
@@ -284,7 +347,7 @@ def main(argv=None, *, device=None):
         raise _not_ported("--use_ell", 9)
     print(cfg)
     if cfg.task == "temporal":
-        raise _not_ported("--task temporal", 7)
+        return run_temporal_task(cfg, device=device)
     if cfg.task == "graph":
         raise _not_ported("--task graph", 6)
     return run_node_task(cfg, device=device)

@@ -23,9 +23,10 @@
 // The design. A group of lanes (the power of two >= the row's vectors, up
 // to a warp) sums one run of edges and strides its W columns, 16-byte
 // float4 loads where W and the pointers allow (a 128-wide row is one
-// coalesced 512-byte read by 32 lanes), scalar loads otherwise (any W, e.g.
-// the odd F + 1 = 65 of spmm_first). Each lane keeps its sums in f32
-// registers, walks the edges four at a time so four gathers are in flight,
+// coalesced 512-byte read by 32 lanes; at bf16, 8 values a lane), scalar
+// loads otherwise (any W, e.g. the odd F + 1 = 65 of spmm_first). Each
+// lane keeps its sums in f32 registers, walks the edges four at a time so
+// four gathers are in flight,
 // and writes each output once. Rows of very different degree are balanced
 // by a split schedule that the plan builds once (kernels/spmm.py,
 // row_split): a row of more than T edges (a heavy row, a hub of a power-law
@@ -53,17 +54,29 @@
 // known when the plan is built) the counts are the host's and the launch is
 // the exact one.
 //
+// Element types: x and out are float32, or bfloat16 (the model at
+// compute_dtype="bfloat16"). At bf16 each lane loads 8 values (16 bytes) a
+// gather where W is a multiple of 8 and the pointers allow, sums in f32
+// registers as at f32, and rounds each output to bf16 once, at its store:
+// a row's result is its f32 sum rounded once. (The JAX package rounds each
+// message to bf16 and sums in bf16, graph_ops.py:107-112; the single
+// rounding here is the more accurate of the two.) The heavy rows'
+// workspace stays f32 at either type, so a row summed in segments is
+// rounded once too, by the combine; the values val stay f32.
+//
 // Layouts: row_ptr int32 [rows + 1], col int32 [E], val float32 [E],
-// x float32 [*, W] and out float32 [rows, W], all contiguous; the schedule's
-// heavy_rows int32 [H], seg_ptr int32 [H + 1] (the segments of heavy row h
-// are seg_ptr[h] .. seg_ptr[h + 1] - 1), seg_begin and seg_end int32 [S]
-// (edge offsets) and the workspace ws float32 [S, W]; counts, when given,
+// x [*, W] and out [rows, W] of one element type, all contiguous; the
+// schedule's heavy_rows int32 [H], seg_ptr int32 [H + 1] (the segments of
+// heavy row h are seg_ptr[h] .. seg_ptr[h + 1] - 1), seg_begin and seg_end
+// int32 [S] (edge offsets) and the workspace ws float32 [S, W]; counts, when
+// given,
 // int32 [2] on the device: the heavy rows and segments in use, at most H
 // and S. Offsets into x, out and ws are 64-bit.
 //
 // C interface (loaded with ctypes): the entry returns cudaGetLastError()
 // after its launches, so a refused launch is reported to the caller.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -74,66 +87,134 @@ namespace {
 constexpr int kThreads = 256;  // threads of every block
 constexpr int kUnroll = 4;     // edges whose gathers are in flight at once
 
-__device__ __forceinline__ float zero(float*) { return 0.0f; }
-__device__ __forceinline__ float4 zero(float4*) {
-  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
+// V consecutive values of T moved as one access and held as V floats:
+// float (V = 1), float4 (V a multiple of 4), a bf16 (V = 1) or 8 bf16 in
+// one 16-byte load (V = 8). A bf16 store rounds to nearest even.
+template <typename T, int V>
+struct Pack;
 
-__device__ __forceinline__ void fma_into(float& acc, float w, float x) {
-  acc = fmaf(w, x, acc);
-}
-__device__ __forceinline__ void fma_into(float4& acc, float w, float4 x) {
-  acc.x = fmaf(w, x.x, acc.x);
-  acc.y = fmaf(w, x.y, acc.y);
-  acc.z = fmaf(w, x.z, acc.z);
-  acc.w = fmaf(w, x.w, acc.w);
-}
+template <>
+struct Pack<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float (&a)[1]) {
+    a[0] = __ldg(p);
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&a)[1]) {
+    *p = a[0];
+  }
+};
 
-__device__ __forceinline__ void add_into(float& acc, float x) { acc += x; }
-__device__ __forceinline__ void add_into(float4& acc, float4 x) {
-  acc.x += x.x;
-  acc.y += x.y;
-  acc.z += x.z;
-  acc.w += x.w;
-}
+template <int V>
+struct PackFloat4 {
+  static_assert(V % 4 == 0, "float4 packs hold a multiple of 4 values");
+  static __device__ __forceinline__ void load(const float* p, float (&a)[V]) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(p + i));
+      a[i] = t.x;
+      a[i + 1] = t.y;
+      a[i + 2] = t.z;
+      a[i + 3] = t.w;
+    }
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&a)[V]) {
+#pragma unroll
+    for (int i = 0; i < V; i += 4)
+      *reinterpret_cast<float4*>(p + i) =
+          make_float4(a[i], a[i + 1], a[i + 2], a[i + 3]);
+  }
+};
+template <>
+struct Pack<float, 4> : PackFloat4<4> {};
+template <>
+struct Pack<float, 8> : PackFloat4<8> {};
+
+template <>
+struct Pack<__nv_bfloat16, 1> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&a)[1]) {
+    a[0] = __bfloat162float(__ldg(p));
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&a)[1]) {
+    *p = __float2bfloat16_rn(a[0]);
+  }
+};
+
+template <>
+struct Pack<__nv_bfloat16, 8> {
+  // a bf16 is the high half of the float with the same bits
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&a)[8]) {
+    const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned int w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[2 * i] = __uint_as_float(w[i] << 16);
+      a[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&a)[8]) {
+    unsigned int w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = static_cast<unsigned int>(
+                 __bfloat16_as_ushort(__float2bfloat16_rn(a[2 * i]))) |
+             (static_cast<unsigned int>(
+                  __bfloat16_as_ushort(__float2bfloat16_rn(a[2 * i + 1])))
+              << 16);
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
 
 // dst[c] = sum over edges begin .. end - 1, in order, of val[e] *
-// x[col[e] * vecs + c], for the columns c = lane, lane + group, ... of a
-// row of vecs values of T (float or float4).
-template <typename T>
+// x[col[e]][c], in f32, for the packs c = lane, lane + group, ... of a row
+// of vecs packs of V values; stored as Out (the output's type, or f32 into
+// the workspace).
+template <typename In, typename Out, int V>
 __device__ __forceinline__ void sum_edges(const int* __restrict__ col,
                                           const float* __restrict__ val,
-                                          const T* __restrict__ x,
-                                          T* __restrict__ dst, int begin,
+                                          const In* __restrict__ x,
+                                          Out* __restrict__ dst, int begin,
                                           int end, int64_t vecs, int lane,
                                           int group) {
   for (int64_t c = lane; c < vecs; c += group) {
-    T acc = zero(static_cast<T*>(nullptr));
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.0f;
     int e = begin;
     for (; e + kUnroll <= end; e += kUnroll) {
       int s[kUnroll];
       float w[kUnroll];
-      T xs[kUnroll];
+      float xs[kUnroll][V];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         s[u] = __ldg(col + e + u);
         w[u] = __ldg(val + e + u);
       }
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) xs[u] = __ldg(x + s[u] * vecs + c);
+      for (int u = 0; u < kUnroll; ++u)
+        Pack<In, V>::load(x + (s[u] * vecs + c) * V, xs[u]);
       // in CSR order, one edge after the other
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) fma_into(acc, w[u], xs[u]);
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] = fmaf(w[u], xs[u][v], acc[v]);
     }
-    for (; e < end; ++e)
-      fma_into(acc, __ldg(val + e), __ldg(x + __ldg(col + e) * vecs + c));
-    dst[c] = acc;
+    for (; e < end; ++e) {
+      float xe[V];
+      const float we = __ldg(val + e);
+      Pack<In, V>::load(x + (__ldg(col + e) * vecs + c) * V, xe);
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = fmaf(we, xe[v], acc[v]);
+    }
+    Pack<Out, V>::store(dst + c * V, acc);
   }
 }
 
 // A group of 2^group_log2 lanes per segment (blocks below seg_blocks) or
-// per row (the rest): segment s into ws[s], a light row into out[row].
-template <typename T>
+// per row (the rest): segment s into ws[s] (f32), a light row into out[row].
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     csr_spmm_kernel(const int* __restrict__ row_ptr,
                     const int* __restrict__ col,
@@ -141,7 +222,7 @@ __global__ void __launch_bounds__(kThreads)
                     T* __restrict__ out, int64_t rows, int64_t vecs,
                     int group_log2, int threshold,
                     const int* __restrict__ seg_begin,
-                    const int* __restrict__ seg_end, T* __restrict__ ws,
+                    const int* __restrict__ seg_end, float* __restrict__ ws,
                     int64_t segments, int seg_blocks,
                     const int* __restrict__ counts) {
   const int group = 1 << group_log2;
@@ -150,8 +231,9 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t seg =
         (int64_t(blockIdx.x) * kThreads + threadIdx.x) >> group_log2;
     if (seg >= (counts ? int64_t(__ldg(counts + 1)) : segments)) return;
-    sum_edges(col, val, x, ws + seg * vecs, __ldg(seg_begin + seg),
-              __ldg(seg_end + seg), vecs, lane, group);
+    sum_edges<T, float, V>(col, val, x, ws + seg * vecs * V,
+                           __ldg(seg_begin + seg), __ldg(seg_end + seg), vecs,
+                           lane, group);
     return;
   }
   const int64_t row =
@@ -161,17 +243,19 @@ __global__ void __launch_bounds__(kThreads)
   const int begin = __ldg(row_ptr + row);
   const int end = __ldg(row_ptr + row + 1);
   if (end - begin > threshold) return;  // heavy: csr_spmm_combine writes it
-  sum_edges(col, val, x, out + row * vecs, begin, end, vecs, lane, group);
+  sum_edges<T, T, V>(col, val, x, out + row * vecs * V, begin, end, vecs,
+                     lane, group);
 }
 
 // out[heavy_rows[h]] = the sum of ws[seg_ptr[h]] .. ws[seg_ptr[h + 1] - 1],
-// in segment order; a group of 2^group_log2 lanes per heavy row, for the
-// first counts[0] heavy rows when counts is given, else the first heavy.
-template <typename T>
+// in segment order, in f32, stored as T; a group of 2^group_log2 lanes per
+// heavy row, for the first counts[0] heavy rows when counts is given, else
+// the first heavy.
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     csr_spmm_combine(const int* __restrict__ heavy_rows,
                      const int* __restrict__ seg_ptr,
-                     const T* __restrict__ ws, T* __restrict__ out,
+                     const float* __restrict__ ws, T* __restrict__ out,
                      int64_t heavy, int64_t vecs, int group_log2,
                      const int* __restrict__ counts) {
   const int64_t h =
@@ -181,11 +265,18 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & (group - 1);
   const int first = __ldg(seg_ptr + h);
   const int last = __ldg(seg_ptr + h + 1);
-  T* dst = out + int64_t(__ldg(heavy_rows + h)) * vecs;
+  T* dst = out + int64_t(__ldg(heavy_rows + h)) * vecs * V;
   for (int64_t c = lane; c < vecs; c += group) {
-    T acc = zero(static_cast<T*>(nullptr));
-    for (int s = first; s < last; ++s) add_into(acc, ws[s * vecs + c]);
-    dst[c] = acc;
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.0f;
+    for (int s = first; s < last; ++s) {
+      float part[V];
+      Pack<float, V>::load(ws + (s * vecs + c) * V, part);
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] += part[v];
+    }
+    Pack<T, V>::store(dst + c * V, acc);
   }
 }
 
@@ -197,29 +288,31 @@ int64_t blocks_for(int64_t items, int group_log2) {
   return ((items << group_log2) + kThreads - 1) / kThreads;
 }
 
-template <typename T>
+// vecs packs of V values of T a row
+template <typename T, int V>
 int launch(const int* row_ptr, const int* col, const float* val,
            const void* x, void* out, int64_t rows, int64_t vecs,
            int threshold, const int* heavy_rows, const int* seg_ptr,
            const int* seg_begin, const int* seg_end, int64_t heavy,
-           int64_t segments, const int* counts, void* ws,
+           int64_t segments, const int* counts, float* ws,
            cudaStream_t stream) {
   int group_log2 = 0;  // lanes per row: the power of two >= vecs, up to 32
   while ((int64_t(1) << group_log2) < vecs && group_log2 < 5) ++group_log2;
   const int64_t seg_blocks = blocks_for(segments, group_log2);
   const int64_t blocks = seg_blocks + blocks_for(rows, group_log2);
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  csr_spmm_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      row_ptr, col, val, static_cast<const T*>(x), static_cast<T*>(out), rows,
-      vecs, group_log2, threshold, seg_begin, seg_end, static_cast<T*>(ws),
-      segments, static_cast<int>(seg_blocks), counts);
+  csr_spmm_kernel<T, V>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          row_ptr, col, val, static_cast<const T*>(x), static_cast<T*>(out),
+          rows, vecs, group_log2, threshold, seg_begin, seg_end, ws, segments,
+          static_cast<int>(seg_blocks), counts);
   if (heavy == 0) return cudaGetLastError();
   const int rc = cudaGetLastError();
   if (rc != cudaSuccess) return rc;
-  csr_spmm_combine<T><<<static_cast<unsigned>(blocks_for(heavy, group_log2)),
-                        kThreads, 0, stream>>>(
-      heavy_rows, seg_ptr, static_cast<const T*>(ws), static_cast<T*>(out),
-      heavy, vecs, group_log2, counts);
+  csr_spmm_combine<T, V>
+      <<<static_cast<unsigned>(blocks_for(heavy, group_log2)), kThreads, 0,
+         stream>>>(heavy_rows, seg_ptr, ws, static_cast<T*>(out), heavy,
+                   vecs, group_log2, counts);
   return cudaGetLastError();
 }
 
@@ -227,20 +320,22 @@ int launch(const int* row_ptr, const int* col, const float* val,
 
 extern "C" {
 
-// out [rows, width] = CSR(row_ptr, col, val) @ x [*, width]. The rows of
-// more than threshold edges (heavy_rows, heavy of them) are summed by
-// segments (seg_ptr, seg_begin, seg_end; segments in all) into ws
-// [segments, width], then combined. With counts (int32 [2] on the device)
-// heavy and segments are capacities, and the first counts[0] heavy rows and
-// counts[1] segments are used. Nothing is launched for rows == 0 (the
-// caller returns zeros for an empty graph).
+// out [rows, width] = CSR(row_ptr, col, val) @ x [*, width], x and out
+// float32 (bf16 == 0) or bfloat16 (bf16 == 1). The rows of more than
+// threshold edges (heavy_rows, heavy of them) are summed by segments
+// (seg_ptr, seg_begin, seg_end; segments in all) into the float32
+// workspace ws [segments, width], then combined. With counts (int32 [2] on
+// the device) heavy and segments are capacities, and the first counts[0]
+// heavy rows and counts[1] segments are used. Nothing is launched for
+// rows == 0 (the caller returns zeros for an empty graph).
 int csr_spmm(const void* row_ptr, const void* col, const void* val,
-             const void* x, void* out, int64_t rows, int64_t width,
+             const void* x, void* out, int64_t rows, int64_t width, int bf16,
              int threshold, const void* heavy_rows, const void* seg_ptr,
              const void* seg_begin, const void* seg_end, int64_t heavy,
              int64_t segments, const void* counts, void* ws, void* stream) {
   if (rows < 0 || width <= 0 || rows > (int64_t(1) << 40) || threshold < 1 ||
-      heavy < 0 || segments < heavy || segments > (int64_t(1) << 40))
+      heavy < 0 || segments < heavy || segments > (int64_t(1) << 40) ||
+      (bf16 != 0 && bf16 != 1))
     return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
   auto* st = static_cast<cudaStream_t>(stream);
@@ -252,11 +347,22 @@ int csr_spmm(const void* row_ptr, const void* col, const void* val,
   const auto* sb = static_cast<const int*>(seg_begin);
   const auto* se = static_cast<const int*>(seg_end);
   const auto* ct = static_cast<const int*>(counts);
-  if (width % 4 == 0 && aligned16(x) && aligned16(out) && aligned16(ws))
-    return launch<float4>(rp, cl, vl, x, out, rows, width / 4, threshold, hr,
-                          sp, sb, se, heavy, segments, ct, ws, st);
-  return launch<float>(rp, cl, vl, x, out, rows, width, threshold, hr, sp, sb,
-                       se, heavy, segments, ct, ws, st);
+  auto* w = static_cast<float*>(ws);
+  const bool aligned = aligned16(x) && aligned16(out) && aligned16(ws);
+  if (bf16) {
+    if (width % 8 == 0 && aligned)
+      return launch<__nv_bfloat16, 8>(rp, cl, vl, x, out, rows, width / 8,
+                                      threshold, hr, sp, sb, se, heavy,
+                                      segments, ct, w, st);
+    return launch<__nv_bfloat16, 1>(rp, cl, vl, x, out, rows, width,
+                                    threshold, hr, sp, sb, se, heavy,
+                                    segments, ct, w, st);
+  }
+  if (width % 4 == 0 && aligned)
+    return launch<float, 4>(rp, cl, vl, x, out, rows, width / 4, threshold,
+                            hr, sp, sb, se, heavy, segments, ct, w, st);
+  return launch<float, 1>(rp, cl, vl, x, out, rows, width, threshold, hr, sp,
+                          sb, se, heavy, segments, ct, w, st);
 }
 
 }  // extern "C"

@@ -8,6 +8,9 @@ reference's ``row`` and ``col``, in CSR order. Unlike the JAX package's,
 package's default (``sort_edges=True``) gives. :meth:`GraphData.csr_plan`
 builds the graph's CSR plan for the GCN branch's kernel once and keeps it.
 
+``TemporalSnapshot`` is one step of a temporal sequence on the host
+(``difformer_tpu/data/graph.py:117-124``).
+
 ``NodeDataset`` mirrors the reference's ``NCDataset``
 (``node classification/dataset.py:25-83``: ``.graph = {edge_index,
 node_feat, edge_feat, num_nodes}``, ``.label``, ``get_idx_split``) and holds
@@ -156,3 +159,14 @@ class NodeDataset:
         GPU unless told otherwise), its edges sorted by receiver."""
         return GraphData.from_numpy(self.graph["node_feat"],
                                     self.graph["edge_index"], device=device)
+
+
+@dataclasses.dataclass
+class TemporalSnapshot:
+    """One timestep of a temporal graph sequence (host numpy), as the JAX
+    package's ``TemporalSnapshot``."""
+
+    node_feat: np.ndarray       # [N, F]
+    edge_index: np.ndarray      # [2, E]
+    edge_weight: Optional[np.ndarray]
+    target: np.ndarray          # [N]

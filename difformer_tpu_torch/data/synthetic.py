@@ -1,7 +1,8 @@
 """Synthetic graphs for tests and chip runs (no dataset is downloaded).
 
-A numpy copy of ``difformer_tpu/data/synthetic.py:random_graph``: the same
-seed gives the same arrays in both packages.
+Numpy copies of ``difformer_tpu/data/synthetic.py``'s ``random_graph`` and
+``random_temporal_sequence``: the same seed gives the same arrays in both
+packages.
 """
 
 from __future__ import annotations
@@ -31,3 +32,27 @@ def random_graph(num_nodes, num_edges, feat_dim, num_classes, *, seed=0,
         dst[sel] = pool[rng.integers(0, pool.shape[0], size=int(sel.sum()))]
     edge_index = np.stack([src, dst]).astype(np.int64)
     return x, edge_index, labels.astype(np.int64)
+
+
+def random_temporal_sequence(num_nodes, num_steps, feat_dim, *, seed=0,
+                             avg_degree=4):
+    """A temporal snapshot sequence (the chickenpox stand-in): one random
+    graph for every step, AR(1) node signals, and the next step's first
+    feature as the target. Returns a list of ``TemporalSnapshot``."""
+    from difformer_tpu_torch.data.graph import TemporalSnapshot
+
+    rng = np.random.default_rng(seed)
+    e = num_nodes * avg_degree
+    ei = np.stack([
+        rng.integers(0, num_nodes, size=e),
+        rng.integers(0, num_nodes, size=e),
+    ]).astype(np.int64)
+    w = rng.random(e).astype(np.float32)
+    sig = rng.normal(size=(num_nodes, feat_dim)).astype(np.float32)
+    snaps = []
+    for _ in range(num_steps):
+        nxt = 0.9 * sig + 0.1 * rng.normal(size=sig.shape).astype(np.float32)
+        snaps.append(TemporalSnapshot(node_feat=sig.copy(), edge_index=ei,
+                                      edge_weight=w, target=nxt[:, 0].copy()))
+        sig = nxt
+    return snaps

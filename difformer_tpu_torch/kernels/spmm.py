@@ -9,14 +9,19 @@ hand-written kernels in ``csrc/spmm.cu`` compute
 
     out[r, :] = Σ_{e in row r} val[e] · x[col[e], :]
 
-over a CSR of rows (``row_ptr`` int32 [R + 1], ``col`` int32 [E],
-``val`` float32 [E]), with each output written once: no atomics, so it is
-deterministic (``index_add_`` on CUDA is not). The forward runs it over the
-receivers' CSR and the backward over the transposed one (the senders'
-rows), so ``dx[s] = Σ_{e: send_e = s} val[e] · dout[recv_e]``. Both CSRs,
-each with its :class:`RowSplit`, come from a plan built once per graph
-(``ops/graph_ops.py``, ``build_csr_plan``). The values are data and get no
-gradient.
+over a CSR of rows (``row_ptr`` int32 [R + 1], ``col`` int32 [E], ``val``
+float32 [E]), with each output written once: no atomics, so it is deterministic
+(``index_add_`` on CUDA is not). x and out are float32, or bfloat16 for the
+model at ``compute_dtype="bfloat16"``: then the kernel loads bf16 (8 values a
+lane), sums in f32 and rounds each output to bf16 once. That differs from the
+JAX package, which rounds every message to bf16 and sums in bf16
+(``graph_ops.py:107-112``, ``:233-236``): one rounding of the f32 sum is the
+more accurate result, and the port keeps it rather than imitate bf16 sums
+(ROADMAP.md queue C). The forward runs it over the receivers' CSR and the
+backward over the transposed one (the senders' rows), so ``dx[s] = Σ_{e: send_e
+= s} val[e] · dout[recv_e]``. Both CSRs, each with its :class:`RowSplit`, come
+from a plan built once per graph (``ops/graph_ops.py``, ``build_csr_plan``).
+The values are data and get no gradient.
 
 Rows of very different degree: a group of lanes sums one run of edges, and
 a row of more than :data:`SPLIT_THRESHOLD` (T) edges, a hub of a power-law
@@ -38,8 +43,9 @@ the time (the gather floor of ``chip_smoke.spmm_gather_floor_ms``).
 :data:`LAUNCHES` (``csr_spmm`` for the forward CSR, ``csr_spmm_transposed``
 for the transposed one), once per call with or without the combine; on a
 CPU tensor it runs :func:`csr_spmm_plain`, the same sum over the same CSR
-arrays in plain torch (one gather and one ``index_add_``, in chunks of
-edges if asked). There is no fallback from the card to the plain version.
+arrays in plain torch (one gather and one ``index_add_`` in f32, in chunks
+of edges if asked, and one rounding to x's dtype), its exact twin at
+either dtype. There is no fallback from the card to the plain version.
 It reads nothing back from the device when given its schedule: whether and
 how much it launches comes from tensor shapes and Python ints, so it can be
 captured in a CUDA graph.
@@ -69,6 +75,10 @@ from difformer_tpu_torch.utils.device import on_cuda
 #: Kernel launches since the last :func:`reset_launch_counts`, by wrapper
 #: and direction.
 LAUNCHES = {"csr_spmm": 0, "csr_spmm_transposed": 0}
+
+# the element types of x and out, by the code the C entry takes; the heavy
+# rows' workspace and the values are float32 at either
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 #: T: a row of more than T edges is heavy and is summed in segments of at
@@ -191,9 +201,11 @@ def padded_split(host_split, capacity, out):
 
 
 def csr_spmm_plain(x, row_ptr, col, val, *, edge_chunk_size=None):
-    """[R, W] float32: ``out[r] = Σ val[e]·x[col[e]]`` over the edges of
-    row r, by a gather and an ``index_add_``; with ``edge_chunk_size`` the
-    [E, W] messages are made and summed that many edges at a time."""
+    """[R, W] of x's dtype: ``out[r] = Σ val[e]·x[col[e]]`` over the edges
+    of row r, by a gather and an ``index_add_`` in float32, rounded to x's
+    dtype once at the end (K1's rounding at bfloat16); with
+    ``edge_chunk_size`` the [E, W] messages are made and summed that many
+    edges at a time."""
     rows = row_ptr.numel() - 1
     out = torch.zeros((rows, x.shape[1]), dtype=torch.float32,
                       device=x.device)
@@ -204,14 +216,14 @@ def csr_spmm_plain(x, row_ptr, col, val, *, edge_chunk_size=None):
     step = edge_chunk_size or max(e, 1)
     for lo in range(0, e, step):
         hi = min(e, lo + step)
-        msg = x[col[lo:hi].long()] * val[lo:hi, None]
+        msg = x[col[lo:hi].long()].float() * val[lo:hi, None]
         out.index_add_(0, row[lo:hi], msg)
-    return out
+    return out.to(x.dtype)
 
 
 def csr_spmm_abs(x, row_ptr, col, val, *, edge_chunk_size=None):
-    """[R, W] float32: ``Σ |val[e]·x[col[e]]|`` over the edges of row r,
-    the scale of float32's rounding of K1's sums (the "spmm" kind of
+    """[R, W] of x's dtype: ``Σ |val[e]·x[col[e]]|`` over the edges of row
+    r, the scale of float32's rounding of K1's sums (the "spmm" kind of
     ``kernels/tolerance.py``)."""
     return csr_spmm_plain(x.abs(), row_ptr, col, val.abs(),
                           edge_chunk_size=edge_chunk_size)
@@ -220,9 +232,9 @@ def csr_spmm_abs(x, row_ptr, col, val, *, edge_chunk_size=None):
 def _check(x, row_ptr, col, val):
     if x.dim() != 2:
         raise ValueError(f"x must be [rows, W], got {tuple(x.shape)}")
-    if x.dtype != torch.float32 or val.dtype != torch.float32:
-        raise TypeError(f"csr_spmm takes float32 x and values, got {x.dtype}, "
-                        f"{val.dtype}")
+    if x.dtype not in _DTYPES or val.dtype != torch.float32:
+        raise TypeError(f"csr_spmm takes float32 or bfloat16 x and float32 "
+                        f"values, got {x.dtype}, {val.dtype}")
     if row_ptr.dtype != torch.int32 or col.dtype != torch.int32:
         raise TypeError(f"csr_spmm takes int32 row_ptr and col, got "
                         f"{row_ptr.dtype}, {col.dtype}")
@@ -235,7 +247,7 @@ def _check(x, row_ptr, col, val):
 
 def csr_spmm(x, row_ptr, col, val, *, split=None, transposed=False,
              edge_chunk_size=None):
-    """K1. x [*, W] float32 → out [R, W] float32 for the CSR
+    """K1. x [*, W] float32 or bfloat16 → out [R, W] of x's dtype for the CSR
     (``row_ptr`` [R+1], ``col`` [E], ``val`` [E]), whose columns index rows
     of x (``build_csr_plan`` checks its indices). ``split`` is the CSR's
     :class:`RowSplit` (the plan's ``split`` or ``t_split``); without one,
@@ -255,18 +267,17 @@ def csr_spmm(x, row_ptr, col, val, *, split=None, transposed=False,
                               edge_chunk_size=edge_chunk_size)
     rows, width = row_ptr.numel() - 1, x.shape[1]
     if col.numel() == 0 or rows == 0 or width == 0:
-        return torch.zeros((rows, width), dtype=torch.float32,
-                           device=x.device)
+        return torch.zeros((rows, width), dtype=x.dtype, device=x.device)
     if split is None:
         split = row_split(row_ptr)
     x, row_ptr = x.contiguous(), row_ptr.contiguous()
     col, val = col.contiguous(), val.contiguous()
-    out = torch.empty((rows, width), dtype=torch.float32, device=x.device)
+    out = torch.empty((rows, width), dtype=x.dtype, device=x.device)
     ws = torch.empty((split.num_segments, width), dtype=torch.float32,
                      device=x.device)
     rc = load_library().csr_spmm(
         row_ptr.data_ptr(), col.data_ptr(), val.data_ptr(), x.data_ptr(),
-        out.data_ptr(), rows, width, split.threshold,
+        out.data_ptr(), rows, width, _DTYPES[x.dtype], split.threshold,
         *(t.data_ptr() for t in split.tensors()), split.num_heavy,
         split.num_segments,
         None if split.counts is None else split.counts.data_ptr(),

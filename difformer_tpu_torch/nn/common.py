@@ -1,4 +1,4 @@
-"""Shared building blocks, as ``difformer_tpu/nn/common.py:13-51``."""
+"""Shared building blocks, as ``difformer_tpu/nn/common.py:13-62``."""
 
 from __future__ import annotations
 
@@ -7,6 +7,22 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in the input's dtype, as the JAX
+    package's ``TorchLinear`` (``x @ kernel.astype(x.dtype) +
+    bias.astype(y.dtype)``): the parameters stay float32 and the gradient
+    flows through the cast to them. At the parameters' own dtype it is
+    ``nn.Linear``'s one fused product."""
+
+    def forward(self, x):
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        y = F.linear(x, self.weight.to(x.dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return y
 
 
 class LayerNorm(nn.LayerNorm):
@@ -31,3 +47,43 @@ def dropout(x, p: float, training: bool,
         return x
     keep = torch.rand(x.shape, device=x.device, generator=generator) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+class TorchBatchNorm(nn.Module):
+    """The baseline zoo's BatchNorm over the node axis, as the JAX package's
+    ``TorchBatchNorm`` and ``nn/gnns.py:_BN`` (flax ``nn.BatchNorm``, eps
+    1e-5, momentum 0.1 in torch's convention): in training it normalises
+    by the batch's mean and biased variance and moves the running
+    statistics 0.1 of the way to them; in evaluation it uses the running
+    statistics. As flax does, the running variance takes the biased batch
+    variance (``nn.BatchNorm1d`` would take the unbiased one). Parameters
+    ``weight``/``bias`` and buffers ``running_mean``/``running_var`` carry
+    flax's ``scale``/``bias`` and ``batch_stats`` ``mean``/``var``."""
+
+    def __init__(self, num_features, eps=1e-5, momentum=0.1):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def reset_parameters(self):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x):
+        if self.training:
+            mean = x.mean(0)
+            var = (x - mean).square().mean(0)
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * scale + self.bias

@@ -23,7 +23,18 @@ linear graph branch; with a value projection, Wv is factored through the
 key aggregates) and ``spmm_first`` (the graph branch as (ÂX)·Wv, gathering
 F+1-wide rows instead of H·D). The model's forward takes the graph's CSR
 plan (``GraphData.csr_plan()``) and builds one per call without it.
-``compute_dtype``, ``remat``, ``axis_name``, ``ell`` and ``halo`` raise
+
+``compute_dtype="bfloat16"`` runs the activations in bf16 with the
+parameters in f32, as the JAX package: the input is cast once, every Linear
+computes in the activations' dtype (``nn/common.py:Linear``), LayerNorm
+keeps f32 statistics, K1 and K2–K4 take bf16 and sum in f32, and the
+logits come back as f32. ``remat=True`` recomputes in the backward what the
+JAX package wraps in ``jax.checkpoint``: the simple attention (plain and
+factored), the ``spmm_first`` branch and the plain graph branch, through
+``torch.utils.checkpoint`` (non-reentrant, no RNG state: no random number
+is drawn inside them; dropout is outside). A region that keeps no tensor
+for its backward (the plain graph branch: K1's backward needs only the
+plan) has nothing to recompute. ``axis_name``, ``ell`` and ``halo`` raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -33,8 +44,9 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from difformer_tpu_torch.nn.common import LayerNorm, dropout
+from difformer_tpu_torch.nn.common import LayerNorm, Linear, dropout
 from difformer_tpu_torch.nn.init import torch_linear_init_
 from difformer_tpu_torch.ops.graph_ops import build_csr_plan, gcn_conv
 from difformer_tpu_torch.ops.linear_attention import (
@@ -48,8 +60,6 @@ from difformer_tpu_torch.ops.sigmoid_attention import (
 from difformer_tpu_torch.utils.device import resolve_device
 
 _NOT_PORTED = {
-    "compute_dtype": "bf16 compute_dtype, ROADMAP.md queue A item 3",
-    "remat": "ROADMAP.md queue A item 3",
     "ell": "TPU-shaped sparse layouts, ROADMAP.md queue A item 9 (slice 8)",
     "halo": "the parallel layer, ROADMAP.md queue A item 10 (slice 9)",
     "axis_name": "the parallel layer, ROADMAP.md queue A item 10 (slice 9)",
@@ -67,13 +77,29 @@ def _check_kernel(kernel):
         raise ValueError(f"unknown kernel {kernel!r}")
 
 
-def _check_options(compute_dtype, remat, axis_name):
-    if compute_dtype is not None:
-        raise _not_ported("compute_dtype")
-    if remat:
-        raise _not_ported("remat")
+def _check_options(axis_name):
     if axis_name is not None:
         raise _not_ported("axis_name")
+
+
+def _dtype(compute_dtype):
+    """``compute_dtype`` (None, a name as the JAX package takes it, or a
+    torch dtype) as a torch dtype or None."""
+    if compute_dtype is None or isinstance(compute_dtype, torch.dtype):
+        return compute_dtype
+    dtype = getattr(torch, str(compute_dtype), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+    return dtype
+
+
+def _remat(fn, on):
+    """``fn``, recomputed in the backward when ``on`` (the JAX package's
+    ``jax.checkpoint``)."""
+    if not on:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
 
 
 def _check_call(ell, halo):
@@ -93,12 +119,13 @@ class DIFFormerConv(nn.Module):
     ``spmm_first`` (False | True | "auto"): the graph branch as
     (ÂX)·Wv + (Â1)·bᵀ over [x, 1] rows of width F+1; "auto" turns it on
     when H·D ≥ 2·(F+1). It needs ``use_graph`` and ``use_weight`` and no
-    ``output_attn``."""
+    ``output_attn``. ``remat`` recomputes the JAX package's checkpointed
+    regions in the backward (the module's docstring)."""
 
     def __init__(self, in_channels, out_channels, num_heads=1,
                  kernel="simple", use_graph=True, use_weight=True,
                  graph_weight=-1.0, use_source=False, spmm_first=False,
-                 fuse_head_mean="auto"):
+                 fuse_head_mean="auto", remat=False):
         super().__init__()
         _check_kernel(kernel)
         self.out_channels = out_channels
@@ -110,10 +137,11 @@ class DIFFormerConv(nn.Module):
         self.use_source = use_source
         self.spmm_first = spmm_first
         self.fuse_head_mean = fuse_head_mean
+        self.remat = remat
         width = out_channels * num_heads
-        self.Wq = nn.Linear(in_channels, width)
-        self.Wk = nn.Linear(in_channels, width)
-        self.Wv = nn.Linear(in_channels, width) if use_weight else None
+        self.Wq = Linear(in_channels, width)
+        self.Wk = Linear(in_channels, width)
+        self.Wv = Linear(in_channels, width) if use_weight else None
 
     def reset_parameters(self, generator: torch.Generator):
         for lin in (self.Wq, self.Wk, self.Wv):
@@ -146,6 +174,7 @@ class DIFFormerConv(nn.Module):
         if fuse_mean and self.use_weight:
             wv_k3 = self.Wv.weight.t().reshape(-1, H, D)    # [F, H, D]
             wv_b2 = self.Wv.bias.reshape(H, D)              # [H, D]
+        ckpt = lambda fn: _remat(fn, self.remat)  # noqa: E731
 
         attn = None
         if self.kernel == "simple":
@@ -154,13 +183,17 @@ class DIFFormerConv(nn.Module):
                     query, key, value, key_mask=node_mask,
                     num_queries=num_nodes_global, output_attn=True)
             elif factored:
-                attention_output = simple_attention_head_mean_factored(
-                    query, key, source_input, wv_k3, wv_b2,
-                    key_mask=node_mask, num_queries=num_nodes_global)
+                attention_output = ckpt(
+                    lambda q, k, xx, w, b: simple_attention_head_mean_factored(
+                        q, k, xx, w, b, key_mask=node_mask,
+                        num_queries=num_nodes_global))(
+                    query, key, source_input, wv_k3, wv_b2)
             else:
-                attention_output = simple_attention(
-                    query, key, value, key_mask=node_mask,
-                    num_queries=num_nodes_global, head_mean=fuse_mean)
+                attention_output = ckpt(
+                    lambda q, k, v: simple_attention(
+                        q, k, v, key_mask=node_mask,
+                        num_queries=num_nodes_global,
+                        head_mean=fuse_mean))(query, key, value)
         elif output_attn:
             attention_output, attn = sigmoid_attention_dense(
                 query, key, value, key_mask=node_mask, output_attn=True)
@@ -184,28 +217,35 @@ class DIFFormerConv(nn.Module):
         if self.use_graph:
             if spmm_first:
                 ones = source_input.new_ones((source_input.shape[0], 1))
-                u = conv(torch.cat([source_input, ones], -1)[:, None, :])[:, 0]
-                u_x, rowsum = u[:, :-1], u[:, -1:]       # ÂX, Â1
-                if fuse_mean:
-                    # the head mean folded into the projection:
-                    # mean_h((ÂX)W_h + r·b_h) = (ÂX)·W̄ + r·b̄
-                    graph_output = (u_x @ wv_k3.mean(1)
-                                    + rowsum * wv_b2.mean(0))
-                else:
+                x_aug = torch.cat([source_input, ones], -1)[:, None, :]
+
+                def branch(x_aug, *weights):
+                    u = conv(x_aug)[:, 0]
+                    u_x, rowsum = u[:, :-1], u[:, -1:]   # ÂX, Â1
+                    if fuse_mean:
+                        # the head mean folded into the projection:
+                        # mean_h((ÂX)W_h + r·b_h) = (ÂX)·W̄ + r·b̄
+                        k3, b2 = weights
+                        return (u_x @ k3.mean(1).to(u.dtype)
+                                + rowsum * b2.mean(0).to(u.dtype))
                     # Wv(ÂX) carries +b once; (ÂX)W + (Â1)bᵀ needs (r−1)·b
-                    graph_output = (self.Wv(u_x) + (rowsum - 1.0)
-                                    * self.Wv.bias).reshape(-1, H, D)
+                    return (self.Wv(u_x) + (rowsum - 1.0)
+                            * self.Wv.bias.to(u.dtype)).reshape(-1, H, D)
+
+                weights = (wv_k3, wv_b2) if fuse_mean else ()
+                graph_output = ckpt(branch)(x_aug, *weights)
             else:
                 # the conv is linear per channel, so the head mean commutes
                 # with it: conv the head-averaged value ([N, 1, D])
                 if factored:
-                    conv_in = (source_input @ wv_k3.mean(1)
-                               + wv_b2.mean(0))[:, None, :]
+                    dt = source_input.dtype
+                    conv_in = (source_input @ wv_k3.mean(1).to(dt)
+                               + wv_b2.mean(0).to(dt))[:, None, :]
                 elif fuse_mean:
                     conv_in = value.mean(1, keepdim=True)
                 else:
                     conv_in = value
-                graph_output = conv(conv_in)
+                graph_output = ckpt(conv)(conv_in)
                 if fuse_mean:
                     graph_output = graph_output[:, 0]           # [N, D]
             if self.graph_weight > 0:
@@ -229,7 +269,8 @@ class DIFFormer(nn.Module):
     """Full DIFFormer model (reference ``DIFFormer``, difformer.py:147-226).
 
     Parameters are drawn from ``torch.Generator().manual_seed(seed)`` and
-    placed on ``device`` (the GPU unless told otherwise).
+    placed on ``device`` (the GPU unless told otherwise); they stay float32
+    under ``compute_dtype`` (the module's docstring).
     ``forward(..., generator=g)`` draws the dropout masks from ``g``;
     ``forward(..., plan=graph.csr_plan())`` runs every layer's graph branch
     on that plan (which replaces senders, receivers, edge_weight and
@@ -244,15 +285,17 @@ class DIFFormer(nn.Module):
                  seed=0, device=None):
         super().__init__()
         _check_kernel(kernel)
-        _check_options(compute_dtype, remat, axis_name)
+        _check_options(axis_name)
         dev = resolve_device(device)
+        self.compute_dtype = _dtype(compute_dtype)
+        self.remat = remat
         self.num_layers = num_layers
         self.alpha = alpha
         self.dropout = dropout
         self.use_bn = use_bn
         self.use_residual = use_residual
-        self.fcs = nn.ModuleList([nn.Linear(in_channels, hidden_channels),
-                                  nn.Linear(hidden_channels, out_channels)])
+        self.fcs = nn.ModuleList([Linear(in_channels, hidden_channels),
+                                  Linear(hidden_channels, out_channels)])
         self.bns = nn.ModuleList(
             [LayerNorm(hidden_channels) for _ in range(num_layers + 1)]
             if use_bn else [])
@@ -262,11 +305,20 @@ class DIFFormer(nn.Module):
                           use_graph=use_graph, use_weight=use_weight,
                           graph_weight=graph_weight, use_source=use_source,
                           spmm_first=spmm_first,
-                          fuse_head_mean=fuse_head_mean)
+                          fuse_head_mean=fuse_head_mean, remat=remat)
             for _ in range(num_layers)
         ])
         self.reset_parameters(torch.Generator().manual_seed(seed))
         self.to(dev)
+
+    @staticmethod
+    def build_plan(senders, receivers, num_nodes, edge_weight=None,
+                   edge_mask=None):
+        """The graph's plan for :meth:`forward`'s ``plan``: the CSR plan of
+        its GCN branch (``ops/graph_ops.py:build_csr_plan``), built once
+        per graph by a caller that runs many forwards on it."""
+        return build_csr_plan(senders, receivers, num_nodes, edge_weight,
+                              edge_mask)
 
     def reset_parameters(self, generator: torch.Generator):
         """Redraw every Linear from ``generator``; LayerNorms to (1, 0)."""
@@ -285,8 +337,13 @@ class DIFFormer(nn.Module):
         _check_call(ell, halo)
         drop = lambda h: dropout(h, self.dropout, self.training, generator)
         if plan is None and self.convs and self.convs[0].use_graph:
-            plan = build_csr_plan(senders, receivers, x.shape[0],
-                                  edge_weight, edge_mask)
+            plan = self.build_plan(senders, receivers, x.shape[0],
+                                   edge_weight, edge_mask)
+        if self.compute_dtype is not None:
+            # bf16 activations; the reductions that need f32 (Frobenius
+            # norms, attention denominators, LayerNorm statistics, K1's
+            # sums) take it inside
+            x = x.to(self.compute_dtype)
 
         # input block (difformer.py:188-192)
         x = self.fcs[0](x)
@@ -316,6 +373,8 @@ class DIFFormer(nn.Module):
             prev = x
 
         x_out = self.fcs[1](x)
+        if self.compute_dtype is not None:
+            x_out = x_out.float()   # logits and loss in f32
         if output_attn:
             return x_out, torch.stack(attentions, dim=0)
         return x_out

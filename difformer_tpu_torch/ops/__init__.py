@@ -1,7 +1,9 @@
 from difformer_tpu_torch.ops.graph_ops import (  # noqa: F401
     CsrPlan,
     build_csr_plan,
+    build_spmm_plan,
     gcn_conv,
+    gcn_norm,
     spmm,
 )
 from difformer_tpu_torch.ops.linear_attention import (  # noqa: F401

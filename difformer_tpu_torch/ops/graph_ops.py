@@ -1,4 +1,4 @@
-"""Graph convolution, as ``difformer_tpu/ops/graph_ops.py:23-125, 224-236``.
+"""Graph convolution, as ``difformer_tpu/ops/graph_ops.py:23-125, 176-236``.
 
 The reference (``node classification/difformer.py:63-79``) builds the
 normalised adjacency transposed, so each edge (s, r) adds
@@ -15,7 +15,11 @@ graph's indices, ``edge_weight`` and ``edge_mask``, so a caller that runs
 many convolutions on one graph builds it once (``GraphData.csr_plan()``)
 and passes it; without one, each call builds its own, with a sort and a
 degree pass. ``spmm`` takes its values from the caller and sorts its edges
-on every call.
+on every call, unless given the plan of :func:`build_spmm_plan`, which a
+caller that multiplies by one sparse matrix many times (DConv's hops,
+GCNLayer) builds once. :func:`gcn_norm` gives the baseline models' PyG
+normalisation with self-loops. Both products run at x's dtype, float32 or
+bfloat16 (K1 sums in float32 at either).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from difformer_tpu_torch.kernels.spmm import CsrSpmm, RowSplit, row_split
@@ -157,8 +162,9 @@ def _csr_product(x, plan, edge_chunk_size):
 def gcn_conv(x, senders, receivers, edge_weight=None, *, num_nodes=None,
              edge_mask=None, indices_are_sorted=False, edge_chunk_size=None,
              plan: Optional[CsrPlan] = None):
-    """``out[r] += value · x[s]`` over every edge, for float32 x of any
-    trailing shape (e.g. [N, H, D]: all heads in one product), through K1.
+    """``out[r] += value · x[s]`` over every edge, for float32 or bfloat16
+    x of any trailing shape (e.g. [N, H, D]: all heads in one product),
+    through K1.
 
     ``edge_mask`` marks real edges; padded edges point at a valid node and
     are zeroed. ``indices_are_sorted`` is accepted as in the JAX package;
@@ -177,13 +183,64 @@ def gcn_conv(x, senders, receivers, edge_weight=None, *, num_nodes=None,
     return _csr_product(x, plan, edge_chunk_size)
 
 
+def build_spmm_plan(values, senders, receivers, num_nodes) -> CsrPlan:
+    """The :class:`CsrPlan` of the sparse matrix with ``out[r] +=
+    values[e] · x[s]`` over edges (senders, receivers), in any order, for
+    :func:`spmm`'s ``plan``. The values are data (no gradient). Checks the
+    indices as :func:`build_csr_plan` does."""
+    senders, receivers = _checked_edges(senders, receivers, num_nodes)
+    return _plan(senders, receivers, num_nodes, values.detach().float())
+
+
 def spmm(values, senders, receivers, x, num_nodes=None, *,
-         indices_are_sorted=False):
+         indices_are_sorted=False, plan: Optional[CsrPlan] = None):
     """Generic sparse @ dense: ``out[r] += values[e] · x[s]`` (COO), through
-    K1 with the caller's values, which get no gradient. Each call sorts the
-    edges into the two CSRs it needs."""
+    K1 with the caller's values, which get no gradient. Without ``plan``
+    each call sorts the edges into the two CSRs it needs; with the plan of
+    :func:`build_spmm_plan` (which then replaces values, senders and
+    receivers) it sorts nothing."""
     del indices_are_sorted
-    n = x.shape[0] if num_nodes is None else num_nodes
-    senders, receivers = _checked_edges(senders, receivers, n)
-    plan = _plan(senders, receivers, n, values.detach().float())
+    if plan is None:
+        n = x.shape[0] if num_nodes is None else num_nodes
+        plan = build_spmm_plan(values, senders, receivers, n)
     return _csr_product(x, plan, None)
+
+
+def weighted_degree(index, weight, num_nodes):
+    """``segment_sum(weight, index, num_nodes)`` (float32 on ``index``'s
+    device), summed on the host in float64 in edge order, so that a plan is
+    the same bit for bit at every build: ``index_add_`` on CUDA adds float
+    weights with atomics in no fixed order. (Unit weights need no such
+    care: their sums are exact integers.) For plan building, once per
+    graph."""
+    deg = np.bincount(index.detach().cpu().numpy(),
+                      weights=weight.detach().double().cpu().numpy(),
+                      minlength=num_nodes)
+    return torch.as_tensor(deg.astype(np.float32), device=index.device)
+
+
+def gcn_norm(senders, receivers, num_nodes, edge_weight=None, *,
+             add_self_loops=True, fill_value=1.0):
+    """PyG ``gcn_norm``, as the JAX package's (``graph_ops.py:177-201``):
+    (senders, receivers, values) with a self-loop of weight ``fill_value``
+    appended on every node (``add_self_loops``), and
+    ``value = deg^-1/2[s] · w · deg^-1/2[r]`` with the weighted degrees
+    counted over receivers (:func:`weighted_degree`), 0 where a degree is
+    0. The edges are int64 and the values float32 on the edges' device."""
+    senders, receivers = senders.long(), receivers.long()
+    if edge_weight is None:
+        edge_weight = torch.ones(senders.shape, dtype=torch.float32,
+                                 device=senders.device)
+    edge_weight = edge_weight.float()
+    if add_self_loops:
+        loop = torch.arange(num_nodes, device=senders.device)
+        senders = torch.cat([senders, loop])
+        receivers = torch.cat([receivers, loop])
+        edge_weight = torch.cat([edge_weight, torch.full(
+            (num_nodes,), fill_value, dtype=torch.float32,
+            device=senders.device)])
+    deg = weighted_degree(receivers, edge_weight, num_nodes)
+    inv_sqrt = torch.where(deg > 0, torch.rsqrt(deg.clamp(min=1e-30)),
+                           torch.zeros_like(deg))
+    norm = inv_sqrt[senders] * edge_weight * inv_sqrt[receivers]
+    return senders, receivers, norm

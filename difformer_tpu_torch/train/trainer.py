@@ -206,7 +206,7 @@ class FullBatchTrainer:
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.graph = graph.to(self.device)
-        self.plan = self.graph.csr_plan()
+        self.plan = self._build_plan()
         self.lr = lr
         self.weight_decay = weight_decay
         self.seed = seed
@@ -222,6 +222,19 @@ class FullBatchTrainer:
         #: The :class:`EpochRunner` of the last epoch-block run, with its
         #: graphs and their launch counts (None before one).
         self.epoch_runner = None
+
+    def _build_plan(self):
+        """The graph's plan for the model: DIFFormer's GCN plan, kept on
+        the graph (``GraphData.csr_plan()``), or the plan of another
+        model's ``build_plan`` (the temporal models on the node task, as
+        the JAX command line runs them)."""
+        from difformer_tpu_torch.nn.difformer import DIFFormer
+
+        if isinstance(self.model, DIFFormer):
+            return self.graph.csr_plan()
+        g = self.graph
+        return self.model.build_plan(g.senders, g.receivers, g.num_nodes,
+                                     g.edge_weight, g.edge_mask)
 
     # -- state ---------------------------------------------------------------
     def init_state(self, run: int = 0, init_params=None) -> TrainState:

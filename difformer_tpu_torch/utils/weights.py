@@ -12,6 +12,25 @@ DIFFormer names its parameters as the reference's ``state_dict`` does
 so the JAX package's flax params (as numpy) become the port's
 ``state_dict`` and back. Linear weights are transposed: torch ``[out, in]``,
 flax kernel ``[in, out]``.
+
+The temporal models (``nn/temporal.py``) carry the JAX package's names
+(``difformer_tpu/nn/temporal.py``), :func:`temporal_state_dict_from_params`
+and :func:`temporal_params_from_state_dict`:
+
+    weight, bias                          DConv [2, K, in, out], [out]
+    conv_x_{z,r,h}.{weight,bias}          DCRNN's DConvs
+    output_linear.{weight,bias}           DCRNN's head   <-> kernel, bias
+    conv_{1,2}.lin.weight, .bias          GCNLayer       <-> TorchLinear_0
+                                                             kernel, bias
+    bn_{1,2}.{weight,bias}                TorchBatchNorm <-> BatchNorm_0
+    bn_{1,2}.running_{mean,var}           its batch_stats (mean, var)
+    lstm_{1,2}.weight_ih, weight_hh,      LSTMCell       <-> flax
+        bias_hh, bias_ih                  OptimizedLSTMCell ii/if/ig/io
+                                          (no bias) and hi/hf/hg/ho
+    head.{weight,bias}                    MPNN-LSTM's head
+
+LSTM gates stack in torch's order i, f, g, o; flax's cell has no input
+bias, so ``bias_ih`` is zero.
 """
 
 from __future__ import annotations
@@ -91,11 +110,115 @@ def torch_state_dict_from_params(params) -> dict:
     return sd
 
 
-def load_params(model: torch.nn.Module, params) -> None:
+_GATES = ("i", "f", "g", "o")  # torch's order of the LSTM's gate blocks
+
+
+def temporal_state_dict_from_params(params, batch_stats=None) -> dict:
+    """A temporal model's flax params (and ``batch_stats``, MPNN-LSTM's
+    BatchNorm statistics) -> the port's ``state_dict`` of numpy arrays."""
+    sd = {}
+
+    def walk(prefix, sub):
+        for mod, p in sub.items():
+            key = f"{prefix}{mod}"
+            if not isinstance(p, dict):
+                sd[key] = _np(p)                          # DConv weight/bias
+            elif mod.startswith("lstm_"):
+                sd[f"{key}.weight_ih"] = np.concatenate(
+                    [_np(p[f"i{g}"]["kernel"]).T for g in _GATES])
+                sd[f"{key}.weight_hh"] = np.concatenate(
+                    [_np(p[f"h{g}"]["kernel"]).T for g in _GATES])
+                sd[f"{key}.bias_hh"] = np.concatenate(
+                    [_np(p[f"h{g}"]["bias"]) for g in _GATES])
+                sd[f"{key}.bias_ih"] = np.zeros_like(sd[f"{key}.bias_hh"])
+            elif "TorchLinear_0" in p:                    # GCNLayer
+                sd[f"{key}.lin.weight"] = _np(
+                    p["TorchLinear_0"]["kernel"]).T.copy()
+                sd[f"{key}.bias"] = _np(p["bias"])
+            elif "BatchNorm_0" in p:
+                sd[f"{key}.weight"] = _np(p["BatchNorm_0"]["scale"])
+                sd[f"{key}.bias"] = _np(p["BatchNorm_0"]["bias"])
+            elif "kernel" in p:                           # TorchLinear
+                sd[f"{key}.weight"] = _np(p["kernel"]).T.copy()
+                sd[f"{key}.bias"] = _np(p["bias"])
+            else:                                         # a DConv
+                walk(f"{key}.", p)
+
+    walk("", params)
+    for mod, sub in (batch_stats or {}).items():
+        stats = sub["BatchNorm_0"]
+        sd[f"{mod}.running_mean"] = _np(stats["mean"])
+        sd[f"{mod}.running_var"] = _np(stats["var"])
+    return sd
+
+
+def temporal_params_from_state_dict(state_dict):
+    """The inverse of :func:`temporal_state_dict_from_params`: (params,
+    batch_stats) of numpy arrays (batch_stats empty for a model without
+    BatchNorm)."""
+    params, stats = {}, {}
+
+    def leaf(path, value):
+        node = params
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = value
+
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    for key, arr in sd.items():
+        parts = key.split(".")
+        mod = parts[0]
+        if len(parts) == 1:
+            leaf(parts, arr)                              # DConv weight/bias
+        elif mod.startswith("lstm_"):
+            if parts[1] == "bias_ih":
+                continue
+            blocks = np.split(arr, 4)
+            for g, block in zip(_GATES, blocks):
+                if parts[1] == "weight_ih":
+                    leaf([mod, f"i{g}", "kernel"], block.T.copy())
+                elif parts[1] == "weight_hh":
+                    leaf([mod, f"h{g}", "kernel"], block.T.copy())
+                else:
+                    leaf([mod, f"h{g}", "bias"], block)
+        elif mod.startswith("conv_") and parts[1] == "lin":
+            leaf([mod, "TorchLinear_0", "kernel"], arr.T.copy())
+        elif mod.startswith("bn_"):
+            if parts[1].startswith("running_"):
+                name = "mean" if parts[1] == "running_mean" else "var"
+                stats.setdefault(mod, {}).setdefault("BatchNorm_0", {})[
+                    name] = arr
+            else:
+                leaf([mod, "BatchNorm_0",
+                      "scale" if parts[1] == "weight" else "bias"], arr)
+        elif mod.startswith("conv_x_") or (mod.startswith("conv_")
+                                           and parts[1] == "bias"):
+            leaf(parts, arr)                              # DConv, GCN bias
+        elif parts[1] == "weight":
+            leaf([mod, "kernel"], arr.T.copy())           # TorchLinear
+        else:
+            leaf([mod, "bias"], arr)
+    return params, stats
+
+
+def _is_temporal(model):
+    from difformer_tpu_torch.nn.temporal import DCRNN, MPNNLSTM, DConv
+
+    return isinstance(model, (DConv, DCRNN, MPNNLSTM))
+
+
+def load_params(model: torch.nn.Module, params, batch_stats=None) -> None:
     """Load a flax params tree (numpy or JAX arrays) into the port's model,
-    on the model's device."""
-    sd = torch_state_dict_from_params(params)
-    model.load_state_dict({k: torch.from_numpy(np.array(v))
+    on the model's device: DIFFormer's, or a temporal model's with its
+    ``batch_stats`` (the model's own running statistics are kept when
+    None)."""
+    if _is_temporal(model):
+        sd = temporal_state_dict_from_params(params, batch_stats)
+        own = model.state_dict()
+        sd = {k: sd[k] if k in sd else own[k] for k in own}
+    else:
+        sd = torch_state_dict_from_params(params)
+    model.load_state_dict({k: torch.from_numpy(np.array(_np(v)))
                            for k, v in sd.items()})
 
 

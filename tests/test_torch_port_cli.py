@@ -222,13 +222,13 @@ def test_bce_datasets_use_bce(monkeypatch, tmp_path):
 @pytest.mark.parametrize("extra,item", [
     (["--method", "gcn"], 8), (["--method", "gat"], 8),
     (["--method", "lp"], 8), (["--method", "multilp"], 8),
-    (["--method", "manireg"], 8), (["--method", "dcrnn"], 7),
+    (["--method", "manireg"], 8),
     (["--n_shards", "2"], 10),
     (["--use_minibatch", "true", "--n_shards", "2"], 10),
     (["--spmm", "ell"], 9), (["--spmm", "bsr"], 9),
     (["--spmm", "bsr-sorted"], 9), (["--spmm", "auto"], 9),
-    (["--use_ell", "true"], 9), (["--task", "temporal"], 7),
-    (["--task", "graph"], 6), (["--dataset", "chickenpox"], 7),
+    (["--use_ell", "true"], 9),
+    (["--task", "graph"], 6),
     (["--dataset", "actstrack"], 6),
     (["--dataset", "pokec", "--method", "gcn"], 8),
 ])

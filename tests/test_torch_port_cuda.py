@@ -1049,3 +1049,194 @@ def test_minibatch_trainer_matches_cpu(cuda):
     np.testing.assert_allclose(res[0]["losses"], res[1]["losses"], **GRAD)
     for k in ("train", "valid", "test"):
         np.testing.assert_allclose(res[0][k], res[1][k], atol=2e-3)
+
+
+# --- K1 at bf16, compute_dtype and remat in the CUDA-graph fits -------------
+
+BF16_SPMM_SHAPES = [("cora", 64), ("cora", 65), ("cora", 8), ("cora", 1),
+                    ("ragged", 48), ("hubs", 64), ("hubs", 65), ("hubs", 8),
+                    ("hubs", 136)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,width", BF16_SPMM_SHAPES)
+def test_spmm_kernel_matches_plain_at_bf16(cuda, kind, width):
+    """bf16 x and out (8 values a lane where W % 8 == 0, scalar loads
+    otherwise), f32 sums, one rounding: the plain version rounds the f32
+    sum once too, so the two differ by the two f32 sums' difference (the
+    "spmm" rule's 1e-5 of the row's sum of |w·x|) and one bf16 step (2⁻⁷
+    of the value at most) where they straddle a rounding boundary; one
+    call counted in each direction, two calls bit-equal."""
+    plan = _spmm_plan(cuda, kind)
+    x = torch.randn((plan.num_nodes, width),
+                    generator=torch.Generator().manual_seed(width)).to(
+        cuda, torch.bfloat16)
+    K1.reset_launch_counts()
+    for name, csr, split in (
+            ("csr_spmm", (plan.row_ptr, plan.col, plan.val), plan.split),
+            ("csr_spmm_transposed", (plan.t_row_ptr, plan.t_col, plan.t_val),
+             plan.t_split)):
+        call = lambda: K1.csr_spmm(  # noqa: E731
+            x, *csr, split=split, transposed=name != "csr_spmm")
+        out = call()
+        torch.cuda.synchronize()
+        ref = K1.csr_spmm_plain(x, *csr)
+        assert out.dtype == torch.bfloat16
+        assert_close(name, out, ref, "spmm")
+        step = (2.0 ** -7 * ref.float().abs()
+                + 1e-5 * K1.csr_spmm_abs(x.float(), *csr))
+        assert torch.all((out.float() - ref.float()).abs() <= step)
+        assert torch.equal(out, call())
+    assert K1.LAUNCHES == {"csr_spmm": 2, "csr_spmm_transposed": 2}
+
+
+@pytest.mark.cuda
+def test_bf16_capacity_launch_matches_exact_launch(cuda):
+    """K1's schedule held at capacity (the mini-batch trainer's chunks),
+    replayed in a CUDA graph at bf16: bit-equal to the exact-count launch
+    on each chunk's own CSRs."""
+    from difformer_tpu_torch import native
+    from difformer_tpu_torch.train import minibatch as M
+
+    chunks = _hub_chunks()
+    edges = [sub.shape[1] for _, sub in chunks]
+    layout = M.ChunkLayout(2500, max(edges) + 1000)
+    buf = torch.zeros(layout.size, dtype=torch.int32, device=cuda)
+    plan = M.chunk_plan(layout, buf)
+    x = torch.randn((2500, 64), device=cuda).to(torch.bfloat16)
+    host = np.zeros(layout.size, np.int32)
+    M.pack_chunk(layout, host, *chunks[0])
+    buf.copy_(torch.from_numpy(host))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K1.csr_spmm(x, plan.row_ptr, plan.col, plan.val, split=plan.split)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = K1.csr_spmm(x, plan.row_ptr, plan.col, plan.val,
+                          split=plan.split)
+    heavy = []
+    for nodes, sub in chunks:
+        heavy.append(M.pack_chunk(layout, host, nodes, sub)[0])
+        buf.copy_(torch.from_numpy(host))
+        graph.replay()
+        ptr, col, val = (torch.as_tensor(a, device=cuda) for a in
+                         native.chunk_csr(sub[0], sub[1], 2500)[:3])
+        torch.cuda.synchronize()
+        assert torch.equal(out, K1.csr_spmm(x, ptr, col, val,
+                                            split=K1.row_split(ptr)))
+    assert any(heavy)
+
+
+OPTIONS = {"bf16": dict(compute_dtype="bfloat16"), "remat": dict(remat=True),
+           "bf16-remat": dict(compute_dtype="bfloat16", remat=True),
+           "remat-spmm-first": dict(remat=True, num_heads=4,
+                                    spmm_first=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+@pytest.mark.parametrize("kernel", ["simple", "sigmoid"])
+def test_options_in_the_epoch_block_fit_match_the_loop(cuda, kernel, option):
+    """bf16 and remat in the epoch-block fit (the step and the eval captured
+    as CUDA graphs, dropout on): the loop's losses bit for bit; remat's
+    checkpoints run under capture without reading the RNG state, and on
+    the spmm_first branch re-run K1's forward once a layer in the
+    backward."""
+    x, ei, y = random_graph(1500, 6000, 32, 5, seed=3, homophily=0.8)
+    ei = standard_preprocess(ei, 1500)
+    split = {k: np.arange(i, 1500, 3) for i, k in enumerate(
+        ("train", "valid", "test"))}
+    res = []
+    for block in (0, 4):
+        g = GraphData.from_numpy(x, ei, device=cuda)
+        m = DIFFormer(32, 32, 5, num_layers=3, kernel=kernel, dropout=0.2,
+                      device=cuda, **OPTIONS[option])
+        trainer = FullBatchTrainer(m, g, y, device=cuda)
+        res.append((trainer.fit(split, epochs=8, epoch_block=block)[0],
+                    trainer))
+    (loop, _), (graph, trainer) = res
+    assert graph["losses"] == loop["losses"]
+    assert all(np.isfinite(graph["losses"]))
+    extra = 3 if option == "remat-spmm-first" else 0
+    launches = trainer.epoch_runner.launches()
+    assert launches["csr_spmm"] == 8 * (3 + extra) + 8 * 3
+    assert launches["csr_spmm_transposed"] == 8 * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", ["bf16", "remat", "bf16-remat"])
+def test_options_in_the_minibatch_graphs_match_the_loop(cuda, option):
+    from difformer_tpu_torch.train.minibatch import MiniBatchTrainer
+
+    x, ei, y = random_graph(2000, 16000, 16, 4, seed=2, homophily=0.8)
+    ei = standard_preprocess(ei, 2000)
+    split = {k: np.arange(i, 2000, 3) for i, k in enumerate(
+        ("train", "valid", "test"))}
+    runs = []
+    for use_scan in (False, True):
+        model = DIFFormer(16, 32, 4, num_layers=2, dropout=0.3, device=cuda,
+                          **OPTIONS[option])
+        trainer = MiniBatchTrainer(model, x, ei, y, batch_size=600,
+                                   use_scan=use_scan, device=cuda)
+        runs.append(trainer.fit(split, epochs=2, eval_step=1)[0])
+    assert runs[0]["chunk_losses"] == runs[1]["chunk_losses"]
+
+
+def _temporal_model(name, cuda):
+    from difformer_tpu_torch.nn.temporal import DCRNN, MPNNLSTM
+
+    if name == "dcrnn":
+        return DCRNN(8, 16, 1, K=3, device=cuda)
+    if name == "mpnn_lstm":
+        return MPNNLSTM(8, 16, 1, 200, 1, dropout=0.2, device=cuda)
+    return DIFFormer(8, 16, 1, num_layers=2, dropout=0.2, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["cumulative", "incremental"])
+@pytest.mark.parametrize("name", ["difformer", "dcrnn", "mpnn_lstm"])
+def test_temporal_graphs_match_the_loop(cuda, name, mode):
+    """The temporal trainer's epochs replayed as CUDA graphs against the
+    per-snapshot loop on weighted edges: the same train, validation and
+    test costs bit for bit (each trainer builds its own plans, whose
+    weighted degrees are summed in a fixed order)."""
+    from difformer_tpu_torch.data.synthetic import random_temporal_sequence
+    from difformer_tpu_torch.train.temporal import (
+        TemporalTrainer,
+        temporal_signal_split,
+    )
+
+    snaps = random_temporal_sequence(200, 40, 8, seed=1)
+    train, rest = temporal_signal_split(snaps, 0.5)
+    val, test = temporal_signal_split(rest, 0.5)
+    res = []
+    for use_scan in (False, True):
+        trainer = TemporalTrainer(_temporal_model(name, cuda), mode=mode,
+                                  use_scan=use_scan, device=cuda)
+        res.append(trainer.fit(train, val, test, epochs=4))
+    assert res[0]["losses"] == res[1]["losses"]
+    assert res[0]["val_costs"] == res[1]["val_costs"]
+    assert res[0]["test"] == res[1]["test"]
+    graphs = trainer.runner.graphs
+    assert {g["replays"] for k, g in graphs.items()
+            if k.startswith("step")} == {4 * len(train)}
+
+
+@pytest.mark.cuda
+def test_temporal_plans_are_the_same_at_every_build(cuda):
+    """DConv's and GCNLayer's plans of a weighted graph, built twice on the
+    card, are bit-equal (index_add_ would sum the weighted degrees in no
+    fixed order)."""
+    from difformer_tpu_torch.nn.temporal import DCRNN, MPNNLSTM
+
+    rng = np.random.default_rng(4)
+    s = torch.as_tensor(rng.integers(0, 3000, 60000), device=cuda)
+    r = torch.as_tensor(rng.integers(0, 3000, 60000), device=cuda)
+    w = torch.as_tensor(rng.random(60000).astype(np.float32), device=cuda)
+    a, b = (DCRNN.build_plan(s, r, 3000, w) for _ in range(2))
+    assert torch.equal(a.fwd.val, b.fwd.val)
+    assert torch.equal(a.rev.val, b.rev.val)
+    a, b = (MPNNLSTM.build_plan(s, r, 3000, w) for _ in range(2))
+    assert torch.equal(a.val, b.val) and torch.equal(a.t_val, b.t_val)

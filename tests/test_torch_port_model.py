@@ -236,12 +236,7 @@ def test_init_is_seeded_and_uniform():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(kernel="simple", compute_dtype="bfloat16"),
-    dict(kernel="simple", remat=True),
     dict(kernel="simple", axis_name="graph"),
-    dict(kernel="simple", num_heads=2, fuse_head_mean=True, remat=True),
-    dict(kernel="sigmoid", compute_dtype="bfloat16"),
-    dict(kernel="sigmoid", remat=True),
     dict(kernel="sigmoid", axis_name="graph"),
 ])
 def test_unsupported_options_raise(kwargs):

@@ -28,7 +28,10 @@ def test_import_loads_no_jax():
         "difformer_tpu_torch.utils.logger, "
         "difformer_tpu_torch.utils.profiling, "
         "difformer_tpu_torch.utils.debug, "
-        "difformer_tpu_torch.train.minibatch, difformer_tpu_torch.native\n"
+        "difformer_tpu_torch.train.minibatch, difformer_tpu_torch.native, "
+        "difformer_tpu_torch.train.temporal, difformer_tpu_torch.nn.temporal, "
+        "difformer_tpu_torch.nn.gnns, "
+        "difformer_tpu_torch.data.temporal_loaders\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'orbax', "
         "'difformer_tpu.')) "
