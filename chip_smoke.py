@@ -95,6 +95,29 @@ non-zero before the last line:
    the per-snapshot loop bit-equal, ms per epoch, the capture's seconds
    and the graphs' kernel nodes.
 
+15. graph-level: the graph-level (particle) track at the actstrack
+   preset's full width (DIFFormer-v2 with the mean-pooling head, hidden
+   64, 2 layers, dropout 0.4, batch 1024) on 4096 stand-in graphs of
+   ActsTrack's processed shapes (100 ± 20 hits, 9 + 3 features, kNN k = 5
+   with self loops on positions on the unit sphere), with each kernel: 3
+   epochs of ``GraphLevelTrainer`` on CUDA graphs and the same 3 in the
+   eager loop, bit-equal; the dense plan, as the probe picks it, with no
+   kernel of the port on that path; ms per steady train step (replayed
+   and eager), graphs per second, ms per epoch with the evals, capture
+   seconds and kernel nodes, idle share, peak memory, and the top kernels
+   of a replayed step.
+16. graph-level-plans: one batch of that stand-in through the three conv
+   plans (dense, gather table, edge list): logits and gradients agree
+   within rtol 1e-4 / atol 1e-5; K1's device kernels in a captured train
+   step on the edge-list plan (4, none split); each plan's conv alone,
+   forward and backward, with K1 against its plain version and cuSPARSE;
+   then one epoch on the edge-list plan, whose K1 launches are the JSON
+   line's "graph-level" rows'.
+17. cli-actstrack: ``python -m difformer_tpu_torch.cli --dataset
+   actstrack`` on a stand-in processed cache of 3000 graphs, cut to 3
+   epochs and 1 run, with each kernel: the cache read (no fallback), fit
+   ms per epoch, test ROC-AUC.
+
 The minibatch-pokec phase also holds K1 as the trainer launches it (the
 chunk's plan packed at a fixed capacity, counts read on the device) on the
 trainer's own chunk with the most segments against its plain version, and
@@ -102,7 +125,9 @@ bit-equal to the exact-count launch, and times it.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. It needs a CUDA device and
-the repository around it; it imports nothing of JAX.
+the repository around it; it imports nothing of JAX. Without ``pandas`` or
+``yaml`` it runs all the same: the graph-level phases read and write the
+processed cache with numpy alone.
 """
 
 from __future__ import annotations
@@ -211,6 +236,30 @@ def cuda_ms(fn, target_ms=100.0, max_iters=50):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def replay_ms(fn, calls=20, reps=5):
+    """Device time in ms of one call of ``fn``, from CUDA events around
+    replays of a CUDA graph of ``calls`` calls (the median of ``reps``): no
+    host time between the calls, and nothing the profiler can drop. ``fn``
+    must be capturable."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times = []
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return sorted(times)[reps // 2]
 
 
 def profile_window(fn, calls, rows=False):
@@ -2299,6 +2348,459 @@ def phase_minibatch_proteins():
     torch.cuda.empty_cache()
 
 
+# the graph-level (particle) track: ActsTrack's shapes (difformer_tpu/data/
+# particle.py:build_actstrack) and the actstrack preset (run.sh:2-6)
+ACTSTRACK_GRAPHS = 4096     # the graph-level phases' stand-in
+ACTSTRACK_CLI_GRAPHS = 3000  # the cli-actstrack phase's processed cache
+ACTSTRACK_BATCH = 1024      # actstrack's run.sh batch
+ACTSTRACK_NODES = 100       # nodes a graph, ±20 %
+ACTSTRACK_OTHER = 9         # other_features; then the 3 of pos
+ACTSTRACK_K = 5             # kNN with self loops on the positions
+ACTSTRACK_SIGNAL = 10       # hits of a signal graph with shifted features
+GRAPH_LEVEL_EPOCHS = 3
+PLAN_RTOL, PLAN_ATOL = 1e-4, 1e-5  # the three conv plans against each other
+
+
+def actstrack_standin(num_graphs, seed=13):
+    """Graphs of ActsTrack's processed shapes: 100 ± 20 hits, features the
+    9 ``other_features`` then the 3 of ``pos`` (``particle.py:194-199,
+    221``), pos on the unit sphere, kNN with k = 5 and self loops on pos;
+    label 1 for half of them, whose first 10 hits have their other
+    features raised by 1 (a signal the model can learn)."""
+    from difformer_tpu_torch.data.transforms import knn_graph
+
+    rng = np.random.default_rng(seed)
+    spread = ACTSTRACK_NODES // 5
+    graphs = []
+    for _ in range(num_graphs):
+        n = ACTSTRACK_NODES + int(rng.integers(-spread, spread + 1))
+        y = float(rng.integers(0, 2))
+        pos = rng.normal(size=(n, 3))
+        pos = (pos / np.linalg.norm(pos, axis=1, keepdims=True)).astype(
+            np.float32)
+        other = rng.normal(size=(n, ACTSTRACK_OTHER)).astype(np.float32)
+        if y:
+            other[:ACTSTRACK_SIGNAL] += 1.0
+        x = np.concatenate([other, pos], axis=1)
+        graphs.append((x, knn_graph(pos, k=ACTSTRACK_K, include_self=True),
+                       y))
+    return graphs
+
+
+def write_actstrack_cache(root, graphs, seed=42):
+    """The processed cache that ``build_actstrack`` reads
+    (``<root>/actstrack/processed/actstrack_2T_processed.npz``), written
+    with the port's ``GraphListDataset.save_cache``, with the split
+    ``build_actstrack`` draws (70/15/15 from ``seed``, the preset's)."""
+    from difformer_tpu_torch.data.particle import GraphListDataset
+    from difformer_tpu_torch.data.splits import get_random_idx_split
+
+    ds = GraphListDataset("actstrack")
+    ds.graphs = list(graphs)
+    ds.extras = [{} for _ in graphs]
+    ds.idx_split = get_random_idx_split(len(graphs), 0.7, 0.15, rng=seed)
+    path = os.path.join(root, "actstrack", "processed",
+                        "actstrack_2T_processed.npz")
+    ds.save_cache(path)
+    return path
+
+
+def graph_level_trainer(graphs, kernel, use_graphs=True,
+                        batch=ACTSTRACK_BATCH):
+    """The actstrack preset's model (DIFFormer-v2, hidden 64, 2 layers,
+    dropout 0.4, mean pooling) and ``GraphLevelTrainer`` (lr 1.5e-3, wd
+    1e-3, ROC-AUC) over ``graphs`` on the card, at ``batch`` graphs a
+    batch."""
+    from difformer_tpu_torch.nn.difformer_v2 import (
+        DIFFormerV2,
+        GraphLevelModel,
+    )
+    from difformer_tpu_torch.train.graph_level import GraphLevelTrainer
+    from difformer_tpu_torch.utils.config import make_config
+
+    cfg = make_config("actstrack", kernel=kernel)
+    enc = DIFFormerV2(
+        graphs[0][0].shape[1], cfg.hidden_channels, cfg.hidden_channels,
+        num_layers=cfg.num_layers, kernel=kernel, alpha=cfg.alpha,
+        dropout=cfg.dropout, use_bn=cfg.use_bn, use_residual=cfg.use_residual,
+        use_weight=cfg.use_weight, use_graph=cfg.use_graph,
+        graph_weight=cfg.graph_weight, device="cuda")
+    model = GraphLevelModel(enc, 1, cfg.graph_pooling, device="cuda")
+    return GraphLevelTrainer(model, graphs, batch_size=batch, lr=cfg.lr,
+                             weight_decay=cfg.weight_decay, metric=cfg.metric,
+                             seed=cfg.seed, use_graphs=use_graphs,
+                             device="cuda")
+
+
+class EpochClock:
+    """A ``fit`` logger: the host clock at every epoch's end (after its
+    evals) and the split metrics."""
+
+    def __init__(self):
+        self.times, self.rows = [], []
+
+    def add_result(self, run, result):
+        torch.cuda.synchronize()
+        self.times.append(time.perf_counter())
+        self.rows.append(result)
+
+
+def graph_level_fit(graphs, split, kernel, use_graphs, epochs):
+    """One run of ``epochs`` epochs: the trainer, its summary, the fit's
+    seconds, the steady ms per epoch (epochs after the first, evals
+    included) and the peak memory above what was held before."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    trainer = graph_level_trainer(graphs, kernel, use_graphs)
+    clock = EpochClock()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    best = trainer.fit(split, epochs=epochs, logger=clock)[0]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    steady = np.diff(clock.times)
+    return dict(trainer=trainer, best=best, fit_s=fit_s,
+                epoch_ms=1e3 * float(steady.mean()) if steady.size else
+                float("nan"), first_ms=1e3 * (clock.times[0] - t0),
+                peak_mib=(torch.cuda.max_memory_allocated() - held) / 2**20,
+                counted=launch_counts())
+
+
+def phase_graph_level(graphs):
+    """The actstrack preset's trainer at full width (batch 1024, hidden 64,
+    2 layers) on the stand-in, with each kernel: 3 epochs on CUDA graphs
+    and the same 3 in the eager loop, whose losses and split metrics must
+    be bit-equal; the dense plan, as the probe picks it at this shape, and
+    no kernel of the port on that path. Steady ms per train step (a replay
+    against an eager step), graphs per second, ms per epoch with the
+    evals, capture seconds and kernel nodes of each graph, the device's
+    idle share and peak memory, and the top kernels of a replayed step."""
+    from difformer_tpu_torch.data.splits import get_random_idx_split
+
+    split = get_random_idx_split(len(graphs), 0.7, 0.15, rng=42)
+    nodes = np.asarray([g[0].shape[0] for g in graphs])
+    say(f"phase graph-level: {len(graphs)} graphs of {nodes.min()}-"
+        f"{nodes.max()} nodes (mean {nodes.mean():.1f}), "
+        f"{graphs[0][0].shape[1]} features, kNN k={ACTSTRACK_K}; split "
+        f"{len(split['train'])}/{len(split['valid'])}/{len(split['test'])}; "
+        f"batch {ACTSTRACK_BATCH}")
+    for kernel in ("simple", "sigmoid"):
+        phase = f"graph-level {kernel}"
+        runs = {path: graph_level_fit(graphs, split, kernel, use, 
+                                      GRAPH_LEVEL_EPOCHS)
+                for path, use in (("graphs", True), ("loop", False))}
+        g, lp = runs["graphs"], runs["loop"]
+        runner = g["trainer"].runner
+        plans = sorted({lay.plan for lay in runner.buffers})
+        say(f"phase {phase}: plans {plans}; losses graphs "
+            f"{g['best']['losses']}; loop {lp['best']['losses']}; best "
+            f"epoch {g['best']['epoch']} ROC-AUC train "
+            f"{g['best']['train']:.4f} valid {g['best']['valid']:.4f} test "
+            f"{g['best']['test']:.4f}")
+        if plans != ["dense"]:
+            raise AssertionError(f"the probe picked {plans}, not the dense "
+                                 f"plan")
+        keys = ("losses", "train", "valid", "test", "epoch")
+        same = all(g["best"][k] == lp["best"][k] for k in keys)
+        say(f"phase {phase}: the loop's losses and split metrics bit-equal "
+            f"to the graphs': {same}")
+        if not same:
+            raise AssertionError(f"graphs {g['best']} != loop {lp['best']}")
+        if not all(np.isfinite(v).all() for v in g["best"]["losses"]):
+            raise AssertionError("non-finite losses")
+        launched = {k: v for k, v in runner.launches().items() if v}
+        if launched or any(g["counted"].values()):
+            raise AssertionError(f"the dense path launched {launched} "
+                                 f"{g['counted']}")
+
+        layout = next(iter(runner.buffers))
+        step = runner.cuda_graphs["step dense"]
+
+        def graph_step():
+            runner.cursor.zero_()
+            step.replay()
+
+        loop_runner = lp["trainer"].runner
+
+        def loop_step():
+            loop_runner.cursor.zero_()
+            loop_runner.run("step", layout)
+
+        graph_ms, loop_ms = cuda_ms(graph_step), cuda_ms(loop_step)
+        (dev_ms, ops), rows = profile_window(graph_step, 10, rows=True)
+        idle = (f"idle {100 * (1 - dev_ms / graph_ms):.1f}%" if ops else
+                "the profiler saw no device operation (idle not measured)")
+        nodes = {name: graph_node_kinds(cg).count(CUDA_GRAPH_NODE_KERNEL)
+                 for name, cg in runner.cuda_graphs.items()}
+        say(f"phase {phase}: steady train step {graph_ms:.3f} ms replayed, "
+            f"{loop_ms:.3f} ms eager ({1e3 * ACTSTRACK_BATCH / graph_ms:.0f} "
+            f"graphs/s replayed, {1e3 * ACTSTRACK_BATCH / loop_ms:.0f} "
+            f"eager); a replayed step: device {dev_ms:.4f} ms over {ops:g} "
+            f"device operations, {idle}")
+        for path, run in runs.items():
+            say(f"phase {phase}: {path}: {run['epoch_ms']:.1f} ms per epoch "
+                f"(3 train and 5 eval batches, host packing included; "
+                f"first epoch {run['first_ms']:.1f} ms with "
+                f"{'the captures' if path == 'graphs' else 'warm-up'}), "
+                f"fit {run['fit_s']:.3f} s; peak memory "
+                f"{run['peak_mib']:.1f} MiB")
+        say(f"phase {phase}: captures {runner.capture_s:.3f} s (warm-up "
+            f"included); kernel nodes {nodes}")
+        for ms, count, key in rows[:GRAPH_TOP]:
+            say(f"phase {phase} replay profile: {ms:9.4f} ms/step "
+                f"{100 * ms / dev_ms:5.1f}% x{count:<5g} {key[:100]}")
+        del runs, g, lp, runner, loop_runner, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _largest_diffs(a, b):
+    """(largest |a − b|, largest |a − b| − rtol·|b|) of two tensors."""
+    d = (a.double() - b.double()).abs()
+    return float(d.max()), float((d - PLAN_RTOL * b.double().abs()).max())
+
+
+def phase_graph_level_plans(graphs):
+    """One batch of the stand-in (1024 graphs) through the three conv
+    plans, dense, table and edge list, with each kernel: logits and every
+    parameter's gradient (eval mode, the BCE loss) against the dense
+    plan's within rtol 1e-4, atol 1e-5. K1's device kernels in one
+    captured train step on the edge-list plan (its launches at capture
+    times its device kernels a call, counted in a CUDA graph of one call):
+    2 layers x (forward + transposed) = 4, none split. Each plan's conv
+    alone, forward and backward, with cuSPARSE beside K1. Then one epoch
+    of the trainer on the edge-list plan, on CUDA graphs, whose K1
+    launches (captured x replays) are the JSON row's. Returns the JSON
+    rows of K1 at this batch and those launches."""
+    from difformer_tpu_torch.data.batching import batch_iterator
+    from difformer_tpu_torch.data.splits import get_random_idx_split
+    from difformer_tpu_torch.kernels import spmm as K1
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+    from difformer_tpu_torch.ops.graph_ops import _table_gather
+    from difformer_tpu_torch.train.graph_level import bce_loss, model_inputs
+    from difformer_tpu_torch.train.trainer import TrainState
+
+    split = get_random_idx_split(len(graphs), 0.7, 0.15, rng=42)
+    modes = {"dense": (None, None), "table": (False, None),
+             "edges": (False, False)}
+    for kernel in ("simple", "sigmoid"):
+        tr = graph_level_trainer(graphs, kernel)
+        batch = next(batch_iterator(graphs, split["train"], tr.batch_size,
+                                    max_nodes=tr.max_nodes,
+                                    max_edges=tr.max_edges))
+        runner = tr._runner(TrainState(tr.model, None, 0), capture=False)
+        got, packed = {}, {}
+        for plan, (dense_mode, knn_mode) in modes.items():
+            tr._dense_mode, tr._knn_mode = dense_mode, knn_mode
+            layout, host, _, _ = tr.pack(batch)
+            if layout.plan != plan:
+                raise AssertionError(f"{plan}: packed {layout}")
+            packed[plan] = layout, host
+            runner.load(layout, host)
+            tr.model.eval()
+            tr.model.zero_grad(set_to_none=True)
+            out, v = runner.forward(layout)
+            bce_loss(out, v["labels"], v["graph_mask"] != 0).backward()
+            got[plan] = (out.detach().clone(), {
+                n: p.grad.detach().clone()
+                for n, p in tr.model.named_parameters()})
+        ref_out, ref_grads = got["dense"]
+        for plan in ("table", "edges"):
+            out, grads = got[plan]
+            worst = [_largest_diffs(out, ref_out)] + [
+                _largest_diffs(grads[n], ref_grads[n]) for n in ref_grads]
+            big = max(w[0] for w in worst)
+            excess = max(w[1] for w in worst)
+            say(f"phase graph-level-plans {kernel}: {plan} plan against the "
+                f"dense plan: logits and {len(ref_grads)} gradients, "
+                f"largest |difference| {big:.3e} (rtol {PLAN_RTOL}, atol "
+                f"{PLAN_ATOL}: largest excess over rtol·|dense| "
+                f"{excess:.3e})")
+            if not excess <= PLAN_ATOL:
+                raise AssertionError(f"{plan} plan differs from the dense "
+                                     f"plan by {excess:.3e} beyond rtol")
+        del got
+    # K1 in one captured train step on the edge-list plan
+    layout, host = packed["edges"]
+    state = tr.init_state(0)
+    cap = tr._runner(state, torch.Generator("cuda").manual_seed(0),
+                     capture=True)
+    cap.load(layout, host)
+    cap.run("step", layout)
+    counts = cap.graphs["step edges"]["captured"]
+    v = cap.inputs[layout]
+    plan = model_inputs(layout, v)["plan"]
+    n, e = plan.num_nodes, int(v["row_ptr"][-1])
+    w = tr.model.encoder.out_channels
+    x = torch.randn((n, w), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    per_call = {}
+    for name, ptr, col, val, sp in (
+            ("csr_spmm", plan.row_ptr, plan.col, plan.val, plan.split),
+            ("csr_spmm_transposed", plan.t_row_ptr, plan.t_col, plan.t_val,
+             plan.t_split)):
+        per_call[name] = graph_kernels(lambda: K1.csr_spmm(
+            x, ptr, col, val, split=sp,
+            transposed=name == "csr_spmm_transposed"))[0]
+    k1_kernels = sum(counts[k] * per_call[k] for k in per_call)
+    step_nodes = graph_node_kinds(cap.cuda_graphs["step edges"]).count(
+        CUDA_GRAPH_NODE_KERNEL)
+    say(f"phase graph-level-plans: a captured train step on the edge-list "
+        f"plan ({step_nodes} kernel nodes) launches K1 "
+        f"{ {k: counts[k] for k in per_call} } times at "
+        f"{per_call} device kernels a call (heavy rows "
+        f"{v['counts'].tolist()}, capacity {layout.heavy}): {k1_kernels} "
+        f"K1 device kernels a step (expected 2 layers x 2 = 4)")
+    if k1_kernels != 4 or any(c != 1 for c in per_call.values()):
+        raise AssertionError(f"K1 device kernels a step {k1_kernels}")
+    del cap, state
+
+    # each plan's conv alone, forward and backward, at H = 1, D = 64
+    B, M = layout.batch_size, layout.max_nodes
+    vals = torch.randn((n, 1, w), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(4))
+    dense_v = packed["dense"][0].views(packed["dense"][1].cuda())
+    table_v = packed["table"][0].views(packed["table"][1].cuda())
+    A = dense_v["dense_adj"]
+    v4 = vals.view(B, M, 1, w)
+    convs = {
+        "dense forward": lambda: torch.einsum("bmn,bnhd->bmhd", A, v4),
+        "dense backward": lambda: torch.einsum("bnm,bnhd->bmhd", A, v4),
+        "table forward": lambda: _table_gather(vals, table_v["idx"],
+                                               table_v["w"]),
+        "table backward": lambda: _table_gather(vals, table_v["ridx"],
+                                                table_v["rw"]),
+    }
+    for label, fn in convs.items():
+        say(f"phase graph-level-plans: conv alone, {label}: "
+            f"{replay_ms(fn):.4f} ms (B={B}, M={M}, W={w}; a CUDA graph of "
+            f"20 calls)")
+    rows = {}
+    for name, ptr, col, val, sp in (
+            ("csr_spmm", plan.row_ptr, plan.col, plan.val, plan.split),
+            ("csr_spmm_transposed", plan.t_row_ptr, plan.t_col, plan.t_val,
+             plan.t_split)):
+        transposed = name == "csr_spmm_transposed"
+        # the plan at capacity: the columns and values past its e edges
+        # are not K1's to read, nor the plain version's and cuSPARSE's
+        kernel = lambda: K1.csr_spmm(  # noqa: E731
+            x, ptr, col, val, split=sp, transposed=transposed)
+        col, val = col[:e], val[:e]
+        plain = lambda: K1.csr_spmm_plain(x, ptr, col, val)  # noqa: E731
+        tag = f"{name} graph-level batch N={n} E={e} W={w}"
+        out, ref = kernel(), plain()
+        scale = K1.csr_spmm_abs(x, ptr, col, val)
+        err = assert_close(tag, out, ref, "spmm", scale=scale)
+        assert_rejects(tag, ref, "spmm", scale=scale)
+        library = library_spmm(ptr, col, val, n)
+        bound, bound_by, nbytes = spmm_bound_ms(
+            n, e, w, x_rows=int(torch.unique(col).numel()))
+        # K1 timed in a CUDA graph of calls (the profiler's sessions drop
+        # kernels of a few microseconds, and the host's launches set the
+        # event time of back-to-back calls); the plain version and cuSPARSE
+        # read the host or allocate, so CUDA events over back-to-back calls
+        ms, plain_ms = replay_ms(kernel), cuda_ms(plain)
+        library_ms = cuda_ms(lambda: library(x))
+        say(f"phase graph-level-plans: K1 {tag} max_abs_err {err:.3e} | "
+            f"kernel {ms:.4f} ms (a CUDA graph of 20 calls; CUDA events "
+            f"{cuda_ms(kernel):.4f} ms, profiler {device_ms(kernel):.4f} "
+            f"ms) | plain {plain_ms:.4f} ms | cuSPARSE {library_ms:.4f} ms "
+            f"(events) | bound {bound:.4f} ms by {bound_by} "
+            f"({nbytes / 1e6:.2f} MB; {100 * bound / ms:.1f}% of the "
+            f"kernel's time; x, {n * w * 4 / 1e6:.1f} MB, may stay in the "
+            f"50 MB L2 between calls)")
+        rows[f"{name} graph-level"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=bound_by, library_ms=library_ms)
+    del convs, dense_v, table_v, A, v4, vals, x, packed
+
+    # one epoch of the trainer on the edge-list plan (K1's main path here)
+    tr = graph_level_trainer(graphs, "simple")
+    tr._dense_mode = tr._knn_mode = False
+    reset_launch_counts()
+    best = tr.fit(split, epochs=1)[0]
+    torch.cuda.synchronize()
+    launches = tr.runner.launches()
+    steps = len(best["losses"][0])
+    evals = sum(-(-len(idx) // tr.batch_size) for idx in split.values())
+    expect = {"csr_spmm": 2 * (steps + evals), "csr_spmm_transposed": 2 * steps}
+    plans = sorted({lay.plan for lay in tr.runner.buffers})
+    say(f"phase graph-level-plans: one epoch on the {plans} plan, CUDA "
+        f"graphs: losses {best['losses'][0]}, ROC-AUC valid "
+        f"{best['valid']:.4f}; K1 replayed {launches} (expected {expect}: "
+        f"2 layers x ({steps} steps + {evals} evals) forward, 2 x {steps} "
+        f"transposed)")
+    if plans != ["edges"] or {k: launches[k] for k in expect} != expect:
+        raise AssertionError(f"edge-list epoch: {plans} {launches}")
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, launches
+
+
+def phase_cli_actstrack(tmp):
+    """``python -m difformer_tpu_torch.cli --dataset actstrack`` on a
+    stand-in processed cache of 3000 graphs (the split build_actstrack
+    writes), cut to 3 epochs and 1 run, with each kernel: the cache read
+    (the dataset's size, no ``[warn]`` line of the synthetic fallback),
+    the batch clamped to 64 as the JAX command line clamps it, fit ms per
+    epoch, the test ROC-AUC."""
+    import io
+
+    from difformer_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    graphs = actstrack_standin(ACTSTRACK_CLI_GRAPHS, seed=17)
+    path = write_actstrack_cache(tmp, graphs)
+    say(f"phase cli-actstrack: stand-in cache {path} "
+        f"({os.path.getsize(path) / 2**20:.1f} MiB) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    real_fit = cli.GraphLevelTrainer.fit
+    for kernel in ("simple", "sigmoid"):
+        made = []
+
+        def timed_fit(trainer, split_idx, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = real_fit(trainer, split_idx, **kw)
+            torch.cuda.synchronize()
+            made.append((trainer, time.perf_counter() - t1, kw["epochs"]))
+            return res
+
+        argv = ["--dataset", "actstrack", "--data_dir", tmp, "--epochs",
+                str(GRAPH_LEVEL_EPOCHS), "--runs", "1", "--kernel", kernel]
+        out = io.StringIO()
+        with unittest.mock.patch.object(cli.GraphLevelTrainer, "fit",
+                                        timed_fit), \
+                contextlib.redirect_stdout(out):
+            t1 = time.perf_counter()
+            res = cli.main(argv)
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t1
+        lines = out.getvalue().splitlines()
+        trainer, fit_s, epochs = made[0]
+        test = res[0]["test"]
+        say(f"phase cli-actstrack: {' '.join(argv)} -> {lines[-1]}; "
+            f"{len(trainer.dataset)} graphs, batch {trainer.batch_size}, "
+            f"plans {sorted({lay.plan for lay in trainer.runner.buffers})}; "
+            f"fit {1e3 * fit_s / epochs:.1f} ms per epoch (captures "
+            f"included), whole command {total_s:.3f} s (cut from 150 epochs "
+            f"and 3 runs); test ROC-AUC {test:.4f}; losses of the last "
+            f"epoch {res[0]['losses'][-1][:4]}...")
+        if any("[warn]" in line for line in lines):
+            raise AssertionError("the command line fell back to the "
+                                 "synthetic graphs")
+        if len(trainer.dataset) != ACTSTRACK_CLI_GRAPHS:
+            raise AssertionError(f"{len(trainer.dataset)} graphs read")
+        if trainer.batch_size != 64 or not 0.0 <= test <= 1.0:
+            raise AssertionError(f"batch {trainer.batch_size}, test {test}")
+        del made, trainer, res
+        gc.collect()
+
+
 def profile_steps(step, step_ms, phase, steps=5, top=12):
     """Device time by kernel over ``steps`` train steps (torch.profiler),
     and its share of ``step_ms``, the step's time measured without the
@@ -2383,6 +2885,15 @@ def main():
         f"{time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         phase_temporal_all(tmp)
+    say(f"phase temporal: done at {time.perf_counter() - t0:.1f} s")
+    graphs = actstrack_standin(ACTSTRACK_GRAPHS)
+    phase_graph_level(graphs)
+    say(f"phase graph-level: done at {time.perf_counter() - t0:.1f} s")
+    graph_rows, launches_gl = phase_graph_level_plans(graphs)
+    del graphs
+    say(f"phase graph-level-plans: done at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_cli_actstrack(tmp)
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     # every ms, plain_ms and library_ms is a device time at the slice's
     # shape (K1 also at Pokec's and a Pokec chunk's): the profiler's sum
@@ -2427,6 +2938,14 @@ def main():
          "replaces": SPMM_REPLACES,
          "launches": launches_remat[name.split()[0]], **row}
         for name, row in chunk_bf16_rows.items()
+    ] + [
+        # K1 on a graph-level batch (1024 actstrack-shaped graphs, the
+        # edge-list plan at capacity); launches are the graph-level-plans
+        # phase's epoch on that plan (captured x replays)
+        {"name": name, "route": "cuda", "source": SPMM_SOURCE,
+         "replaces": SPMM_REPLACES,
+         "launches": launches_gl[name.split()[0]], **row}
+        for name, row in graph_rows.items()
     ]
     say(json.dumps({"kernels": kernels}))
     say(smi)

@@ -7,6 +7,7 @@ Usage:
   python -m difformer_tpu_torch.cli --dataset cifar10 --kernel sigmoid
   python -m difformer_tpu_torch.cli --dataset synthetic-2000-8000-32-4
   python -m difformer_tpu_torch.cli --dataset chickenpox --method dcrnn
+  python -m difformer_tpu_torch.cli --dataset actstrack --data_dir data
 
 From Python, ``main(argv, device="cpu")`` runs on the CPU instead (every
 kernel as its plain version), as the tests do.
@@ -22,8 +23,13 @@ chickenpox, covid and wikimath presets set) with ``TemporalTrainer`` and
 ``--method difformer``, ``dcrnn`` or ``mpnn_lstm``, reading
 torch_geometric_temporal's JSON files from ``--data_dir`` (a synthetic
 stand-in, with a warning, where the file is missing, as the JAX command line
-does). ``--method dcrnn`` and ``mpnn_lstm`` build the temporal models on the
-node task too, as the JAX command line does. The GCN branch always runs the CSR
+does); and the graph-level track (``--task graph``, which the actstrack,
+tau3mu and synmol presets set) with DIFFormer-v2 and ``GraphLevelTrainer``,
+reading a particle dataset's processed cache or raw files from
+``--data_dir`` (512 synthetic small graphs, with a warning, where they are
+missing, as the JAX command line does). ``--method dcrnn`` and
+``mpnn_lstm`` build the temporal models on the node task too, as the JAX
+command line does. On the node tracks the GCN branch always runs the CSR
 SpMM kernel (K1): the JAX package's default ``--use_ell`` ELL layout is a TPU
 layout of the same product. ``--eval_only`` reads a checkpoint the port wrote
 with ``--save_model``, or a reference ``.pt``/``.pth``/``.pkl`` state_dict; it
@@ -49,8 +55,13 @@ from difformer_tpu_torch.data.transforms import (
     remove_self_loops,
     to_undirected,
 )
+from difformer_tpu_torch.data.particle import load_particle_dataset
+from difformer_tpu_torch.data.splits import get_random_idx_split
+from difformer_tpu_torch.data.synthetic import random_small_graphs
 from difformer_tpu_torch.nn.difformer import DIFFormer
+from difformer_tpu_torch.nn.difformer_v2 import DIFFormerV2, GraphLevelModel
 from difformer_tpu_torch.nn.temporal import DCRNN, MPNNLSTM
+from difformer_tpu_torch.train.graph_level import GraphLevelTrainer
 from difformer_tpu_torch.train.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
@@ -67,7 +78,6 @@ _ZOO = ("mlp", "manireg", "gcn", "gat", "sgc", "link", "mixhop", "gcnjk",
         "gatjk", "h2gcn", "appnp", "gprgnn", "lp", "multilp")
 _ITEMS = {
     8: "the baseline zoo, ROADMAP.md queue A item 8",
-    6: "the graph-level track, ROADMAP.md queue A item 6",
     9: "the TPU-shaped sparse layouts, ROADMAP.md queue A item 9",
     10: "the parallel layer, ROADMAP.md queue A item 10",
 }
@@ -295,6 +305,55 @@ def run_temporal_task(cfg: Config, device=None):
     return costs
 
 
+PARTICLE_DATASETS = ("actstrack", "tau3mu", "synmol", "plbind")
+
+
+def run_graph_task(cfg: Config, device=None):
+    """The graph-level track (``--task graph``, which the actstrack, tau3mu
+    and synmol presets set), as the JAX command line runs it
+    (``difformer_tpu/cli.py:344-385``): a particle dataset from
+    ``<data_dir>/<dataset>`` (its processed cache or raw files) with its
+    own split, or, where it is missing (with a ``[warn]`` line) and for any
+    other dataset, 512 synthetic small graphs split 70/15/15; DIFFormer-v2
+    with the pooling head; ``GraphLevelTrainer`` at a batch of at most 64
+    (the JAX command line's clamp). Prints and returns each run's
+    summary."""
+    split = None
+    if cfg.dataset in PARTICLE_DATASETS:
+        config_path = os.path.join("configs", f"{cfg.dataset}.yml")
+        try:
+            ds = load_particle_dataset(
+                cfg.dataset, os.path.join(cfg.data_dir, cfg.dataset),
+                config_path=(config_path if os.path.exists(config_path)
+                             else None),
+                seed=cfg.seed)
+            graphs = ds.graphs
+            split = ds.get_idx_split()
+        except (FileNotFoundError, ImportError) as e:
+            print(f"[warn] {e}; using synthetic stand-in graphs")
+            graphs = random_small_graphs(512, seed=cfg.seed)
+    else:
+        graphs = random_small_graphs(512, seed=cfg.seed)
+    enc = DIFFormerV2(
+        graphs[0][0].shape[1], cfg.hidden_channels, cfg.hidden_channels,
+        num_layers=cfg.num_layers, kernel=cfg.kernel, alpha=cfg.alpha,
+        dropout=cfg.dropout, use_bn=cfg.use_bn,
+        use_residual=cfg.use_residual, use_weight=cfg.use_weight,
+        use_graph=cfg.use_graph, graph_weight=cfg.graph_weight,
+        device=device)
+    model = GraphLevelModel(enc, out_channels=1,
+                            graph_pooling=cfg.graph_pooling, device=device)
+    tr = GraphLevelTrainer(model, graphs, batch_size=min(cfg.batch_size, 64),
+                           lr=cfg.lr, weight_decay=cfg.weight_decay,
+                           metric=cfg.metric, seed=cfg.seed, device=device)
+    if split is None:
+        split = get_random_idx_split(len(graphs), 0.7, 0.15, rng=cfg.seed)
+    res = tr.fit(split, epochs=cfg.epochs, runs=cfg.runs, verbose=True)
+    tests = np.asarray([r["test"] for r in res])
+    print(f"Final Test: {tests.mean():.4f} ± {tests.std():.4f}")
+    return res
+
+
 def _final(res):
     """Print the runs' mean and spread of the test metric; returns them."""
     tests = np.asarray([r["test"] for r in res])
@@ -349,7 +408,7 @@ def main(argv=None, *, device=None):
     if cfg.task == "temporal":
         return run_temporal_task(cfg, device=device)
     if cfg.task == "graph":
-        raise _not_ported("--task graph", 6)
+        return run_graph_task(cfg, device=device)
     return run_node_task(cfg, device=device)
 
 

@@ -1,5 +1,6 @@
-"""Split generators (numpy), as ``difformer_tpu/data/splits.py:15-87``
-(reference ``node classification/data_utils.py:13-132``)."""
+"""Split generators (numpy), as ``difformer_tpu/data/splits.py:15-99``
+(reference ``node classification/data_utils.py:13-132``; the graph-level
+split ``physical particle/utils/utils.py:113-124``)."""
 
 from __future__ import annotations
 
@@ -78,3 +79,18 @@ def even_quantile_labels(vals, nclasses):
         lower = upper
     label[vals >= lower] = nclasses - 1
     return label
+
+
+def get_random_idx_split(n, train_prop=0.7, valid_prop=0.15, rng=None):
+    """Graph-level random split (``physical particle/utils/utils.py:
+    113-124``): one permutation of ``n`` graphs cut into train, valid and
+    test."""
+    rng = _rng(rng)
+    perm = rng.permutation(n)
+    n_train = int(n * train_prop)
+    n_valid = int(n * valid_prop)
+    return {
+        "train": perm[:n_train],
+        "valid": perm[n_train:n_train + n_valid],
+        "test": perm[n_train + n_valid:],
+    }

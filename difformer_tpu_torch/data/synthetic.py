@@ -1,8 +1,8 @@
 """Synthetic graphs for tests and chip runs (no dataset is downloaded).
 
-Numpy copies of ``difformer_tpu/data/synthetic.py``'s ``random_graph`` and
-``random_temporal_sequence``: the same seed gives the same arrays in both
-packages.
+Numpy copies of ``difformer_tpu/data/synthetic.py``'s ``random_graph``,
+``random_small_graphs`` and ``random_temporal_sequence``: the same seed
+gives the same arrays in both packages.
 """
 
 from __future__ import annotations
@@ -32,6 +32,26 @@ def random_graph(num_nodes, num_edges, feat_dim, num_classes, *, seed=0,
         dst[sel] = pool[rng.integers(0, pool.shape[0], size=int(sel.sum()))]
     edge_index = np.stack([src, dst]).astype(np.int64)
     return x, edge_index, labels.astype(np.int64)
+
+
+def random_small_graphs(num_graphs, node_range=(8, 24), feat_dim=8, *,
+                        seed=0, k=3):
+    """Small kNN graphs with a separable graph-level label (the particle
+    track's stand-in): a list of (x [n, feat_dim], edge_index, label)."""
+    from difformer_tpu_torch.data.transforms import knn_graph
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(num_graphs):
+        n = int(rng.integers(node_range[0], node_range[1] + 1))
+        label = int(rng.integers(0, 2))
+        spread = 0.5 if label == 0 else 1.5
+        pos = rng.normal(scale=spread, size=(n, 3)).astype(np.float32)
+        feat = rng.normal(size=(n, feat_dim - 3)).astype(np.float32)
+        x = np.concatenate([feat, pos], axis=1)
+        ei = knn_graph(pos, k=min(k, n), include_self=True)
+        out.append((x, ei, np.float32(label)))
+    return out
 
 
 def random_temporal_sequence(num_nodes, num_steps, feat_dim, *, seed=0,

@@ -9,7 +9,9 @@
   takes its CSR order and induced subgraphs from ``native/``, which gives
   the same arrays in one pass over the edges);
 - row feature normalisation (``data_utils.py:229-236``);
-- the kNN graph of the set track (``image and text/main.py:51-54``);
+- the kNN graph of the set track (``image and text/main.py:51-54``) and
+  the radius graph of the particle track (``physical particle/datasets/
+  tau3mu.py:95``);
 - node reorderings for gather locality (``locality_reorder``,
   ``permute_graph``), with the numpy label propagation behind the
   ``community`` order.
@@ -168,6 +170,32 @@ def knn_graph(features, k, *, include_self=True, loop=False,
         nbrs[start:stop] = np.take_along_axis(part, order, axis=1)
     dst = np.repeat(np.arange(n, dtype=np.int64), kk)
     src = nbrs.reshape(-1)
+    return np.stack([src, dst], axis=0)
+
+
+def radius_graph(pos, r, *, loop=True, max_num_neighbors=None):
+    """All pairs within radius ``r`` (PyG ``radius_graph``, ``physical
+    particle/datasets/tau3mu.py:95``): [2, E] with the neighbours as senders
+    and the centres, in increasing order, as receivers; ``loop`` keeps each
+    node's self pair; ``max_num_neighbors`` keeps a centre's nearest."""
+    x = np.asarray(pos, dtype=np.float32)
+    n = x.shape[0]
+    sq = (x * x).sum(axis=1)
+    d2 = sq[:, None] - 2.0 * (x @ x.T) + sq[None, :]
+    mask = d2 <= r * r
+    if not loop:
+        np.fill_diagonal(mask, False)
+    dst, src = np.where(mask)  # row = center, col = neighbor
+    if max_num_neighbors is not None:
+        keep = []
+        for i in range(n):
+            sel = np.where(dst == i)[0]
+            if sel.shape[0] > max_num_neighbors:
+                order = np.argsort(d2[i, src[sel]])[:max_num_neighbors]
+                sel = sel[order]
+            keep.append(sel)
+        keep = np.concatenate(keep)
+        src, dst = src[keep], dst[keep]
     return np.stack([src, dst], axis=0)
 
 

@@ -1,4 +1,4 @@
-"""Shared building blocks, as ``difformer_tpu/nn/common.py:13-62``."""
+"""Shared building blocks, as ``difformer_tpu/nn/common.py:13-95``."""
 
 from __future__ import annotations
 
@@ -87,3 +87,45 @@ class TorchBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         scale = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean) * scale + self.bias
+
+
+class FeatEncoder(nn.Module):
+    """Mixed categorical and scalar node features (reference
+    ``FeatEncoder``, ``physical particle/utils/model_utils.py``), as the JAX
+    package's: the first ``len(categorical_cardinalities)`` columns are
+    category ids, each embedded in ``hidden`` (``embed_{i}``); the rest,
+    if any, go through one Linear (``scalar``); the parts are concatenated
+    and projected to ``hidden`` (``proj``). ``in_channels`` counts all
+    columns. :meth:`reset_parameters` draws the embeddings from N(0, 1),
+    torch's ``nn.Embedding`` default, and the Linears as the reference."""
+
+    def __init__(self, in_channels, hidden, categorical_cardinalities=()):
+        super().__init__()
+        self.cardinalities = tuple(int(c) for c in categorical_cardinalities)
+        n_cat = len(self.cardinalities)
+        for i, card in enumerate(self.cardinalities):
+            setattr(self, f"embed_{i}", nn.Embedding(card, hidden))
+        self.scalar = (Linear(in_channels - n_cat, hidden)
+                       if in_channels > n_cat else None)
+        parts = n_cat + (self.scalar is not None)
+        self.proj = Linear(hidden * parts, hidden)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator):
+        from difformer_tpu_torch.nn.init import torch_linear_init_
+
+        for i in range(len(self.cardinalities)):
+            weight = getattr(self, f"embed_{i}").weight
+            weight.copy_(torch.randn(weight.shape, generator=generator))
+        if self.scalar is not None:
+            torch_linear_init_(self.scalar, generator)
+        torch_linear_init_(self.proj, generator)
+
+    def forward(self, x):
+        n_cat = len(self.cardinalities)
+        parts = [getattr(self, f"embed_{i}")(x[..., i].long())
+                 for i in range(n_cat)]
+        if self.scalar is not None:
+            parts.append(self.scalar(x[..., n_cat:]))
+        h = torch.cat(parts, -1) if len(parts) > 1 else parts[0]
+        return self.proj(h)

@@ -1,4 +1,4 @@
-"""Graph convolution, as ``difformer_tpu/ops/graph_ops.py:23-125, 176-236``.
+"""Graph convolution, as ``difformer_tpu/ops/graph_ops.py:23-201, 219-236``.
 
 The reference (``node classification/difformer.py:63-79``) builds the
 normalised adjacency transposed, so each edge (s, r) adds
@@ -19,7 +19,9 @@ on every call, unless given the plan of :func:`build_spmm_plan`, which a
 caller that multiplies by one sparse matrix many times (DConv's hops,
 GCNLayer) builds once. :func:`gcn_norm` gives the baseline models' PyG
 normalisation with self-loops. Both products run at x's dtype, float32 or
-bfloat16 (K1 sums in float32 at either).
+bfloat16 (K1 sums in float32 at either). :func:`knn_table_conv` is the
+graph-level track's gather-table conv (``data/batching.py:
+regular_knn_table``), a gather and a weighted sum in both directions.
 """
 
 from __future__ import annotations
@@ -244,3 +246,38 @@ def gcn_norm(senders, receivers, num_nodes, edge_weight=None, *,
                            torch.zeros_like(deg))
     norm = inv_sqrt[senders] * edge_weight * inv_sqrt[receivers]
     return senders, receivers, norm
+
+
+def _table_gather(x, idx, w):
+    """``out[r] = Σ_j w[r, j] · x[idx[r, j]]`` for x [N, ...], idx/w [R, k]."""
+    rows = x.index_select(0, idx.reshape(-1)).reshape(idx.shape + x.shape[1:])
+    w = w.to(x.dtype).reshape(idx.shape + (1,) * (x.dim() - 1))
+    return (rows * w).sum(1)
+
+
+class KnnTableConv(torch.autograd.Function):
+    """The table conv with the transposed table's backward: ``dv[s] =
+    Σ_j rw[s, j] · dg[ridx[s, j]]``, a gather and a sum again (no
+    scatter). The tables are data: only v gets a gradient."""
+
+    @staticmethod
+    def forward(ctx, v, idx, w, ridx, rw):
+        ctx.save_for_backward(ridx, rw)
+        return _table_gather(v, idx, w)
+
+    @staticmethod
+    def backward(ctx, dg):
+        ridx, rw = ctx.saved_tensors
+        return _table_gather(dg, ridx, rw), None, None, None, None
+
+
+def knn_table_conv(v, idx, w, ridx=None, rw=None):
+    """The conv over a gather table (``regular_knn_table``), as the JAX
+    package's custom-VJP ``knn_table_conv`` (``graph_ops.py:129-168``):
+    ``out[r] = Σ_j w[r, j] · v[idx[r, j]]`` for v [B·M, H, D]. With the
+    transposed table (``ridx``, ``rw``) the backward gathers over it;
+    without, it is autograd's through ``index_select`` (a scatter-add, as
+    JAX's take-VJP)."""
+    if ridx is None:
+        return _table_gather(v, idx, w)
+    return KnnTableConv.apply(v, idx, w, ridx, rw)

@@ -1,5 +1,5 @@
 """DIFFormer-s linear global attention ("simple" kernel), as
-``difformer_tpu/ops/linear_attention.py:28-224``.
+``difformer_tpu/ops/linear_attention.py:28-268``.
 
 The O(N·d²) form: the N×L attention ``(1 + q·kᵀ) / (N + q·Σk)`` is never
 made; only the aggregates ``Σ_l k_l ⊗ v_l`` [H, M, D], ``Σ_l k_l`` [H, M]
@@ -12,6 +12,8 @@ numerator adds the raw ``Σv`` and the denominator the query count N.
 
 These are dense contractions with no kernel of their own (the JAX package
 leaves them to XLA): ``torch.einsum`` and matmuls in float32, TF32 off.
+:func:`simple_attention_padded` is DIFFormer-v2's per-graph form over a
+padded batch [B, M, H, D].
 The node-sharded form (``axis_name``, one all-reduce per aggregate) belongs
 to the parallel layer and is not ported yet.
 """
@@ -157,3 +159,37 @@ def simple_attention(qs, ks, vs, *, key_mask=None, num_queries=None,
                 / denominator[:, None, :])
         return out, attn
     return out
+
+
+def simple_attention_padded(q_pad, k_pad, v_pad, node_mask, n_nodes):
+    """Per-graph linear attention over a padded batch (DIFFormer-v2
+    "simple", ``physical particle/difformer-v2.py:80-111``).
+
+    q_pad/k_pad/v_pad [B, M, H, D]; node_mask bool [B, M]; n_nodes [B].
+    q and k are divided by one Frobenius norm over the whole batch (folded
+    onto the per-graph aggregates, as the JAX package does), the aggregates
+    are each graph's own, and each graph's denominator adds its node
+    count. Padded slots and padding graphs give 0. The denominator is made
+    safe (1 on padded slots) before the divide: masking only the quotient
+    would leave 0/0 in the gradient."""
+    mask = node_mask[..., None, None].to(q_pad.dtype)
+    q_pad = q_pad * mask
+    k_pad = k_pad * mask
+    v_pad = v_pad * mask
+    inv_q = 1.0 / torch.sqrt(q_pad.float().square().sum())
+    inv_k = 1.0 / torch.sqrt(k_pad.float().square().sum())
+    scale = (inv_q * inv_k).to(q_pad.dtype)
+
+    kv = torch.einsum("bmhk,bmhd->bhkd", k_pad, v_pad)      # [B, H, K, D]
+    k_sum = k_pad.sum(1)                                     # [B, H, K]
+    v_sum = v_pad.sum(1)                                     # [B, H, D]
+
+    numerator = torch.einsum("bmhk,bhkd->bmhd", q_pad, kv * scale)
+    numerator = numerator + v_sum[:, None, :, :]
+    denominator = torch.einsum("bmhk,bhk->bmh", q_pad, k_sum * scale)
+    denominator = denominator + n_nodes.to(q_pad.dtype)[:, None, None]
+    mask3 = node_mask[..., None]
+    denominator = torch.where(mask3, denominator,
+                              torch.ones_like(denominator))
+    out = numerator / denominator[..., None]
+    return torch.where(mask3[..., None], out, torch.zeros_like(out))

@@ -1,5 +1,5 @@
 """DIFFormer-a sigmoid pairwise attention (O(N²)), as
-``difformer_tpu/ops/sigmoid_attention.py:29-195``.
+``difformer_tpu/ops/sigmoid_attention.py:29-232``.
 
 Reference semantics (``node classification/difformer.py:45-56``):
 ``att = σ(q·k) / row_sum(σ(q·k))``, ``out = att @ v``.
@@ -11,6 +11,12 @@ dispatch (dense below N = 8192) is not carried over: that threshold was
 measured on a TPU; a rule measured on the H100 is later work.
 :func:`sigmoid_attention_dense` keeps the explicit [N, L, H] matrix for the
 ``output_attn`` path.
+
+:func:`sigmoid_attention_padded` and
+:func:`sigmoid_attention_padded_crossgraph` are DIFFormer-v2's forms over a
+padded batch [B, M, H, D]: dense [B, M, M, H] scores through ``torch``
+einsums, as in the JAX package (no Pallas kernel there either; a graph has
+about a hundred nodes).
 
 A value tensor with one head ([L, 1, D], DIFFormer with ``use_weight=False``)
 is broadcast over the query heads, as the JAX package's einsums do.
@@ -50,3 +56,31 @@ def sigmoid_attention(qs, ks, vs, *, key_mask=None):
     [L,1,D]; ``key_mask`` an optional binary [L] marking real keys."""
     return sigmoid_attention_flash(qs, ks, _broadcast_heads(qs, vs),
                                    key_mask)
+
+
+def sigmoid_attention_padded(q_pad, k_pad, v_pad, node_mask, *, eps=1e-9):
+    """Within-graph sigmoid attention over a padded batch: each node
+    attends to the real nodes of its own graph (the intended DIFFormer-v2
+    semantics). q/k/v [B, M, H, D]; node_mask bool [B, M]; padded slots
+    give 0."""
+    m = node_mask.to(q_pad.dtype)
+    scores = torch.sigmoid(torch.einsum("bmhd,bnhd->bmnh", q_pad, k_pad))
+    scores = scores * m[:, None, :, None]
+    denom = scores.sum(2, keepdim=True) + eps
+    attn = scores / denom
+    out = torch.einsum("bmnh,bnhd->bmhd", attn, v_pad)
+    return torch.where(node_mask[..., None, None], out, torch.zeros_like(out))
+
+
+def sigmoid_attention_padded_crossgraph(q_pad, k_pad, v_pad, node_mask,
+                                        *, eps=1e-9):
+    """The reference's DIFFormer-v2 "sigmoid" kernel as it is
+    (``physical particle/difformer-v2.py:113-135``, einsum
+    "abcd,ebcd->aebc"): slot m of graph a attends to slot m of every graph
+    e, padding zeros included (σ(0) = 0.5 enters the normaliser).
+    ``node_mask`` is not read, as the reference reads none."""
+    del node_mask
+    scores = torch.sigmoid(torch.einsum("amhd,emhd->aemh", q_pad, k_pad))
+    denom = scores.sum(1, keepdim=True) + eps          # [B, 1, M, H]
+    attn = scores / denom
+    return torch.einsum("aemh,emhd->amhd", attn, v_pad)

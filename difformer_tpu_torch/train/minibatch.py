@@ -125,15 +125,39 @@ def _splits_of(v, prefix, counts):
                     v[f"{prefix}seg_begin"], v[f"{prefix}seg_end"], counts)
 
 
-def chunk_plan(layout, buf):
-    """The :class:`CsrPlan` over a packed chunk buffer (a device tensor):
-    views of it, K1's schedules at capacity with their counts in it."""
-    v = layout.views(buf)
+def views_plan(v, num_nodes):
+    """The :class:`CsrPlan` of ``num_nodes`` nodes over the views ``v`` of
+    a packed plan on the device (``row_ptr``, ``col``, ``val``, their
+    ``t_`` twins, the split fields and ``counts``): K1's schedules at
+    capacity with their counts in it."""
     return CsrPlan(
-        num_nodes=layout.nodes, row_ptr=v["row_ptr"], col=v["col"],
+        num_nodes=num_nodes, row_ptr=v["row_ptr"], col=v["col"],
         val=v["val"], t_row_ptr=v["t_row_ptr"], t_col=v["t_col"],
         t_val=v["t_val"], split=_splits_of(v, "", v["counts"][:2]),
         t_split=_splits_of(v, "t_", v["counts"][2:]))
+
+
+def chunk_plan(layout, buf):
+    """The :class:`CsrPlan` over a packed chunk buffer (a device tensor)."""
+    return views_plan(layout.views(buf), layout.nodes)
+
+
+def pack_csr(v, senders, receivers, num_nodes, capacity):
+    """Write the two CSRs of the edges (senders, receivers) with their GCN
+    values (``native.chunk_csr``), and K1's schedules at ``capacity`` (H, S)
+    with their counts, into the numpy views ``v`` of a packed plan;
+    returns (heavy rows, segments) of the two CSRs."""
+    native.chunk_csr(senders, receivers, num_nodes, out=tuple(
+        v[k] for k in ("row_ptr", "col", "val", "t_row_ptr", "t_col",
+                       "t_val")))
+    counts = []
+    for prefix in ("", "t_"):
+        counts += padded_split(
+            row_split_host(v[f"{prefix}row_ptr"]), capacity,
+            tuple(v[f"{prefix}{k}"] for k in ("rows", "seg_ptr", "seg_begin",
+                                              "seg_end")))
+    v["counts"][:] = counts
+    return counts[0] + counts[2], counts[1] + counts[3]
 
 
 def pack_chunk(layout, buf, nodes, sub):
@@ -142,17 +166,7 @@ def pack_chunk(layout, buf, nodes, sub):
     returns (heavy rows, segments) of its two CSRs."""
     v = layout.views(buf)
     v["nodes"][:] = nodes
-    native.chunk_csr(sub[0], sub[1], layout.nodes, out=tuple(
-        v[k] for k in ("row_ptr", "col", "val", "t_row_ptr", "t_col",
-                       "t_val")))
-    counts = []
-    for prefix in ("", "t_"):
-        counts += padded_split(
-            row_split_host(v[f"{prefix}row_ptr"]), layout.capacity,
-            tuple(v[f"{prefix}{k}"] for k in ("rows", "seg_ptr", "seg_begin",
-                                              "seg_end")))
-    v["counts"][:] = counts
-    return counts[0] + counts[2], counts[1] + counts[3]
+    return pack_csr(v, sub[0], sub[1], layout.nodes, layout.capacity)
 
 
 def minibatch_labels(labels, loss):

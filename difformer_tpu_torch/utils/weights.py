@@ -31,6 +31,18 @@ and :func:`temporal_params_from_state_dict`:
 
 LSTM gates stack in torch's order i, f, g, o; flax's cell has no input
 bias, so ``bias_ih`` is zero.
+
+DIFFormer-v2 (``nn/difformer_v2.py``) names its encoder as DIFFormer does,
+and the JAX package's v2 modules carry v1's flax names (``fc_in``,
+``ln_{i}``, ``conv_{i}.W{q,k,v}``, ``fc_out``), so the same mapping serves;
+the graph-level head adds :func:`v2_state_dict_from_params`:
+
+    encoder.<the mapping above>           <-> encoder/<flax names>
+    lin.{weight,bias}                     <-> lin kernel, bias
+
+and ``FeatEncoder`` (:func:`feat_encoder_state_dict_from_params`):
+``embed_{i}.weight`` <-> ``embed_{i}`` embedding, ``scalar``/``proj``
+Linears <-> TorchLinear kernel, bias.
 """
 
 from __future__ import annotations
@@ -201,6 +213,48 @@ def temporal_params_from_state_dict(state_dict):
     return params, stats
 
 
+def _linear_sd(prefix, p):
+    return {f"{prefix}.weight": _np(p["kernel"]).T.copy(),
+            f"{prefix}.bias": _np(p["bias"])}
+
+
+def v2_state_dict_from_params(params) -> dict:
+    """The JAX package's ``GraphLevelModel`` params (``encoder``, ``lin``),
+    or a bare ``DIFFormerV2``'s, as the port's ``state_dict`` of numpy
+    arrays."""
+    if "encoder" not in params:
+        return torch_state_dict_from_params(params)
+    sd = {f"encoder.{k}": v
+          for k, v in torch_state_dict_from_params(params["encoder"]).items()}
+    sd.update(_linear_sd("lin", params["lin"]))
+    return sd
+
+
+def v2_params_from_state_dict(state_dict) -> dict:
+    """The inverse of :func:`v2_state_dict_from_params`: the flax params
+    tree (numpy) of a ``GraphLevelModel`` or, without ``encoder.`` keys, of
+    a ``DIFFormerV2``."""
+    enc = {k[len("encoder."):]: v for k, v in state_dict.items()
+           if k.startswith("encoder.")}
+    if not enc:
+        return params_from_torch_state_dict(state_dict)
+    lin = {"kernel": _np(state_dict["lin.weight"]).T.copy(),
+           "bias": _np(state_dict["lin.bias"])}
+    return {"encoder": params_from_torch_state_dict(enc), "lin": lin}
+
+
+def feat_encoder_state_dict_from_params(params) -> dict:
+    """The JAX package's ``FeatEncoder`` params as the port's
+    ``state_dict`` of numpy arrays."""
+    sd = {}
+    for mod, p in params.items():
+        if "embedding" in p:
+            sd[f"{mod}.weight"] = _np(p["embedding"])
+        else:
+            sd.update(_linear_sd(mod, p))
+    return sd
+
+
 def _is_temporal(model):
     from difformer_tpu_torch.nn.temporal import DCRNN, MPNNLSTM, DConv
 
@@ -209,13 +263,24 @@ def _is_temporal(model):
 
 def load_params(model: torch.nn.Module, params, batch_stats=None) -> None:
     """Load a flax params tree (numpy or JAX arrays) into the port's model,
-    on the model's device: DIFFormer's, or a temporal model's with its
+    on the model's device: DIFFormer's, DIFFormer-v2's (bare or with the
+    graph-level head), FeatEncoder's, or a temporal model's with its
     ``batch_stats`` (the model's own running statistics are kept when
     None)."""
+    from difformer_tpu_torch.nn.common import FeatEncoder
+    from difformer_tpu_torch.nn.difformer_v2 import (
+        DIFFormerV2,
+        GraphLevelModel,
+    )
+
     if _is_temporal(model):
         sd = temporal_state_dict_from_params(params, batch_stats)
         own = model.state_dict()
         sd = {k: sd[k] if k in sd else own[k] for k in own}
+    elif isinstance(model, (DIFFormerV2, GraphLevelModel)):
+        sd = v2_state_dict_from_params(params)
+    elif isinstance(model, FeatEncoder):
+        sd = feat_encoder_state_dict_from_params(params)
     else:
         sd = torch_state_dict_from_params(params)
     model.load_state_dict({k: torch.from_numpy(np.array(_np(v)))

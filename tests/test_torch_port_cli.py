@@ -228,8 +228,6 @@ def test_bce_datasets_use_bce(monkeypatch, tmp_path):
     (["--spmm", "ell"], 9), (["--spmm", "bsr"], 9),
     (["--spmm", "bsr-sorted"], 9), (["--spmm", "auto"], 9),
     (["--use_ell", "true"], 9),
-    (["--task", "graph"], 6),
-    (["--dataset", "actstrack"], 6),
     (["--dataset", "pokec", "--method", "gcn"], 8),
 ])
 def test_unported_routes_raise_naming_their_item(tmp_path, extra, item):

@@ -1240,3 +1240,85 @@ def test_temporal_plans_are_the_same_at_every_build(cuda):
     assert torch.equal(a.rev.val, b.rev.val)
     a, b = (MPNNLSTM.build_plan(s, r, 3000, w) for _ in range(2))
     assert torch.equal(a.val, b.val) and torch.equal(a.t_val, b.t_val)
+
+
+def _graph_level_trainer(cuda, kernel, use_graphs, pooling="mean",
+                         batch=16):
+    from difformer_tpu_torch.data.synthetic import random_small_graphs
+    from difformer_tpu_torch.nn.difformer_v2 import (
+        DIFFormerV2,
+        GraphLevelModel,
+    )
+    from difformer_tpu_torch.train.graph_level import GraphLevelTrainer
+
+    graphs = random_small_graphs(90, seed=2)
+    enc = DIFFormerV2(8, 16, 16, num_layers=2, kernel=kernel, dropout=0.3,
+                      device=cuda)
+    model = GraphLevelModel(enc, 1, pooling, device=cuda)
+    return graphs, GraphLevelTrainer(model, graphs, batch_size=batch,
+                                     lr=5e-3, use_graphs=use_graphs,
+                                     device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["dense", "table", "edges"])
+@pytest.mark.parametrize("kernel", ["simple", "sigmoid"])
+def test_graph_level_graphs_match_the_loop(cuda, kernel, plan):
+    """The graph-level trainer's steps and evals replayed as CUDA graphs
+    against the eager loop, on each conv plan, dropout on: the same batch
+    losses and split metrics bit for bit, and one step and one eval graph
+    replayed once a batch."""
+    from difformer_tpu_torch.data.splits import get_random_idx_split
+
+    modes = {"dense": (None, None), "table": (False, None),
+             "edges": (False, False)}[plan]
+    split = get_random_idx_split(90, 0.6, 0.2, rng=0)
+    res = []
+    for use_graphs in (False, True):
+        graphs, trainer = _graph_level_trainer(cuda, kernel, use_graphs)
+        trainer._dense_mode, trainer._knn_mode = modes
+        res.append(trainer.fit(split, epochs=3)[0])
+    for key in ("losses", "train", "valid", "test", "epoch"):
+        assert res[0][key] == res[1][key], key
+    runner = trainer.runner
+    assert {lay.plan for lay in runner.buffers} == {plan}
+    steps = 3 * len(res[1]["losses"][0])
+    assert runner.graphs[f"step {plan}"]["replays"] == steps
+    launches = runner.launches()
+    if plan == "edges":
+        evals = 3 * sum(-(-len(i) // 16) for i in split.values())
+        assert launches["csr_spmm"] == 2 * (steps + evals)
+        assert launches["csr_spmm_transposed"] == 2 * steps
+    else:
+        assert not any(launches.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pooling", ["sum", "mean", "max"])
+def test_graph_level_model_matches_cpu(cuda, pooling):
+    """GraphLevelModel's logits and gradients on the card (K1 on the
+    edge-list plan) against the same weights on the CPU."""
+    from difformer_tpu_torch.data.batching import pad_graph_batch
+    from difformer_tpu_torch.data.synthetic import random_small_graphs
+    from difformer_tpu_torch.nn.difformer_v2 import (
+        DIFFormerV2,
+        GraphLevelModel,
+    )
+
+    graphs = random_small_graphs(6, seed=5)
+    b = pad_graph_batch([g[0] for g in graphs], [g[1] for g in graphs],
+                        [g[2] for g in graphs], batch_size=8)
+    outs, grads = [], []
+    for dev in ("cpu", cuda):
+        enc = DIFFormerV2(8, 16, 16, num_layers=2, dropout=0.0, device=dev)
+        model = GraphLevelModel(enc, 1, pooling, seed=3, device=dev)
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        out = model(t(b.node_feat), t(b.node_mask), t(b.n_nodes),
+                    t(b.senders).long(), t(b.receivers).long(), None,
+                    t(b.edge_mask))
+        out.sum().backward()
+        outs.append(out.detach().cpu())
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    torch.testing.assert_close(outs[1], outs[0], **GRAD)
+    for n in grads[0]:
+        torch.testing.assert_close(grads[1][n], grads[0][n], **GRAD)

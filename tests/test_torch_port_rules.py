@@ -31,7 +31,12 @@ def test_import_loads_no_jax():
         "difformer_tpu_torch.train.minibatch, difformer_tpu_torch.native, "
         "difformer_tpu_torch.train.temporal, difformer_tpu_torch.nn.temporal, "
         "difformer_tpu_torch.nn.gnns, "
-        "difformer_tpu_torch.data.temporal_loaders\n"
+        "difformer_tpu_torch.data.temporal_loaders, "
+        "difformer_tpu_torch.nn.difformer_v2, "
+        "difformer_tpu_torch.train.graph_level, "
+        "difformer_tpu_torch.data.batching, difformer_tpu_torch.data.particle, "
+        "difformer_tpu_torch.data.smiles, difformer_tpu_torch.data.plbind, "
+        "difformer_tpu_torch.data.pyg_interop\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'flax', 'optax', 'orbax', "
         "'difformer_tpu.')) "
@@ -89,3 +94,19 @@ def test_entry_points_without_device_raise_without_gpu(monkeypatch):
     model = DIFFormer(3, 8, 2, kernel="sigmoid", device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FullBatchTrainer(model, g, np.zeros(4, np.int64))
+    # the graph-level track
+    from difformer_tpu_torch.nn.difformer_v2 import (
+        DIFFormerV2,
+        GraphLevelModel,
+    )
+    from difformer_tpu_torch.train.graph_level import GraphLevelTrainer
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DIFFormerV2(3, 8, 8)
+    enc = DIFFormerV2(3, 8, 8, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GraphLevelModel(enc)
+    head = GraphLevelModel(enc, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GraphLevelTrainer(head, [(x, ei, 1.0)])
+    GraphLevelTrainer(head, [(x, ei, 1.0)], device="cpu")
