@@ -23,7 +23,12 @@ non-zero before the last line:
    bit-equal, and cuSPARSE's time for the same product beside it; K1's
    device kernels a call are counted in the CUDA graph of one call. Each
    with its time, its bound (x and out at the type's bytes) and (K1) the
-   gather floor.
+   gather floor. Then K1-dval, the gradient of K1 with respect to its edge
+   values (GAT's attention), at GAT's plans on the slice's graph (W = 64)
+   and on cifar10's kNN graph (W = 300) and at Pokec's size with power-law
+   degrees (W = 64): against its plain version, one device kernel a call,
+   two calls bit-equal, timed by CUDA-graph replay beside its bound, its
+   gather floor and ``torch.sparse.sampled_addmm``'s time.
 4. slice: the cora preset as DIFFormer-a (hidden 64, 8 layers, 1 head) on a
    synthetic graph of Cora's size, trained with ``FullBatchTrainer.fit``;
    checks the losses, that every kernel ran as often as the path needs, and
@@ -66,7 +71,19 @@ non-zero before the last line:
    600 epochs, 5 runs) on stand-in embeddings [15000, 512]; then
    --kernel sigmoid --use_graph true cut to 20 epochs and 1 run (K1 on the
    kNN graph and the wide K2-K4), with the kNN graph's host seconds.
-12. minibatch-pokec: the pokec preset (mini-batch training, batch 100000,
+12. zoo-cora: every method of the baseline zoo (mlp, manireg, gcn, gat,
+   sgc, link, mixhop, gcnjk with --jk_type max, cat and lstm, gatjk, h2gcn,
+   appnp, gprgnn, lp, multilp) through the command line at the cora
+   preset's widths (hidden 64, 8 layers), cut to 20 epochs and 1 run: each
+   one's test metric, fit ms per epoch and peak memory, its kernels (K1 in
+   both directions for the trained graph models, K1's forward alone for
+   label propagation, none for the MLPs, K1-dval for GAT and GATJK and no
+   other); GCN and GAT again through the per-epoch loop, held against their
+   graph fits (best epoch, losses and metrics within rtol 1e-5).
+13. zoo-cifar10: GCN and GAT (2 heads) on the cifar10 preset (hidden 300,
+   2 layers, the set track's kNN graph) on the stand-in embeddings, cut to
+   5 epochs: ms per epoch and peak memory.
+14. minibatch-pokec: the pokec preset (mini-batch training, batch 100000,
    hidden 128, 3 layers) through the command line on a stand-in
    ``pokec.mat`` of Pokec's size (1,632,803 nodes, 30,622,564 power-law
    edges, 65 features, 2 classes), cut to 3 epochs and 1 run: each chunk's
@@ -80,12 +97,12 @@ non-zero before the last line:
    K1's replays against the remat-aware count, K1's bf16 capacity launch
    on the chunk with the most segments, peak memory and ms per chunk
    step of both, and the chunk losses of both compared.
-13. minibatch-proteins: ``MiniBatchTrainer`` at ogbn-proteins' shape
+15. minibatch-proteins: ``MiniBatchTrainer`` at ogbn-proteins' shape
    (132,534 nodes, 79,122,504 directed edges with hubs of thousands, 8
    features, 112 binary tasks, BCE and ROC-AUC, batch 10000, hidden 64, 3
    layers), 3 epochs: the same numbers, the host's share of the epoch in
    view.
-14. temporal-chickenpox and temporal-wikimath: the temporal presets
+16. temporal-chickenpox and temporal-wikimath: the temporal presets
    through the command line on stand-in JSON files of the published
    shapes (chickenpox: 20 nodes, 102 edges, 522 weeks, cumulative mode;
    wikimath: 1,068 nodes, 27,079 weighted edges, 731 days, incremental),
@@ -95,7 +112,7 @@ non-zero before the last line:
    the per-snapshot loop bit-equal, ms per epoch, the capture's seconds
    and the graphs' kernel nodes.
 
-15. graph-level: the graph-level (particle) track at the actstrack
+17. graph-level: the graph-level (particle) track at the actstrack
    preset's full width (DIFFormer-v2 with the mean-pooling head, hidden
    64, 2 layers, dropout 0.4, batch 1024) on 4096 stand-in graphs of
    ActsTrack's processed shapes (100 ± 20 hits, 9 + 3 features, kNN k = 5
@@ -106,14 +123,14 @@ non-zero before the last line:
    and eager), graphs per second, ms per epoch with the evals, capture
    seconds and kernel nodes, idle share, peak memory, and the top kernels
    of a replayed step.
-16. graph-level-plans: one batch of that stand-in through the three conv
+18. graph-level-plans: one batch of that stand-in through the three conv
    plans (dense, gather table, edge list): logits and gradients agree
    within rtol 1e-4 / atol 1e-5; K1's device kernels in a captured train
    step on the edge-list plan (4, none split); each plan's conv alone,
    forward and backward, with K1 against its plain version and cuSPARSE;
    then one epoch on the edge-list plan, whose K1 launches are the JSON
    line's "graph-level" rows'.
-17. cli-actstrack: ``python -m difformer_tpu_torch.cli --dataset
+19. cli-actstrack: ``python -m difformer_tpu_torch.cli --dataset
    actstrack`` on a stand-in processed cache of 3000 graphs, cut to 3
    epochs and 1 run, with each kernel: the cache read (no fallback), fit
    ms per epoch, test ROC-AUC.
@@ -174,6 +191,14 @@ REPLACES = {
 SPMM_SOURCE = "difformer_tpu_torch/csrc/spmm.cu"
 SPMM_REPLACES = "difformer_tpu/ops/graph_ops.py:107"
 SPMM_NAMES = ("csr_spmm", "csr_spmm_transposed")
+# K1-dval, the gradient of K1 with respect to its edge values (GAT's
+# attention): XLA's autodiff of GAT's feat[senders] * att in the JAX package
+DVAL_NAME = "csr_spmm_dval"
+DVAL_REPLACES = "difformer_tpu/nn/gnns.py:183"
+# the K1-dval shapes of the JSON line, by label, with the suffix of their
+# names
+DVAL_JSON = {"cora": "", "cifar10": " cifar10",
+             "pokec power-law": " pokec power-law"}
 # the K1 shapes of the JSON line, by label, with the suffix of their names
 SPMM_JSON = {"cora": "", "pokec": " pokec",
              "pokec power-law": " pokec power-law"}
@@ -782,6 +807,130 @@ def phase_spmm_kernels():
             del x
         del plan, x32
         torch.cuda.empty_cache()
+    return rows, phase_dval_kernels()
+
+
+def knn_plan_standin(n=CIFAR10_NODES, k=5):
+    """The set track's graph on cifar10's stand-in embeddings, as the
+    command line builds it (k = 5 nearest rows, the row itself among them,
+    symmetrised, self loops once), with the kNN taken on the card."""
+    from difformer_tpu_torch.data import standard_preprocess
+
+    x = torch.as_tensor(cifar10_embeddings(num=n)[0], device="cuda")
+    nbrs = torch.cdist(x, x).topk(k, largest=False).indices.cpu().numpy()
+    ei = np.stack([nbrs.reshape(-1), np.repeat(np.arange(n), k)])
+    return standard_preprocess(ei, n)
+
+
+def dval_shapes():
+    """(label, plan, W, plain edge chunk) of K1-dval, one at a time: GAT's
+    plans (the edges with a self-loop on every node, receiver order) on the
+    slice's graph of Cora's size at a head's width of the cora preset (64)
+    and on the set track's kNN graph of cifar10's stand-in at the cifar10
+    preset's (300); and the power-law graph of Pokec's size at W = 64."""
+    from difformer_tpu_torch.nn.gnns import gat_plan
+    from difformer_tpu_torch.ops.graph_ops import build_spmm_plan
+
+    t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+    _, ei, _ = cora_graph()
+    yield "cora", gat_plan(t(ei[0]), t(ei[1]), 2708).plan, 64, None
+    ei = knn_plan_standin()
+    yield ("cifar10", gat_plan(t(ei[0]), t(ei[1]), CIFAR10_NODES).plan,
+           300, None)
+    g = torch.Generator("cuda").manual_seed(12)
+    n, e = POKEC_NODES, POKEC_EDGES
+    plan = build_spmm_plan(None, power_law_nodes(n, e, g),
+                           power_law_nodes(n, e, g), n)
+    yield "pokec power-law", plan, 64, PLAIN_EDGE_CHUNK
+
+
+def dval_bound_ms(n, e, w):
+    """(least time in ms, "bytes" or "operations", compulsory bytes) of one
+    K1-dval call: dout and x [N, W] read once, the rows and columns of the
+    E edges read once and dval [E] written once, all 4 bytes an element;
+    2·E·W flops at the FP32 rate."""
+    nbytes = 2 * n * w * 4 + 3 * e * 4
+    t_bytes, t_ops = nbytes / PEAK_BYTES, 2 * e * w / PEAK_OPS[torch.float32]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes > t_ops else "operations", nbytes)
+
+
+def library_dval(plan, g, x):
+    """``torch.sparse.sampled_addmm`` on the plan's CSR: the same values,
+    ``<g[row], x[col]>`` at each stored entry, in one PyTorch call."""
+    n = plan.num_nodes
+    a = torch.sparse_csr_tensor(plan.row_ptr, plan.col,
+                                torch.zeros(plan.num_edges, device="cuda"),
+                                size=(n, n))
+    xt = x.t()
+    return lambda: torch.sparse.sampled_addmm(a, g, xt, beta=0.0)
+
+
+def phase_dval_kernels():
+    """K1-dval (``csrc/spmm.cu`` ``csr_spmm_dval_kernel``) against its plain
+    version at :func:`dval_shapes`, under the "spmm" rule with each edge's
+    scale its sum of |dout·x|, shown to fail a wrong output, two calls
+    bit-equal, one device kernel a call (counted in the CUDA graph of one
+    call); its time by replays of a CUDA graph of 20 calls (the profiler
+    drops kernels of microseconds), the plain version's and
+    ``sampled_addmm``'s by events, beside its bound and its gather floor.
+    Returns the JSON rows of the shapes in ``DVAL_JSON``."""
+    from difformer_tpu_torch.kernels import spmm as K1
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+
+    rows = {}
+    for idx, (label, plan, w, chunk) in enumerate(dval_shapes()):
+        n, e = plan.num_nodes, plan.num_edges
+        gen = torch.Generator("cuda").manual_seed(200 + idx)
+        g = torch.randn((n, w), device="cuda", generator=gen)
+        x = torch.randn((n, w), device="cuda", generator=gen)
+        kernel = lambda: K1.csr_spmm_dval(g, x, plan.rows,  # noqa: E731
+                                          plan.col)
+        plain = lambda: K1.csr_spmm_dval_plain(  # noqa: E731
+            g, x, plan.rows, plan.col, edge_chunk_size=chunk)
+        out, ref = kernel(), plain()
+        scale = K1.csr_spmm_dval_abs(g, x, plan.rows, plan.col,
+                                     edge_chunk_size=chunk)
+        tag = f"{DVAL_NAME} {label} N={n} E={e} W={w}"
+        err = assert_close(tag, out, ref, "spmm", scale=scale)
+        assert_rejects(tag, ref, "spmm", scale=scale)
+        if not torch.equal(out, kernel()):
+            raise AssertionError(f"{tag}: two calls differ")
+        try:
+            library = library_dval(plan, g, x)
+            lib_err = (library().values() - ref).abs().max().item()
+            library_note = f"(max_abs_err {lib_err:.3e})"
+        except RuntimeError as ex:
+            library = None
+            library_note = f"refused: {str(ex).splitlines()[0][:160]}"
+        del out, ref, scale
+        torch.cuda.synchronize()
+        kernels, nodes = graph_kernels(kernel)
+        ms = replay_ms(kernel)
+        profiled, _ = device_profile(kernel)
+        plain_ms = cuda_ms(plain)
+        library_ms = None if library is None else cuda_ms(library)
+        bound, bound_by, nbytes = dval_bound_ms(n, e, w)
+        floor = 1e3 * (2 * e * w + 3 * e) * 4 / PEAK_BYTES
+        lib_ms = ("none" if library_ms is None
+                  else f"{library_ms:.4f} ms")
+        say(f"phase kernels: {tag:57s} max_abs_err {err:.3e}, two calls "
+            f"bit-equal | kernel {ms:.4f} ms (CUDA graph of 20 calls; "
+            f"profiler {profiled:.4f} ms) in {kernels} device kernels a call "
+            f"({nodes} graph nodes) | plain {plain_ms:.4f} ms | "
+            f"sampled_addmm {lib_ms} {library_note} | bound {bound:.4f} ms "
+            f"by {bound_by} ({nbytes / 1e6:.2f} MB; {100 * bound / ms:.1f}% "
+            f"of the kernel's time) | gather floor {floor:.4f} ms "
+            f"({100 * floor / ms:.1f}% of the kernel's time)")
+        if kernels != 1 or nodes != 1:
+            raise AssertionError(f"{tag}: {kernels} device kernels in "
+                                 f"{nodes} graph nodes a call, expected 1")
+        if label in DVAL_JSON:
+            rows[f"{DVAL_NAME}{DVAL_JSON[label]}"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=library_ms)
+        del g, x, plan, library
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -811,6 +960,22 @@ def launch_counts():
     from difformer_tpu_torch.kernels import spmm as K1
 
     return {**K.LAUNCHES, **K1.LAUNCHES}
+
+
+def dval_count():
+    """K1-dval's launches since the last reset (a count of its own)."""
+    from difformer_tpu_torch.kernels import spmm as K1
+
+    return K1.DVAL_LAUNCHES[DVAL_NAME]
+
+
+def check_no_dval(phase, what):
+    """Raise if K1-dval launched since the last reset: ``what``'s edge
+    values take no gradient."""
+    if dval_count():
+        raise AssertionError(f"phase {phase}: {what} launched K1-dval "
+                             f"{dval_count()} times; its values take no "
+                             f"gradient")
 
 
 def reset_launch_counts():
@@ -1542,6 +1707,7 @@ class CliRun:
             self.res = cli.main(argv)
             torch.cuda.synchronize()
             self.launches = launch_counts()
+            self.dval = dval_count()
         self.total_s = time.perf_counter() - start[0]
 
     def check(self, classes, path):
@@ -1589,6 +1755,7 @@ def phase_cli(tmp):
     main_run = CliRun("cli", base)
     main_run.check(7, K1_PATH)
     main_run.report()
+    check_no_dval("cli", "DIFFormer-s")
     for extra, path in ((["--kernel", "sigmoid"], K1_PATH + SIGMOID_PATH),
                         (["--reorder", "rcm"], K1_PATH)):
         run = CliRun("cli", base + extra)
@@ -1636,6 +1803,125 @@ def phase_cli_set(tmp):
     wide.check(CIFAR10_CLASSES, K1_PATH + SIGMOID_PATH)
     wide.report(f"; cut from {cfg.epochs} epochs and {cfg.runs} runs")
     return wide.launches
+
+
+# ---------------------------------------------------------------------------
+# zoo-cora and zoo-cifar10: the baseline zoo through the command line
+# ---------------------------------------------------------------------------
+
+# every zoo method of the command line, with the JK nets' three aggregations
+ZOO_RUNS = [("mlp", []), ("manireg", []), ("gcn", []), ("gat", []),
+            ("sgc", []), ("link", []), ("mixhop", []),
+            ("gcnjk", ["--jk_type", "max"]), ("gcnjk", ["--jk_type", "cat"]),
+            ("gcnjk", ["--jk_type", "lstm"]), ("gatjk", []), ("h2gcn", []),
+            ("appnp", []), ("gprgnn", []), ("lp", []), ("multilp", [])]
+ZOO_EPOCHS = 20   # of the cora preset's 500 x 5 runs
+ZOO_CIFAR10_EPOCHS = 5   # of the cifar10 preset's 600 x 5 runs
+ZOO_GAT = ("gat", "gatjk")   # the methods whose edge values are learned
+
+
+def zoo_expected(method):
+    """Which kernels a zoo method's run launches: K1 forward for all but
+    the MLPs, K1 transposed for the trained graph models, K1-dval for GAT
+    and GATJK, no attention kernel."""
+    graph = method not in ("mlp", "manireg")
+    trained = graph and method not in ("lp", "multilp")
+    return {"csr_spmm": graph, "csr_spmm_transposed": trained,
+            DVAL_NAME: method in ZOO_GAT}
+
+
+def zoo_run(phase, argv, method):
+    """One zoo run through the command line: the test metric finite in
+    [0, 1] (no floor: 20 epochs of an 8-layer model at the preset's lr are
+    not a trained model), the kernels of :func:`zoo_expected` launched and
+    no other; prints the metric, fit ms per epoch and the launches counted
+    by the wrappers and, for a graph fit, replayed on the device. Returns
+    (the run, {kernel: wrapper count + device replays})."""
+    torch.cuda.reset_peak_memory_stats()
+    run = CliRun(phase, argv)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    tests = [r["test"] for r in run.res]
+    trainer = getattr(run, "trainer", None)
+    runner = None if trainer is None else trainer.epoch_runner
+    replayed = {} if runner is None else runner.launches()
+    launched = {k: v + replayed.get(k, 0) for k, v in run.launches.items()}
+    launched[DVAL_NAME] = run.dval + (0 if runner is None
+                                      else runner.dval_launches())
+    t = run.times
+    per_epoch = (f"{1e3 * t['fit_s'] / t['epochs']:.3f} ms per epoch "
+                 f"(captures included)" if t["epochs"] else
+                 f"no training, whole command {run.total_s:.3f} s")
+    say(f"phase {phase}: --method {' '.join(argv[argv.index('--method') + 1:])}"
+        f" -> test {[round(x, 4) for x in tests]}, {per_epoch}, peak "
+        f"memory {peak:.1f} MiB; launches (wrappers + replays) "
+        f"{ {k: v for k, v in launched.items() if v} }")
+    if not all(math.isfinite(x) and 0.0 <= x <= 1.0 for x in tests):
+        raise AssertionError(f"phase {phase}: test metrics {tests}")
+    expect = zoo_expected(method)
+    off = {k: v for k, v in launched.items()
+           if (v > 0) != bool(expect.get(k, False))}
+    if off:
+        raise AssertionError(f"phase {phase}: --method {method} launched "
+                             f"{off} against {expect}")
+    return run, launched
+
+
+def check_graph_against_loop(phase, method, graph_run, loop_run):
+    """The epoch-block fit (CUDA graphs) against the per-epoch loop of the
+    same command: the same best epoch, losses and split metrics within
+    rtol 1e-5 (PERF.md §2); prints whether they are bit-equal."""
+    a, b = graph_run.res[0], loop_run.res[0]
+    same = (a["epoch"] == b["epoch"]
+            and np.allclose(a["losses"], b["losses"], rtol=GRAPH_RTOL,
+                            atol=0)
+            and all(np.isclose(a[k], b[k], rtol=GRAPH_RTOL, atol=1e-7)
+                    for k in ("train", "valid", "test")))
+    # the graph fit's metrics are the device's float32, the loop's numpy's
+    equal = a["losses"] == b["losses"] and a["epoch"] == b["epoch"]
+    say(f"phase {phase}: --method {method} graph fit against the loop: best "
+        f"epoch {a['epoch']} / {b['epoch']}, largest loss rel diff "
+        f"{largest_rel_diff(a['losses'], b['losses']):.3e}, metrics "
+        f"{[a[k] for k in ('train', 'valid', 'test')]} / "
+        f"{[b[k] for k in ('train', 'valid', 'test')]}; losses and best "
+        f"epoch bit-equal {equal}")
+    if not same:
+        raise AssertionError(f"phase {phase}: --method {method}'s graph fit "
+                             f"and loop differ beyond rtol {GRAPH_RTOL}")
+
+
+def phase_zoo_cora(tmp):
+    """Every zoo method through the command line on the cora preset's
+    widths (hidden 64, 8 layers, lr 1e-3, dropout 0.2, epoch_block 8) on
+    Planetoid files of the slice's graph of Cora's size, cut to
+    ``ZOO_EPOCHS`` epochs and 1 run; GCN and GAT again through the
+    per-epoch loop (``--epoch_block 0``), held against their graph fits.
+    Returns GAT's launches (K1-dval's are the JSON line's)."""
+    write_planetoid_cora(tmp)
+    base = ["--dataset", "cora", "--data_dir", tmp, "--epochs",
+            str(ZOO_EPOCHS), "--runs", "1"]
+    gat = None
+    for method, extra in ZOO_RUNS:
+        argv = base + ["--method", method] + extra
+        run, launched = zoo_run("zoo-cora", argv, method)
+        if method in ("gcn", "gat"):
+            loop = CliRun("zoo-cora", argv + ["--epoch_block", "0"])
+            check_graph_against_loop("zoo-cora", method, run, loop)
+        if method == "gat":
+            gat = launched
+    return gat
+
+
+def phase_zoo_cifar10(tmp):
+    """GCN and GAT (2 heads) through the command line on the cifar10 preset
+    (hidden 300, 2 layers, the set track's kNN graph, k = 5) on stand-in
+    embeddings [15000, 512], cut to ``ZOO_CIFAR10_EPOCHS`` epochs and 1
+    run: ms per epoch and peak memory. Returns GAT's launches."""
+    x, y = cifar10_embeddings()
+    write_cifar10_embeddings(tmp, x, y)
+    base = ["--dataset", "cifar10", "--data_dir", tmp, "--epochs",
+            str(ZOO_CIFAR10_EPOCHS), "--runs", "1"]
+    zoo_run("zoo-cifar10", base + ["--method", "gcn"], "gcn")
+    return zoo_run("zoo-cifar10", base + ["--method", "gat"], "gat")[1]
 
 
 # ---------------------------------------------------------------------------
@@ -2224,6 +2510,7 @@ def phase_temporal(phase, tmp, argv):
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t0
         counted = launch_counts()
+        check_no_dval(phase, " ".join(argv))
     trainer = made[0]
     res, runner = trainer.result, trainer.runner
     train, val, test, fit_kw = trainer.recorded
@@ -2846,7 +3133,7 @@ def main():
     smi = phase_device()
     phase_build()
     rows = phase_kernels()
-    spmm_rows = phase_spmm_kernels()
+    spmm_rows, dval_rows = phase_spmm_kernels()
     wide_rows = phase_kernels_wide()
     say(f"phase kernels: done at {time.perf_counter() - t0:.1f} s")
     launches = phase_slice()
@@ -2873,6 +3160,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         launches_set = phase_cli_set(tmp)
     say(f"phase cli-set: done at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_gat = phase_zoo_cora(tmp)
+    say(f"phase zoo-cora: done at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_gat_cifar = phase_zoo_cifar10(tmp)
+    say(f"phase zoo-cifar10: done at {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         launches_mb, chunk_rows, base, split = phase_minibatch_pokec(tmp)
     say(f"phase minibatch-pokec: done at {time.perf_counter() - t0:.1f} s")
@@ -2946,6 +3239,16 @@ def main():
          "replaces": SPMM_REPLACES,
          "launches": launches_gl[name.split()[0]], **row}
         for name, row in graph_rows.items()
+    ]
+    kernels += [
+        # K1-dval at GAT's shapes on the slice's graph and on cifar10's kNN
+        # graph, and at Pokec's size; launches are the zoo-cora phase's GAT
+        # run's (wrappers and replays; the cifar10 row zoo-cifar10's)
+        {"name": name, "route": "cuda", "source": SPMM_SOURCE,
+         "replaces": DVAL_REPLACES,
+         "launches": (launches_gat_cifar if name.endswith(" cifar10")
+                      else launches_gat)[DVAL_NAME], **row}
+        for name, row in dval_rows.items()
     ]
     say(json.dumps({"kernels": kernels}))
     say(smi)

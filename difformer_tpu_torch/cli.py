@@ -29,7 +29,12 @@ reading a particle dataset's processed cache or raw files from
 ``--data_dir`` (512 synthetic small graphs, with a warning, where they are
 missing, as the JAX command line does). ``--method dcrnn`` and
 ``mpnn_lstm`` build the temporal models on the node task too, as the JAX
-command line does. On the node tracks the GCN branch always runs the CSR
+command line does. The baseline zoo (``--method`` mlp, manireg, gcn, gat,
+sgc, link, mixhop, gcnjk, gatjk, h2gcn, appnp, gprgnn) trains full-batch with
+``FullBatchTrainer`` as DIFFormer does, and ``--method lp``/``multilp``
+propagates labels and scores every split, per run, with no trainer; a zoo
+method in mini-batch (``--use_minibatch``, the pokec and ogbn-proteins
+presets) is not ported. On the node tracks the GCN branch always runs the CSR
 SpMM kernel (K1): the JAX package's default ``--use_ell`` ELL layout is a TPU
 layout of the same product. ``--eval_only`` reads a checkpoint the port wrote
 with ``--save_model``, or a reference ``.pt``/``.pth``/``.pkl`` state_dict; it
@@ -58,6 +63,7 @@ from difformer_tpu_torch.data.transforms import (
 from difformer_tpu_torch.data.particle import load_particle_dataset
 from difformer_tpu_torch.data.splits import get_random_idx_split
 from difformer_tpu_torch.data.synthetic import random_small_graphs
+from difformer_tpu_torch.nn import gnns as Z
 from difformer_tpu_torch.nn.difformer import DIFFormer
 from difformer_tpu_torch.nn.difformer_v2 import DIFFormerV2, GraphLevelModel
 from difformer_tpu_torch.nn.temporal import DCRNN, MPNNLSTM
@@ -70,14 +76,11 @@ from difformer_tpu_torch.train.minibatch import MiniBatchTrainer
 from difformer_tpu_torch.train.trainer import FullBatchTrainer
 from difformer_tpu_torch.utils.config import Config, make_config
 from difformer_tpu_torch.utils.logger import RunLogger
+from difformer_tpu_torch.utils.metrics import METRICS
 from difformer_tpu_torch.utils.weights import load_torch_checkpoint
 
-# the JAX package's methods that the port does not run yet, by ROADMAP.md
-# queue A item
-_ZOO = ("mlp", "manireg", "gcn", "gat", "sgc", "link", "mixhop", "gcnjk",
-        "gatjk", "h2gcn", "appnp", "gprgnn", "lp", "multilp")
+# the routes that the port does not run yet, by ROADMAP.md queue A item
 _ITEMS = {
-    8: "the baseline zoo, ROADMAP.md queue A item 8",
     9: "the TPU-shaped sparse layouts, ROADMAP.md queue A item 9",
     10: "the parallel layer, ROADMAP.md queue A item 10",
 }
@@ -90,27 +93,64 @@ def _not_ported(what, item):
         f"{what} is not ported to difformer_tpu_torch yet ({_ITEMS[item]})")
 
 
-_PORTED_METHODS = ("difformer", "dcrnn", "mpnn_lstm")
+# the baseline zoo's trained models, and label propagation (no parameters)
+_ZOO = ("mlp", "manireg", "gcn", "gat", "sgc", "link", "mixhop", "gcnjk",
+        "gatjk", "h2gcn", "appnp", "gprgnn")
+_LP = ("lp", "multilp")
+_PORTED_METHODS = ("difformer", "dcrnn", "mpnn_lstm") + _ZOO + _LP
 
 
-def _method_error(method):
-    """The error for a ``--method`` the port does not build."""
-    if method.lower() in _ZOO:
-        return _not_ported(f"--method {method}", 8)
-    return ValueError(f"unknown method {method!r}")
+def _zoo_model(cfg: Config, m, n_nodes, n_classes, in_channels, device):
+    """The zoo model of ``--method m``, as ``difformer_tpu/cli.py:43-81``
+    builds it, with the input width the port's modules need."""
+    common = dict(hidden_channels=cfg.hidden_channels,
+                  out_channels=n_classes, num_layers=cfg.num_layers,
+                  dropout=cfg.dropout, seed=cfg.seed, device=device)
+    if m in ("mlp", "manireg"):
+        # manireg: the smoothness term is the trainer's (run_node_task)
+        return Z.MLP(in_channels, **common)
+    if m == "gcn":
+        return Z.GCN(in_channels, **common, use_bn=cfg.use_bn)
+    if m == "gat":
+        return Z.GAT(in_channels, **common, use_bn=cfg.use_bn,
+                     heads=cfg.gat_heads, out_heads=cfg.out_heads)
+    if m == "sgc":
+        return Z.SGC(in_channels, n_classes, hops=cfg.hops, seed=cfg.seed,
+                     device=device)
+    if m == "link":
+        return Z.LINK(n_nodes, n_classes, seed=cfg.seed, device=device)
+    if m == "mixhop":
+        return Z.MixHop(in_channels, **common, hops=cfg.hops)
+    if m == "gcnjk":
+        return Z.GCNJK(in_channels, **common, jk_type=cfg.jk_type)
+    if m == "gatjk":
+        return Z.GATJK(in_channels, **common, heads=cfg.gat_heads,
+                       jk_type=cfg.jk_type)
+    if m == "h2gcn":
+        return Z.H2GCN(in_channels, **common)
+    if m == "appnp":
+        return Z.APPNPNet(in_channels, cfg.hidden_channels, n_classes,
+                          dropout=cfg.dropout, K=cfg.appnp_k,
+                          alpha=cfg.gpr_alpha, seed=cfg.seed, device=device)
+    # gprgnn: K stays the model's default, as the JAX command line leaves it
+    return Z.GPRGNN(in_channels, cfg.hidden_channels, n_classes,
+                    dropout=cfg.dropout, alpha=cfg.gpr_alpha, seed=cfg.seed,
+                    device=device)
 
 
 def parse_method(cfg: Config, n_nodes: int, n_classes: int,
                  in_channels: int, *, device=None):
     """The model of ``--method`` (``node classification/parse.py:4-10``,
-    ``difformer_tpu/cli.py:25-82``): DIFFormer, DCRNN (``K =
-    --dcrnn_filters``) or MPNN-LSTM (a window of 1), each of which needs
-    its input width."""
+    ``difformer_tpu/cli.py:25-82``): DIFFormer, a model of the baseline zoo,
+    DCRNN (``K = --dcrnn_filters``) or MPNN-LSTM (a window of 1), each of
+    which needs its input width."""
     m = cfg.method.lower()
-    if m not in _PORTED_METHODS:
-        raise _method_error(cfg.method)
+    if m not in _PORTED_METHODS or m in _LP:
+        raise ValueError(f"unknown method {cfg.method!r}")
     if cfg.n_shards > 1:
         raise _not_ported("--n_shards > 1", 10)
+    if m in _ZOO:
+        return _zoo_model(cfg, m, n_nodes, n_classes, in_channels, device)
     if m == "dcrnn":
         return DCRNN(in_channels, cfg.hidden_channels, n_classes,
                      K=cfg.dcrnn_filters, seed=cfg.seed, device=device)
@@ -136,10 +176,20 @@ BCE_DATASETS = {"yelp-chi", "deezer-europe", "twitch-e", "fb100",
 def _check_ported(cfg: Config):
     """Raise for the routes of ``run_node_task`` that are not ported,
     before any data is read."""
-    if cfg.method.lower() not in _PORTED_METHODS:
-        raise _method_error(cfg.method)
+    m = cfg.method.lower()
+    if m not in _PORTED_METHODS:
+        raise ValueError(f"unknown method {cfg.method!r}")
+    if m in _LP:
+        return  # the JAX command line reads no other flag on this route
     if cfg.n_shards > 1:
         raise _not_ported("--n_shards > 1", 10)
+    if cfg.use_minibatch and m in _ZOO:
+        raise NotImplementedError(
+            f"--method {cfg.method} with --use_minibatch (the pokec and "
+            f"ogbn-proteins presets set it) is not ported to "
+            f"difformer_tpu_torch yet: the zoo in mini-batch needs chunk "
+            f"plans per model (ROADMAP.md queue A, leftover \"the zoo in "
+            f"mini-batch\")")
     if not cfg.use_minibatch and cfg.spmm not in _PORTED_SPMM:
         # the mini-batch route reads no sparse layout
         raise _not_ported(f"--spmm {cfg.spmm}", 9)
@@ -168,9 +218,10 @@ def _restore(cfg: Config, trainer: FullBatchTrainer, split):
 
 def run_node_task(cfg: Config, device=None):
     """Load ``cfg.dataset``, preprocess its graph as the reference does and
-    train (or, with ``eval_only``, evaluate) DIFFormer full-batch on
-    ``device`` (the GPU unless told otherwise), or in node chunks with
-    ``use_minibatch``. Returns one summary per run."""
+    train (or, with ``eval_only``, evaluate) ``--method`` full-batch on
+    ``device`` (the GPU unless told otherwise), or DIFFormer in node chunks
+    with ``use_minibatch``; label propagation needs no training. Returns one
+    summary per run."""
     _check_ported(cfg)
     ds = load_dataset(cfg.data_dir, cfg.dataset, cfg.sub_dataset)
     x = ds.graph["node_feat"]
@@ -200,7 +251,9 @@ def run_node_task(cfg: Config, device=None):
         ei, x, label = permute_graph(perm, ei, x, label)
 
     loss = "bce" if cfg.dataset in BCE_DATASETS else "nll"
-    model = parse_method(cfg, n, n_classes, x.shape[1], device=device)
+    method = cfg.method.lower()
+    model = (None if method in _LP
+             else parse_method(cfg, n, n_classes, x.shape[1], device=device))
     logger = RunLogger(cfg.runs)
 
     def split_for(run):
@@ -223,6 +276,23 @@ def run_node_task(cfg: Config, device=None):
             split = {k: perm[np.asarray(v)] for k, v in split.items()}
         return split
 
+    if method in _LP:
+        # label propagation (reference MultiLP, gnns.py:203-253): no
+        # parameters, so no trainer; propagate and score each run's split
+        metric_fn = METRICS[cfg.metric]
+        mult_bin = loss == "bce" and label.ndim > 1 and label.shape[1] > 1
+        res = []
+        for run in range(cfg.runs):
+            split = split_for(run)
+            out = Z.multi_lp(ei[0], ei[1], label, split["train"], n,
+                             n_classes, alpha=cfg.lp_alpha, hops=cfg.hops,
+                             mult_bin=mult_bin, device=device).cpu().numpy()
+            r = {name: metric_fn(label[np.asarray(idx)], out[np.asarray(idx)])
+                 for name, idx in split.items()}
+            logger.add_result(run, (r["train"], r["valid"], r["test"]))
+            res.append({**r, "epoch": 0})
+        return _final(res)
+
     if cfg.use_minibatch:
         trainer = MiniBatchTrainer(
             model, x, ei, label, batch_size=cfg.batch_size, lr=cfg.lr,
@@ -238,7 +308,8 @@ def run_node_task(cfg: Config, device=None):
     graph = GraphData.from_numpy(x, ei, device=device)
     trainer = FullBatchTrainer(
         model, graph, label, lr=cfg.lr, weight_decay=cfg.weight_decay,
-        loss=loss, metric=cfg.metric, seed=cfg.seed, device=device)
+        loss=loss, metric=cfg.metric, seed=cfg.seed,
+        manireg=cfg.manireg if method == "manireg" else 0.0, device=device)
     if cfg.eval_only:
         res = _restore(cfg, trainer, split_for(0))
         print(f"Eval-only: {res}")
@@ -273,7 +344,7 @@ def run_temporal_task(cfg: Config, device=None):
     )
 
     if cfg.method.lower() not in _PORTED_METHODS:
-        raise _method_error(cfg.method)
+        raise ValueError(f"unknown method {cfg.method!r}")
     if cfg.dataset.startswith("synthetic"):
         snaps = random_temporal_sequence(20, 100, 4, seed=cfg.seed)
     else:

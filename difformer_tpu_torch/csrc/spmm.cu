@@ -73,6 +73,18 @@
 // int32 [2] on the device: the heavy rows and segments in use, at most H
 // and S. Offsets into x, out and ws are 64-bit.
 //
+// The value gradient (K1-dval, csr_spmm_dval_kernel). Where the edge values
+// are learned (GAT's attention, difformer_tpu/nn/gnns.py:183-184; spmm's
+// values, graph_ops.py:233-236, which XLA differentiates), the backward
+// also needs dval[e] = <dout[row(e)], x[col[e]]>, a sampled dense-dense
+// product over the forward CSR. A group of lanes (the power of two >= the
+// row's vectors, up to a warp) takes one edge, sums the products of the two
+// gathered rows in f32 and reduces them by shuffles; each value is written
+// once, so there are no atomics and two calls are bit-equal. It is bound by
+// bytes as K1 is (2 E W flops on (2 N W + 3 E) * 4 compulsory bytes), and
+// its two gathered rows an edge, 2 E W * 4 bytes, set its time once they
+// leave L2. Only float32 is taken (the baseline models train at f32).
+//
 // C interface (loaded with ctypes): the entry returns cudaGetLastError()
 // after its launches, so a refused launch is reported to the caller.
 
@@ -280,6 +292,44 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// dval[e] = sum over c of dout[rows[e]][c] * x[col[e]][c], in f32: the
+// gradient of K1's output with respect to its edge values, over the
+// forward CSR (rows[e] is edge e's row, col[e] its column). A group of
+// 2^group_log2 lanes takes one edge: each lane sums the packs c = lane,
+// lane + group, ... of the two rows in order, then the group adds its lanes'
+// sums by a butterfly of shuffles, and lane 0 writes the edge's value once.
+// Groups past the last edge load nothing and store nothing, but take part
+// in the shuffles, so every shuffle has the whole warp.
+template <int V>
+__global__ void __launch_bounds__(kThreads)
+    csr_spmm_dval_kernel(const int* __restrict__ rows,
+                         const int* __restrict__ col,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ x,
+                         float* __restrict__ dval, int64_t edges,
+                         int64_t vecs, int group_log2) {
+  const int group = 1 << group_log2;
+  const int lane = threadIdx.x & (group - 1);
+  const int64_t e =
+      (int64_t(blockIdx.x) * kThreads + threadIdx.x) >> group_log2;
+  const bool live = e < edges;
+  float acc = 0.0f;
+  if (live) {
+    const float* a = dout + int64_t(__ldg(rows + e)) * vecs * V;
+    const float* b = x + int64_t(__ldg(col + e)) * vecs * V;
+    for (int64_t c = lane; c < vecs; c += group) {
+      float av[V], bv[V];
+      Pack<float, V>::load(a + c * V, av);
+      Pack<float, V>::load(b + c * V, bv);
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc = fmaf(av[v], bv[v], acc);
+    }
+  }
+  for (int offset = group >> 1; offset > 0; offset >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, offset);
+  if (live && lane == 0) dval[e] = acc;
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -363,6 +413,39 @@ int csr_spmm(const void* row_ptr, const void* col, const void* val,
                             hr, sp, sb, se, heavy, segments, ct, w, st);
   return launch<float, 1>(rp, cl, vl, x, out, rows, width, threshold, hr, sp,
                           sb, se, heavy, segments, ct, w, st);
+}
+
+// dval [edges] = the gradient of K1's output with respect to its values:
+// dval[e] = <dout[rows[e]], x[col[e]]> for dout [*, width] and x [*, width],
+// both float32 and contiguous; rows and col int32 [edges]. Each value is
+// written once (no atomics). Nothing is launched for edges == 0.
+int csr_spmm_dval(const void* rows, const void* col, const void* dout,
+                  const void* x, void* dval, int64_t edges, int64_t width,
+                  void* stream) {
+  if (edges < 0 || width <= 0 || edges > (int64_t(1) << 40))
+    return cudaErrorInvalidValue;
+  if (edges == 0) return cudaSuccess;
+  auto* st = static_cast<cudaStream_t>(stream);
+  const bool vec4 = width % 4 == 0 && aligned16(dout) && aligned16(x);
+  const int64_t vecs = vec4 ? width / 4 : width;
+  int group_log2 = 0;  // lanes per edge: the power of two >= vecs, up to 32
+  while ((int64_t(1) << group_log2) < vecs && group_log2 < 5) ++group_log2;
+  const int64_t blocks = blocks_for(edges, group_log2);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const auto* r = static_cast<const int*>(rows);
+  const auto* c = static_cast<const int*>(col);
+  const auto* g = static_cast<const float*>(dout);
+  const auto* xs = static_cast<const float*>(x);
+  auto* out = static_cast<float*>(dval);
+  if (vec4)
+    csr_spmm_dval_kernel<4><<<static_cast<unsigned>(blocks), kThreads, 0,
+                              st>>>(r, c, g, xs, out, edges, vecs,
+                                    group_log2);
+  else
+    csr_spmm_dval_kernel<1><<<static_cast<unsigned>(blocks), kThreads, 0,
+                              st>>>(r, c, g, xs, out, edges, vecs,
+                                    group_log2);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

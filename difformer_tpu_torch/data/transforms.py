@@ -9,6 +9,9 @@
   takes its CSR order and induced subgraphs from ``native/``, which gives
   the same arrays in one pass over the edges);
 - row feature normalisation (``data_utils.py:229-236``);
+- the dense adjacency and the boolean product of two adjacencies
+  (``convert_to_adj``, ``adj_mul``; ``data_utils.py:287-299``), utilities
+  that no model of either package calls;
 - the kNN graph of the set track (``image and text/main.py:51-54``) and
   the radius graph of the particle track (``physical particle/datasets/
   tau3mu.py:95``);
@@ -126,6 +129,31 @@ def edge_bucket(e, buckets=None, *, growth=1.3, minimum=128):
     while b < e:
         b = int(np.ceil(b * growth / minimum) * minimum)
     return b
+
+
+def convert_to_adj(edge_index, n_node):
+    """Dense float32 adjacency [n_node, n_node] with 1 at (src, dst) of
+    every edge (``data_utils.py:287-292``)."""
+    adj = np.zeros((n_node, n_node), np.float32)
+    ei = np.asarray(edge_index)
+    adj[ei[0], ei[1]] = 1.0
+    return adj
+
+
+def adj_mul(adj_i, adj, n):
+    """The edge_index (int64 [2, E]) of the nonzeros of A_i @ A, for two
+    edge lists over ``n`` nodes (``data_utils.py:294-299``: multi-hop
+    adjacencies), through scipy's CSR product as the JAX function does."""
+    import scipy.sparse as sp
+
+    ai = sp.coo_matrix(
+        (np.ones(adj_i.shape[1]), (adj_i[0], adj_i[1])), shape=(n, n)
+    ).tocsr()
+    a = sp.coo_matrix(
+        (np.ones(adj.shape[1]), (adj[0], adj[1])), shape=(n, n)
+    ).tocsr()
+    prod = (ai @ a).tocoo()
+    return np.stack([prod.row, prod.col]).astype(np.int64)
 
 
 def normalize_feat(feat):

@@ -46,6 +46,7 @@ SIGNATURES = {
     "spmm.cu": {
         "csr_spmm": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P,
                      _P, _I64, _I64, _P, _P, _P],
+        "csr_spmm_dval": [_P, _P, _P, _P, _P, _I64, _I64, _P],
     },
 }
 

@@ -21,7 +21,17 @@ more accurate result, and the port keeps it rather than imitate bf16 sums
 backward over the transposed one (the senders' rows), so ``dx[s] = Σ_{e: send_e
 = s} val[e] · dout[recv_e]``. Both CSRs, each with its :class:`RowSplit`, come
 from a plan built once per graph (``ops/graph_ops.py``, ``build_csr_plan``).
-The values are data and get no gradient.
+The values are data, unless the caller gives them as a tensor that requires a
+gradient (GAT's attention, ``spmm``'s values): then the backward also runs
+K1-dval, ``csr_spmm_dval_kernel`` of the same source, ``dval[e] =
+<dout[row(e)], x[col[e]]>`` over the forward CSR, a group of lanes an edge
+and each value written once (:func:`csr_spmm_dval`; plain twin
+:func:`csr_spmm_dval_plain`, one gather of each side and a row-wise sum in
+f32). It replaces XLA's autodiff of ``values * x[senders]``
+(``difformer_tpu/ops/graph_ops.py:233-236``) and of GAT's ``feat[senders] *
+att`` (``difformer_tpu/nn/gnns.py:183-184``), and is counted in
+:data:`DVAL_LAUNCHES`. Where the values need no gradient (DIFFormer, the
+temporal models, GCN) it is not launched.
 
 Rows of very different degree: a group of lanes sums one run of edges, and
 a row of more than :data:`SPLIT_THRESHOLD` (T) edges, a hub of a power-law
@@ -75,6 +85,10 @@ from difformer_tpu_torch.utils.device import on_cuda
 #: Kernel launches since the last :func:`reset_launch_counts`, by wrapper
 #: and direction.
 LAUNCHES = {"csr_spmm": 0, "csr_spmm_transposed": 0}
+#: K1-dval's launches since the last :func:`reset_launch_counts` (a count
+#: of its own, so that the paths whose values take no gradient keep the
+#: two counts above as they were).
+DVAL_LAUNCHES = {"csr_spmm_dval": 0}
 
 # the element types of x and out, by the code the C entry takes; the heavy
 # rows' workspace and the values are float32 at either
@@ -92,8 +106,9 @@ SPLIT_THRESHOLD = 256
 
 
 def reset_launch_counts():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, DVAL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -289,23 +304,113 @@ def csr_spmm(x, row_ptr, col, val, *, split=None, transposed=False,
     return out
 
 
+def csr_spmm_dval_plain(dout, x, rows, col, *, edge_chunk_size=None):
+    """[E] float32: ``dval[e] = Σ_c dout[rows[e], c] · x[col[e], c]``, one
+    gather of each side and a row-wise sum in float32 (K1-dval's plain
+    twin); with ``edge_chunk_size`` that many edges at a time."""
+    e = col.numel()
+    out = torch.empty(e, dtype=torch.float32, device=dout.device)
+    step = edge_chunk_size or max(e, 1)
+    for lo in range(0, e, step):
+        hi = min(e, lo + step)
+        out[lo:hi] = (dout[rows[lo:hi].long()].float()
+                      * x[col[lo:hi].long()].float()).sum(-1)
+    return out
+
+
+def csr_spmm_dval_abs(dout, x, rows, col, *, edge_chunk_size=None):
+    """[E]: ``Σ_c |dout[rows[e], c] · x[col[e], c]|``, the scale of
+    float32's rounding of K1-dval's sums (the "spmm" kind of
+    ``kernels/tolerance.py``)."""
+    return csr_spmm_dval_plain(dout.abs(), x.abs(), rows, col,
+                               edge_chunk_size=edge_chunk_size)
+
+
+def csr_spmm_dval(dout, x, rows, col, *, edge_chunk_size=None):
+    """K1-dval. dout [R, W] and x [*, W] float32, ``rows`` and ``col``
+    int32 [E] (each CSR edge's row and column) → dval [E] float32 with
+    ``dval[e] = <dout[rows[e]], x[col[e]]>``: the gradient of K1's output
+    with respect to its values, in the CSR's edge order. On a CUDA tensor it
+    launches ``csr_spmm_dval_kernel`` (one write an edge, no atomics) and
+    counts it in :data:`DVAL_LAUNCHES`; on the CPU it runs
+    :func:`csr_spmm_dval_plain` (``edge_chunk_size`` applies to it only)."""
+    if dout.dim() != 2 or x.dim() != 2 or dout.shape[1] != x.shape[1]:
+        raise ValueError(f"dout and x must be [rows, W] of one W, got "
+                         f"{tuple(dout.shape)}, {tuple(x.shape)}")
+    if dout.dtype != torch.float32 or x.dtype != torch.float32:
+        raise TypeError(f"csr_spmm_dval takes float32 dout and x, got "
+                        f"{dout.dtype}, {x.dtype}")
+    if rows.dtype != torch.int32 or col.dtype != torch.int32:
+        raise TypeError(f"csr_spmm_dval takes int32 rows and col, got "
+                        f"{rows.dtype}, {col.dtype}")
+    if rows.shape != col.shape or col.dim() != 1:
+        raise ValueError(f"rows and col must be [E], got "
+                         f"{tuple(rows.shape)}, {tuple(col.shape)}")
+    if not on_cuda("csr_spmm_dval", dout, x, rows, col):
+        return csr_spmm_dval_plain(dout, x, rows, col,
+                                   edge_chunk_size=edge_chunk_size)
+    e, width = col.numel(), x.shape[1]
+    if e == 0 or width == 0:
+        return torch.zeros(e, dtype=torch.float32, device=x.device)
+    dout, x = dout.contiguous(), x.contiguous()
+    rows, col = rows.contiguous(), col.contiguous()
+    out = torch.empty(e, dtype=torch.float32, device=x.device)
+    rc = load_library().csr_spmm_dval(
+        rows.data_ptr(), col.data_ptr(), dout.data_ptr(), x.data_ptr(),
+        out.data_ptr(), e, width,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"csr_spmm_dval kernel launch failed: CUDA error "
+                           f"{rc}")
+    DVAL_LAUNCHES["csr_spmm_dval"] += 1
+    return out
+
+
 class CsrSpmm(torch.autograd.Function):
     """``out = A @ x`` for ``fwd`` = (row_ptr, col, val, split), the CSR of
     A and its :class:`RowSplit`; the backward is ``dx = Aᵀ @ dout`` through
-    the same kernel over ``bwd``, the CSR of Aᵀ and its split. Only x gets a
-    gradient."""
+    the same kernel over ``bwd``, the CSR of Aᵀ and its split.
+
+    With ``values`` ([E], in the edge order of the caller's plan) and
+    ``maps`` = (order, t_order, inv_order, rows) the product takes these
+    values instead of the CSRs' own: ``values[order]`` in CSR order and
+    ``values[t_order]`` in the transposed one. When ``values`` requires a
+    gradient the backward also launches K1-dval over the forward CSR and
+    gathers its result back to the caller's order by ``inv_order`` (a
+    permutation: a gather, not an add); otherwise it launches exactly what
+    it launches without values."""
 
     @staticmethod
-    def forward(ctx, x, fwd, bwd, edge_chunk_size):
+    def forward(ctx, x, fwd, bwd, edge_chunk_size, values=None, maps=None):
         ctx.bwd = bwd
         ctx.edge_chunk_size = edge_chunk_size
+        ctx.maps = maps
         row_ptr, col, val, split = fwd
+        if values is not None:
+            ctx.fwd_col = col
+            val = values.detach().float().index_select(0, maps[0])
+            want_dval = ctx.needs_input_grad[4]
+            ctx.save_for_backward(values, x if want_dval else None)
         return csr_spmm(x, row_ptr, col, val, split=split,
                         edge_chunk_size=edge_chunk_size)
 
     @staticmethod
     def backward(ctx, g):
         row_ptr, col, val, split = ctx.bwd
-        dx = csr_spmm(g.contiguous(), row_ptr, col, val, split=split,
-                      transposed=True, edge_chunk_size=ctx.edge_chunk_size)
-        return dx, None, None, None
+        g = g.contiguous()
+        dx = dval = None
+        if ctx.maps is not None:
+            values, x = ctx.saved_tensors
+            order, t_order, inv_order, rows = ctx.maps
+            val = values.detach().float().index_select(0, t_order)
+        if ctx.needs_input_grad[0]:
+            dx = csr_spmm(g, row_ptr, col, val, split=split,
+                          transposed=True,
+                          edge_chunk_size=ctx.edge_chunk_size)
+        if len(ctx.needs_input_grad) > 4 and ctx.needs_input_grad[4]:
+            dval = csr_spmm_dval(
+                g, x, rows, ctx.fwd_col,
+                edge_chunk_size=ctx.edge_chunk_size).index_select(
+                    0, inv_order).to(values.dtype)
+        return (dx, None, None, None, dval, None)[
+            :len(ctx.needs_input_grad)]

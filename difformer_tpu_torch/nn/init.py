@@ -1,8 +1,11 @@
 """PyTorch ``nn.Linear`` initialisation from an explicit generator, as
 ``difformer_tpu/nn/init.py``: weight and bias both U(−1/√fan_in, 1/√fan_in)
-(the reference's default ``nn.Linear`` init)."""
+(the reference's default ``nn.Linear`` init); and flax's LSTM cell's init
+for a ``torch.nn.LSTMCell`` (MPNN-LSTM, the JK nets' LSTM)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -21,3 +24,28 @@ def torch_linear_init_(linear: nn.Linear, generator: torch.Generator):
         cpu = torch.empty(p.shape, dtype=p.dtype)
         nn.init.uniform_(cpu, -bound, bound, generator=generator)
         p.copy_(cpu)
+
+
+def flax_lstm_init_(cell: nn.LSTMCell, generator: torch.Generator):
+    """flax ``OptimizedLSTMCell``'s init, gate by gate (i, f, g, o): the
+    input kernels lecun-normal (truncated at 2σ), the recurrent kernels
+    orthogonal, the recurrent biases zero; the input bias is zero and
+    frozen, as flax's input kernels have none."""
+    hid = cell.hidden_size
+    std = math.sqrt(1.0 / cell.input_size) / 0.87962566103423978
+    w_ih = torch.empty(cell.weight_ih.shape)
+    w_hh = torch.empty(cell.weight_hh.shape)
+    for g in range(4):
+        block = torch.empty(cell.input_size, hid)
+        nn.init.trunc_normal_(block, 0.0, std, -2 * std, 2 * std,
+                              generator=generator)
+        w_ih[g * hid:(g + 1) * hid] = block.t()
+        rec = torch.empty(hid, hid)
+        nn.init.orthogonal_(rec, generator=generator)
+        w_hh[g * hid:(g + 1) * hid] = rec.t()
+    with torch.no_grad():
+        cell.weight_ih.copy_(w_ih)
+        cell.weight_hh.copy_(w_hh)
+        cell.bias_hh.zero_()
+        cell.bias_ih.zero_()
+    cell.bias_ih.requires_grad_(False)

@@ -40,7 +40,7 @@ from torch import nn
 
 from difformer_tpu_torch.nn.common import Linear, TorchBatchNorm, dropout
 from difformer_tpu_torch.nn.gnns import GCNLayer
-from difformer_tpu_torch.nn.init import torch_linear_init_
+from difformer_tpu_torch.nn.init import flax_lstm_init_, torch_linear_init_
 from difformer_tpu_torch.ops.graph_ops import (
     CsrPlan,
     build_spmm_plan,
@@ -184,31 +184,6 @@ class DCRNN(nn.Module):
         return out
 
 
-def _lstm_init_(cell: nn.LSTMCell, generator: torch.Generator):
-    """flax ``OptimizedLSTMCell``'s init, gate by gate (i, f, g, o): the
-    input kernels lecun-normal (truncated at 2σ), the recurrent kernels
-    orthogonal, the recurrent biases zero; the input bias is zero and
-    frozen, as flax's input kernels have none."""
-    hid = cell.hidden_size
-    std = math.sqrt(1.0 / cell.input_size) / 0.87962566103423978
-    w_ih = torch.empty(cell.weight_ih.shape)
-    w_hh = torch.empty(cell.weight_hh.shape)
-    for g in range(4):
-        block = torch.empty(cell.input_size, hid)
-        nn.init.trunc_normal_(block, 0.0, std, -2 * std, 2 * std,
-                              generator=generator)
-        w_ih[g * hid:(g + 1) * hid] = block.t()
-        rec = torch.empty(hid, hid)
-        nn.init.orthogonal_(rec, generator=generator)
-        w_hh[g * hid:(g + 1) * hid] = rec.t()
-    with torch.no_grad():
-        cell.weight_ih.copy_(w_ih)
-        cell.weight_hh.copy_(w_hh)
-        cell.bias_hh.zero_()
-        cell.bias_ih.zero_()
-    cell.bias_ih.requires_grad_(False)
-
-
 class MPNNLSTM(nn.Module):
     """MPNN-LSTM (reference ``MPNN_LSTM``, ``gnns.py:250-362``): the input
     is a window of snapshots stacked on the node axis [window·N, F]; two
@@ -242,8 +217,8 @@ class MPNNLSTM(nn.Module):
         self.conv_2.reset_parameters(generator)
         self.bn_1.reset_parameters()
         self.bn_2.reset_parameters()
-        _lstm_init_(self.lstm_1, generator)
-        _lstm_init_(self.lstm_2, generator)
+        flax_lstm_init_(self.lstm_1, generator)
+        flax_lstm_init_(self.lstm_2, generator)
         torch_linear_init_(self.head, generator)
 
     build_plan = staticmethod(GCNLayer.build_plan)

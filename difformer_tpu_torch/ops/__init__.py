@@ -4,6 +4,7 @@ from difformer_tpu_torch.ops.graph_ops import (  # noqa: F401
     build_spmm_plan,
     gcn_conv,
     gcn_norm,
+    gen_normalized_adjs,
     spmm,
 )
 from difformer_tpu_torch.ops.linear_attention import (  # noqa: F401
@@ -11,7 +12,12 @@ from difformer_tpu_torch.ops.linear_attention import (  # noqa: F401
     simple_attention_aggregates,
     simple_attention_head_mean_factored,
 )
-from difformer_tpu_torch.ops.segment import segment_sum  # noqa: F401
+from difformer_tpu_torch.ops.segment import (  # noqa: F401
+    segment_max,
+    segment_mean,
+    segment_softmax,
+    segment_sum,
+)
 from difformer_tpu_torch.ops.sigmoid_attention import (  # noqa: F401
     sigmoid_attention,
     sigmoid_attention_dense,

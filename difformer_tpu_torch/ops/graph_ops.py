@@ -17,8 +17,15 @@ and passes it; without one, each call builds its own, with a sort and a
 degree pass. ``spmm`` takes its values from the caller and sorts its edges
 on every call, unless given the plan of :func:`build_spmm_plan`, which a
 caller that multiplies by one sparse matrix many times (DConv's hops,
-GCNLayer) builds once. :func:`gcn_norm` gives the baseline models' PyG
-normalisation with self-loops. Both products run at x's dtype, float32 or
+GCNLayer, the baseline zoo's hop loops) builds once. That plan keeps the
+two edge orders it sorted by, so a call can give it new per-edge values,
+[E] or per head [E, H], in the plan's edge order, without sorting again;
+such values get a gradient, K1-dval's (``kernels/spmm.py``), as JAX
+differentiates ``spmm``'s values. :class:`EdgeIncidence` gathers node rows
+onto a plan's edges and sums edges into nodes, both through K1 (GAT's
+attention logits and softmax). :func:`gcn_norm` gives the baseline models'
+PyG normalisation with or without self-loops, :func:`gen_normalized_adjs`
+the reference's three degree normalisations. Both products run at x's dtype, float32 or
 bfloat16 (K1 sums in float32 at either). :func:`knn_table_conv` is the
 graph-level track's gather-table conv (``data/batching.py:
 regular_knn_table``), a gather and a weighted sum in both directions.
@@ -92,10 +99,25 @@ class CsrPlan:
     t_val: torch.Tensor        # float32 [E]
     split: RowSplit
     t_split: RowSplit
+    # the edge maps of build_spmm_plan's plans (None elsewhere): the edge
+    # (in the order the plan was built from) at each CSR position and at
+    # each transposed position, the CSR position of each edge, and the row
+    # of each CSR position
+    order: Optional[torch.Tensor] = None      # int64 [E]
+    t_order: Optional[torch.Tensor] = None    # int64 [E]
+    inv_order: Optional[torch.Tensor] = None  # int64 [E]
+    rows: Optional[torch.Tensor] = None       # int32 [E]
 
     @property
     def num_edges(self):
         return self.col.numel()
+
+    def maps(self):
+        """(order, t_order, inv_order, rows) for ``CsrSpmm``'s values."""
+        if self.order is None:
+            raise ValueError("this plan keeps no edge order; per-call edge "
+                             "values need the plan of build_spmm_plan")
+        return self.order, self.t_order, self.inv_order, self.rows
 
 
 def _row_ptr(index, num_nodes):
@@ -123,17 +145,24 @@ def _checked_edges(senders, receivers, num_nodes):
     return senders, receivers
 
 
-def _plan(senders, receivers, num_nodes, value) -> CsrPlan:
+def _plan(senders, receivers, num_nodes, value, maps=False) -> CsrPlan:
     order = torch.argsort(receivers, stable=True)
     t_order = torch.argsort(senders, stable=True)
     row_ptr = _row_ptr(receivers, num_nodes)
     t_row_ptr = _row_ptr(senders, num_nodes)
+    kept = {}
+    if maps:
+        e = order.numel()
+        inv_order = torch.empty_like(order)
+        inv_order[order] = torch.arange(e, device=order.device)
+        kept = dict(order=order, t_order=t_order, inv_order=inv_order,
+                    rows=receivers[order].to(torch.int32))
     return CsrPlan(
         num_nodes=num_nodes, row_ptr=row_ptr,
         col=senders[order].to(torch.int32), val=value[order],
         t_row_ptr=t_row_ptr,
         t_col=receivers[t_order].to(torch.int32), t_val=value[t_order],
-        split=row_split(row_ptr), t_split=row_split(t_row_ptr))
+        split=row_split(row_ptr), t_split=row_split(t_row_ptr), **kept)
 
 
 def build_csr_plan(senders, receivers, num_nodes, edge_weight=None,
@@ -147,18 +176,35 @@ def build_csr_plan(senders, receivers, num_nodes, edge_weight=None,
     return _plan(senders, receivers, num_nodes, value)
 
 
-def _csr_product(x, plan, edge_chunk_size):
+def _csr_product(x, plan, edge_chunk_size, values=None):
     """K1 over ``plan``, for x of any trailing shape [N, ...] (all heads and
-    channels in one product)."""
-    if x.shape[0] != plan.num_nodes:
-        raise ValueError(f"x has {x.shape[0]} rows; the plan has "
+    channels in one product). With ``values`` [E] (in the plan's edge
+    order) they replace the plan's own; with per-head ``values`` [E, H] and
+    x [N, H, ...], one product a head over that head's contiguous slice."""
+    n = x.shape[0]
+    if n != plan.num_nodes:
+        raise ValueError(f"x has {n} rows; the plan has "
                          f"{plan.num_nodes} nodes")
-    flat = x.reshape(x.shape[0], -1)
-    out = CsrSpmm.apply(
-        flat, (plan.row_ptr, plan.col, plan.val, plan.split),
-        (plan.t_row_ptr, plan.t_col, plan.t_val, plan.t_split),
-        edge_chunk_size)
-    return out.reshape(x.shape)
+    fwd = (plan.row_ptr, plan.col, plan.val, plan.split)
+    bwd = (plan.t_row_ptr, plan.t_col, plan.t_val, plan.t_split)
+    if values is None:
+        out = CsrSpmm.apply(x.reshape(n, -1), fwd, bwd, edge_chunk_size)
+        return out.reshape(x.shape)
+    maps = plan.maps()
+    if values.shape[0] != plan.num_edges or values.dim() not in (1, 2):
+        raise ValueError(f"values must be [E] or [E, H] with E = "
+                         f"{plan.num_edges}, got {tuple(values.shape)}")
+    if values.dim() == 1:
+        out = CsrSpmm.apply(x.reshape(n, -1), fwd, bwd, edge_chunk_size,
+                            values, maps)
+        return out.reshape(x.shape)
+    heads = values.shape[1]
+    if x.dim() < 2 or x.shape[1] != heads:
+        raise ValueError(f"per-head values [E, {heads}] need x [N, {heads}, "
+                         f"...], got {tuple(x.shape)}")
+    outs = [CsrSpmm.apply(x[:, h].reshape(n, -1), fwd, bwd, edge_chunk_size,
+                          values[:, h], maps) for h in range(heads)]
+    return torch.stack(outs, 1).reshape(x.shape)
 
 
 def gcn_conv(x, senders, receivers, edge_weight=None, *, num_nodes=None,
@@ -188,24 +234,86 @@ def gcn_conv(x, senders, receivers, edge_weight=None, *, num_nodes=None,
 def build_spmm_plan(values, senders, receivers, num_nodes) -> CsrPlan:
     """The :class:`CsrPlan` of the sparse matrix with ``out[r] +=
     values[e] · x[s]`` over edges (senders, receivers), in any order, for
-    :func:`spmm`'s ``plan``. The values are data (no gradient). Checks the
-    indices as :func:`build_csr_plan` does."""
+    :func:`spmm`'s ``plan``, with its edge maps, so that a call can give
+    other values in this edge order. The plan's values are data (no
+    gradient); ``values`` None gives ones. Checks the indices as
+    :func:`build_csr_plan` does."""
     senders, receivers = _checked_edges(senders, receivers, num_nodes)
-    return _plan(senders, receivers, num_nodes, values.detach().float())
+    if values is None:
+        values = torch.ones(senders.shape, device=senders.device)
+    return _plan(senders, receivers, num_nodes, values.detach().float(),
+                 maps=True)
 
 
 def spmm(values, senders, receivers, x, num_nodes=None, *,
          indices_are_sorted=False, plan: Optional[CsrPlan] = None):
     """Generic sparse @ dense: ``out[r] += values[e] · x[s]`` (COO), through
-    K1 with the caller's values, which get no gradient. Without ``plan``
-    each call sorts the edges into the two CSRs it needs; with the plan of
-    :func:`build_spmm_plan` (which then replaces values, senders and
-    receivers) it sorts nothing."""
+    K1. ``values`` [E], or [E, H] per head for x [N, H, ...], get a
+    gradient when they require one (K1-dval in the backward), as the JAX
+    package's ``spmm`` does. Without ``plan`` each call sorts the edges into
+    the two CSRs it needs; with the plan of :func:`build_spmm_plan` it sorts
+    nothing, and ``values`` (in the plan's edge order) replace the plan's
+    own, or, when None, the plan's own are taken; senders and receivers are
+    then not read."""
     del indices_are_sorted
     if plan is None:
         n = x.shape[0] if num_nodes is None else num_nodes
-        plan = build_spmm_plan(values, senders, receivers, n)
-    return _csr_product(x, plan, None)
+        plan = build_spmm_plan(values if values.dim() == 1 else None,
+                               senders, receivers, n)
+        if values.dim() == 1 and not values.requires_grad:
+            values = None
+    return _csr_product(x, plan, None, values)
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeIncidence:
+    """The incidence of a plan's edges, in CSR order, with one of their ends:
+    :meth:`gather` takes node rows onto the edges, ``a[node(e)]``, and
+    :meth:`sum` adds edge rows into their nodes, ``Σ_{e: node(e) = v}
+    m[e]``. Each is K1 over one CSR with the other as its backward: the
+    edges' CSR (a row an edge, one entry each) and the nodes' (each node's
+    edges in order), with unit values. No atomics either way."""
+
+    edge_csr: tuple   # (row_ptr [E + 1], node of each edge, ones, split)
+    node_csr: tuple   # (row_ptr [N + 1], edges of each node, ones, split)
+
+    def gather(self, a):
+        """[E, ...]: ``a[node(e)]`` for a [N, ...]."""
+        out = CsrSpmm.apply(a.reshape(a.shape[0], -1), self.edge_csr,
+                            self.node_csr, None)
+        return out.reshape((-1,) + tuple(a.shape[1:]))
+
+    def sum(self, m):
+        """[N, ...]: the sum of each node's edge rows of m [E, ...]."""
+        out = CsrSpmm.apply(m.reshape(m.shape[0], -1), self.node_csr,
+                            self.edge_csr, None)
+        return out.reshape((-1,) + tuple(m.shape[1:]))
+
+
+def edge_incidence(plan: CsrPlan, end: str) -> EdgeIncidence:
+    """The :class:`EdgeIncidence` of ``plan``'s edges (CSR order) with
+    their receivers (``end="receiver"``, each edge's row) or their senders
+    (``end="sender"``, its column); the plan must keep its edge maps
+    (:func:`build_spmm_plan`)."""
+    order, t_order, inv_order, rows = plan.maps()
+    e = plan.num_edges
+    device = plan.col.device
+    ones = torch.ones(e, device=device)
+    edge_ptr = torch.arange(e + 1, dtype=torch.int32, device=device)
+    edge_split = row_split(edge_ptr)
+    if end == "receiver":
+        node = rows
+        node_csr = (plan.row_ptr, torch.arange(e, dtype=torch.int32,
+                                               device=device), ones,
+                    plan.split)
+    elif end == "sender":
+        node = plan.col
+        # each sender's edges as CSR positions, in the transposed order
+        node_csr = (plan.t_row_ptr,
+                    inv_order[t_order].to(torch.int32), ones, plan.t_split)
+    else:
+        raise ValueError(f"end must be 'receiver' or 'sender', got {end!r}")
+    return EdgeIncidence((edge_ptr, node, ones, edge_split), node_csr)
 
 
 def weighted_degree(index, weight, num_nodes):
@@ -246,6 +354,35 @@ def gcn_norm(senders, receivers, num_nodes, edge_weight=None, *,
                            torch.zeros_like(deg))
     norm = inv_sqrt[senders] * edge_weight * inv_sqrt[receivers]
     return senders, receivers, norm
+
+
+def gen_normalized_adjs(senders, receivers, num_nodes, *, mode="DAD"):
+    """Degree-normalised per-edge values, as the JAX package's
+    (``graph_ops.py:204-221``; reference ``data_utils.py:203-227``, for
+    :func:`spmm`): D⁻½AD⁻½ (``"DAD"``, receivers' and senders' degrees),
+    D⁻¹A (``"DA"``) or AD⁻¹ (``"AD"``), 0 where a degree is 0. Float32 on
+    the edges' device."""
+    senders, receivers = senders.long(), receivers.long()
+    deg = degree(receivers, num_nodes)
+    deg_s = degree(senders, num_nodes)
+
+    def inv(d, f):
+        return torch.where(d > 0, f(d.clamp(min=1e-30)), torch.zeros_like(d))
+
+    if mode == "DAD":
+        return (inv(deg, torch.rsqrt)[receivers]
+                * inv(deg_s, torch.rsqrt)[senders])
+    if mode == "DA":
+        return inv(deg, torch.reciprocal)[receivers]
+    if mode == "AD":
+        return inv(deg_s, torch.reciprocal)[senders]
+    raise ValueError(mode)
+
+
+def add_remaining_self_loops_dense(adj):
+    """``adj + I`` for a dense [N, N] adjacency (``graph_ops.py:171-174``;
+    a utility for dense baselines)."""
+    return adj + torch.eye(adj.shape[0], dtype=adj.dtype, device=adj.device)
 
 
 def _table_gather(x, idx, w):

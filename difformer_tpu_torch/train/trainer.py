@@ -25,8 +25,12 @@ Two ways to fit, with one schedule of evals and one best-epoch rule:
   (:class:`EpochRunner`) and replayed on the schedule; a failed capture or
   replay raises, and nothing falls back to eager execution.
 
-The port's model has no non-param variable collections, so ``TrainState``
-has no ``extra`` and ``evaluate_params`` takes none.
+The JAX trainer's ``extra``, the non-param collections (the baseline zoo's
+BatchNorm statistics, ``batch_stats``), are the model's buffers here: they
+live in the model, move in its training forwards, are part of its
+``state_dict`` (the best state, the checkpoints, the weights an epoch-block
+run restores after its warm-up), and ``init_state`` and
+``evaluate_params`` take them as the JAX ones do.
 """
 
 from __future__ import annotations
@@ -130,17 +134,22 @@ def _launch_counts():
     return {**_attention_kernels.LAUNCHES, **_spmm_kernels.LAUNCHES}
 
 
+def _dval_count():
+    return _spmm_kernels.DVAL_LAUNCHES["csr_spmm_dval"]
+
+
 def captured(graph, fn, stream, pool=None):
     """Capture ``fn`` into ``graph`` on ``stream`` (in ``pool``, another
     graph's memory pool, when given); returns the graph's record: the
     kernel launches the wrappers counted during the capture
-    (``captured``) and its ``replays`` (0 so far)."""
-    before = _launch_counts()
+    (``captured``; K1-dval's apart, ``captured_dval``) and its ``replays``
+    (0 so far)."""
+    before, dval = _launch_counts(), _dval_count()
     with torch.cuda.graph(graph, pool=pool, stream=stream):
         fn()
     after = _launch_counts()
     return {"captured": {k: after[k] - before[k] for k in after},
-            "replays": 0}
+            "captured_dval": _dval_count() - dval, "replays": 0}
 
 
 def graph_launches(graphs):
@@ -151,6 +160,11 @@ def graph_launches(graphs):
         for name, count in g["captured"].items():
             total[name] += count * g["replays"]
     return total
+
+
+def graph_dval_launches(graphs):
+    """K1-dval's device launches over the replays of ``graphs``."""
+    return sum(g["captured_dval"] * g["replays"] for g in graphs.values())
 
 
 def device_split_metrics(metric, out, labels, split_masks):
@@ -237,15 +251,18 @@ class FullBatchTrainer:
                                      g.edge_weight, g.edge_mask)
 
     # -- state ---------------------------------------------------------------
-    def init_state(self, run: int = 0, init_params=None) -> TrainState:
-        """Fresh weights drawn from ``seed + run`` (or ``init_params``, a
-        flax params tree as the JAX package's trainer takes), written into
-        the model's parameters in place, and a fresh Adam."""
-        if init_params is None:
-            self.model.reset_parameters(
-                torch.Generator().manual_seed(self.seed + run))
-        else:
-            load_params(self.model, init_params)
+    def init_state(self, run: int = 0, init_params=None,
+                   init_batch_stats=None) -> TrainState:
+        """Fresh weights drawn from ``seed + run`` (then ``init_params``, a
+        flax params tree as the JAX package's trainer takes, and
+        ``init_batch_stats``, its ``batch_stats``, where given), written
+        into the model's parameters and buffers in place, and a fresh Adam.
+        Without ``init_batch_stats`` the BatchNorm statistics are fresh,
+        as a JAX init gives them."""
+        self.model.reset_parameters(
+            torch.Generator().manual_seed(self.seed + run))
+        if init_params is not None:
+            load_params(self.model, init_params, init_batch_stats)
         opt = torch_adam(self.model.parameters(), self.lr, self.weight_decay)
         return TrainState(self.model, opt, 0)
 
@@ -300,9 +317,13 @@ class FullBatchTrainer:
             res[name] = self.metric_fn(self.labels_eval[idx], out[idx])
         return res, out
 
-    def evaluate_params(self, params, split_idx):
-        """Eval-only path for loaded weights (a flax params tree)."""
-        state = self.init_state(0, init_params=params)
+    def evaluate_params(self, params, split_idx, extra=None):
+        """Eval-only path for loaded weights (a flax params tree) and, in
+        ``extra``, the JAX trainer's non-param collections (``{"batch_stats":
+        ...}``)."""
+        state = self.init_state(0, init_params=params,
+                                init_batch_stats=(extra or {}).get(
+                                    "batch_stats"))
         return self.evaluate(state, split_idx)
 
     # -- device metrics and the epoch-block fit -----------------------------
@@ -630,3 +651,8 @@ class EpochRunner:
         """Each kernel's device launches over the replays so far: captured
         count × replays, summed over the graphs."""
         return graph_launches(self.graphs)
+
+    def dval_launches(self):
+        """K1-dval's device launches over the replays so far (GAT's value
+        gradient; 0 where the values take none)."""
+        return graph_dval_launches(self.graphs)

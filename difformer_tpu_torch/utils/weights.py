@@ -43,6 +43,20 @@ the graph-level head adds :func:`v2_state_dict_from_params`:
 and ``FeatEncoder`` (:func:`feat_encoder_state_dict_from_params`):
 ``embed_{i}.weight`` <-> ``embed_{i}`` embedding, ``scalar``/``proj``
 Linears <-> TorchLinear kernel, bias.
+
+The baseline zoo (``nn/gnns.py``) carries the JAX zoo's names
+(``difformer_tpu/nn/gnns.py``), :func:`zoo_state_dict_from_params` and
+:func:`zoo_params_from_state_dict`:
+
+    {lin_i, lin_out, lin1, lin2, embed,   TorchLinear    <-> kernel, bias
+     final_project, jk.att}.{weight,bias}
+    lin.weight (, lin.bias)               flax's TorchLinear_0 (GCNLayer,
+                                          SGC, one-layer MLP) or GAT's lin
+    bn_i.{weight,bias}                    TorchBatchNorm <-> BatchNorm_0
+    bn_i.running_{mean,var}               its batch_stats (mean, var)
+    conv_i.bias, conv_i.att_{src,dst},    leaves as they are
+        temp, kernel, bias (LINK)
+    jk.lstm_{fwd,bwd}.*                   _JK_0's LSTMs, gates as above
 """
 
 from __future__ import annotations
@@ -255,6 +269,105 @@ def feat_encoder_state_dict_from_params(params) -> dict:
     return sd
 
 
+#: flax module names that the zoo's torch modules carry under another name
+_ZOO_TORCH_NAME = {"_JK_0": "jk", "TorchLinear_0": "lin"}
+
+
+def _lstm_sd(key, p):
+    sd = {f"{key}.weight_ih": np.concatenate(
+              [_np(p[f"i{g}"]["kernel"]).T for g in _GATES]),
+          f"{key}.weight_hh": np.concatenate(
+              [_np(p[f"h{g}"]["kernel"]).T for g in _GATES]),
+          f"{key}.bias_hh": np.concatenate(
+              [_np(p[f"h{g}"]["bias"]) for g in _GATES])}
+    sd[f"{key}.bias_ih"] = np.zeros_like(sd[f"{key}.bias_hh"])
+    return sd
+
+
+def zoo_state_dict_from_params(params, batch_stats=None) -> dict:
+    """A zoo model's flax params (and ``batch_stats``, its BatchNorms'
+    statistics) -> the port's ``state_dict`` of numpy arrays."""
+    sd = {}
+
+    def walk(prefix, node):
+        for name, value in node.items():
+            if not isinstance(value, dict):
+                sd[prefix + name] = _np(value)            # a leaf parameter
+                continue
+            key = prefix + _ZOO_TORCH_NAME.get(name, name)
+            if name.startswith("lstm_"):
+                sd.update(_lstm_sd(key, value))
+            elif "BatchNorm_0" in value:
+                sd[f"{key}.weight"] = _np(value["BatchNorm_0"]["scale"])
+                sd[f"{key}.bias"] = _np(value["BatchNorm_0"]["bias"])
+            elif "kernel" in value and not any(
+                    isinstance(v, dict) for v in value.values()):
+                sd[f"{key}.weight"] = _np(value["kernel"]).T.copy()
+                if "bias" in value:
+                    sd[f"{key}.bias"] = _np(value["bias"])
+            else:
+                walk(key + ".", value)
+
+    walk("", params)
+
+    def stats(prefix, node):
+        for name, value in node.items():
+            if "BatchNorm_0" in value:
+                sd[f"{prefix}{name}.running_mean"] = _np(
+                    value["BatchNorm_0"]["mean"])
+                sd[f"{prefix}{name}.running_var"] = _np(
+                    value["BatchNorm_0"]["var"])
+            else:
+                stats(f"{prefix}{_ZOO_TORCH_NAME.get(name, name)}.", value)
+
+    stats("", batch_stats or {})
+    return sd
+
+
+def zoo_params_from_state_dict(state_dict):
+    """The inverse of :func:`zoo_state_dict_from_params`: (params,
+    batch_stats) of numpy arrays (batch_stats empty for a model without
+    BatchNorm)."""
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    params, stats = {}, {}
+
+    def put(tree, path, value):
+        for part in path[:-1]:
+            tree = tree.setdefault(part, {})
+        tree[path[-1]] = value
+
+    for key, arr in sd.items():
+        parts = key.split(".")
+        mod, leaf = parts[:-1], parts[-1]
+        prefix = ".".join(mod)
+        siblings = {k[len(prefix) + 1:] for k in sd
+                    if mod and k.startswith(prefix + ".")}
+        gat = ".".join(mod[:-1] + ["att_src"]) in sd
+        if mod and mod[-1] == "lin" and not gat:
+            mod = mod[:-1] + ["TorchLinear_0"]   # GAT's lin keeps its name
+        mod = ["_JK_0" if m == "jk" else m for m in mod]
+        if leaf == "bias_ih":
+            continue
+        if leaf in ("weight_ih", "weight_hh", "bias_hh"):
+            side = "i" if leaf == "weight_ih" else "h"
+            what = "bias" if leaf == "bias_hh" else "kernel"
+            for g, block in zip(_GATES, np.split(arr, 4)):
+                put(params, mod + [f"{side}{g}", what],
+                    block.T.copy() if what == "kernel" else block)
+        elif leaf.startswith("running_"):
+            name = "mean" if leaf == "running_mean" else "var"
+            put(stats, mod + ["BatchNorm_0", name], arr)
+        elif mod and mod[-1].startswith("bn_"):
+            put(params, mod + ["BatchNorm_0",
+                               "scale" if leaf == "weight" else "bias"], arr)
+        elif mod and "weight" in siblings:                # a Linear
+            put(params, mod + ["kernel" if leaf == "weight" else "bias"],
+                arr.T.copy() if leaf == "weight" else arr)
+        else:
+            put(params, mod + [leaf], arr)                # a leaf parameter
+    return params, stats
+
+
 def _is_temporal(model):
     from difformer_tpu_torch.nn.temporal import DCRNN, MPNNLSTM, DConv
 
@@ -264,8 +377,8 @@ def _is_temporal(model):
 def load_params(model: torch.nn.Module, params, batch_stats=None) -> None:
     """Load a flax params tree (numpy or JAX arrays) into the port's model,
     on the model's device: DIFFormer's, DIFFormer-v2's (bare or with the
-    graph-level head), FeatEncoder's, or a temporal model's with its
-    ``batch_stats`` (the model's own running statistics are kept when
+    graph-level head), FeatEncoder's, or a temporal or zoo model's with
+    its ``batch_stats`` (the model's own running statistics are kept when
     None)."""
     from difformer_tpu_torch.nn.common import FeatEncoder
     from difformer_tpu_torch.nn.difformer_v2 import (
@@ -273,8 +386,12 @@ def load_params(model: torch.nn.Module, params, batch_stats=None) -> None:
         GraphLevelModel,
     )
 
-    if _is_temporal(model):
-        sd = temporal_state_dict_from_params(params, batch_stats)
+    from difformer_tpu_torch.nn.gnns import ZOO
+
+    if _is_temporal(model) or isinstance(model, ZOO):
+        convert = (temporal_state_dict_from_params if _is_temporal(model)
+                   else zoo_state_dict_from_params)
+        sd = convert(params, batch_stats)
         own = model.state_dict()
         sd = {k: sd[k] if k in sd else own[k] for k in own}
     elif isinstance(model, (DIFFormerV2, GraphLevelModel)):

@@ -1,7 +1,9 @@
 """The port's command line (difformer_tpu_torch/cli.py) against the JAX
 package's: the same presets and flags, a golden synthetic run with the JAX
 test's floor, exactly what each CLI hands its trainer (features, edges,
-labels, each run's split and the fit options) on the same files,
+labels, each run's split and the fit options) on the same files, the
+baseline zoo's routes (what a zoo trainer is handed, label propagation's
+metrics, every zoo method trained on the CPU),
 ``NotImplementedError`` for every route the port does not run yet, and the
 ``--save_model``/``--eval_only`` round trip, also from a reference ``.pt``
 state_dict.
@@ -219,22 +221,97 @@ def test_bce_datasets_use_bce(monkeypatch, tmp_path):
 # routes not ported yet
 # --------------------------------------------------------------------------
 
+# the leftover of ROADMAP.md queue A that a zoo method in mini-batch names
+ZOO_MINIBATCH = "the zoo in mini-batch"
+
+
 @pytest.mark.parametrize("extra,item", [
-    (["--method", "gcn"], 8), (["--method", "gat"], 8),
-    (["--method", "lp"], 8), (["--method", "multilp"], 8),
-    (["--method", "manireg"], 8),
     (["--n_shards", "2"], 10),
     (["--use_minibatch", "true", "--n_shards", "2"], 10),
     (["--spmm", "ell"], 9), (["--spmm", "bsr"], 9),
     (["--spmm", "bsr-sorted"], 9), (["--spmm", "auto"], 9),
     (["--use_ell", "true"], 9),
-    (["--dataset", "pokec", "--method", "gcn"], 8),
+    (["--dataset", "pokec", "--method", "gcn"], ZOO_MINIBATCH),
 ])
 def test_unported_routes_raise_naming_their_item(tmp_path, extra, item):
     argv = ["--dataset", "synthetic-60-200-4-3", "--epochs", "1",
             "--data_dir", str(tmp_path)] + extra
-    with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
+    match = f"item {item}\\b" if isinstance(item, int) else item
+    with pytest.raises(NotImplementedError, match=match):
         cli.main(argv, **CPU)
+
+
+# --------------------------------------------------------------------------
+# the baseline zoo and label propagation
+# --------------------------------------------------------------------------
+
+ZOO_METHODS = ["mlp", "manireg", "gcn", "gat", "sgc", "link", "mixhop",
+               "gcnjk", "gatjk", "h2gcn", "appnp", "gprgnn", "lp",
+               "multilp"]
+
+
+@pytest.mark.parametrize("method", ["gcn", "gat", "manireg"])
+def test_zoo_method_hands_the_same_data(monkeypatch, cora_dir, method):
+    """A zoo method's trainer gets what the JAX command line hands its own,
+    ManiReg's smoothness weight included."""
+    made = run_both(monkeypatch, ["--dataset", "cora", "--data_dir",
+                                  cora_dir, "--method", method, "--runs",
+                                  "2"])
+    theirs = jax_train.FullBatchTrainer.made[0]
+    assert made.kw["manireg"] == theirs.kw["manireg"]
+    assert made.kw["manireg"] == (1.0 if method == "manireg" else 0.0)
+
+
+@pytest.mark.parametrize("extra", [[], ["--hops", "2", "--lp_alpha",
+                                        "0.5"]])
+@pytest.mark.parametrize("method", ["lp", "multilp"])
+def test_label_propagation_gives_the_jax_metrics(cora_dir, method, extra):
+    argv = ["--dataset", "cora", "--data_dir", cora_dir, "--method",
+            method, "--runs", "2", "--rand_split", "true"] + extra
+    ours, theirs = cli.main(argv, **CPU), jax_cli.main(argv)
+    assert len(ours) == len(theirs) == 2
+    for a, b in zip(ours, theirs):
+        assert a == pytest.approx(b, abs=1e-9)
+
+
+def test_label_propagation_on_binary_tasks(monkeypatch, tmp_path):
+    """A BCE dataset with several binary tasks propagates two columns a
+    task (``mult_bin``), as the JAX route does."""
+    from difformer_tpu.data.graph import NodeDataset as JNodeDataset
+    from difformer_tpu_torch.data.graph import NodeDataset
+
+    rng = np.random.default_rng(6)
+    n = 80
+    x = rng.normal(size=(n, 5)).astype(np.float32)
+    ei = np.stack([rng.integers(0, n, 300), rng.integers(0, n, 300)])
+    y = (rng.random((n, 3)) < 0.4).astype(np.int64)
+
+    def fake(loader_cls):
+        def load(*a, **k):
+            ds = loader_cls("ogbn-proteins")
+            ds.graph = {"node_feat": x, "edge_index": ei, "num_nodes": n,
+                        "edge_feat": None}
+            ds.label = y
+            return ds
+        return load
+
+    monkeypatch.setattr(cli, "load_dataset", fake(NodeDataset))
+    import difformer_tpu.data.loaders as jax_loaders
+    monkeypatch.setattr(jax_loaders, "load_dataset", fake(JNodeDataset))
+    argv = ["--dataset", "ogbn-proteins", "--method", "lp",
+            "--use_minibatch", "false", "--rand_split", "true"]
+    ours, theirs = cli.main(argv, **CPU), jax_cli.main(argv)
+    for a, b in zip(ours, theirs):
+        assert a == pytest.approx(b, abs=1e-9)
+
+
+@pytest.mark.parametrize("method", ZOO_METHODS)
+def test_every_zoo_method_runs_on_the_cpu(method):
+    res = cli.main(["--dataset", "synthetic-120-480-8-3", "--method",
+                    method, "--epochs", "4", "--runs", "1", "--rand_split",
+                    "true", "--hidden_channels", "8", "--display_step",
+                    "100"], **CPU)
+    assert len(res) == 1 and 0.0 <= res[0]["test"] <= 1.0
 
 
 def test_unknown_method_raises():
@@ -243,11 +320,15 @@ def test_unknown_method_raises():
                  **CPU)
 
 
-def test_sweep_of_an_unported_method_raises():
+def test_sweep_runs_zoo_methods(tmp_path):
     from difformer_tpu_torch.sweep import run_sweep
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        run_sweep("synthetic-60-200-4-3", {"method": ["sgc"]}, **CPU)
+    rows = run_sweep("synthetic-60-200-4-3",
+                     {"method": ["sgc", "lp"], "weight_decay": [0.0]},
+                     base_overrides={"epochs": 3, "rand_split": True},
+                     result_dir=str(tmp_path), **CPU)
+    assert [r["method"] for r in rows] == ["sgc", "lp"]
+    assert (tmp_path / "synthetic-60-200-4-3" / "sgc.csv").exists()
 
 
 # --------------------------------------------------------------------------
@@ -270,6 +351,18 @@ def test_save_model_then_eval_only(tmp_path):
     assert "params" not in best
     for split in ("train", "valid", "test"):
         assert got[0][split] == best[split], split
+
+
+@pytest.mark.parametrize("method", ["gcn", "gat"])
+def test_save_model_then_eval_only_of_a_zoo_model(tmp_path, method):
+    """The saved best state carries GCN's BatchNorm statistics, so
+    ``--eval_only`` gives the saved run's metrics (the JAX command line
+    saves only the params, ROADMAP.md queue C)."""
+    argv = COMMON + ["--method", method, "--model_dir", str(tmp_path)]
+    saved = cli.main(argv + ["--save_model", "true"], **CPU)
+    got = cli.main(argv + ["--eval_only", "true"], **CPU)
+    for split in ("train", "valid", "test"):
+        assert got[0][split] == saved[-1][split], split
 
 
 def test_eval_only_refuses_an_orbax_directory(tmp_path):

@@ -10,9 +10,12 @@ Tolerances: each kernel against its plain version under the one rule of
 ``difformer_tpu_torch/kernels/tolerance.py`` (float32 at the JAX package's
 own tolerances, the unnormalized numerator per unit of its row's
 denominator, bfloat16 relative to the largest reference value, the CSR
-SpMM K1 at the forward's float32 tolerance); the model's logits and
-gradients rtol 1e-3 / atol 1e-4 (layers of kernel-vs-plain float32
-rounding).
+SpMM K1 and its value gradient K1-dval at the forward's float32
+tolerance); the model's logits and gradients rtol 1e-3 / atol 1e-4 (layers
+of kernel-vs-plain float32 rounding). The baseline zoo (``-k zoo``) on the
+card against the CPU, its graph fits against the loop, BatchNorm's
+statistics across the capture, and K1-dval (``-k dval``) alone and through
+``spmm``'s value gradient.
 """
 
 import numpy as np
@@ -1322,3 +1325,198 @@ def test_graph_level_model_matches_cpu(cuda, pooling):
     torch.testing.assert_close(outs[1], outs[0], **GRAD)
     for n in grads[0]:
         torch.testing.assert_close(grads[1][n], grads[0][n], **GRAD)
+
+
+# --------------------------------------------------------------------------
+# K1-dval and the baseline zoo
+# --------------------------------------------------------------------------
+
+def _zoo_graph(seed=3, n=400, e=2400, f=12, c=4):
+    x, ei, y = random_graph(n, e, f, c, seed=seed, homophily=0.8)
+    return x, standard_preprocess(ei, n), y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 7, 64, 300])
+@pytest.mark.parametrize("hub", [False, True])
+def test_dval_kernel_matches_plain(cuda, width, hub):
+    """K1-dval against its plain version at vector and scalar widths, on a
+    graph with a hub row of thousands of edges: within the "spmm" rule,
+    two calls bit-equal, one launch counted a call."""
+    from difformer_tpu_torch.ops.graph_ops import build_spmm_plan
+
+    rng = np.random.default_rng(width)
+    n, e = 3000, 20000
+    s = rng.integers(0, n, e)
+    r = np.where(rng.random(e) < 0.3, 5, rng.integers(0, n, e)) if hub \
+        else rng.integers(0, n, e)
+    plan = build_spmm_plan(None, torch.as_tensor(s, device=cuda),
+                           torch.as_tensor(r, device=cuda), n)
+    g = torch.as_tensor(rng.normal(size=(n, width)).astype(np.float32),
+                        device=cuda)
+    x = torch.as_tensor(rng.normal(size=(n, width)).astype(np.float32),
+                        device=cuda)
+    K1.reset_launch_counts()
+    got = K1.csr_spmm_dval(g, x, plan.rows, plan.col)
+    assert K1.DVAL_LAUNCHES == {"csr_spmm_dval": 1}
+    assert torch.equal(got, K1.csr_spmm_dval(g, x, plan.rows, plan.col))
+    ref = K1.csr_spmm_dval_plain(g, x, plan.rows, plan.col)
+    scale = K1.csr_spmm_dval_abs(g, x, plan.rows, plan.col)
+    assert_close(f"dval W={width}", got, ref, "spmm", scale=scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [0, 2])
+def test_dval_value_gradient_on_the_card(cuda, heads):
+    """spmm's value and x gradients on the card (K1, its transposed launch
+    and K1-dval) against the same product's on the CPU (plain versions),
+    on a directed graph with distinct values."""
+    from difformer_tpu_torch.ops.graph_ops import build_spmm_plan, spmm
+
+    rng = np.random.default_rng(9)
+    n, e = 500, 3000
+    s, r = rng.integers(0, n - 10, e), rng.integers(5, n, e)
+    vals = rng.permutation(e).astype(np.float32) / e + 0.1
+    shape = (n, heads, 16) if heads else (n, 24)
+    if heads:
+        vals = np.stack([vals * (h + 1) for h in range(heads)], 1)
+    x = rng.normal(size=shape).astype(np.float32)
+    cot = rng.normal(size=shape).astype(np.float32)
+    res = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        v, xx = t(vals).requires_grad_(), t(x).requires_grad_()
+        plan = build_spmm_plan(None, t(s), t(r), n)
+        K1.reset_launch_counts()
+        (spmm(v, None, None, xx, plan=plan) * t(cot)).sum().backward()
+        res[str(dev)] = (v.grad.cpu(), xx.grad.cpu(),
+                         dict(K1.DVAL_LAUNCHES))
+    (v_cpu, x_cpu, _), (v_gpu, x_gpu, launched) = res["cpu"], res[str(cuda)]
+    torch.testing.assert_close(v_gpu, v_cpu, **GRAD)
+    torch.testing.assert_close(x_gpu, x_cpu, **GRAD)
+    assert launched == {"csr_spmm_dval": max(heads, 1)}
+
+
+def _zoo_models(f, c, n):
+    from difformer_tpu_torch.nn import gnns as Z
+
+    return {
+        "link": lambda: Z.LINK(n, c, device="cpu"),
+        "mlp": lambda: Z.MLP(f, 16, c, dropout=0.0, device="cpu"),
+        "sgc": lambda: Z.SGC(f, c, device="cpu"),
+        "gcn": lambda: Z.GCN(f, 16, c, dropout=0.0, device="cpu"),
+        "gat": lambda: Z.GAT(f, 8, c, dropout=0.0, device="cpu"),
+        "mixhop": lambda: Z.MixHop(f, 8, c, dropout=0.0, device="cpu"),
+        "gcnjk": lambda: Z.GCNJK(f, 16, c, jk_type="lstm", dropout=0.0,
+                                 device="cpu"),
+        "gatjk": lambda: Z.GATJK(f, 8, c, jk_type="cat", dropout=0.0,
+                                 device="cpu"),
+        "h2gcn": lambda: Z.H2GCN(f, 8, c, dropout=0.0, device="cpu"),
+        "appnp": lambda: Z.APPNPNet(f, 16, c, dropout=0.0, device="cpu"),
+        "gprgnn": lambda: Z.GPRGNN(f, 16, c, dropout=0.0, dprate=0.0,
+                                   device="cpu"),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(_zoo_models(1, 1, 1)))
+def test_zoo_model_on_the_card_matches_the_cpu(cuda, name):
+    """Every zoo model's logits and gradients on the card (K1, and K1-dval
+    for GAT) against the same weights on the CPU (plain versions), in
+    training with BatchNorm's batch statistics; GAT and GATJK launch
+    K1-dval, the others none."""
+    x, ei, _ = _zoo_graph()
+    n, f = x.shape
+    make = _zoo_models(f, 4, n)[name]
+    # a cotangent that differs from node to node: one that is the same for
+    # every node has no gradient through a BatchNorm but rounding noise
+    cot = np.random.default_rng(2).normal(size=(n, 4)).astype(np.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        model = make().to(dev)
+        model.train()
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        plan = model.build_plan(t(ei[0]), t(ei[1]), n)
+        K1.reset_launch_counts()
+        out = model(t(x), plan=plan)
+        (out * t(cot)).sum().backward()
+        outs.append((out.detach().cpu(),
+                     {k: p.grad.cpu() for k, p in model.named_parameters()
+                      if p.grad is not None},
+                     dict(K1.DVAL_LAUNCHES)))
+    (o_cpu, g_cpu, _), (o_gpu, g_gpu, launched) = outs
+    torch.testing.assert_close(o_gpu, o_cpu, **GRAD)
+    for key in g_cpu:
+        torch.testing.assert_close(g_gpu[key], g_cpu[key], **GRAD, msg=key)
+    assert (launched["csr_spmm_dval"] > 0) == (name in ("gat", "gatjk"))
+
+
+def _zoo_trainer(cuda, make, seed=0):
+    x, ei, y = _zoo_graph(seed=seed)
+    from difformer_tpu_torch.data import class_rand_splits
+
+    split = class_rand_splits(y, 10, valid_num=60, test_num=80, rng=0)
+    tr = FullBatchTrainer(make(), GraphData.from_numpy(x, ei, device=cuda),
+                          y, device=cuda)
+    return tr, split
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gcn", "gat"])
+def test_zoo_graph_fit_matches_the_loop(cuda, name):
+    """The epoch-block fit replayed as CUDA graphs against the per-epoch
+    loop, with dropout on: the same best epoch, losses and logged metrics
+    within rtol 1e-5 (PERF.md §2), and the same running statistics."""
+    from difformer_tpu_torch.nn import gnns as Z
+
+    make = {"gcn": lambda: Z.GCN(12, 16, 4, device=cuda),
+            "gat": lambda: Z.GAT(12, 8, 4, device=cuda)}[name]
+    fits = []
+    for block in (0, 5):
+        tr, split = _zoo_trainer(cuda, make)
+        log = RowLog()
+        res = tr.fit(split, epochs=10, epoch_block=block, logger=log)[0]
+        fits.append((res, np.asarray(log.rows), tr.model.state_dict(), tr))
+    (a, rows_a, sd_a, _), (b, rows_b, sd_b, tr) = fits
+    assert tr.epoch_runner.graphs["step"]["replays"] == 10
+    assert a["epoch"] == b["epoch"]
+    np.testing.assert_allclose(b["losses"], a["losses"], rtol=1e-5)
+    np.testing.assert_allclose(rows_b, rows_a, rtol=1e-5, atol=1e-7)
+    for key in sd_a:
+        torch.testing.assert_close(sd_b[key], sd_a[key], rtol=1e-5,
+                                   atol=1e-6, msg=key)
+
+
+@pytest.mark.cuda
+def test_zoo_batch_norm_statistics_survive_the_capture(cuda):
+    """GCN's running statistics after N replayed epochs equal those after N
+    loop epochs: the warm-up's updates before the capture are undone with
+    the weights (the CPU cannot show this: there the epoch-block fit runs
+    eagerly, with no warm-up)."""
+    from difformer_tpu_torch.nn import gnns as Z
+
+    stats = []
+    for block in (0, 4):
+        tr, split = _zoo_trainer(
+            cuda, lambda: Z.GCN(12, 16, 4, dropout=0.0, device=cuda))
+        tr.fit(split, epochs=8, eval_step=100, epoch_block=block)
+        stats.append({k: v.clone() for k, v in tr.model.named_buffers()})
+    assert set(stats[0]) == {"bn_0.running_mean", "bn_0.running_var"}
+    for key in stats[0]:
+        torch.testing.assert_close(stats[1][key], stats[0][key], rtol=1e-5,
+                                   atol=1e-6, msg=key)
+
+
+@pytest.mark.cuda
+def test_zoo_values_without_gradient_launch_no_dval(cuda):
+    """DIFFormer's and GCN's train steps launch K1 in both directions and
+    no K1-dval: their values take no gradient."""
+    from difformer_tpu_torch.nn import gnns as Z
+
+    for make in (lambda: Z.GCN(12, 16, 4, device=cuda),
+                 lambda: DIFFormer(12, 16, 4, num_layers=2, device=cuda)):
+        tr, split = _zoo_trainer(cuda, make)
+        K1.reset_launch_counts()
+        tr.fit(split, epochs=2)
+        assert K1.LAUNCHES["csr_spmm_transposed"] > 0
+        assert K1.DVAL_LAUNCHES == {"csr_spmm_dval": 0}

@@ -106,11 +106,18 @@ def test_spmm_matches_jax(trailing, swapped):
 
 
 def test_spmm_values_get_no_gradient():
+    """Values get no gradient unless they require one; then they get the
+    value gradient Σ_c dout[r, c]·x[s, c] of each edge (JAX differentiates
+    spmm's values; held against jax.grad in test_torch_port_zoo.py)."""
     s, r, _, _ = _edges(11)
-    vals = torch.rand(s.shape[0], requires_grad=True)
     x = torch.randn(N, 4, requires_grad=True)
+    data = torch.rand(s.shape[0])
+    tops.spmm(data, _t(s), _t(r), x).sum().backward()
+    assert data.grad is None and x.grad is not None
+    vals = data.clone().requires_grad_()
     tops.spmm(vals, _t(s), _t(r), x).sum().backward()
-    assert vals.grad is None and x.grad is not None
+    want = x.detach()[_t(s).long()].sum(-1)   # dout is all ones
+    torch.testing.assert_close(vals.grad, want)
 
 
 @pytest.mark.parametrize("fn", ["gcn_conv", "spmm"])

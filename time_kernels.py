@@ -1,7 +1,9 @@
 """Time the port's kernels alone on one GPU: the flash sigmoid attention
-(K2 fwd, K3 dq, K4 dkv) and the CSR SpMM (K1, spmm).
+(K2 fwd, K3 dq, K4 dkv), the CSR SpMM (K1, spmm) and its value gradient
+(K1-dval, dval).
 
-    python3 time_kernels.py [--kernel fwd dq dkv spmm] [--blocks-per-sm 1 2 4]
+    python3 time_kernels.py [--kernel fwd dq dkv spmm dval]
+                            [--blocks-per-sm 1 2 4]
                             [--wide] [--root DIR]
     python3 time_kernels.py --kernel spmm --reorder rcm degree
     python3 time_kernels.py --builds [ROUNDS]
@@ -27,7 +29,10 @@ gather floor. With ``--reorder``, K1 instead at Pokec's size with
 power-law degrees only, in the order its nodes were drawn and renumbered
 by each ``locality_reorder`` method given (on the host, timed), at hidden
 128: whether a node order that puts neighbours close lets the gathers hit
-L2, against the gather floor and the byte bound. ``--root`` times the package of another checkout instead (one
+L2, against the gather floor and the byte bound. With ``dval`` chosen,
+K1-dval at ``chip_smoke.dval_shapes()`` (``chip_smoke.phase_dval_kernels``:
+checked, timed by CUDA-graph replay beside ``sampled_addmm``, its bound and
+its gather floor). ``--root`` times the package of another checkout instead (one
 without a split, or with K2's only, times its own grid; shapes, bounds and
 timers stay this checkout's), so two versions can be compared on one card
 in one call. Last, two yardsticks: the SM clock and power that
@@ -56,7 +61,8 @@ import time
 from pathlib import Path
 
 KERNELS = {"fwd": "sigmoid_attention_fwd", "dq": "sigmoid_attention_dq",
-           "dkv": "sigmoid_attention_dkv", "spmm": "csr_spmm"}
+           "dkv": "sigmoid_attention_dkv", "spmm": "csr_spmm",
+           "dval": "csr_spmm_dval"}
 # the module constant each kernel's split rule reads (the wide path's is
 # WIDE_BLOCKS_PER_SM, one number for all three before it became a dict by
 # wrapper)
@@ -378,7 +384,8 @@ def main():
 
     smi = cs.phase_device()
     cs.phase_build()
-    attention = [k for k in args.kernel if k != "spmm"]
+    attention = [k for k in args.kernel if k not in ("spmm", "dval")]
+    call = None
     if attention:
         label, call = time_attention(cs, attention, args.blocks_per_sm,
                                      args.wide)
@@ -386,9 +393,12 @@ def main():
         shapes = (reordered_shapes(cs, args.reorder) if args.reorder
                   else None)
         label, call = time_spmm(cs, args.spmm_threshold, shapes)
-    mhz, watts = sample_clocks(call)
-    cs.say(f"time_kernels: {label} under load: SM clock {mhz} MHz, power "
-           f"{watts} W (median of nvidia-smi samples)")
+    if "dval" in args.kernel:
+        cs.phase_dval_kernels()
+    if call is not None:
+        mhz, watts = sample_clocks(call)
+        cs.say(f"time_kernels: {label} under load: SM clock {mhz} MHz, "
+               f"power {watts} W (median of nvidia-smi samples)")
     del call
     torch.cuda.empty_cache()
     if attention:
