@@ -60,17 +60,50 @@ non-zero before the last line:
    (f32 with and without a key mask, and bf16), each against its plain
    version on the same inputs, two calls bit-equal, with device times,
    bound (FP32 and 3xTF32) and split.
+9b. ell-bsr-kernels (run after kernels-wide): the sparse layouts' kernels
+   against their plain versions under the "spmm" rule (shown to fail a
+   wrong output), two calls bit-equal, one device kernel a call (the
+   block-sparse direction: K7, and K6 adding its residual): the ELL
+   kernel K6 in both directions at Cora's graph (W = 64 and spmm_first's
+   65) and at bench.py's three graphs (N = 131072, E = 4.19 M: clustered
+   SBM, Pareto-alpha-2 power law, uniform; W = 64), f32 and bf16 x; the
+   block kernel K7 on the clustered graph at T = 256 with f32, bf16 and
+   int8-count blocks, at T = 128, and at W = 65, f32 and bf16 x, and on
+   the degree-sorted power-law graph's bucketed int8 layout (its hub row
+   tile); each beside its bound (K7: FP32 and tensor cores), its plain
+   version and cuSPARSE (CSR for K6, BSR for padded K7); each layout's
+   device footprint; and this card's cost model (``ops/bsr.py``
+   ``_EDGE_EQUIV_BYTES`` and ``_BUCKETED_BREAKEVEN_SCALE``) measured from
+   K1's time per edge at Pokec's size and K7's per block.
 10. cli: the cora preset unchanged (DIFFormer-s, 500 epochs, 5 runs) through
    ``difformer_tpu_torch.cli.main`` on Planetoid raw files written for the
-   slice's synthetic graph; again with --kernel sigmoid and with
-   --reorder rcm; then --save_model cut to 50 epochs and 1 run, and
-   --eval_only, which must give the saved run's metrics. Each run's test
-   accuracy above chance, its kernels launched, host seconds of load and
-   preprocess and of the fit, ms per epoch.
+   slice's synthetic graph, its GCN branch on the default ELL layout (K6,
+   no K1); again with --kernel sigmoid (K2-K4 and K6), with --reorder rcm
+   and with --spmm coo (K1); then --save_model cut to 50 epochs and 1 run,
+   and --eval_only, which must give the saved run's metrics. Each run's
+   test accuracy above chance, its kernels launched, host seconds of load
+   and preprocess and of the fit, ms per epoch.
+10b. spmm-layouts: bench.py's three graphs, each through ``choose_spmm``
+   with this card's cost model (its election, coverage and the densest
+   tiles printed), the elected layout built as the command line builds it
+   (on the clustered graph also the padded hybrid with its intra-community
+   tiles dense, whatever the election), and bench.py's model
+   (3-layer DIFFormer-s, hidden 64, 112 outputs; NLL over 112 classes)
+   trained 10 epochs
+   through ``FullBatchTrainer``'s graph fit (K6, K7 captured) and the
+   per-epoch loop, bit-equal, and against K1's graph fit from the same
+   weights within rtol 1e-3; steady ms per epoch (replayed) beside K1's.
+10c. cli-layouts: --spmm bsr, bsr-sorted and auto on the cora preset's
+   files (1 of its 5 runs), and --spmm auto on bench.py's clustered graph
+   written as a Pokec file (the pokec preset full-batch, 20 epochs; the
+   command line symmetrises it, doubling its tiles' edges), which must
+   elect bsr: each run's kernels (K7, and K6 where a residual) and test
+   accuracy.
 11. cli-set: the cifar10 preset unchanged (hidden 300, 2 layers, no graph,
    600 epochs, 5 runs) on stand-in embeddings [15000, 512]; then
-   --kernel sigmoid --use_graph true cut to 20 epochs and 1 run (K1 on the
-   kNN graph and the wide K2-K4), with the kNN graph's host seconds.
+   --kernel sigmoid --use_graph true cut to 20 epochs and 1 run (K6 on the
+   kNN graph's default ELL layout and the wide K2-K4), with the kNN
+   graph's host seconds.
 12. zoo-cora: every method of the baseline zoo (mlp, manireg, gcn, gat,
    sgc, link, mixhop, gcnjk with --jk_type max, cat and lstm, gatjk, h2gcn,
    appnp, gprgnn, lp, multilp) through the command line at the cora
@@ -130,6 +163,10 @@ non-zero before the last line:
    forward and backward, with K1 against its plain version and cuSPARSE;
    then one epoch on the edge-list plan, whose K1 launches are the JSON
    line's "graph-level" rows'.
+18b. capture-repeat: the actstrack preset's sigmoid trainer (the dense
+   plan) captures its train step 30 times while its packing threads
+   allocate pinned buffers: no capture is invalidated (the trainers
+   capture in thread-local mode).
 19. cli-actstrack: ``python -m difformer_tpu_torch.cli --dataset
    actstrack`` on a stand-in processed cache of 3000 graphs, cut to 3
    epochs and 1 run, with each kernel: the cache read (no fallback), fit
@@ -955,11 +992,14 @@ def plain_attention(qs, ks, vs, *, key_mask=None):
 
 
 def launch_counts():
-    """Every kernel's launches since the last reset, by wrapper name."""
+    """Every kernel's launches since the last reset, by wrapper name (K1-dval
+    apart: :func:`dval_count`)."""
+    from difformer_tpu_torch.kernels import bsr as K7
+    from difformer_tpu_torch.kernels import ell as K6
     from difformer_tpu_torch.kernels import sigmoid_attention as K
     from difformer_tpu_torch.kernels import spmm as K1
 
-    return {**K.LAUNCHES, **K1.LAUNCHES}
+    return {**K.LAUNCHES, **K1.LAUNCHES, **K6.LAUNCHES, **K7.LAUNCHES}
 
 
 def dval_count():
@@ -979,11 +1019,13 @@ def check_no_dval(phase, what):
 
 
 def reset_launch_counts():
+    from difformer_tpu_torch.kernels import bsr as K7
+    from difformer_tpu_torch.kernels import ell as K6
     from difformer_tpu_torch.kernels import sigmoid_attention as K
     from difformer_tpu_torch.kernels import spmm as K1
 
-    K.reset_launch_counts()
-    K1.reset_launch_counts()
+    for kernels in (K, K1, K6, K7):
+        kernels.reset_launch_counts()
 
 
 def through_plain_versions():
@@ -1135,7 +1177,8 @@ def expected_launches(layers, attention):
     return {"sigmoid_attention_fwd": sig,
             "sigmoid_attention_dq": sig // 2,
             "sigmoid_attention_dkv": sig // 2,
-            "csr_spmm": fwd, "csr_spmm_transposed": bwd}
+            "csr_spmm": fwd, "csr_spmm_transposed": bwd,
+            **dict.fromkeys(ELL_PATH + BSR_PATH, 0)}
 
 
 def phase_slice():
@@ -1744,20 +1787,22 @@ K1_PATH = ("csr_spmm", "csr_spmm_transposed")
 def phase_cli(tmp):
     """The cora preset through the command line, unchanged (DIFFormer-s,
     hidden 64, 8 layers, 500 epochs, 5 runs, epoch_block 8) on Planetoid
-    files of a synthetic graph of Cora's size; then with --kernel sigmoid
-    and with --reorder rcm; then a --save_model run cut to 50 epochs and 1
-    run, and --eval_only on what it saved. Returns the main path's
-    launches (the first run)."""
+    files of a synthetic graph of Cora's size, its GCN branch on the
+    default ELL layout (K6, no K1); then with --kernel sigmoid (K2-K4 and
+    K6), with --reorder rcm and with --spmm coo (K1); then a --save_model
+    run cut to 50 epochs and 1 run, and --eval_only on what it saved.
+    Returns the main path's launches (the first run)."""
     from difformer_tpu_torch.utils.config import make_config
 
     write_planetoid_cora(tmp)
     base = ["--dataset", "cora", "--data_dir", tmp]
     main_run = CliRun("cli", base)
-    main_run.check(7, K1_PATH)
+    main_run.check(7, ELL_PATH)
     main_run.report()
     check_no_dval("cli", "DIFFormer-s")
-    for extra, path in ((["--kernel", "sigmoid"], K1_PATH + SIGMOID_PATH),
-                        (["--reorder", "rcm"], K1_PATH)):
+    for extra, path in ((["--kernel", "sigmoid"], ELL_PATH + SIGMOID_PATH),
+                        (["--reorder", "rcm"], ELL_PATH),
+                        (["--spmm", "coo"], K1_PATH)):
         run = CliRun("cli", base + extra)
         run.check(7, path)
         run.report()
@@ -1766,7 +1811,7 @@ def phase_cli(tmp):
     cut = ["--epochs", "50", "--runs", "1"]
     saved = CliRun("cli", base + ["--save_model", "true", "--model_dir",
                                   tmp] + cut)
-    saved.check(7, K1_PATH)
+    saved.check(7, ELL_PATH)
     saved.report(f"; cut from {cfg.epochs} epochs and {cfg.runs} runs: "
                  f"save_best takes the per-epoch loop")
     evaluated = CliRun("cli", base + ["--eval_only", "true", "--model_dir",
@@ -1786,8 +1831,8 @@ def phase_cli_set(tmp):
     """The cifar10 preset through the command line, unchanged (hidden 300,
     2 layers, k = 5, use_graph false, 600 epochs, 5 runs) on stand-in
     embeddings [15000, 512]; then --kernel sigmoid --use_graph true, cut
-    to 20 epochs and 1 run, which runs K1 on the kNN graph and the wide
-    K2-K4. Returns that run's launches."""
+    to 20 epochs and 1 run, which runs K6 on the kNN graph's ELL layout
+    (the default route) and the wide K2-K4. Returns that run's launches."""
     from difformer_tpu_torch.utils.config import make_config
 
     x, y = cifar10_embeddings()
@@ -1800,7 +1845,7 @@ def phase_cli_set(tmp):
     wide = CliRun("cli-set", base + ["--kernel", "sigmoid", "--use_graph",
                                      "true", "--epochs", "20", "--runs",
                                      "1"])
-    wide.check(CIFAR10_CLASSES, K1_PATH + SIGMOID_PATH)
+    wide.check(CIFAR10_CLASSES, ELL_PATH + SIGMOID_PATH)
     wide.report(f"; cut from {cfg.epochs} epochs and {cfg.runs} runs")
     return wide.launches
 
@@ -3088,6 +3133,693 @@ def phase_cli_actstrack(tmp):
         gc.collect()
 
 
+# ---------------------------------------------------------------------------
+# ell-bsr-kernels, spmm-layouts, cli-layouts: the sparse layouts of the node
+# track (ELL, K6; the block-sparse hybrid, K7 and K6)
+# ---------------------------------------------------------------------------
+
+ELL_SOURCE = "difformer_tpu_torch/csrc/ell.cu"
+BSR_SOURCE = "difformer_tpu_torch/csrc/bsr.cu"
+ELL_REPLACES = "difformer_tpu/ops/ell.py:180"
+BSR_REPLACES = {"padded": "difformer_tpu/ops/bsr.py:252",
+                "bucketed": "difformer_tpu/ops/bsr.py:568"}
+ELL_PATH = ("ell_spmm", "ell_spmm_transposed")
+BSR_PATH = ("bsr_spmm", "bsr_spmm_transposed")
+# bench.py's headline graphs (bench.py:84, build_graph :306-330) and model
+# (3-layer DIFFormer-s, hidden 64, 112 binary tasks, bench.py:1-8)
+BENCH_NODES, BENCH_EDGES, BENCH_FEATURES = 131072, 4 * 1024 * 1024, 64
+BENCH_CLASSES, BENCH_LAYERS = 112, 3
+BENCH_GRAPHS = ("clustered", "powerlaw", "uniform")
+BSR_TILE = 256
+# the tiles the kernel checks make dense blocks of, whatever the cost model
+# elects: every intra-community tile of the clustered graph (~1600 edges a
+# 256 x 256 tile), at the same density at other tile sizes
+KERNEL_MIN_EDGES = 256
+LAYOUT_EPOCHS = 10
+LAYOUT_RTOL = 1e-3  # a layout's losses against K1's (f32 sums reordered)
+CAPTURE_REPEATS = 30
+
+
+def bench_graph(kind, n=BENCH_NODES, e=BENCH_EDGES, f=BENCH_FEATURES,
+                seed=0, comm=1024, intra=0.8):
+    """bench.py's ``build_graph`` (numpy): features [n, f] and the edges
+    (senders, receivers) sorted by receiver. clustered: a stochastic block
+    model, communities of ``comm`` nodes holding ``intra`` of the edges;
+    powerlaw: Pareto-α2 node weights on both ends (hubs of thousands);
+    uniform: i.i.d. ends."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    if kind == "clustered":
+        e_in = int(e * intra)
+        c = rng.integers(0, n // comm, e_in)
+        senders = np.concatenate(
+            [c * comm + rng.integers(0, comm, e_in),
+             rng.integers(0, n, e - e_in)]).astype(np.int32)
+        receivers = np.concatenate(
+            [(c * comm + rng.integers(0, comm, e_in)),
+             rng.integers(0, n, e - e_in)]).astype(np.int32)
+    elif kind == "powerlaw":
+        w = rng.pareto(2.0, n) + 1.0
+        p = w / w.sum()
+        senders = rng.choice(n, size=e, p=p).astype(np.int32)
+        receivers = rng.choice(n, size=e, p=p).astype(np.int32)
+    else:
+        senders = rng.integers(0, n, e).astype(np.int32)
+        receivers = rng.integers(0, n, e).astype(np.int32)
+    order = np.argsort(receivers, kind="stable")
+    return x, senders[order], receivers[order]
+
+
+def degree_sorted(s, r, n, *arrays):
+    """(s, r) relabelled by ``degree_sorted_order`` and sorted by receiver,
+    and node arrays in the new order."""
+    from difformer_tpu_torch.ops.bsr import degree_sorted_order
+
+    perm = degree_sorted_order(s, r, n)
+    s2, r2 = perm[s].astype(np.int32), perm[r].astype(np.int32)
+    order = np.argsort(r2, kind="stable")
+    inv = np.argsort(perm)
+    return (s2[order], r2[order]) + tuple(a[inv] for a in arrays)
+
+
+def layout_bytes(obj):
+    """Device bytes of a layout's tensors (its host tables left out)."""
+    if obj is None:
+        return 0
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, (tuple, list)):
+        return sum(layout_bytes(t) for t in obj)
+    import dataclasses
+
+    if dataclasses.is_dataclass(obj):
+        return sum(layout_bytes(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    return 0
+
+
+def ell_bound_ms(n, e, w, elem=4):
+    """(least ms, "bytes" or "operations", bytes) of one K6 product over a
+    graph of ``e`` edges: x and out once at ``elem`` bytes, an index and a
+    value an edge, a row index a node; 2·E·W flops at the FP32 rate."""
+    nbytes = 2 * n * w * elem + 8 * e + 4 * n
+    t_bytes, t_ops = nbytes / PEAK_BYTES, 2 * e * w / PEAK_OPS[torch.float32]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes > t_ops else "operations", nbytes)
+
+
+def bsr_work(d, w, elem_x):
+    """(dense blocks, flops, compulsory bytes) of one K7 product over ``d``
+    at width ``w``: the blocks that hold an edge, each read once and
+    multiplied against a [T, W] slice of x (2·T²·W flops), x and out once
+    at ``elem_x`` bytes, a column index a block and the scale where
+    counts."""
+    blocks = sum(int((b.reshape(b.shape[0], b.shape[1], -1) != 0)
+                     .any(-1).sum()) for b, _, _ in d.groups()
+                 if b is not None)
+    elem_b = next((b.element_size() for b, _, _ in d.groups()
+                   if b is not None), 4)
+    t = d.tile
+    n = d.num_nodes
+    flops = 2 * t * t * w * blocks
+    nbytes = (blocks * (t * t * elem_b + 4) + 2 * n * w * elem_x
+              + (4 * n if getattr(d, "inv_scale", None) is not None else 0))
+    return blocks, flops, nbytes
+
+
+def bsr_bounds(d, w, x_dtype):
+    """(least ms, "bytes" or "operations", compulsory bytes; least ms on the
+    FP32 units; least ms on the tensor cores; blocks) of one K7 product:
+    the least time is the larger of the bytes' and the operations', the
+    operations on whichever unit is faster: the FP32 units at 67 TFLOP/s,
+    or the tensor cores with f32's precision, TF32 at 495 TFLOP/s in 3
+    passes (f32 blocks and x) or 2 (one operand a bf16 value or a count),
+    bf16 at 989 in 1 (bf16 x and bf16 or count blocks)."""
+    blocks, flops, nbytes = bsr_work(d, w, torch.tensor(
+        [], dtype=x_dtype).element_size())
+    t_bytes = nbytes / PEAK_BYTES
+    t_fp32 = flops / PEAK_OPS[torch.float32]
+    f32_blocks = any(b.dtype == torch.float32 for b, _, _ in d.groups()
+                     if b is not None)
+    if x_dtype == torch.float32:
+        t_tc = (3 if f32_blocks else 2) * flops / 495e12
+    else:
+        t_tc = 2 * flops / 495e12 if f32_blocks else flops / 989e12
+    t_ops = min(t_fp32, t_tc)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes > t_ops else "operations", nbytes,
+            1e3 * max(t_bytes, t_fp32), 1e3 * max(t_bytes, t_tc), blocks)
+
+
+def library_bsr(d, x):
+    """cuSPARSE's BSR product (``torch.sparse_bsr_tensor @ x``) of a padded
+    layout's blocks that hold an edge, on x padded to whole tiles; None
+    where the call refuses the blocks' type (it is timed only)."""
+    t, n, w = d.tile, d.num_nodes, x.shape[1]
+    live = d.blocks.reshape(d.blocks.shape[0], d.blocks.shape[1], -1) \
+        .ne(0).any(-1)
+    crow = torch.zeros(live.shape[0] + 1, dtype=torch.int64,
+                       device=x.device)
+    crow[1:] = live.sum(1).cumsum(0)
+    a = torch.sparse_bsr_tensor(crow, d.block_col[live].long(),
+                                d.blocks[live].to(x.dtype),
+                                size=(live.shape[0] * t, live.shape[0] * t))
+    xp = torch.zeros((live.shape[0] * t, w), dtype=x.dtype, device=x.device)
+    xp[:n] = x
+    call = lambda: a @ xp  # noqa: E731
+    call()
+    return call
+
+
+def check_k6(tag, x, ell, transposed, csr):
+    """K6 against its plain version on ``x``: the "spmm" rule (shown to
+    fail a wrong output), two calls bit-equal, one device kernel a call
+    (counted in its CUDA graph); the kernel's device time by CUDA-graph
+    replay (:func:`replay_ms`), the plain version's and cuSPARSE CSR's
+    (``csr``: the same matrix's row_ptr, col, val) by the profiler, beside
+    the bound. Returns the JSON row."""
+    from difformer_tpu_torch.kernels import ell as K6
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+
+    n, w = x.shape
+    call = lambda: K6.ell_spmm_rows(x, ell, transposed=transposed)  # noqa
+    plain = lambda: K6.ell_spmm_plain(x, ell)  # noqa: E731
+    out, ref = call(), plain()
+    scale = K6.ell_spmm_abs(x, ell)
+    err = assert_close(tag, out, ref, "spmm", scale=scale)
+    assert_rejects(tag, ref, "spmm", scale=scale)
+    if not torch.equal(out, call()):
+        raise AssertionError(f"{tag}: two calls differ")
+    del out, ref, scale
+    kernels, nodes = graph_kernels(call)
+    if kernels != 1 or nodes != 1:
+        raise AssertionError(f"{tag}: {kernels} device kernels in {nodes} "
+                             f"graph nodes a call, expected 1")
+    e = int((ell.val != 0).sum())
+    bound, bound_by, nbytes = ell_bound_ms(n, e, w, x.element_size())
+    ms, plain_ms = replay_ms(call), device_ms(plain)
+    try:
+        library = library_spmm(*csr, n, x.dtype)
+        library_ms = device_ms(lambda: library(x))
+    except RuntimeError as ex:
+        library_ms = None
+        say(f"phase ell-bsr-kernels: {tag}: cuSPARSE refused: "
+            f"{str(ex).splitlines()[0][:160]}")
+    widths = ell.bucket_sizes
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    say(f"phase ell-bsr-kernels: {tag:52s} max_abs_err {err:.3e}, two calls "
+        f"bit-equal, 1 device kernel a call | {len(widths)} buckets, widths "
+        f"{widths[0]}..{widths[-1]}, {ell.num_slots} slots for {e} edges | "
+        f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | cuSPARSE CSR {lib} "
+        f"| bound {bound:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB; "
+        f"{100 * bound / ms:.1f}% of the kernel's time)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def check_k7(tag, x, d, transposed, library=True):
+    """K7 (the blocks alone) and the whole direction (K7 then K6 adding the
+    residual) against their plain versions on ``x``: the "spmm" rule
+    (shown to fail a wrong output), two calls bit-equal, one device kernel
+    a call for K7 and one more with a residual; the kernel's device time
+    by CUDA-graph replay, the plain version's and (padded float32 or bf16
+    blocks) cuSPARSE BSR's by the profiler, beside the FP32 and the
+    tensor-core bounds. Returns the JSON row and the time of one block."""
+    from difformer_tpu_torch.kernels import bsr as K7
+    from difformer_tpu_torch.kernels import ell as K6
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+    from difformer_tpu_torch.ops.bsr import BsrDirection, bsr_matvec
+
+    groups, scale = d.groups(), getattr(d, "inv_scale", None)
+    call = lambda: K7.bsr_spmm_blocks(  # noqa: E731
+        x, groups, d.tile, scale=scale, transposed=transposed)
+    plain = lambda: K7.bsr_spmm_blocks_plain(  # noqa: E731
+        x, groups, d.tile, scale)
+    out, ref = call(), plain()
+    sc = K7.bsr_spmm_blocks_abs(x, groups, d.tile, scale)
+    err = assert_close(tag, out, ref, "spmm", scale=sc)
+    assert_rejects(tag, ref, "spmm", scale=sc)
+    if not torch.equal(out, call()):
+        raise AssertionError(f"{tag}: two calls differ")
+    whole = lambda: bsr_matvec(d, x, transposed=transposed)  # noqa: E731
+    got = whole()
+    if d.residual is not None:
+        ref = K6.ell_spmm_plain(x, d.residual, add_to=ref)
+        sc = K6.ell_spmm_abs(x, d.residual).float() + sc.float()
+    whole_err = assert_close(f"{tag} with residual", got, ref, "spmm",
+                             scale=sc)
+    del out, ref, sc, got
+    expect = 1 + (d.residual is not None)
+    for fn, want in ((call, 1), (whole, expect)):
+        kernels, nodes = graph_kernels(fn)
+        if kernels != want or nodes != want:
+            raise AssertionError(f"{tag}: {kernels} device kernels in "
+                                 f"{nodes} graph nodes a call, expected "
+                                 f"{want}")
+    w = x.shape[1]
+    bound, bound_by, nbytes, fp32_bound, tc_bound, blocks = bsr_bounds(
+        d, w, x.dtype)
+    slots = sum(int(np.prod(c.shape)) for _, c, _ in groups
+                if c is not None)
+    ms, plain_ms, whole_ms = replay_ms(call), device_ms(plain), \
+        replay_ms(whole)
+    library_ms = None
+    if library and isinstance(d, BsrDirection):
+        try:
+            lib = library_bsr(d, x)
+            library_ms = device_ms(lib)
+        except (RuntimeError, NotImplementedError) as ex:
+            say(f"phase ell-bsr-kernels: {tag}: cuSPARSE BSR refused: "
+                f"{str(ex).splitlines()[0][:160]}")
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    say(f"phase ell-bsr-kernels: {tag:52s} max_abs_err {err:.3e} (with "
+        f"the residual {whole_err:.3e}), two calls bit-equal, 1 device "
+        f"kernel a call ({expect} with the residual) | {slots} block slots, "
+        f"{blocks} with edges, {len(groups)} groups | kernel {ms:.4f} ms "
+        f"({1e6 * ms / max(slots, 1):.2f} ns a slot), with the residual "
+        f"{whole_ms:.4f} ms | plain {plain_ms:.4f} ms | cuSPARSE BSR {lib} | "
+        f"bound {bound:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB; "
+        f"{100 * bound / ms:.1f}% of the kernel's time): FP32 units "
+        f"{fp32_bound:.4f} ms, tensor cores {tc_bound:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=library_ms), ms / max(slots, 1)
+
+
+def edge_time_ms():
+    """K1's device time per edge (ms) at Pokec's size with uniform ends,
+    W = 64, float32: the gather cost of the cost model, with x (418 MB)
+    out of L2."""
+    from difformer_tpu_torch.kernels import spmm as K1
+    from difformer_tpu_torch.ops.graph_ops import build_csr_plan
+
+    g = torch.Generator("cuda").manual_seed(11)
+    n, e = POKEC_NODES, POKEC_EDGES
+    senders = torch.randint(0, n, (e,), device="cuda", generator=g)
+    receivers = torch.randint(0, n, (e,), device="cuda",
+                              generator=g).sort().values
+    plan = build_csr_plan(senders, receivers, n)
+    del senders, receivers
+    x = torch.randn((n, 64), device="cuda", generator=g)
+    ms = device_ms(lambda: K1.csr_spmm(x, plan.row_ptr, plan.col, plan.val,
+                                       split=plan.split))
+    del plan, x
+    torch.cuda.empty_cache()
+    return ms / e, ms
+
+
+def phase_ell_bsr_kernels():
+    """K6 and K7 against their plain versions on the card (module
+    docstring), the layouts' device footprints, and this card's cost model
+    measured: ``_EDGE_EQUIV_BYTES`` from K1's time per edge and K7's per
+    float32 256 x 256 block, ``_BUCKETED_BREAKEVEN_SCALE`` from K7's per
+    int8-count block. Returns the JSON rows and the two constants."""
+    from difformer_tpu_torch.ops import bsr as B
+    from difformer_tpu_torch.ops.ell import build_ell_gcn
+    from difformer_tpu_torch.ops.graph_ops import build_csr_plan
+
+    rows = {}
+
+    def both(label, s, r, n, x32, dtypes, json_label=None):
+        t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
+        fwd, rev = (d.to("cuda") for d in build_ell_gcn(s, r, n))
+        plan = build_csr_plan(t(s), t(r), n)
+        csrs = ((plan.row_ptr, plan.col, plan.val),
+                (plan.t_row_ptr, plan.t_col, plan.t_val))
+        say(f"phase ell-bsr-kernels: {label} N={n} E={s.size}: device "
+            f"footprint ELL {layout_bytes((fwd, rev)) / 1e6:.2f} MB (both "
+            f"directions) against K1's CSR plan "
+            f"{layout_bytes(plan) / 1e6:.2f} MB")
+        for dtype in dtypes:
+            x = x32.to(dtype)
+            suffix = "" if dtype == torch.float32 else " bf16"
+            for name, ell, csr in zip(ELL_PATH, (fwd, rev), csrs):
+                row = check_k6(f"{name}{suffix} {label} W={x.shape[1]}", x,
+                               ell, name.endswith("transposed"), csr)
+                if json_label is not None:
+                    rows[f"{name}{json_label}{suffix}"] = row
+        del fwd, rev, plan
+        torch.cuda.empty_cache()
+
+    g = torch.Generator("cuda").manual_seed(7)
+    _, ei, _ = cora_graph()
+    n = 2708
+    for w in (64, 65):
+        both("cora", ei[0], ei[1], n, torch.randn((n, w), device="cuda",
+                                                   generator=g),
+             (torch.float32, torch.bfloat16) if w == 64 else
+             (torch.float32,), "" if w == 64 else None)
+    graphs = {}
+    for kind in BENCH_GRAPHS:
+        x, s, r = bench_graph(kind)
+        graphs[kind] = (x, s, r)
+        both(kind, s, r, BENCH_NODES, torch.as_tensor(x, device="cuda"),
+             (torch.float32, torch.bfloat16), f" {kind}")
+
+    # K7: the clustered graph's tiles of at least KERNEL_MIN_EDGES edges
+    x, s, r = graphs["clustered"]
+    n = BENCH_NODES
+    x32 = torch.as_tensor(x, device="cuda")
+    per_block = {}
+    cases = [("padded f32", dict(tile=BSR_TILE), True, "", True),
+             ("padded bf16-blocks", dict(tile=BSR_TILE,
+                                         block_dtype=torch.bfloat16),
+              False, " bf16-blocks", True),
+             ("bucketed int8", dict(tile=BSR_TILE), True, " int8", False),
+             ("padded f32 T=128", dict(tile=128), False, " T=128", True)]
+    for label, kw, both_ways, json_suffix, padded in cases:
+        build = B.build_bsr_gcn if padded else B.build_bsr_bucketed_gcn
+        fwd, rev = (d.to("cuda") for d in build(
+            s, r, n, min_edges=KERNEL_MIN_EDGES * kw["tile"] ** 2
+            // BSR_TILE ** 2, **kw))
+        say(f"phase ell-bsr-kernels: clustered {label}: device footprint "
+            f"{layout_bytes((fwd, rev)) / 1e6:.2f} MB (blocks "
+            f"{layout_bytes((fwd.blocks, rev.blocks)) / 1e6:.2f} MB)")
+        for dtype in (torch.float32, torch.bfloat16):
+            xx = x32.to(dtype)
+            xs = "" if dtype == torch.float32 else " bf16"
+            for name, d in list(zip(BSR_PATH, (fwd, rev)))[:2 if both_ways
+                                                           else 1]:
+                row, t_block = check_k7(
+                    f"{name}{xs} clustered {label} W=64", xx, d,
+                    name.endswith("transposed"))
+                rows[f"{name}{json_suffix}{xs}"] = row
+                if dtype == torch.float32 and name == "bsr_spmm":
+                    per_block[label] = t_block
+        if label == "padded f32":
+            # spmm_first's width F + 1: the register-staged path
+            check_k7(f"bsr_spmm clustered {label} W=65",
+                     torch.randn((n, 65), device="cuda", generator=g), fwd,
+                     False)
+        del fwd, rev
+        torch.cuda.empty_cache()
+    # the hub rows of the powerlaw graph after the hub-clustering relabel
+    _, s, r = graphs["powerlaw"]
+    s, r = degree_sorted(s, r, n)
+    fwd, _ = B.build_bsr_bucketed_gcn(s, r, n, tile=BSR_TILE,
+                                      min_edges=KERNEL_MIN_EDGES)
+    fwd = fwd.to("cuda")
+    say(f"phase ell-bsr-kernels: powerlaw degree-sorted bucketed int8: "
+        f"buckets {[tuple(b.shape[:2]) for b in fwd.blocks]}, device "
+        f"footprint {layout_bytes(fwd) / 1e6:.2f} MB (one direction)")
+    check_k7("bsr_spmm powerlaw degree-sorted bucketed int8 W=64", x32,
+             fwd, False)
+
+    del fwd, graphs
+    torch.cuda.empty_cache()
+
+    # this card's cost model
+    t_edge, k1_ms = edge_time_ms()
+    block_bytes = BSR_TILE * BSR_TILE * 4 + BSR_TILE * 128
+    edge_equiv = t_edge * block_bytes / per_block["padded f32"]
+    min_f32 = max(8, int(block_bytes / edge_equiv) + 1)
+    min_int8 = max(8, int((BSR_TILE * BSR_TILE + BSR_TILE * 128)
+                          / edge_equiv) + 1)
+    scale = per_block["bucketed int8"] / t_edge / min_int8
+    say(f"phase ell-bsr-kernels: cost model: K1 {k1_ms:.4f} ms for Pokec's "
+        f"{POKEC_EDGES} edges at W=64 = {1e6 * t_edge:.4f} ns an edge; K7 "
+        f"{1e6 * per_block['padded f32']:.2f} ns a float32 256x256 block "
+        f"slot, {1e6 * per_block['bucketed int8']:.2f} ns an int8 one (W=64) "
+        f"-> _EDGE_EQUIV_BYTES {edge_equiv:.1f} (in the source "
+        f"{B._EDGE_EQUIV_BYTES}), default_min_edges(256) {min_f32}; "
+        f"_BUCKETED_BREAKEVEN_SCALE {scale:.3f} (in the source "
+        f"{B._BUCKETED_BREAKEVEN_SCALE}), int8 breakeven "
+        f"{per_block['bucketed int8'] / t_edge:.0f} edges")
+    return rows, dict(edge_equiv=edge_equiv, scale=scale)
+
+
+def layout_trainer(x, s, r, y, ell, epochs_seed=0):
+    """bench.py's model (DIFFormer-s, hidden 64, 3 layers, dropout 0, 112
+    outputs) and ``FullBatchTrainer`` on the graph, with NLL and accuracy
+    over 112 classes (bench.py's BCE and ROC-AUC over 112 tasks would put
+    a host ROC-AUC of 112 tasks in every loop eval, tens of seconds),
+    with ``ell`` (a layout pair, or None for K1)."""
+    from difformer_tpu_torch import DIFFormer, FullBatchTrainer, GraphData
+
+    graph = GraphData.from_numpy(x, np.stack([s, r]), device="cuda")
+    model = DIFFormer(BENCH_FEATURES, 64, BENCH_CLASSES,
+                      num_layers=BENCH_LAYERS, dropout=0.0, seed=3,
+                      device="cuda")
+    return FullBatchTrainer(model, graph, y, lr=1e-2, weight_decay=0.0,
+                            loss="nll", metric="acc", seed=5,
+                            model_kwargs=None if ell is None
+                            else {"ell": ell}, device="cuda")
+
+
+def layout_fit(trainer, split, epoch_block):
+    """(best, ms per steady epoch, launches) of a LAYOUT_EPOCHS-epoch fit
+    with an eval every 5 epochs. For the epoch-block fit the launches add
+    the replays to the wrappers' counts, and the steady epoch is a block of
+    5 replayed epochs (a step and an eval each) after the fit, on the host
+    clock (the median of 3); for the loop, the fit's mean."""
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = trainer.fit(split, epochs=LAYOUT_EPOCHS, eval_step=5,
+                       epoch_block=epoch_block)[0]
+    torch.cuda.synchronize()
+    epoch_ms = 1e3 * (time.perf_counter() - t0) / LAYOUT_EPOCHS
+    counted = launch_counts()
+    if epoch_block:
+        runner = trainer.epoch_runner
+        replayed = runner.launches()
+        counted = {k: counted[k] + replayed.get(k, 0) for k in counted}
+
+        steady = min(5, LAYOUT_EPOCHS)  # rows of the runner's record
+
+        def block():
+            runner.rewind()
+            runner.block(steady, 1)
+
+        epoch_ms = host_ms(block) / steady
+    return best, epoch_ms, counted
+
+
+def layout_path(layout):
+    """The kernels a layout pair runs: K6 for ELL; K7, and K6 where a
+    direction has a residual, for the block-sparse hybrids."""
+    from difformer_tpu_torch.ops.ell import EllGraph
+
+    if isinstance(layout[0], EllGraph):
+        return ELL_PATH
+    return BSR_PATH + (ELL_PATH if any(d.residual is not None
+                                       for d in layout) else ())
+
+
+def phase_spmm_layouts():
+    """bench.py's three graphs: ``choose_spmm`` with this card's cost model
+    prints its election and coverage; the elected layout, built as the
+    command line builds it (and on the clustered graph the padded hybrid
+    with every intra-community tile dense, KERNEL_MIN_EDGES), trains bench.py's model through the epoch-block
+    fit (CUDA graphs) and the per-epoch loop, bit-equal, and against K1's
+    graph fit from the same weights within LAYOUT_RTOL; ms per epoch of
+    each. Returns the launches of the layouts' graph fits, summed."""
+    from difformer_tpu_torch.ops import bsr as B
+    from difformer_tpu_torch.ops.ell import build_ell_gcn
+
+    total = {}
+    n = BENCH_NODES
+    rng = np.random.default_rng(1)
+    y = rng.integers(0, BENCH_CLASSES, n)
+    perm = rng.permutation(n)
+    split = {"train": perm[:n // 2], "valid": perm[n // 2:3 * n // 4],
+             "test": perm[3 * n // 4:]}
+    for kind in BENCH_GRAPHS:
+        x, s, r = bench_graph(kind)
+        t0 = time.perf_counter()
+        mode, cov = B.choose_spmm(s, r, n, tile=BSR_TILE)
+        tiles = np.bincount((r // BSR_TILE).astype(np.int64) * (
+            -(-n // BSR_TILE)) + s // BSR_TILE)
+        say(f"phase spmm-layouts: {kind}: choose_spmm -> {mode} (dense-tile "
+            f"coverage {cov:.3f} at default_min_edges({BSR_TILE}) = "
+            f"{B.default_min_edges(BSR_TILE)}; the densest tiles hold "
+            f"{int(np.percentile(tiles, 99))} (99th percentile) to "
+            f"{int(tiles.max())} edges; {time.perf_counter() - t0:.2f} s)")
+        # the clustered graph's intra-community tiles as dense blocks too,
+        # whatever the cost model elects (KERNEL_MIN_EDGES)
+        modes = [mode] + (["bsr dense"] if kind == "clustered" else [])
+        k1 = None
+        for layout_mode in modes:
+            sk, rk, xk, yk = s, r, x, y
+            t0 = time.perf_counter()
+            if layout_mode == "bsr-sorted":
+                sk, rk, xk, yk = degree_sorted(s, r, n, x, y)
+                layout = B.build_bsr_bucketed_gcn(sk, rk, n, tile=BSR_TILE)
+            elif layout_mode == "bsr":
+                layout = B.build_bsr_gcn(sk, rk, n, tile=BSR_TILE)
+            elif layout_mode == "bsr dense":
+                layout = B.build_bsr_gcn(sk, rk, n, tile=BSR_TILE,
+                                         min_edges=KERNEL_MIN_EDGES)
+            else:
+                layout = build_ell_gcn(sk, rk, n)
+            build_s = time.perf_counter() - t0
+            fits = {}
+            runs = [("graph", layout, 5), ("loop", layout, 0)]
+            if k1 is None:
+                runs.append(("K1 graph", None, 5))
+            for label, ell, block in runs:
+                gc.collect()
+                torch.cuda.empty_cache()
+                trainer = layout_trainer(xk, sk, rk, yk, ell)
+                fits[label] = layout_fit(trainer, split, block)
+                del trainer
+            k1 = fits.get("K1 graph", k1)
+            (g, g_ms, g_n), (lp, lp_ms, lp_n), (k1b, k1_ms, _) = (
+                fits["graph"], fits["loop"], k1)
+            path = layout_path(layout)
+            rel = largest_rel_diff(np.asarray(g["losses"]),
+                                   np.asarray(k1b["losses"]))
+            say(f"phase spmm-layouts: {kind} ({layout_mode}): built in "
+                f"{build_s:.2f} s, device footprint "
+                f"{layout_bytes(layout) / 1e6:.2f} MB; losses "
+                f"{g['losses'][0]:.6f} -> {g['losses'][-1]:.6f}; graph vs "
+                f"loop bit-equal {g['losses'] == lp['losses']}; against K1 "
+                f"largest relative difference {rel:.3e}; steady ms per "
+                f"epoch (a step and an eval, replayed) {g_ms:.3f} (K1 "
+                f"{k1_ms:.3f}; the loop's fit {lp_ms:.3f}); "
+                f"best epoch {g['epoch']} valid accuracy {g['valid']:.4f}; "
+                f"launches graph {g_n} loop {lp_n}")
+            if g["losses"] != lp["losses"] or g["epoch"] != lp["epoch"]:
+                raise AssertionError(f"{kind}: the graph fit's losses differ "
+                                     f"from the loop's")
+            if not rel <= LAYOUT_RTOL:
+                raise AssertionError(f"{kind}: {layout_mode} against K1 "
+                                     f"differs by {rel:.3e} > {LAYOUT_RTOL}")
+            off = {k: v for k, v in g_n.items() if (v > 0) != (k in path)}
+            if off:
+                raise AssertionError(f"{kind}: launches against the path "
+                                     f"{path}: {off}")
+            for k in ELL_PATH + BSR_PATH:
+                total[k] = total.get(k, 0) + g_n[k]
+            del layout, fits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_cli_layouts(tmp):
+    """The command line's other layouts: --spmm bsr, bsr-sorted and auto on
+    the cora preset's files, cut to 1 run (of its 500 epochs); --spmm auto on
+    bench.py's clustered graph written as a Pokec file (the pokec preset
+    full-batch, --use_minibatch false, 20 epochs at lr 0.001: the preset's
+    0.01 is its mini-batch rate, at which the full graph does not fit this
+    stand-in in 20 epochs), which must elect bsr.
+    Returns the launches of the runs, summed."""
+    import io
+
+    write_planetoid_cora(tmp)
+    base = ["--dataset", "cora", "--data_dir", tmp, "--runs", "1"]
+    total = {}
+    runs = [(base + ["--spmm", "bsr"], 7, None),
+            (base + ["--spmm", "bsr-sorted"], 7, None),
+            (base + ["--spmm", "auto"], 7, None)]
+    x, s, r = bench_graph("clustered", f=POKEC_FEATURES)
+    y = ((np.arange(BENCH_NODES) // 1024) % 2).astype(np.int64)
+    x[:, :4] += 3.0 * (2 * y[:, None] - 1)
+    pokec_dir = os.path.join(tmp, "clustered")
+    write_pokec_mat(pokec_dir, x, np.stack([s, r]), y)
+    runs.append((["--dataset", "pokec", "--data_dir", pokec_dir,
+                  "--use_minibatch", "false", "--spmm", "auto", "--lr",
+                  "0.001", "--epochs", "20", "--runs", "1"], 2, "bsr"))
+    for argv, classes, elect in runs:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            run = CliRun("cli-layouts", argv)
+        elected = re.search(r"spmm=auto: dense-tile coverage (\S+) -> (\S+)",
+                            out.getvalue())
+        if elected:
+            say(f"phase cli-layouts: {elected[0]}")
+        path = layout_path(run.trainer.model_kwargs["ell"])
+        if elect is not None and (not elected or elected[2] != elect):
+            raise AssertionError(f"{' '.join(argv)} elected "
+                                 f"{elected and elected[2]}, expected "
+                                 f"{elect}")
+        run.check(classes, path)
+        run.report()
+        for k, v in run.launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def repeat_captures(trainer, times=CAPTURE_REPEATS):
+    """Capture ``trainer``'s train step on its first batch's layout
+    ``times`` times, each in a new runner, while the trainer's packing
+    threads pack batches without pause (each pack a new pinned host buffer;
+    the host cache emptied now and then where this PyTorch can): the
+    situation in which a capture in PyTorch's global mode was once
+    invalidated (cudaErrorStreamCaptureInvalidated). Raises on any failure;
+    returns (the layout's plan, batches packed meanwhile)."""
+    import threading
+
+    from difformer_tpu_torch.data.batching import batch_iterator
+    from difformer_tpu_torch.train.graph_level import PACK_WORKERS
+
+    state = trainer.init_state(0)
+    generator = torch.Generator(trainer.device).manual_seed(0)
+    indices = np.arange(len(trainer.dataset))
+
+    def raw():
+        return batch_iterator(trainer.dataset, indices, trainer.batch_size,
+                              max_nodes=trainer.max_nodes,
+                              max_edges=trainer.max_edges)
+
+    layout, host, _, _ = trainer.pack(next(raw()))
+    stop, lock = threading.Event(), threading.Lock()
+    packed, errors = [0], []
+    empty_cache = getattr(torch._C, "_host_emptyCache", None)
+
+    def pack():
+        held = []
+        try:
+            while not stop.is_set():
+                for batch in raw():
+                    held.append(trainer.pack(batch)[1])
+                    with lock:
+                        packed[0] += 1
+                    if len(held) > 4:
+                        held.clear()
+                        if empty_cache is not None:
+                            empty_cache()
+                    if stop.is_set():
+                        break
+        except Exception as ex:  # noqa: BLE001 (reported by the caller)
+            errors.append(ex)
+
+    threads = [threading.Thread(target=pack, daemon=True)
+               for _ in range(PACK_WORKERS)]
+    for t in threads:
+        t.start()
+    try:
+        for _ in range(times):
+            runner = trainer._runner(state, generator, capture=True)
+            runner.load(layout, host)
+            runner.run("step", layout)
+            torch.cuda.synchronize()
+            del runner
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a packing thread did not stop")
+    if errors:
+        raise errors[0]
+    return layout.plan, packed[0]
+
+
+def phase_capture_repeat(graphs):
+    """The repair of the capture invalidated by another thread: the
+    actstrack preset's sigmoid trainer (the dense plan) captures its step
+    CAPTURE_REPEATS times while its packing threads run."""
+    t0 = time.perf_counter()
+    trainer = graph_level_trainer(graphs, "sigmoid")
+    plan, packed = repeat_captures(trainer)
+    say(f"phase capture-repeat: {CAPTURE_REPEATS} captures of the sigmoid "
+        f"{plan}-plan step while {packed} batches were packed by the "
+        f"packing threads: none invalidated ({time.perf_counter() - t0:.1f} "
+        f"s)")
+    del trainer
+
+
 def profile_steps(step, step_ms, phase, steps=5, top=12):
     """Device time by kernel over ``steps`` train steps (torch.profiler),
     and its share of ``step_ms``, the step's time measured without the
@@ -3136,6 +3868,8 @@ def main():
     spmm_rows, dval_rows = phase_spmm_kernels()
     wide_rows = phase_kernels_wide()
     say(f"phase kernels: done at {time.perf_counter() - t0:.1f} s")
+    layout_rows, _ = phase_ell_bsr_kernels()
+    say(f"phase ell-bsr-kernels: done at {time.perf_counter() - t0:.1f} s")
     launches = phase_slice()
     launches_s = phase_slice_s()
     phase_slice_s_h8()
@@ -3155,8 +3889,13 @@ def main():
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
-        phase_cli(tmp)
+        launches_cli = phase_cli(tmp)
     say(f"phase cli: done at {time.perf_counter() - t0:.1f} s")
+    launches_layouts = phase_spmm_layouts()
+    say(f"phase spmm-layouts: done at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_cli_layouts(tmp)
+    say(f"phase cli-layouts: done at {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         launches_set = phase_cli_set(tmp)
     say(f"phase cli-set: done at {time.perf_counter() - t0:.1f} s")
@@ -3183,8 +3922,10 @@ def main():
     phase_graph_level(graphs)
     say(f"phase graph-level: done at {time.perf_counter() - t0:.1f} s")
     graph_rows, launches_gl = phase_graph_level_plans(graphs)
-    del graphs
     say(f"phase graph-level-plans: done at {time.perf_counter() - t0:.1f} s")
+    phase_capture_repeat(graphs)
+    del graphs
+    say(f"phase capture-repeat: done at {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         phase_cli_actstrack(tmp)
     say(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
@@ -3249,6 +3990,24 @@ def main():
          "launches": (launches_gat_cifar if name.endswith(" cifar10")
                       else launches_gat)[DVAL_NAME], **row}
         for name, row in dval_rows.items()
+    ]
+    kernels += [
+        # K6 at the cora preset's graph (W = 64 and the spmm_first 65) and
+        # bench.py's three graphs (W = 64), K7 on bench.py's clustered
+        # graph (T = 256 padded float32, bfloat16 blocks and bucketed int8
+        # counts; T = 128), f32 and bf16 x. Launches: the cora rows the cli
+        # phase's main run's (the cora preset on its default ELL layout),
+        # the others the spmm-layouts phase's fits (wrappers and replays)
+        {"name": name, "route": "cuda",
+         "source": BSR_SOURCE if name.startswith("bsr") else ELL_SOURCE,
+         "replaces": (BSR_REPLACES["bucketed" if " int8" in name
+                                   else "padded"]
+                      if name.startswith("bsr") else ELL_REPLACES),
+         "launches": (launches_cli if name.startswith("ell")
+                      and name.split()[1:] in ([], ["bf16"])
+                      else launches_layouts)[name.split()[0]],
+         **row}
+        for name, row in layout_rows.items()
     ]
     say(json.dumps({"kernels": kernels}))
     say(smi)

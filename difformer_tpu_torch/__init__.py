@@ -11,7 +11,8 @@ Ported so far: full-batch and mini-batch node classification and the set
 track with DIFFormer-s (``kernel="simple"``, the main path) and DIFFormer-a
 (``kernel="sigmoid"``), at f32 or bf16 and with ``remat``; the temporal
 track (DCRNN, MPNN-LSTM, ``TemporalTrainer``); the graph-level (particle)
-track (DIFFormer-v2, ``GraphLevelTrainer``, the particle datasets); all
+track (DIFFormer-v2, ``GraphLevelTrainer``, the particle datasets); the
+sparse layouts of the GCN branch (``ops/ell.py``, ``ops/bsr.py``); all
 started from the command line (``python -m difformer_tpu_torch.cli``,
 ``cli.py``) with the dataset readers, transforms, loggers and
 ``sweep.py``. ROADMAP.md lists what is still to port.

@@ -34,9 +34,14 @@ sgc, link, mixhop, gcnjk, gatjk, h2gcn, appnp, gprgnn) trains full-batch with
 ``FullBatchTrainer`` as DIFFormer does, and ``--method lp``/``multilp``
 propagates labels and scores every split, per run, with no trainer; a zoo
 method in mini-batch (``--use_minibatch``, the pokec and ogbn-proteins
-presets) is not ported. On the node tracks the GCN branch always runs the CSR
-SpMM kernel (K1): the JAX package's default ``--use_ell`` ELL layout is a TPU
-layout of the same product. ``--eval_only`` reads a checkpoint the port wrote
+presets) is not ported. DIFFormer's GCN branch on the full-batch node task
+takes the JAX command line's sparse layout: ``--spmm`` (or, when it is
+empty, ``--use_ell``, on by default) picks the ELL layout (``ell``, the ELL
+kernel K6), the padded block-sparse hybrid (``bsr``, at ``--bsr_tile``: the
+block kernel K7 and K6), the bucketed hybrid after relabelling the nodes by
+degree (``bsr-sorted``), or lets ``choose_spmm`` elect one from the graph
+(``auto``); ``coo`` (or ``--use_ell false``) runs the CSR SpMM kernel K1.
+Every other model, and the mini-batch route, runs K1. ``--eval_only`` reads a checkpoint the port wrote
 with ``--save_model``, or a reference ``.pt``/``.pth``/``.pkl`` state_dict; it
 does not read the JAX package's orbax checkpoints. Every other route raises
 ``NotImplementedError`` naming its ROADMAP.md item.
@@ -67,6 +72,12 @@ from difformer_tpu_torch.nn import gnns as Z
 from difformer_tpu_torch.nn.difformer import DIFFormer
 from difformer_tpu_torch.nn.difformer_v2 import DIFFormerV2, GraphLevelModel
 from difformer_tpu_torch.nn.temporal import DCRNN, MPNNLSTM
+from difformer_tpu_torch.ops.bsr import (
+    build_bsr_bucketed_gcn,
+    build_bsr_gcn,
+    choose_spmm,
+)
+from difformer_tpu_torch.ops.ell import build_ell_gcn
 from difformer_tpu_torch.train.graph_level import GraphLevelTrainer
 from difformer_tpu_torch.train.checkpoint import (
     restore_checkpoint,
@@ -81,11 +92,8 @@ from difformer_tpu_torch.utils.weights import load_torch_checkpoint
 
 # the routes that the port does not run yet, by ROADMAP.md queue A item
 _ITEMS = {
-    9: "the TPU-shaped sparse layouts, ROADMAP.md queue A item 9",
     10: "the parallel layer, ROADMAP.md queue A item 10",
 }
-# the reference's sparse product: the port's CSR SpMM kernel
-_PORTED_SPMM = ("", "coo")
 
 
 def _not_ported(what, item):
@@ -190,9 +198,6 @@ def _check_ported(cfg: Config):
             f"difformer_tpu_torch yet: the zoo in mini-batch needs chunk "
             f"plans per model (ROADMAP.md queue A, leftover \"the zoo in "
             f"mini-batch\")")
-    if not cfg.use_minibatch and cfg.spmm not in _PORTED_SPMM:
-        # the mini-batch route reads no sparse layout
-        raise _not_ported(f"--spmm {cfg.spmm}", 9)
 
 
 def _restore(cfg: Config, trainer: FullBatchTrainer, split):
@@ -214,6 +219,34 @@ def _restore(cfg: Config, trainer: FullBatchTrainer, split):
         restore_checkpoint(path, map_location=trainer.device))
     res, _ = trainer.evaluate(state, split)
     return res
+
+
+def _sparse_layout(cfg: Config, spmm, graph, x, label, ei, perm, device):
+    """The GCN branch's layout of ``--spmm`` (``difformer_tpu/cli.py:
+    214-254``): "auto" elects one with ``choose_spmm`` and prints it;
+    "bsr-sorted" relabels the task by degree (composed with ``perm``, an
+    earlier ``--reorder``) and builds the bucketed hybrid; "bsr" the padded
+    hybrid at ``--bsr_tile``; anything else the ELL layout. Returns (layout,
+    graph, x, label, ei, perm), the last five relabelled for
+    "bsr-sorted"."""
+    n = graph.num_nodes
+    s, r = graph.senders.cpu().numpy(), graph.receivers.cpu().numpy()
+    if spmm == "auto":
+        spmm, cov = choose_spmm(s, r, n, tile=cfg.bsr_tile)
+        print(f"spmm=auto: dense-tile coverage {cov:.2f} -> {spmm}")
+    if spmm == "bsr-sorted":
+        # hub clustering: the whole task relabelled once on the host
+        p2 = locality_reorder(ei, n, method="degree")
+        ei, x, label = permute_graph(p2, ei, x, label)
+        perm = p2 if perm is None else p2[perm]
+        graph = GraphData.from_numpy(x, ei, device=device)
+        s, r = graph.senders.cpu().numpy(), graph.receivers.cpu().numpy()
+        layout = build_bsr_bucketed_gcn(s, r, n, tile=cfg.bsr_tile)
+    elif spmm == "bsr":
+        layout = build_bsr_gcn(s, r, n, tile=cfg.bsr_tile)
+    else:
+        layout = build_ell_gcn(s, r, n)
+    return layout, graph, x, label, ei, perm
 
 
 def run_node_task(cfg: Config, device=None):
@@ -306,9 +339,15 @@ def run_node_task(cfg: Config, device=None):
         return _final(res)
 
     graph = GraphData.from_numpy(x, ei, device=device)
+    ell = None
+    spmm = cfg.spmm or ("ell" if cfg.use_ell else "coo")
+    if spmm != "coo" and method == "difformer" and cfg.use_graph:
+        ell, graph, x, label, ei, perm = _sparse_layout(
+            cfg, spmm, graph, x, label, ei, perm, device)
     trainer = FullBatchTrainer(
         model, graph, label, lr=cfg.lr, weight_decay=cfg.weight_decay,
         loss=loss, metric=cfg.metric, seed=cfg.seed,
+        model_kwargs={"ell": ell} if ell is not None else None,
         manireg=cfg.manireg if method == "manireg" else 0.0, device=device)
     if cfg.eval_only:
         res = _restore(cfg, trainer, split_for(0))
@@ -472,9 +511,6 @@ def main(argv=None, *, device=None):
     overrides = {k: v for k, v in vars(args).items() if v is not None}
     dataset = overrides.pop("dataset", "cora")
     cfg = make_config(dataset, **overrides)
-    if overrides.get("use_ell") and not cfg.use_minibatch:
-        # the ELL layout, which the JAX package's default also takes
-        raise _not_ported("--use_ell", 9)
     print(cfg)
     if cfg.task == "temporal":
         return run_temporal_task(cfg, device=device)

@@ -12,3 +12,5 @@ from difformer_tpu_torch.kernels.spmm import (  # noqa: F401
     csr_spmm,
     csr_spmm_plain,
 )
+from difformer_tpu_torch.kernels.ell import ell_spmm_rows  # noqa: F401
+from difformer_tpu_torch.kernels.bsr import bsr_spmm_blocks  # noqa: F401

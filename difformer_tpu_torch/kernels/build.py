@@ -48,6 +48,12 @@ SIGNATURES = {
                      _P, _I64, _I64, _P, _P, _P],
         "csr_spmm_dval": [_P, _P, _P, _P, _P, _I64, _I64, _P],
     },
+    "ell.cu": {
+        "ell_spmm": [_P, _P, _P, _P, _P, _P, _I, _I64, _I64, _I, _I, _P],
+    },
+    "bsr.cu": {
+        "bsr_spmm": [_P, _P, _P, _I64, _I64, _I, _I, _I, _P, _I, _P],
+    },
 }
 
 _library = None

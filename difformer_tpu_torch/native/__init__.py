@@ -1,14 +1,15 @@
 """ctypes bindings of the port's native graph preparation (``graphprep.cpp``),
-the host side of the mini-batch trainer: induced subgraphs, counting-sort
-CSRs and GCN values.
+the host side of the mini-batch trainer (induced subgraphs, counting-sort
+CSRs and GCN values) and of the ELL layout's builder (:func:`ell_fill`,
+``ops/ell.py``).
 
 The mini-batch trainer calls :func:`induced_subgraph` (its edge capacity),
 :func:`chunk_subgraphs` and :func:`chunk_csr` (every epoch's chunk plans).
-:func:`sort_edges_by_receiver` and :func:`gcn_norm_values` are the JAX
-package's other native entries with their signatures: nothing in the port
-calls them; they keep the port's native API the JAX package's
-(``chunk_csr`` gives the values of ``gcn_norm_values``), and
-``tests/test_torch_port_native.py`` holds them equal to the JAX ones.
+:func:`sort_edges_by_receiver` and :func:`ell_fill` build the ELL layout
+(``ops/ell.py``). :func:`gcn_norm_values` is the JAX package's other native
+entry with its signature: nothing in the port calls it; it keeps the port's
+native API the JAX package's (``chunk_csr`` gives its values), and
+``tests/test_torch_port_native.py`` holds the entries equal to the JAX ones.
 
 The library is compiled with ``g++`` at first use into
 ``difformer_tpu_torch/_build/`` (listed in ``.gitignore``), under a name
@@ -55,6 +56,8 @@ _SIGNATURES = {
                          ctypes.c_int, _I64P, _I32P, _I32P], _I64),
     "chunk_csr": ([_I32P, _I32P, _I64, _I64, _I32P, _I32P, _F32P, _I32P,
                    _I32P, _F32P], None),
+    "ell_fill": ([_I64P, _I64, _I64, _I64P, _I32P, _F32P, _I32P, _F32P],
+                 None),
 }
 
 
@@ -261,3 +264,31 @@ def chunk_csr(senders, receivers, num_nodes, out=None):
         _p(val, ctypes.c_float), _p(t_row_ptr, ctypes.c_int32),
         _p(t_col, ctypes.c_int32), _p(t_val, ctypes.c_float))
     return out
+
+
+def ell_fill(nodes, k, indptr, point_s, val_s):
+    """One bucket of the ELL layout: (idx int32 [nb, k], w float32 [nb, k])
+    whose row i holds the first k entries of node ``nodes[i]``'s CSR range
+    ``indptr[node]:indptr[node + 1]`` of ``point_s`` and ``val_s`` (not
+    empty), zero-padded (the JAX package's ``native.ell_fill``)."""
+    nodes = np.ascontiguousarray(nodes, np.int64)
+    indptr = np.ascontiguousarray(indptr, np.int64)
+    point_s = _i32(point_s)
+    val_s = np.ascontiguousarray(val_s, np.float32)
+    nb = nodes.shape[0]
+    lib = get_lib()
+    if lib is None:
+        starts = indptr[nodes]
+        lens = indptr[nodes + 1] - starts
+        cols = np.arange(k)[None, :]
+        mask = cols < lens[:, None]
+        pos = np.minimum(starts[:, None] + cols, point_s.shape[0] - 1)
+        return (np.where(mask, point_s[pos], 0).astype(np.int32),
+                np.where(mask, val_s[pos], 0.0).astype(np.float32))
+    idx = np.empty((nb, k), np.int32)
+    w = np.empty((nb, k), np.float32)
+    lib.ell_fill(_p(nodes, ctypes.c_int64), nb, k,
+                 _p(indptr, ctypes.c_int64), _p(point_s, ctypes.c_int32),
+                 _p(val_s, ctypes.c_float), _p(idx, ctypes.c_int32),
+                 _p(w, ctypes.c_float))
+    return idx, w

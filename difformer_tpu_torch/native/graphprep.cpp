@@ -13,6 +13,9 @@
 //   sender) with their GCN values, by two stable counting sorts: the arrays
 //   that sort_edges_by_receiver and gcn_norm_values give, in one call.
 //
+// - ell_fill: one degree bucket of the ELL layout (ops/ell.py), as
+//   difformer_tpu/native/graphprep.cpp's.
+//
 // The reference delegates this work to PyG's subgraph and torch_sparse
 // (node classification/main-batch.py:131, data_utils.py:183-200).
 //
@@ -181,6 +184,29 @@ void chunk_csr(const int32_t* senders, const int32_t* receivers, int64_t e,
     value[i] = gcn_value(1.0f, inv[receivers[i]], inv[senders[i]]);
   csr_by(receivers, senders, value.data(), e, n, row_ptr, col, val);
   csr_by(senders, receivers, value.data(), e, n, t_row_ptr, t_col, t_val);
+}
+
+// One bucket of the ELL layout (ops/ell.py): for each of its nb rows, the
+// node nodes[row], the first k entries of the node's CSR range
+// indptr[node] .. indptr[node + 1] of point_s and val_s, zero-padded to k.
+void ell_fill(const int64_t* nodes, int64_t nb, int64_t k,
+              const int64_t* indptr, const int32_t* point_s,
+              const float* val_s, int32_t* idx_out, float* w_out) {
+  for (int64_t row = 0; row < nb; ++row) {
+    const int64_t node = nodes[row];
+    const int64_t a = indptr[node];
+    const int64_t len = std::min<int64_t>(indptr[node + 1] - a, k);
+    int32_t* ir = idx_out + row * k;
+    float* wr = w_out + row * k;
+    for (int64_t j = 0; j < len; ++j) {
+      ir[j] = point_s[a + j];
+      wr[j] = val_s[a + j];
+    }
+    for (int64_t j = len; j < k; ++j) {
+      ir[j] = 0;
+      wr[j] = 0.0f;
+    }
+  }
 }
 
 }  // extern "C"

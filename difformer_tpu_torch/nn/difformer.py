@@ -34,7 +34,10 @@ factored), the ``spmm_first`` branch and the plain graph branch, through
 ``torch.utils.checkpoint`` (non-reentrant, no RNG state: no random number
 is drawn inside them; dropout is outside). A region that keeps no tensor
 for its backward (the plain graph branch: K1's backward needs only the
-plan) has nothing to recompute. ``axis_name``, ``ell`` and ``halo`` raise
+plan) has nothing to recompute. ``ell=`` (a pair of layouts of
+``ops/ell.py`` or ``ops/bsr.py``, as the JAX package takes it) runs both
+graph branches through ``gcn_conv_ell`` (K6, or K7 and K6) in place of K1,
+in the same recompute regions. ``axis_name`` and ``halo`` raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
@@ -48,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from difformer_tpu_torch.nn.common import LayerNorm, Linear, dropout
 from difformer_tpu_torch.nn.init import torch_linear_init_
+from difformer_tpu_torch.ops.ell import gcn_conv_ell
 from difformer_tpu_torch.ops.graph_ops import build_csr_plan, gcn_conv
 from difformer_tpu_torch.ops.linear_attention import (
     simple_attention,
@@ -60,7 +64,6 @@ from difformer_tpu_torch.ops.sigmoid_attention import (
 from difformer_tpu_torch.utils.device import resolve_device
 
 _NOT_PORTED = {
-    "ell": "TPU-shaped sparse layouts, ROADMAP.md queue A item 9 (slice 8)",
     "halo": "the parallel layer, ROADMAP.md queue A item 10 (slice 9)",
     "axis_name": "the parallel layer, ROADMAP.md queue A item 10 (slice 9)",
 }
@@ -102,10 +105,9 @@ def _remat(fn, on):
                                     preserve_rng_state=False)
 
 
-def _check_call(ell, halo):
-    for name, value in (("ell", ell), ("halo", halo)):
-        if value is not None:
-            raise _not_ported(name)
+def _check_call(halo):
+    if halo is not None:
+        raise _not_ported("halo")
 
 
 class DIFFormerConv(nn.Module):
@@ -151,7 +153,8 @@ class DIFFormerConv(nn.Module):
     def forward(self, query_input, source_input, senders=None, receivers=None,
                 edge_weight=None, x_0=None, *, node_mask=None, edge_mask=None,
                 num_nodes_global=None, indices_are_sorted=False,
-                output_attn=False, edge_chunk_size=None, plan=None):
+                output_attn=False, edge_chunk_size=None, plan=None,
+                ell=None):
         H, D = self.num_heads, self.out_channels
         fuse_mean = self.fuse_head_mean
         if fuse_mean == "auto":
@@ -209,6 +212,8 @@ class DIFFormerConv(nn.Module):
                       and not output_attn)
 
         def conv(x):
+            if ell is not None:
+                return gcn_conv_ell(x, ell[0], ell[1])
             return gcn_conv(x, senders, receivers, edge_weight,
                             edge_mask=edge_mask,
                             indices_are_sorted=indices_are_sorted,
@@ -274,7 +279,9 @@ class DIFFormer(nn.Module):
     ``forward(..., generator=g)`` draws the dropout masks from ``g``;
     ``forward(..., plan=graph.csr_plan())`` runs every layer's graph branch
     on that plan (which replaces senders, receivers, edge_weight and
-    edge_mask there); without one, a plan is built once for the call."""
+    edge_mask there); without one, a plan is built once for the call.
+    ``forward(..., ell=(fwd, rev))`` runs the graph branch on those
+    layouts instead (``ops/ell.py``, ``ops/bsr.py``), with no plan."""
 
     def __init__(self, in_channels, hidden_channels, out_channels,
                  num_layers=2, num_heads=1, kernel="simple", alpha=0.5,
@@ -334,9 +341,10 @@ class DIFFormer(nn.Module):
                 indices_are_sorted=False, output_attn=False,
                 generator: Optional[torch.Generator] = None, ell=None,
                 halo=None, edge_chunk_size=None, plan=None):
-        _check_call(ell, halo)
+        _check_call(halo)
         drop = lambda h: dropout(h, self.dropout, self.training, generator)
-        if plan is None and self.convs and self.convs[0].use_graph:
+        if (plan is None and ell is None and self.convs
+                and self.convs[0].use_graph):
             plan = self.build_plan(senders, receivers, x.shape[0],
                                    edge_weight, edge_mask)
         if self.compute_dtype is not None:
@@ -359,7 +367,7 @@ class DIFFormer(nn.Module):
                        num_nodes_global=num_nodes_global,
                        indices_are_sorted=indices_are_sorted,
                        output_attn=output_attn,
-                       edge_chunk_size=edge_chunk_size, plan=plan)
+                       edge_chunk_size=edge_chunk_size, plan=plan, ell=ell)
             if output_attn:
                 x, attn = out
                 attentions.append(attn)

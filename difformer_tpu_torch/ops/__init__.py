@@ -22,3 +22,15 @@ from difformer_tpu_torch.ops.sigmoid_attention import (  # noqa: F401
     sigmoid_attention,
     sigmoid_attention_dense,
 )
+from difformer_tpu_torch.ops.ell import (  # noqa: F401
+    build_ell_gcn,
+    ell_spmm,
+    gcn_conv_ell,
+)
+from difformer_tpu_torch.ops.bsr import (  # noqa: F401
+    bsr_bucketed_spmm,
+    bsr_spmm,
+    build_bsr_bucketed_gcn,
+    build_bsr_gcn,
+    choose_spmm,
+)

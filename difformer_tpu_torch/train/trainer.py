@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 from typing import Optional
 
 import numpy as np
@@ -44,6 +45,8 @@ import torch
 import torch.nn.functional as F
 
 from difformer_tpu_torch.data.graph import GraphData
+from difformer_tpu_torch.kernels import bsr as _bsr_kernels
+from difformer_tpu_torch.kernels import ell as _ell_kernels
 from difformer_tpu_torch.kernels import sigmoid_attention as _attention_kernels
 from difformer_tpu_torch.kernels import spmm as _spmm_kernels
 from difformer_tpu_torch.train.checkpoint import CheckpointManager
@@ -131,7 +134,8 @@ def train_labels(labels, loss, onehot_bce_labels=False):
 
 
 def _launch_counts():
-    return {**_attention_kernels.LAUNCHES, **_spmm_kernels.LAUNCHES}
+    return {**_attention_kernels.LAUNCHES, **_spmm_kernels.LAUNCHES,
+            **_ell_kernels.LAUNCHES, **_bsr_kernels.LAUNCHES}
 
 
 def _dval_count():
@@ -143,10 +147,29 @@ def captured(graph, fn, stream, pool=None):
     graph's memory pool, when given); returns the graph's record: the
     kernel launches the wrappers counted during the capture
     (``captured``; K1-dval's apart, ``captured_dval``) and its ``replays``
-    (0 so far)."""
+    (0 so far).
+
+    A call that a capture cannot record invalidates it
+    (``cudaErrorStreamCaptureInvalidated``), and two such calls came from
+    outside ``fn``. The graph-level trainer's packing threads allocate
+    pinned host buffers (``cudaHostAlloc``) while its steps are captured
+    (``train/graph_level.py``): the capture runs in thread-local mode, where
+    only this thread's calls count (PyTorch's default global mode counts
+    every thread's). And the garbage collector, which this PyTorch no longer
+    runs at the start of a capture, could free an earlier run's graphs
+    inside it (a trainer and its runner refer to each other): it runs just
+    before the capture and is held off during it."""
     before, dval = _launch_counts(), _dval_count()
-    with torch.cuda.graph(graph, pool=pool, stream=stream):
-        fn()
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=stream,
+                              capture_error_mode="thread_local"):
+            fn()
+    finally:
+        if collecting:
+            gc.enable()
     after = _launch_counts()
     return {"captured": {k: after[k] - before[k] for k in after},
             "captured_dval": _dval_count() - dval, "replays": 0}
@@ -205,8 +228,10 @@ class FullBatchTrainer:
     and its graph branch runs on ``p``, the graph's CSR plan. ``kw`` is
     ``model_kwargs`` (its ``indices_are_sorted`` is taken out and passed on
     its own, as the JAX trainer does; the port's graph is always sorted, so
-    it defaults to True). The graph and the model are moved to ``device``
-    (the GPU unless told otherwise), and the plan is built there once.
+    it defaults to True); its ``ell``, a sparse layout pair of
+    ``ops/ell.py`` or ``ops/bsr.py``, replaces the plan. The graph, the
+    model and the layout are moved to ``device`` (the GPU unless told
+    otherwise), and the plan is built there once.
     ``manireg > 0`` adds the Laplacian smoothness of the logits over the
     edges to the loss (``image and text/main.py:103-112``).
     """
@@ -220,6 +245,12 @@ class FullBatchTrainer:
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.graph = graph.to(self.device)
+        self.model_kwargs = dict(model_kwargs or {})
+        if self.model_kwargs.get("ell") is not None:
+            # a sparse layout of the GCN branch (ops/ell.py, ops/bsr.py),
+            # moved to the device once, before any capture
+            self.model_kwargs["ell"] = tuple(
+                d.to(self.device) for d in self.model_kwargs["ell"])
         self.plan = self._build_plan()
         self.lr = lr
         self.weight_decay = weight_decay
@@ -228,7 +259,6 @@ class FullBatchTrainer:
         self.metric_name = metric
         self.metric_fn = METRICS[metric]
         self.manireg = manireg
-        self.model_kwargs = dict(model_kwargs or {})
         self._sorted = bool(self.model_kwargs.pop("indices_are_sorted", True))
         self.labels_train = torch.as_tensor(
             train_labels(labels, loss, onehot_bce_labels), device=self.device)
@@ -239,12 +269,15 @@ class FullBatchTrainer:
 
     def _build_plan(self):
         """The graph's plan for the model: DIFFormer's GCN plan, kept on
-        the graph (``GraphData.csr_plan()``), or the plan of another
+        the graph (``GraphData.csr_plan()``; none where the model runs on a
+        sparse layout, ``model_kwargs["ell"]``), or the plan of another
         model's ``build_plan`` (the temporal models on the node task, as
         the JAX command line runs them)."""
         from difformer_tpu_torch.nn.difformer import DIFFormer
 
         if isinstance(self.model, DIFFormer):
+            if self.model_kwargs.get("ell") is not None:
+                return None
             return self.graph.csr_plan()
         g = self.graph
         return self.model.build_plan(g.senders, g.receivers, g.num_nodes,

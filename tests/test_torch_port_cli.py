@@ -3,7 +3,8 @@ package's: the same presets and flags, a golden synthetic run with the JAX
 test's floor, exactly what each CLI hands its trainer (features, edges,
 labels, each run's split and the fit options) on the same files, the
 baseline zoo's routes (what a zoo trainer is handed, label propagation's
-metrics, every zoo method trained on the CPU),
+metrics, every zoo method trained on the CPU), the sparse layouts of the GCN
+branch (the layout each CLI hands its trainer, bit for bit),
 ``NotImplementedError`` for every route the port does not run yet, and the
 ``--save_model``/``--eval_only`` round trip, also from a reference ``.pt``
 state_dict.
@@ -228,9 +229,7 @@ ZOO_MINIBATCH = "the zoo in mini-batch"
 @pytest.mark.parametrize("extra,item", [
     (["--n_shards", "2"], 10),
     (["--use_minibatch", "true", "--n_shards", "2"], 10),
-    (["--spmm", "ell"], 9), (["--spmm", "bsr"], 9),
-    (["--spmm", "bsr-sorted"], 9), (["--spmm", "auto"], 9),
-    (["--use_ell", "true"], 9),
+    (["--spmm", "bsr", "--n_shards", "4"], 10),
     (["--dataset", "pokec", "--method", "gcn"], ZOO_MINIBATCH),
 ])
 def test_unported_routes_raise_naming_their_item(tmp_path, extra, item):
@@ -239,6 +238,70 @@ def test_unported_routes_raise_naming_their_item(tmp_path, extra, item):
     match = f"item {item}\\b" if isinstance(item, int) else item
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv, **CPU)
+
+
+# --------------------------------------------------------------------------
+# the sparse layouts of the GCN branch (--use_ell, --spmm, --bsr_tile)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("extra,layout", [
+    ([], "ell"), (["--use_ell", "true"], "ell"), (["--spmm", "ell"], "ell"),
+    (["--spmm", "bsr", "--bsr_tile", "64"], "bsr"),
+    (["--spmm", "auto", "--bsr_tile", "64"], "bsr"),
+    (["--spmm", "bsr-sorted", "--bsr_tile", "64"], "bsr-bucketed"),
+    (["--spmm", "bsr-sorted", "--reorder", "rcm", "--bsr_tile", "64"],
+     "bsr-bucketed"),
+    (["--spmm", "coo"], None), (["--use_ell", "false"], None),
+    (["--method", "gcn", "--spmm", "bsr"], None),
+])
+def test_sparse_layout_hands_the_same_layout(monkeypatch, cora_dir, extra,
+                                             layout):
+    """The JAX command line's route (difformer_tpu/cli.py:214-259): each
+    CLI hands its trainer the same graph, splits (relabelled by degree for
+    bsr-sorted, after any --reorder) and ``model_kwargs["ell"]``, bit for
+    bit; the port's cost model set to the JAX package's for --spmm auto."""
+    from difformer_tpu.ops import bsr as JB
+    from difformer_tpu_torch.ops import bsr as B
+    from difformer_tpu_torch.ops.ell import EllGraph
+    from test_torch_port_bsr import _assert_same_direction
+    from test_torch_port_ell import _assert_same_layout
+
+    monkeypatch.setattr(B, "_EDGE_EQUIV_BYTES", JB._EDGE_EQUIV_BYTES)
+    made = run_both(monkeypatch, ["--dataset", "cora", "--data_dir",
+                                  cora_dir] + extra)
+    theirs = jax_train.FullBatchTrainer.made[0]
+    ours = (made.kw.get("model_kwargs") or {}).get("ell")
+    ref = (theirs.kw.get("model_kwargs") or {}).get("ell")
+    if layout is None:
+        assert ours is None and ref is None
+        return
+    kind = {"ell": EllGraph, "bsr": B.BsrDirection,
+            "bsr-bucketed": B.BsrBuckets}[layout]
+    assert all(isinstance(d, kind) for d in ours)
+    for d, jd in zip(ours, ref):
+        if layout == "ell":
+            _assert_same_layout(jd, d)
+        else:
+            _assert_same_direction(jd, d)
+
+
+@pytest.mark.parametrize("extra", [[], ["--spmm", "bsr", "--bsr_tile", "64"],
+                                   ["--spmm", "bsr-sorted", "--bsr_tile",
+                                    "64"]])
+def test_sparse_layouts_train_on_the_cpu(extra):
+    """The default ELL route and the block-sparse ones end to end (the
+    JAX test's golden floor)."""
+    res = cli.main([
+        "--dataset", "synthetic-500-2000-16-3", "--epochs", "40", "--runs",
+        "1", "--rand_split", "true", "--hidden_channels", "16", "--seed",
+        "123", "--dropout", "0.0", "--display_step", "100"] + extra, **CPU)
+    assert res[0]["test"] >= 0.9, res
+
+
+def test_spmm_auto_prints_its_election(capsys, cora_dir):
+    cli.main(["--dataset", "cora", "--data_dir", cora_dir, "--epochs", "2",
+              "--runs", "1", "--spmm", "auto"], **CPU)
+    assert "spmm=auto: dense-tile coverage" in capsys.readouterr().out
 
 
 # --------------------------------------------------------------------------

@@ -15,7 +15,11 @@ tolerance); the model's logits and gradients rtol 1e-3 / atol 1e-4 (layers
 of kernel-vs-plain float32 rounding). The baseline zoo (``-k zoo``) on the
 card against the CPU, its graph fits against the loop, BatchNorm's
 statistics across the capture, and K1-dval (``-k dval``) alone and through
-``spmm``'s value gradient.
+``spmm``'s value gradient. The sparse layouts (``-k "ell or bsr"``): K6 and
+K7 against their plain versions under the "spmm" rule, one kernel a call,
+two calls bit-equal, and the epoch-block fit on each layout bit-equal to the
+loop; the graph-level capture repeated while the packing threads allocate
+(``-k repeated``).
 """
 
 import numpy as np
@@ -688,7 +692,9 @@ def test_epoch_block_fit_matches_the_loop_on_the_card(cuda, kernel):
         "sigmoid_attention_dq": layers * steps * attention,
         "sigmoid_attention_dkv": layers * steps * attention,
         "csr_spmm": layers * (steps + evals),
-        "csr_spmm_transposed": layers * steps}
+        "csr_spmm_transposed": layers * steps,
+        "ell_spmm": 0, "ell_spmm_transposed": 0,
+        "bsr_spmm": 0, "bsr_spmm_transposed": 0}
 
 
 @pytest.mark.cuda
@@ -915,13 +921,14 @@ def test_wide_dq_split_chunk_fully_masked(cuda, dtype):
 @pytest.mark.cuda
 def test_cli_runs_on_the_card(cuda, tmp_path):
     """The command line with its default device, the card: a synthetic
-    graph with the sigmoid kernel at hidden 300 (the wide path), K1 and
-    K2-K4 launched."""
+    graph with the sigmoid kernel at hidden 300 (the wide path), K2-K4 and
+    the default ELL layout's K6 launched, K1 not."""
     from difformer_tpu_torch import cli
+    from difformer_tpu_torch.kernels import ell as K6
     from difformer_tpu_torch.kernels import spmm as K1
 
-    K.reset_launch_counts()
-    K1.reset_launch_counts()
+    for kernels in (K, K1, K6):
+        kernels.reset_launch_counts()
     res = cli.main(["--dataset", "synthetic-400-1600-16-3", "--epochs", "20",
                     "--runs", "1", "--rand_split", "true", "--kernel",
                     "sigmoid", "--hidden_channels", "300", "--lr", "0.001",
@@ -929,7 +936,8 @@ def test_cli_runs_on_the_card(cuda, tmp_path):
                     "--data_dir", str(tmp_path)])
     assert res[0]["test"] >= 0.8, res  # 0.99 on the CPU
     assert all(K.LAUNCHES[name] > 0 for name in K.LAUNCHES)
-    assert all(K1.LAUNCHES[name] > 0 for name in K1.LAUNCHES)
+    assert all(K6.LAUNCHES[name] > 0 for name in K6.LAUNCHES)
+    assert not any(K1.LAUNCHES.values())
 
 
 # --- the mini-batch trainer: K1 at capacity, chunk steps as CUDA graphs -------
@@ -1520,3 +1528,164 @@ def test_zoo_values_without_gradient_launch_no_dval(cuda):
         tr.fit(split, epochs=2)
         assert K1.LAUNCHES["csr_spmm_transposed"] > 0
         assert K1.DVAL_LAUNCHES == {"csr_spmm_dval": 0}
+
+
+# --------------------------------------------------------------------------
+# the sparse layouts: K6 (ELL) and K7 (block-sparse)
+# --------------------------------------------------------------------------
+
+def _layout_graph(kind, n=3000, e=40000, seed=4):
+    """(senders, receivers) of a clustered graph (communities of 512 nodes
+    holding 80 % of the edges) or of one with a hub row of thousands."""
+    rng = np.random.default_rng(seed)
+    if kind == "clustered":
+        e_in = int(0.8 * e)
+        c = rng.integers(0, n // 512, e_in)
+        s = np.concatenate([c * 512 + rng.integers(0, 512, e_in),
+                            rng.integers(0, n, e - e_in)])
+        r = np.concatenate([c * 512 + rng.integers(0, 512, e_in),
+                            rng.integers(0, n, e - e_in)])
+    else:
+        s = rng.integers(0, n, e)
+        r = np.where(rng.random(e) < 0.2, 7, rng.integers(0, n, e))
+    return s, r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [64, 65, 8])
+@pytest.mark.parametrize("kind", ["clustered", "hub"])
+def test_ell_kernel_matches_plain(cuda, kind, width, dtype):
+    """K6 over both directions against its plain version (with and
+    without ``add_to``): the "spmm" rule, one launch counted, two calls
+    bit-equal; the hub graph has a bucket wider than HEAVY_WIDTH."""
+    from difformer_tpu_torch.kernels import ell as K6
+    from difformer_tpu_torch.ops.ell import build_ell_gcn
+
+    s, r = _layout_graph(kind)
+    n = 3000
+    x = torch.randn((n, width), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1)).to(dtype)
+    base = torch.randn((n, width), device=cuda).to(dtype)
+    fwd, rev = (d.to(cuda) for d in build_ell_gcn(s, r, n))
+    if kind == "hub":  # the hub's in-edges: a bucket a block a row
+        assert max(fwd.bucket_sizes) > K6.HEAVY_WIDTH
+    for ell in (fwd, rev):
+        K6.reset_launch_counts()
+        got = K6.ell_spmm_rows(x, ell)
+        assert K6.LAUNCHES == {"ell_spmm": 1, "ell_spmm_transposed": 0}
+        assert torch.equal(got, K6.ell_spmm_rows(x, ell))
+        scale = K6.ell_spmm_abs(x, ell)
+        assert_close("K6", got, K6.ell_spmm_plain(x, ell), "spmm",
+                     scale=scale)
+        added = K6.ell_spmm_rows(x, ell, add_to=base.clone())
+        assert_close("K6 add_to", added,
+                     K6.ell_spmm_plain(x, ell, add_to=base), "spmm",
+                     scale=scale + base.float().abs())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [72, 65])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["padded f32", "padded bf16",
+                                    "bucketed int8", "bucketed f32",
+                                    "padded T=64", "padded T=48"])
+def test_bsr_kernel_matches_plain(cuda, layout, dtype, width):
+    """K7 (the blocks) and the whole direction (K7, then K6 adding the
+    residual) against their plain versions, both directions: the "spmm"
+    rule, one launch counted each, two calls bit-equal. Width 72 takes the
+    cp.async path, 65 (and T = 48) the register-staged one."""
+    from difformer_tpu_torch.kernels import bsr as K7
+    from difformer_tpu_torch.kernels import ell as K6
+    from difformer_tpu_torch.ops import bsr as B
+
+    s, r = _layout_graph("clustered")
+    n = 3000
+    tile = int(layout[-2:]) if "T=" in layout else 128
+    if layout.startswith("padded"):
+        pair = B.build_bsr_gcn(
+            s, r, n, tile=tile, min_edges=40,
+            block_dtype=torch.bfloat16 if "bf16" in layout else torch.float32)
+    else:
+        pair = B.build_bsr_bucketed_gcn(s, r, n, tile=tile, min_edges=40,
+                                        scaled_int8="int8" in layout)
+    x = torch.randn((n, width), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(2)).to(dtype)
+    for d in (p.to(cuda) for p in pair):
+        assert d.residual is not None
+        groups, scale = d.groups(), getattr(d, "inv_scale", None)
+        K7.reset_launch_counts()
+        K6.reset_launch_counts()
+        got = K7.bsr_spmm_blocks(x, groups, tile, scale=scale)
+        assert K7.LAUNCHES == {"bsr_spmm": 1, "bsr_spmm_transposed": 0}
+        assert torch.equal(got, K7.bsr_spmm_blocks(x, groups, tile,
+                                                   scale=scale))
+        ref = K7.bsr_spmm_blocks_plain(x, groups, tile, scale)
+        sc = K7.bsr_spmm_blocks_abs(x, groups, tile, scale)
+        assert_close("K7", got, ref, "spmm", scale=sc)
+        whole = B.bsr_matvec(d, x, transposed=True)
+        assert K6.LAUNCHES["ell_spmm_transposed"] == 1
+        assert_close("K7 + K6", whole,
+                     K6.ell_spmm_plain(x, d.residual, add_to=ref), "spmm",
+                     scale=sc + K6.ell_spmm_abs(x, d.residual))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["ell", "bsr", "bsr-bucketed"])
+def test_layout_graph_fit_matches_the_loop(cuda, layout):
+    """FullBatchTrainer on a sparse layout: the epoch-block fit (CUDA
+    graphs, K6 and K7 captured with no host read) against the per-epoch
+    loop, losses bit-equal and the best epoch's metrics (device against
+    host) at atol 1e-6; the layout's kernels replayed, K1 never launched;
+    and against K1's fit from the same weights."""
+    from difformer_tpu_torch.ops import bsr as B
+    from difformer_tpu_torch.ops.ell import build_ell_gcn
+
+    s, r = _layout_graph("clustered")
+    n = 3000
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(n, 16)).astype(np.float32)
+    y = (np.arange(n) // 512) % 4
+    build = {"ell": build_ell_gcn,
+             "bsr": lambda s, r, n: B.build_bsr_gcn(s, r, n, tile=128,
+                                                    min_edges=40),
+             "bsr-bucketed": lambda s, r, n: B.build_bsr_bucketed_gcn(
+                 s, r, n, tile=128, min_edges=40)}[layout]
+    split = {"train": np.arange(0, n, 2), "valid": np.arange(1, n, 4),
+             "test": np.arange(3, n, 4)}
+    res = []
+    for ell, block in ((build(s, r, n), 5), (build(s, r, n), 0),
+                       (None, 5)):
+        g = GraphData.from_numpy(x, np.stack([s, r]), device=cuda)
+        m = DIFFormer(16, 32, 4, num_layers=2, num_heads=2, dropout=0.2,
+                      spmm_first=True, seed=2, device=cuda)
+        t = FullBatchTrainer(m, g, y, model_kwargs=None if ell is None
+                             else {"ell": ell}, device=cuda)
+        K1.reset_launch_counts()
+        res.append(t.fit(split, epochs=10, eval_step=2,
+                         epoch_block=block)[0])
+        if block and ell is not None:
+            launches = t.epoch_runner.launches()
+            assert launches["csr_spmm"] == 0
+            name = "ell_spmm" if layout == "ell" else "bsr_spmm"
+            assert launches[name] > 0 and launches[f"{name}_transposed"] > 0
+        if ell is not None:
+            assert not any(K1.LAUNCHES.values())
+    assert res[0]["losses"] == res[1]["losses"]
+    assert res[0]["epoch"] == res[1]["epoch"]
+    for key in ("train", "valid", "test"):  # device metric against host's
+        np.testing.assert_allclose(res[0][key], res[1][key], rtol=0,
+                                   atol=1e-6, err_msg=key)
+    np.testing.assert_allclose(res[0]["losses"], res[2]["losses"], **GRAD)
+
+
+@pytest.mark.cuda
+def test_repeated_capture_survives_the_packing_threads(cuda):
+    """The graph-level trainer's sigmoid step on the dense plan captured 30
+    times while its packing threads allocate pinned buffers without pause:
+    no capture is invalidated (the captures run in thread-local mode)."""
+    import chip_smoke
+
+    _, trainer = _graph_level_trainer(cuda, "sigmoid", True)
+    plan, packed = chip_smoke.repeat_captures(trainer, times=30)
+    assert plan == "dense" and packed > 0
