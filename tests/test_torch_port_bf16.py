@@ -40,6 +40,7 @@ from difformer_tpu_torch.kernels import spmm as K1
 from difformer_tpu_torch.kernels.tolerance import BFLOAT16
 from difformer_tpu_torch.ops import graph_ops
 from difformer_tpu_torch.utils import weights as W
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 N, F, C, HIDDEN = 60, 8, 3, 16

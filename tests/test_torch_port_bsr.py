@@ -24,6 +24,7 @@ from difformer_tpu_torch.ops import bsr as B
 from difformer_tpu_torch.ops import ell as E
 from test_torch_port_ell import _assert_same_layout
 from test_torch_port_model import N, _check_logits_and_grads, _graph
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 

@@ -19,6 +19,7 @@ from difformer_tpu_torch.data import (class_rand_splits, random_graph,
 from difformer_tpu_torch.train.checkpoint import (CheckpointManager,
                                                   restore_checkpoint,
                                                   save_checkpoint)
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 N, C = 120, 3
 

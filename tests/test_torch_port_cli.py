@@ -28,6 +28,7 @@ from difformer_tpu_torch import DIFFormer, cli
 from difformer_tpu_torch.utils import config
 
 import chip_smoke
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 CPU = dict(device="cpu")
 

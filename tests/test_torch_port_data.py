@@ -22,6 +22,7 @@ from difformer_tpu_torch.data import synthetic as tsynth
 from difformer_tpu_torch.data import transforms as ttrans
 from difformer_tpu_torch.ops import graph_ops as tops
 from difformer_tpu_torch.ops import segment as tseg
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 RTOL, ATOL = 1e-5, 1e-6
 

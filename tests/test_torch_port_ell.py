@@ -25,6 +25,7 @@ from difformer_tpu_torch import native
 from difformer_tpu_torch.kernels import ell as K6
 from difformer_tpu_torch.ops import ell as E
 from test_torch_port_model import N, _check_logits_and_grads, _graph
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 

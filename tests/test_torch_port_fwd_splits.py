@@ -13,6 +13,7 @@ and widths of two and four feature groups.
 import pytest
 
 from difformer_tpu_torch.kernels import sigmoid_attention as K
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 H100_SMS = 132
 FWD, DQ, DKV = ("sigmoid_attention_fwd", "sigmoid_attention_dq",

@@ -18,6 +18,7 @@ from difformer_tpu_torch.data import loaders
 from difformer_tpu_torch.data.transforms import normalize_feat
 
 import chip_smoke
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 
 def assert_same_array(a, b, what):

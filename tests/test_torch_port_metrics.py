@@ -15,6 +15,7 @@ import torch
 
 from difformer_tpu.utils import metrics as jm
 from difformer_tpu_torch.utils import metrics as tm
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 N, C, T = 90, 5, 4
 

@@ -22,6 +22,7 @@ from difformer_tpu.nn.difformer import DIFFormer as JDIFFormer
 from difformer_tpu.utils.torch_import import torch_state_dict_from_params
 from difformer_tpu_torch import DIFFormer, GraphData
 from difformer_tpu_torch.utils import weights as W
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 N, F, C, HIDDEN = 40, 8, 3, 16

@@ -24,6 +24,7 @@ from difformer_tpu.ops.ell import _gcn_values as jax_gcn_values_numpy
 from difformer_tpu_torch import native
 from difformer_tpu_torch.data import transforms as T
 from difformer_tpu_torch.kernels import spmm as K
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 ROOT = Path(__file__).resolve().parent.parent
 

@@ -25,6 +25,7 @@ from difformer_tpu_torch.data import smiles as TS
 from tests.test_particle import _fake_event
 from tests.test_plbind import _write_fixture_complex, _write_fixture_dataset
 from tests.test_pyg_interop import _write_fake_pyg_cache
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 
 def _same(a, b):

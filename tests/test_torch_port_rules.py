@@ -12,6 +12,7 @@ import torch
 
 from difformer_tpu_torch import DIFFormer, FullBatchTrainer, GraphData
 from difformer_tpu_torch.utils.device import resolve_device
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "difformer_tpu_torch"

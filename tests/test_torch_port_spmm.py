@@ -20,6 +20,7 @@ from difformer_tpu.ops import graph_ops as jops
 from difformer_tpu_torch import GraphData
 from difformer_tpu_torch.kernels import spmm as K
 from difformer_tpu_torch.ops import graph_ops as tops
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 N = 40

@@ -43,6 +43,7 @@ from difformer_tpu_torch.train import temporal as TT
 from difformer_tpu_torch.utils import weights as W
 
 import chip_smoke
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 N, F, E = 30, 5, 90

@@ -20,6 +20,7 @@ from difformer_tpu.data import transforms as jax_T
 from difformer_tpu_torch.data import graph, splits
 from difformer_tpu_torch.data import transforms as T
 from difformer_tpu_torch.data.synthetic import random_graph
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 
 def equal(a, b):

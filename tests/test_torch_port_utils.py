@@ -20,6 +20,7 @@ from difformer_tpu.utils import profiling as jax_profiling
 from difformer_tpu_torch import DIFFormer, sweep
 from difformer_tpu_torch.data import random_graph
 from difformer_tpu_torch.utils import debug, logger, profiling
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 ROWS = [(0.5, 0.4, 0.3, 1.2), (0.6, 0.7, 0.65, 0.9), (0.8, 0.6, 0.7, 0.8)]
 

@@ -36,6 +36,7 @@ from difformer_tpu_torch.nn import gnns as Z
 from difformer_tpu_torch.ops import graph_ops as TG
 from difformer_tpu_torch.ops import segment as TS
 from difformer_tpu_torch.utils import weights as W
+import torch_port_helpers  # noqa: F401  (sets torch's threads)
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 N, E, F, C = 60, 240, 12, 3

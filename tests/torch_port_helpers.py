@@ -3,11 +3,20 @@
 Inputs are made with numpy from a seed and handed to both packages. This
 module imports no JAX at import time, so the GPU tests
 (test_torch_port_cuda.py) also run where JAX is not installed.
+
+Every port test file imports it, so that on import it sets torch's
+intra-op threads to the CPUs over the pytest-xdist workers: each worker
+at torch's default (every CPU) oversubscribes the machine many times over.
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
+
+torch.set_num_threads(max(1, os.cpu_count() // int(
+    os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
 def make_inputs(seed, n, l, heads, m=8, d=16, masked=False):
