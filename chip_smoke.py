@@ -62,16 +62,19 @@ non-zero before the last line:
    bound (FP32 and 3xTF32) and split.
 9b. ell-bsr-kernels (run after kernels-wide): the sparse layouts' kernels
    against their plain versions under the "spmm" rule (shown to fail a
-   wrong output), two calls bit-equal, one device kernel a call (the
-   block-sparse direction: K7, and K6 adding its residual): the ELL
-   kernel K6 in both directions at Cora's graph (W = 64 and spmm_first's
-   65) and at bench.py's three graphs (N = 131072, E = 4.19 M: clustered
-   SBM, Pareto-alpha-2 power law, uniform; W = 64), f32 and bf16 x; the
-   block kernel K7 on the clustered graph at T = 256 with f32, bf16 and
-   int8-count blocks, at T = 128, and at W = 65, f32 and bf16 x, and on
-   the degree-sorted power-law graph's bucketed int8 layout (its hub row
-   tile); each beside its bound (K7: FP32 and tensor cores), its plain
-   version and cuSPARSE (CSR for K6, BSR for padded K7); each layout's
+   wrong output), two calls bit-equal, the device kernels a call counted
+   from a CUDA graph (one for K6; for K7 one, two where its split plan
+   cuts a hub row tile, one more where x is staged to rows of 16 bytes,
+   and K6 adding the residual): the ELL kernel K6 in both directions at
+   Cora's graph (W = 64 and spmm_first's 65) and at bench.py's three
+   graphs (N = 131072, E = 4.19 M: clustered SBM, Pareto-alpha-2 power
+   law, uniform; W = 64), f32 and bf16 x; the block kernel K7 on the
+   clustered graph at T = 256 with f32, bf16 and int8-count blocks, at
+   T = 128, and at W = 65 and 300, f32 and bf16 x, and on the
+   degree-sorted power-law graph's bucketed int8 layout (its hub row tile
+   split, and the combine kernel alone on its partials); each beside its
+   bound (K7: FP32 and tensor cores), its plain version and cuSPARSE (CSR
+   for K6, BSR for K7, the count scale folded in); each layout's
    device footprint; and this card's cost model (``ops/bsr.py``
    ``_EDGE_EQUIV_BYTES`` and ``_BUCKETED_BREAKEVEN_SCALE``) measured from
    K1's time per edge at Pokec's size and K7's per block.
@@ -87,7 +90,8 @@ non-zero before the last line:
    with this card's cost model (its election, coverage and the densest
    tiles printed), the elected layout built as the command line builds it
    (on the clustered graph also the padded hybrid with its intra-community
-   tiles dense, whatever the election), and bench.py's model
+   tiles dense, on the power law the degree-sorted bucketed hybrid whose
+   hub row tile K7 splits, whatever the election), and bench.py's model
    (3-layer DIFFormer-s, hidden 64, 112 outputs; NLL over 112 classes)
    trained 10 epochs
    through ``FullBatchTrainer``'s graph fit (K6, K7 captured) and the
@@ -1178,7 +1182,7 @@ def expected_launches(layers, attention):
             "sigmoid_attention_dq": sig // 2,
             "sigmoid_attention_dkv": sig // 2,
             "csr_spmm": fwd, "csr_spmm_transposed": bwd,
-            **dict.fromkeys(ELL_PATH + BSR_PATH, 0)}
+            **dict.fromkeys(ELL_PATH + BSR_PATH + (BSR_COMBINE,), 0)}
 
 
 def phase_slice():
@@ -3145,10 +3149,11 @@ BSR_REPLACES = {"padded": "difformer_tpu/ops/bsr.py:252",
                 "bucketed": "difformer_tpu/ops/bsr.py:568"}
 ELL_PATH = ("ell_spmm", "ell_spmm_transposed")
 BSR_PATH = ("bsr_spmm", "bsr_spmm_transposed")
+BSR_COMBINE = "bsr_spmm_combine"
 # bench.py's headline graphs (bench.py:84, build_graph :306-330) and model
 # (3-layer DIFFormer-s, hidden 64, 112 binary tasks, bench.py:1-8)
 BENCH_NODES, BENCH_EDGES, BENCH_FEATURES = 131072, 4 * 1024 * 1024, 64
-BENCH_CLASSES, BENCH_LAYERS = 112, 3
+BENCH_CLASSES, BENCH_LAYERS, BENCH_HIDDEN = 112, 3, 64
 BENCH_GRAPHS = ("clustered", "powerlaw", "uniform")
 BSR_TILE = 256
 # the tiles the kernel checks make dense blocks of, whatever the cost model
@@ -3272,19 +3277,41 @@ def bsr_bounds(d, w, x_dtype):
 
 
 def library_bsr(d, x):
-    """cuSPARSE's BSR product (``torch.sparse_bsr_tensor @ x``) of a padded
-    layout's blocks that hold an edge, on x padded to whole tiles; None
-    where the call refuses the blocks' type (it is timed only)."""
+    """cuSPARSE's BSR product (``torch.sparse_bsr_tensor @ x``) of a
+    layout's blocks that hold an edge (padded or bucketed), as copies in
+    x's dtype with the count scale of int8 blocks folded in (each block
+    times scale[row] scale[column]), on x padded to whole tiles; None where
+    the call refuses them (it is timed only)."""
     t, n, w = d.tile, d.num_nodes, x.shape[1]
-    live = d.blocks.reshape(d.blocks.shape[0], d.blocks.shape[1], -1) \
-        .ne(0).any(-1)
-    crow = torch.zeros(live.shape[0] + 1, dtype=torch.int64,
-                       device=x.device)
-    crow[1:] = live.sum(1).cumsum(0)
-    a = torch.sparse_bsr_tensor(crow, d.block_col[live].long(),
-                                d.blocks[live].to(x.dtype),
-                                size=(live.shape[0] * t, live.shape[0] * t))
-    xp = torch.zeros((live.shape[0] * t, w), dtype=x.dtype, device=x.device)
+    ntr = -(-n // t)
+    scale = getattr(d, "inv_scale", None)
+    if scale is not None:
+        tiled = torch.zeros(ntr * t, device=x.device)
+        tiled[:n] = scale
+        tiled = tiled.view(ntr, t)
+    rows, cols, vals = [], [], []
+    for blocks, bcol, tiles in d.groups():
+        if blocks is None:
+            continue
+        live = blocks.reshape(blocks.shape[0], blocks.shape[1], -1) \
+            .ne(0).any(-1)
+        tile_rows = (torch.arange(live.shape[0], device=x.device)
+                     if tiles is None else tiles.long())
+        rt, ct = tile_rows[:, None].expand_as(live)[live], bcol[live].long()
+        v = blocks[live].float()
+        if scale is not None:
+            v = v * tiled[rt][:, :, None] * tiled[ct][:, None, :]
+        rows.append(rt)
+        cols.append(ct)
+        vals.append(v.to(x.dtype))
+    rt, ct, v = torch.cat(rows), torch.cat(cols), torch.cat(vals)
+    order = torch.argsort(rt * ntr + ct)
+    crow = torch.zeros(ntr + 1, dtype=torch.int64, device=x.device)
+    crow[1:] = torch.bincount(rt, minlength=ntr).cumsum(0)
+    a = torch.sparse_bsr_tensor(crow, ct[order], v[order],
+                                size=(ntr * t, ntr * t))
+    del v, vals
+    xp = torch.zeros((ntr * t, w), dtype=x.dtype, device=x.device)
     xp[:n] = x
     call = lambda: a @ xp  # noqa: E731
     call()
@@ -3338,19 +3365,28 @@ def check_k6(tag, x, ell, transposed, csr):
 
 
 def check_k7(tag, x, d, transposed, library=True):
-    """K7 (the blocks alone) and the whole direction (K7 then K6 adding the
-    residual) against their plain versions on ``x``: the "spmm" rule
-    (shown to fail a wrong output), two calls bit-equal, one device kernel
-    a call for K7 and one more with a residual; the kernel's device time
-    by CUDA-graph replay, the plain version's and (padded float32 or bf16
-    blocks) cuSPARSE BSR's by the profiler, beside the FP32 and the
-    tensor-core bounds. Returns the JSON row and the time of one block."""
+    """K7 (the blocks alone: its kernel, and the combine kernel where
+    ``split_plan`` cuts a group) and the whole direction (K7 then K6 adding
+    the residual) against their plain versions on ``x``: the "spmm" rule
+    (shown to fail a wrong output), two calls bit-equal, the device kernels
+    a call counted from its CUDA graph (K7's launches, 1 or 2 where split,
+    one copy more where x is staged to rows of 16 bytes, and K6 for the
+    residual); the kernel's device time by CUDA-graph replay, the plain
+    version's and cuSPARSE BSR's (the blocks that hold an edge, as x's
+    dtype, the count scale folded in) by the profiler, beside the FP32 and
+    the tensor-core bounds. Returns the JSON row, the time of one block
+    slot, and the combine kernel's row (:func:`check_combine`) or None."""
     from difformer_tpu_torch.kernels import bsr as K7
     from difformer_tpu_torch.kernels import ell as K6
     from difformer_tpu_torch.kernels.tolerance import assert_close
-    from difformer_tpu_torch.ops.bsr import BsrDirection, bsr_matvec
+    from difformer_tpu_torch.ops.bsr import bsr_matvec
 
     groups, scale = d.groups(), getattr(d, "inv_scale", None)
+    w = x.shape[1]
+    chunks = K7.split_plan(K7.group_shapes(groups), d.tile, w,
+                           K7.sm_count(x.device))
+    launches = 1 + any(c > 1 for c in chunks)
+    staged = K7.staged_x(x)[0] is not x
     call = lambda: K7.bsr_spmm_blocks(  # noqa: E731
         x, groups, d.tile, scale=scale, transposed=transposed)
     plain = lambda: K7.bsr_spmm_blocks_plain(  # noqa: E731
@@ -3369,14 +3405,14 @@ def check_k7(tag, x, d, transposed, library=True):
     whole_err = assert_close(f"{tag} with residual", got, ref, "spmm",
                              scale=sc)
     del out, ref, sc, got
-    expect = 1 + (d.residual is not None)
-    for fn, want in ((call, 1), (whole, expect)):
+    expect = launches + staged
+    for fn, want in ((call, expect),
+                     (whole, expect + (d.residual is not None))):
         kernels, nodes = graph_kernels(fn)
         if kernels != want or nodes != want:
             raise AssertionError(f"{tag}: {kernels} device kernels in "
                                  f"{nodes} graph nodes a call, expected "
                                  f"{want}")
-    w = x.shape[1]
     bound, bound_by, nbytes, fp32_bound, tc_bound, blocks = bsr_bounds(
         d, w, x.dtype)
     slots = sum(int(np.prod(c.shape)) for _, c, _ in groups
@@ -3384,25 +3420,80 @@ def check_k7(tag, x, d, transposed, library=True):
     ms, plain_ms, whole_ms = replay_ms(call), device_ms(plain), \
         replay_ms(whole)
     library_ms = None
-    if library and isinstance(d, BsrDirection):
+    if library:
         try:
             lib = library_bsr(d, x)
             library_ms = device_ms(lib)
+            del lib
         except (RuntimeError, NotImplementedError) as ex:
             say(f"phase ell-bsr-kernels: {tag}: cuSPARSE BSR refused: "
                 f"{str(ex).splitlines()[0][:160]}")
+        torch.cuda.empty_cache()
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    stage = (f", x staged to rows of {K7.staged_x(x)[1]} "
+             f"({x.shape[0] * K7.staged_x(x)[1] * x.element_size() / 1e6:.2f}"
+             f" MB written)" if staged else "")
     say(f"phase ell-bsr-kernels: {tag:52s} max_abs_err {err:.3e} (with "
-        f"the residual {whole_err:.3e}), two calls bit-equal, 1 device "
-        f"kernel a call ({expect} with the residual) | {slots} block slots, "
-        f"{blocks} with edges, {len(groups)} groups | kernel {ms:.4f} ms "
+        f"the residual {whole_err:.3e}), two calls bit-equal, {expect} "
+        f"device kernels a call ({expect + (d.residual is not None)} with "
+        f"the residual) | K7 launches a call {launches} (S = "
+        f"{K7.SPLIT_BLOCKS}, chunks {chunks}), column tile "
+        f"{K7.column_tile(w)}{stage} | {slots} block slots, {blocks} with "
+        f"edges, {len(groups)} groups | kernel {ms:.4f} ms "
         f"({1e6 * ms / max(slots, 1):.2f} ns a slot), with the residual "
         f"{whole_ms:.4f} ms | plain {plain_ms:.4f} ms | cuSPARSE BSR {lib} | "
         f"bound {bound:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB; "
         f"{100 * bound / ms:.1f}% of the kernel's time): FP32 units "
         f"{fp32_bound:.4f} ms, tensor cores {tc_bound:.4f} ms")
+    combine = (check_combine(tag, x, d, chunks, transposed)
+               if launches > 1 else None)
+    return (dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                 bound_by=bound_by, library_ms=library_ms),
+            ms / max(slots, 1), combine)
+
+
+def check_combine(tag, x, d, chunks, transposed):
+    """K7's combine kernel alone, on the partials K7's first kernel wrote
+    for ``x`` under the plan ``chunks``, against its plain version (the
+    "spmm" rule over the sums of |partials|; bit-equal expected: the same
+    f32 adds in the same order); its time by CUDA-graph replay, the plain
+    version's by the profiler; bound: the partials read once, the split
+    rows written once and their scales read (bytes). Returns the JSON
+    row."""
+    from difformer_tpu_torch.kernels import bsr as K7
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+
+    groups, scale, t = d.groups(), getattr(d, "inv_scale", None), d.tile
+    out, partial = K7.bsr_spmm_split(x, groups, t, chunks, scale=scale,
+                                     transposed=transposed)
+    call = lambda: K7.bsr_spmm_combine(  # noqa: E731
+        partial, out, groups, t, chunks, scale=scale)
+    plain = lambda: K7.bsr_spmm_combine_plain(  # noqa: E731
+        partial, out, groups, t, chunks, scale)
+    ref = plain()
+    got = call().clone()
+    sc = K7.bsr_spmm_combine_plain(partial.abs(), out.abs(), groups, t,
+                                   chunks, None if scale is None
+                                   else scale.abs())
+    err = assert_close(f"{tag} combine", got, ref, "spmm", scale=sc)
+    if not torch.equal(got, call()):
+        raise AssertionError(f"{tag} combine: two calls differ")
+    n, w = x.shape
+    rows = sum(min(m * t, n) for (m, _), c in zip(K7.group_shapes(groups),
+                                                  chunks) if c > 1)
+    nbytes = 4 * partial.numel() + rows * (w * x.element_size()
+                                           + 4 * (scale is not None))
+    bound = 1e3 * nbytes / PEAK_BYTES
+    ms, plain_ms = replay_ms(call), device_ms(plain)
+    say(f"phase ell-bsr-kernels: {tag} combine: max_abs_err {err:.3e} "
+        f"({'bit-equal' if torch.equal(got, ref) else 'not bit-equal'} to "
+        f"the plain version), two calls bit-equal | {partial.numel()} "
+        f"partials of {sum(c > 1 for c in chunks)} split groups | kernel "
+        f"{ms:.4f} ms | plain {plain_ms:.4f} ms | bound {bound:.4f} ms by "
+        f"bytes ({nbytes / 1e6:.2f} MB; {100 * bound / ms:.1f}%)")
+    del out, partial, ref, got, sc
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=bound_by, library_ms=library_ms), ms / max(slots, 1)
+                bound_by="bytes", library_ms=None)
 
 
 def edge_time_ms():
@@ -3499,17 +3590,21 @@ def phase_ell_bsr_kernels():
             xs = "" if dtype == torch.float32 else " bf16"
             for name, d in list(zip(BSR_PATH, (fwd, rev)))[:2 if both_ways
                                                            else 1]:
-                row, t_block = check_k7(
+                row, t_block, _ = check_k7(
                     f"{name}{xs} clustered {label} W=64", xx, d,
                     name.endswith("transposed"))
                 rows[f"{name}{json_suffix}{xs}"] = row
                 if dtype == torch.float32 and name == "bsr_spmm":
                     per_block[label] = t_block
         if label == "padded f32":
-            # spmm_first's width F + 1: the register-staged path
-            check_k7(f"bsr_spmm clustered {label} W=65",
-                     torch.randn((n, 65), device="cuda", generator=g), fwd,
-                     False)
+            # spmm_first's width F + 1 (x staged to rows of 16 bytes, one
+            # column tile of 72) and the cifar10 preset's hidden 300 (three
+            # column tiles of 104)
+            for wx in (65, 300):
+                rows[f"bsr_spmm W={wx}"], _, _ = check_k7(
+                    f"bsr_spmm clustered {label} W={wx}",
+                    torch.randn((n, wx), device="cuda", generator=g), fwd,
+                    False)
         del fwd, rev
         torch.cuda.empty_cache()
     # the hub rows of the powerlaw graph after the hub-clustering relabel
@@ -3521,8 +3616,23 @@ def phase_ell_bsr_kernels():
     say(f"phase ell-bsr-kernels: powerlaw degree-sorted bucketed int8: "
         f"buckets {[tuple(b.shape[:2]) for b in fwd.blocks]}, device "
         f"footprint {layout_bytes(fwd) / 1e6:.2f} MB (one direction)")
-    check_k7("bsr_spmm powerlaw degree-sorted bucketed int8 W=64", x32,
-             fwd, False)
+    rows["bsr_spmm hub int8"], _, combine = check_k7(
+        "bsr_spmm powerlaw degree-sorted bucketed int8 W=64", x32, fwd,
+        False)
+    if combine is None:
+        raise AssertionError("the power-law hub row tile was not split")
+    rows[f"{BSR_COMBINE} hub int8"] = combine
+    # the split size S (kernels/bsr.py SPLIT_BLOCKS), measured on this layout
+    from difformer_tpu_torch.kernels import bsr as K7
+
+    sweep = {}
+    for size in (2, 3, 4, 8, 16, 32):
+        with unittest.mock.patch.object(K7, "SPLIT_BLOCKS", size):
+            sweep[size] = replay_ms(lambda: K7.bsr_spmm_blocks(
+                x32, fwd.groups(), fwd.tile, scale=fwd.inv_scale))
+    say(f"phase ell-bsr-kernels: split size S on the power-law hub layout "
+        f"(W=64; the source's S = {K7.SPLIT_BLOCKS}): "
+        + ", ".join(f"S={k} {v:.4f} ms" for k, v in sweep.items()))
 
     del fwd, graphs
     torch.cuda.empty_cache()
@@ -3556,7 +3666,7 @@ def layout_trainer(x, s, r, y, ell, epochs_seed=0):
     from difformer_tpu_torch import DIFFormer, FullBatchTrainer, GraphData
 
     graph = GraphData.from_numpy(x, np.stack([s, r]), device="cuda")
-    model = DIFFormer(BENCH_FEATURES, 64, BENCH_CLASSES,
+    model = DIFFormer(BENCH_FEATURES, BENCH_HIDDEN, BENCH_CLASSES,
                       num_layers=BENCH_LAYERS, dropout=0.0, seed=3,
                       device="cuda")
     return FullBatchTrainer(model, graph, y, lr=1e-2, weight_decay=0.0,
@@ -3594,22 +3704,29 @@ def layout_fit(trainer, split, epoch_block):
     return best, epoch_ms, counted
 
 
-def layout_path(layout):
-    """The kernels a layout pair runs: K6 for ELL; K7, and K6 where a
-    direction has a residual, for the block-sparse hybrids."""
+def layout_path(layout, width):
+    """The kernels a layout pair runs at ``width``: K6 for ELL; for the
+    block-sparse hybrids K7, its combine kernel where ``split_plan`` cuts a
+    group of either direction at that width on this card, and K6 where a
+    direction has a residual."""
+    from difformer_tpu_torch.kernels import bsr as K7
     from difformer_tpu_torch.ops.ell import EllGraph
 
     if isinstance(layout[0], EllGraph):
         return ELL_PATH
-    return BSR_PATH + (ELL_PATH if any(d.residual is not None
-                                       for d in layout) else ())
+    split = any(c > 1 for d in layout for c in K7.split_plan(
+        K7.group_shapes(d.groups()), d.tile, width, K7.sm_count("cuda")))
+    return BSR_PATH + ((BSR_COMBINE,) if split else ()) + (
+        ELL_PATH if any(d.residual is not None for d in layout) else ())
 
 
 def phase_spmm_layouts():
     """bench.py's three graphs: ``choose_spmm`` with this card's cost model
     prints its election and coverage; the elected layout, built as the
-    command line builds it (and on the clustered graph the padded hybrid
-    with every intra-community tile dense, KERNEL_MIN_EDGES), trains bench.py's model through the epoch-block
+    command line builds it (and, at KERNEL_MIN_EDGES, on the clustered graph
+    the padded hybrid with every intra-community tile dense, on the power
+    law the degree-sorted bucketed hybrid whose hub row tile K7 splits, so
+    the combine kernel runs), trains bench.py's model through the epoch-block
     fit (CUDA graphs) and the per-epoch loop, bit-equal, and against K1's
     graph fit from the same weights within LAYOUT_RTOL; ms per epoch of
     each. Returns the launches of the layouts' graph fits, summed."""
@@ -3634,16 +3751,28 @@ def phase_spmm_layouts():
             f"{B.default_min_edges(BSR_TILE)}; the densest tiles hold "
             f"{int(np.percentile(tiles, 99))} (99th percentile) to "
             f"{int(tiles.max())} edges; {time.perf_counter() - t0:.2f} s)")
-        # the clustered graph's intra-community tiles as dense blocks too,
-        # whatever the cost model elects (KERNEL_MIN_EDGES)
-        modes = [mode] + (["bsr dense"] if kind == "clustered" else [])
+        # whatever the cost model elects, the clustered graph's
+        # intra-community tiles as dense blocks too, and the power-law
+        # graph's degree-sorted bucketed hybrid, whose hub row tile K7
+        # splits (KERNEL_MIN_EDGES)
+        modes = [mode] + {"clustered": ["bsr dense"],
+                          "powerlaw": ["bsr-sorted dense"]}.get(kind, [])
         k1 = None
         for layout_mode in modes:
-            sk, rk, xk, yk = s, r, x, y
+            sk, rk, xk, yk, split_k = s, r, x, y, split
             t0 = time.perf_counter()
-            if layout_mode == "bsr-sorted":
-                sk, rk, xk, yk = degree_sorted(s, r, n, x, y)
-                layout = B.build_bsr_bucketed_gcn(sk, rk, n, tile=BSR_TILE)
+            if layout_mode.startswith("bsr-sorted"):
+                # relabelled by degree: the split follows its nodes, so the
+                # losses are K1's on the same nodes
+                role = np.full(n, len(split))
+                for i, key in enumerate(split):
+                    role[split[key]] = i
+                sk, rk, xk, yk, role = degree_sorted(s, r, n, x, y, role)
+                split_k = {key: np.flatnonzero(role == i)
+                           for i, key in enumerate(split)}
+                layout = B.build_bsr_bucketed_gcn(
+                    sk, rk, n, tile=BSR_TILE, min_edges=KERNEL_MIN_EDGES
+                    if layout_mode.endswith("dense") else None)
             elif layout_mode == "bsr":
                 layout = B.build_bsr_gcn(sk, rk, n, tile=BSR_TILE)
             elif layout_mode == "bsr dense":
@@ -3660,12 +3789,12 @@ def phase_spmm_layouts():
                 gc.collect()
                 torch.cuda.empty_cache()
                 trainer = layout_trainer(xk, sk, rk, yk, ell)
-                fits[label] = layout_fit(trainer, split, block)
+                fits[label] = layout_fit(trainer, split_k, block)
                 del trainer
             k1 = fits.get("K1 graph", k1)
             (g, g_ms, g_n), (lp, lp_ms, lp_n), (k1b, k1_ms, _) = (
                 fits["graph"], fits["loop"], k1)
-            path = layout_path(layout)
+            path = layout_path(layout, BENCH_HIDDEN)
             rel = largest_rel_diff(np.asarray(g["losses"]),
                                    np.asarray(k1b["losses"]))
             say(f"phase spmm-layouts: {kind} ({layout_mode}): built in "
@@ -3688,7 +3817,7 @@ def phase_spmm_layouts():
             if off:
                 raise AssertionError(f"{kind}: launches against the path "
                                      f"{path}: {off}")
-            for k in ELL_PATH + BSR_PATH:
+            for k in ELL_PATH + BSR_PATH + (BSR_COMBINE,):
                 total[k] = total.get(k, 0) + g_n[k]
             del layout, fits
         gc.collect()
@@ -3728,7 +3857,9 @@ def phase_cli_layouts(tmp):
                             out.getvalue())
         if elected:
             say(f"phase cli-layouts: {elected[0]}")
-        path = layout_path(run.trainer.model_kwargs["ell"])
+        conv = run.trainer.model.convs[0]
+        path = layout_path(run.trainer.model_kwargs["ell"],
+                           conv.num_heads * conv.out_channels)
         if elect is not None and (not elected or elected[2] != elect):
             raise AssertionError(f"{' '.join(argv)} elected "
                                  f"{elected and elected[2]}, expected "
@@ -3995,7 +4126,9 @@ def main():
         # K6 at the cora preset's graph (W = 64 and the spmm_first 65) and
         # bench.py's three graphs (W = 64), K7 on bench.py's clustered
         # graph (T = 256 padded float32, bfloat16 blocks and bucketed int8
-        # counts; T = 128), f32 and bf16 x. Launches: the cora rows the cli
+        # counts; T = 128; W = 65 and 300) and on its degree-sorted power
+        # law's bucketed int8 counts (the hub row tile split, and the
+        # combine kernel), f32 and bf16 x. Launches: the cora rows the cli
         # phase's main run's (the cora preset on its default ELL layout),
         # the others the spmm-layouts phase's fits (wrappers and replays)
         {"name": name, "route": "cuda",

@@ -10,84 +10,120 @@
 // ([Ntr, Kb, T, T], every row tile in order) and for every bucket of the
 // bucketed layout ([m, kb, T, T] with its row tiles rows[m]) in one launch.
 // A group of row tiles without blocks (the bucketed layout's tiles with no
-// dense block) is written 0, so every row tile is written exactly once, by
-// one thread an element: no atomics, deterministic. The sparse tiles' edges
-// (the residual) are then added by the ELL kernel K6 (ell.cu), on the raw x.
+// dense block) is written 0, so every row tile is written exactly once: no
+// atomics, deterministic. The sparse tiles' edges (the residual) are then
+// added by the ELL kernel K6 (ell.cu), on the raw x.
 //
 // Blocks are float32, bfloat16 or int8 edge counts. For counts the rank-1
 // GCN scaling of BsrBuckets.inv_scale is fused into the loads and stores:
-// x rows are multiplied by scale[row] as they are staged, and each output
-// element by scale[node] as it is stored; the JAX package does the same
-// with two elementwise passes. x and out are float32 or bfloat16; every
-// product and sum is f32, and the output is rounded once at the store.
+// x rows are multiplied by scale[row] as they are loaded into fragments,
+// and each output element by scale[node] as it is stored; the JAX package
+// does the same with two elementwise passes. x and out are float32 or
+// bfloat16; every product and sum is f32, and the output is rounded once.
 //
-// What bounds it on this card: operations. A T x T block against a [T, W]
-// slice of x is 2 T^2 W flops for T^2 block elements: at T = 256, W = 64
-// and f32 blocks 8.4 MFLOP a 256 KB block, 32 flops a byte, above the FP32
-// units' 20 flops a byte of HBM (int8 blocks 128). The compulsory bytes are
-// the blocks once, x once and out once.
+// What bounds it on this card. The compulsory bytes are the blocks once, x
+// once and out once; the blocks dominate (a 256 x 256 f32 block is 256 KB
+// against 64 KB of its x slice at W = 64). The products are 2 T^2 W flops a
+// block, on the tensor cores as mma.sync.m16n8k8 in TF32 with f32 sums:
+// TF32 keeps 10 mantissa bits, so an f32 operand is split into hi + lo
+// TF32 values and a b taken as lo_a hi_b + hi_a lo_b + hi_a hi_b (3 passes,
+// as the wide K2-K4 of sigmoid_attention.cu), f32's order of error; bf16
+// block values and edge counts (at most 127) are TF32 values already, so
+// with them only x is split (2 passes), and at bf16 x without a scale
+// nothing is (1 pass). At f32 the three passes set the pace (PERF.md §6).
 //
-// The design: the products on the tensor cores, mma.sync.m16n8k8 in TF32
-// with f32 sums. TF32 keeps 10 mantissa bits: an f32 operand is split into
-// hi + lo TF32 values and a b taken as lo_a hi_b + hi_a lo_b + hi_a hi_b
-// (3 passes, as the wide K2-K4 of sigmoid_attention.cu), f32's order of
-// error; bf16 block values and edge counts (at most 127) are TF32 values
-// already, so with them only x is split (2 passes), and at bf16 x without a
-// scale nothing is (1 pass). The passes set the pace at f32 (PERF.md §6).
+// The design, one kernel for every width, tile and row-tile shape:
 //
-// Two ways to stage the operands. Where T is a multiple of 32, a row of x a
-// multiple of 16 bytes and the pointers 16-byte aligned (every layout at
-// the model's widths but spmm_first's F + 1), bsr_spmm_async_kernel: a
-// block of 8 warps computes a 128 x 64 tile of one row tile's output (128
-// rows, 64 of the W columns; each warp 32 x 32, 2 x 4 m16n8 accumulators,
-// so a fragment of x serves two products and one of the block four), and a
-// ring of 3 shared-memory stages, each the [128, 32] slice of a block and
-// the [32, 64] slice of x (the column tile's rows; 0 past the last node and
-// column) in their own element types, is filled by 16-byte cp.async copies
-// two slices ahead of the products, which convert (and scale, for counts)
-// as they load their fragments: enough bytes in flight to stream the
-// blocks. Otherwise bsr_spmm_kernel stages through registers: 64 x 64 a
-// block, the slices converted to f32 and scaled as they are stored, the
-// next slice loaded while the tensor cores work on this one. Slices of 32
-// columns keep any T (128 and 256 here; a 256 x 256 f32 block, 256 KB, does
-// not fit in a block's 227 KB) and any W. Padded slots, zero blocks
-// pointing at column tile 0, are multiplied like any other. A row tile's
-// blocks are walked by one block of threads, so a hub row tile of hundreds
-// of blocks (the bucketed layout of a degree-sorted power-law graph) sets
-// the tail; splitting it is queue B's. The table of groups (blocks, column
-// tiles, row tiles, m, kb; the first block of each is set at launch) is
-// passed by value, so a call reads nothing back and can be captured in a
-// CUDA graph.
+// * A ring of 3 shared-memory stages filled by cp.async two slices ahead
+//   of the products. A thread block of 8 warps computes a 128-row tile of
+//   one row tile's output (warps 4 along the rows, 32 rows each as two m16
+//   tiles; 2 along the columns) over the row tile's blocks, 32 block
+//   columns a stage: the [128, 32] slice of the block and the [32, cols]
+//   slice of x (the column tile's rows; 0 past the last node, the tile and
+//   the width), each in its own element type, converted (and scaled, for
+//   counts) as the fragments are loaded. Blocks come by 16-byte copies
+//   where a block row is a multiple of 16 bytes and every block pointer is
+//   16-byte aligned; otherwise (an odd --bsr_tile) by plain loads into the
+//   same ring. x comes by 16-byte copies: the wrapper (kernels/bsr.py)
+//   hands over a row stride ldx of a multiple of 16 bytes, staging x into a
+//   [N, ldx] buffer where its rows are not (W = 65, spmm_first's F + 1, or
+//   a misaligned view). Warps whose rows lie past the tile skip the
+//   products (T = 64: half the warps).
+// * Each block read from device memory once a call. A thread block's
+//   column tile is W rounded up to 8 columns (an n8 tile of mma), up to 80
+//   columns: W = 65 takes one pass of 72, not two of 64. Each warp runs
+//   the loop for its own count of n-tiles (W = 65: 5 in one column of
+//   warps, 4 in the other), a compile-time constant there, so nothing
+//   branches between its products; the warps meet at a barrier without
+//   .aligned. Up to 64 columns the stage holds 64 (4 n-tiles a warp at
+//   most: W = 64 is the tile of earlier versions), else 80: 5 n-tiles a
+//   warp fit the 128 registers of 2 blocks an SM. Wider W (128,
+//   300) is cut into equal column tiles (2 of 64, 4 of 80), and the grid
+//   puts the column tiles of one row tile next to each other, so their
+//   repeated block reads come from the 50 MB L2. What bounds a call is
+//   then what bounds its work: the blocks' bytes at W = 64 and 65, the
+//   TF32 passes at W = 300.
+// * Hub row tiles split across thread blocks. A group whose row tiles hold
+//   more blocks (kb) than kernels/bsr.py's SPLIT_BLOCKS, and whose thread
+//   blocks fill less than a wave of the card (2 an SM), is cut along kb
+//   into chunks of equal size (split_plan, from shapes and the SM count
+//   alone); each chunk's thread blocks write f32 partial sums into scratch
+//   [chunks, m, T, W] (the wrapper's torch.empty), and bsr_combine_kernel
+//   sums a group's chunks in their order, scales (counts) and rounds once,
+//   as K1's csr_spmm_combine (spmm.cu). Without the split a row tile of
+//   hundreds of blocks (the bucketed layout of a degree-sorted power-law
+//   graph) ran on one or two SMs while the rest of the card idled. The
+//   partials are written once and read once (bench.py's power-law hub
+//   layout: 11 MB against the call's 114 MB of compulsory bytes); they
+//   bound the combine, bytes only.
 //
-// C interface (loaded with ctypes): the entry returns cudaGetLastError()
+// The table of groups (blocks, column tiles, row tiles, m, kb, chunks and
+// the first partial of each) is passed by value, so a call reads nothing
+// back and can be captured in a CUDA graph.
+//
+// C interface (loaded with ctypes): each entry returns cudaGetLastError()
 // after its launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps: 4 along the rows, 2 along W
-constexpr int kRows = 64;       // output rows of a block
-constexpr int kCols = 64;       // output columns of a block
-constexpr int kDepth = 32;      // block columns staged at once
-constexpr int kLdA = kDepth + 4;  // 4 mod 32: ldmatrix hits 32 banks
-constexpr int kLdX = kCols + 8;   // 8 mod 32: the k-major B reads too
+constexpr int kThreads = 256;     // 8 warps: 4 along the rows, 2 along W
+constexpr int kRows = 128;        // output rows of a thread block
+constexpr int kDepth = 32;        // block columns staged at once
+constexpr int kStages = 3;        // ring of staged slices
+constexpr int kMaxCols = 80;      // columns of a thread block
+constexpr int kMaxTile = 1 << 16;  // rows of a block, so r * tile is an int
 constexpr int kMaxGroups = 32;    // kernels/bsr.py MAX_GROUPS
-constexpr int kPerThread = kRows * kDepth / kThreads;  // 8 of A, 8 of x
+constexpr int kTableCols = 7;     // kernels/bsr.py's table
 
 struct Groups {
   int count;
-  int64_t block0[kMaxGroups + 1];  // first block of each group; all blocks
+  int64_t block0[kMaxGroups + 1];  // first thread block (combine: element)
   const void* blocks[kMaxGroups];  // [m, kb, T, T], or null: tiles written 0
   const int* bcol[kMaxGroups];     // [m, kb] column tiles
   const int* tiles[kMaxGroups];    // [m] row tiles, or null: tile i is i
   int64_t m[kMaxGroups];
   int kb[kMaxGroups];
+  int chunks[kMaxGroups];          // thread blocks along kb; 1: unsplit
+  int64_t part0[kMaxGroups];       // first partial of a split group
+};
+
+struct Shape {
+  int64_t n;   // rows of x and out
+  int width;   // columns of x and out
+  int ldx;     // row stride of x in elements, a multiple of 16 bytes
+  int tile;
+  int row_blocks;  // thread blocks along a row tile
+  int col_blocks;  // thread blocks along W
+  int cols;        // columns of a thread block, a multiple of 8
+  int vec_a;       // blocks staged by 16-byte copies
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -101,21 +137,13 @@ __device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
-
-// Four 8 x 4 tiles of f32 from shared memory in one instruction: lane
-// 8 j + r gives the address of row r of tile j (16 bytes, 16-byte aligned),
-// and lane 4 g + t receives word t of row g of tile j in x[j] (as in
-// sigmoid_attention.cu).
-__device__ __forceinline__ void ldsm_x4(float (&x)[4], const float* row) {
-  const auto a = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  uint32_t r[4];
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-#pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] = __uint_as_float(r[i]);
+template <typename T>
+__device__ __forceinline__ T zero() {
+  return T(0);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __ushort_as_bfloat16(0);
 }
 
 // x = hi + lo in TF32 values; without Split, x is one TF32 value already
@@ -142,145 +170,18 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// The block values as staged: T elements in, f32 in shared memory.
-template <typename TB>
-__device__ __forceinline__ void load_a(float (&v)[kPerThread], const TB* a,
-                                       int tile, int r_base, int c0) {
-#pragma unroll
-  for (int it = 0; it < kPerThread; ++it) {
-    const int e = it * kThreads + threadIdx.x;
-    const int r = e / kDepth, c = e % kDepth;
-    const int row = r_base + r, col = c0 + c;
-    v[it] = (row < tile && col < tile)
-                ? to_f32(a[int64_t(row) * tile + col])
-                : 0.0f;
-  }
-}
-
-// The x rows of a column tile's slice, scaled (counts), 0 past the last
-// node and the last column.
-template <typename TX>
-__device__ __forceinline__ void load_x(float (&v)[kPerThread],
-                                       const TX* __restrict__ x,
-                                       const float* __restrict__ scale,
-                                       int64_t x_row0, int c0, int tile,
-                                       int64_t n, int64_t c_base,
-                                       int64_t width) {
-#pragma unroll
-  for (int it = 0; it < kPerThread; ++it) {
-    const int e = it * kThreads + threadIdx.x;
-    const int c = e / kCols, j = e % kCols;
-    const int64_t xr = x_row0 + c0 + c;
-    const int64_t col = c_base + j;
-    float val = 0.0f;
-    if (c0 + c < tile && xr < n && col < width) {
-      val = to_f32(x[xr * width + col]);
-      if (scale) val *= __ldg(scale + xr);
-    }
-    v[it] = val;
-  }
-}
-
-template <typename TB, typename TX, bool SplitA, bool SplitB>
-__global__ void __launch_bounds__(kThreads, 2)
-    bsr_spmm_kernel(const Groups grp, const TX* __restrict__ x,
-                    TX* __restrict__ out, const float* __restrict__ scale,
-                    int64_t n, int tile, int64_t width, int row_blocks,
-                    int col_blocks) {
-  __shared__ __align__(16) float as[kRows * kLdA];   // block slice [r][c]
-  __shared__ __align__(16) float xs[kDepth * kLdX];  // x slice [c][j]
-  int g = 0;
-  while (g + 1 < grp.count && int64_t(blockIdx.x) >= grp.block0[g + 1]) ++g;
-  const int64_t blk = int64_t(blockIdx.x) - grp.block0[g];
-  const int per_tile = row_blocks * col_blocks;
-  const int64_t mi = blk / per_tile;
-  const int rem = static_cast<int>(blk - mi * per_tile);
-  const int r_base = (rem / col_blocks) * kRows;  // rows within the tile
-  const int64_t c_base = int64_t(rem % col_blocks) * kCols;  // of W
-  const int64_t row_tile = grp.tiles[g] ? __ldg(grp.tiles[g] + mi) : mi;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wr = (warp % 4) * 16, wc = (warp / 4) * 32;
-  const int gq = lane / 4, tq = lane % 4;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  const TB* blocks = static_cast<const TB*>(grp.blocks[g]);
-  const int kb = blocks ? grp.kb[g] : 0;
-  const int steps = (tile + kDepth - 1) / kDepth;  // slices of a block
-  const int chunks = kb * steps;
-  float va[kPerThread], vx[kPerThread];
-  // the chunk after the one in shared memory is loaded into registers
-  // before the products of the current one
-  auto fetch = [&](int chunk) {
-    const int k = chunk / steps, c0 = (chunk % steps) * kDepth;
-    const int64_t slot = mi * kb + k;
-    load_a<TB>(va, blocks + slot * tile * tile, tile, r_base, c0);
-    load_x<TX>(vx, x, scale, int64_t(__ldg(grp.bcol[g] + slot)) * tile, c0,
-               tile, n, c_base, width);
-  };
-  if (chunks > 0) fetch(0);
-  for (int chunk = 0; chunk < chunks; ++chunk) {
-#pragma unroll
-    for (int it = 0; it < kPerThread; ++it) {
-      const int e = it * kThreads + threadIdx.x;
-      as[(e / kDepth) * kLdA + e % kDepth] = va[it];
-      xs[(e / kCols) * kLdX + e % kCols] = vx[it];
-    }
-    __syncthreads();
-    if (chunk + 1 < chunks) fetch(chunk + 1);
-#pragma unroll
-    for (int ks = 0; ks < kDepth / 8; ++ks) {
-      float af[4];
-      {
-        const int j = lane / 8, r = lane % 8;
-        ldsm_x4(af, as + (wr + r + 8 * (j % 2)) * kLdA + 8 * ks +
-                        4 * (j / 2));
-      }
-      const Tf32<SplitA, 4> a(af);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const float* xb = xs + (8 * ks) * kLdX + wc + 8 * nt;
-        const float bf[2] = {xb[tq * kLdX + gq], xb[(tq + 4) * kLdX + gq]};
-        const Tf32<SplitB, 2> b(bf);
-        // the small products first, then hi hi
-        if (SplitA) mma_tf32(acc[nt], a.lo, b.hi);
-        if (SplitB) mma_tf32(acc[nt], a.hi, b.lo);
-        mma_tf32(acc[nt], a.hi, b.hi);
-      }
-    }
-    __syncthreads();
-  }
-  // acc[nt]: rows wr + gq (+ 8), columns wc + 8 nt + 2 tq (+ 1)
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = r_base + wr + gq + 8 * h;
-    const int64_t node = row_tile * tile + row;
-    if (row >= tile || node >= n) continue;
-    const float s = scale ? __ldg(scale + node) : 1.0f;
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int64_t col = c_base + wc + 8 * nt + 2 * tq + q;
-        if (col < width)
-          store_as(out + node * width + col, acc[nt][2 * h + q] * s);
-      }
-  }
-}
-
-// ---- the cp.async path: T a multiple of 32, W of 16 bytes of x ----------
-
-constexpr int kAsyncRows = 128;  // output rows of a block (16 a warp)
-constexpr int kStages = 3;       // ring of staged slices
-constexpr int kLdXs = kCols + 8;  // x slice row, elements: 8 mod 32 in f32
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
   const auto d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  const auto d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                "l"(src), "r"(bytes)
                : "memory");
 }
@@ -295,113 +196,89 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // One stage of the ring, in raw element types: the [128, 32] slice of a
-// block (row stride kDepth + 16 bytes), the [32, 64] slice of x (row stride
-// kLdXs) and, for counts, the 32 scales of the slice's x rows.
-template <typename TB, typename TX>
+// block (row stride kDepth + 16 bytes), the [32, cols] slice of x (row
+// stride kLdX: 8 mod 32 words at f32, 4 at bf16, so a fragment's reads hit
+// 32 banks) and, for counts, the 32 scales of the slice's x rows. NW: the
+// most n-tiles a warp holds (4: up to 64 columns, 5: up to 80).
+template <typename TB, typename TX, int NW>
 struct alignas(16) Stage {
   static constexpr int kLdA = kDepth + 16 / static_cast<int>(sizeof(TB));
-  TB a[kAsyncRows * kLdA];
-  TX x[kDepth * kLdXs];
+  static constexpr int kLdX = 16 * NW + 8;
+  TB a[kRows * kLdA];
+  TX x[kDepth * kLdX];
   float scale[kDepth];
 };
 
-template <typename TB, typename TX>
-__device__ __forceinline__ void issue_stage(Stage<TB, TX>& st,
-                                            const TB* block,
-                                            const TX* __restrict__ x,
-                                            const float* __restrict__ scale,
-                                            int64_t x_row0, int c0, int tile,
-                                            int r_base, int64_t n,
-                                            int64_t c_base, int64_t width) {
+// Issue the copies of one stage. block: the block's row r_base at column
+// c0 (rows of tile elements); xs: x's row of the slice's first block column
+// at column c_base (rows of ldx elements); sc: that row's scale, or null.
+// Block rows and columns from rows_a, cols_a and x rows from rows_x are
+// zero (x0, scale0: valid addresses for the copies that read nothing);
+// x's granules from cols_x are left unwritten: they feed only columns that
+// are never stored.
+template <typename TB, typename TX, int NW>
+__device__ __forceinline__ void issue_stage(
+    Stage<TB, TX, NW>& st, const TB* __restrict__ block,
+    const TX* __restrict__ xs, const TX* __restrict__ x0,
+    const float* __restrict__ sc, const float* __restrict__ scale0,
+    int rows_a, int cols_a, int rows_x, int cols_x, int tile, int ldx,
+    bool vec_a) {
+  using S = Stage<TB, TX, NW>;
   constexpr int kVa = 16 / sizeof(TB);  // elements of a 16-byte copy
   constexpr int kVx = 16 / sizeof(TX);
-  for (int e = threadIdx.x; e < kAsyncRows * kDepth / kVa; e += kThreads) {
-    const int r = e / (kDepth / kVa), c = (e % (kDepth / kVa)) * kVa;
-    const bool ok = r_base + r < tile;
-    cp_async16(st.a + r * Stage<TB, TX>::kLdA + c,
-               ok ? block + int64_t(r_base + r) * tile + c0 + c : block,
-               ok ? 16 : 0);
+  constexpr int kGx = 16 * NW / kVx;    // 16-byte granules of a row of x
+  static_assert(kRows * kDepth / kVa % kThreads == 0, "copies a thread");
+  if (vec_a) {
+#pragma unroll
+    for (int i = 0; i < kRows * kDepth / kVa / kThreads; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const int r = e / (kDepth / kVa), c = (e % (kDepth / kVa)) * kVa;
+      const bool ok = r < rows_a && c < cols_a;
+      cp_async16(st.a + r * S::kLdA + c, ok ? block + r * tile + c : block,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kRows * kDepth; e += kThreads) {
+      const int r = e / kDepth, c = e % kDepth;
+      st.a[r * S::kLdA + c] =
+          r < rows_a && c < cols_a ? block[r * tile + c] : zero<TB>();
+    }
   }
-  for (int e = threadIdx.x; e < kDepth * kCols / kVx; e += kThreads) {
-    const int c = e / (kCols / kVx), j = (e % (kCols / kVx)) * kVx;
-    const int64_t xr = x_row0 + c0 + c, col = c_base + j;
-    const bool ok = xr < n && col < width;
-    cp_async16(st.x + c * kLdXs + j, ok ? x + xr * width + col : x,
-               ok ? 16 : 0);
+#pragma unroll
+  for (int i = 0; i < (kDepth * kGx + kThreads - 1) / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    const int c = e / kGx, j = (e % kGx) * kVx;
+    if (e < kDepth * kGx && j < cols_x)
+      cp_async16(st.x + c * S::kLdX + j, c < rows_x ? xs + c * ldx + j : x0,
+                 c < rows_x ? 16 : 0);
   }
-  if (scale && threadIdx.x < kDepth / 4) {
-    const int64_t xr = x_row0 + c0 + 4 * threadIdx.x;
-    const bool ok = xr < n;  // past the last node: zeros
-    cp_async16(st.scale + 4 * threadIdx.x, ok ? scale + xr : scale,
-               ok ? 4 * static_cast<int>(min(int64_t(4), n - xr)) : 0);
+  if (sc && threadIdx.x < kDepth) {
+    const bool ok = static_cast<int>(threadIdx.x) < rows_x;
+    cp_async4(st.scale + threadIdx.x, ok ? sc + threadIdx.x : scale0,
+              ok ? 4 : 0);
   }
 }
 
-template <typename TB, typename TX, bool SplitA, bool SplitB>
-__global__ void __launch_bounds__(kThreads, 2)
-    bsr_spmm_async_kernel(const Groups grp, const TX* __restrict__ x,
-                          TX* __restrict__ out,
-                          const float* __restrict__ scale, int64_t n,
-                          int tile, int64_t width, int row_blocks,
-                          int col_blocks) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  auto* ring = reinterpret_cast<Stage<TB, TX>*>(smem);
-  constexpr int kLdA = Stage<TB, TX>::kLdA;
-  int g = 0;
-  while (g + 1 < grp.count && int64_t(blockIdx.x) >= grp.block0[g + 1]) ++g;
-  const int64_t blk = int64_t(blockIdx.x) - grp.block0[g];
-  const int per_tile = row_blocks * col_blocks;
-  const int64_t mi = blk / per_tile;
-  const int rem = static_cast<int>(blk - mi * per_tile);
-  const int r_base = (rem / col_blocks) * kAsyncRows;
-  const int64_t c_base = int64_t(rem % col_blocks) * kCols;
-  const int64_t row_tile = grp.tiles[g] ? __ldg(grp.tiles[g] + mi) : mi;
-  // warp w: rows 32 (w % 4) .. + 31, columns 32 (w / 4) .. + 31, as 2 x 4
-  // m16n8 tiles
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int wr = (warp % 4) * 32, wc = (warp / 4) * 32;
-  const int gq = lane / 4, tq = lane % 4;
-  float acc[2][4][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[m][i][j] = 0.0f;
-
-  const TB* blocks = static_cast<const TB*>(grp.blocks[g]);
-  const int kb = blocks ? grp.kb[g] : 0;
-  const int steps = tile / kDepth;
-  const int chunks = kb * steps;
-  auto issue = [&](int chunk) {
-    const int k = chunk / steps, c0 = (chunk % steps) * kDepth;
-    const int64_t slot = mi * kb + k;
-    issue_stage<TB, TX>(ring[chunk % kStages], blocks + slot * tile * tile,
-                        x, scale,
-                        int64_t(__ldg(grp.bcol[g] + slot)) * tile, c0, tile,
-                        r_base, n, c_base, width);
-  };
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < chunks) issue(s);
-    cp_async_commit();
-  }
-  for (int chunk = 0; chunk < chunks; ++chunk) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    if (chunk + kStages - 1 < chunks) issue(chunk + kStages - 1);
-    cp_async_commit();
-    const Stage<TB, TX>& st = ring[chunk % kStages];
+// The products of one stage for a warp of N n-tiles, N known at compile
+// time, so the chains of mma on the accumulators interleave: rows
+// wr .. + 31, columns wc .. + 8 N. The x fragments of the n-tiles first,
+// then each row tile's block fragment against them.
+template <int N, bool SplitA, bool SplitB, typename TB, typename TX, int NW>
+__device__ __forceinline__ void stage_products(
+    float (&acc)[2][NW][4], const Stage<TB, TX, NW>& st, bool scaled,
+    int wr, int wc, int gq, int tq) {
+  using S = Stage<TB, TX, NW>;
+  if constexpr (N > 0) {
 #pragma unroll
     for (int ks = 0; ks < kDepth / 8; ++ks) {
-      const float s0 = scale ? st.scale[8 * ks + tq] : 1.0f;
-      const float s1 = scale ? st.scale[8 * ks + tq + 4] : 1.0f;
-      Tf32<SplitB, 2> b[4];
+      const float s0 = scaled ? st.scale[8 * ks + tq] : 1.0f;
+      const float s1 = scaled ? st.scale[8 * ks + tq + 4] : 1.0f;
+      Tf32<SplitB, 2> b[N];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const TX* xb = st.x + (8 * ks) * kLdXs + wc + 8 * nt + gq;
-        const float bf[2] = {to_f32(xb[tq * kLdXs]) * s0,
-                             to_f32(xb[(tq + 4) * kLdXs]) * s1};
+      for (int nt = 0; nt < N; ++nt) {
+        const TX* xb = st.x + (8 * ks) * S::kLdX + wc + 8 * nt + gq;
+        const float bf[2] = {to_f32(xb[tq * S::kLdX]) * s0,
+                             to_f32(xb[(tq + 4) * S::kLdX]) * s1};
         b[nt] = Tf32<SplitB, 2>(bf);
       }
 #pragma unroll
@@ -409,11 +286,12 @@ __global__ void __launch_bounds__(kThreads, 2)
         float af[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          af[i] = to_f32(st.a[(wr + 16 * mt + gq + 8 * (i & 1)) * kLdA +
+          af[i] = to_f32(st.a[(wr + 16 * mt + gq + 8 * (i & 1)) * S::kLdA +
                               8 * ks + tq + 4 * (i >> 1)]);
         const Tf32<SplitA, 4> a(af);
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
+        for (int nt = 0; nt < N; ++nt) {
+          // the small products first, then hi hi
           if (SplitA) mma_tf32(acc[mt][nt], a.lo, b[nt].hi);
           if (SplitB) mma_tf32(acc[mt][nt], a.hi, b[nt].lo);
           mma_tf32(acc[mt][nt], a.hi, b[nt].hi);
@@ -421,148 +299,361 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
   }
-  cp_async_wait<0>();
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r_base + wr + 16 * mt + gq + 8 * h;
-      const int64_t node = row_tile * tile + row;
-      if (row >= tile || node >= n) continue;
-      const float sc = scale ? __ldg(scale + node) : 1.0f;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int64_t col = c_base + wc + 8 * nt + 2 * tq + q;
-          if (col < width)
-            store_as(out + node * width + col,
-                     acc[mt][nt][2 * h + q] * sc);
-        }
-    }
 }
 
-// One launch of the async kernel. Its dynamic shared memory (above the 48 KB
-// default) is allowed once a process, at the first call: a warm-up, outside
-// any CUDA graph capture.
-template <typename TB, typename TX, bool SplitA, bool SplitB>
-int launch_async(const Groups& g, const TX* x, TX* out, const float* scale,
-                 int64_t n, int tile, int64_t width, int row_blocks,
-                 int col_blocks, unsigned grid, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(Stage<TB, TX>) * kStages;
+// f(std::integral_constant<int, N>) for N = n, one of 0 .. NW.
+template <int N, int NW, typename F>
+__device__ __forceinline__ void with_n(int n, F&& f) {
+  if constexpr (N < NW) {
+    if (n == N) {
+      f(std::integral_constant<int, N>());
+      return;
+    }
+    with_n<N + 1, NW>(n, f);
+  } else {
+    f(std::integral_constant<int, N>());
+  }
+}
+
+// A barrier of the thread block that its warps reach from different code
+// (their n-tile counts differ): barrier.sync, without .aligned.
+__device__ __forceinline__ void block_sync() {
+  asm volatile("barrier.sync 0;\n" ::: "memory");
+}
+
+template <typename TB, typename TX, bool SplitA, bool SplitB, int NW>
+__global__ void __launch_bounds__(kThreads, 2)
+    bsr_spmm_kernel(const Groups grp, const Shape sh,
+                    const TX* __restrict__ x, TX* __restrict__ out,
+                    float* __restrict__ partial,
+                    const float* __restrict__ scale) {
+  using S = Stage<TB, TX, NW>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto* ring = reinterpret_cast<S*>(smem);
+  const int tile = sh.tile;
+  int g = 0;
+  while (g + 1 < grp.count && int64_t(blockIdx.x) >= grp.block0[g + 1]) ++g;
+  // thread blocks of a group: row tile, then chunk, then 128-row tile,
+  // then column tile (adjacent: they read the same blocks)
+  const int64_t blk = int64_t(blockIdx.x) - grp.block0[g];
+  const int chunks = grp.chunks[g];
+  const int per_chunk = sh.row_blocks * sh.col_blocks;
+  const int64_t per_tile = int64_t(chunks) * per_chunk;
+  const int64_t mi = blk / per_tile;
+  int rem = static_cast<int>(blk - mi * per_tile);
+  const int ch = rem / per_chunk;
+  rem -= ch * per_chunk;
+  const int r_base = (rem / sh.col_blocks) * kRows;
+  const int c_base = (rem % sh.col_blocks) * sh.cols;
+  // this thread block's n-tiles (8 columns each): the first half to the
+  // warps of column 0, the rest to column 1; warp w holds rows
+  // 32 (w % 4) .. + 31 as two m16 tiles, and none where they lie past the
+  // tile
+  const int cols_x = min(sh.cols, sh.width - c_base);
+  const int nt_blk = (cols_x + 7) / 8;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int half = (nt_blk + 1) / 2;
+  const int n0 = (warp / 4) * half;
+  const int wr = (warp % 4) * 32, wc = 8 * n0;
+  const int nw = r_base + wr < tile ? max(0, min(half, nt_blk - n0)) : 0;
+  const int gq = lane / 4, tq = lane % 4;
+
+  const TB* blocks = static_cast<const TB*>(grp.blocks[g]);
+  const int* bcol = grp.bcol[g];
+  const int kb = blocks ? grp.kb[g] : 0;
+  const int kc = (kb + chunks - 1) / chunks;  // blocks of a chunk
+  const int k0 = min(kb, ch * kc), k1 = min(kb, k0 + kc);
+  const int steps = (tile + kDepth - 1) / kDepth;  // slices of a block
+  const int slices = (k1 - k0) * steps;
+  const int64_t slot0 = mi * kb + k0;
+  const TB* block0 = blocks + (slot0 * tile + r_base) * tile;
+  const bool vec_a = sh.vec_a;
+  auto issue = [&](int s) {
+    const int k = s / steps, c0 = (s % steps) * kDepth;
+    const int64_t xr = int64_t(__ldg(bcol + slot0 + k)) * tile + c0;
+    issue_stage<TB, TX, NW>(
+        ring[s % kStages], block0 + int64_t(k) * tile * tile + c0,
+        x + xr * sh.ldx + c_base, x, scale ? scale + xr : nullptr, scale,
+        tile - r_base, tile - c0,
+        static_cast<int>(min(int64_t(tile - c0), sh.n - xr)), cols_x, tile,
+        sh.ldx, vec_a);
+  };
+  // each warp runs the loop for its own count of n-tiles, known at
+  // compile time there; the copies and barriers are the same in all
+  with_n<0, NW>(nw, [&](auto n_tiles) {
+    constexpr int N = decltype(n_tiles)::value;
+    float acc[2][NW][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int i = 0; i < NW; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[m][i][j] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < slices) issue(s);
+      cp_async_commit();
+    }
+    for (int s = 0; s < slices; ++s) {
+      cp_async_wait<kStages - 2>();
+      block_sync();
+      if (s + kStages - 1 < slices) issue(s + kStages - 1);
+      cp_async_commit();
+      stage_products<N, SplitA, SplitB>(acc, ring[s % kStages],
+                                        scale != nullptr, wr, wc, gq, tq);
+    }
+    cp_async_wait<0>();
+    // acc[mt][nt]: rows wr + 16 mt + gq (+ 8), columns wc + 8 nt + 2 tq
+    // (+ 1); a split group's chunk writes its f32 sums to its partial,
+    // unscaled
+    const bool split = chunks > 1;
+    const int64_t row_tile = grp.tiles[g] ? __ldg(grp.tiles[g] + mi) : mi;
+    float* part = split ? partial + grp.part0[g] +
+                              (int64_t(ch) * grp.m[g] + mi) * tile * sh.width
+                        : nullptr;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r_base + wr + 16 * mt + gq + 8 * h;
+        const int64_t node = row_tile * tile + row;
+        if (row >= tile || node >= sh.n) continue;
+        const float sc = scale && !split ? __ldg(scale + node) : 1.0f;
+#pragma unroll
+        for (int nt = 0; nt < N; ++nt) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int col = c_base + wc + 8 * nt + 2 * tq + q;
+            if (col >= sh.width) continue;
+            if (split)
+              part[int64_t(row) * sh.width + col] = acc[mt][nt][2 * h + q];
+            else
+              store_as(out + node * sh.width + col,
+                       acc[mt][nt][2 * h + q] * sc);
+          }
+        }
+      }
+  });
+}
+
+// The split groups' outputs: for each (row tile, row, column) the sum of
+// its chunks' partials in chunk order, times the node's scale (counts),
+// rounded once. grp.block0 holds each group's first element here.
+template <typename TX>
+__global__ void __launch_bounds__(256)
+    bsr_combine_kernel(const Groups grp, const Shape sh,
+                       const float* __restrict__ partial,
+                       const float* __restrict__ scale,
+                       TX* __restrict__ out) {
+  const int64_t total = grp.block0[grp.count];
+  const int64_t per_tile = int64_t(sh.tile) * sh.width;
+  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+       i += int64_t(gridDim.x) * blockDim.x) {
+    int g = 0;
+    while (g + 1 < grp.count && i >= grp.block0[g + 1]) ++g;
+    const int64_t e = i - grp.block0[g];
+    const int64_t mi = e / per_tile;
+    const int64_t rc = e - mi * per_tile;  // row * width + column
+    const int64_t row_tile = grp.tiles[g] ? __ldg(grp.tiles[g] + mi) : mi;
+    const int64_t node = row_tile * sh.tile + rc / sh.width;
+    if (node >= sh.n) continue;
+    const float* p = partial + grp.part0[g] + mi * per_tile + rc;
+    const int64_t stride = grp.m[g] * per_tile;
+    float s = 0.0f;
+    for (int c = 0; c < grp.chunks[g]; ++c) s += __ldg(p + c * stride);
+    if (scale) s *= __ldg(scale + node);
+    store_as(out + node * sh.width + rc % sh.width, s);
+  }
+}
+
+// One launch of the main kernel. Its dynamic shared memory (above the 48 KB
+// default) is allowed once a process, at the first call.
+template <typename TB, typename TX, bool SplitA, bool SplitB, int NW>
+int launch_blocks(const Groups& g, const Shape& sh, const TX* x, TX* out,
+                  float* partial, const float* scale, unsigned grid,
+                  cudaStream_t stream) {
+  constexpr size_t smem = sizeof(Stage<TB, TX, NW>) * kStages;
   static const int rc = cudaFuncSetAttribute(
-      bsr_spmm_async_kernel<TB, TX, SplitA, SplitB>,
+      bsr_spmm_kernel<TB, TX, SplitA, SplitB, NW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (rc != cudaSuccess) return rc;
-  bsr_spmm_async_kernel<TB, TX, SplitA, SplitB>
-      <<<grid, kThreads, smem, stream>>>(g, x, out, scale, n, tile, width,
-                                         row_blocks, col_blocks);
+  bsr_spmm_kernel<TB, TX, SplitA, SplitB, NW>
+      <<<grid, kThreads, smem, stream>>>(g, sh, x, out, partial, scale);
   return cudaGetLastError();
 }
 
-template <typename TB, typename TX>
-int launch(const Groups& grp, const void* x, void* out, const float* scale,
-           int64_t n, int tile, int64_t width, bool aligned,
-           cudaStream_t stream) {
+template <typename TB, typename TX, bool SplitB>
+int launch_nw(const Groups& g, const Shape& sh, const void* x, void* out,
+              float* partial, const float* scale, unsigned grid,
+              cudaStream_t stream) {
   // f32 block values need two TF32 parts; bf16 values and counts are TF32
-  // values. x needs two parts at f32, and at bf16 too when it is scaled.
+  // values
   constexpr bool kSplitA = std::is_same<TB, float>::value;
-  const bool split_b = std::is_same<TX, float>::value || scale != nullptr;
   const auto* xt = static_cast<const TX*>(x);
   auto* ot = static_cast<TX*>(out);
-  const bool async = aligned && tile % kDepth == 0 &&
-                     width % (16 / sizeof(TX)) == 0;
-  const int rows = async ? kAsyncRows : kRows;
-  const int row_blocks = (tile + rows - 1) / rows;
-  const int col_blocks = static_cast<int>((width + kCols - 1) / kCols);
-  Groups g = grp;
-  int64_t total = 0;
-  for (int i = 0; i < g.count; ++i) {
-    g.block0[i] = total;
-    total += g.m[i] * row_blocks * col_blocks;
-  }
-  g.block0[g.count] = total;
-  if (total > INT_MAX) return cudaErrorInvalidValue;
-  if (total == 0) return cudaSuccess;
-  const unsigned grid = static_cast<unsigned>(total);
-  if (async)
-    return split_b
-               ? launch_async<TB, TX, kSplitA, true>(
-                     g, xt, ot, scale, n, tile, width, row_blocks,
-                     col_blocks, grid, stream)
-               : launch_async<TB, TX, kSplitA, false>(
-                     g, xt, ot, scale, n, tile, width, row_blocks,
-                     col_blocks, grid, stream);
-  if (split_b)
-    bsr_spmm_kernel<TB, TX, kSplitA, true><<<grid, kThreads, 0, stream>>>(
-        g, xt, ot, scale, n, tile, width, row_blocks, col_blocks);
-  else
-    bsr_spmm_kernel<TB, TX, kSplitA, false><<<grid, kThreads, 0, stream>>>(
-        g, xt, ot, scale, n, tile, width, row_blocks, col_blocks);
-  return cudaGetLastError();
+  if (sh.cols <= 64)
+    return launch_blocks<TB, TX, kSplitA, SplitB, 4>(g, sh, xt, ot, partial,
+                                                     scale, grid, stream);
+  return launch_blocks<TB, TX, kSplitA, SplitB, 5>(g, sh, xt, ot, partial,
+                                                   scale, grid, stream);
 }
 
-template <typename TX>
-int launch_x(int block_type, const Groups& grp, const void* x, void* out,
-             const float* scale, int64_t n, int tile, int64_t width,
-             bool aligned, cudaStream_t stream) {
-  if (block_type == 0)
-    return launch<float, TX>(grp, x, out, scale, n, tile, width, aligned,
-                             stream);
-  if (block_type == 1)
-    return launch<__nv_bfloat16, TX>(grp, x, out, scale, n, tile, width,
-                                     aligned, stream);
-  return launch<int8_t, TX>(grp, x, out, scale, n, tile, width, aligned,
-                            stream);
+template <typename TB>
+int launch_x(int bf16_x, const Groups& g, const Shape& sh, const void* x,
+             void* out, float* partial, const float* scale, unsigned grid,
+             cudaStream_t stream) {
+  // x needs two parts at f32, and at bf16 too when it is scaled
+  if (!bf16_x)
+    return launch_nw<TB, float, true>(g, sh, x, out, partial, scale, grid,
+                                      stream);
+  if (scale)
+    return launch_nw<TB, __nv_bfloat16, true>(g, sh, x, out, partial, scale,
+                                              grid, stream);
+  return launch_nw<TB, __nv_bfloat16, false>(g, sh, x, out, partial, scale,
+                                             grid, stream);
 }
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// The table's groups (blocks, column tiles, row tiles, m, kb, chunks, first
+// partial) checked; false on a malformed row.
+bool read_groups(const int64_t* table, int groups, int tile, int64_t width,
+                 int64_t partial_size, Groups& grp) {
+  if (groups < 1 || groups > kMaxGroups) return false;
+  grp = {};
+  grp.count = groups;
+  for (int g = 0; g < groups; ++g) {
+    const int64_t* row = table + kTableCols * g;
+    const int64_t m = row[3], kb = row[0] ? row[4] : 0, chunks = row[5];
+    if (m < 0 || kb < 0 || kb > INT_MAX || chunks < 1 ||
+        chunks > std::max<int64_t>(kb, 1) || (kb > 0 && row[1] == 0))
+      return false;
+    if (chunks > 1 && (row[6] < 0 || m * chunks > INT64_MAX / tile / width ||
+                       row[6] + m * chunks * tile * width > partial_size))
+      return false;
+    grp.blocks[g] = reinterpret_cast<const void*>(row[0]);
+    grp.bcol[g] = reinterpret_cast<const int*>(row[1]);
+    grp.tiles[g] = reinterpret_cast<const int*>(row[2]);
+    grp.m[g] = m;
+    grp.kb[g] = static_cast<int>(kb);
+    grp.chunks[g] = static_cast<int>(chunks);
+    grp.part0[g] = row[6];
+  }
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
 
-// out [n, width] = the dense blocks of the groups of table (host, int64
-// [groups, 5]: blocks pointer or 0, column tiles pointer, row tiles pointer
-// or 0, m, kb of each) times x [n, width], both float32 (bf16_x == 0) or
-// bfloat16 (1), contiguous; blocks float32 (block_type 0), bfloat16 (1) or
-// int8 counts (2), each group's [m, kb, tile, tile] contiguous; scale
-// float32 [n] or null (counts: x's rows and out's rows multiplied by it).
-// Every row tile of out must be in exactly one group. Where tile is a
-// multiple of 32, a row of x a multiple of 16 bytes and the pointers 16-byte
-// aligned, the slices are staged by the cp.async ring (128 rows a block);
-// otherwise through registers (64 rows a block).
-int bsr_spmm(const void* x, void* out, const void* scale, int64_t n,
-             int64_t width, int tile, int block_type, int bf16_x,
+// out [n, width] (contiguous) = the dense blocks of the groups of table
+// (host, int64 [groups, 7]: blocks pointer or 0, column tiles pointer, row
+// tiles pointer or 0, m, kb, chunks, first partial of each) times x [n,
+// width] at row stride ldx (elements, a multiple of 16 bytes; x 16-byte
+// aligned), both float32 (bf16_x == 0) or bfloat16 (1); blocks float32
+// (block_type 0), bfloat16 (1) or int8 counts (2), each group's [m, kb,
+// tile, tile] contiguous; scale float32 [n] or null (counts: x's rows and
+// out's rows multiplied by it). Every row tile of out must be in exactly
+// one group. A thread block covers cols columns (a multiple of 8, at most
+// 80; W is cut into ceil(width / cols) column tiles). A group of chunks >
+// 1 writes f32 partials [chunks, m, tile, width] at its first partial of
+// partial (partial_size floats) in place of its rows of out:
+// bsr_spmm_combine finishes them.
+int bsr_spmm(const void* x, int64_t ldx, void* out, void* partial,
+             int64_t partial_size, const void* scale, int64_t n,
+             int64_t width, int tile, int cols, int block_type, int bf16_x,
              const int64_t* table, int groups, void* stream) {
-  if (n < 0 || width <= 0 || tile < 1 || groups < 1 || groups > kMaxGroups ||
-      block_type < 0 || block_type > 2 || (bf16_x != 0 && bf16_x != 1) ||
-      (width + kCols - 1) / kCols > INT_MAX / tile)
+  const int elem_x = bf16_x ? 2 : 4;
+  if (n < 0 || width <= 0 || tile < 1 || tile > kMaxTile || block_type < 0 ||
+      block_type > 2 || (bf16_x != 0 && bf16_x != 1) || ldx < width ||
+      ldx > INT_MAX / kDepth || ldx * elem_x % 16 != 0 || !aligned16(x) ||
+      cols < 8 || cols % 8 || cols > kMaxCols)
     return cudaErrorInvalidValue;
-  Groups grp = {};
-  grp.count = groups;
-  bool aligned = aligned16(x) && aligned16(out) && aligned16(scale);
+  Groups grp;
+  if (!read_groups(table, groups, tile, width, partial_size, grp))
+    return cudaErrorInvalidValue;
+  Shape sh;
+  sh.n = n;
+  sh.width = width;
+  sh.ldx = ldx;
+  sh.tile = tile;
+  sh.row_blocks = (tile + kRows - 1) / kRows;
+  sh.cols = cols;
+  const int64_t col_blocks = (width + cols - 1) / cols;
+  if (col_blocks * sh.row_blocks > INT_MAX) return cudaErrorInvalidValue;
+  sh.col_blocks = static_cast<int>(col_blocks);
+  const int elem_b = block_type == 0 ? 4 : block_type == 1 ? 2 : 1;
+  bool vec_a = int64_t(tile) * elem_b % 16 == 0;
   for (int g = 0; g < groups; ++g) {
-    const int64_t* row = table + 5 * g;
-    grp.blocks[g] = reinterpret_cast<const void*>(row[0]);
-    grp.bcol[g] = reinterpret_cast<const int*>(row[1]);
-    grp.tiles[g] = reinterpret_cast<const int*>(row[2]);
-    grp.m[g] = row[3];
-    if (row[3] < 0 || row[4] < 0 || row[4] > INT_MAX ||
-        (row[0] != 0 && row[4] > 0 && row[1] == 0))
-      return cudaErrorInvalidValue;
-    grp.kb[g] = static_cast<int>(row[4]);
-    aligned = aligned && aligned16(grp.blocks[g]);
+    vec_a = vec_a && aligned16(grp.blocks[g]);
+    if (grp.chunks[g] > 1 && !partial) return cudaErrorInvalidValue;
   }
+  sh.vec_a = vec_a;
+  int64_t total = 0;
+  for (int g = 0; g < groups; ++g) {
+    grp.block0[g] = total;
+    total += grp.m[g] * grp.chunks[g] * col_blocks * sh.row_blocks;
+    if (total > INT_MAX) return cudaErrorInvalidValue;
+  }
+  grp.block0[groups] = total;
+  if (total == 0) return cudaSuccess;
+  const unsigned grid = static_cast<unsigned>(total);
   auto* st = static_cast<cudaStream_t>(stream);
+  auto* p = static_cast<float*>(partial);
+  const auto* sc = static_cast<const float*>(scale);
+  if (block_type == 0)
+    return launch_x<float>(bf16_x, grp, sh, x, out, p, sc, grid, st);
+  if (block_type == 1)
+    return launch_x<__nv_bfloat16>(bf16_x, grp, sh, x, out, p, sc, grid,
+                                   st);
+  return launch_x<int8_t>(bf16_x, grp, sh, x, out, p, sc, grid, st);
+}
+
+// The rows of out [n, width] of every group of table (as bsr_spmm's) with
+// chunks > 1: the sum of its partials in chunk order, times scale[node]
+// where scale is not null, rounded once to out's type (bf16_x).
+int bsr_spmm_combine(const void* partial, int64_t partial_size,
+                     const void* scale, void* out, int64_t n, int64_t width,
+                     int tile, int bf16_x, const int64_t* table, int groups,
+                     void* stream) {
+  if (n < 0 || width <= 0 || width > INT_MAX || tile < 1 ||
+      tile > kMaxTile || (bf16_x != 0 && bf16_x != 1) || !partial)
+    return cudaErrorInvalidValue;
+  Groups all;
+  if (!read_groups(table, groups, tile, width, partial_size, all))
+    return cudaErrorInvalidValue;
+  Groups g = {};
+  int64_t total = 0;
+  for (int i = 0; i < all.count; ++i) {
+    if (all.chunks[i] < 2) continue;
+    const int j = g.count++;
+    g.block0[j] = total;
+    g.tiles[j] = all.tiles[i];
+    g.m[j] = all.m[i];
+    g.chunks[j] = all.chunks[i];
+    g.part0[j] = all.part0[i];
+    total += all.m[i] * tile * width;
+  }
+  g.block0[g.count] = total;
+  if (total == 0) return cudaSuccess;
+  Shape sh = {};
+  sh.n = n;
+  sh.width = width;
+  sh.tile = tile;
+  const auto grid = static_cast<unsigned>(
+      std::min<int64_t>((total + 255) / 256, 1 << 16));
+  auto* st = static_cast<cudaStream_t>(stream);
+  const auto* p = static_cast<const float*>(partial);
   const auto* sc = static_cast<const float*>(scale);
   if (bf16_x)
-    return launch_x<__nv_bfloat16>(block_type, grp, x, out, sc, n, tile,
-                                   width, aligned, st);
-  return launch_x<float>(block_type, grp, x, out, sc, n, tile, width,
-                         aligned, st);
+    bsr_combine_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
+        g, sh, p, sc, static_cast<__nv_bfloat16*>(out));
+  else
+    bsr_combine_kernel<float><<<grid, 256, 0, st>>>(g, sh, p, sc,
+                                                    static_cast<float*>(out));
+  return cudaGetLastError();
 }
 
 }  // extern "C"

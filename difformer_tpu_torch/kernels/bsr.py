@@ -1,6 +1,6 @@
-"""The block-sparse SpMM (K7): the CUDA kernel of the dense-block part of
-the block-sparse hybrid (``ops/bsr.py``), its plain version and its launch
-count.
+"""The block-sparse SpMM (K7): the CUDA kernels of the dense-block part of
+the block-sparse hybrid (``ops/bsr.py``), their plain versions, the split
+plan and the launch counts.
 
 The JAX package has no kernel here: ``_bsr_matvec`` and
 ``_bsr_bucketed_matvec`` (``difformer_tpu/ops/bsr.py:252-264``,
@@ -19,15 +19,23 @@ x's rows multiplied by it as they are read and out's as they are written),
 x and out float32 or bfloat16, f32 sums, one rounding. The residual is
 added afterwards by K6 (``ops/bsr.py``).
 
-What bounds it: operations (the source's header); the products run on
-the tensor cores in TF32, an f32 operand split in two parts (3 passes).
-:func:`bsr_spmm_blocks` launches it on a CUDA tensor and counts the launch
-in :data:`LAUNCHES` (``bsr_spmm``, or ``bsr_spmm_transposed`` for the
-backward's reverse direction); on a CPU tensor it runs
-:func:`bsr_spmm_blocks_plain`. It reads nothing back from the device.
+A group whose row tiles hold more than :data:`SPLIT_BLOCKS` blocks and
+whose thread blocks fill less than a wave of the card is cut along its
+blocks into chunks (:func:`split_plan`, from shapes and the SM count
+alone); each chunk writes f32 partial sums into scratch, and
+``bsr_combine_kernel`` sums them in chunk order, scales and rounds once.
+
+:func:`bsr_spmm_blocks` is the entry: on a CUDA tensor it launches
+:func:`bsr_spmm_split` (counted in :data:`LAUNCHES` as ``bsr_spmm``, or
+``bsr_spmm_transposed`` for the backward's reverse direction) and, where
+the plan splits, :func:`bsr_spmm_combine` (``bsr_spmm_combine``); on a CPU
+tensor it runs :func:`bsr_spmm_blocks_plain`. It reads nothing back from
+the device, so a call can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -36,9 +44,20 @@ from difformer_tpu_torch.kernels.build import load_library
 from difformer_tpu_torch.utils.device import on_cuda
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
-LAUNCHES = {"bsr_spmm": 0, "bsr_spmm_transposed": 0}
+LAUNCHES = {"bsr_spmm": 0, "bsr_spmm_transposed": 0, "bsr_spmm_combine": 0}
 #: The most groups (padded: 1; bucketed: buckets + 1) a call may have.
 MAX_GROUPS = 32
+#: Output rows of a thread block, and its most columns (csrc/bsr.cu).
+ROWS, MAX_COLS = 128, 80
+#: S, the blocks a thread block walks before its group is split: at 3 the
+#: hub row tile of bench.py's degree-sorted power-law graph (256 blocks,
+#: T = 256, W = 64) is cut into 86 chunks of 2 thread blocks, at least one
+#: on each of the H100's 132 SMs; its whole layout takes 0.2203, 0.2086,
+#: 0.2078 and 0.2014 ms at S = 2, 4, 8 and 16 and 0.3422 at 32 (chip_smoke.py,
+#: phase ell-bsr-kernels, prints the sweep; PERF.md §6).
+SPLIT_BLOCKS = 3
+#: Thread blocks of K7 an SM holds at once (``__launch_bounds__``).
+BLOCKS_PER_SM = 2
 
 _BLOCK_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _X_TYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -49,12 +68,66 @@ def reset_launch_counts():
         LAUNCHES[name] = 0
 
 
-def bsr_spmm_blocks_plain(x, groups, tile, scale=None):
-    """[N, W] of x's dtype: each group's row tiles (``groups``: (blocks
-    [m, kb, T, T] or None, bcol int32 [m, kb], tiles int32 [m] or None)),
-    by a gather of x's column tiles and an einsum in float32, with the
-    ``scale`` of count blocks applied to x's rows before and to out's rows
-    after, rounded to x's dtype once: K7's arithmetic."""
+def column_tile(width):
+    """Columns of a thread block at width W: W rounded up to 8 up to 80;
+    wider W cut into equal tiles of at most 80, each a multiple of 8."""
+    nt = -(-width // 8)
+    tiles = -(-nt // (MAX_COLS // 8))
+    return 8 * -(-nt // tiles)
+
+
+def group_shapes(groups):
+    """(m, kb) of each group: its row tiles and its blocks a row tile (0
+    for a group without blocks)."""
+    return [((bcol if tiles is None else tiles).shape[0],
+             0 if blocks is None else bcol.shape[1])
+            for blocks, bcol, tiles in groups]
+
+
+def split_plan(shapes, tile, width, sms):
+    """The chunks of each group ((m, kb) in ``shapes``) along its kb: 1,
+    unless kb exceeds :data:`SPLIT_BLOCKS` and the group's thread blocks
+    (m · row tiles of 128 · column tiles) fill less than a wave of ``sms``
+    SMs; then ⌈kb / SPLIT_BLOCKS⌉, at most as many as fill the wave, every
+    chunk holding blocks (:func:`chunk_ranges`)."""
+    wave = BLOCKS_PER_SM * sms
+    per_tile = -(-tile // ROWS) * -(-width // column_tile(width))
+    plan = []
+    for m, kb in shapes:
+        blocks = m * per_tile
+        if kb <= SPLIT_BLOCKS or blocks == 0 or blocks >= wave:
+            plan.append(1)
+            continue
+        chunks = min(-(-kb // SPLIT_BLOCKS), -(-wave // blocks))
+        plan.append(-(-kb // -(-kb // chunks)))
+    return plan
+
+
+def chunk_ranges(kb, chunks):
+    """The blocks [k0, k1) of each chunk of a row tile's kb, as the kernel
+    takes them: ⌈kb / chunks⌉ each, the last one the rest."""
+    kc = -(-kb // chunks) if kb else 0
+    return [(min(kb, c * kc), min(kb, (c + 1) * kc)) for c in range(chunks)]
+
+
+def partial_offsets(groups, chunks, tile, width):
+    """(the first element of each group's partials, their total): the
+    split groups' [chunks, m, T, W] float32 partials one after another."""
+    offsets, total = [], 0
+    for (m, _), c in zip(group_shapes(groups), chunks):
+        offsets.append(total if c > 1 else 0)
+        total += c * m * tile * width if c > 1 else 0
+    return offsets, total
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device):
+    """The SMs of a CUDA device (read once a process)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _padded_x(x, scale, tile):
+    """x in float32, scaled, zero-padded to whole tiles: [tiles, T, W]."""
     n, w = x.shape
     ntr = -(-n // tile)
     xs = x.float()
@@ -62,18 +135,36 @@ def bsr_spmm_blocks_plain(x, groups, tile, scale=None):
         xs = xs * scale[:, None]
     xt = torch.zeros((ntr * tile, w), dtype=torch.float32, device=x.device)
     xt[:n] = xs
-    xt = xt.reshape(ntr, tile, w)
-    out = torch.zeros((ntr, tile, w), dtype=torch.float32, device=x.device)
+    return xt.reshape(ntr, tile, w)
+
+
+def _group_rows(bcol, tiles, device):
+    return (torch.arange(bcol.shape[0], device=device)
+            if tiles is None else tiles.long())
+
+
+def _block_product(blocks, bcol, xt):
+    tile, w = xt.shape[1:]
+    g = xt.index_select(0, bcol.reshape(-1).long()).reshape(
+        bcol.shape + (tile, w))
+    return torch.einsum("mkrc,mkcw->mrw", blocks.float(), g)
+
+
+def bsr_spmm_blocks_plain(x, groups, tile, scale=None):
+    """[N, W] of x's dtype: each group's row tiles (``groups``: (blocks
+    [m, kb, T, T] or None, bcol int32 [m, kb], tiles int32 [m] or None)),
+    by a gather of x's column tiles and an einsum in float32, with the
+    ``scale`` of count blocks applied to x's rows before and to out's rows
+    after, rounded to x's dtype once: K7's arithmetic."""
+    n, w = x.shape
+    xt = _padded_x(x, scale, tile)
+    out = torch.zeros_like(xt)
     for blocks, bcol, tiles in groups:
         if blocks is None or bcol.numel() == 0:
             continue
-        g = xt.index_select(0, bcol.reshape(-1).long()).reshape(
-            bcol.shape + (tile, w))
-        ob = torch.einsum("mkrc,mkcw->mrw", blocks.float(), g)
-        rows = (torch.arange(bcol.shape[0], device=x.device)
-                if tiles is None else tiles.long())
-        out.index_copy_(0, rows, ob)
-    out = out.reshape(ntr * tile, w)[:n]
+        out.index_copy_(0, _group_rows(bcol, tiles, x.device),
+                        _block_product(blocks, bcol, xt))
+    out = out.reshape(-1, w)[:n]
     if scale is not None:
         out = out * scale[:, None]
     return out.to(x.dtype)
@@ -87,6 +178,60 @@ def bsr_spmm_blocks_abs(x, groups, tile, scale=None):
         x.abs(), [(None if b is None else b.abs(), c, t)
                   for b, c, t in groups], tile,
         None if scale is None else scale.abs())
+
+
+def bsr_spmm_split_plain(x, groups, tile, chunks, scale=None):
+    """(out, partial): K7's first kernel under the plan ``chunks``. out
+    [N, W] of x's dtype holds the unsplit groups' rows as
+    :func:`bsr_spmm_blocks_plain` (the split groups' rows 0); partial the
+    split groups' float32 sums over each chunk's blocks
+    (:func:`chunk_ranges`), unscaled, laid out as :func:`partial_offsets`
+    says."""
+    n, w = x.shape
+    xt = _padded_x(x, scale, tile)
+    out = torch.zeros_like(xt)
+    offsets, size = partial_offsets(groups, chunks, tile, w)
+    partial = torch.zeros(size, dtype=torch.float32, device=x.device)
+    for (blocks, bcol, tiles), c, off in zip(groups, chunks, offsets):
+        if blocks is None:
+            continue
+        parts = [_block_product(blocks[:, k0:k1], bcol[:, k0:k1], xt)
+                 for k0, k1 in chunk_ranges(bcol.shape[1], c)]
+        if c == 1:
+            out.index_copy_(0, _group_rows(bcol, tiles, x.device), parts[0])
+        else:
+            partial[off:off + c * parts[0].numel()] = \
+                torch.stack(parts).reshape(-1)
+    out = out.reshape(-1, w)[:n]
+    if scale is not None:
+        out = out * scale[:, None]
+    return out.to(x.dtype), partial
+
+
+def bsr_spmm_combine_plain(partial, out, groups, tile, chunks, scale=None):
+    """A copy of ``out`` [N, W] whose split groups' rows are the sums of
+    their chunks' partials in chunk order, times ``scale`` of the row,
+    rounded once to out's dtype: the combine kernel's arithmetic."""
+    n, w = out.shape
+    res = out.clone()
+    offsets, _ = partial_offsets(groups, chunks, tile, w)
+    for (_, bcol, tiles), c, off in zip(groups, chunks, offsets):
+        if c < 2:
+            continue
+        rows = _group_rows(bcol, tiles, out.device)
+        p = partial[off:off + c * rows.numel() * tile * w].reshape(
+            c, rows.numel() * tile, w)
+        s = p[0]
+        for i in range(1, c):
+            s = s + p[i]
+        nodes = (rows[:, None] * tile + torch.arange(
+            tile, device=out.device)).reshape(-1)
+        keep = nodes < n
+        s, nodes = s[keep], nodes[keep]
+        if scale is not None:
+            s = s * scale[nodes, None]
+        res[nodes] = s.to(res.dtype)
+    return res
 
 
 def _check(x, groups, tile, scale):
@@ -116,39 +261,132 @@ def _check(x, groups, tile, scale):
         raise ValueError("scale must be float32 [N]")
 
 
-def bsr_spmm_blocks(x, groups, tile, *, scale=None, transposed=False):
-    """K7. x [N, W] float32 or bfloat16 → [N, W] of x's dtype: the dense
-    blocks of ``groups`` (see :func:`bsr_spmm_blocks_plain`; together their
-    row tiles must be every tile of the N rows, once) times x, with
-    ``scale`` ([N] float32) for int8 count blocks. ``transposed`` names the
-    launch (the backward's direction) in :data:`LAUNCHES`."""
-    _check(x, groups, tile, scale)
-    tensors = [t for grp in groups for t in grp] + [x, scale]
-    if not on_cuda("bsr_spmm", *tensors):
-        return bsr_spmm_blocks_plain(x, groups, tile, scale)
-    n, width = x.shape
-    if n == 0 or width == 0:
-        return torch.zeros_like(x)
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    block_type = next((_BLOCK_TYPES[b.dtype] for b, _, _ in groups
-                       if b is not None), 0)
-    table = np.zeros((len(groups), 5), np.int64)
-    for row, (blocks, bcol, tiles) in zip(table, groups):
+def _check_plan(groups, chunks):
+    if len(chunks) != len(groups):
+        raise ValueError(f"{len(chunks)} chunks for {len(groups)} groups")
+    for (m, kb), c in zip(group_shapes(groups), chunks):
+        if not 1 <= c <= max(kb, 1):
+            raise ValueError(f"a group of {kb} blocks a row tile cannot be "
+                             f"cut into {c} chunks")
+
+
+def staged_x(x):
+    """(x as K7 reads it, its row stride in elements): x itself where its
+    rows lie at a 16-byte aligned address a multiple of 16 bytes apart,
+    else a copy into a [N, ldx] buffer whose rows are (ldx: W rounded up to
+    16 bytes; the columns past W are never read into an output)."""
+    n, w = x.shape
+    v = 16 // x.element_size()
+    ld, whole = x.stride(0), -(-w // v) * v
+    if (x.stride(1) == 1 and ld >= w and ld % v == 0
+            and x.data_ptr() % 16 == 0
+            and (x.storage_offset() + (n - 1) * ld + whole)
+            * x.element_size() <= x.untyped_storage().nbytes()):
+        return x, ld
+    buf = x.new_empty((n, whole))
+    buf[:, :w].copy_(x)
+    return buf, whole
+
+
+def _table(groups, chunks, tile, width):
+    """The kernels' table (int64 [groups, 7]) and the partials' size."""
+    offsets, size = partial_offsets(groups, chunks, tile, width)
+    table = np.zeros((len(groups), 7), np.int64)
+    for row, (blocks, bcol, tiles), (m, kb), c, off in zip(
+            table, groups, group_shapes(groups), chunks, offsets):
         for b in (blocks, bcol, tiles):
             if b is not None and not b.is_contiguous():
                 raise ValueError("blocks and tiles must be contiguous")
         row[:] = (0 if blocks is None else blocks.data_ptr(),
                   0 if bcol is None else bcol.data_ptr(),
-                  0 if tiles is None else tiles.data_ptr(),
-                  (bcol if tiles is None else tiles).shape[0],
-                  0 if blocks is None else bcol.shape[1])
+                  0 if tiles is None else tiles.data_ptr(), m, kb, c, off)
+    return table, size
+
+
+def bsr_spmm_split(x, groups, tile, chunks, *, scale=None,
+                   transposed=False):
+    """K7's first kernel under the plan ``chunks`` (one a group): (out,
+    partial) as :func:`bsr_spmm_split_plain`, except that on the card the
+    split groups' rows of out are left unwritten and partial is None where
+    nothing splits. ``transposed`` names the launch in :data:`LAUNCHES`."""
+    _check(x, groups, tile, scale)
+    _check_plan(groups, chunks)
+    tensors = [t for grp in groups for t in grp] + [x, scale]
+    if not on_cuda("bsr_spmm", *tensors):
+        return bsr_spmm_split_plain(x, groups, tile, chunks, scale)
+    n, width = x.shape
+    out = torch.empty((n, width), dtype=x.dtype, device=x.device)
+    if n == 0 or width == 0:
+        return out.zero_(), None
+    xs, ldx = staged_x(x)
+    table, size = _table(groups, chunks, tile, width)
+    partial = (torch.empty(size, dtype=torch.float32, device=x.device)
+               if size else None)
+    block_type = next((_BLOCK_TYPES[b.dtype] for b, _, _ in groups
+                       if b is not None), 0)
+    if scale is not None:
+        scale = scale.contiguous()
     rc = load_library().bsr_spmm(
-        x.data_ptr(), out.data_ptr(),
+        xs.data_ptr(), ldx, out.data_ptr(),
+        None if partial is None else partial.data_ptr(), size,
         None if scale is None else scale.data_ptr(), n, width, tile,
-        block_type, _X_TYPES[x.dtype], table.ctypes.data, len(groups),
+        column_tile(width), block_type, _X_TYPES[x.dtype],
+        table.ctypes.data, len(groups),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bsr_spmm kernel launch failed: CUDA error {rc}")
     LAUNCHES["bsr_spmm_transposed" if transposed else "bsr_spmm"] += 1
+    return out, partial
+
+
+def bsr_spmm_combine(partial, out, groups, tile, chunks, *, scale=None):
+    """K7's second kernel: the split groups' rows of ``out`` [N, W] (in
+    place) from their chunks' ``partial`` sums, as
+    :func:`bsr_spmm_combine_plain`; returns out."""
+    _check_plan(groups, chunks)
+    n, width = out.shape
+    offsets, size = partial_offsets(groups, chunks, tile, width)
+    if out.dtype not in _X_TYPES or partial.numel() != size:
+        raise ValueError(f"bsr_spmm_combine takes out of float32 or "
+                         f"bfloat16 and {size} partials, got {out.dtype}, "
+                         f"{partial.numel()}")
+    tensors = [t for grp in groups for t in grp] + [partial, out, scale]
+    if not on_cuda("bsr_spmm_combine", *tensors):
+        return out.copy_(bsr_spmm_combine_plain(partial, out, groups, tile,
+                                                chunks, scale))
+    if not (out.is_contiguous() and partial.is_contiguous()):
+        raise ValueError("out and partial must be contiguous")
+    table, _ = _table(groups, chunks, tile, width)
+    if scale is not None:
+        scale = scale.contiguous()
+    rc = load_library().bsr_spmm_combine(
+        partial.data_ptr(), size,
+        None if scale is None else scale.data_ptr(), out.data_ptr(), n,
+        width, tile, _X_TYPES[out.dtype], table.ctypes.data, len(groups),
+        torch.cuda.current_stream(out.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bsr_spmm_combine kernel launch failed: CUDA "
+                           f"error {rc}")
+    LAUNCHES["bsr_spmm_combine"] += 1
+    return out
+
+
+def bsr_spmm_blocks(x, groups, tile, *, scale=None, transposed=False):
+    """K7. x [N, W] float32 or bfloat16 → [N, W] of x's dtype: the dense
+    blocks of ``groups`` (see :func:`bsr_spmm_blocks_plain`; together their
+    row tiles must be every tile of the N rows, once) times x, with
+    ``scale`` ([N] float32) for int8 count blocks. On the card, the groups
+    :func:`split_plan` cuts are finished by :func:`bsr_spmm_combine`.
+    ``transposed`` names the launch (the backward's direction) in
+    :data:`LAUNCHES`."""
+    _check(x, groups, tile, scale)
+    tensors = [t for grp in groups for t in grp] + [x, scale]
+    if not on_cuda("bsr_spmm", *tensors):
+        return bsr_spmm_blocks_plain(x, groups, tile, scale)
+    chunks = split_plan(group_shapes(groups), tile, x.shape[1],
+                        sm_count(x.device))
+    out, partial = bsr_spmm_split(x, groups, tile, chunks, scale=scale,
+                                  transposed=transposed)
+    if partial is not None:
+        bsr_spmm_combine(partial, out, groups, tile, chunks, scale=scale)
     return out

@@ -16,9 +16,11 @@ of kernel-vs-plain float32 rounding). The baseline zoo (``-k zoo``) on the
 card against the CPU, its graph fits against the loop, BatchNorm's
 statistics across the capture, and K1-dval (``-k dval``) alone and through
 ``spmm``'s value gradient. The sparse layouts (``-k "ell or bsr"``): K6 and
-K7 against their plain versions under the "spmm" rule, one kernel a call,
-two calls bit-equal, and the epoch-block fit on each layout bit-equal to the
-loop; the graph-level capture repeated while the packing threads allocate
+K7 against their plain versions under the "spmm" rule, one kernel a call
+(K7: two where its split plan cuts a hub row tile, the second its combine),
+two calls bit-equal, K7 at every width, tile and block type, on a split hub
+bucket and on strided x, and the epoch-block fit on each layout bit-equal to
+the loop; the graph-level capture repeated while the packing threads allocate
 (``-k repeated``).
 """
 
@@ -694,7 +696,7 @@ def test_epoch_block_fit_matches_the_loop_on_the_card(cuda, kernel):
         "csr_spmm": layers * (steps + evals),
         "csr_spmm_transposed": layers * steps,
         "ell_spmm": 0, "ell_spmm_transposed": 0,
-        "bsr_spmm": 0, "bsr_spmm_transposed": 0}
+        "bsr_spmm": 0, "bsr_spmm_transposed": 0, "bsr_spmm_combine": 0}
 
 
 @pytest.mark.cuda
@@ -1589,12 +1591,15 @@ def test_ell_kernel_matches_plain(cuda, kind, width, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["padded f32", "padded bf16",
                                     "bucketed int8", "bucketed f32",
-                                    "padded T=64", "padded T=48"])
+                                    "padded T=64", "padded T=48",
+                                    "padded T=50"])
 def test_bsr_kernel_matches_plain(cuda, layout, dtype, width):
     """K7 (the blocks) and the whole direction (K7, then K6 adding the
     residual) against their plain versions, both directions: the "spmm"
-    rule, one launch counted each, two calls bit-equal. Width 72 takes the
-    cp.async path, 65 (and T = 48) the register-staged one."""
+    rule, one launch counted each, two calls bit-equal. Width 72 is read
+    in place, 65 staged at a row of 16 bytes; T = 48 and 50 end on part
+    of a 32-column slice, and T = 50's rows of 200 bytes are loaded
+    without 16-byte copies."""
     from difformer_tpu_torch.kernels import bsr as K7
     from difformer_tpu_torch.kernels import ell as K6
     from difformer_tpu_torch.ops import bsr as B
@@ -1617,7 +1622,9 @@ def test_bsr_kernel_matches_plain(cuda, layout, dtype, width):
         K7.reset_launch_counts()
         K6.reset_launch_counts()
         got = K7.bsr_spmm_blocks(x, groups, tile, scale=scale)
-        assert K7.LAUNCHES == {"bsr_spmm": 1, "bsr_spmm_transposed": 0}
+        assert K7.LAUNCHES == {"bsr_spmm": 1, "bsr_spmm_transposed": 0,
+                               "bsr_spmm_combine": _splits(groups, tile,
+                                                           width, cuda)}
         assert torch.equal(got, K7.bsr_spmm_blocks(x, groups, tile,
                                                    scale=scale))
         ref = K7.bsr_spmm_blocks_plain(x, groups, tile, scale)
@@ -1628,6 +1635,140 @@ def test_bsr_kernel_matches_plain(cuda, layout, dtype, width):
         assert_close("K7 + K6", whole,
                      K6.ell_spmm_plain(x, d.residual, add_to=ref), "spmm",
                      scale=sc + K6.ell_spmm_abs(x, d.residual))
+
+
+def _splits(groups, tile, width, device):
+    """1 where K7's split plan cuts a group at this width on this card (the
+    combine kernel then launches), else 0."""
+    from difformer_tpu_torch.kernels import bsr as K7
+
+    return int(max(K7.split_plan(K7.group_shapes(groups), tile, width,
+                                 K7.sm_count(device))) > 1)
+
+
+def _check_k7(x, groups, tile, scale=None):
+    """K7 against its plain version under the "spmm" rule, two calls
+    bit-equal, a call captured in a CUDA graph equal to the eager one;
+    returns the launches of one call."""
+    from difformer_tpu_torch.kernels import bsr as K7
+
+    K7.reset_launch_counts()
+    got = K7.bsr_spmm_blocks(x, groups, tile, scale=scale)
+    launches = dict(K7.LAUNCHES)
+    assert_close("K7", got, K7.bsr_spmm_blocks_plain(x, groups, tile, scale),
+                 "spmm", scale=K7.bsr_spmm_blocks_abs(x, groups, tile, scale))
+    assert torch.equal(got, K7.bsr_spmm_blocks(x, groups, tile, scale=scale))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = K7.bsr_spmm_blocks(x, groups, tile, scale=scale)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, captured)
+    return launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("tile", [64, 128, 256])
+@pytest.mark.parametrize("width", [1, 3, 64, 65, 72, 300])
+def test_bsr_kernel_at_every_width(cuda, width, tile, blocks):
+    """K7 on the clustered graph's forward blocks (padded f32 or bf16
+    blocks, bucketed int8 counts with their scale) at f32 and bf16 x:
+    every width on the one kernel, each block read by the thread blocks of
+    one column tile (300: four of 80 columns), one launch a call (two
+    where the few row tiles of this small graph are split)."""
+    from difformer_tpu_torch.kernels import bsr as K7
+    from difformer_tpu_torch.ops import bsr as B
+
+    s, r = _layout_graph("clustered")
+    n = 3000
+    if blocks == "int8":
+        d = B.build_bsr_bucketed_gcn(s, r, n, tile=tile, min_edges=40)[0]
+        assert all(b.dtype == torch.int8 for b in d.blocks)
+    else:
+        d = B.build_bsr_gcn(s, r, n, tile=tile, min_edges=40, block_dtype={
+            "f32": torch.float32, "bf16": torch.bfloat16}[blocks])[0]
+    d = d.to(cuda)
+    groups, scale = d.groups(), getattr(d, "inv_scale", None)
+    assert K7.column_tile(width) == {300: 80}.get(width, -(-width // 8) * 8)
+    gen = torch.Generator(cuda).manual_seed(width)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((n, width), device=cuda, generator=gen).to(dtype)
+        assert _check_k7(x, groups, tile, scale) == {
+            "bsr_spmm": 1, "bsr_spmm_transposed": 0,
+            "bsr_spmm_combine": _splits(groups, tile, width, cuda)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 65])
+@pytest.mark.parametrize("tile", [64, 256])
+@pytest.mark.parametrize("blocks", ["f32", "int8"])
+def test_bsr_kernel_splits_a_hub_row_tile(cuda, blocks, tile, width):
+    """A bucket of one row tile of 256 blocks (the hub), a bucket of 8
+    row tiles of S and the row tiles without blocks: the hub is cut into
+    chunks (split_plan), its partials summed by the combine kernel, the
+    other groups written by the first; against the plain version, two
+    calls bit-equal, the captured call equal to the eager one."""
+    from difformer_tpu_torch.kernels import bsr as K7
+
+    gen = torch.Generator(cuda).manual_seed(tile)
+    ntr = 256
+    n = ntr * tile - 5
+    if blocks == "int8":
+        def make(m, kb):
+            return torch.randint(0, 3, (m, kb, tile, tile), device=cuda,
+                                 generator=gen, dtype=torch.int8)
+        scale = torch.rand(n, device=cuda, generator=gen) + 0.1
+    else:
+        def make(m, kb):
+            return torch.randn((m, kb, tile, tile), device=cuda,
+                               generator=gen)
+        scale = None
+    i32 = dict(device=cuda, dtype=torch.int32)
+    groups = [
+        (make(1, 256), torch.randperm(256, device=cuda, generator=gen)
+         .to(torch.int32)[None], torch.tensor([3], **i32)),
+        (make(8, K7.SPLIT_BLOCKS),
+         torch.randint(0, ntr, (8, K7.SPLIT_BLOCKS), generator=gen, **i32),
+         torch.arange(4, 12, **i32)),
+        (None, None, torch.tensor([0, 1, 2] + list(range(12, ntr)), **i32)),
+    ]
+    chunks = K7.split_plan(K7.group_shapes(groups), tile, width,
+                           K7.sm_count(cuda))
+    assert chunks[0] > 1 and chunks[1:] == [1, 1]
+    x = torch.randn((n, width), device=cuda, generator=gen)
+    assert _check_k7(x, groups, tile, scale) == {
+        "bsr_spmm": 1, "bsr_spmm_transposed": 0, "bsr_spmm_combine": 1}
+    # the combine alone against its plain version on the kernel's partials
+    out, partial = K7.bsr_spmm_split(x, groups, tile, chunks, scale=scale)
+    want = K7.bsr_spmm_combine_plain(partial, out, groups, tile, chunks,
+                                     scale)
+    assert torch.equal(K7.bsr_spmm_combine(partial, out, groups, tile,
+                                           chunks, scale=scale), want)
+
+
+@pytest.mark.cuda
+def test_bsr_kernel_takes_misaligned_and_strided_x(cuda):
+    """x as a view: 4 bytes past an aligned address (staged), a column
+    slice of a wider tensor at a row of 16 bytes (read in place, no copy)
+    and a transposed one (staged): each as the contiguous copy gives."""
+    from difformer_tpu_torch.kernels import bsr as K7
+    from difformer_tpu_torch.ops import bsr as B
+
+    s, r = _layout_graph("clustered")
+    n, w = 3000, 65
+    d = B.build_bsr_gcn(s, r, n, tile=128, min_edges=40)[0].to(cuda)
+    groups = d.groups()
+    gen = torch.Generator(cuda).manual_seed(0)
+    flat = torch.randn(n * w + 1, device=cuda, generator=gen)
+    wide = torch.randn((n, 72), device=cuda, generator=gen)
+    for x, in_place in ((flat[1:].view(n, w), False), (wide[:, :w], True),
+                        (torch.randn((w, n), device=cuda,
+                                     generator=gen).t(), False)):
+        assert (K7.staged_x(x)[0] is x) == in_place
+        _check_k7(x, groups, 128)
+        assert torch.equal(K7.bsr_spmm_blocks(x, groups, 128),
+                           K7.bsr_spmm_blocks(x.contiguous(), groups, 128))
 
 
 @pytest.mark.cuda
