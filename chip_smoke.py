@@ -63,12 +63,16 @@ non-zero before the last line:
 9b. ell-bsr-kernels (run after kernels-wide): the sparse layouts' kernels
    against their plain versions under the "spmm" rule (shown to fail a
    wrong output), two calls bit-equal, the device kernels a call counted
-   from a CUDA graph (one for K6; for K7 one, two where its split plan
-   cuts a hub row tile, one more where x is staged to rows of 16 bytes,
-   and K6 adding the residual): the ELL kernel K6 in both directions at
+   from a CUDA graph (K6 one, two where its split plan cuts a hub bucket;
+   for K7 one, two where its split plan cuts a hub row tile, one more
+   where x is staged to rows of 16 bytes, and K6 adding the residual):
+   the ELL kernel K6 in both directions at
    Cora's graph (W = 64 and spmm_first's 65) and at bench.py's three
    graphs (N = 131072, E = 4.19 M: clustered SBM, Pareto-alpha-2 power
-   law, uniform; W = 64), f32 and bf16 x; the block kernel K7 on the
+   law, uniform; W = 64), f32 and bf16 x, with its gather floor, its
+   combine (K1's, on the power law's split hub buckets) alone on its
+   partials, and a sweep of its split threshold T on the power law; the
+   block kernel K7 on the
    clustered graph at T = 256 with f32, bf16 and int8-count blocks, at
    T = 128, and at W = 65 and 300, f32 and bf16 x, and on the
    degree-sorted power-law graph's bucketed int8 layout (its hub row tile
@@ -1182,7 +1186,8 @@ def expected_launches(layers, attention):
             "sigmoid_attention_dq": sig // 2,
             "sigmoid_attention_dkv": sig // 2,
             "csr_spmm": fwd, "csr_spmm_transposed": bwd,
-            **dict.fromkeys(ELL_PATH + BSR_PATH + (BSR_COMBINE,), 0)}
+            **dict.fromkeys(ELL_PATH + (ELL_COMBINE,) + BSR_PATH
+                            + (BSR_COMBINE,), 0)}
 
 
 def phase_slice():
@@ -1772,6 +1777,13 @@ class CliRun:
             raise AssertionError(f"kernels launched against the path "
                                  f"{sorted(path)}: {off}")
 
+    def ell_path(self):
+        """The kernels of the layout the run's GCN branch took
+        (:func:`layout_path`)."""
+        conv = self.trainer.model.convs[0]
+        return layout_path(self.trainer.model_kwargs["ell"],
+                           conv.num_heads * conv.out_channels)
+
     def report(self, cut=""):
         t = self.times
         epochs = max(t["epochs"], 1)
@@ -1801,21 +1813,21 @@ def phase_cli(tmp):
     write_planetoid_cora(tmp)
     base = ["--dataset", "cora", "--data_dir", tmp]
     main_run = CliRun("cli", base)
-    main_run.check(7, ELL_PATH)
+    main_run.check(7, main_run.ell_path())
     main_run.report()
     check_no_dval("cli", "DIFFormer-s")
-    for extra, path in ((["--kernel", "sigmoid"], ELL_PATH + SIGMOID_PATH),
-                        (["--reorder", "rcm"], ELL_PATH),
+    for extra, path in ((["--kernel", "sigmoid"], SIGMOID_PATH),
+                        (["--reorder", "rcm"], ()),
                         (["--spmm", "coo"], K1_PATH)):
         run = CliRun("cli", base + extra)
-        run.check(7, path)
+        run.check(7, path + (run.ell_path() if path != K1_PATH else ()))
         run.report()
 
     cfg = make_config("cora")
     cut = ["--epochs", "50", "--runs", "1"]
     saved = CliRun("cli", base + ["--save_model", "true", "--model_dir",
                                   tmp] + cut)
-    saved.check(7, ELL_PATH)
+    saved.check(7, saved.ell_path())
     saved.report(f"; cut from {cfg.epochs} epochs and {cfg.runs} runs: "
                  f"save_best takes the per-epoch loop")
     evaluated = CliRun("cli", base + ["--eval_only", "true", "--model_dir",
@@ -1849,7 +1861,7 @@ def phase_cli_set(tmp):
     wide = CliRun("cli-set", base + ["--kernel", "sigmoid", "--use_graph",
                                      "true", "--epochs", "20", "--runs",
                                      "1"])
-    wide.check(CIFAR10_CLASSES, ELL_PATH + SIGMOID_PATH)
+    wide.check(CIFAR10_CLASSES, wide.ell_path() + SIGMOID_PATH)
     wide.report(f"; cut from {cfg.epochs} epochs and {cfg.runs} runs")
     return wide.launches
 
@@ -3150,6 +3162,9 @@ BSR_REPLACES = {"padded": "difformer_tpu/ops/bsr.py:252",
 ELL_PATH = ("ell_spmm", "ell_spmm_transposed")
 BSR_PATH = ("bsr_spmm", "bsr_spmm_transposed")
 BSR_COMBINE = "bsr_spmm_combine"
+ELL_COMBINE = "ell_spmm_combine"
+# K6's split threshold T, swept on the power-law graph (0: no split)
+ELL_THRESHOLDS = (128, 256, 384, 512, 1024, 0)
 # bench.py's headline graphs (bench.py:84, build_graph :306-330) and model
 # (3-layer DIFFormer-s, hidden 64, 112 binary tasks, bench.py:1-8)
 BENCH_NODES, BENCH_EDGES, BENCH_FEATURES = 131072, 4 * 1024 * 1024, 64
@@ -3231,6 +3246,15 @@ def ell_bound_ms(n, e, w, elem=4):
     t_bytes, t_ops = nbytes / PEAK_BYTES, 2 * e * w / PEAK_OPS[torch.float32]
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes > t_ops else "operations", nbytes)
+
+
+def ell_gather_floor_ms(n, e, w, elem=4):
+    """The gather floor of one K6 product in ms, a diagnostic beside its
+    bound: every gathered row x[idx] of a real slot (E·W elements), out,
+    idx, val, rows and pads, each moved once from HBM with no reuse in L2.
+    K6 goes below it only where L2 keeps the rows that many slots
+    gather."""
+    return 1e3 * ((e + n) * w * elem + 8 * e + 12 * n) / PEAK_BYTES
 
 
 def bsr_work(d, w, elem_x):
@@ -3320,11 +3344,13 @@ def library_bsr(d, x):
 
 def check_k6(tag, x, ell, transposed, csr):
     """K6 against its plain version on ``x``: the "spmm" rule (shown to
-    fail a wrong output), two calls bit-equal, one device kernel a call
-    (counted in its CUDA graph); the kernel's device time by CUDA-graph
-    replay (:func:`replay_ms`), the plain version's and cuSPARSE CSR's
-    (``csr``: the same matrix's row_ptr, col, val) by the profiler, beside
-    the bound. Returns the JSON row."""
+    fail a wrong output), two calls bit-equal, one device kernel a call, or
+    two where its plan splits a bucket (counted in its CUDA graph); the
+    kernel's device time by CUDA-graph replay (:func:`replay_ms`), the
+    plain version's and cuSPARSE CSR's (``csr``: the same matrix's row_ptr,
+    col, val) by the profiler, beside the bound and the gather floor.
+    Returns the JSON row, and the combine's (:func:`check_ell_combine`)
+    where the plan splits, else None."""
     from difformer_tpu_torch.kernels import ell as K6
     from difformer_tpu_torch.kernels.tolerance import assert_close
 
@@ -3338,12 +3364,14 @@ def check_k6(tag, x, ell, transposed, csr):
     if not torch.equal(out, call()):
         raise AssertionError(f"{tag}: two calls differ")
     del out, ref, scale
+    split = ell.split.partials > 0
     kernels, nodes = graph_kernels(call)
-    if kernels != 1 or nodes != 1:
+    if kernels != 1 + split or nodes != 1 + split:
         raise AssertionError(f"{tag}: {kernels} device kernels in {nodes} "
-                             f"graph nodes a call, expected 1")
+                             f"graph nodes a call, expected {1 + split}")
     e = int((ell.val != 0).sum())
     bound, bound_by, nbytes = ell_bound_ms(n, e, w, x.element_size())
+    floor = ell_gather_floor_ms(n, e, w, x.element_size())
     ms, plain_ms = replay_ms(call), device_ms(plain)
     try:
         library = library_spmm(*csr, n, x.dtype)
@@ -3354,24 +3382,88 @@ def check_k6(tag, x, ell, transposed, csr):
             f"{str(ex).splitlines()[0][:160]}")
     widths = ell.bucket_sizes
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    pads = int(ell.pads[:, 1].sum())
+    plan = (f"T = {ell.split.threshold}: chunks {ell.split.chunks}, "
+            f"{ell.split.rows.numel()} split rows, {ell.split.partials} "
+            f"partial rows" if split else f"T = {ell.split.threshold}: "
+            f"nothing split")
     say(f"phase ell-bsr-kernels: {tag:52s} max_abs_err {err:.3e}, two calls "
-        f"bit-equal, 1 device kernel a call | {len(widths)} buckets, widths "
-        f"{widths[0]}..{widths[-1]}, {ell.num_slots} slots for {e} edges | "
-        f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | cuSPARSE CSR {lib} "
-        f"| bound {bound:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB; "
-        f"{100 * bound / ms:.1f}% of the kernel's time)")
+        f"bit-equal, {1 + split} device kernels a call | {len(widths)} "
+        f"buckets, widths {widths[0]}..{widths[-1]}, {ell.num_slots} slots "
+        f"for {e} edges, {pads} padded slots skipped | {plan} | kernel "
+        f"{ms:.4f} ms | plain {plain_ms:.4f} ms | cuSPARSE CSR {lib} | "
+        f"bound {bound:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB; "
+        f"{100 * bound / ms:.1f}% of the kernel's time) | gather floor "
+        f"{floor:.4f} ms ({100 * floor / ms:.1f}%)")
+    combine = check_ell_combine(tag, x, ell, transposed) if split else None
+    return (dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                 bound_by=bound_by, library_ms=library_ms), combine)
+
+
+def check_ell_combine(tag, x, ell, transposed):
+    """K6's combine (K1's ``csr_spmm_combine``) alone, on the partials K6's
+    kernel wrote for ``x``, against its plain version (the "spmm" rule over
+    the sums of |partials|; bit-equal expected: the same f32 adds in the
+    same order); its time by CUDA-graph replay, the plain version's by the
+    profiler; bound: the partials read once, the split rows written once,
+    their nodes and offsets read (bytes). Returns the JSON row."""
+    from difformer_tpu_torch.kernels import ell as K6
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+
+    out, partial = K6.ell_spmm_split(x, ell, transposed=transposed)
+    call = lambda: K6.ell_spmm_combine(partial, out, ell)  # noqa: E731
+    plain = lambda: K6.ell_spmm_combine_plain(  # noqa: E731
+        partial, out, ell)
+    ref = plain()
+    got = call().clone()
+    sc = K6.ell_spmm_combine_plain(partial.abs(), out.abs(), ell)
+    err = assert_close(f"{tag} combine", got, ref, "spmm", scale=sc)
+    if not torch.equal(got, call()):
+        raise AssertionError(f"{tag} combine: two calls differ")
+    h, w = ell.split.rows.numel(), x.shape[1]
+    nbytes = 4 * partial.numel() + h * w * x.element_size() + 4 * (2 * h + 1)
+    bound = 1e3 * nbytes / PEAK_BYTES
+    ms, plain_ms = replay_ms(call), device_ms(plain)
+    say(f"phase ell-bsr-kernels: {tag} combine: max_abs_err {err:.3e} "
+        f"({'bit-equal' if torch.equal(got, ref) else 'not bit-equal'} to "
+        f"the plain version), two calls bit-equal | {ell.split.partials} "
+        f"partial rows of {h} split rows | kernel {ms:.4f} ms | plain "
+        f"{plain_ms:.4f} ms | bound {bound:.4f} ms by bytes "
+        f"({nbytes / 1e6:.2f} MB; {100 * bound / ms:.1f}%)")
+    del out, partial, ref, got, sc
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by="bytes", library_ms=None)
+
+
+def sweep_ell_threshold(tag, x, ell, transposed):
+    """K6's device time (CUDA-graph replay) over ``ell`` at each split
+    threshold of ELL_THRESHOLDS (0: nothing split), each checked against
+    the plain version under the "spmm" rule."""
+    from difformer_tpu_torch.kernels import ell as K6
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+
+    ref, scale = K6.ell_spmm_plain(x, ell), K6.ell_spmm_abs(x, ell)
+    times = []
+    for t in ELL_THRESHOLDS:
+        layout = ell.with_split(t or max(ell.bucket_sizes))
+        call = lambda: K6.ell_spmm_rows(  # noqa: E731
+            x, layout, transposed=transposed)
+        assert_close(f"{tag} T={t}", call(), ref, "spmm", scale=scale)
+        times.append(f"T={t or 'none'} ({layout.split.partials} partial "
+                     f"rows) {replay_ms(call):.4f} ms")
+    say(f"phase ell-bsr-kernels: {tag}: split threshold T (the source's "
+        f"{K6.SPLIT_THRESHOLD}): " + ", ".join(times))
 
 
 def check_k7(tag, x, d, transposed, library=True):
     """K7 (the blocks alone: its kernel, and the combine kernel where
     ``split_plan`` cuts a group) and the whole direction (K7 then K6 adding
     the residual) against their plain versions on ``x``: the "spmm" rule
-    (shown to fail a wrong output), two calls bit-equal, the device kernels
+    (shown to fail a wrong output, with the residual too), two calls
+    bit-equal, the device kernels
     a call counted from its CUDA graph (K7's launches, 1 or 2 where split,
     one copy more where x is staged to rows of 16 bytes, and K6 for the
-    residual); the kernel's device time by CUDA-graph replay, the plain
+    residual, 2 where its plan splits); the kernel's device time by CUDA-graph replay, the plain
     version's and cuSPARSE BSR's (the blocks that hold an edge, as x's
     dtype, the count scale folded in) by the profiler, beside the FP32 and
     the tensor-core bounds. Returns the JSON row, the time of one block
@@ -3404,10 +3496,13 @@ def check_k7(tag, x, d, transposed, library=True):
         sc = K6.ell_spmm_abs(x, d.residual).float() + sc.float()
     whole_err = assert_close(f"{tag} with residual", got, ref, "spmm",
                              scale=sc)
+    assert_rejects(f"{tag} with residual", ref, "spmm", scale=sc)
     del out, ref, sc, got
     expect = launches + staged
-    for fn, want in ((call, expect),
-                     (whole, expect + (d.residual is not None))):
+    # K6 adding the residual, and its combine where its plan splits
+    residual = (0 if d.residual is None
+                else 1 + (d.residual.split.partials > 0))
+    for fn, want in ((call, expect), (whole, expect + residual)):
         kernels, nodes = graph_kernels(fn)
         if kernels != want or nodes != want:
             raise AssertionError(f"{tag}: {kernels} device kernels in "
@@ -3435,7 +3530,7 @@ def check_k7(tag, x, d, transposed, library=True):
              f" MB written)" if staged else "")
     say(f"phase ell-bsr-kernels: {tag:52s} max_abs_err {err:.3e} (with "
         f"the residual {whole_err:.3e}), two calls bit-equal, {expect} "
-        f"device kernels a call ({expect + (d.residual is not None)} with "
+        f"device kernels a call ({expect + residual} with "
         f"the residual) | K7 launches a call {launches} (S = "
         f"{K7.SPLIT_BLOCKS}, chunks {chunks}), column tile "
         f"{K7.column_tile(w)}{stage} | {slots} block slots, {blocks} with "
@@ -3544,10 +3639,16 @@ def phase_ell_bsr_kernels():
             x = x32.to(dtype)
             suffix = "" if dtype == torch.float32 else " bf16"
             for name, ell, csr in zip(ELL_PATH, (fwd, rev), csrs):
-                row = check_k6(f"{name}{suffix} {label} W={x.shape[1]}", x,
-                               ell, name.endswith("transposed"), csr)
+                transposed = name.endswith("transposed")
+                tag = f"{name}{suffix} {label} W={x.shape[1]}"
+                row, combine = check_k6(tag, x, ell, transposed, csr)
                 if json_label is not None:
                     rows[f"{name}{json_label}{suffix}"] = row
+                if json_label is not None and combine is not None:
+                    rows[f"{ELL_COMBINE}{json_label}{suffix}"
+                         f"{' transposed' if transposed else ''}"] = combine
+                if label == "powerlaw" and dtype == torch.float32:
+                    sweep_ell_threshold(tag, x, ell, transposed)
         del fwd, rev, plan
         torch.cuda.empty_cache()
 
@@ -3705,19 +3806,29 @@ def layout_fit(trainer, split, epoch_block):
 
 
 def layout_path(layout, width):
-    """The kernels a layout pair runs at ``width``: K6 for ELL; for the
+    """The kernels a layout pair runs at ``width``: K6 for ELL (and its
+    combine where a direction's plan splits a bucket); for the
     block-sparse hybrids K7, its combine kernel where ``split_plan`` cuts a
     group of either direction at that width on this card, and K6 where a
-    direction has a residual."""
+    direction has a residual (with its combine where that splits)."""
     from difformer_tpu_torch.kernels import bsr as K7
     from difformer_tpu_torch.ops.ell import EllGraph
 
     if isinstance(layout[0], EllGraph):
-        return ELL_PATH
+        return ell_path(layout)
     split = any(c > 1 for d in layout for c in K7.split_plan(
         K7.group_shapes(d.groups()), d.tile, width, K7.sm_count("cuda")))
-    return BSR_PATH + ((BSR_COMBINE,) if split else ()) + (
-        ELL_PATH if any(d.residual is not None for d in layout) else ())
+    return BSR_PATH + ((BSR_COMBINE,) if split else ()) + ell_path(
+        [d.residual for d in layout if d.residual is not None])
+
+
+def ell_path(ells):
+    """The kernels K6 runs over the ELL directions ``ells``: none, K6, or
+    K6 and its combine where a direction's plan splits a bucket."""
+    if not ells:
+        return ()
+    return ELL_PATH + ((ELL_COMBINE,) if any(d.split.partials
+                                             for d in ells) else ())
 
 
 def phase_spmm_layouts():
@@ -3817,7 +3928,7 @@ def phase_spmm_layouts():
             if off:
                 raise AssertionError(f"{kind}: launches against the path "
                                      f"{path}: {off}")
-            for k in ELL_PATH + BSR_PATH + (BSR_COMBINE,):
+            for k in ELL_PATH + (ELL_COMBINE,) + BSR_PATH + (BSR_COMBINE,):
                 total[k] = total.get(k, 0) + g_n[k]
             del layout, fits
         gc.collect()
@@ -3857,9 +3968,7 @@ def phase_cli_layouts(tmp):
                             out.getvalue())
         if elected:
             say(f"phase cli-layouts: {elected[0]}")
-        conv = run.trainer.model.convs[0]
-        path = layout_path(run.trainer.model_kwargs["ell"],
-                           conv.num_heads * conv.out_channels)
+        path = run.ell_path()
         if elect is not None and (not elected or elected[2] != elect):
             raise AssertionError(f"{' '.join(argv)} elected "
                                  f"{elected and elected[2]}, expected "
@@ -4128,11 +4237,14 @@ def main():
         # graph (T = 256 padded float32, bfloat16 blocks and bucketed int8
         # counts; T = 128; W = 65 and 300) and on its degree-sorted power
         # law's bucketed int8 counts (the hub row tile split, and the
-        # combine kernel), f32 and bf16 x. Launches: the cora rows the cli
-        # phase's main run's (the cora preset on its default ELL layout),
-        # the others the spmm-layouts phase's fits (wrappers and replays)
+        # combine kernel), f32 and bf16 x; K6's combine (K1's
+        # csr_spmm_combine) on the power law's split hub buckets. Launches:
+        # the cora rows the cli phase's main run's (the cora preset on its
+        # default ELL layout), the others the spmm-layouts phase's fits
+        # (wrappers and replays)
         {"name": name, "route": "cuda",
-         "source": BSR_SOURCE if name.startswith("bsr") else ELL_SOURCE,
+         "source": (BSR_SOURCE if name.startswith("bsr") else SPMM_SOURCE
+                    if name.startswith(ELL_COMBINE) else ELL_SOURCE),
          "replaces": (BSR_REPLACES["bucketed" if " int8" in name
                                    else "padded"]
                       if name.startswith("bsr") else ELL_REPLACES),

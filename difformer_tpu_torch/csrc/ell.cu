@@ -14,32 +14,52 @@
 // (rows[] is the inverse of inv_perm), so the inverse-permutation gather is
 // fused away; every node is the row of exactly one bucket, so there are no
 // atomics and two calls give bit-equal results. Nodes without edges sit in
-// bucket 0 with zero weights and write 0. With accumulate, the row's sum is
-// added to what out holds (the block-sparse hybrid's residual, bsr.cu).
+// bucket 0 and write 0. With accumulate, the row's sum is added to what out
+// holds (the block-sparse hybrid's residual, bsr.cu).
 //
-// What bounds it on this card: bytes, as K1 (spmm.cu). It does 2 S W flops
-// on S slots (at most twice the edges) and moves x and out once plus 8 bytes
-// a slot; the gathered rows, S W elements, set its time once x outgrows the
-// 50 MB L2.
+// What bounds it on this card: bytes, as K1 (spmm.cu). It does 2 E W flops
+// on E edges and moves x and out once plus 8 bytes an edge; the gathered
+// rows, E W elements, set its time: they stay in the 50 MB L2 only while x
+// is small (bench.py's graphs: 33.5 MB at W = 64).
 //
-// The design. A bucket no wider than kHeavyWidth slots: a group of lanes (the
-// power of two >= the row's vectors, up to a warp) sums one row, striding its
-// W columns in 16-byte packs where W and the pointers allow (float4; 8 bf16),
-// four slots' gathers in flight, f32 sums in registers, in slot order. A
-// wider bucket (the hubs of a power-law graph, whose rows reach thousands of
-// slots) takes a block a row: its 256 / group groups each sum a contiguous
-// run of the row's slots into shared memory, and the block then adds the
-// runs in order and writes the row once (K1 reaches the same balance with
-// segments and a second launch, spmm.cu; a block a row keeps K6 one launch).
-// The table of buckets (first row, width, first slot, first block) is built
-// on the host from the layout's host table at each call and passed by value,
-// so a call reads nothing back and can be captured in a CUDA graph. The JAX
-// package's gather budget (k-chunks under lax.scan) has no counterpart: the
-// gathered rows never leave registers.
+// The design.
+// - A group of lanes (the power of two >= the row's vectors, up to a warp)
+//   sums one row, or one chunk of a split row, striding its W columns in
+//   16-byte packs where W and the pointers allow (float4; 8 bf16), f32 sums
+//   in registers, in slot order, kUnroll slots' rows of x gathered at once
+//   (at 8, or with the last few slots of a run gathered at once too, the
+//   registers a thread rose from 40 to 60-100 and the card held fewer
+//   groups; PERF.md section 6). Slot, row and block offsets are 32-bit.
+// - Padded slots are skipped. Each row is sorted by neighbour index, so its
+//   pads (index 0, weight 0) form one run that starts after the row's real
+//   edges to node 0; pads[r] = (first pad slot, pads) of row r, built on
+//   the host with the layout (ops/ell.py). A row sums its real slots
+//   [0, first) and [first + pads, k) and reads neither the pads' index and
+//   value words nor x[0] for them. For finite x no sum changes (a pad adds
+//   +-0); a NaN or Inf in x[0] no longer reaches rows that only pad with 0.
+//   The price is one load (pads[r]) before a row's first index load.
+// - Hub rows are split across thread blocks by a host plan
+//   (kernels/ell.py split_plan): a bucket wider than T slots is cut into
+//   chunks = ceil(k / T) runs of ceil(k / chunks) slots, in slot order; each
+//   chunk is summed by a group into its row of an f32 workspace (part),
+//   rows of one node consecutive. K1's csr_spmm_combine (spmm.cu) then sums
+//   each split row's chunks in chunk order, adds out's value under
+//   accumulate, rounds once and writes the row to its node. Without a split
+//   bucket K6 is one launch.
+// - Launch order: the chunks take the first blocks of the grid, then the
+//   unsplit buckets from the widest to the narrowest, so the longest runs
+//   start first and end under the short ones instead of trailing them.
 //
-// Element types: x and out float32 or bfloat16, f32 sums, one rounding to
-// the output type at the store (K1's rule); idx and rows int32, val float32,
-// slot offsets int64 (the padding can reach twice the edges).
+// The table of buckets (first row, width, first slot, chunks, first
+// partial row) is built on the host at each call from the layout's host
+// table and the plan, and passed by value, so a call reads nothing back and
+// can be captured in a CUDA graph. The JAX package's gather budget
+// (k-chunks under lax.scan) has no counterpart: the gathered rows never
+// leave registers.
+//
+// Element types: x and out float32 or bfloat16, f32 sums and partials, one
+// rounding to the output type at the store (K1's rule); idx and rows int32,
+// val float32, pads int32 pairs.
 //
 // C interface (loaded with ctypes): the entry returns cudaGetLastError()
 // after its launch.
@@ -55,29 +75,34 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kUnroll = 4;
-constexpr int kMaxBuckets = 48;     // kernels/ell.py MAX_BUCKETS
-constexpr int kHeavyWidth = 128;    // kernels/ell.py HEAVY_WIDTH
+constexpr int kUnroll = 4;       // slots whose rows of x are gathered at once
+constexpr int kMaxBuckets = 48;  // kernels/ell.py MAX_BUCKETS
 
-struct Buckets {
+// The buckets in launch order: the split ones first, then the rest from the
+// widest down.
+struct Table {
   int count;
-  int heavy_any;
-  int64_t row0[kMaxBuckets + 1];    // first row of each bucket; total rows
-  int64_t slot0[kMaxBuckets];       // first slot of each bucket
-  int64_t block0[kMaxBuckets + 1];  // first block of each bucket; all blocks
-  int width[kMaxBuckets];
+  int block0[kMaxBuckets + 1];  // first block of each; all blocks
+  int row0[kMaxBuckets];        // the bucket's first row
+  int slot0[kMaxBuckets];       // its first slot
+  int part0[kMaxBuckets];       // its first partial row (split only)
+  int items[kMaxBuckets];       // rows x chunks
+  int width[kMaxBuckets];           // k
+  int chunks[kMaxBuckets];          // 1: not split
+  int chunk[kMaxBuckets];           // slots a chunk, ceil(k / chunks)
 };
 
-// acc[v] += sum over slots begin .. end - 1, in order, of val * x[idx] at
-// the pack c of a row of vecs packs.
+// acc[v] += the sum over slots begin .. end - 1, in order, of val * x[idx]
+// at the pack c of a row of vecs packs: kUnroll slots' gathers in flight,
+// then the last end - begin mod kUnroll one by one. Slot offsets are 32-bit
+// (the entry checks that every slot's is).
 template <typename T, int V>
 __device__ __forceinline__ void sum_slots(const int* __restrict__ idx,
                                           const float* __restrict__ val,
-                                          const T* __restrict__ x,
-                                          int64_t begin, int64_t end,
-                                          int64_t vecs, int64_t c,
+                                          const T* __restrict__ x, int begin,
+                                          int end, int64_t vecs, int64_t c,
                                           float (&acc)[V]) {
-  int64_t j = begin;
+  int j = begin;
   for (; j + kUnroll <= end; j += kUnroll) {
     int s[kUnroll];
     float w[kUnroll];
@@ -104,109 +129,66 @@ __device__ __forceinline__ void sum_slots(const int* __restrict__ idx,
   }
 }
 
+// A group of 2^group_log2 lanes an item: a row of an unsplit bucket into
+// out[rows[r]], or a chunk of a split row into part. The item's slots
+// [lo, hi) of its row minus the pad run [first, first + pads): the real
+// slots in front of the run (edges to node 0), then those behind it.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-    ell_spmm_kernel(const Buckets tab, const int* __restrict__ idx,
+    ell_spmm_kernel(const Table tab, const int* __restrict__ idx,
                     const float* __restrict__ val,
-                    const int* __restrict__ rows, const T* __restrict__ x,
-                    T* __restrict__ out, int64_t vecs, int group_log2,
-                    int accumulate) {
-  extern __shared__ float runs[];  // heavy rows: [groups][vecs * V]
+                    const int* __restrict__ rows,
+                    const int2* __restrict__ pads, const T* __restrict__ x,
+                    T* __restrict__ out, float* __restrict__ part,
+                    int64_t vecs, int group_log2, int accumulate) {
   int b = 0;
-  while (b + 1 < tab.count && int64_t(blockIdx.x) >= tab.block0[b + 1]) ++b;
-  const int64_t blk = int64_t(blockIdx.x) - tab.block0[b];
-  const int64_t k = tab.width[b];
-  const int64_t nrows = tab.row0[b + 1] - tab.row0[b];
+  while (b + 1 < tab.count && int(blockIdx.x) >= tab.block0[b + 1]) ++b;
+  const int item = static_cast<int>(
+      (int64_t(int(blockIdx.x) - tab.block0[b]) * kThreads + threadIdx.x) >>
+      group_log2);
+  if (item >= tab.items[b]) return;
+  const int chunks = tab.chunks[b];
+  const int r = chunks == 1 ? item : item / chunks;
+  const int k = tab.width[b];
+  const int lo = (item - r * chunks) * tab.chunk[b];
+  const int hi = min(k, lo + tab.chunk[b]);
+  const int s = tab.slot0[b] + r * k;
+  const int2 pad = __ldg(pads + tab.row0[b] + r);  // (first pad slot, pads)
   const int group = 1 << group_log2;
   const int lane = threadIdx.x & (group - 1);
-  if (k <= kHeavyWidth) {
-    const int64_t r = (blk * kThreads + threadIdx.x) >> group_log2;
-    if (r >= nrows) return;
-    const int64_t slot = tab.slot0[b] + r * k;
-    T* dst = out + int64_t(__ldg(rows + tab.row0[b] + r)) * vecs * V;
-    for (int64_t c = lane; c < vecs; c += group) {
-      float acc[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v) acc[v] = 0.0f;
-      sum_slots<T, V>(idx, val, x, slot, slot + k, vecs, c, acc);
-      if (accumulate) {
-        float old[V];
-        Pack<T, V>::load(dst + c * V, old);
-#pragma unroll
-        for (int v = 0; v < V; ++v) acc[v] = old[v] + acc[v];
-      }
-      Pack<T, V>::store(dst + c * V, acc);
-    }
-    return;
-  }
-  // a block a row: group g sums the slots [g * run, (g + 1) * run) of the
-  // row into runs[g], then the block adds the runs in order
-  const int groups = kThreads >> group_log2;
-  const int g = threadIdx.x >> group_log2;
-  const int64_t run = (k + groups - 1) / groups;
-  const int64_t slot = tab.slot0[b] + blk * k;
-  const int64_t begin = slot + min(k, g * run);
-  const int64_t end = slot + min(k, (g + 1) * run);
-  const int64_t width = vecs * V;
   for (int64_t c = lane; c < vecs; c += group) {
     float acc[V];
 #pragma unroll
     for (int v = 0; v < V; ++v) acc[v] = 0.0f;
-    sum_slots<T, V>(idx, val, x, begin, end, vecs, c, acc);
-#pragma unroll
-    for (int v = 0; v < V; ++v) runs[g * width + c * V + v] = acc[v];
-  }
-  __syncthreads();
-  T* dst = out + int64_t(__ldg(rows + tab.row0[b] + blk)) * width;
-  for (int64_t col = threadIdx.x; col < width; col += kThreads) {
-    float acc[1] = {0.0f};
-    for (int h = 0; h < groups; ++h) acc[0] += runs[h * width + col];
-    if (accumulate) {
-      float old[1];
-      Pack<T, 1>::load(dst + col, old);
-      acc[0] = old[0] + acc[0];
+    sum_slots<T, V>(idx, val, x, s + lo, s + min(hi, pad.x), vecs, c,
+                       acc);
+    sum_slots<T, V>(idx, val, x, s + max(lo, pad.x + pad.y), s + hi, vecs,
+                       c, acc);
+    if (chunks > 1) {
+      Pack<float, V>::store(
+          part + ((int64_t(tab.part0[b]) + item) * vecs + c) * V, acc);
+      continue;
     }
-    Pack<T, 1>::store(dst + col, acc);
+    T* dst = out + (int64_t(__ldg(rows + tab.row0[b] + r)) * vecs + c) * V;
+    if (accumulate) {
+      float old[V];
+      Pack<T, V>::load(dst, old);
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = old[v] + acc[v];
+    }
+    Pack<T, V>::store(dst, acc);
   }
 }
 
 template <typename T, int V>
-int launch(Buckets tab, const int* idx, const float* val, const int* rows,
-           const void* x, void* out, int64_t vecs, int accumulate,
+int launch(const Table& tab, const int* idx, const float* val,
+           const int* rows, const int2* pads, const void* x, void* out,
+           float* part, int64_t vecs, int group_log2, int accumulate,
            cudaStream_t stream) {
-  int group_log2 = 0;  // lanes a row: the power of two >= vecs, up to 32
-  while ((int64_t(1) << group_log2) < vecs && group_log2 < 5) ++group_log2;
-  int64_t blocks = 0;
-  tab.heavy_any = 0;
-  for (int b = 0; b < tab.count; ++b) {
-    tab.block0[b] = blocks;
-    const int64_t nrows = tab.row0[b + 1] - tab.row0[b];
-    if (tab.width[b] > kHeavyWidth) {
-      blocks += nrows;
-      tab.heavy_any |= nrows > 0;
-    } else {
-      blocks += ((nrows << group_log2) + kThreads - 1) / kThreads;
-    }
-  }
-  tab.block0[tab.count] = blocks;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  if (blocks == 0) return cudaSuccess;
-  const size_t smem =
-      tab.heavy_any
-          ? sizeof(float) * size_t(kThreads >> group_log2) * vecs * V
-          : 0;
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const int rc = cudaFuncSetAttribute(
-        ell_spmm_kernel<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (rc != cudaSuccess) return rc;
-  }
-  ell_spmm_kernel<T, V><<<static_cast<unsigned>(blocks), kThreads, smem,
-                          stream>>>(tab, idx, val, rows,
-                                    static_cast<const T*>(x),
-                                    static_cast<T*>(out), vecs, group_log2,
-                                    accumulate);
+  ell_spmm_kernel<T, V>
+      <<<static_cast<unsigned>(tab.block0[tab.count]), kThreads, 0,
+         stream>>>(tab, idx, val, rows, pads, static_cast<const T*>(x),
+                   static_cast<T*>(out), part, vecs, group_log2, accumulate);
   return cudaGetLastError();
 }
 
@@ -215,44 +197,92 @@ int launch(Buckets tab, const int* idx, const float* val, const int* rows,
 extern "C" {
 
 // out [N, width] = the ELL product over the buckets of table (host, int64
-// [buckets, 3]: first row, width, first slot of each; total_rows rows in
-// all) of x [N, width], x and out float32 (bf16 == 0) or bfloat16
-// (bf16 == 1), contiguous; idx int32 and val float32 [slots], rows int32
-// [total_rows] (the node of each row). With accumulate == 1 each row's sum
-// is added to out's.
+// [buckets, 5]: first row, width, first slot, chunks and first partial row
+// of each; total_rows rows in all) of x [N, width], x and out float32
+// (bf16 == 0) or bfloat16 (bf16 == 1), contiguous; idx int32 and val
+// float32 [slots], rows int32 [total_rows] (the node of each row), pads
+// int32 [total_rows, 2] (the first pad slot and the pads of each row). The
+// rows of a bucket of more than one chunk are not written: their chunks'
+// f32 sums go to part [partial rows, width] (null when nothing is split).
+// With accumulate == 1 each written row's sum is added to out's.
 int ell_spmm(const void* idx, const void* val, const void* rows,
-             const void* x, void* out, const int64_t* table, int buckets,
-             int64_t total_rows, int64_t width, int bf16, int accumulate,
-             void* stream) {
+             const void* pads, const void* x, void* out, void* part,
+             const int64_t* table, int buckets, int64_t total_rows,
+             int64_t width, int bf16, int accumulate, void* stream) {
   if (buckets < 1 || buckets > kMaxBuckets || width <= 0 || total_rows < 0 ||
       (bf16 != 0 && bf16 != 1) || (accumulate != 0 && accumulate != 1))
     return cudaErrorInvalidValue;
-  Buckets tab = {};
-  tab.count = buckets;
+  const bool aligned =
+      aligned16(x) && aligned16(out) && (part == nullptr || aligned16(part));
+  const int V = bf16 ? (width % 8 == 0 && aligned ? 8 : 1)
+                     : (width % 4 == 0 && aligned ? 4 : 1);
+  const int64_t vecs = width / V;
+  int group_log2 = 0;  // lanes an item: the power of two >= vecs, up to 32
+  while ((int64_t(1) << group_log2) < vecs && group_log2 < 5) ++group_log2;
+  // the launch order: split buckets in table order, then the others from
+  // the widest down (ties in table order)
+  int order[kMaxBuckets];
+  int n = 0;
+  for (int b = 0; b < buckets; ++b)
+    if (table[5 * b + 3] > 1) order[n++] = b;
+  const int split = n;
   for (int b = 0; b < buckets; ++b) {
-    tab.row0[b] = table[3 * b];
-    tab.width[b] = static_cast<int>(table[3 * b + 1]);
-    tab.slot0[b] = table[3 * b + 2];
-    if (table[3 * b + 1] < 1 || table[3 * b + 1] > INT_MAX)
-      return cudaErrorInvalidValue;
+    if (table[5 * b + 3] > 1) continue;
+    int at = n++;
+    while (at > split && table[5 * order[at - 1] + 1] < table[5 * b + 1]) {
+      order[at] = order[at - 1];
+      --at;
+    }
+    order[at] = b;
   }
-  tab.row0[buckets] = total_rows;
+  Table tab = {};
+  tab.count = buckets;
+  int64_t blocks = 0;
+  for (int e = 0; e < buckets; ++e) {
+    const int b = order[e];
+    const int64_t* t = table + 5 * b;
+    const int64_t next = b + 1 < buckets ? table[5 * (b + 1)] : total_rows;
+    const int64_t k = t[1], chunks = t[3];
+    const int64_t items = (next - t[0]) * chunks;
+    // every row, slot, partial row and block is indexed in 32 bits
+    if (k < 1 || k > INT_MAX || chunks < 1 || chunks > k || items < 0 ||
+        items > INT_MAX || next > INT_MAX ||
+        t[2] + (next - t[0]) * k > INT_MAX ||
+        (chunks > 1 && (part == nullptr || t[4] < 0 ||
+                        t[4] + items > INT_MAX)))
+      return cudaErrorInvalidValue;
+    if (blocks > INT_MAX) return cudaErrorInvalidValue;
+    tab.block0[e] = static_cast<int>(blocks);
+    tab.row0[e] = static_cast<int>(t[0]);
+    tab.slot0[e] = static_cast<int>(t[2]);
+    tab.part0[e] = static_cast<int>(t[4]);
+    tab.items[e] = static_cast<int>(items);
+    tab.width[e] = static_cast<int>(k);
+    tab.chunks[e] = static_cast<int>(chunks);
+    tab.chunk[e] = static_cast<int>((k + chunks - 1) / chunks);
+    blocks += ((items << group_log2) + kThreads - 1) / kThreads;
+  }
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  tab.block0[buckets] = static_cast<int>(blocks);
+  if (blocks == 0) return cudaSuccess;
   auto* st = static_cast<cudaStream_t>(stream);
   const auto* ix = static_cast<const int*>(idx);
   const auto* vl = static_cast<const float*>(val);
   const auto* rw = static_cast<const int*>(rows);
-  const bool aligned = aligned16(x) && aligned16(out);
+  const auto* pd = static_cast<const int2*>(pads);
+  auto* pt = static_cast<float*>(part);
   if (bf16) {
-    if (width % 8 == 0 && aligned)
-      return launch<__nv_bfloat16, 8>(tab, ix, vl, rw, x, out, width / 8,
-                                      accumulate, st);
-    return launch<__nv_bfloat16, 1>(tab, ix, vl, rw, x, out, width,
-                                    accumulate, st);
+    if (V == 8)
+      return launch<__nv_bfloat16, 8>(tab, ix, vl, rw, pd, x, out, pt, vecs,
+                                      group_log2, accumulate, st);
+    return launch<__nv_bfloat16, 1>(tab, ix, vl, rw, pd, x, out, pt, vecs,
+                                    group_log2, accumulate, st);
   }
-  if (width % 4 == 0 && aligned)
-    return launch<float, 4>(tab, ix, vl, rw, x, out, width / 4, accumulate,
-                            st);
-  return launch<float, 1>(tab, ix, vl, rw, x, out, width, accumulate, st);
+  if (V == 4)
+    return launch<float, 4>(tab, ix, vl, rw, pd, x, out, pt, vecs,
+                            group_log2, accumulate, st);
+  return launch<float, 1>(tab, ix, vl, rw, pd, x, out, pt, vecs, group_log2,
+                          accumulate, st);
 }
 
 }  // extern "C"

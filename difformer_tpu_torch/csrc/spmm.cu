@@ -182,16 +182,17 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // out[heavy_rows[h]] = the sum of ws[seg_ptr[h]] .. ws[seg_ptr[h + 1] - 1],
-// in segment order, in f32, stored as T; a group of 2^group_log2 lanes per
-// heavy row, for the first counts[0] heavy rows when counts is given, else
-// the first heavy.
+// in segment order, in f32, added to out's value under accumulate, stored
+// as T; a group of 2^group_log2 lanes per heavy row, for the first
+// counts[0] heavy rows when counts is given, else the first heavy. K6
+// (ell.cu) sums its split rows' chunks with it too.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     csr_spmm_combine(const int* __restrict__ heavy_rows,
                      const int* __restrict__ seg_ptr,
                      const float* __restrict__ ws, T* __restrict__ out,
                      int64_t heavy, int64_t vecs, int group_log2,
-                     const int* __restrict__ counts) {
+                     const int* __restrict__ counts, int accumulate) {
   const int64_t h =
       (int64_t(blockIdx.x) * kThreads + threadIdx.x) >> group_log2;
   if (h >= (counts ? int64_t(__ldg(counts)) : heavy)) return;
@@ -209,6 +210,12 @@ __global__ void __launch_bounds__(kThreads)
       Pack<float, V>::load(ws + (s * vecs + c) * V, part);
 #pragma unroll
       for (int v = 0; v < V; ++v) acc[v] += part[v];
+    }
+    if (accumulate) {
+      float old[V];
+      Pack<T, V>::load(dst + c * V, old);
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = old[v] + acc[v];
     }
     Pack<T, V>::store(dst + c * V, acc);
   }
@@ -256,6 +263,22 @@ int64_t blocks_for(int64_t items, int group_log2) {
   return ((items << group_log2) + kThreads - 1) / kThreads;
 }
 
+// csr_spmm_combine over heavy rows (counts: see the kernel) of vecs packs
+template <typename T, int V>
+int launch_combine(const int* heavy_rows, const int* seg_ptr,
+                   const float* ws, void* out, int64_t heavy, int64_t vecs,
+                   const int* counts, int accumulate, cudaStream_t stream) {
+  int group_log2 = 0;  // lanes per row: the power of two >= vecs, up to 32
+  while ((int64_t(1) << group_log2) < vecs && group_log2 < 5) ++group_log2;
+  const int64_t blocks = blocks_for(heavy, group_log2);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  csr_spmm_combine<T, V><<<static_cast<unsigned>(blocks), kThreads, 0,
+                           stream>>>(heavy_rows, seg_ptr, ws,
+                                     static_cast<T*>(out), heavy, vecs,
+                                     group_log2, counts, accumulate);
+  return cudaGetLastError();
+}
+
 // vecs packs of V values of T a row
 template <typename T, int V>
 int launch(const int* row_ptr, const int* col, const float* val,
@@ -277,11 +300,8 @@ int launch(const int* row_ptr, const int* col, const float* val,
   if (heavy == 0) return cudaGetLastError();
   const int rc = cudaGetLastError();
   if (rc != cudaSuccess) return rc;
-  csr_spmm_combine<T, V>
-      <<<static_cast<unsigned>(blocks_for(heavy, group_log2)), kThreads, 0,
-         stream>>>(heavy_rows, seg_ptr, ws, static_cast<T*>(out), heavy,
-                   vecs, group_log2, counts);
-  return cudaGetLastError();
+  return launch_combine<T, V>(heavy_rows, seg_ptr, ws, out, heavy, vecs,
+                              counts, 0, stream);
 }
 
 }  // namespace
@@ -331,6 +351,40 @@ int csr_spmm(const void* row_ptr, const void* col, const void* val,
                             hr, sp, sb, se, heavy, segments, ct, w, st);
   return launch<float, 1>(rp, cl, vl, x, out, rows, width, threshold, hr, sp,
                           sb, se, heavy, segments, ct, w, st);
+}
+
+// The combine alone: out[heavy_rows[h]] (+)= the sum, in order, of the
+// float32 rows ws[seg_ptr[h]] .. ws[seg_ptr[h + 1] - 1] of ws [*, width],
+// for h < heavy, rounded once to out's type (float32, bf16 == 0, or
+// bfloat16, bf16 == 1); with accumulate == 1 added to out's value. K6's
+// split rows (ell.cu) are finished by it. Nothing is launched for
+// heavy == 0.
+int csr_spmm_combine_rows(const void* heavy_rows, const void* seg_ptr,
+                          const void* ws, void* out, int64_t heavy,
+                          int64_t width, int bf16, int accumulate,
+                          void* stream) {
+  if (heavy < 0 || width <= 0 || heavy > (int64_t(1) << 40) ||
+      (bf16 != 0 && bf16 != 1) || (accumulate != 0 && accumulate != 1))
+    return cudaErrorInvalidValue;
+  if (heavy == 0) return cudaSuccess;
+  auto* st = static_cast<cudaStream_t>(stream);
+  const auto* hr = static_cast<const int*>(heavy_rows);
+  const auto* sp = static_cast<const int*>(seg_ptr);
+  const auto* w = static_cast<const float*>(ws);
+  const bool aligned = aligned16(ws) && aligned16(out);
+  if (bf16) {
+    if (width % 8 == 0 && aligned)
+      return launch_combine<__nv_bfloat16, 8>(hr, sp, w, out, heavy,
+                                              width / 8, nullptr, accumulate,
+                                              st);
+    return launch_combine<__nv_bfloat16, 1>(hr, sp, w, out, heavy, width,
+                                            nullptr, accumulate, st);
+  }
+  if (width % 4 == 0 && aligned)
+    return launch_combine<float, 4>(hr, sp, w, out, heavy, width / 4,
+                                    nullptr, accumulate, st);
+  return launch_combine<float, 1>(hr, sp, w, out, heavy, width, nullptr,
+                                  accumulate, st);
 }
 
 // dval [edges] = the gradient of K1's output with respect to its values:

@@ -47,9 +47,11 @@ SIGNATURES = {
         "csr_spmm": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P,
                      _P, _I64, _I64, _P, _P, _P],
         "csr_spmm_dval": [_P, _P, _P, _P, _P, _I64, _I64, _P],
+        "csr_spmm_combine_rows": [_P, _P, _P, _P, _I64, _I64, _I, _I, _P],
     },
     "ell.cu": {
-        "ell_spmm": [_P, _P, _P, _P, _P, _P, _I, _I64, _I64, _I, _I, _P],
+        "ell_spmm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I64, _I64, _I, _I,
+                     _P],
     },
     "bsr.cu": {
         "bsr_spmm": [_P, _I64, _P, _P, _I64, _P, _I64, _I64, _I, _I, _I, _I,

@@ -17,7 +17,11 @@ one row after the other, bucket by bucket), the node of every row
 (``rows``, the inverse of ``inv_perm``) and, on the host, each bucket's
 first row, width and first slot (``table``): K6 computes every bucket of a
 direction in one launch and writes each row straight to its node, so the
-inverse-permutation gather of the JAX package is not needed.
+inverse-permutation gather of the JAX package is not needed. Built with the
+layout on the host, beside those arrays, for K6 alone: each row's run of
+padded slots (``pads``), which K6 skips, and the split plan of its hub
+buckets (``split``, ``kernels/ell.py`` ``build_split``; another threshold
+by :meth:`EllGraph.with_split`).
 ``nbr_idx`` and ``weight`` give the JAX package's per-bucket tables as
 views. :func:`ell_spmm` is an autograd Function whose backward applies the
 reverse direction (the values are data and get no gradient, as in JAX);
@@ -35,7 +39,8 @@ import numpy as np
 import torch
 
 from difformer_tpu_torch import native
-from difformer_tpu_torch.kernels.ell import ell_spmm_rows
+from difformer_tpu_torch.kernels.ell import (EllSplit, build_split,
+                                             ell_spmm_rows)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,13 +50,18 @@ class EllGraph:
 
     ``table`` (int64 [B, 3], on the host) holds each bucket's first row,
     width and first slot; a bucket's rows are consecutive, and so are its
-    slots, ``width`` a row."""
+    slots, ``width`` a row. A row's slots are sorted by neighbour index, so
+    its padding (index 0, weight 0) is one run after its real edges to node
+    0: ``pads[r]`` = (its first slot, its length). ``split`` is K6's plan
+    for the buckets wider than its threshold."""
 
     idx: torch.Tensor        # int32 [slots]
     val: torch.Tensor        # float32 [slots]
     rows: torch.Tensor       # int32 [N]: the node of each row
     inv_perm: torch.Tensor   # int32 [N]: the row of each node
     table: np.ndarray        # int64 [B, 3]
+    pads: torch.Tensor       # int32 [N, 2]: first pad slot, pads, a row
+    split: EllSplit
     num_nodes: int = 0
 
     @property
@@ -81,7 +91,13 @@ class EllGraph:
     def to(self, device) -> "EllGraph":
         return dataclasses.replace(
             self, idx=self.idx.to(device), val=self.val.to(device),
-            rows=self.rows.to(device), inv_perm=self.inv_perm.to(device))
+            rows=self.rows.to(device), inv_perm=self.inv_perm.to(device),
+            pads=self.pads.to(device), split=self.split.to(device))
+
+    def with_split(self, threshold) -> "EllGraph":
+        """This layout with K6's split plan at ``threshold`` slots."""
+        return dataclasses.replace(
+            self, split=build_split(self.table, self.rows, threshold))
 
 
 def _gcn_values(senders, receivers, num_nodes, edge_weight):
@@ -137,7 +153,7 @@ def _build_direction(point_to, owner, values, num_nodes, *,
 
     ks = _adaptive_ks(counts, min_bucket=min_bucket)
     bucket_of = np.searchsorted(np.asarray(ks), np.maximum(counts, 1))
-    idx_parts, w_parts, node_lists, table = [], [], [], []
+    idx_parts, w_parts, pad_parts, node_lists, table = [], [], [], [], []
     row = slot = 0
     for bi, kb in enumerate(ks):
         nodes = np.where(bucket_of == bi)[0]
@@ -150,20 +166,28 @@ def _build_direction(point_to, owner, values, num_nodes, *,
         idx, w = native.ell_fill(nodes, kb, indptr, point_s, val_s)
         # each row's neighbours by index, as the JAX package sorts them
         order2 = np.argsort(idx, axis=1, kind="stable")
-        idx_parts.append(np.take_along_axis(idx, order2, axis=1).reshape(-1))
+        idx = np.take_along_axis(idx, order2, axis=1)
+        idx_parts.append(idx.reshape(-1))
         w_parts.append(np.take_along_axis(w, order2, axis=1).reshape(-1))
+        # the padding (index 0) follows the row's real edges to node 0 in
+        # the stable order
+        pad = np.maximum(kb - counts[nodes], 0)
+        pad_parts.append(np.stack([(idx == 0).sum(1) - pad, pad], 1))
 
     concat_order = np.concatenate(node_lists).astype(np.int64)
     inv_perm = np.empty(num_nodes, np.int64)
     inv_perm[concat_order] = np.arange(num_nodes)
     flat = lambda parts, dt: torch.from_numpy(  # noqa: E731
         np.concatenate(parts) if parts else np.zeros(0, dt))
+    rows = torch.from_numpy(concat_order.astype(np.int32))
+    table = np.asarray(table, np.int64).reshape(-1, 3)
+    pads = (np.concatenate(pad_parts) if pad_parts
+            else np.zeros((0, 2), np.int64))
     return EllGraph(
         idx=flat(idx_parts, np.int32), val=flat(w_parts, np.float32),
-        rows=torch.from_numpy(concat_order.astype(np.int32)),
-        inv_perm=torch.from_numpy(inv_perm.astype(np.int32)),
-        table=np.asarray(table, np.int64).reshape(-1, 3),
-        num_nodes=num_nodes)
+        rows=rows, inv_perm=torch.from_numpy(inv_perm.astype(np.int32)),
+        table=table, pads=torch.from_numpy(pads.astype(np.int32)),
+        split=build_split(table, rows), num_nodes=num_nodes)
 
 
 def build_ell_gcn(senders, receivers, num_nodes, edge_weight=None):

@@ -17,12 +17,15 @@ card against the CPU, its graph fits against the loop, BatchNorm's
 statistics across the capture, and K1-dval (``-k dval``) alone and through
 ``spmm``'s value gradient. The sparse layouts (``-k "ell or bsr"``): K6 and
 K7 against their plain versions under the "spmm" rule, one kernel a call
-(K7: two where its split plan cuts a hub row tile, the second its combine),
-two calls bit-equal, K7 at every width, tile and block type, on a split hub
+(two where a split plan cuts K6's hub bucket or K7's hub row tile, the
+second its combine), two calls bit-equal, K6's split hub captured and
+replayed, its padding never read, K7 at every width, tile and block type, on a split hub
 bucket and on strided x, and the epoch-block fit on each layout bit-equal to
 the loop; the graph-level capture repeated while the packing threads allocate
 (``-k repeated``).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -695,7 +698,7 @@ def test_epoch_block_fit_matches_the_loop_on_the_card(cuda, kernel):
         "sigmoid_attention_dkv": layers * steps * attention,
         "csr_spmm": layers * (steps + evals),
         "csr_spmm_transposed": layers * steps,
-        "ell_spmm": 0, "ell_spmm_transposed": 0,
+        "ell_spmm": 0, "ell_spmm_transposed": 0, "ell_spmm_combine": 0,
         "bsr_spmm": 0, "bsr_spmm_transposed": 0, "bsr_spmm_combine": 0}
 
 
@@ -924,7 +927,8 @@ def test_wide_dq_split_chunk_fully_masked(cuda, dtype):
 def test_cli_runs_on_the_card(cuda, tmp_path):
     """The command line with its default device, the card: a synthetic
     graph with the sigmoid kernel at hidden 300 (the wide path), K2-K4 and
-    the default ELL layout's K6 launched, K1 not."""
+    the default ELL layout's K6 launched (no bucket of this graph is
+    split), K1 not."""
     from difformer_tpu_torch import cli
     from difformer_tpu_torch.kernels import ell as K6
     from difformer_tpu_torch.kernels import spmm as K1
@@ -938,7 +942,7 @@ def test_cli_runs_on_the_card(cuda, tmp_path):
                     "--data_dir", str(tmp_path)])
     assert res[0]["test"] >= 0.8, res  # 0.99 on the CPU
     assert all(K.LAUNCHES[name] > 0 for name in K.LAUNCHES)
-    assert all(K6.LAUNCHES[name] > 0 for name in K6.LAUNCHES)
+    assert K6.LAUNCHES["ell_spmm"] > 0 and K6.LAUNCHES["ell_spmm_transposed"]
     assert not any(K1.LAUNCHES.values())
 
 
@@ -1559,8 +1563,9 @@ def _layout_graph(kind, n=3000, e=40000, seed=4):
 @pytest.mark.parametrize("kind", ["clustered", "hub"])
 def test_ell_kernel_matches_plain(cuda, kind, width, dtype):
     """K6 over both directions against its plain version (with and
-    without ``add_to``): the "spmm" rule, one launch counted, two calls
-    bit-equal; the hub graph has a bucket wider than HEAVY_WIDTH."""
+    without ``add_to``): the "spmm" rule, one launch counted, or two where
+    the plan splits a bucket (the combine), two calls bit-equal; the hub
+    graph has a bucket wider than SPLIT_THRESHOLD."""
     from difformer_tpu_torch.kernels import ell as K6
     from difformer_tpu_torch.ops.ell import build_ell_gcn
 
@@ -1570,12 +1575,15 @@ def test_ell_kernel_matches_plain(cuda, kind, width, dtype):
                     generator=torch.Generator(cuda).manual_seed(1)).to(dtype)
     base = torch.randn((n, width), device=cuda).to(dtype)
     fwd, rev = (d.to(cuda) for d in build_ell_gcn(s, r, n))
-    if kind == "hub":  # the hub's in-edges: a bucket a block a row
-        assert max(fwd.bucket_sizes) > K6.HEAVY_WIDTH
+    if kind == "hub":  # the hub's in-edges: a split bucket
+        assert max(fwd.bucket_sizes) > K6.SPLIT_THRESHOLD
+        assert fwd.split.partials > 0
     for ell in (fwd, rev):
         K6.reset_launch_counts()
         got = K6.ell_spmm_rows(x, ell)
-        assert K6.LAUNCHES == {"ell_spmm": 1, "ell_spmm_transposed": 0}
+        assert K6.LAUNCHES == {"ell_spmm": 1, "ell_spmm_transposed": 0,
+                               "ell_spmm_combine": int(ell.split.partials
+                                                       > 0)}
         assert torch.equal(got, K6.ell_spmm_rows(x, ell))
         scale = K6.ell_spmm_abs(x, ell)
         assert_close("K6", got, K6.ell_spmm_plain(x, ell), "spmm",
@@ -1584,6 +1592,98 @@ def test_ell_kernel_matches_plain(cuda, kind, width, dtype):
         assert_close("K6 add_to", added,
                      K6.ell_spmm_plain(x, ell, add_to=base), "spmm",
                      scale=scale + base.float().abs())
+
+
+def _hub_layout(cuda):
+    """The hub graph's ELL pair on the card, with node 0's only edges to
+    node 7 (one) and node 9 (two): real index-0 slots in front of the
+    padding of their rows."""
+    from difformer_tpu_torch.ops.ell import build_ell_gcn
+
+    s, r = _layout_graph("hub")
+    keep = s != 0
+    s = np.concatenate([s[keep], [0, 0, 0]])
+    r = np.concatenate([r[keep], [7, 9, 9]])
+    return [d.to(cuda) for d in build_ell_gcn(s, r, 3000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [64, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [8, 64, 65])
+def test_ell_split_hub_on_the_card(cuda, width, dtype, threshold):
+    """A split hub bucket: K6's kernel alone against its plain version (the
+    unsplit rows and the chunks' partial sums over the real slots), the
+    combine alone bit-equal to its plain version (the same f32 adds in
+    chunk order), the whole product with and without ``add_to`` under the
+    "spmm" rule; two calls bit-equal; a call captured in a CUDA graph and
+    replayed bit-equal to the eager call. Rows 7 and 9 start their padding
+    after real edges to node 0. The reverse direction has no hub: it is
+    split at T = 16, every row of it."""
+    from difformer_tpu_torch.kernels import ell as K6
+
+    fwd, rev = _hub_layout(cuda)
+    fwd, rev = fwd.with_split(threshold), rev.with_split(16)
+    row = fwd.inv_perm.cpu()
+    assert fwd.pads[row[7], 0].item() == 1
+    assert fwd.pads[row[9], 0].item() == 2
+    gen = torch.Generator(cuda).manual_seed(width)
+    x = torch.randn((3000, width), device=cuda, generator=gen).to(dtype)
+    base = torch.randn((3000, width), device=cuda, generator=gen).to(dtype)
+    for ell in (fwd, rev):
+        assert ell.split.partials > 0
+        out, partial = K6.ell_spmm_split(x, ell, add_to=base.clone())
+        ref_out, ref_partial = K6.ell_spmm_split_plain(x, ell, base)
+        assert_close("K6 partials", partial, ref_partial, "spmm",
+                     scale=K6.ell_spmm_split_plain(
+                         x.abs(), dataclasses.replace(
+                             ell, val=ell.val.abs()))[1])
+        unsplit = torch.ones(3000, dtype=torch.bool, device=cuda)
+        unsplit[ell.split.rows.long()] = False
+        scale = K6.ell_spmm_abs(x, ell).float() + base.float().abs()
+        assert_close("K6 unsplit rows", out[unsplit], ref_out[unsplit],
+                     "spmm", scale=scale[unsplit])
+        assert torch.equal(out[~unsplit], base[~unsplit])
+        combined = K6.ell_spmm_combine(partial, out.clone(), ell,
+                                       accumulate=True)
+        assert torch.equal(combined, K6.ell_spmm_combine_plain(
+            partial, out, ell, accumulate=True))
+        K6.reset_launch_counts()
+        got = K6.ell_spmm_rows(x, ell)
+        assert K6.LAUNCHES == {"ell_spmm": 1, "ell_spmm_transposed": 0,
+                               "ell_spmm_combine": 1}
+        assert_close("K6", got, K6.ell_spmm_plain(x, ell), "spmm",
+                     scale=K6.ell_spmm_abs(x, ell))
+        assert torch.equal(got, K6.ell_spmm_rows(x, ell))
+        added = K6.ell_spmm_rows(x, ell, add_to=base.clone())
+        assert_close("K6 add_to", added,
+                     K6.ell_spmm_plain(x, ell, add_to=base), "spmm",
+                     scale=scale)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = K6.ell_spmm_rows(x, ell)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, got)
+
+
+@pytest.mark.cuda
+def test_ell_skips_the_padding_on_the_card(cuda):
+    """A NaN in x[0] reaches only the rows with a real edge to node 0: the
+    padding's x[0] is never read (ROADMAP.md queue C)."""
+    from difformer_tpu_torch.kernels import ell as K6
+
+    fwd, _ = _hub_layout(cuda)
+    x = torch.ones((3000, 8), device=cuda)
+    x[0] = float("nan")
+    got = K6.ell_spmm_rows(x, fwd)
+    hit = torch.zeros(3000, dtype=torch.bool, device=cuda)
+    for (r0, _, _), nbr, real in zip(fwd.table, fwd.nbr_idx,
+                                     K6.real_slots(fwd)):
+        hit[fwd.rows[r0:r0 + nbr.shape[0]].long()] = ((nbr == 0)
+                                                      & real).any(1)
+    assert hit[7] and hit[9]
+    assert torch.isnan(got[hit]).all() and torch.isfinite(got[~hit]).all()
 
 
 @pytest.mark.cuda

@@ -117,14 +117,14 @@ def test_ell_matches_gcn_conv(shape):
 
 def test_ell_skewed_degrees():
     """One hub node with a huge in-degree (a bucket wider than K6's
-    HEAVY_WIDTH)."""
+    SPLIT_THRESHOLD, which K6 splits)."""
     rng = np.random.default_rng(4)
     n = 40
     s = np.concatenate([rng.integers(0, n, 500), rng.integers(0, n, 30)])
     r = np.concatenate([np.zeros(500, np.int64), rng.integers(1, n, 30)])
     x = rng.normal(size=(n, 1, 4)).astype(np.float32)
     fwd, rev = E.build_ell_gcn(s, r, n)
-    assert max(fwd.bucket_sizes) > K6.HEAVY_WIDTH
+    assert max(fwd.bucket_sizes) > K6.SPLIT_THRESHOLD
     got = E.gcn_conv_ell(torch.from_numpy(x), fwd, rev)
     np.testing.assert_allclose(got.numpy(), _jax_ref(x, s, r), **TOL)
 

@@ -1,11 +1,13 @@
 """Time the port's kernels alone on one GPU: the flash sigmoid attention
-(K2 fwd, K3 dq, K4 dkv), the CSR SpMM (K1, spmm) and its value gradient
-(K1-dval, dval).
+(K2 fwd, K3 dq, K4 dkv), the CSR SpMM (K1, spmm), its value gradient
+(K1-dval, dval) and the ELL SpMM (K6, ell).
 
-    python3 time_kernels.py [--kernel fwd dq dkv spmm dval]
+    python3 time_kernels.py [--kernel fwd dq dkv spmm dval ell]
                             [--blocks-per-sm 1 2 4]
                             [--wide] [--root DIR]
     python3 time_kernels.py --kernel spmm --reorder rcm degree
+    python3 time_kernels.py --kernel ell [--ell-threshold 256 384 0]
+                            [--ell-pads]
     python3 time_kernels.py --builds [ROUNDS]
 
 Builds the kernels, prints the compiler's register and spill report, then
@@ -32,7 +34,16 @@ by each ``locality_reorder`` method given (on the host, timed), at hidden
 L2, against the gather floor and the byte bound. With ``dval`` chosen,
 K1-dval at ``chip_smoke.dval_shapes()`` (``chip_smoke.phase_dval_kernels``:
 checked, timed by CUDA-graph replay beside ``sampled_addmm``, its bound and
-its gather floor). ``--root`` times the package of another checkout instead (one
+its gather floor). With ``ell`` chosen, K6 forward and transposed on
+bench.py's three graphs (``chip_smoke.bench_graph``, W = 64, f32 and
+bf16): checked against its plain version under the "spmm" rule, its device
+time by CUDA-graph replay (``chip_smoke.replay_ms``) and device kernels a
+call beside cuSPARSE's CSR product, its byte bound and its gather floor;
+at f32, each split threshold T of ``--ell-threshold`` (0: none) and,
+with ``--ell-pads``, the padded slots summed as real ones, each a variant
+of the package's own layout (a package without split or pads, e.g. with
+``--root``, times its own kernel only).
+``--root`` times the package of another checkout instead (one
 without a split, or with K2's only, times its own grid; shapes, bounds and
 timers stay this checkout's), so two versions can be compared on one card
 in one call. Last, two yardsticks: the SM clock and power that
@@ -62,7 +73,7 @@ from pathlib import Path
 
 KERNELS = {"fwd": "sigmoid_attention_fwd", "dq": "sigmoid_attention_dq",
            "dkv": "sigmoid_attention_dkv", "spmm": "csr_spmm",
-           "dval": "csr_spmm_dval"}
+           "dval": "csr_spmm_dval", "ell": "ell_spmm"}
 # the module constant each kernel's split rule reads (the wide path's is
 # WIDE_BLOCKS_PER_SM, one number for all three before it became a dict by
 # wrapper)
@@ -361,12 +372,96 @@ def time_spmm(cs, thresholds, shapes=None):
     return last
 
 
+def ell_variants(ell, thresholds, pads):
+    """(label, layout) of each K6 variant to time: the package's own, then
+    each split threshold T (0: no split) and, with ``pads``, the padding
+    summed as real slots, where the package's layout has them."""
+    import dataclasses
+
+    import torch
+
+    yield "own", ell
+    if hasattr(ell, "with_split"):
+        for t in thresholds:
+            yield (f"T={t or 'none'}",
+                   ell.with_split(t or int(ell.table[:, 1].max())))
+    if pads and hasattr(ell, "pads"):
+        # no row pads: every slot summed, the padding's x[0] times 0
+        yield "pads summed", dataclasses.replace(
+            ell, pads=torch.zeros_like(ell.pads))
+
+
+def time_ell(cs, thresholds, pads):
+    """K6 forward and transposed on bench.py's three graphs at W = 64, f32
+    (with the variants of :func:`ell_variants`) and bf16; returns the last
+    call timed."""
+    import torch
+
+    from difformer_tpu_torch.kernels import ell as K6
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+    from difformer_tpu_torch.ops.ell import build_ell_gcn
+    from difformer_tpu_torch.ops.graph_ops import build_csr_plan
+
+    cs.say(f"time_kernels: package {Path(K6.__file__).resolve()}")
+    n = cs.BENCH_NODES
+    for kind in cs.BENCH_GRAPHS:
+        x32, s, r = cs.bench_graph(kind)
+        fwd, rev = (d.to("cuda") for d in build_ell_gcn(s, r, n))
+        plan = build_csr_plan(torch.as_tensor(s, device="cuda"),
+                              torch.as_tensor(r, device="cuda"), n)
+        csrs = ((plan.row_ptr, plan.col, plan.val),
+                (plan.t_row_ptr, plan.t_col, plan.t_val))
+        e = s.size
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.as_tensor(x32, device="cuda").to(dtype)
+            w, elem = x.shape[1], x.element_size()
+            bound = cs.ell_bound_ms(n, e, w, elem)[0]
+            floor = cs.ell_gather_floor_ms(n, e, w, elem)
+            for name, ell, csr in zip(cs.ELL_PATH, (fwd, rev), csrs):
+                transposed = name.endswith("transposed")
+                tag = f"{name} {kind} W={w} {str(dtype).split('.')[-1]}"
+                ref, scale = K6.ell_spmm_plain(x, ell), K6.ell_spmm_abs(x,
+                                                                        ell)
+                library = cs.library_spmm(*csr, n, dtype)
+                library_ms = cs.device_ms(lambda: library(x))
+                variants = (ell_variants(ell, thresholds, pads)
+                            if dtype == torch.float32 else [("own", ell)])
+                for label, layout in variants:
+                    call = lambda: K6.ell_spmm_rows(  # noqa: E731
+                        x, layout, transposed=transposed)
+                    err = assert_close(f"{tag} {label}", call(), ref,
+                                       "spmm", scale=scale)
+                    ms = cs.replay_ms(call)
+                    kernels = cs.graph_kernels(call)[0]
+                    split = getattr(layout, "split", None)
+                    shape = ("" if split is None else
+                             f"T={split.threshold}, {split.partials} "
+                             f"partial rows, ")
+                    cs.say(f"time_kernels: {tag:40s} {label:12s} | {shape}"
+                           f"{ms:.4f} ms, {kernels} device kernels a call | "
+                           f"cuSPARSE {library_ms:.4f} ms | bound "
+                           f"{bound:.4f} ms ({100 * bound / ms:.1f}%) | "
+                           f"gather floor {floor:.4f} ms "
+                           f"({100 * floor / ms:.1f}%) | max_abs_err "
+                           f"{err:.3e}")
+                last = tag, lambda: K6.ell_spmm_rows(x, ell,
+                                                     transposed=transposed)
+                del ref, scale, library
+        del fwd, rev, plan
+        torch.cuda.empty_cache()
+    return last
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernel", nargs="+", choices=sorted(KERNELS),
                         default=list(KERNELS))
     parser.add_argument("--blocks-per-sm", type=int, nargs="*", default=[])
     parser.add_argument("--spmm-threshold", type=int, nargs="*", default=[])
+    parser.add_argument("--ell-threshold", type=int, nargs="*", default=[],
+                        help="K6 split thresholds to time (0: no split)")
+    parser.add_argument("--ell-pads", action="store_true",
+                        help="also time K6 with the padding summed")
     parser.add_argument("--reorder", nargs="+", default=[],
                         choices=("rcm", "bfs", "degree", "community"))
     parser.add_argument("--wide", action="store_true")
@@ -384,7 +479,7 @@ def main():
 
     smi = cs.phase_device()
     cs.phase_build()
-    attention = [k for k in args.kernel if k not in ("spmm", "dval")]
+    attention = [k for k in args.kernel if k not in ("spmm", "dval", "ell")]
     call = None
     if attention:
         label, call = time_attention(cs, attention, args.blocks_per_sm,
@@ -395,6 +490,8 @@ def main():
         label, call = time_spmm(cs, args.spmm_threshold, shapes)
     if "dval" in args.kernel:
         cs.phase_dval_kernels()
+    if "ell" in args.kernel:
+        label, call = time_ell(cs, args.ell_threshold, args.ell_pads)
     if call is not None:
         mhz, watts = sample_clocks(call)
         cs.say(f"time_kernels: {label} under load: SM clock {mhz} MHz, "
