@@ -24,11 +24,14 @@ non-zero before the last line:
    device kernels a call are counted in the CUDA graph of one call. Each
    with its time, its bound (x and out at the type's bytes) and (K1) the
    gather floor. Then K1-dval, the gradient of K1 with respect to its edge
-   values (GAT's attention), at GAT's plans on the slice's graph (W = 64)
-   and on cifar10's kNN graph (W = 300) and at Pokec's size with power-law
-   degrees (W = 64): against its plain version, one device kernel a call,
-   two calls bit-equal, timed by CUDA-graph replay beside its bound, its
-   gather floor and ``torch.sparse.sampled_addmm``'s time.
+   values (GAT's attention), every head in one call, at GAT's plans on the
+   slice's graph (one head and two heads of 64) and on cifar10's kNN graph
+   (W = 300), at Pokec's size with power-law degrees (W = 64) and on a
+   graph with a hub row far above K1's split threshold (two heads of 64):
+   against its plain version, shown to fail a wrong output, one device
+   kernel a call, two calls bit-equal, timed by CUDA-graph replay beside
+   its bound, its x-gather floor and ``torch.sparse.sampled_addmm``'s time
+   (a call a head, summed).
 4. slice: the cora preset as DIFFormer-a (hidden 64, 8 layers, 1 head) on a
    synthetic graph of Cora's size, trained with ``FullBatchTrainer.fit``;
    checks the losses, that every kernel ran as often as the path needs, and
@@ -76,7 +79,8 @@ non-zero before the last line:
    clustered graph at T = 256 with f32, bf16 and int8-count blocks, at
    T = 128, and at W = 65 and 300, f32 and bf16 x, and on the
    degree-sorted power-law graph's bucketed int8 layout (its hub row tile
-   split, and the combine kernel alone on its partials); each beside its
+   split, and the combine kernel alone on its partials, at W = 64, 65 and
+   300 and at bf16, beside torch.sum's time for its sums); each beside its
    bound (K7: FP32 and tensor cores), its plain version and cuSPARSE (CSR
    for K6, BSR for K7, the count scale folded in); each layout's
    device footprint; and this card's cost model (``ops/bsr.py``
@@ -119,7 +123,8 @@ non-zero before the last line:
    one's test metric, fit ms per epoch and peak memory, its kernels (K1 in
    both directions for the trained graph models, K1's forward alone for
    label propagation, none for the MLPs, K1-dval for GAT and GATJK and no
-   other); GCN and GAT again through the per-epoch loop, held against their
+   other; K1-dval once a GAT layer in a captured train step, whatever its
+   heads); GCN and GAT again through the per-epoch loop, held against their
    graph fits (best epoch, losses and metrics within rtol 1e-5).
 13. zoo-cifar10: GCN and GAT (2 heads) on the cifar10 preset (hidden 300,
    2 layers, the set track's kNN graph) on the stand-in embeddings, cut to
@@ -242,8 +247,8 @@ DVAL_NAME = "csr_spmm_dval"
 DVAL_REPLACES = "difformer_tpu/nn/gnns.py:183"
 # the K1-dval shapes of the JSON line, by label, with the suffix of their
 # names
-DVAL_JSON = {"cora": "", "cifar10": " cifar10",
-             "pokec power-law": " pokec power-law"}
+DVAL_JSON = {"cora": "", "cora h2": " cora h2", "cifar10": " cifar10",
+             "pokec power-law": " pokec power-law", "hub": " hub"}
 # the K1 shapes of the JSON line, by label, with the suffix of their names
 SPMM_JSON = {"cora": "", "pokec": " pokec",
              "pokec power-law": " pokec power-law"}
@@ -468,8 +473,20 @@ def phase_build():
             spills = line.split("bytes spill stores")[0].split(",")[-1].strip()
         wide = re.search(r"(sigattn_\w+_wide_kernel)I(f|13__nv_bfloat16)",
                          line)
+        # K1-dval's <V, P, U> and the K7 combine's <type, V> instances
+        dval = re.search(r"csr_spmm_dval_kernelILi(\d)ELi(\d)ELi(\d)E",
+                         line)
+        combine = re.search(r"bsr_combine_kernelI(f|13__nv_bfloat16)Li(\d)E",
+                            line)
         if wide:
             name = f"{wide[1]}<{'float' if wide[2] == 'f' else 'bf16'}>"
+        elif dval:
+            name = (f"csr_spmm_dval_kernel<V={dval[1]}, P={dval[2]}, "
+                    f"U={dval[3]}>")
+        elif combine:
+            name = (f"bsr_combine_kernel<"
+                    f"{'float' if combine[1] == 'f' else 'bf16'}, "
+                    f"V={combine[2]}>")
         elif "registers" in line and name:
             registers = line.split("Used")[1].split("registers")[0].strip()
             say(f"phase build: {name}: {registers} registers, {spills} "
@@ -868,83 +885,126 @@ def knn_plan_standin(n=CIFAR10_NODES, k=5):
 
 
 def dval_shapes():
-    """(label, plan, W, plain edge chunk) of K1-dval, one at a time: GAT's
-    plans (the edges with a self-loop on every node, receiver order) on the
-    slice's graph of Cora's size at a head's width of the cora preset (64)
-    and on the set track's kNN graph of cifar10's stand-in at the cifar10
-    preset's (300); and the power-law graph of Pokec's size at W = 64."""
+    """(label, plan, H, D, plain edge chunk) of K1-dval, one at a time:
+    GAT's plans (the edges with a self-loop on every node, receiver order)
+    on the slice's graph of Cora's size at a head's width of the cora
+    preset (64), one head and the zoo's 2 heads in one call, and on the set
+    track's kNN graph of cifar10's stand-in at the cifar10 preset's (300);
+    the power-law graph of Pokec's size at W = 64; and a graph with a hub
+    row of 30 % of its 2 M edges, far above K1's split threshold, at 2
+    heads of 64. Each plan's values take a gradient (``value_grad``; a
+    package from before that flag, timed by ``time_kernels.py --root``,
+    builds every plan so)."""
+    import inspect
+
     from difformer_tpu_torch.nn.gnns import gat_plan
     from difformer_tpu_torch.ops.graph_ops import build_spmm_plan
 
+    kw = ({"value_grad": True} if "value_grad" in
+          inspect.signature(build_spmm_plan).parameters else {})
     t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
     _, ei, _ = cora_graph()
-    yield "cora", gat_plan(t(ei[0]), t(ei[1]), 2708).plan, 64, None
+    plan = gat_plan(t(ei[0]), t(ei[1]), 2708).plan
+    yield "cora", plan, 1, 64, None
+    yield "cora h2", plan, 2, 64, None
     ei = knn_plan_standin()
     yield ("cifar10", gat_plan(t(ei[0]), t(ei[1]), CIFAR10_NODES).plan,
-           300, None)
+           1, 300, None)
     g = torch.Generator("cuda").manual_seed(12)
     n, e = POKEC_NODES, POKEC_EDGES
     plan = build_spmm_plan(None, power_law_nodes(n, e, g),
-                           power_law_nodes(n, e, g), n)
-    yield "pokec power-law", plan, 64, PLAIN_EDGE_CHUNK
+                           power_law_nodes(n, e, g), n, **kw)
+    yield "pokec power-law", plan, 1, 64, PLAIN_EDGE_CHUNK
+    del plan
+    n, e = 200_000, 2_000_000
+    senders = torch.randint(0, n, (e,), device="cuda", generator=g)
+    receivers = torch.where(
+        torch.rand(e, device="cuda", generator=g) < 0.3, 7,
+        torch.randint(0, n, (e,), device="cuda", generator=g))
+    yield ("hub", build_spmm_plan(None, senders, receivers, n, **kw), 2, 64,
+           PLAIN_EDGE_CHUNK)
 
 
-def dval_bound_ms(n, e, w):
+def dval_bound_ms(n, e, h, d):
     """(least time in ms, "bytes" or "operations", compulsory bytes) of one
-    K1-dval call: dout and x [N, W] read once, the rows and columns of the
-    E edges read once and dval [E] written once, all 4 bytes an element;
-    2·E·W flops at the FP32 rate."""
-    nbytes = 2 * n * w * 4 + 3 * e * 4
-    t_bytes, t_ops = nbytes / PEAK_BYTES, 2 * e * w / PEAK_OPS[torch.float32]
+    K1-dval call: dout and x [N, H, D] read once, the row pointers and the
+    columns of the E edges read once and dval [E, H] written once, all 4
+    bytes an element; 2·E·H·D flops at the FP32 rate."""
+    nbytes = (2 * n * h * d + n + 1 + e + e * h) * 4
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = 2 * e * h * d / PEAK_OPS[torch.float32]
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes > t_ops else "operations", nbytes)
 
 
+def dval_gather_floor_ms(e, h, d):
+    """The x-gather floor of one K1-dval call in ms: every edge's x row,
+    E·H·D·4 bytes, read from HBM (no L2 or L1 reuse)."""
+    return 1e3 * e * h * d * 4 / PEAK_BYTES
+
+
 def library_dval(plan, g, x):
-    """``torch.sparse.sampled_addmm`` on the plan's CSR: the same values,
-    ``<g[row], x[col]>`` at each stored entry, in one PyTorch call."""
+    """``torch.sparse.sampled_addmm`` on the plan's CSR, one call a head
+    on that head's [N, D] copies of g and x: the same values,
+    ``<g[row, h], x[col, h]>`` at each stored entry."""
     n = plan.num_nodes
     a = torch.sparse_csr_tensor(plan.row_ptr, plan.col,
                                 torch.zeros(plan.num_edges, device="cuda"),
                                 size=(n, n))
-    xt = x.t()
-    return lambda: torch.sparse.sampled_addmm(a, g, xt, beta=0.0)
+    heads = [(g[:, h].contiguous(), x[:, h].t().contiguous())
+             for h in range(g.shape[1])] if g.dim() == 3 else [(g, x.t())]
+    return lambda: [torch.sparse.sampled_addmm(a, gh, xh, beta=0.0)
+                    for gh, xh in heads]
+
+
+def dval_inputs(n, heads, d, seed):
+    """dout and x of K1-dval as the path hands them over: [N, D] for one
+    head, else [N, H, D] views of the head-concatenated [N, H·D] rows (the
+    GAT layer's feat and its output's gradient), read in place."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    g = torch.randn((n, heads * d), device="cuda", generator=gen)
+    x = torch.randn((n, heads * d), device="cuda", generator=gen)
+    if heads == 1:
+        return g, x
+    return g.view(n, heads, d), x.view(n, heads, d)
 
 
 def phase_dval_kernels():
-    """K1-dval (``csrc/spmm.cu`` ``csr_spmm_dval_kernel``) against its plain
-    version at :func:`dval_shapes`, under the "spmm" rule with each edge's
-    scale its sum of |dout·x|, shown to fail a wrong output, two calls
-    bit-equal, one device kernel a call (counted in the CUDA graph of one
-    call); its time by replays of a CUDA graph of 20 calls (the profiler
-    drops kernels of microseconds), the plain version's and
-    ``sampled_addmm``'s by events, beside its bound and its gather floor.
-    Returns the JSON rows of the shapes in ``DVAL_JSON``."""
+    """K1-dval (``csrc/spmm.cu`` ``csr_spmm_dval_kernel``), every head in one
+    call, against its plain version at :func:`dval_shapes`, under the
+    "spmm" rule with each value's scale its sum of |dout·x|, shown to fail a
+    wrong output, two calls bit-equal, one device kernel a call (counted in
+    the CUDA graph of one call); its time by replays of a CUDA graph of 20
+    calls (the profiler drops kernels of microseconds), the plain
+    version's and ``sampled_addmm``'s (a call a head, summed) by events,
+    beside its bound and its x-gather floor. Returns the JSON rows of the
+    shapes in ``DVAL_JSON``."""
     from difformer_tpu_torch.kernels import spmm as K1
     from difformer_tpu_torch.kernels.tolerance import assert_close
 
     rows = {}
-    for idx, (label, plan, w, chunk) in enumerate(dval_shapes()):
+    for idx, (label, plan, heads, d, chunk) in enumerate(dval_shapes()):
         n, e = plan.num_nodes, plan.num_edges
-        gen = torch.Generator("cuda").manual_seed(200 + idx)
-        g = torch.randn((n, w), device="cuda", generator=gen)
-        x = torch.randn((n, w), device="cuda", generator=gen)
-        kernel = lambda: K1.csr_spmm_dval(g, x, plan.rows,  # noqa: E731
-                                          plan.col)
+        g, x = dval_inputs(n, heads, d, 200 + idx)
+        kernel = lambda: K1.csr_spmm_dval(  # noqa: E731
+            g, x, plan.rows, plan.col, row_ptr=plan.row_ptr,
+            split=plan.dval_split)
         plain = lambda: K1.csr_spmm_dval_plain(  # noqa: E731
             g, x, plan.rows, plan.col, edge_chunk_size=chunk)
         out, ref = kernel(), plain()
         scale = K1.csr_spmm_dval_abs(g, x, plan.rows, plan.col,
                                      edge_chunk_size=chunk)
-        tag = f"{DVAL_NAME} {label} N={n} E={e} W={w}"
+        tag = f"{DVAL_NAME} {label} N={n} E={e} H={heads} D={d}"
         err = assert_close(tag, out, ref, "spmm", scale=scale)
         assert_rejects(tag, ref, "spmm", scale=scale)
         if not torch.equal(out, kernel()):
             raise AssertionError(f"{tag}: two calls differ")
         try:
             library = library_dval(plan, g, x)
-            lib_err = (library().values() - ref).abs().max().item()
+            got = torch.stack([v.values() for v in library()], -1)
+            lib_err = (got.view(ref.shape) - ref).abs().max().item()
             library_note = f"(max_abs_err {lib_err:.3e})"
+            del got
         except RuntimeError as ex:
             library = None
             library_note = f"refused: {str(ex).splitlines()[0][:160]}"
@@ -955,18 +1015,22 @@ def phase_dval_kernels():
         profiled, _ = device_profile(kernel)
         plain_ms = cuda_ms(plain)
         library_ms = None if library is None else cuda_ms(library)
-        bound, bound_by, nbytes = dval_bound_ms(n, e, w)
-        floor = 1e3 * (2 * e * w + 3 * e) * 4 / PEAK_BYTES
+        bound, bound_by, nbytes = dval_bound_ms(n, e, heads, d)
+        floor = dval_gather_floor_ms(e, heads, d)
         lib_ms = ("none" if library_ms is None
                   else f"{library_ms:.4f} ms")
-        say(f"phase kernels: {tag:57s} max_abs_err {err:.3e}, two calls "
-            f"bit-equal | kernel {ms:.4f} ms (CUDA graph of 20 calls; "
-            f"profiler {profiled:.4f} ms) in {kernels} device kernels a call "
+        split = plan.dval_split
+        say(f"phase kernels: {tag:64s} split: {split.num_heavy} heavy rows "
+            f"in {split.num_segments} segments (T={split.threshold}) | "
+            f"max_abs_err {err:.3e}, two calls bit-equal | kernel "
+            f"{ms:.4f} ms (CUDA graph of 20 calls; profiler "
+            f"{profiled:.4f} ms) in {kernels} device kernels a call "
             f"({nodes} graph nodes) | plain {plain_ms:.4f} ms | "
-            f"sampled_addmm {lib_ms} {library_note} | bound {bound:.4f} ms "
-            f"by {bound_by} ({nbytes / 1e6:.2f} MB; {100 * bound / ms:.1f}% "
-            f"of the kernel's time) | gather floor {floor:.4f} ms "
-            f"({100 * floor / ms:.1f}% of the kernel's time)")
+            f"sampled_addmm, {heads} call(s) {lib_ms} {library_note} | "
+            f"bound {bound:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB; "
+            f"{100 * bound / ms:.1f}% of the kernel's time) | x-gather "
+            f"floor {floor:.4f} ms ({100 * floor / ms:.1f}% of the "
+            f"kernel's time)")
         if kernels != 1 or nodes != 1:
             raise AssertionError(f"{tag}: {kernels} device kernels in "
                                  f"{nodes} graph nodes a call, expected 1")
@@ -1924,7 +1988,38 @@ def zoo_run(phase, argv, method):
     if off:
         raise AssertionError(f"phase {phase}: --method {method} launched "
                              f"{off} against {expect}")
+    if method in ZOO_GAT and runner is not None:
+        check_gat_step(phase, method, trainer)
     return run, launched
+
+
+def steady_epoch_ms(runner, epochs=5):
+    """Host ms of one epoch (a step and an eval) of a graph fit's runner,
+    replayed after the fit: a block of ``epochs`` epochs, the median of
+    3, over the epochs."""
+    def block():
+        runner.rewind()
+        runner.block(epochs, 1)
+
+    return host_ms(block) / epochs
+
+
+def check_gat_step(phase, method, trainer):
+    """K1-dval's launches in one captured train step of a GAT model's
+    graph fit: one for each GAT layer's backward, whatever its heads; and
+    the fit's steady ms per epoch, replayed."""
+    from difformer_tpu_torch.nn.gnns import GATLayer
+
+    layers = [m for m in trainer.model.modules() if isinstance(m, GATLayer)]
+    per_step = trainer.epoch_runner.graphs["step"]["captured_dval"]
+    say(f"phase {phase}: --method {method}: K1-dval launches a train step "
+        f"{per_step} for {len(layers)} GAT layers of "
+        f"{[m.heads for m in layers]} heads; steady ms per epoch (a step "
+        f"and an eval, replayed) {steady_epoch_ms(trainer.epoch_runner):.3f}")
+    if per_step != len(layers):
+        raise AssertionError(f"phase {phase}: --method {method}: {per_step} "
+                             f"K1-dval launches a step, expected one a GAT "
+                             f"layer ({len(layers)})")
 
 
 def check_graph_against_loop(phase, method, graph_run, loop_run):
@@ -3406,7 +3501,10 @@ def check_ell_combine(tag, x, ell, transposed):
     the sums of |partials|; bit-equal expected: the same f32 adds in the
     same order); its time by CUDA-graph replay, the plain version's by the
     profiler; bound: the partials read once, the split rows written once,
-    their nodes and offsets read (bytes). Returns the JSON row."""
+    their nodes and offsets read (bytes). Library: one
+    ``torch.segment_reduce`` summing each split row's chunks (ragged, at
+    ``seg_ptr``), without the scatter into out, held to the plain sums under
+    the same rule and timed by the profiler. Returns the JSON row."""
     from difformer_tpu_torch.kernels import ell as K6
     from difformer_tpu_torch.kernels.tolerance import assert_close
 
@@ -3414,25 +3512,36 @@ def check_ell_combine(tag, x, ell, transposed):
     call = lambda: K6.ell_spmm_combine(partial, out, ell)  # noqa: E731
     plain = lambda: K6.ell_spmm_combine_plain(  # noqa: E731
         partial, out, ell)
+    library = lambda: torch.segment_reduce(  # noqa: E731
+        partial, "sum", offsets=ell.split.seg_ptr, axis=0)
     ref = plain()
     got = call().clone()
     sc = K6.ell_spmm_combine_plain(partial.abs(), out.abs(), ell)
     err = assert_close(f"{tag} combine", got, ref, "spmm", scale=sc)
     if not torch.equal(got, call()):
         raise AssertionError(f"{tag} combine: two calls differ")
+    rows = ell.split.rows.long()
+    zero = torch.zeros_like(out, dtype=torch.float32)
+    assert_close(
+        f"{tag} combine, segment_reduce", library(),
+        K6.ell_spmm_combine_plain(partial, zero, ell)[rows], "spmm",
+        scale=K6.ell_spmm_combine_plain(partial.abs(), zero, ell)[rows])
     h, w = ell.split.rows.numel(), x.shape[1]
     nbytes = 4 * partial.numel() + h * w * x.element_size() + 4 * (2 * h + 1)
     bound = 1e3 * nbytes / PEAK_BYTES
     ms, plain_ms = replay_ms(call), device_ms(plain)
+    library_ms = device_ms(library)
     say(f"phase ell-bsr-kernels: {tag} combine: max_abs_err {err:.3e} "
         f"({'bit-equal' if torch.equal(got, ref) else 'not bit-equal'} to "
         f"the plain version), two calls bit-equal | {ell.split.partials} "
         f"partial rows of {h} split rows | kernel {ms:.4f} ms | plain "
-        f"{plain_ms:.4f} ms | bound {bound:.4f} ms by bytes "
+        f"{plain_ms:.4f} ms | library {library_ms:.4f} ms (one "
+        f"torch.segment_reduce over the chunks, without the scatter into "
+        f"out) | bound {bound:.4f} ms by bytes "
         f"({nbytes / 1e6:.2f} MB; {100 * bound / ms:.1f}%)")
     del out, partial, ref, got, sc
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes", library_ms=None)
+                bound_by="bytes", library_ms=library_ms)
 
 
 def sweep_ell_threshold(tag, x, ell, transposed):
@@ -3580,15 +3689,39 @@ def check_combine(tag, x, d, chunks, transposed):
                                            + 4 * (scale is not None))
     bound = 1e3 * nbytes / PEAK_BYTES
     ms, plain_ms = replay_ms(call), device_ms(plain)
+    library_ms = device_ms(library_combine(partial, groups, t, w, chunks))
+    # (a package from before the combine plan, e.g. time_kernels.py --root,
+    # has no thread blocks to print)
+    blocks = (f" ({K7.combine_plan(groups, chunks, t, w)[1]} thread blocks "
+              f"of {K7.combine_rows(w)} rows)"
+              if hasattr(K7, "combine_plan") else "")
     say(f"phase ell-bsr-kernels: {tag} combine: max_abs_err {err:.3e} "
         f"({'bit-equal' if torch.equal(got, ref) else 'not bit-equal'} to "
         f"the plain version), two calls bit-equal | {partial.numel()} "
-        f"partials of {sum(c > 1 for c in chunks)} split groups | kernel "
-        f"{ms:.4f} ms | plain {plain_ms:.4f} ms | bound {bound:.4f} ms by "
-        f"bytes ({nbytes / 1e6:.2f} MB; {100 * bound / ms:.1f}%)")
+        f"partials of {sum(c > 1 for c in chunks)} split groups{blocks}, "
+        f"out {str(out.dtype).split('.')[-1]} | "
+        f"kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | library "
+        f"{library_ms:.4f} ms (torch.sum over the chunks, one call a split "
+        f"group, without the scale and the scatter into out) | bound "
+        f"{bound:.4f} ms by bytes ({nbytes / 1e6:.2f} MB; "
+        f"{100 * bound / ms:.1f}%)")
     del out, partial, ref, got, sc
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by="bytes", library_ms=None)
+                bound_by="bytes", library_ms=library_ms)
+
+
+def library_combine(partial, groups, tile, width, chunks):
+    """The combine's sums by PyTorch: ``torch.sum`` over the chunk axis of
+    each split group's [chunks, m·T, W] partials, one call a group. It
+    leaves out the scale and the scatter of the rows into out, which no
+    single call does."""
+    from difformer_tpu_torch.kernels import bsr as K7
+
+    offsets, _ = K7.partial_offsets(groups, chunks, tile, width)
+    views = [partial[off:off + c * m * tile * width].view(c, m * tile, width)
+             for (m, _), c, off in zip(K7.group_shapes(groups), chunks,
+                                       offsets) if c > 1]
+    return lambda: [torch.sum(v, 0) for v in views]
 
 
 def edge_time_ms():
@@ -3611,6 +3744,20 @@ def edge_time_ms():
     del plan, x
     torch.cuda.empty_cache()
     return ms / e, ms
+
+
+def hub_layout(graph=None):
+    """The forward direction of bench.py's power-law graph (``graph``, or
+    drawn anew) after the degree-sorted relabel, as the bucketed int8
+    hybrid at T = 256, on the card: its hub row tile holds 256 blocks,
+    which K7 splits."""
+    from difformer_tpu_torch.ops import bsr as B
+
+    _, s, r = bench_graph("powerlaw") if graph is None else graph
+    s, r = degree_sorted(s, r, BENCH_NODES)
+    fwd, _ = B.build_bsr_bucketed_gcn(s, r, BENCH_NODES, tile=BSR_TILE,
+                                      min_edges=KERNEL_MIN_EDGES)
+    return fwd.to("cuda")
 
 
 def phase_ell_bsr_kernels():
@@ -3709,11 +3856,7 @@ def phase_ell_bsr_kernels():
         del fwd, rev
         torch.cuda.empty_cache()
     # the hub rows of the powerlaw graph after the hub-clustering relabel
-    _, s, r = graphs["powerlaw"]
-    s, r = degree_sorted(s, r, n)
-    fwd, _ = B.build_bsr_bucketed_gcn(s, r, n, tile=BSR_TILE,
-                                      min_edges=KERNEL_MIN_EDGES)
-    fwd = fwd.to("cuda")
+    fwd = hub_layout(graphs["powerlaw"])
     say(f"phase ell-bsr-kernels: powerlaw degree-sorted bucketed int8: "
         f"buckets {[tuple(b.shape[:2]) for b in fwd.blocks]}, device "
         f"footprint {layout_bytes(fwd) / 1e6:.2f} MB (one direction)")
@@ -3723,6 +3866,21 @@ def phase_ell_bsr_kernels():
     if combine is None:
         raise AssertionError("the power-law hub row tile was not split")
     rows[f"{BSR_COMBINE} hub int8"] = combine
+    # the combine at spmm_first's width (single values), the cifar10
+    # preset's (four column tiles of K7) and at bf16 x and out
+    for label, xx in (("W=65", torch.randn((n, 65), device="cuda",
+                                           generator=g)),
+                      ("W=300", torch.randn((n, 300), device="cuda",
+                                            generator=g)),
+                      ("bf16", x32.to(torch.bfloat16))):
+        _, _, combine = check_k7(
+            f"bsr_spmm powerlaw degree-sorted bucketed int8 {label}", xx,
+            fwd, False, library=False)
+        if combine is None:
+            raise AssertionError(f"the power-law hub row tile was not split "
+                                 f"at {label}")
+        rows[f"{BSR_COMBINE} hub int8 {label}"] = combine
+        del xx
     # the split size S (kernels/bsr.py SPLIT_BLOCKS), measured on this layout
     from difformer_tpu_torch.kernels import bsr as K7
 
@@ -3795,13 +3953,8 @@ def layout_fit(trainer, split, epoch_block):
         replayed = runner.launches()
         counted = {k: counted[k] + replayed.get(k, 0) for k in counted}
 
-        steady = min(5, LAYOUT_EPOCHS)  # rows of the runner's record
-
-        def block():
-            runner.rewind()
-            runner.block(steady, 1)
-
-        epoch_ms = host_ms(block) / steady
+        # at most as many epochs as rows of the runner's record
+        epoch_ms = steady_epoch_ms(runner, min(5, LAYOUT_EPOCHS))
     return best, epoch_ms, counted
 
 

@@ -76,6 +76,24 @@
 //   partials are written once and read once (bench.py's power-law hub
 //   layout: 11 MB against the call's 114 MB of compulsory bytes); they
 //   bound the combine, bytes only.
+// * The combine's work: the host (kernels/bsr.py, combine_plan) numbers
+//   the split groups' row bands (combine_rows(W) rows of a row tile) one
+//   after another, a prefix a group, and each thread block of
+//   kCombineThreads takes one band: its group is found once, uniformly,
+//   and every index inside the band is 32-bit (a row tile's T W partials
+//   fit in an int). A band rather than a whole row tile a block: the hub
+//   tile's 86 chunks are the bulk of the partials, and one block could not
+//   read them at the rate of more than one SM. A band is 8 rows where a
+//   row is 16-byte packs (W % 4 == 0 and the bases aligned), a group of
+//   lanes a row (the power of two >= its packs, up to a warp): one pack a
+//   thread at W = 64, 6 at 300. Otherwise (W = 65) single floats, the
+//   band as many rows as the block holds at a thread a value, the power of
+//   two >= W threads a row (one row of 128 threads at W = 65). Each row's
+//   scale is read once by its lanes, ahead of its chunks; rows at or past n
+//   are skipped. A pack's loads of kCombineDepth chunks are issued before
+//   its adds, which stay in chunk order (bit-equal to
+//   bsr_spmm_combine_plain), and each result is rounded once (bf16 stored
+//   4 values in 8 bytes).
 //
 // The table of groups (blocks, column tiles, row tiles, m, kb, chunks and
 // the first partial of each) is passed by value, so a call reads nothing
@@ -92,6 +110,8 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "pack.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;     // 8 warps: 4 along the rows, 2 along W
@@ -105,7 +125,7 @@ constexpr int kTableCols = 7;     // kernels/bsr.py's table
 
 struct Groups {
   int count;
-  int64_t block0[kMaxGroups + 1];  // first thread block (combine: element)
+  int64_t block0[kMaxGroups + 1];  // first thread block
   const void* blocks[kMaxGroups];  // [m, kb, T, T], or null: tiles written 0
   const int* bcol[kMaxGroups];     // [m, kb] column tiles
   const int* tiles[kMaxGroups];    // [m] row tiles, or null: tile i is i
@@ -436,34 +456,102 @@ __global__ void __launch_bounds__(kThreads, 2)
   });
 }
 
-// The split groups' outputs: for each (row tile, row, column) the sum of
-// its chunks' partials in chunk order, times the node's scale (counts),
-// rounded once. grp.block0 holds each group's first element here.
-template <typename TX>
-__global__ void __launch_bounds__(256)
-    bsr_combine_kernel(const Groups grp, const Shape sh,
+constexpr int kCombineThreads = 128;  // kernels/bsr.py COMBINE_THREADS
+constexpr int kCombineDepth = 16;  // chunks whose loads are in flight
+constexpr int kCombineCols = 5;    // kernels/bsr.py's combine table
+
+// Rows of a band at width W (kernels/bsr.py combine_rows): 8 where a row is
+// 16-byte packs, else the rows of the block at a thread a value (W rounded
+// up to a power of two threads a row), one at least.
+inline int combine_rows(int64_t width) {
+  if (width % 4 == 0) return 8;
+  int threads = 1;
+  while (threads < width && threads < kCombineThreads) threads <<= 1;
+  return kCombineThreads / threads;
+}
+
+// The split groups of a combine: each group's first band (of m row tiles
+// of bands bands each), row tiles, chunks and first partial.
+struct CombineGroups {
+  int count;
+  int bands;                       // bands of a row tile
+  int64_t band0[kMaxGroups + 1];   // first thread block; the total last
+  const int* tiles[kMaxGroups];    // [m] row tiles, or null: tile i is i
+  int64_t m[kMaxGroups];
+  int chunks[kMaxGroups];
+  int64_t part0[kMaxGroups];       // first partial: [chunks, m, T, W]
+};
+
+// The split groups' rows: for each (row, column) of a band the sum of its
+// chunks' partials in chunk order, times the node's scale (counts), rounded
+// once to TX; 2^group_log2 threads a row (at most a warp for 16-byte
+// packs, the block for single floats), packs of V values.
+template <typename TX, int V>
+__global__ void __launch_bounds__(kCombineThreads)
+    bsr_combine_kernel(const CombineGroups grp, int64_t n, int width,
+                       int tile, int rows, int group_log2,
                        const float* __restrict__ partial,
                        const float* __restrict__ scale,
                        TX* __restrict__ out) {
-  const int64_t total = grp.block0[grp.count];
-  const int64_t per_tile = int64_t(sh.tile) * sh.width;
-  for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
-       i += int64_t(gridDim.x) * blockDim.x) {
-    int g = 0;
-    while (g + 1 < grp.count && i >= grp.block0[g + 1]) ++g;
-    const int64_t e = i - grp.block0[g];
-    const int64_t mi = e / per_tile;
-    const int64_t rc = e - mi * per_tile;  // row * width + column
-    const int64_t row_tile = grp.tiles[g] ? __ldg(grp.tiles[g] + mi) : mi;
-    const int64_t node = row_tile * sh.tile + rc / sh.width;
-    if (node >= sh.n) continue;
-    const float* p = partial + grp.part0[g] + mi * per_tile + rc;
-    const int64_t stride = grp.m[g] * per_tile;
-    float s = 0.0f;
-    for (int c = 0; c < grp.chunks[g]; ++c) s += __ldg(p + c * stride);
-    if (scale) s *= __ldg(scale + node);
-    store_as(out + node * sh.width + rc % sh.width, s);
+  const int64_t b = blockIdx.x;
+  int g = 0;
+  while (g + 1 < grp.count && b >= grp.band0[g + 1]) ++g;
+  const int64_t u = b - grp.band0[g];
+  const int64_t mi = u / grp.bands;
+  const int first = int(u - mi * grp.bands) * rows;
+  const int64_t node0 =
+      (grp.tiles[g] ? int64_t(__ldg(grp.tiles[g] + mi)) : mi) * tile;
+  const int last =
+      int(min(int64_t(min(first + rows, tile)), n - node0));  // rows < n
+  const int group = 1 << group_log2;
+  const int lane = threadIdx.x & (group - 1);
+  const int vecs = width / V;  // packs of a row
+  const int chunks = grp.chunks[g];
+  const int64_t stride = grp.m[g] * tile * width;  // from chunk to chunk
+  const float* tile_part = partial + grp.part0[g] + mi * tile * width;
+  TX* tile_out = out + node0 * width;
+  for (int r = first + (threadIdx.x >> group_log2); r < last;
+       r += kCombineThreads >> group_log2) {
+    const float sc = scale ? __ldg(scale + node0 + r) : 1.0f;
+    for (int c = lane; c < vecs; c += group) {
+      const int off = r * width + c * V;
+      const float* p = tile_part + off;
+      float acc[V];
+      for (int c0 = 0; c0 < chunks; c0 += kCombineDepth) {
+        float part[kCombineDepth][V];
+#pragma unroll
+        for (int d = 0; d < kCombineDepth; ++d)
+          if (c0 + d < chunks)
+            Pack<float, V>::load(p + (c0 + d) * stride, part[d]);
+#pragma unroll
+        for (int d = 0; d < kCombineDepth; ++d)
+          if (c0 + d < chunks)
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              acc[v] = c0 + d == 0 ? part[d][v] : acc[v] + part[d][v];
+      }
+      if (scale)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[v] *= sc;
+      Pack<TX, V>::store(tile_out + off, acc);
+    }
   }
+}
+
+template <typename TX, int V>
+int launch_combine(const CombineGroups& g, int64_t n, int width, int tile,
+                   const float* partial, const float* scale, void* out,
+                   cudaStream_t stream) {
+  // threads a row: the power of two >= its packs, up to a warp for 16-byte
+  // packs and up to the block for single floats
+  const int cap = V == 1 ? 7 : 5;
+  int group_log2 = 0;
+  while ((1 << group_log2) < width / V && group_log2 < cap) ++group_log2;
+  bsr_combine_kernel<TX, V>
+      <<<static_cast<unsigned>(g.band0[g.count]), kCombineThreads, 0,
+         stream>>>(g, n, width, tile, combine_rows(width), group_log2,
+                   partial, scale, static_cast<TX*>(out));
+  return cudaGetLastError();
 }
 
 // One launch of the main kernel. Its dynamic shared memory (above the 48 KB
@@ -511,10 +599,6 @@ int launch_x(int bf16_x, const Groups& g, const Shape& sh, const void* x,
                                               grid, stream);
   return launch_nw<TB, __nv_bfloat16, false>(g, sh, x, out, partial, scale,
                                              grid, stream);
-}
-
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // The table's groups (blocks, column tiles, row tiles, m, kb, chunks, first
@@ -611,49 +695,59 @@ int bsr_spmm(const void* x, int64_t ldx, void* out, void* partial,
   return launch_x<int8_t>(bf16_x, grp, sh, x, out, p, sc, grid, st);
 }
 
-// The rows of out [n, width] of every group of table (as bsr_spmm's) with
-// chunks > 1: the sum of its partials in chunk order, times scale[node]
-// where scale is not null, rounded once to out's type (bf16_x).
+// The split groups' rows of out [n, width] (contiguous): the sum of each
+// one's chunks' partials in chunk order, times scale[node] where scale is
+// not null, rounded once to out's type (bf16_x). table (host, int64
+// [groups, 5]: first band, row tiles pointer or 0, m, chunks, first
+// partial) is the host's combine plan (kernels/bsr.py combine_plan): the
+// bands of combine_rows(width) rows of each group's m row tiles, numbered
+// from 0 in order, one thread block each.
 int bsr_spmm_combine(const void* partial, int64_t partial_size,
                      const void* scale, void* out, int64_t n, int64_t width,
                      int tile, int bf16_x, const int64_t* table, int groups,
                      void* stream) {
-  if (n < 0 || width <= 0 || width > INT_MAX || tile < 1 ||
-      tile > kMaxTile || (bf16_x != 0 && bf16_x != 1) || !partial)
+  if (n < 0 || width <= 0 || tile < 1 || tile > kMaxTile ||
+      int64_t(tile) * width > INT_MAX || (bf16_x != 0 && bf16_x != 1) ||
+      !partial || groups < 1 || groups > kMaxGroups)
     return cudaErrorInvalidValue;
-  Groups all;
-  if (!read_groups(table, groups, tile, width, partial_size, all))
-    return cudaErrorInvalidValue;
-  Groups g = {};
+  CombineGroups g = {};
+  g.count = groups;
+  const int rows = combine_rows(width);
+  g.bands = (tile + rows - 1) / rows;
   int64_t total = 0;
-  for (int i = 0; i < all.count; ++i) {
-    if (all.chunks[i] < 2) continue;
-    const int j = g.count++;
-    g.block0[j] = total;
-    g.tiles[j] = all.tiles[i];
-    g.m[j] = all.m[i];
-    g.chunks[j] = all.chunks[i];
-    g.part0[j] = all.part0[i];
-    total += all.m[i] * tile * width;
+  for (int i = 0; i < groups; ++i) {
+    const int64_t* row = table + kCombineCols * i;
+    const int64_t m = row[2], chunks = row[3], part0 = row[4];
+    if (row[0] != total || m < 0 || chunks < 2 || chunks > INT_MAX ||
+        part0 < 0 || m > (INT64_MAX - part0) / chunks / tile / width ||
+        part0 + chunks * m * tile * width > partial_size)
+      return cudaErrorInvalidValue;
+    g.band0[i] = total;
+    g.tiles[i] = reinterpret_cast<const int*>(row[1]);
+    g.m[i] = m;
+    g.chunks[i] = static_cast<int>(chunks);
+    g.part0[i] = part0;
+    total += m * g.bands;
+    if (total > INT_MAX) return cudaErrorInvalidValue;
   }
-  g.block0[g.count] = total;
-  if (total == 0) return cudaSuccess;
-  Shape sh = {};
-  sh.n = n;
-  sh.width = width;
-  sh.tile = tile;
-  const auto grid = static_cast<unsigned>(
-      std::min<int64_t>((total + 255) / 256, 1 << 16));
+  g.band0[groups] = total;
+  if (total == 0 || n == 0) return cudaSuccess;
   auto* st = static_cast<cudaStream_t>(stream);
   const auto* p = static_cast<const float*>(partial);
   const auto* sc = static_cast<const float*>(scale);
-  if (bf16_x)
-    bsr_combine_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
-        g, sh, p, sc, static_cast<__nv_bfloat16*>(out));
-  else
-    bsr_combine_kernel<float><<<grid, 256, 0, st>>>(g, sh, p, sc,
-                                                    static_cast<float*>(out));
-  return cudaGetLastError();
+  const int w = static_cast<int>(width);
+  // 16-byte packs of partials: W % 4 == 0 keeps every first partial and
+  // row a multiple of 4 floats apart
+  bool vec = width % 4 == 0 && aligned16(partial);
+  for (int i = 0; i < groups; ++i) vec = vec && g.part0[i] % 4 == 0;
+  if (bf16_x) {
+    if (vec && (reinterpret_cast<uintptr_t>(out) & 7) == 0)
+      return launch_combine<__nv_bfloat16, 4>(g, n, w, tile, p, sc, out, st);
+    return launch_combine<__nv_bfloat16, 1>(g, n, w, tile, p, sc, out, st);
+  }
+  if (vec && aligned16(out))
+    return launch_combine<float, 4>(g, n, w, tile, p, sc, out, st);
+  return launch_combine<float, 1>(g, n, w, tile, p, sc, out, st);
 }
 
 }  // extern "C"

@@ -8,8 +8,9 @@
 #include <cstdint>
 
 // V consecutive values of T moved as one access and held as V floats:
-// float (V = 1), float4 (V a multiple of 4), a bf16 (V = 1) or 8 bf16 in
-// one 16-byte load (V = 8). A bf16 store rounds to nearest even.
+// float (V = 1), float4 (V a multiple of 4), a bf16 (V = 1), 4 bf16 in one
+// 8-byte access (V = 4) or 8 bf16 in one 16-byte access (V = 8). A bf16
+// store rounds to nearest even.
 template <typename T, int V>
 struct Pack;
 
@@ -60,30 +61,50 @@ struct Pack<__nv_bfloat16, 1> {
   }
 };
 
+// bf16 pairs packed into a 32-bit word, low half first, and back
+__device__ __forceinline__ void unpack_bf16x2(unsigned int w, float* a) {
+  // a bf16 is the high half of the float with the same bits
+  a[0] = __uint_as_float(w << 16);
+  a[1] = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ unsigned int pack_bf16x2(const float* a) {
+  return static_cast<unsigned int>(
+             __bfloat16_as_ushort(__float2bfloat16_rn(a[0]))) |
+         (static_cast<unsigned int>(
+              __bfloat16_as_ushort(__float2bfloat16_rn(a[1])))
+          << 16);
+}
+
+template <>
+struct Pack<__nv_bfloat16, 4> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p,
+                                              float (&a)[4]) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    unpack_bf16x2(t.x, a);
+    unpack_bf16x2(t.y, a + 2);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float (&a)[4]) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(a),
+                                              pack_bf16x2(a + 2));
+  }
+};
+
 template <>
 struct Pack<__nv_bfloat16, 8> {
-  // a bf16 is the high half of the float with the same bits
   static __device__ __forceinline__ void load(const __nv_bfloat16* p,
                                               float (&a)[8]) {
     const uint4 t = __ldg(reinterpret_cast<const uint4*>(p));
-    const unsigned int w[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[2 * i] = __uint_as_float(w[i] << 16);
-      a[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
+    unpack_bf16x2(t.x, a);
+    unpack_bf16x2(t.y, a + 2);
+    unpack_bf16x2(t.z, a + 4);
+    unpack_bf16x2(t.w, a + 6);
   }
   static __device__ __forceinline__ void store(__nv_bfloat16* p,
                                                const float (&a)[8]) {
-    unsigned int w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      w[i] = static_cast<unsigned int>(
-                 __bfloat16_as_ushort(__float2bfloat16_rn(a[2 * i]))) |
-             (static_cast<unsigned int>(
-                  __bfloat16_as_ushort(__float2bfloat16_rn(a[2 * i + 1])))
-              << 16);
-    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_bf16x2(a), pack_bf16x2(a + 2), pack_bf16x2(a + 4),
+                   pack_bf16x2(a + 6));
   }
 };
 

@@ -76,14 +76,34 @@
 // The value gradient (K1-dval, csr_spmm_dval_kernel). Where the edge values
 // are learned (GAT's attention, difformer_tpu/nn/gnns.py:183-184; spmm's
 // values, graph_ops.py:233-236, which XLA differentiates), the backward
-// also needs dval[e] = <dout[row(e)], x[col[e]]>, a sampled dense-dense
-// product over the forward CSR. A group of lanes (the power of two >= the
-// row's vectors, up to a warp) takes one edge, sums the products of the two
-// gathered rows in f32 and reduces them by shuffles; each value is written
-// once, so there are no atomics and two calls are bit-equal. It is bound by
-// bytes as K1 is (2 E W flops on (2 N W + 3 E) * 4 compulsory bytes), and
-// its two gathered rows an edge, 2 E W * 4 bytes, set its time once they
-// leave L2. Only float32 is taken (the baseline models train at f32).
+// also needs dval[e, h] = <dout[row(e), h], x[col[e], h]> for every head h,
+// a sampled dense-dense product over the forward CSR. It is bound by bytes
+// as K1 is (2 E H D flops on (2 N H D + E H + E + N) * 4 compulsory bytes).
+// The design is K1's, row by row: one work item is a light row, or a
+// segment of a heavy row, for one head, and a group of lanes (the power of
+// two >= the row's packs, up to a warp) takes it. The schedule is a split
+// like K1's, at a smaller T (kernels/spmm.py DVAL_SPLIT_THRESHOLD, built
+// with the plan): every edge ends in a reduction across the group, so a
+// light row of a few hundred edges (a popular neighbour in a kNN graph)
+// walked by one group would set the call's time. The group loads
+// dout[r, h] once into registers, then walks the item's edges in CSR
+// order, a batch of group edges at a time: each lane loads one
+// column index of the batch (one coalesced read), the edges' indices come
+// to every lane by shuffles, and the gathers of x[col[e], h] (16-byte packs
+// where D and the strides allow, single floats otherwise, e.g. GAT's D = 7)
+// of several edges are in flight before their sums. Each edge's products
+// are summed in f32 per lane, then across the group by a butterfly of
+// shuffles; lane k of the group keeps edge base + k's value and the batch
+// is stored at once. A lane holds at most kDvalPacks packs of dout; a wider
+// row walks its edges once for each slice of that many packs a lane, adding
+// the slices in order before the one store. Every value is written once, by
+// one group: no atomics, and two calls are bit-equal. dout and x are read
+// in place as [rows, H, D] views at their row and head strides, so every
+// head of GAT's layer is one launch, with no copies of strided head slices.
+// The heads of a row are neighbouring items, so their loads and stores are
+// neighbours too. Only float32 is taken (the baseline models train at f32).
+// In practice its x gathers, E H D * 4 bytes, set its time: from L2 where x
+// fits there (cifar10's kNN graph), from HBM beyond (Pokec's size).
 //
 // C interface (loaded with ctypes): the entry returns cudaGetLastError()
 // after its launches, so a refused launch is reported to the caller.
@@ -221,42 +241,136 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// dval[e] = sum over c of dout[rows[e]][c] * x[col[e]][c], in f32: the
-// gradient of K1's output with respect to its edge values, over the
-// forward CSR (rows[e] is edge e's row, col[e] its column). A group of
-// 2^group_log2 lanes takes one edge: each lane sums the packs c = lane,
-// lane + group, ... of the two rows in order, then the group adds its lanes'
-// sums by a butterfly of shuffles, and lane 0 writes the edge's value once.
-// Groups past the last edge load nothing and store nothing, but take part
-// in the shuffles, so every shuffle has the whole warp.
-template <int V>
+constexpr int kDvalPacks = 4;  // packs of dout a lane holds (K1-dval)
+
+// The lanes of this thread's group of group (a power of two <= 32) lanes,
+// as a shuffle mask: groups of one warp walk items of different lengths,
+// so a group's shuffles name only its own lanes.
+__device__ __forceinline__ unsigned group_mask(int group) {
+  if (group == 32) return 0xffffffffu;
+  return ((1u << group) - 1u) << (threadIdx.x & 31 & ~(group - 1));
+}
+
+// dst[e * heads] = <g, x[col[e]]> for the edges begin .. end - 1 of one
+// item, g and x's rows at one head (x at row stride ld_x), vecs packs of V
+// floats a row, in f32: the group's lanes hold g's packs c = lane + k group
+// (k < P) of each slice of group P packs; U edges' gathers are issued
+// before their sums.
+template <int V, int P, int U>
+__device__ __forceinline__ void dval_item(const float* __restrict__ g,
+                                          const float* __restrict__ xh,
+                                          int64_t ld_x,
+                                          const int* __restrict__ col,
+                                          float* __restrict__ dst,
+                                          int64_t heads, int begin, int end,
+                                          int vecs, int lane, int group,
+                                          unsigned mask) {
+  const int span = group * P;  // packs of a slice
+  const int slices = (vecs + span - 1) / span;
+  float gv[P][V];
+  for (int base = begin; base < end; base += group) {
+    const int count = min(group, end - base);
+    const int my_col = lane < count ? __ldg(col + base + lane) : 0;
+    float mine = 0.0f;  // the value of edge base + lane
+    for (int s = 0; s < slices; ++s) {
+      const int c0 = s * span + lane;
+      if (slices > 1 || base == begin) {
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+          if (c0 + p * group < vecs) {
+            Pack<float, V>::load(g + (c0 + p * group) * V, gv[p]);
+          } else {
+#pragma unroll
+            for (int v = 0; v < V; ++v) gv[p][v] = 0.0f;
+          }
+        }
+      }
+      for (int k = 0; k < count; k += U) {
+        float xv[U][P][V];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const bool live = k + u < count;
+          const int c = __shfl_sync(mask, my_col, live ? k + u : 0, group);
+          const float* b = xh + int64_t(c) * ld_x;
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            if (live && c0 + p * group < vecs) {
+              Pack<float, V>::load(b + (c0 + p * group) * V, xv[u][p]);
+            } else {
+#pragma unroll
+              for (int v = 0; v < V; ++v) xv[u][p][v] = 0.0f;
+            }
+          }
+        }
+        float acc[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          acc[u] = 0.0f;
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+              acc[u] = fmaf(gv[p][v], xv[u][p][v], acc[u]);
+        }
+        for (int offset = group >> 1; offset > 0; offset >>= 1)
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+            acc[u] += __shfl_xor_sync(mask, acc[u], offset);
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (lane == k + u) mine = s == 0 ? acc[u] : mine + acc[u];
+      }
+    }
+    if (lane < count) dst[int64_t(base + lane) * heads] = mine;
+  }
+}
+
+// dval[e * heads + h] = sum over c of dout[r][h][c] * x[col[e]][h][c], in
+// f32, for the edges e of row r of the forward CSR: the gradient of K1's
+// output with respect to its values, every head at once. Items are (row or
+// segment, head), the head the fastest: blocks below seg_blocks take the
+// segments of the heavy rows (the first counts[1] when counts is given),
+// the rest the light rows (degree <= threshold; a heavy row is skipped
+// there). A group of 2^group_log2 lanes takes an item (dval_item).
+template <int V, int P, int U>
 __global__ void __launch_bounds__(kThreads)
-    csr_spmm_dval_kernel(const int* __restrict__ rows,
+    csr_spmm_dval_kernel(const int* __restrict__ row_ptr,
+                         const int* __restrict__ rows,
                          const int* __restrict__ col,
                          const float* __restrict__ dout,
                          const float* __restrict__ x,
-                         float* __restrict__ dval, int64_t edges,
-                         int64_t vecs, int group_log2) {
+                         float* __restrict__ dval, int64_t nrows,
+                         int64_t heads, int vecs, int64_t ld_g, int64_t hs_g,
+                         int64_t ld_x, int64_t hs_x, int group_log2,
+                         int threshold, const int* __restrict__ seg_begin,
+                         const int* __restrict__ seg_end, int64_t segments,
+                         int seg_blocks, const int* __restrict__ counts) {
   const int group = 1 << group_log2;
   const int lane = threadIdx.x & (group - 1);
-  const int64_t e =
-      (int64_t(blockIdx.x) * kThreads + threadIdx.x) >> group_log2;
-  const bool live = e < edges;
-  float acc = 0.0f;
-  if (live) {
-    const float* a = dout + int64_t(__ldg(rows + e)) * vecs * V;
-    const float* b = x + int64_t(__ldg(col + e)) * vecs * V;
-    for (int64_t c = lane; c < vecs; c += group) {
-      float av[V], bv[V];
-      Pack<float, V>::load(a + c * V, av);
-      Pack<float, V>::load(b + c * V, bv);
-#pragma unroll
-      for (int v = 0; v < V; ++v) acc = fmaf(av[v], bv[v], acc);
-    }
+  const bool seg_item = int(blockIdx.x) < seg_blocks;
+  const int64_t item =
+      (int64_t(seg_item ? blockIdx.x : blockIdx.x - seg_blocks) * kThreads +
+       threadIdx.x) >>
+      group_log2;
+  const int64_t unit = item / heads;  // the segment or the row
+  const int64_t h = item - unit * heads;
+  int64_t r;
+  int begin, end;
+  if (seg_item) {
+    if (unit >= (counts ? int64_t(__ldg(counts + 1)) : segments)) return;
+    begin = __ldg(seg_begin + unit);
+    end = __ldg(seg_end + unit);
+    r = __ldg(rows + begin);
+  } else {
+    if (unit >= nrows) return;
+    r = unit;
+    begin = __ldg(row_ptr + r);
+    end = __ldg(row_ptr + r + 1);
+    if (end - begin > threshold) return;  // heavy: its segments cover it
   }
-  for (int offset = group >> 1; offset > 0; offset >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, offset);
-  if (live && lane == 0) dval[e] = acc;
+  dval_item<V, P, U>(dout + r * ld_g + h * hs_g, x + h * hs_x, ld_x, col,
+                     dval + h, heads, begin, end, vecs, lane, group,
+                     group_mask(group));
 }
 
 int64_t blocks_for(int64_t items, int group_log2) {
@@ -302,6 +416,59 @@ int launch(const int* row_ptr, const int* col, const float* val,
   if (rc != cudaSuccess) return rc;
   return launch_combine<T, V>(heavy_rows, seg_ptr, ws, out, heavy, vecs,
                               counts, 0, stream);
+}
+
+// K1-dval with P packs of dout a lane; U edges in flight where P is small
+template <int V, int P>
+int launch_dval(const int* row_ptr, const int* rows, const int* col,
+                const float* dout, const float* x, float* dval,
+                int64_t nrows, int64_t heads, int vecs, int64_t ld_g,
+                int64_t hs_g, int64_t ld_x, int64_t hs_x, int group_log2,
+                int threshold, const int* seg_begin, const int* seg_end,
+                int64_t segments, const int* counts, cudaStream_t stream) {
+  constexpr int U = P <= 2 ? 4 : 2;
+  const int64_t seg_blocks = blocks_for(segments * heads, group_log2);
+  const int64_t blocks = seg_blocks + blocks_for(nrows * heads, group_log2);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  csr_spmm_dval_kernel<V, P, U>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          row_ptr, rows, col, dout, x, dval, nrows, heads, vecs, ld_g, hs_g,
+          ld_x, hs_x, group_log2, threshold, seg_begin, seg_end, segments,
+          static_cast<int>(seg_blocks), counts);
+  return cudaGetLastError();
+}
+
+template <int V>
+int launch_dval_p(int packs, const int* row_ptr, const int* rows,
+                  const int* col, const float* dout, const float* x,
+                  float* dval, int64_t nrows, int64_t heads, int vecs,
+                  int64_t ld_g, int64_t hs_g, int64_t ld_x, int64_t hs_x,
+                  int group_log2, int threshold, const int* seg_begin,
+                  const int* seg_end, int64_t segments, const int* counts,
+                  cudaStream_t stream) {
+  switch (packs) {
+    case 1:
+      return launch_dval<V, 1>(row_ptr, rows, col, dout, x, dval, nrows,
+                               heads, vecs, ld_g, hs_g, ld_x, hs_x,
+                               group_log2, threshold, seg_begin, seg_end,
+                               segments, counts, stream);
+    case 2:
+      return launch_dval<V, 2>(row_ptr, rows, col, dout, x, dval, nrows,
+                               heads, vecs, ld_g, hs_g, ld_x, hs_x,
+                               group_log2, threshold, seg_begin, seg_end,
+                               segments, counts, stream);
+    case 3:
+      return launch_dval<V, 3>(row_ptr, rows, col, dout, x, dval, nrows,
+                               heads, vecs, ld_g, hs_g, ld_x, hs_x,
+                               group_log2, threshold, seg_begin, seg_end,
+                               segments, counts, stream);
+    default:
+      return launch_dval<V, kDvalPacks>(row_ptr, rows, col, dout, x, dval,
+                                        nrows, heads, vecs, ld_g, hs_g,
+                                        ld_x, hs_x, group_log2, threshold,
+                                        seg_begin, seg_end, segments, counts,
+                                        stream);
+  }
 }
 
 }  // namespace
@@ -387,37 +554,52 @@ int csr_spmm_combine_rows(const void* heavy_rows, const void* seg_ptr,
                                   accumulate, st);
 }
 
-// dval [edges] = the gradient of K1's output with respect to its values:
-// dval[e] = <dout[rows[e]], x[col[e]]> for dout [*, width] and x [*, width],
-// both float32 and contiguous; rows and col int32 [edges]. Each value is
-// written once (no atomics). Nothing is launched for edges == 0.
-int csr_spmm_dval(const void* rows, const void* col, const void* dout,
-                  const void* x, void* dval, int64_t edges, int64_t width,
-                  void* stream) {
-  if (edges < 0 || width <= 0 || edges > (int64_t(1) << 40))
+// dval [E, heads] = the gradient of K1's output with respect to its values,
+// for the forward CSR (row_ptr [nrows + 1], col [E], rows [E] each edge's
+// row, int32): dval[e * heads + h] = <dout[r][h], x[col[e]][h]> for edge e
+// of row r, dout and x float32 [*, heads, width] with the row strides ld_*
+// and head strides hs_* (elements; the columns contiguous), read in place.
+// The rows of more than threshold edges are taken by their segments
+// (seg_begin, seg_end; segments in all, the first counts[1] with counts,
+// int32 [2] on the device), as K1's schedule cuts them. Each value is
+// written once (no atomics). Nothing is launched for nrows == 0.
+int csr_spmm_dval(const void* row_ptr, const void* rows, const void* col,
+                  const void* dout, const void* x, void* dval, int64_t nrows,
+                  int64_t heads, int64_t width, int64_t ld_dout,
+                  int64_t hs_dout, int64_t ld_x, int64_t hs_x, int threshold,
+                  const void* seg_begin, const void* seg_end,
+                  int64_t segments, const void* counts, void* stream) {
+  if (nrows < 0 || nrows > (int64_t(1) << 40) || heads < 1 ||
+      heads > (int64_t(1) << 20) || width <= 0 || width > (1 << 24) ||
+      threshold < 1 || segments < 0 || segments > (int64_t(1) << 40) ||
+      ld_dout < 0 || hs_dout < 0 || ld_x < 0 || hs_x < 0)
     return cudaErrorInvalidValue;
-  if (edges == 0) return cudaSuccess;
+  if (nrows == 0) return cudaSuccess;
   auto* st = static_cast<cudaStream_t>(stream);
-  const bool vec4 = width % 4 == 0 && aligned16(dout) && aligned16(x);
-  const int64_t vecs = vec4 ? width / 4 : width;
-  int group_log2 = 0;  // lanes per edge: the power of two >= vecs, up to 32
-  while ((int64_t(1) << group_log2) < vecs && group_log2 < 5) ++group_log2;
-  const int64_t blocks = blocks_for(edges, group_log2);
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  const auto* r = static_cast<const int*>(rows);
-  const auto* c = static_cast<const int*>(col);
+  const bool vec4 = width % 4 == 0 && ld_dout % 4 == 0 && hs_dout % 4 == 0 &&
+                    ld_x % 4 == 0 && hs_x % 4 == 0 && aligned16(dout) &&
+                    aligned16(x);
+  const int vecs = static_cast<int>(vec4 ? width / 4 : width);
+  int group_log2 = 0;  // lanes per item: the power of two >= vecs, up to 32
+  while ((1 << group_log2) < vecs && group_log2 < 5) ++group_log2;
+  const int per_lane = (vecs + (1 << group_log2) - 1) >> group_log2;
+  const int packs = per_lane < kDvalPacks ? per_lane : kDvalPacks;
+  const auto* rp = static_cast<const int*>(row_ptr);
+  const auto* rw = static_cast<const int*>(rows);
+  const auto* cl = static_cast<const int*>(col);
   const auto* g = static_cast<const float*>(dout);
   const auto* xs = static_cast<const float*>(x);
   auto* out = static_cast<float*>(dval);
+  const auto* sb = static_cast<const int*>(seg_begin);
+  const auto* se = static_cast<const int*>(seg_end);
+  const auto* ct = static_cast<const int*>(counts);
   if (vec4)
-    csr_spmm_dval_kernel<4><<<static_cast<unsigned>(blocks), kThreads, 0,
-                              st>>>(r, c, g, xs, out, edges, vecs,
-                                    group_log2);
-  else
-    csr_spmm_dval_kernel<1><<<static_cast<unsigned>(blocks), kThreads, 0,
-                              st>>>(r, c, g, xs, out, edges, vecs,
-                                    group_log2);
-  return cudaGetLastError();
+    return launch_dval_p<4>(packs, rp, rw, cl, g, xs, out, nrows, heads,
+                            vecs, ld_dout, hs_dout, ld_x, hs_x, group_log2,
+                            threshold, sb, se, segments, ct, st);
+  return launch_dval_p<1>(packs, rp, rw, cl, g, xs, out, nrows, heads, vecs,
+                          ld_dout, hs_dout, ld_x, hs_x, group_log2,
+                          threshold, sb, se, segments, ct, st);
 }
 
 }  // extern "C"

@@ -23,7 +23,9 @@ A group whose row tiles hold more than :data:`SPLIT_BLOCKS` blocks and
 whose thread blocks fill less than a wave of the card is cut along its
 blocks into chunks (:func:`split_plan`, from shapes and the SM count
 alone); each chunk writes f32 partial sums into scratch, and
-``bsr_combine_kernel`` sums them in chunk order, scales and rounds once.
+``bsr_combine_kernel`` sums them in chunk order, scales and rounds once,
+a thread block a band of :func:`combine_rows` rows of a split group's row
+tile (:func:`combine_plan`, the host's numbering of those bands).
 
 :func:`bsr_spmm_blocks` is the entry: on a CUDA tensor it launches
 :func:`bsr_spmm_split` (counted in :data:`LAUNCHES` as ``bsr_spmm``, or
@@ -58,6 +60,8 @@ ROWS, MAX_COLS = 128, 80
 SPLIT_BLOCKS = 3
 #: Thread blocks of K7 an SM holds at once (``__launch_bounds__``).
 BLOCKS_PER_SM = 2
+#: Threads of a block of the combine kernel (``csrc/bsr.cu``).
+COMBINE_THREADS = 128
 
 _BLOCK_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _X_TYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -234,6 +238,35 @@ def bsr_spmm_combine_plain(partial, out, groups, tile, chunks, scale=None):
     return res
 
 
+def combine_rows(width):
+    """Rows of a band of the combine kernel at width W: 8 where W % 4 == 0
+    (16-byte packs), else the rows its :data:`COMBINE_THREADS` threads hold
+    at a thread a value, W rounded up to a power of two threads a row (one
+    row at least)."""
+    if width % 4 == 0:
+        return 8
+    return COMBINE_THREADS // min(COMBINE_THREADS,
+                                  1 << (width - 1).bit_length())
+
+
+def combine_plan(groups, chunks, tile, width):
+    """The combine kernel's work, as the host numbers it: for each split
+    group (chunks > 1), in order, (its index in ``groups``, its first
+    thread block, m, chunks, its first partial), and the thread blocks in
+    all. A thread block takes one band of :func:`combine_rows` rows of one
+    row tile: group j's bands are its first block onwards, ⌈T / rows⌉ a
+    row tile, row tile after row tile."""
+    offsets, _ = partial_offsets(groups, chunks, tile, width)
+    bands = -(-tile // combine_rows(width))
+    plan, total = [], 0
+    for i, ((m, _), c, off) in enumerate(zip(group_shapes(groups), chunks,
+                                             offsets)):
+        if c > 1:
+            plan.append((i, total, m, c, off))
+            total += m * bands
+    return plan, total
+
+
 def _check(x, groups, tile, scale):
     if x.dim() != 2 or x.dtype not in _X_TYPES:
         raise TypeError(f"bsr_spmm takes x [N, W] of float32 or bfloat16, "
@@ -345,7 +378,7 @@ def bsr_spmm_combine(partial, out, groups, tile, chunks, *, scale=None):
     :func:`bsr_spmm_combine_plain`; returns out."""
     _check_plan(groups, chunks)
     n, width = out.shape
-    offsets, size = partial_offsets(groups, chunks, tile, width)
+    _, size = partial_offsets(groups, chunks, tile, width)
     if out.dtype not in _X_TYPES or partial.numel() != size:
         raise ValueError(f"bsr_spmm_combine takes out of float32 or "
                          f"bfloat16 and {size} partials, got {out.dtype}, "
@@ -356,13 +389,18 @@ def bsr_spmm_combine(partial, out, groups, tile, chunks, *, scale=None):
                                                 chunks, scale))
     if not (out.is_contiguous() and partial.is_contiguous()):
         raise ValueError("out and partial must be contiguous")
-    table, _ = _table(groups, chunks, tile, width)
+    plan, _ = combine_plan(groups, chunks, tile, width)
+    if not plan:
+        return out
+    table = np.array([(first, 0 if groups[i][2] is None
+                       else groups[i][2].data_ptr(), m, c, off)
+                      for i, first, m, c, off in plan], np.int64)
     if scale is not None:
         scale = scale.contiguous()
     rc = load_library().bsr_spmm_combine(
         partial.data_ptr(), size,
         None if scale is None else scale.data_ptr(), out.data_ptr(), n,
-        width, tile, _X_TYPES[out.dtype], table.ctypes.data, len(groups),
+        width, tile, _X_TYPES[out.dtype], table.ctypes.data, len(plan),
         torch.cuda.current_stream(out.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bsr_spmm_combine kernel launch failed: CUDA "

@@ -46,7 +46,8 @@ SIGNATURES = {
     "spmm.cu": {
         "csr_spmm": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _P, _P, _P,
                      _P, _I64, _I64, _P, _P, _P],
-        "csr_spmm_dval": [_P, _P, _P, _P, _P, _I64, _I64, _P],
+        "csr_spmm_dval": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                          _I64, _I64, _I64, _I, _P, _P, _I64, _P, _P],
         "csr_spmm_combine_rows": [_P, _P, _P, _P, _I64, _I64, _I, _I, _P],
     },
     "ell.cu": {

@@ -23,11 +23,13 @@ backward over the transposed one (the senders' rows), so ``dx[s] = Σ_{e: send_e
 from a plan built once per graph (``ops/graph_ops.py``, ``build_csr_plan``).
 The values are data, unless the caller gives them as a tensor that requires a
 gradient (GAT's attention, ``spmm``'s values): then the backward also runs
-K1-dval, ``csr_spmm_dval_kernel`` of the same source, ``dval[e] =
-<dout[row(e)], x[col[e]]>`` over the forward CSR, a group of lanes an edge
-and each value written once (:func:`csr_spmm_dval`; plain twin
-:func:`csr_spmm_dval_plain`, one gather of each side and a row-wise sum in
-f32). It replaces XLA's autodiff of ``values * x[senders]``
+K1-dval, ``csr_spmm_dval_kernel`` of the same source, ``dval[e, h] =
+<dout[row(e), h], x[col[e], h]>`` over the forward CSR for every head in one
+launch, row by row as K1 (a group of lanes a row, or a segment of a row of
+more than :data:`DVAL_SPLIT_THRESHOLD` edges, for one head; the row's
+``dout`` loaded once, each value written once) (:func:`csr_spmm_dval`;
+plain twin :func:`csr_spmm_dval_plain`, one gather of each side and a
+row-wise sum in f32). It replaces XLA's autodiff of ``values * x[senders]``
 (``difformer_tpu/ops/graph_ops.py:233-236``) and of GAT's ``feat[senders] *
 att`` (``difformer_tpu/nn/gnns.py:183-184``), and is counted in
 :data:`DVAL_LAUNCHES`. Where the values need no gradient (DIFFormer, the
@@ -103,6 +105,21 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: that a citation graph, whose largest degree is in the tens or low
 #: hundreds, never splits.
 SPLIT_THRESHOLD = 256
+
+
+#: K1-dval's T: its rows of more than T edges are walked in segments of at
+#: most T edges, each by a group of lanes of its own (a :class:`RowSplit`
+#: built with the plans whose values take a gradient,
+#: ``CsrPlan.dval_split``). Smaller than K1's, as each of K1-dval's edges
+#: ends in a reduction across the group, so a row's edges follow one
+#: another (a popular neighbour of cifar10's kNN graph has 1322 edges).
+#: From a sweep of T = 8 to 256 on the card at GAT's Cora and cifar10
+#: plans, Pokec's power law and a hub graph (``time_kernels.py --kernel
+#: dval --dval-threshold``; ``PERF.md`` §6): smaller T served the small
+#: graphs, larger the big ones, and 16 was the one T at which no shape but
+#: Cora's single head (slower at every T) was slower than the row-per-edge
+#: kernel before it.
+DVAL_SPLIT_THRESHOLD = 16
 
 
 def reset_launch_counts():
@@ -305,11 +322,14 @@ def csr_spmm(x, row_ptr, col, val, *, split=None, transposed=False,
 
 
 def csr_spmm_dval_plain(dout, x, rows, col, *, edge_chunk_size=None):
-    """[E] float32: ``dval[e] = Σ_c dout[rows[e], c] · x[col[e], c]``, one
-    gather of each side and a row-wise sum in float32 (K1-dval's plain
-    twin); with ``edge_chunk_size`` that many edges at a time."""
+    """float32 [E] for dout [R, W] and x [*, W], or [E, H] for dout
+    [R, H, D] and x [*, H, D]: ``dval[e, h] = Σ_c dout[rows[e], h, c] ·
+    x[col[e], h, c]``, one gather of each side and a row-wise sum in
+    float32 (K1-dval's plain twin); with ``edge_chunk_size`` that many edges
+    at a time."""
     e = col.numel()
-    out = torch.empty(e, dtype=torch.float32, device=dout.device)
+    out = torch.empty((e,) + tuple(dout.shape[1:-1]), dtype=torch.float32,
+                      device=dout.device)
     step = edge_chunk_size or max(e, 1)
     for lo in range(0, e, step):
         hi = min(e, lo + step)
@@ -319,24 +339,40 @@ def csr_spmm_dval_plain(dout, x, rows, col, *, edge_chunk_size=None):
 
 
 def csr_spmm_dval_abs(dout, x, rows, col, *, edge_chunk_size=None):
-    """[E]: ``Σ_c |dout[rows[e], c] · x[col[e], c]|``, the scale of
-    float32's rounding of K1-dval's sums (the "spmm" kind of
+    """[E] or [E, H]: ``Σ_c |dout[rows[e], h, c] · x[col[e], h, c]|``, the
+    scale of float32's rounding of K1-dval's sums (the "spmm" kind of
     ``kernels/tolerance.py``)."""
     return csr_spmm_dval_plain(dout.abs(), x.abs(), rows, col,
                                edge_chunk_size=edge_chunk_size)
 
 
-def csr_spmm_dval(dout, x, rows, col, *, edge_chunk_size=None):
-    """K1-dval. dout [R, W] and x [*, W] float32, ``rows`` and ``col``
-    int32 [E] (each CSR edge's row and column) → dval [E] float32 with
-    ``dval[e] = <dout[rows[e]], x[col[e]]>``: the gradient of K1's output
-    with respect to its values, in the CSR's edge order. On a CUDA tensor it
-    launches ``csr_spmm_dval_kernel`` (one write an edge, no atomics) and
-    counts it in :data:`DVAL_LAUNCHES`; on the CPU it runs
+def _heads_view(t):
+    """t [R, W] or [R, H, D] as a [R, H, D] view whose columns are
+    contiguous (a copy only where they are not)."""
+    t = t.unsqueeze(1) if t.dim() == 2 else t
+    return t if t.stride(2) == 1 else t.contiguous()
+
+
+def csr_spmm_dval(dout, x, rows, col, *, row_ptr=None, split=None,
+                  edge_chunk_size=None):
+    """K1-dval: the gradient of K1's output with respect to its values, in
+    the CSR's edge order. dout [R, W] and x [*, W] float32 → dval [E] with
+    ``dval[e] = <dout[rows[e]], x[col[e]]>``; per head, dout [R, H, D] and
+    x [*, H, D] → dval [E, H], every head in one launch, both read in place
+    at their row and head strides. ``rows`` and ``col`` (int32 [E]) are the
+    edges' rows and columns in CSR order, ``row_ptr`` (int32 [R + 1]) and
+    ``split`` the CSR's row pointers and the :class:`RowSplit` its rows
+    are walked by (the plan's ``dval_split``), which the kernel needs and
+    the plain version does not read. On a CUDA tensor it launches
+    ``csr_spmm_dval_kernel`` (one write a value, no atomics, nothing read
+    back) and counts it in :data:`DVAL_LAUNCHES`, or raises without
+    ``row_ptr`` and ``split``; on the CPU it runs
     :func:`csr_spmm_dval_plain` (``edge_chunk_size`` applies to it only)."""
-    if dout.dim() != 2 or x.dim() != 2 or dout.shape[1] != x.shape[1]:
-        raise ValueError(f"dout and x must be [rows, W] of one W, got "
-                         f"{tuple(dout.shape)}, {tuple(x.shape)}")
+    if (dout.dim() not in (2, 3) or x.dim() != dout.dim()
+            or dout.shape[1:] != x.shape[1:]):
+        raise ValueError(f"dout and x must be [rows, W] or [rows, H, D] of "
+                         f"one width, got {tuple(dout.shape)}, "
+                         f"{tuple(x.shape)}")
     if dout.dtype != torch.float32 or x.dtype != torch.float32:
         raise TypeError(f"csr_spmm_dval takes float32 dout and x, got "
                         f"{dout.dtype}, {x.dtype}")
@@ -346,24 +382,52 @@ def csr_spmm_dval(dout, x, rows, col, *, edge_chunk_size=None):
     if rows.shape != col.shape or col.dim() != 1:
         raise ValueError(f"rows and col must be [E], got "
                          f"{tuple(rows.shape)}, {tuple(col.shape)}")
-    if not on_cuda("csr_spmm_dval", dout, x, rows, col):
+    schedule = () if split is None else split.tensors()
+    if split is not None and split.counts is not None:
+        schedule += (split.counts,)
+    extra = () if row_ptr is None else (row_ptr,)
+    if not on_cuda("csr_spmm_dval", dout, x, rows, col, *extra, *schedule):
         return csr_spmm_dval_plain(dout, x, rows, col,
                                    edge_chunk_size=edge_chunk_size)
-    e, width = col.numel(), x.shape[1]
-    if e == 0 or width == 0:
-        return torch.zeros(e, dtype=torch.float32, device=x.device)
-    dout, x = dout.contiguous(), x.contiguous()
-    rows, col = rows.contiguous(), col.contiguous()
-    out = torch.empty(e, dtype=torch.float32, device=x.device)
-    rc = load_library().csr_spmm_dval(
-        rows.data_ptr(), col.data_ptr(), dout.data_ptr(), x.data_ptr(),
-        out.data_ptr(), e, width,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"csr_spmm_dval kernel launch failed: CUDA error "
-                           f"{rc}")
-    DVAL_LAUNCHES["csr_spmm_dval"] += 1
-    return out
+    if row_ptr is None or split is None:
+        raise ValueError("csr_spmm_dval on the card needs the CSR's row_ptr "
+                         "and its RowSplit (a plan's dval_split: "
+                         "build_spmm_plan(..., value_grad=True))")
+    e = col.numel()
+    g3, x3 = _heads_view(dout), _heads_view(x)
+    heads, width = g3.shape[1:]
+    out = torch.empty((e, heads), dtype=torch.float32, device=x.device)
+    if e and width:
+        rows, col, row_ptr = (t.contiguous() for t in (rows, col, row_ptr))
+        rc = load_library().csr_spmm_dval(
+            row_ptr.data_ptr(), rows.data_ptr(), col.data_ptr(),
+            g3.data_ptr(), x3.data_ptr(), out.data_ptr(),
+            row_ptr.numel() - 1, heads, width, g3.stride(0), g3.stride(1),
+            x3.stride(0), x3.stride(1), split.threshold,
+            split.seg_begin.data_ptr(), split.seg_end.data_ptr(),
+            split.num_segments,
+            None if split.counts is None else split.counts.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"csr_spmm_dval kernel launch failed: CUDA "
+                               f"error {rc}")
+        DVAL_LAUNCHES["csr_spmm_dval"] += 1
+    else:
+        out.zero_()
+    return out if dout.dim() == 3 else out.view(e)
+
+
+def _stack_heads(outs):
+    """[N, H, D] of the heads' [N, D] products (a view for one head)."""
+    return outs[0].unsqueeze(1) if len(outs) == 1 else torch.stack(outs, 1)
+
+
+def _head_values(values, order):
+    """Per-call edge values [E] or [E, H], in the caller's edge order, as
+    float32 [H, E] in the CSR order ``order``: one gather for all heads,
+    each head's row contiguous, as K1 takes its values."""
+    v = values.detach().float()
+    return v.reshape(v.shape[0], -1).t().index_select(1, order)
 
 
 class CsrSpmm(torch.autograd.Function):
@@ -371,46 +435,60 @@ class CsrSpmm(torch.autograd.Function):
     A and its :class:`RowSplit`; the backward is ``dx = Aᵀ @ dout`` through
     the same kernel over ``bwd``, the CSR of Aᵀ and its split.
 
-    With ``values`` ([E], in the edge order of the caller's plan) and
-    ``maps`` = (order, t_order, inv_order, rows) the product takes these
-    values instead of the CSRs' own: ``values[order]`` in CSR order and
-    ``values[t_order]`` in the transposed one. When ``values`` requires a
-    gradient the backward also launches K1-dval over the forward CSR and
-    gathers its result back to the caller's order by ``inv_order`` (a
-    permutation: a gather, not an add); otherwise it launches exactly what
-    it launches without values."""
+    With ``values`` ([E] or [E, H], in the edge order of the caller's plan),
+    x [N, H, D] (H = 1 for [E] values) and ``maps`` = (order, t_order,
+    inv_order, rows), the product takes these values instead of the CSRs'
+    own, head h's ``values[:, h]`` for ``x[:, h]``: in CSR order
+    (``order``) in the forward and in the transposed one (``t_order``) in
+    the backward, one K1 launch a head each way. When ``values`` requires a
+    gradient the backward also launches K1-dval once, for every head, over
+    the forward CSR walked by ``dval_split`` (the plan's), on ``dout`` and
+    x in place, and gathers its [E, H] result back to the caller's order by
+    ``inv_order`` (a permutation: a gather, not an add); otherwise it
+    launches exactly what it launches without values."""
 
     @staticmethod
-    def forward(ctx, x, fwd, bwd, edge_chunk_size, values=None, maps=None):
+    def forward(ctx, x, fwd, bwd, edge_chunk_size, values=None, maps=None,
+                dval_split=None):
         ctx.bwd = bwd
         ctx.edge_chunk_size = edge_chunk_size
         ctx.maps = maps
+        ctx.dval_split = dval_split
         row_ptr, col, val, split = fwd
-        if values is not None:
-            ctx.fwd_col = col
-            val = values.detach().float().index_select(0, maps[0])
-            want_dval = ctx.needs_input_grad[4]
-            ctx.save_for_backward(values, x if want_dval else None)
-        return csr_spmm(x, row_ptr, col, val, split=split,
-                        edge_chunk_size=edge_chunk_size)
+        if values is None:
+            return csr_spmm(x, row_ptr, col, val, split=split,
+                            edge_chunk_size=edge_chunk_size)
+        ctx.fwd = fwd
+        want_dval = ctx.needs_input_grad[4]
+        ctx.save_for_backward(values, x if want_dval else None)
+        vals = _head_values(values, maps[0])
+        return _stack_heads([
+            csr_spmm(x[:, h], row_ptr, col, vals[h], split=split,
+                     edge_chunk_size=edge_chunk_size)
+            for h in range(x.shape[1])])
 
     @staticmethod
     def backward(ctx, g):
         row_ptr, col, val, split = ctx.bwd
         g = g.contiguous()
+        kw = dict(edge_chunk_size=ctx.edge_chunk_size)
         dx = dval = None
-        if ctx.maps is not None:
-            values, x = ctx.saved_tensors
-            order, t_order, inv_order, rows = ctx.maps
-            val = values.detach().float().index_select(0, t_order)
+        if ctx.maps is None:
+            if ctx.needs_input_grad[0]:
+                dx = csr_spmm(g, row_ptr, col, val, split=split,
+                              transposed=True, **kw)
+            return (dx, None, None, None)[:len(ctx.needs_input_grad)]
+        values, x = ctx.saved_tensors
+        _, t_order, inv_order, rows = ctx.maps
         if ctx.needs_input_grad[0]:
-            dx = csr_spmm(g, row_ptr, col, val, split=split,
-                          transposed=True,
-                          edge_chunk_size=ctx.edge_chunk_size)
-        if len(ctx.needs_input_grad) > 4 and ctx.needs_input_grad[4]:
-            dval = csr_spmm_dval(
-                g, x, rows, ctx.fwd_col,
-                edge_chunk_size=ctx.edge_chunk_size).index_select(
-                    0, inv_order).to(values.dtype)
-        return (dx, None, None, None, dval, None)[
-            :len(ctx.needs_input_grad)]
+            vals = _head_values(values, t_order)
+            dx = _stack_heads([csr_spmm(g[:, h], row_ptr, col, vals[h],
+                                        split=split, transposed=True, **kw)
+                               for h in range(g.shape[1])])
+        if ctx.needs_input_grad[4]:
+            f_row_ptr, f_col = ctx.fwd[:2]
+            dval = csr_spmm_dval(g, x, rows, f_col, row_ptr=f_row_ptr,
+                                 split=ctx.dval_split, **kw)
+            dval = dval.index_select(0, inv_order).view(values.shape).to(
+                values.dtype)
+        return dx, None, None, None, dval, None, None

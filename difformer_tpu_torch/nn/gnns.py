@@ -319,7 +319,7 @@ def gat_plan(senders, receivers, num_nodes, edge_mask=None,
         s, r = torch.cat([s, loop]), torch.cat([r, loop])
     order = torch.argsort(r, stable=True)
     s, r = s[order], r[order]
-    plan = build_spmm_plan(None, s, r, num_nodes)
+    plan = build_spmm_plan(None, s, r, num_nodes, value_grad=True)
     return GATPlan(plan, edge_incidence(plan, "receiver"),
                    edge_incidence(plan, "sender"), r)
 

@@ -39,7 +39,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from difformer_tpu_torch.kernels.spmm import CsrSpmm, RowSplit, row_split
+from difformer_tpu_torch.kernels.spmm import (DVAL_SPLIT_THRESHOLD, CsrSpmm,
+                                               RowSplit, row_split)
 from difformer_tpu_torch.ops.segment import segment_sum
 
 
@@ -88,7 +89,9 @@ class CsrPlan:
     the receivers in sender order (both orders stable); ``val``/``t_val``
     the per-edge values in the two orders; ``split``/``t_split`` the two
     CSRs' schedules of heavy rows for K1 (``kernels/spmm.py``,
-    :func:`row_split` at ``SPLIT_THRESHOLD``)."""
+    :func:`row_split` at ``SPLIT_THRESHOLD``); ``dval_split``, in the plans
+    of :func:`build_spmm_plan` whose values take a gradient, the forward
+    CSR's schedule for K1-dval (at ``DVAL_SPLIT_THRESHOLD``)."""
 
     num_nodes: int
     row_ptr: torch.Tensor      # int32 [N + 1]
@@ -107,6 +110,7 @@ class CsrPlan:
     t_order: Optional[torch.Tensor] = None    # int64 [E]
     inv_order: Optional[torch.Tensor] = None  # int64 [E]
     rows: Optional[torch.Tensor] = None       # int32 [E]
+    dval_split: Optional[RowSplit] = None
 
     @property
     def num_edges(self):
@@ -145,7 +149,8 @@ def _checked_edges(senders, receivers, num_nodes):
     return senders, receivers
 
 
-def _plan(senders, receivers, num_nodes, value, maps=False) -> CsrPlan:
+def _plan(senders, receivers, num_nodes, value, maps=False,
+          value_grad=False) -> CsrPlan:
     order = torch.argsort(receivers, stable=True)
     t_order = torch.argsort(senders, stable=True)
     row_ptr = _row_ptr(receivers, num_nodes)
@@ -157,6 +162,8 @@ def _plan(senders, receivers, num_nodes, value, maps=False) -> CsrPlan:
         inv_order[order] = torch.arange(e, device=order.device)
         kept = dict(order=order, t_order=t_order, inv_order=inv_order,
                     rows=receivers[order].to(torch.int32))
+        if value_grad:
+            kept["dval_split"] = row_split(row_ptr, DVAL_SPLIT_THRESHOLD)
     return CsrPlan(
         num_nodes=num_nodes, row_ptr=row_ptr,
         col=senders[order].to(torch.int32), val=value[order],
@@ -180,7 +187,9 @@ def _csr_product(x, plan, edge_chunk_size, values=None):
     """K1 over ``plan``, for x of any trailing shape [N, ...] (all heads and
     channels in one product). With ``values`` [E] (in the plan's edge
     order) they replace the plan's own; with per-head ``values`` [E, H] and
-    x [N, H, ...], one product a head over that head's contiguous slice."""
+    x [N, H, ...], head h's values multiply x[:, h], all heads in one
+    autograd Function (one K1 launch a head each way, one K1-dval for all
+    heads)."""
     n = x.shape[0]
     if n != plan.num_nodes:
         raise ValueError(f"x has {n} rows; the plan has "
@@ -194,17 +203,13 @@ def _csr_product(x, plan, edge_chunk_size, values=None):
     if values.shape[0] != plan.num_edges or values.dim() not in (1, 2):
         raise ValueError(f"values must be [E] or [E, H] with E = "
                          f"{plan.num_edges}, got {tuple(values.shape)}")
-    if values.dim() == 1:
-        out = CsrSpmm.apply(x.reshape(n, -1), fwd, bwd, edge_chunk_size,
-                            values, maps)
-        return out.reshape(x.shape)
-    heads = values.shape[1]
-    if x.dim() < 2 or x.shape[1] != heads:
+    heads = 1 if values.dim() == 1 else values.shape[1]
+    if values.dim() == 2 and (x.dim() < 2 or x.shape[1] != heads):
         raise ValueError(f"per-head values [E, {heads}] need x [N, {heads}, "
                          f"...], got {tuple(x.shape)}")
-    outs = [CsrSpmm.apply(x[:, h].reshape(n, -1), fwd, bwd, edge_chunk_size,
-                          values[:, h], maps) for h in range(heads)]
-    return torch.stack(outs, 1).reshape(x.shape)
+    out = CsrSpmm.apply(x.reshape(n, heads, -1), fwd, bwd, edge_chunk_size,
+                        values, maps, plan.dval_split)
+    return out.reshape(x.shape)
 
 
 def gcn_conv(x, senders, receivers, edge_weight=None, *, num_nodes=None,
@@ -231,18 +236,21 @@ def gcn_conv(x, senders, receivers, edge_weight=None, *, num_nodes=None,
     return _csr_product(x, plan, edge_chunk_size)
 
 
-def build_spmm_plan(values, senders, receivers, num_nodes) -> CsrPlan:
+def build_spmm_plan(values, senders, receivers, num_nodes, *,
+                    value_grad=False) -> CsrPlan:
     """The :class:`CsrPlan` of the sparse matrix with ``out[r] +=
     values[e] · x[s]`` over edges (senders, receivers), in any order, for
     :func:`spmm`'s ``plan``, with its edge maps, so that a call can give
     other values in this edge order. The plan's values are data (no
-    gradient); ``values`` None gives ones. Checks the indices as
-    :func:`build_csr_plan` does."""
+    gradient); ``values`` None gives ones. ``value_grad`` also builds the
+    schedule K1-dval walks on the card (``dval_split``, reading the degrees
+    back), which a call whose values require a gradient needs there.
+    Checks the indices as :func:`build_csr_plan` does."""
     senders, receivers = _checked_edges(senders, receivers, num_nodes)
     if values is None:
         values = torch.ones(senders.shape, device=senders.device)
     return _plan(senders, receivers, num_nodes, values.detach().float(),
-                 maps=True)
+                 maps=True, value_grad=value_grad)
 
 
 def spmm(values, senders, receivers, x, num_nodes=None, *,
@@ -259,7 +267,8 @@ def spmm(values, senders, receivers, x, num_nodes=None, *,
     if plan is None:
         n = x.shape[0] if num_nodes is None else num_nodes
         plan = build_spmm_plan(values if values.dim() == 1 else None,
-                               senders, receivers, n)
+                               senders, receivers, n,
+                               value_grad=values.requires_grad)
         if values.dim() == 1 and not values.requires_grad:
             values = None
     return _csr_product(x, plan, None, values)

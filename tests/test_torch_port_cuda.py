@@ -14,8 +14,10 @@ SpMM K1 and its value gradient K1-dval at the forward's float32
 tolerance); the model's logits and gradients rtol 1e-3 / atol 1e-4 (layers
 of kernel-vs-plain float32 rounding). The baseline zoo (``-k zoo``) on the
 card against the CPU, its graph fits against the loop, BatchNorm's
-statistics across the capture, and K1-dval (``-k dval``) alone and through
-``spmm``'s value gradient. The sparse layouts (``-k "ell or bsr"``): K6 and
+statistics across the capture, and K1-dval (``-k dval``) alone (every
+head in one launch, on strided head views, with its rows split) and
+through ``spmm``'s value gradient. The sparse layouts (``-k "ell or
+bsr"``; K7's combine alone ``-k combine``): K6 and
 K7 against their plain versions under the "spmm" rule, one kernel a call
 (two where a split plan cuts K6's hub bucket or K7's hub row tile, the
 second its combine), two calls bit-equal, K6's split hub captured and
@@ -1365,15 +1367,18 @@ def test_dval_kernel_matches_plain(cuda, width, hub):
     r = np.where(rng.random(e) < 0.3, 5, rng.integers(0, n, e)) if hub \
         else rng.integers(0, n, e)
     plan = build_spmm_plan(None, torch.as_tensor(s, device=cuda),
-                           torch.as_tensor(r, device=cuda), n)
+                           torch.as_tensor(r, device=cuda), n,
+                           value_grad=True)
     g = torch.as_tensor(rng.normal(size=(n, width)).astype(np.float32),
                         device=cuda)
     x = torch.as_tensor(rng.normal(size=(n, width)).astype(np.float32),
                         device=cuda)
+    kw = dict(row_ptr=plan.row_ptr, split=plan.dval_split)
     K1.reset_launch_counts()
-    got = K1.csr_spmm_dval(g, x, plan.rows, plan.col)
+    got = K1.csr_spmm_dval(g, x, plan.rows, plan.col, **kw)
     assert K1.DVAL_LAUNCHES == {"csr_spmm_dval": 1}
-    assert torch.equal(got, K1.csr_spmm_dval(g, x, plan.rows, plan.col))
+    assert torch.equal(got, K1.csr_spmm_dval(g, x, plan.rows, plan.col,
+                                             **kw))
     ref = K1.csr_spmm_dval_plain(g, x, plan.rows, plan.col)
     scale = K1.csr_spmm_dval_abs(g, x, plan.rows, plan.col)
     assert_close(f"dval W={width}", got, ref, "spmm", scale=scale)
@@ -1400,7 +1405,7 @@ def test_dval_value_gradient_on_the_card(cuda, heads):
     for dev in ("cpu", cuda):
         t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
         v, xx = t(vals).requires_grad_(), t(x).requires_grad_()
-        plan = build_spmm_plan(None, t(s), t(r), n)
+        plan = build_spmm_plan(None, t(s), t(r), n, value_grad=True)
         K1.reset_launch_counts()
         (spmm(v, None, None, xx, plan=plan) * t(cot)).sum().backward()
         res[str(dev)] = (v.grad.cpu(), xx.grad.cpu(),
@@ -1408,7 +1413,49 @@ def test_dval_value_gradient_on_the_card(cuda, heads):
     (v_cpu, x_cpu, _), (v_gpu, x_gpu, launched) = res["cpu"], res[str(cuda)]
     torch.testing.assert_close(v_gpu, v_cpu, **GRAD)
     torch.testing.assert_close(x_gpu, x_cpu, **GRAD)
-    assert launched == {"csr_spmm_dval": max(heads, 1)}
+    assert launched == {"csr_spmm_dval": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [None, 4])
+@pytest.mark.parametrize("width", [7, 64, 65, 300])
+@pytest.mark.parametrize("heads", [1, 2])
+def test_dval_heads_kernel_matches_plain(cuda, heads, width, threshold):
+    """K1-dval for every head in one launch, on strided [N, H, D] views
+    (every other head of a wider buffer, a column slice), on a graph with
+    a hub row of thousands of edges (split at the plan's K1-dval T, and at
+    T = 4 where most rows are): within the "spmm" rule of the plain
+    version, two calls bit-equal, one launch counted, no copy of the
+    inputs."""
+    from difformer_tpu_torch.ops.graph_ops import build_spmm_plan
+
+    rng = np.random.default_rng(width + heads)
+    n, e = 3000, 20000
+    s = rng.integers(0, n, e)
+    r = np.where(rng.random(e) < 0.3, 5, rng.integers(0, n, e))
+    plan = build_spmm_plan(None, torch.as_tensor(s, device=cuda),
+                           torch.as_tensor(r, device=cuda), n,
+                           value_grad=True)
+    split = (plan.dval_split if threshold is None
+             else K1.row_split(plan.row_ptr, threshold))
+    assert split.num_heavy > 0
+    gen = torch.Generator(cuda).manual_seed(width)
+    g = torch.randn((n, 2 * heads, width + 4), device=cuda,
+                    generator=gen)[:, ::2, :width]
+    x = torch.randn((n, heads, width + 8), device=cuda,
+                    generator=gen)[:, :, 4:width + 4]
+    if heads == 1:
+        g, x = g[:, 0], x[:, 0]
+    call = lambda: K1.csr_spmm_dval(  # noqa: E731
+        g, x, plan.rows, plan.col, row_ptr=plan.row_ptr, split=split)
+    K1.reset_launch_counts()
+    got = call()
+    assert K1.DVAL_LAUNCHES == {"csr_spmm_dval": 1}
+    assert got.shape == ((e, heads) if heads > 1 else (e,))
+    assert torch.equal(got, call())
+    ref = K1.csr_spmm_dval_plain(g, x, plan.rows, plan.col)
+    scale = K1.csr_spmm_dval_abs(g, x, plan.rows, plan.col)
+    assert_close(f"dval H={heads} D={width}", got, ref, "spmm", scale=scale)
 
 
 def _zoo_models(f, c, n):
@@ -1845,6 +1892,50 @@ def test_bsr_kernel_splits_a_hub_row_tile(cuda, blocks, tile, width):
                                      scale)
     assert torch.equal(K7.bsr_spmm_combine(partial, out, groups, tile,
                                            chunks, scale=scale), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("width", [64, 65, 300])
+def test_bsr_combine_on_the_card(cuda, width, dtype, scaled):
+    """The combine kernel alone on split partials: a hub group of one row
+    tile, the last, whose rows run past N (cut into 86 chunks at S = 3),
+    and a group of 8 row tiles in 2 chunks; f32 and bf16 out (16-byte and
+    8-byte packs at W = 64 and 300, single values at 65), with and without
+    the scale: bit-equal to its plain version, two calls bit-equal, the
+    rows of other groups untouched, one launch counted."""
+    from difformer_tpu_torch.kernels import bsr as K7
+
+    gen = torch.Generator(cuda).manual_seed(width)
+    tile, ntr = 256, 16
+    n = ntr * tile - 5
+    i32 = dict(device=cuda, dtype=torch.int32)
+    groups = [
+        (torch.empty((1, 256, tile, tile), device=cuda),
+         torch.zeros((1, 256), **i32), torch.tensor([ntr - 1], **i32)),
+        (torch.empty((8, 6, tile, tile), device=cuda),
+         torch.zeros((8, 6), **i32), torch.arange(2, 10, **i32)),
+        (None, None, torch.tensor([0, 1, 10, 11, 12, 13, 14], **i32)),
+    ]
+    chunks = [86, 2, 1]
+    size = K7.partial_offsets(groups, chunks, tile, width)[1]
+    partial = torch.randn(size, device=cuda, generator=gen)
+    out = torch.randn((n, width), device=cuda, generator=gen).to(dtype)
+    scale = (torch.rand(n, device=cuda, generator=gen) + 0.1 if scaled
+             else None)
+    want = K7.bsr_spmm_combine_plain(partial, out, groups, tile, chunks,
+                                     scale)
+    K7.reset_launch_counts()
+    got = K7.bsr_spmm_combine(partial, out.clone(), groups, tile, chunks,
+                              scale=scale)
+    assert K7.LAUNCHES["bsr_spmm_combine"] == 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, K7.bsr_spmm_combine(partial, out.clone(), groups,
+                                                tile, chunks, scale=scale))
+    kept = torch.cat([torch.arange(t * tile, (t + 1) * tile, device=cuda)
+                      for t in (0, 1, 10, 11, 12, 13, 14)])
+    assert torch.equal(got[kept], out[kept])
 
 
 @pytest.mark.cuda

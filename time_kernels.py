@@ -1,13 +1,15 @@
 """Time the port's kernels alone on one GPU: the flash sigmoid attention
 (K2 fwd, K3 dq, K4 dkv), the CSR SpMM (K1, spmm), its value gradient
-(K1-dval, dval) and the ELL SpMM (K6, ell).
+(K1-dval, dval), the ELL SpMM (K6, ell) and the block-sparse SpMM's
+combine (K7's, bsr_combine).
 
-    python3 time_kernels.py [--kernel fwd dq dkv spmm dval ell]
+    python3 time_kernels.py [--kernel fwd dq dkv spmm dval ell bsr_combine]
                             [--blocks-per-sm 1 2 4]
                             [--wide] [--root DIR]
     python3 time_kernels.py --kernel spmm --reorder rcm degree
     python3 time_kernels.py --kernel ell [--ell-threshold 256 384 0]
                             [--ell-pads]
+    python3 time_kernels.py --kernel dval [--dval-threshold 8 12 32 256]
     python3 time_kernels.py --builds [ROUNDS]
 
 Builds the kernels, prints the compiler's register and spill report, then
@@ -32,9 +34,19 @@ power-law degrees only, in the order its nodes were drawn and renumbered
 by each ``locality_reorder`` method given (on the host, timed), at hidden
 128: whether a node order that puts neighbours close lets the gathers hit
 L2, against the gather floor and the byte bound. With ``dval`` chosen,
-K1-dval at ``chip_smoke.dval_shapes()`` (``chip_smoke.phase_dval_kernels``:
-checked, timed by CUDA-graph replay beside ``sampled_addmm``, its bound and
-its gather floor). With ``ell`` chosen, K6 forward and transposed on
+K1-dval at ``chip_smoke.dval_shapes()`` (every head of a shape in one call
+where the package takes [N, H, D]; a package from before, e.g. with
+``--root``, a call a head on that head's slice, as its autograd Function
+made them): checked against the package's plain version a head at a time,
+two calls bit-equal, its device kernels a call, its time by CUDA-graph
+replay beside its bound and its x-gather floor; then at each split
+threshold T of ``--dval-threshold`` (bit-equal to the plan's split: each
+edge's sum does not depend on its item). With ``bsr_combine``
+chosen, K7's combine kernel alone on the partials of the degree-sorted
+power-law hub layout (``chip_smoke.hub_layout``) at W = 64, 65 and 300
+and at bf16, as ``chip_smoke.check_combine`` holds it (bit-equal to the
+plain version, its time by replay, ``torch.sum``'s and the bound).
+With ``ell`` chosen, K6 forward and transposed on
 bench.py's three graphs (``chip_smoke.bench_graph``, W = 64, f32 and
 bf16): checked against its plain version under the "spmm" rule, its device
 time by CUDA-graph replay (``chip_smoke.replay_ms``) and device kernels a
@@ -73,7 +85,8 @@ from pathlib import Path
 
 KERNELS = {"fwd": "sigmoid_attention_fwd", "dq": "sigmoid_attention_dq",
            "dkv": "sigmoid_attention_dkv", "spmm": "csr_spmm",
-           "dval": "csr_spmm_dval", "ell": "ell_spmm"}
+           "dval": "csr_spmm_dval", "ell": "ell_spmm",
+           "bsr_combine": "bsr_spmm_combine"}
 # the module constant each kernel's split rule reads (the wide path's is
 # WIDE_BLOCKS_PER_SM, one number for all three before it became a dict by
 # wrapper)
@@ -452,6 +465,101 @@ def time_ell(cs, thresholds, pads):
     return last
 
 
+def time_dval(cs, thresholds):
+    """K1-dval at every shape of ``cs.dval_shapes()``, at the plan's split
+    and then at each split threshold T of ``thresholds`` (a package from
+    before K1-dval's split has none and times its own); returns the last
+    call timed at the plan's split."""
+    import inspect
+
+    import torch
+
+    from difformer_tpu_torch.kernels import spmm as K1
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+
+    cs.say(f"time_kernels: package {Path(K1.__file__).resolve()}")
+    heads_at_once = "split" in inspect.signature(K1.csr_spmm_dval).parameters
+    for idx, (label, plan, heads, d, chunk) in enumerate(cs.dval_shapes()):
+        n, e = plan.num_nodes, plan.num_edges
+        g, x = cs.dval_inputs(n, heads, d, 200 + idx)
+        g3, x3 = (g, x) if heads > 1 else (g[:, None], x[:, None])
+        if heads_at_once:
+            call = lambda: K1.csr_spmm_dval(  # noqa: E731
+                g, x, plan.rows, plan.col, row_ptr=plan.row_ptr,
+                split=plan.dval_split)
+        else:
+            # the per-head launches of the package's Function, each on its
+            # head's slice (copied to contiguous rows by the wrapper)
+            call = lambda: torch.stack([  # noqa: E731
+                K1.csr_spmm_dval(g3[:, h], x3[:, h], plan.rows, plan.col)
+                for h in range(heads)], -1).view(
+                    (e, heads) if heads > 1 else (e,))
+        tag = f"dval {label} N={n} E={e} H={heads} D={d}"
+        got = call()
+        for h in range(heads):
+            args = (g3[:, h].contiguous(), x3[:, h].contiguous(), plan.rows,
+                    plan.col)
+            ref = K1.csr_spmm_dval_plain(*args, edge_chunk_size=chunk)
+            scale = K1.csr_spmm_dval_abs(*args, edge_chunk_size=chunk)
+            err = assert_close(f"{tag} head {h}", got.view(e, heads)[:, h],
+                               ref, "spmm", scale=scale)
+            del ref, scale
+        if not torch.equal(got, call()):
+            raise AssertionError(f"{tag}: two calls differ")
+        del got
+        kernels = cs.graph_kernels(call)[0]
+        ms = cs.replay_ms(call)
+        bound = cs.dval_bound_ms(n, e, heads, d)[0]
+        floor = cs.dval_gather_floor_ms(e, heads, d)
+        cs.say(f"time_kernels: {tag:58s} | {ms:.4f} ms, {kernels} device "
+               f"kernels a call | bound {bound:.4f} ms "
+               f"({100 * bound / ms:.1f}%) | x-gather floor {floor:.4f} ms "
+               f"({100 * floor / ms:.1f}%) | max_abs_err {err:.3e}")
+        last = tag, call
+        for t in thresholds if heads_at_once else []:
+            split = K1.row_split(plan.row_ptr, t)
+            swept = lambda: K1.csr_spmm_dval(  # noqa: E731
+                g, x, plan.rows, plan.col, row_ptr=plan.row_ptr,
+                split=split)
+            if not torch.equal(swept(), call()):
+                raise AssertionError(f"{tag}: T={t} differs from the "
+                                     f"plan's split")
+            cs.say(f"time_kernels: {tag:58s} | T={t} ({split.num_segments} "
+                   f"segments) {cs.replay_ms(swept):.4f} ms")
+        torch.cuda.empty_cache()
+    return last
+
+
+def time_bsr_combine(cs):
+    """K7's combine on the power-law hub layout's partials at W = 64, 65,
+    300 and bf16 (``cs.check_combine``); returns the last call timed."""
+    import torch
+
+    from difformer_tpu_torch.kernels import bsr as K7
+
+    cs.say(f"time_kernels: package {Path(K7.__file__).resolve()}")
+    d = cs.hub_layout()
+    n = d.num_nodes
+    g = torch.Generator("cuda").manual_seed(13)
+    for label, x in (("W=64", torch.randn((n, 64), device="cuda",
+                                          generator=g)),
+                     ("W=65", torch.randn((n, 65), device="cuda",
+                                          generator=g)),
+                     ("W=300", torch.randn((n, 300), device="cuda",
+                                           generator=g)),
+                     ("bf16", torch.randn((n, 64), device="cuda",
+                                          generator=g).bfloat16())):
+        groups, scale = d.groups(), d.inv_scale
+        chunks = K7.split_plan(K7.group_shapes(groups), d.tile, x.shape[1],
+                               K7.sm_count(x.device))
+        cs.check_combine(f"bsr_spmm hub int8 {label}", x, d, chunks, False)
+        out, partial = K7.bsr_spmm_split(x, groups, d.tile, chunks,
+                                         scale=scale)
+        last = (f"bsr_combine {label}", lambda: K7.bsr_spmm_combine(
+            partial, out, groups, d.tile, chunks, scale=scale))
+    return last
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--kernel", nargs="+", choices=sorted(KERNELS),
@@ -462,6 +570,8 @@ def main():
                         help="K6 split thresholds to time (0: no split)")
     parser.add_argument("--ell-pads", action="store_true",
                         help="also time K6 with the padding summed")
+    parser.add_argument("--dval-threshold", type=int, nargs="*", default=[],
+                        help="K1-dval split thresholds to time")
     parser.add_argument("--reorder", nargs="+", default=[],
                         choices=("rcm", "bfs", "degree", "community"))
     parser.add_argument("--wide", action="store_true")
@@ -479,7 +589,8 @@ def main():
 
     smi = cs.phase_device()
     cs.phase_build()
-    attention = [k for k in args.kernel if k not in ("spmm", "dval", "ell")]
+    attention = [k for k in args.kernel
+                 if k not in ("spmm", "dval", "ell", "bsr_combine")]
     call = None
     if attention:
         label, call = time_attention(cs, attention, args.blocks_per_sm,
@@ -489,9 +600,11 @@ def main():
                   else None)
         label, call = time_spmm(cs, args.spmm_threshold, shapes)
     if "dval" in args.kernel:
-        cs.phase_dval_kernels()
+        label, call = time_dval(cs, args.dval_threshold)
     if "ell" in args.kernel:
         label, call = time_ell(cs, args.ell_threshold, args.ell_pads)
+    if "bsr_combine" in args.kernel:
+        label, call = time_bsr_combine(cs)
     if call is not None:
         mhz, watts = sample_clocks(call)
         cs.say(f"time_kernels: {label} under load: SM clock {mhz} MHz, "
