@@ -58,6 +58,26 @@ non-zero before the last line:
    ``compute_dtype="bfloat16"``, and the trained bf16 model's logits
    against the same weights at f32 (within ``BF16_LOGIT_SHARE`` of the
    largest logit), ms per epoch and peak memory beside the f32 phases'.
+8b. sharded-s (run after slice-graph): the main path cut across ranks
+   (``difformer_tpu_torch/parallel/``): K1 on a rectangular plan (the
+   halo exchange's conv of rank 1 of the slice's graph cut 4 ways, N_loc
+   rows over the N_loc + S·B rows of [own ‖ halo]) forward and transposed
+   against its plain version, two calls bit-equal, timed by CUDA-graph
+   replay beside its bound and cuSPARSE; then the cora preset at dropout
+   0 trained 5 Adam steps by the sharded step under NCCL at world size 1
+   on this card, in the three exchanges (all-gather, halo, overlapped
+   halo), from the weights of an unsharded ``FullBatchTrainer`` built in
+   the same process, whose eager steps each run must follow (losses and
+   final logits within rtol 1e-3 / atol 1e-4, and whether bit-equal);
+   the same three with 2 and 4 gloo
+   ranks sharing this card, and flavour 2b (the locality layout,
+   spmm_first at 2 heads) against its own unsharded run: each rank's K1
+   launches (its plans' products x layers x steps each way), ms a step
+   (ranks sharing one card, not a scaling number), halo rows, collective
+   bytes a layer; the NCCL runs' last step under the profiler (no sort,
+   no index_add_; device and host time by operation); a JSON line of the
+   phase (gloo takes the CUDA tensors of all four collectives: the port
+   stages nothing through the host).
 9. kernels-wide (run right after the kernels phase): K2-K4 on their wide
    path at the set track's widths, M = D = 300 and 400 at N = L = 15000
    (f32 with and without a key mask, and bf16), each against its plain
@@ -1544,6 +1564,314 @@ def phase_graph_bf16(phase, cfg, attention, f32):
 # ---------------------------------------------------------------------------
 # kernels-wide: K2-K4 at the set track's widths
 # ---------------------------------------------------------------------------
+
+SHARDED_STEPS = 5
+SHARDED_WORLDS = (2, 4)
+SHARDED_FLAVOURS = ("gather", "halo", "overlap")
+# K1 on the rectangular plan of the halo exchange (rank 1 of the 4-rank
+# halo partition of the slice's graph): the JSON line's rows
+SHARDED_JSON = " halo"
+
+
+def sharded_model_kw(cfg, f, c):
+    """``parallel/api.py:train_sharded``'s model arguments for preset
+    ``cfg`` (as :func:`preset_model` builds it) on ``f`` features and
+    ``c`` outputs."""
+    return dict(in_channels=f, hidden_channels=cfg.hidden_channels,
+                out_channels=c, num_layers=cfg.num_layers,
+                num_heads=cfg.num_heads, kernel=cfg.kernel, alpha=cfg.alpha,
+                dropout=cfg.dropout, use_bn=cfg.use_bn,
+                use_residual=cfg.use_residual, use_weight=cfg.use_weight,
+                use_graph=cfg.use_graph, graph_weight=cfg.graph_weight,
+                use_source=cfg.use_source, spmm_first=cfg.spmm_first,
+                fuse_head_mean=cfg.fuse_head_mean)
+
+
+def sharded_reference(cfg, steps):
+    """The unsharded run the sharded ones follow: the trainer of
+    :func:`make_slice` (preset ``cfg``), its weights as a params tree,
+    then ``steps`` eager train steps, each timed (host clock,
+    synchronised; the median of the steps after the first is printed).
+    Returns (params, train mask, losses, logits after the steps),
+    numpy."""
+    from difformer_tpu_torch.utils.weights import params_from_torch_state_dict
+
+    trainer, split, n, _ = make_slice(cfg)
+    state = trainer.init_state(0)
+    params = params_from_torch_state_dict(state.model.state_dict())
+    train_mask = np.isin(np.arange(n), split["train"])
+    mask_t = torch.as_tensor(train_mask, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(0)
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(state, gen, mask_t)[1])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    say(f"phase sharded-s: the unsharded eager step (heads "
+        f"{cfg.num_heads}, spmm_first {cfg.spmm_first}): "
+        f"{float(np.median(times[1:])):.2f} ms (host clock, median of "
+        f"steps 2-{steps})")
+    logits = trainer.forward_eval(state).cpu().numpy()
+    return (params, train_mask, torch.stack(losses).cpu().numpy(), logits)
+
+
+def sharded_partitions(world, x, ei, y, train_mask):
+    """{flavour: the partition it runs on} of the slice's graph on
+    ``world`` shards: all-gather, halo (the overlap split dropped), the
+    overlapped halo, and flavour 2b's locality layout (with its node
+    perm)."""
+    from difformer_tpu_torch.parallel import locality_layout, partition_graph
+
+    kw = dict(labels=y, label_mask=train_mask)
+    halo = partition_graph(x, ei, world, build_halo=True, **kw)
+    perm, n_loc = locality_layout(ei, x.shape[0], world)
+    return {"gather": partition_graph(x, ei, world, **kw),
+            "halo": halo.without_overlap(), "overlap": halo,
+            "locality": partition_graph(x, ei, world, build_halo=True,
+                                        node_perm=perm,
+                                        nodes_per_shard=n_loc, **kw)}, perm
+
+
+def check_sharded_run(tag, flavour, sg, perm, outs, ref, layers):
+    """Hold one sharded run (every rank's ``train_sharded`` result) to the
+    unsharded reference under the logit rule, and each rank's K1 launches
+    to its plans' products × layers × steps in each direction. Returns
+    (K1 launches summed over the ranks, whether the losses and logits are
+    bit-equal to the reference's)."""
+    _, _, ref_losses, ref_logits = ref
+    logits = np.concatenate([o["logits"] for o in outs])
+    logits = (logits[perm] if perm is not None
+              else logits[sg.node_mask.reshape(-1)])
+    losses = outs[0]["losses"]
+    if logits.shape != ref_logits.shape or not np.isfinite(logits).all():
+        raise AssertionError(f"{tag}: logits {logits.shape}, finite "
+                             f"{np.isfinite(logits).all()}")
+    torch.testing.assert_close(torch.from_numpy(losses),
+                               torch.from_numpy(ref_losses), rtol=1e-3,
+                               atol=1e-4)
+    torch.testing.assert_close(torch.from_numpy(logits),
+                               torch.from_numpy(ref_logits), rtol=1e-3,
+                               atol=1e-4)
+    bit_equal = (np.array_equal(losses, ref_losses)
+                 and np.array_equal(logits, ref_logits))
+    total = dict.fromkeys(SPMM_NAMES, 0)
+    for rank, out in enumerate(outs):
+        if out["jax_loaded"]:
+            raise AssertionError(f"{tag}: rank {rank} imported JAX")
+        want = SHARDED_STEPS * layers * out["products"]
+        if out["products"] < 1 or any(out["launches"][name] != want
+                                      for name in SPMM_NAMES):
+            raise AssertionError(
+                f"{tag}: rank {rank} launched K1 {out['launches']}, "
+                f"expected {want} each way ({out['products']} products a "
+                f"layer)")
+        for name in SPMM_NAMES:
+            total[name] += out["launches"][name]
+    step_ms = max(o["step_ms"] for o in outs)
+    say(f"phase sharded-s: {tag} {flavour}: losses {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f} (unsharded {ref_losses[0]:.6f} -> "
+        f"{ref_losses[-1]:.6f}); logits max_abs_err "
+        f"{np.abs(logits - ref_logits).max():.3e}, bit-equal "
+        f"{bit_equal} | K1 a rank: {outs[0]['products']} products a layer, "
+        f"{[o['launches']['csr_spmm'] for o in outs]} forward, "
+        f"{[o['launches']['csr_spmm_transposed'] for o in outs]} "
+        f"transposed | {step_ms:.2f} ms a step (host clock, median, slowest "
+        f"rank; ranks sharing one card, not a scaling number) | set-up "
+        f"{max(o['setup_s'] for o in outs):.1f} s, the case "
+        f"{max(o['total_s'] for o in outs):.1f} s")
+    return total, bit_equal
+
+
+def library_rect_spmm(row_ptr, col, val, rows, cols):
+    """cuSPARSE's CSR SpMM of a rows × cols matrix through one PyTorch
+    call, for its time."""
+    a = torch.sparse_csr_tensor(row_ptr, col, val, size=(rows, cols))
+    return lambda x: torch.sparse.mm(a, x)
+
+
+def phase_sharded_kernel(x, ei, y, train_mask, w=64):
+    """K1 on a rectangular plan, the halo exchange's conv of rank 1 of the
+    slice's graph cut 4 ways (N_loc rows over the N_loc + S·B rows of
+    [own ‖ halo]), forward and transposed, against its plain version under
+    the "spmm" rule (shown to fail a wrong output), two calls bit-equal,
+    timed by CUDA-graph replay beside its bound, its plain version's and
+    cuSPARSE's device time. Returns the JSON rows."""
+    from difformer_tpu_torch.kernels import spmm as K1
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+    from difformer_tpu_torch.parallel import partition_graph
+    from difformer_tpu_torch.parallel.api import rank_plan
+
+    sg = partition_graph(x, ei, 4, labels=y, label_mask=train_mask,
+                         build_halo=True).without_overlap()
+    rg = sg.rank_graph(1, "cuda")
+    plan = rank_plan(rg, None).conv
+    rows, cols, e = plan.num_nodes, plan.num_cols, plan.num_edges
+    g = torch.Generator("cuda").manual_seed(71)
+    rows_out = {}
+    for name, (ptr, col, val), split, n_in, n_out in zip(
+            SPMM_NAMES, ((plan.row_ptr, plan.col, plan.val),
+                         (plan.t_row_ptr, plan.t_col, plan.t_val)),
+            (plan.split, plan.t_split), (cols, rows), (rows, cols)):
+        transposed = name == "csr_spmm_transposed"
+        xin = torch.randn((n_in, w), device="cuda", generator=g)
+        kernel = lambda: K1.csr_spmm(  # noqa: E731
+            xin, ptr, col, val, split=split, transposed=transposed)
+        plain = lambda: K1.csr_spmm_plain(xin, ptr, col, val)  # noqa: E731
+        out, ref = kernel(), plain()
+        scale = K1.csr_spmm_abs(xin, ptr, col, val)
+        tag = (f"{name} halo rank 1 of 4: {n_out} x {n_in} (N_loc = {rows}, "
+               f"S·B = {cols - rows}) E={e} W={w}")
+        err = assert_close(tag, out, ref, "spmm", scale=scale)
+        assert_rejects(tag, ref, "spmm", scale=scale)
+        if not torch.equal(out, kernel()):
+            raise AssertionError(f"{tag}: two calls differ")
+        # x's rows that some edge gathers, as the other K1 rows count them
+        # (not the halo's padding slots, which no edge reads)
+        bound, bound_by, nbytes = spmm_bound_ms(
+            n_out, e, w, x_rows=int(torch.unique(col).numel()))
+        library = library_rect_spmm(ptr, col, val, n_out, n_in)
+        lib_err = (library(xin) - ref).abs().max().item()
+        ms = replay_ms(kernel)
+        plain_ms = device_ms(plain)
+        library_ms = device_ms(lambda: library(xin))
+        say(f"phase sharded-s: {tag:70s} max_abs_err {err:.3e}, two calls "
+            f"bit-equal | kernel {ms:.4f} ms (CUDA-graph replay) | plain "
+            f"{plain_ms:.4f} ms | cuSPARSE {library_ms:.4f} ms (max_abs_err "
+            f"{lib_err:.3e}) | bound {bound:.4f} ms by {bound_by} "
+            f"({nbytes / 1e6:.3f} MB; {100 * bound / ms:.1f}% of the "
+            f"kernel's time)")
+        rows_out[f"{name}{SHARDED_JSON}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=bound_by, library_ms=library_ms)
+    return rows_out
+
+
+def phase_sharded_s():
+    """The main path cut across ranks (ROADMAP.md queue A item 10a):
+    (a) K1 on a rectangular halo plan (:func:`phase_sharded_kernel`);
+    (b) the cora preset (dropout 0, so that runs can follow one another)
+    trained ``SHARDED_STEPS`` Adam steps by the sharded step
+    (``parallel/api.py``) under NCCL at world size 1 on this card, in
+    the three exchanges (all-gather, halo, overlapped halo), from the
+    weights of an unsharded ``FullBatchTrainer`` built here, whose eager
+    steps they must follow (losses and final logits within rtol 1e-3 /
+    atol 1e-4); (c) the same with 2 and 4 gloo ranks sharing this card,
+    and flavour 2b (the locality layout, spmm_first at 2 heads) against
+    its own unsharded run. Each rank's K1 launches are its plans'
+    products × layers × steps each way. Returns (the JSON rows of (a), K1's launches of the 4-rank halo
+    run summed over its ranks)."""
+    from difformer_tpu_torch.parallel.launch import run_ranks
+    from difformer_tpu_torch.parallel.rank_checks import run_checks
+    from difformer_tpu_torch.parallel.sharded_ops import (
+        collective_bytes_per_layer)
+    from difformer_tpu_torch.utils.config import make_config
+
+    t0 = time.perf_counter()
+    x, ei, y = cora_graph()
+    (n, f), c = x.shape, int(y.max()) + 1
+    cfg = make_config("cora", dropout=0.0)
+    cfg_2b = make_config("cora", dropout=0.0, num_heads=2, spmm_first=True)
+    ref = sharded_reference(cfg, SHARDED_STEPS)
+    ref_2b = sharded_reference(cfg_2b, SHARDED_STEPS)
+    train_mask = ref[1]
+    rows = phase_sharded_kernel(x, ei, y, train_mask)
+    say(f"phase sharded-s: references and K1 at "
+        f"{time.perf_counter() - t0:.1f} s")
+    layers = cfg.num_layers
+
+    def case(sg, params, kw, profile=False):
+        return dict(kind="train", sg=sg, params=params, model_kw=kw,
+                    steps=SHARDED_STEPS, lr=cfg.lr,
+                    weight_decay=cfg.weight_decay, profile=profile)
+
+    kw, kw_2b = sharded_model_kw(cfg, f, c), sharded_model_kw(cfg_2b, f, c)
+    parts, _ = sharded_partitions(1, x, ei, y, train_mask)
+    t1 = time.perf_counter()
+    outs = run_ranks(run_checks, 1, "nccl", "cuda",
+                     [case(parts[fl], ref[0], kw, profile=True)
+                      for fl in SHARDED_FLAVOURS])
+    say(f"phase sharded-s: nccl, 1 rank: {time.perf_counter() - t1:.1f} s "
+        f"in run_ranks")
+    bits = {}
+    for i, fl in enumerate(SHARDED_FLAVOURS):
+        out = outs[0][i]
+        _, bits[f"nccl 1 {fl}"] = check_sharded_run(
+            "nccl, 1 rank", fl, parts[fl], None, [out], ref, layers)
+        # the plans are built before the first step: no sort and no
+        # index_add_ in a step (as phase slice-s checks the unsharded one)
+        prof = out["profile"]
+        found = [name for name, _, _ in prof["device"]
+                 if "sort" in name.lower() or "indexfunc" in name.lower()]
+        # the idle share of the profiled step itself, and of the device
+        # time over the median of the steps the profiler did not slow
+        say(f"phase sharded-s: nccl 1 {fl}: the last step under the "
+            f"profiler: {prof['host_ms']:.2f} ms host clock, "
+            f"{prof['device_ms']:.3f} ms of device time in "
+            f"{sum(n for _, _, n in prof['device'])} operations (idle "
+            f"{100 * (1 - prof['device_ms'] / prof['host_ms']):.1f} % of "
+            f"this profiled step; "
+            f"{100 * (1 - prof['device_ms'] / out['step_ms']):.1f} % of the "
+            f"unprofiled steps' median {out['step_ms']:.2f} ms); "
+            f"sort or index_add_: {found or 'none'}")
+        say(f"phase sharded-s: nccl 1 {fl}: device "
+            + "; ".join(f"{name[:48]} {ms:.3f} ms x{n}"
+                        for name, ms, n in prof["device"][:8]))
+        say(f"phase sharded-s: nccl 1 {fl}: host "
+            + "; ".join(f"{name[:40]} {ms:.2f} ms x{n}"
+                        for name, ms, n in prof["host"][:8]))
+        if not prof["device"] or found:
+            raise AssertionError(f"the sharded step ({fl}) sorts or "
+                                 f"scatters, or its profile is empty: "
+                                 f"{found}")
+
+    # one spawn of the most ranks; the smaller worlds run on its first
+    # ranks (rank_checks.run_checks' "world"), the others waiting
+    flavours = SHARDED_FLAVOURS + ("locality",)
+    cases, parted = [], {}
+    for world in SHARDED_WORLDS:
+        parts, perm = parted[world] = sharded_partitions(world, x, ei, y,
+                                                         train_mask)
+        cases += [dict(case(parts[fl], ref_2b[0] if fl == "locality"
+                            else ref[0], kw_2b if fl == "locality" else kw),
+                       world=world) for fl in flavours]
+    t1 = time.perf_counter()
+    every = run_ranks(run_checks, max(SHARDED_WORLDS), "gloo", "cuda", cases)
+    say(f"phase sharded-s: gloo, {max(SHARDED_WORLDS)} ranks: "
+        f"{time.perf_counter() - t1:.1f} s in run_ranks")
+    halo_launches = None
+    for w, world in enumerate(SHARDED_WORLDS):
+        parts, perm = parted[world]
+        outs = [o[w * len(flavours):(w + 1) * len(flavours)]
+                for o in every[:world]]
+        for i, fl in enumerate(flavours):
+            sg = parts[fl]
+            total, bits[f"gloo {world} {fl}"] = check_sharded_run(
+                f"gloo, {world} ranks on one card", fl, sg,
+                perm if fl == "locality" else None, [o[i] for o in outs],
+                ref_2b if fl == "locality" else ref, layers)
+            width = (f + 1) if fl == "locality" else cfg.hidden_channels
+            heads = 1 if fl == "locality" else cfg.num_heads
+            halo_rows = (None if sg.send_mask is None
+                         else int(sg.send_mask.sum()))
+            wire = collective_bytes_per_layer(sg, feat_dim=width,
+                                              num_heads=heads)
+            say(f"phase sharded-s: gloo {world} {fl}: halo rows {halo_rows} "
+                f"(B = {sg.halo_width}), collective bytes a layer {wire} "
+                f"(rows of width {width})")
+            if world == 4 and fl == "halo":
+                halo_launches = total
+    # gloo ran all_reduce, all_gather, reduce_scatter and all_to_all on
+    # CUDA tensors above (the port stages nothing through the host itself)
+    say(json.dumps({"phase": "sharded-s", "torch": torch.__version__,
+                    "gloo_on_cuda_tensors": ["all_reduce", "all_gather",
+                                             "reduce_scatter", "all_to_all"],
+                    "staged_through_host_by_the_port": None,
+                    "bit_equal_to_unsharded": bits}))
+    say(f"phase sharded-s: done in {time.perf_counter() - t0:.1f} s")
+    return rows, halo_launches
+
 
 def phase_kernels_wide():
     """K2-K4 on their wide path (M or D above ``NARROW_WIDTH``) at the set
@@ -4273,6 +4601,8 @@ def main():
     f32_a = phase_graph("slice-graph", make_config("cora", kernel="sigmoid"),
                         attention=True)
     say(f"phase graph: done at {time.perf_counter() - t0:.1f} s")
+    sharded_rows, launches_sharded = phase_sharded_s()
+    say(f"phase sharded-s: done at {time.perf_counter() - t0:.1f} s")
     launches_bf16 = phase_graph_bf16("slice-s-bf16-graph", make_config("cora"),
                                      False, f32_s)
     phase_graph_bf16("slice-bf16-graph", make_config("cora", kernel="sigmoid"),
@@ -4373,6 +4703,16 @@ def main():
          "replaces": SPMM_REPLACES,
          "launches": launches_gl[name.split()[0]], **row}
         for name, row in graph_rows.items()
+    ]
+    kernels += [
+        # K1 on the rectangular plan of the halo exchange (rank 1 of the
+        # slice's graph cut 4 ways: N_loc rows over [own ‖ halo]); launches
+        # are the sharded-s phase's 4-rank halo run's, summed over its
+        # ranks (the pack's product and the conv's, each way)
+        {"name": name, "route": "cuda", "source": SPMM_SOURCE,
+         "replaces": SPMM_REPLACES,
+         "launches": launches_sharded[name.split()[0]], **row}
+        for name, row in sharded_rows.items()
     ]
     kernels += [
         # K1-dval at GAT's shapes on the slice's graph and on cifar10's kNN

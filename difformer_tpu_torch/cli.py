@@ -92,7 +92,9 @@ from difformer_tpu_torch.utils.weights import load_torch_checkpoint
 
 # the routes that the port does not run yet, by ROADMAP.md queue A item
 _ITEMS = {
-    10: "the parallel layer, ROADMAP.md queue A item 10",
+    10: ("the parallel layer's distributed trainer and command line, "
+         "ROADMAP.md queue A item 10 (10d); the node-sharded model and "
+         "step of 10a are in difformer_tpu_torch/parallel/"),
 }
 
 

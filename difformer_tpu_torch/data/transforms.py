@@ -19,9 +19,11 @@
   ``permute_graph``), with the numpy label propagation behind the
   ``community`` order.
 
-The port's native library (``native/``) has no label propagation:
-``label_propagation`` always runs the numpy version, which is what the JAX
-function gives with ``use_native=False``.
+``label_propagation`` dispatches as the JAX function does: to the C++
+version of the port's native library (``native/``, bit-equal to the JAX
+package's C++ one) where it is loaded, else, or with ``use_native=False``,
+to the numpy version, which gives other communities (a random tie
+priority instead of a hash).
 """
 
 from __future__ import annotations
@@ -297,13 +299,25 @@ def locality_reorder(edge_index, num_nodes, method="rcm"):
     return perm
 
 
-def label_propagation(edge_index, num_nodes, iters=10, seed=0):
+def label_propagation(edge_index, num_nodes, iters=10, seed=0,
+                      use_native=None):
     """Communities by synchronous label propagation: each pass gives every
     node the most frequent label among its (symmetrised) neighbours, ties
-    broken by a fixed random priority per label. Returns int64 labels
-    [num_nodes], relabelled compactly. The numpy version (an O(E log E)
-    lexsort a pass)."""
+    broken by a fixed priority per label. Returns int64 labels
+    [num_nodes], relabelled compactly.
+
+    As the JAX function: the C++ version (``native.label_propagation``, a
+    hash for the priority) where the native library is loaded, else the
+    numpy version (an O(E log E) lexsort a pass, a priority drawn from
+    ``seed``); ``use_native=True`` raises without the library,
+    ``use_native=False`` takes the numpy version."""
     ei = np.asarray(edge_index)
+    if use_native is not False:
+        from difformer_tpu_torch import native
+
+        if use_native or native.available():
+            return native.label_propagation(ei[0], ei[1], num_nodes,
+                                            iters=iters)
     # symmetrise, so that direction does not bias the propagation
     src = np.concatenate([ei[0], ei[1]])
     dst = np.concatenate([ei[1], ei[0]])

@@ -6,7 +6,10 @@ CSRs and GCN values) and of the ELL layout's builder (:func:`ell_fill`,
 The mini-batch trainer calls :func:`induced_subgraph` (its edge capacity),
 :func:`chunk_subgraphs` and :func:`chunk_csr` (every epoch's chunk plans).
 :func:`sort_edges_by_receiver` and :func:`ell_fill` build the ELL layout
-(``ops/ell.py``). :func:`gcn_norm_values` is the JAX package's other native
+(``ops/ell.py``). :func:`label_propagation` finds the communities behind
+``data/transforms.py``'s ``label_propagation``, so behind
+``locality_reorder(method="community")`` and ``parallel/partition.py``'s
+``locality_layout``. :func:`gcn_norm_values` is the JAX package's other native
 entry with its signature: nothing in the port calls it; it keeps the port's
 native API the JAX package's (``chunk_csr`` gives its values), and
 ``tests/test_torch_port_native.py`` holds the entries equal to the JAX ones.
@@ -16,8 +19,9 @@ The library is compiled with ``g++`` at first use into
 that carries a hash of the source and the flags; the compiler writes a
 temporary file that is renamed into place under a file lock, so processes
 that start together (test workers) build it once and never load a partial
-file. Every entry has a numpy path that gives the same arrays, taken where
-the library cannot be built or loaded (no compiler): :func:`available` says
+file. Every entry but :func:`label_propagation` has a numpy path that
+gives the same arrays, taken where the library cannot be built or loaded
+(no compiler): :func:`available` says
 which, and :data:`load_error` why. This is host code, not a device kernel.
 Nothing is built when the module is imported.
 """
@@ -58,6 +62,8 @@ _SIGNATURES = {
                    _I32P, _F32P], None),
     "ell_fill": ([_I64P, _I64, _I64, _I64P, _I32P, _F32P, _I32P, _F32P],
                  None),
+    "label_propagation": ([_I32P, _I32P, _I64, _I64, ctypes.c_int32,
+                           ctypes.c_int, _I64P], None),
 }
 
 
@@ -292,3 +298,30 @@ def ell_fill(nodes, k, indptr, point_s, val_s):
                  _p(val_s, ctypes.c_float), _p(idx, ctypes.c_int32),
                  _p(w, ctypes.c_float))
     return idx, w
+
+
+def label_propagation(senders, receivers, num_nodes, iters=10, threads=None):
+    """int64 labels [num_nodes], compacted to [0, communities): synchronous
+    label propagation over the symmetrised edges, as the JAX package's
+    ``native.label_propagation``, bit for bit. ``threads`` (default: every
+    CPU) share each pass; the labels do not depend on their number. Raises
+    where the library is not loaded: ``data/transforms.py`` then takes its
+    numpy version."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError(f"the native library is not loaded: {load_error}")
+    senders, receivers = _i32(senders), _i32(receivers)
+    if senders.shape != receivers.shape or senders.ndim != 1:
+        raise ValueError(f"senders and receivers must be [E], got "
+                         f"{senders.shape}, {receivers.shape}")
+    if senders.size and (min(senders.min(), receivers.min()) < 0
+                         or max(senders.max(), receivers.max())
+                         >= num_nodes):
+        raise ValueError(f"edge indices must lie in [0, {num_nodes})")
+    labels = np.empty(num_nodes, np.int64)
+    lib.label_propagation(
+        _p(senders, ctypes.c_int32), _p(receivers, ctypes.c_int32),
+        senders.shape[0], num_nodes, int(iters),
+        (os.cpu_count() or 1) if threads is None else int(threads),
+        _p(labels, ctypes.c_int64))
+    return labels

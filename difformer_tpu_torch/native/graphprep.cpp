@@ -15,6 +15,10 @@
 //
 // - ell_fill: one degree bucket of the ELL layout (ops/ell.py), as
 //   difformer_tpu/native/graphprep.cpp's.
+// - label_propagation: the communities behind locality_reorder's
+//   "community" order and parallel/partition.py's locality_layout, as
+//   difformer_tpu/native/graphprep.cpp's, with the thread count an
+//   argument (the labels do not depend on it).
 //
 // The reference delegates this work to PyG's subgraph and torch_sparse
 // (node classification/main-batch.py:131, data_utils.py:183-200).
@@ -22,6 +26,7 @@
 // Build: g++ -O3 -shared -fPIC -std=c++17 graphprep.cpp -o libgraphprep.so -pthread
 
 #include <algorithm>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
@@ -206,6 +211,100 @@ void ell_fill(const int64_t* nodes, int64_t nb, int64_t k,
       ir[j] = 0;
       wr[j] = 0.0f;
     }
+  }
+}
+
+// Synchronous label propagation over the symmetrised adjacency (self loops
+// dropped). Each pass gives every node the neighbour label of the highest
+// score, count + 0.5 * prio(label), where prio is a splitmix64 hash in
+// [0, 1) that breaks the symmetric ties plain synchronous propagation
+// oscillates on; among equal scores the smallest label wins (labels are
+// visited in increasing order and only a larger score replaces the best).
+// A pass reads only the previous pass's labels, so `threads` threads, each
+// taking chunks of 4096 nodes, give the same labels as one. Stops early when
+// a pass changes nothing. labels_out holds the labels compacted to
+// [0, n_communities) in order of first appearance.
+static inline double prio_hash(uint64_t x) {
+  x += 0x9e3779b97f4a7c15ull;
+  x = (x ^ (x >> 30)) * 0xbf58476d1ce4e5b9ull;
+  x = (x ^ (x >> 27)) * 0x94d049bb133111ebull;
+  x = x ^ (x >> 31);
+  return (double)(x >> 11) * (1.0 / 9007199254740992.0);  // [0, 1)
+}
+
+void label_propagation(const int32_t* senders, const int32_t* receivers,
+                       int64_t e, int64_t n, int32_t iters, int threads,
+                       int64_t* labels_out) {
+  std::vector<int64_t> indptr(n + 1, 0);
+  for (int64_t i = 0; i < e; ++i) {
+    if (senders[i] == receivers[i]) continue;
+    indptr[senders[i] + 1]++;
+    indptr[receivers[i] + 1]++;
+  }
+  for (int64_t i = 0; i < n; ++i) indptr[i + 1] += indptr[i];
+  std::vector<int32_t> nbr(indptr[n]);
+  {
+    std::vector<int64_t> cur(indptr.begin(), indptr.end() - 1);
+    for (int64_t i = 0; i < e; ++i) {
+      if (senders[i] == receivers[i]) continue;
+      nbr[cur[senders[i]]++] = receivers[i];
+      nbr[cur[receivers[i]]++] = senders[i];
+    }
+  }
+
+  std::vector<int64_t> labels(n), next_labels(n);
+  for (int64_t i = 0; i < n; ++i) labels[i] = i;
+  const int t_count = std::max(1, threads);
+
+  for (int32_t it = 0; it < iters; ++it) {
+    std::atomic<int64_t> chunk(0);
+    std::atomic<bool> changed(false);
+    auto worker = [&]() {
+      std::vector<int64_t> ls;
+      for (;;) {
+        const int64_t lo = chunk.fetch_add(1) * 4096;
+        if (lo >= n) break;
+        const int64_t hi = std::min<int64_t>(lo + 4096, n);
+        for (int64_t v = lo; v < hi; ++v) {
+          const int64_t a = indptr[v], b = indptr[v + 1];
+          if (a == b) {
+            next_labels[v] = labels[v];
+            continue;
+          }
+          ls.clear();
+          for (int64_t j = a; j < b; ++j) ls.push_back(labels[nbr[j]]);
+          std::sort(ls.begin(), ls.end());
+          double best_score = -1.0;
+          int64_t best_lab = labels[v];
+          for (size_t j = 0; j < ls.size();) {
+            size_t j2 = j;
+            while (j2 < ls.size() && ls[j2] == ls[j]) ++j2;
+            const double score =
+                (double)(j2 - j) + 0.5 * prio_hash((uint64_t)ls[j]);
+            if (score > best_score) {
+              best_score = score;
+              best_lab = ls[j];
+            }
+            j = j2;
+          }
+          next_labels[v] = best_lab;
+          if (best_lab != labels[v])
+            changed.store(true, std::memory_order_relaxed);
+        }
+      }
+    };
+    std::vector<std::thread> pool;
+    for (int t = 0; t < t_count; ++t) pool.emplace_back(worker);
+    for (auto& t : pool) t.join();
+    labels.swap(next_labels);
+    if (!changed.load()) break;
+  }
+
+  std::vector<int64_t> remap(n, -1);
+  int64_t next_id = 0;
+  for (int64_t i = 0; i < n; ++i) {
+    if (remap[labels[i]] < 0) remap[labels[i]] = next_id++;
+    labels_out[i] = remap[labels[i]];
   }
 }
 

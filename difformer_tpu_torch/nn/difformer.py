@@ -37,8 +37,19 @@ for its backward (the plain graph branch: K1's backward needs only the
 plan) has nothing to recompute. ``ell=`` (a pair of layouts of
 ``ops/ell.py`` or ``ops/bsr.py``, as the JAX package takes it) runs both
 graph branches through ``gcn_conv_ell`` (K6, or K7 and K6) in place of K1,
-in the same recompute regions. ``axis_name`` and ``halo`` raise
-``NotImplementedError`` naming their ROADMAP.md item.
+in the same recompute regions.
+
+Node-sharded (``axis_name``, the process group of the graph axis,
+``parallel/mesh.py``; each rank runs the model on its shard of
+``parallel/partition.py``): the linear attention sums its aggregates over
+the axis, and the graph branch exchanges sender rows as the JAX model
+does: ``halo`` None runs ``gcn_conv_sharded`` (all-gather), a tuple
+``gcn_conv_halo`` (one ``all_to_all``), a dict ``gcn_conv_halo_overlap``
+(``parallel/sharded_ops.py``), each on K1 over the rank's plan (``plan``,
+of ``parallel/sharded_ops.py:sharded_plan``, built once; without it each
+call builds one). The sharded sigmoid attention (the ring) and the
+sharded sparse layouts (``ell=`` with ``axis_name``) raise
+``NotImplementedError`` naming ROADMAP.md queue A item 10b.
 """
 
 from __future__ import annotations
@@ -63,26 +74,20 @@ from difformer_tpu_torch.ops.sigmoid_attention import (
 )
 from difformer_tpu_torch.utils.device import resolve_device
 
-_NOT_PORTED = {
-    "halo": "the parallel layer, ROADMAP.md queue A item 10 (slice 9)",
-    "axis_name": "the parallel layer, ROADMAP.md queue A item 10 (slice 9)",
-}
+_ITEM_10B = ("the ring sigmoid attention and the sharded sparse layouts, "
+             "ROADMAP.md queue A item 10b")
 
 
 def _not_ported(option):
     return NotImplementedError(
-        f"{option} is not ported to difformer_tpu_torch yet "
-        f"({_NOT_PORTED[option]})")
+        f"{option} is not ported to difformer_tpu_torch yet ({_ITEM_10B})")
 
 
-def _check_kernel(kernel):
+def _check_kernel(kernel, axis_name=None):
     if kernel not in ("simple", "sigmoid"):
         raise ValueError(f"unknown kernel {kernel!r}")
-
-
-def _check_options(axis_name):
-    if axis_name is not None:
-        raise _not_ported("axis_name")
+    if kernel == "sigmoid" and axis_name is not None:
+        raise _not_ported('kernel="sigmoid" with axis_name')
 
 
 def _dtype(compute_dtype):
@@ -105,11 +110,6 @@ def _remat(fn, on):
                                     preserve_rng_state=False)
 
 
-def _check_call(halo):
-    if halo is not None:
-        raise _not_ported("halo")
-
-
 class DIFFormerConv(nn.Module):
     """One DIFFormer layer (reference ``DIFFormerConv``,
     difformer.py:81-145).
@@ -122,14 +122,16 @@ class DIFFormerConv(nn.Module):
     (ÂX)·Wv + (Â1)·bᵀ over [x, 1] rows of width F+1; "auto" turns it on
     when H·D ≥ 2·(F+1). It needs ``use_graph`` and ``use_weight`` and no
     ``output_attn``. ``remat`` recomputes the JAX package's checkpointed
-    regions in the backward (the module's docstring)."""
+    regions in the backward (the module's docstring). ``axis_name``, the
+    graph axis's process group, runs the layer node-sharded."""
 
     def __init__(self, in_channels, out_channels, num_heads=1,
                  kernel="simple", use_graph=True, use_weight=True,
                  graph_weight=-1.0, use_source=False, spmm_first=False,
-                 fuse_head_mean="auto", remat=False):
+                 fuse_head_mean="auto", remat=False, axis_name=None):
         super().__init__()
-        _check_kernel(kernel)
+        _check_kernel(kernel, axis_name)
+        self.axis_name = axis_name
         self.out_channels = out_channels
         self.num_heads = num_heads
         self.kernel = kernel
@@ -154,8 +156,11 @@ class DIFFormerConv(nn.Module):
                 edge_weight=None, x_0=None, *, node_mask=None, edge_mask=None,
                 num_nodes_global=None, indices_are_sorted=False,
                 output_attn=False, edge_chunk_size=None, plan=None,
-                ell=None):
+                ell=None, halo=None):
         H, D = self.num_heads, self.out_channels
+        axis = self.axis_name
+        if ell is not None and axis is not None:
+            raise _not_ported("ell= with axis_name")
         fuse_mean = self.fuse_head_mean
         if fuse_mean == "auto":
             fuse_mean = H > 1
@@ -184,19 +189,21 @@ class DIFFormerConv(nn.Module):
             if output_attn:
                 attention_output, attn = simple_attention(
                     query, key, value, key_mask=node_mask,
-                    num_queries=num_nodes_global, output_attn=True)
+                    num_queries=num_nodes_global, output_attn=True,
+                    axis_name=axis)
             elif factored:
                 attention_output = ckpt(
                     lambda q, k, xx, w, b: simple_attention_head_mean_factored(
                         q, k, xx, w, b, key_mask=node_mask,
-                        num_queries=num_nodes_global))(
+                        num_queries=num_nodes_global, axis_name=axis))(
                     query, key, source_input, wv_k3, wv_b2)
             else:
                 attention_output = ckpt(
                     lambda q, k, v: simple_attention(
                         q, k, v, key_mask=node_mask,
                         num_queries=num_nodes_global,
-                        head_mean=fuse_mean))(query, key, value)
+                        head_mean=fuse_mean, axis_name=axis))(
+                    query, key, value)
         elif output_attn:
             attention_output, attn = sigmoid_attention_dense(
                 query, key, value, key_mask=node_mask, output_attn=True)
@@ -214,6 +221,12 @@ class DIFFormerConv(nn.Module):
         def conv(x):
             if ell is not None:
                 return gcn_conv_ell(x, ell[0], ell[1])
+            if axis is not None:
+                from difformer_tpu_torch.parallel.sharded_ops import (
+                    sharded_conv)
+                return sharded_conv(x, senders, receivers, edge_weight,
+                                    edge_mask=edge_mask, halo=halo,
+                                    axis_name=axis, plan=plan)
             return gcn_conv(x, senders, receivers, edge_weight,
                             edge_mask=edge_mask,
                             indices_are_sorted=indices_are_sorted,
@@ -281,7 +294,11 @@ class DIFFormer(nn.Module):
     on that plan (which replaces senders, receivers, edge_weight and
     edge_mask there); without one, a plan is built once for the call.
     ``forward(..., ell=(fwd, rev))`` runs the graph branch on those
-    layouts instead (``ops/ell.py``, ``ops/bsr.py``), with no plan."""
+    layouts instead (``ops/ell.py``, ``ops/bsr.py``), with no plan.
+    ``axis_name``, the graph axis's process group, runs the model
+    node-sharded on one rank's shard: ``forward(..., halo=...)`` picks the
+    exchange (the module's docstring) and ``plan`` is then the rank's
+    plan of ``parallel/sharded_ops.py:sharded_plan``."""
 
     def __init__(self, in_channels, hidden_channels, out_channels,
                  num_layers=2, num_heads=1, kernel="simple", alpha=0.5,
@@ -291,8 +308,8 @@ class DIFFormer(nn.Module):
                  remat=False, spmm_first=False, fuse_head_mean="auto", *,
                  seed=0, device=None):
         super().__init__()
-        _check_kernel(kernel)
-        _check_options(axis_name)
+        _check_kernel(kernel, axis_name)
+        self.axis_name = axis_name
         dev = resolve_device(device)
         self.compute_dtype = _dtype(compute_dtype)
         self.remat = remat
@@ -312,7 +329,8 @@ class DIFFormer(nn.Module):
                           use_graph=use_graph, use_weight=use_weight,
                           graph_weight=graph_weight, use_source=use_source,
                           spmm_first=spmm_first,
-                          fuse_head_mean=fuse_head_mean, remat=remat)
+                          fuse_head_mean=fuse_head_mean, remat=remat,
+                          axis_name=axis_name)
             for _ in range(num_layers)
         ])
         self.reset_parameters(torch.Generator().manual_seed(seed))
@@ -341,12 +359,18 @@ class DIFFormer(nn.Module):
                 indices_are_sorted=False, output_attn=False,
                 generator: Optional[torch.Generator] = None, ell=None,
                 halo=None, edge_chunk_size=None, plan=None):
-        _check_call(halo)
         drop = lambda h: dropout(h, self.dropout, self.training, generator)
         if (plan is None and ell is None and self.convs
                 and self.convs[0].use_graph):
-            plan = self.build_plan(senders, receivers, x.shape[0],
-                                   edge_weight, edge_mask)
+            if self.axis_name is not None:
+                from difformer_tpu_torch.parallel.sharded_ops import (
+                    sharded_plan)
+                plan = sharded_plan(senders, receivers, x.shape[0],
+                                    edge_weight, edge_mask=edge_mask,
+                                    halo=halo, axis_name=self.axis_name)
+            else:
+                plan = self.build_plan(senders, receivers, x.shape[0],
+                                       edge_weight, edge_mask)
         if self.compute_dtype is not None:
             # bf16 activations; the reductions that need f32 (Frobenius
             # norms, attention denominators, LayerNorm statistics, K1's
@@ -367,7 +391,8 @@ class DIFFormer(nn.Module):
                        num_nodes_global=num_nodes_global,
                        indices_are_sorted=indices_are_sorted,
                        output_attn=output_attn,
-                       edge_chunk_size=edge_chunk_size, plan=plan, ell=ell)
+                       edge_chunk_size=edge_chunk_size, plan=plan, ell=ell,
+                       halo=halo)
             if output_attn:
                 x, attn = out
                 attentions.append(attn)

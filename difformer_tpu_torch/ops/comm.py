@@ -1,0 +1,154 @@
+"""Differentiable collectives over the graph axis.
+
+The JAX package has no such module: under ``shard_map``, JAX transposes
+``psum``, ``all_gather`` and ``all_to_all`` itself. Here each is a
+``torch.autograd.Function`` whose backward is the transposed collective:
+
+- :func:`all_reduce` of a partial sum: the backward all-reduces the
+  gradient (each rank backpropagates its own part of the loss, and the
+  value it reduced fed every rank's part);
+- :func:`all_gather` along dim 0: the backward reduce-scatters (sums) the
+  gradient and keeps this rank's rows;
+- :func:`all_to_all` of equal splits along dim 0: the backward is the same
+  exchange, which is its own inverse.
+
+:func:`all_to_all_start` starts the exchange and returns a handle whose
+``wait()`` gives the result, so that a caller can compute meanwhile (the
+overlapped halo exchange, ``parallel/sharded_ops.py``).
+
+Every collective takes the tensors where they lie: under NCCL on the card,
+under gloo on the CPU or on the card (gloo runs all four of these
+collectives on CUDA tensors in the torch of the H100 machine, copying
+through the host itself, as ``chip_smoke.py``'s phase sharded-s shows by
+running them there). A collective that fails raises; nothing is retried
+another way.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+# torch 2.13 renamed the tensor forms; older versions have the old names
+_ALL_GATHER = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def check_group(group):
+    """Raise unless ``group`` is a process group (the port has no named
+    axes: an ``axis_name`` is the graph axis's group, ``Mesh.group``)."""
+    if not isinstance(group, dist.ProcessGroup):
+        raise TypeError(f"axis_name must be the process group of the graph "
+                        f"axis (parallel/mesh.py: Mesh.group), got "
+                        f"{group!r}")
+
+
+def all_reduce_(tensor, group):
+    """Sum ``tensor`` over the group in place (no gradient)."""
+    check_group(group)
+    dist.all_reduce(tensor, group=group)
+    return tensor
+
+
+def _gather(tensor, group, size):
+    tensor = tensor.contiguous()
+    out = tensor.new_empty((size * tensor.shape[0],) + tuple(tensor.shape[1:]))
+    _ALL_GATHER(out, tensor, group=group)
+    return out
+
+
+def _scatter(tensor, group, size):
+    tensor = tensor.contiguous()
+    out = tensor.new_empty((tensor.shape[0] // size,)
+                           + tuple(tensor.shape[1:]))
+    _REDUCE_SCATTER(out, tensor, group=group)
+    return out
+
+
+def _exchange(tensor, group):
+    tensor = tensor.contiguous()
+    out = torch.empty_like(tensor)
+    dist.all_to_all_single(out, tensor, group=group)
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, group):
+        ctx.group = group
+        return all_reduce_(tensor.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.clone(), ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, group):
+        ctx.group = group
+        ctx.size = dist.get_world_size(group)
+        return _gather(tensor, group, ctx.size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _scatter(grad, ctx.group, ctx.size), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, group):
+        ctx.group = group
+        return _exchange(tensor, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.group), None
+
+
+def all_reduce(tensor, group):
+    """The sum of ``tensor`` over the group; its gradient is the sum of the
+    ranks' gradients."""
+    check_group(group)
+    return _AllReduce.apply(tensor, group)
+
+
+def all_gather(tensor, group):
+    """[S·n, ...]: every rank's ``tensor`` [n, ...] in rank order; the
+    gradient of this rank's rows is the sum of every rank's gradient of
+    them."""
+    check_group(group)
+    return _AllGather.apply(tensor, group)
+
+
+def all_to_all(tensor, group):
+    """[S·b, ...]: block j of the result is rank j's block for this rank,
+    of ``tensor`` [S·b, ...] cut into S blocks (block j for rank j)."""
+    check_group(group)
+    return _AllToAll.apply(tensor, group)
+
+
+class Pending:
+    """An exchange in flight: :meth:`wait` gives its result."""
+
+    def __init__(self, work, out, tensor):
+        # the input stays alive until the exchange has read it
+        self._work, self._out, self._tensor = work, out, tensor
+
+    def wait(self):
+        self._work.wait()
+        self._tensor = None
+        return self._out
+
+
+def all_to_all_start(tensor, group) -> Pending:
+    """Start :func:`all_to_all` of ``tensor`` (no gradient) and return the
+    :class:`Pending` exchange; under NCCL ``wait()`` makes the current
+    stream wait for it."""
+    check_group(group)
+    tensor = tensor.contiguous()
+    out = torch.empty_like(tensor)
+    work = dist.all_to_all_single(out, tensor, group=group, async_op=True)
+    return Pending(work, out, tensor)

@@ -9,7 +9,10 @@ receivers and non-finite values set to 0.
 Both products here, :func:`gcn_conv` and :func:`spmm`, run the CSR SpMM K1
 (``kernels/spmm.py``) over a :class:`CsrPlan`: the receivers' CSR, the
 senders' (transposed) CSR for the backward, the values in both orders, and
-each CSR's split schedule of heavy rows.
+each CSR's split schedule of heavy rows. A plan may be rectangular
+(:func:`build_value_plan`: rows and columns counted apart, as the
+node-sharded products of ``parallel/sharded_ops.py`` need); the others
+are square.
 ``gcn_conv``'s plan, with the normalised values, depends only on the
 graph's indices, ``edge_weight`` and ``edge_mask``, so a caller that runs
 many convolutions on one graph builds it once (``GraphData.csr_plan()``)
@@ -91,7 +94,10 @@ class CsrPlan:
     CSRs' schedules of heavy rows for K1 (``kernels/spmm.py``,
     :func:`row_split` at ``SPLIT_THRESHOLD``); ``dval_split``, in the plans
     of :func:`build_spmm_plan` whose values take a gradient, the forward
-    CSR's schedule for K1-dval (at ``DVAL_SPLIT_THRESHOLD``)."""
+    CSR's schedule for K1-dval (at ``DVAL_SPLIT_THRESHOLD``).
+    ``num_nodes`` counts the rows (receivers) and ``num_cols`` the columns
+    (senders, the rows of x), ``num_nodes`` unless given: the product
+    takes x [num_cols, ...] to [num_nodes, ...]."""
 
     num_nodes: int
     row_ptr: torch.Tensor      # int32 [N + 1]
@@ -111,6 +117,11 @@ class CsrPlan:
     inv_order: Optional[torch.Tensor] = None  # int64 [E]
     rows: Optional[torch.Tensor] = None       # int32 [E]
     dval_split: Optional[RowSplit] = None
+    num_cols: Optional[int] = None
+
+    def __post_init__(self):
+        if self.num_cols is None:
+            object.__setattr__(self, "num_cols", self.num_nodes)
 
     @property
     def num_edges(self):
@@ -131,10 +142,12 @@ def _row_ptr(index, num_nodes):
     return ptr.to(torch.int32)
 
 
-def _checked_edges(senders, receivers, num_nodes):
-    """(senders, receivers) as int64, after checking that every index lies
-    in [0, num_nodes) and that E < 2³¹ (the kernel's int32 columns and row
+def _checked_edges(senders, receivers, num_nodes, num_cols=None):
+    """(senders, receivers) as int64, after checking that every receiver
+    lies in [0, num_nodes), every sender in [0, num_cols) (``num_nodes``
+    unless given) and that E < 2³¹ (the kernel's int32 columns and row
     pointers)."""
+    num_cols = num_nodes if num_cols is None else num_cols
     e = senders.numel()
     if receivers.shape != senders.shape or senders.dim() != 1:
         raise ValueError(f"senders and receivers must be [E], got "
@@ -143,18 +156,21 @@ def _checked_edges(senders, receivers, num_nodes):
         raise ValueError(f"the CSR plan takes fewer than 2**31 edges, got {e}")
     senders, receivers = senders.long(), receivers.long()
     if e and (int(torch.minimum(senders.min(), receivers.min())) < 0
-              or int(torch.maximum(senders.max(), receivers.max()))
-              >= num_nodes):
-        raise ValueError(f"edge indices must lie in [0, {num_nodes})")
+              or int(receivers.max()) >= num_nodes
+              or int(senders.max()) >= num_cols):
+        raise ValueError(f"edge indices must lie in [0, {num_nodes})"
+                         + ("" if num_cols == num_nodes else
+                            f" (receivers) and [0, {num_cols}) (senders)"))
     return senders, receivers
 
 
 def _plan(senders, receivers, num_nodes, value, maps=False,
-          value_grad=False) -> CsrPlan:
+          value_grad=False, num_cols=None) -> CsrPlan:
+    num_cols = num_nodes if num_cols is None else num_cols
     order = torch.argsort(receivers, stable=True)
     t_order = torch.argsort(senders, stable=True)
     row_ptr = _row_ptr(receivers, num_nodes)
-    t_row_ptr = _row_ptr(senders, num_nodes)
+    t_row_ptr = _row_ptr(senders, num_cols)
     kept = {}
     if maps:
         e = order.numel()
@@ -169,7 +185,8 @@ def _plan(senders, receivers, num_nodes, value, maps=False,
         col=senders[order].to(torch.int32), val=value[order],
         t_row_ptr=t_row_ptr,
         t_col=receivers[t_order].to(torch.int32), t_val=value[t_order],
-        split=row_split(row_ptr), t_split=row_split(t_row_ptr), **kept)
+        split=row_split(row_ptr), t_split=row_split(t_row_ptr),
+        num_cols=num_cols, **kept)
 
 
 def build_csr_plan(senders, receivers, num_nodes, edge_weight=None,
@@ -183,6 +200,19 @@ def build_csr_plan(senders, receivers, num_nodes, edge_weight=None,
     return _plan(senders, receivers, num_nodes, value)
 
 
+def build_value_plan(values, senders, receivers, num_rows,
+                     num_cols=None) -> CsrPlan:
+    """The :class:`CsrPlan` of ``out[r] += values[e] · x[s]`` over edges
+    (senders, receivers), in any order, with these values (data: no
+    gradient) and no edge maps: x [num_cols, ...] (``num_rows`` unless
+    given) to out [num_rows, ...]. Checks the indices as
+    :func:`build_csr_plan` does."""
+    senders, receivers = _checked_edges(senders, receivers, num_rows,
+                                        num_cols)
+    return _plan(senders, receivers, num_rows, values.detach().float(),
+                 num_cols=num_cols)
+
+
 def _csr_product(x, plan, edge_chunk_size, values=None):
     """K1 over ``plan``, for x of any trailing shape [N, ...] (all heads and
     channels in one product). With ``values`` [E] (in the plan's edge
@@ -191,14 +221,14 @@ def _csr_product(x, plan, edge_chunk_size, values=None):
     autograd Function (one K1 launch a head each way, one K1-dval for all
     heads)."""
     n = x.shape[0]
-    if n != plan.num_nodes:
+    if n != plan.num_cols:
         raise ValueError(f"x has {n} rows; the plan has "
-                         f"{plan.num_nodes} nodes")
+                         f"{plan.num_cols} columns")
     fwd = (plan.row_ptr, plan.col, plan.val, plan.split)
     bwd = (plan.t_row_ptr, plan.t_col, plan.t_val, plan.t_split)
     if values is None:
         out = CsrSpmm.apply(x.reshape(n, -1), fwd, bwd, edge_chunk_size)
-        return out.reshape(x.shape)
+        return out.reshape((plan.num_nodes,) + tuple(x.shape[1:]))
     maps = plan.maps()
     if values.shape[0] != plan.num_edges or values.dim() not in (1, 2):
         raise ValueError(f"values must be [E] or [E, H] with E = "
@@ -209,7 +239,7 @@ def _csr_product(x, plan, edge_chunk_size, values=None):
                          f"...], got {tuple(x.shape)}")
     out = CsrSpmm.apply(x.reshape(n, heads, -1), fwd, bwd, edge_chunk_size,
                         values, maps, plan.dval_split)
-    return out.reshape(x.shape)
+    return out.reshape((plan.num_nodes,) + tuple(x.shape[1:]))
 
 
 def gcn_conv(x, senders, receivers, edge_weight=None, *, num_nodes=None,

@@ -14,20 +14,21 @@ These are dense contractions with no kernel of their own (the JAX package
 leaves them to XLA): ``torch.einsum`` and matmuls in float32, TF32 off.
 :func:`simple_attention_padded` is DIFFormer-v2's per-graph form over a
 padded batch [B, M, H, D].
-The node-sharded form (``axis_name``, one all-reduce per aggregate) belongs
-to the parallel layer and is not ported yet.
+Node-sharded (``axis_name``, the process group of the graph axis,
+``parallel/mesh.py``): each rank holds some of the rows, and what the JAX
+package sums with ``psum`` is summed with the differentiable all-reduce of
+``ops/comm.py``, two a call: the two Frobenius sums of squares with the
+global key count, then the key aggregates (kv, Σk and Σv, or the factored
+form's kx, Σk and Σx) in one flat buffer. ``num_queries`` then defaults to
+the global key count, as in the JAX package (queries are keys on every
+model path).
 """
 
 from __future__ import annotations
 
 import torch
 
-
-def _no_axis(axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name is not ported to difformer_tpu_torch yet (the parallel "
-            "layer, ROADMAP.md queue A item 10)")
+from difformer_tpu_torch.ops import comm
 
 
 def _scalar(value, like):
@@ -40,11 +41,27 @@ def _scalar(value, like):
     return like.new_full((), value)
 
 
-def _frobenius_normalize(t, axis_name=None):
-    """t / ||t||_F over the entire tensor, the sum of squares in float32."""
-    _no_axis(axis_name)
-    norm = torch.sqrt(t.float().square().sum())
+def _frobenius_normalize(t, sumsq=None):
+    """t / ||t||_F over the entire tensor, the sum of squares in float32
+    (``sumsq``, the global one of a sharded tensor, where given)."""
+    norm = torch.sqrt(t.float().square().sum() if sumsq is None else sumsq)
     return (t.float() / norm).to(t.dtype)
+
+
+def _global_stats(qs, ks, count, axis_name):
+    """(Σq², Σk², count) summed over the graph axis, in one all-reduce."""
+    stats = torch.stack([qs.float().square().sum(), ks.float().square().sum(),
+                         count.float()])
+    return comm.all_reduce(stats, axis_name).unbind(0)
+
+
+def _global_sums(axis_name, *tensors):
+    """``tensors`` (of one dtype) summed over the graph axis, in one
+    all-reduce of a flat buffer."""
+    flat = comm.all_reduce(torch.cat([t.reshape(-1) for t in tensors]),
+                           axis_name)
+    return [part.view(t.shape) for part, t in zip(
+        flat.split([t.numel() for t in tensors]), tensors)]
 
 
 def _key_count(ks, key_mask):
@@ -91,8 +108,9 @@ def simple_attention_head_mean_factored(qs, ks, x, w, b, *, key_mask=None,
         kv[h,m,d] = (Σ_l k[l,h,m]·x[l,f])·w[f,h,d] + k_sum[h,m]·b[h,d]
         Σv[h,d]   = (Σ_l x[l])·w_h + count·b_h
 
-    qs/ks [N, H, M]; x [N, F]; w [F, H, D]; b [H, D] or None → [N, D]."""
-    _no_axis(axis_name)
+    qs/ks [N, H, M]; x [N, F]; w [F, H, D]; b [H, D] or None → [N, D].
+    With ``axis_name`` the sums of squares, kx, Σk, Σx and the key count
+    are summed over the graph axis."""
     count = _key_count(ks, key_mask)
     if key_mask is not None:
         m = key_mask.to(qs.dtype)[:, None, None]
@@ -100,11 +118,18 @@ def simple_attention_head_mean_factored(qs, ks, x, w, b, *, key_mask=None,
         if qs.shape[0] == ks.shape[0]:
             qs = qs * m
         x = x * key_mask.to(x.dtype)[:, None]
-    sumsq_q = qs.float().square().sum()
-    sumsq_k = ks.float().square().sum()
+    if axis_name is None:
+        sumsq_q = qs.float().square().sum()
+        sumsq_k = ks.float().square().sum()
+    else:
+        sumsq_q, sumsq_k, count = _global_stats(qs, ks, count, axis_name)
     kx = torch.einsum("lhm,lf->hmf", ks, x)          # [H, M, F]
     k_sum = ks.sum(0)                                 # [H, M]
     x_sum = x.sum(0)                                  # [F]
+    if axis_name is not None:
+        kx, k_sum, x_sum = _global_sums(axis_name, kx, k_sum, x_sum)
+        if num_queries is None:
+            num_queries = count
     if num_queries is None:
         num_queries = qs.shape[0]
     inv_scale = torch.rsqrt(sumsq_q) * torch.rsqrt(sumsq_k)
@@ -131,25 +156,41 @@ def simple_attention(qs, ks, vs, *, key_mask=None, num_queries=None,
     head-averaged [N, D] directly, with the Frobenius scalars folded onto
     the small aggregates (float reassociation only). ``output_attn`` also
     returns the explicit [N, L, H] attention, divided by the intended
-    [N, 1, H] normaliser (the reference's [N, H, 1] fails for H > 1)."""
-    _no_axis(axis_name)
+    [N, 1, H] normaliser (the reference's [N, H, 1] fails for H > 1).
+    With ``axis_name`` the sums of squares, the aggregates and the key
+    count are summed over the graph axis (the module's docstring)."""
     if key_mask is not None:
         m = key_mask.to(qs.dtype)[:, None, None]
         ks = ks * m
         if qs.shape[0] == ks.shape[0]:  # queries == keys on every model path
             qs = qs * m
+    sumsq_q = sumsq_k = None
+    if axis_name is not None:
+        sumsq_q, sumsq_k, count = _global_stats(
+            qs, ks, _key_count(ks, key_mask), axis_name)
+        if num_queries is None:
+            num_queries = count
     if num_queries is None:
         num_queries = qs.shape[0]
-    if head_mean and not output_attn:
-        inv_scale = (torch.rsqrt(qs.float().square().sum())
-                     * torch.rsqrt(ks.float().square().sum()))
+
+    def aggregates(ks):
         kv, k_sum, v_sum, _ = simple_attention_aggregates(ks, vs, key_mask)
+        if axis_name is None:
+            return kv, k_sum, v_sum
+        return _global_sums(axis_name, kv, k_sum, v_sum)
+
+    if head_mean and not output_attn:
+        if axis_name is None:
+            sumsq_q = qs.float().square().sum()
+            sumsq_k = ks.float().square().sum()
+        inv_scale = torch.rsqrt(sumsq_q) * torch.rsqrt(sumsq_k)
+        kv, k_sum, v_sum = aggregates(ks)
         kv = (kv.float() * inv_scale).to(qs.dtype)
         k_sum = (k_sum.float() * inv_scale).to(qs.dtype)
         return _rescale(qs, kv, k_sum, v_sum, num_queries)
-    qs = _frobenius_normalize(qs)
-    ks = _frobenius_normalize(ks)
-    kv, k_sum, v_sum, _ = simple_attention_aggregates(ks, vs, key_mask)
+    qs = _frobenius_normalize(qs, sumsq_q)
+    ks = _frobenius_normalize(ks, sumsq_k)
+    kv, k_sum, v_sum = aggregates(ks)
     denominator = torch.einsum("nhm,hm->nh", qs, k_sum) + _scalar(
         num_queries, qs)
     numerator = torch.einsum("nhm,hmd->nhd", qs, kv) + v_sum[None]

@@ -1,0 +1,24 @@
+"""Node-sharded execution on ``torch.distributed``, the port of
+``difformer_tpu/parallel/``: the host partition (``partition.py``), the
+graph axis as a process group (``mesh.py``), the sharded graph branch on K1
+(``sharded_ops.py``, over the differentiable collectives of
+``ops/comm.py``), the sharded forward and train step (``api.py``) and the
+ranks' launcher (``launch.py``). The data- and tensor-parallel modules, the ring sigmoid
+attention, the sharded sparse layouts and the distributed trainer are not
+ported yet (ROADMAP.md queue A items 10b-10d)."""
+
+from difformer_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    close_mesh,
+    make_mesh,
+)
+from difformer_tpu_torch.parallel.partition import (  # noqa: F401
+    RankGraph,
+    ShardedGraph,
+    boundary_rows,
+    crossing_counts,
+    edge_balanced_layout,
+    locality_layout,
+    partition_graph,
+    shard_balance_stats,
+)

@@ -1,0 +1,254 @@
+"""The node-sharded forward and train step, as
+``difformer_tpu/parallel/api.py:82-249``, one rank a process.
+
+The JAX package wraps the model in ``shard_map``: each device gets its
+shard, the parameters are replicated, and JAX transposes the collectives,
+so the gradients of the replicated parameters come out summed. Here every
+rank runs the model (built with ``axis_name=mesh.group``) on its
+:class:`~difformer_tpu_torch.parallel.partition.RankGraph`, and the step
+says the summing out loud:
+
+- each rank backpropagates ``s_local / C``, its own part of the global
+  mean loss, where ``C`` is the global count, all-reduced without a
+  gradient (backpropagating the global loss on every rank through a
+  differentiable all-reduce would multiply the gradient by the world
+  size);
+- the replicated parameters' gradients are then summed by one all-reduce
+  (not averaged), the optimiser (the port's Adam, ``train/optim.py``)
+  steps on every rank alike, and the loss returned is ``Σ s / max(C, 1)``,
+  the JAX step's ``psum(s) / max(psum(c), 1)``.
+
+Dropout draws from a generator per rank seeded from (seed, rank)
+(:func:`rank_generator`): the JAX step folds the axis index into its key,
+whose bits the port cannot match. Steps run eagerly; the K1 plans of the
+rank's exchange are built once (:func:`rank_plan`) and passed to every
+call.
+
+:func:`train_sharded` is a rank function for ``launch.run_ranks``: it
+builds the model from a JAX params tree (``utils/weights.py``), checks
+that every rank holds the same parameters, runs the steps and returns the
+losses, the logits and the parameters as numpy arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from difformer_tpu_torch.kernels import spmm as K1
+from difformer_tpu_torch.ops import comm
+from difformer_tpu_torch.parallel.mesh import Mesh
+from difformer_tpu_torch.parallel.partition import RankGraph, ShardedGraph
+from difformer_tpu_torch.parallel.sharded_ops import sharded_plan
+
+
+def nll_sum_count(logits, labels, mask):
+    """(Σ −log p(label) over the masked nodes, their count): the JAX tests'
+    and ``dryrun_multichip``'s ``loss_fn``, whose global mean is
+    Σ sums / Σ counts."""
+    ll = F.log_softmax(logits, dim=-1).gather(
+        -1, labels.reshape(-1, 1).long())[:, 0]
+    m = mask.to(logits.dtype)
+    return -(ll * m).sum(), m.sum()
+
+
+def rank_generator(seed, rank, device):
+    """The dropout generator of ``rank``, seeded from (seed, rank)."""
+    return torch.Generator(device).manual_seed(int(seed) * 1_000_003
+                                               + int(rank))
+
+
+def rank_plan(rg: RankGraph, group):
+    """The K1 plans of the exchange that ``rg``'s arrays pick (the overlap
+    split, the halo plan, or neither: the all-gather), built once."""
+    senders, halo = rg.senders_and_halo()
+    return sharded_plan(senders, rg.receivers, rg.nodes_per_shard,
+                        rg.edge_weight, edge_mask=rg.edge_mask, halo=halo,
+                        axis_name=group)
+
+
+def _forward(model, rg, plan, generator):
+    senders, halo = rg.senders_and_halo()
+    return model(rg.node_feat, senders, rg.receivers, rg.edge_weight,
+                 node_mask=rg.node_mask, edge_mask=rg.edge_mask,
+                 generator=generator, halo=halo, plan=plan)
+
+
+def sharded_apply(model, mesh: Mesh):
+    """``fn(rank_graph, plan=None, generator=None, train=False) ->`` this
+    rank's logits [N_loc, C]; ``model`` must be built with
+    ``axis_name=mesh.group`` and ``plan`` is :func:`rank_plan`'s (the
+    model builds it per call without it). Every rank calls it on its own
+    shard."""
+
+    def apply_fn(rg: RankGraph, plan=None, generator=None, train=False):
+        model.train(train)
+        with torch.set_grad_enabled(train):
+            return _forward(model, rg, plan, generator)
+
+    return apply_fn
+
+
+def make_sharded_train_step(model, mesh: Mesh, optimizer,
+                            loss_fn=nll_sum_count):
+    """``step(rank_graph, generator=None, plan=None) -> loss``, one train
+    step of this rank (the module's docstring): ``loss_fn(logits, labels,
+    mask) -> (sum, count)`` over the rank's nodes; the loss returned, a
+    0-d tensor, is the global mean, the same on every rank. ``plan`` is
+    :func:`rank_plan`'s (the model builds it per call without it)."""
+    group = mesh.group
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step(rg: RankGraph, generator=None, plan=None):
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        s, c = loss_fn(_forward(model, rg, plan, generator), rg.labels,
+                       rg.label_mask)
+        count = comm.all_reduce_(c.detach().float().reshape(1).clone(),
+                                 group).clamp(min=1.0)
+        (s / count[0]).backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in params]
+        # the parameters' gradients and the loss sum, in one all-reduce
+        flat = comm.all_reduce_(torch.cat(
+            [g.reshape(-1) for g in grads] + [s.detach().reshape(1)]), group)
+        offset = 0
+        for p, g in zip(params, grads):
+            p.grad = flat[offset:offset + g.numel()].view_as(g)
+            offset += g.numel()
+        optimizer.step()
+        return flat[-1] / count[0]
+
+    return step
+
+
+def _profiled(fn, sync, top=12):
+    """(a dict of ``fn()``'s profile, its result): ``device``, its device
+    operations as (name, device ms, calls), longest first; ``device_ms``
+    their sum; ``host_ms``, the host clock around the call; ``host``, the
+    ``top`` host operations by self host time as (name, ms, calls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    device = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                     for e in events if e.device_type == DeviceType.CUDA),
+                    key=lambda row: -row[1])
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda row: -row[1])[:top]
+    return dict(device=device, device_ms=sum(r[1] for r in device),
+                host_ms=host_ms, host=host), out
+
+
+def parameter_digest(model) -> str:
+    """SHA-256 of the model's parameters' bytes, in state_dict order."""
+    digest = hashlib.sha256()
+    for value in model.state_dict().values():
+        digest.update(value.detach().cpu().contiguous().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def check_replicated(model, group):
+    """Raise unless every rank's parameters are rank 0's, byte for byte."""
+    digests = [None] * dist.get_world_size(group)
+    dist.all_gather_object(digests, parameter_digest(model), group=group)
+    if len(set(digests)) != 1:
+        raise AssertionError(f"the ranks' parameters differ: {digests}")
+
+
+def train_sharded(mesh: Mesh, sg: ShardedGraph, params, model_kw, *,
+                  steps, lr=1e-2, weight_decay=5e-4, seed=0,
+                  profile=False):
+    """A rank function for ``launch.run_ranks``: this rank's DIFFormer
+    (``model_kw`` with the graph's feature and class counts as
+    ``in_channels`` and ``out_channels``, ``axis_name=mesh.group``, on
+    ``mesh.device``) loaded with the JAX params tree ``params``, then
+    ``steps`` sharded train steps with the port's Adam on ``sg``'s shard
+    ``mesh.rank`` (the exchange its arrays pick). Returns a dict of numpy
+    arrays and numbers: ``losses``; ``logits`` [N_loc, C] after the steps
+    (eval mode) and ``logits0`` before them; ``params`` (the state_dict
+    after the steps); ``launches`` (K1's, counted over the steps alone)
+    and ``products`` (the rank's K1 plans with at least one entry: K1
+    launches nothing for an empty one, so a step launches ``products`` ×
+    layers K1 forward and as many transposed);
+    ``step_ms`` (host clock a step, synchronised, the median of the steps
+    after the first); ``setup_s`` and ``total_s``, the host seconds of the
+    set-up (model, weights, plan, first forward) and of the whole call;
+    ``jax_loaded``; with ``profile`` (on a card),
+    ``profile``, the last step under torch.profiler: its device
+    operations as (name, device ms, calls), its device ms and its host
+    ms, and the host's busiest operations as (name, self host ms,
+    calls). Every rank must hold the same parameters before and after the
+    steps, and the same losses."""
+    from difformer_tpu_torch.nn.difformer import DIFFormer
+    from difformer_tpu_torch.train.optim import torch_adam
+    from difformer_tpu_torch.utils.weights import load_params
+
+    start = time.perf_counter()
+    device = mesh.device
+    kw = dict(model_kw)
+    model = DIFFormer(kw.pop("in_channels"), kw.pop("hidden_channels"),
+                      kw.pop("out_channels"), axis_name=mesh.group,
+                      device=device, **kw)
+    load_params(model, params)
+    check_replicated(model, mesh.group)
+    rg = sg.rank_graph(mesh.rank, device)
+    plan = rank_plan(rg, mesh.group)
+    apply_fn = sharded_apply(model, mesh)
+    logits0 = apply_fn(rg, plan).cpu().numpy()
+    optimizer = torch_adam(model.parameters(), lr, weight_decay)
+    step = make_sharded_train_step(model, mesh, optimizer)
+    generator = rank_generator(seed, mesh.rank, device)
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (
+        lambda: None)
+    setup_s = time.perf_counter() - start
+    K1.reset_launch_counts()
+    losses, times, profiled = [], [], None
+    for i in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        if i == steps - 1 and profile:
+            profiled, loss = _profiled(lambda: step(rg, generator, plan),
+                                       sync)
+        else:
+            loss = step(rg, generator, plan)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss)
+    # the first step builds the lazy state (cuBLAS, NCCL), the profiled
+    # one pays the profiler
+    kept = times[1:len(times) - (1 if profile else 0)] or times
+    step_ms = float(np.median(kept)) if kept else 0.0
+    launches = dict(K1.LAUNCHES)
+    products = sum(getattr(plan, f.name).num_edges > 0
+                   for f in dataclasses.fields(plan))
+    losses = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)
+    every = [None] * mesh.size
+    dist.all_gather_object(every, losses.tobytes(), group=mesh.group)
+    if len(set(every)) != 1:
+        raise AssertionError("the ranks' losses differ")
+    check_replicated(model, mesh.group)
+    return dict(
+        losses=losses, logits=apply_fn(rg, plan).cpu().numpy(),
+        logits0=logits0,
+        params={k: v.detach().cpu().numpy()
+                for k, v in model.state_dict().items()},
+        launches=launches, products=products, step_ms=step_ms,
+        profile=profiled, setup_s=setup_s,
+        total_s=time.perf_counter() - start,
+        jax_loaded="jax" in sys.modules)

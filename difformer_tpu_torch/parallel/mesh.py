@@ -1,0 +1,114 @@
+"""Process groups for node-sharded execution, the port's counterpart of
+``difformer_tpu/parallel/mesh.py``.
+
+The JAX package names a mesh axis (``"graph"``) and lets ``shard_map`` put
+one shard on each device. The port runs one process a shard instead, each
+joined to a ``torch.distributed`` process group: :func:`make_mesh` starts
+this process's membership (world size, rank, an explicit backend, a file
+store for the rendezvous) and returns a :class:`Mesh` with the group of the
+graph axis, which the model and the sharded ops take as ``axis_name``.
+
+Backends: ``nccl`` puts one rank on each card, so asking for more NCCL
+ranks than there are cards raises; ``gloo`` runs on the CPU, and on a card
+where several ranks share one (every rank on ``cuda:0``). A backend is
+never switched behind the caller's back.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+
+import torch
+import torch.distributed as dist
+
+BACKENDS = ("nccl", "gloo")
+#: How long a rank waits for the others in a collective before it fails.
+TIMEOUT_S = 300.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """One rank's view of the 1-D graph axis: its process group, its rank
+    and the axis size, the backend and the device its shard lives on."""
+
+    group: object
+    rank: int
+    size: int
+    backend: str
+    device: torch.device
+
+
+def rank_device(backend, device, rank) -> torch.device:
+    """The device of ``rank``: under NCCL card ``rank``
+    (:func:`check_world` checks that there is one), under gloo ``device``
+    as asked (``"cuda"``: card 0, shared by every rank)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got "
+                         f"{backend!r}")
+    dev = torch.device(device)
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError(f"the nccl backend runs on CUDA devices, got "
+                             f"{dev}")
+        return torch.device("cuda", rank)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", 0)
+    return dev
+
+
+def check_world(backend, device, world_size):
+    """Raise unless ``world_size`` ranks of ``backend`` fit the machine:
+    NCCL takes one card a rank (it does not put two ranks on one card)."""
+    if world_size < 1:
+        raise ValueError(f"world_size must be at least 1, got {world_size}")
+    rank_device(backend, device, 0)
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "(with the gloo backend) to run on the CPU")
+    if backend == "nccl" and world_size > torch.cuda.device_count():
+        raise ValueError(
+            f"nccl puts one rank on a card: {world_size} ranks need "
+            f"{world_size} cards, this machine has "
+            f"{torch.cuda.device_count()}; ask for the gloo backend to put "
+            f"several ranks on one card")
+
+
+def make_mesh(world_size, rank, *, backend, init_method,
+              device="cuda") -> Mesh:
+    """Join this process to the graph axis as ``rank`` of ``world_size``
+    (``torch.distributed.init_process_group`` with ``backend`` and the
+    rendezvous ``init_method``, a ``file://`` path that every rank of the
+    run shares and no other run uses). Under NCCL the process's current
+    card becomes card ``rank``. :func:`close_mesh` leaves the group."""
+    check_world(backend, device, world_size)
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} outside [0, {world_size})")
+    dev = rank_device(backend, device, rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, init_method=init_method, world_size=world_size, rank=rank,
+        timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    group = dist.group.WORLD
+    return Mesh(group=group, rank=dist.get_rank(group),
+                size=dist.get_world_size(group), backend=backend, device=dev)
+
+
+def sub_mesh(mesh: Mesh, size: int):
+    """The graph axis of the first ``size`` ranks of ``mesh`` (a new group
+    on the same backend), for those ranks, and None for the others. Every
+    rank of ``mesh`` must call it, in the same order."""
+    if not 1 <= size <= mesh.size:
+        raise ValueError(f"a sub-axis of {size} ranks of {mesh.size}")
+    group = dist.new_group(list(range(size)), backend=mesh.backend)
+    if mesh.rank >= size:
+        return None
+    return Mesh(group=group, rank=dist.get_rank(group), size=size,
+                backend=mesh.backend, device=mesh.device)
+
+
+def close_mesh(mesh: Mesh) -> None:
+    """Leave the process group of ``mesh``."""
+    if dist.is_initialized():
+        dist.destroy_process_group()

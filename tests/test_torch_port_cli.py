@@ -11,7 +11,6 @@ state_dict.
 """
 
 import dataclasses
-import functools
 import pickle
 import subprocess
 import sys
@@ -22,7 +21,6 @@ import torch
 
 import difformer_tpu.train as jax_train
 from difformer_tpu import cli as jax_cli
-from difformer_tpu.data import transforms as jax_T
 from difformer_tpu.utils import config as jax_config
 from difformer_tpu_torch import DIFFormer, cli
 from difformer_tpu_torch.utils import config
@@ -115,10 +113,6 @@ def recorders(monkeypatch):
     theirs = type("TheirRecorder", (Recorder,), {"made": []})
     monkeypatch.setattr(cli, "FullBatchTrainer", ours)
     monkeypatch.setattr(jax_train, "FullBatchTrainer", theirs)
-    # the JAX package's C++ label propagation agrees with its numpy path
-    # only in part; the port has only the numpy path
-    monkeypatch.setattr(jax_T, "label_propagation", functools.partial(
-        jax_T.label_propagation, use_native=False))
     return ours, theirs
 
 

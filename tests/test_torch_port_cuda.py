@@ -2021,3 +2021,150 @@ def test_repeated_capture_survives_the_packing_threads(cuda):
     _, trainer = _graph_level_trainer(cuda, "sigmoid", True)
     plan, packed = chip_smoke.repeat_captures(trainer, times=30)
     assert plan == "dense" and packed > 0
+
+
+# --------------------------------------------------------------------------
+# the node-sharded main path (difformer_tpu_torch/parallel/)
+# --------------------------------------------------------------------------
+
+SHARD_F, SHARD_C, SHARD_STEPS = 16, 4, 3
+
+
+def _sharded_graph():
+    x, ei, y = random_graph(300, 1500, SHARD_F, SHARD_C, seed=21)
+    mask = np.zeros(300, bool)
+    mask[:150] = True
+    return x, standard_preprocess(ei, 300), y, mask
+
+
+def _rect_plans(cuda):
+    """K1's rectangular plans of rank 1 of a 4-rank partition: the
+    all-gather's (N_loc rows over N_glob columns), the halo exchange's
+    pack and conv, the overlap's internal and boundary products."""
+    from difformer_tpu_torch.ops.graph_ops import build_value_plan
+    from difformer_tpu_torch.parallel import partition_graph
+    from difformer_tpu_torch.parallel.sharded_ops import (halo_plan,
+                                                          overlap_plan)
+
+    x, ei, y, _ = _sharded_graph()
+    sg = partition_graph(x, ei, 4, labels=y, build_halo=True)
+    rg = sg.rank_graph(1, cuda)
+    senders, halo = rg.senders_and_halo()
+    n_loc = rg.nodes_per_shard
+    em = rg.edge_mask
+    gather = build_value_plan(em.float()[em], rg.senders[em],
+                              rg.receivers[em], n_loc, 4 * n_loc)
+    hp = halo_plan(senders, rg.receivers, rg.edge_value, rg.send_idx,
+                   rg.send_mask, n_loc)
+    op = overlap_plan(halo, n_loc)
+    return {"gather": gather, "pack": hp.pack, "conv": hp.conv,
+            "internal": op.internal, "boundary": op.boundary}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 64, 65])
+def test_rectangular_k1_plans_match_plain(cuda, width):
+    g = torch.Generator(device=cuda).manual_seed(width)
+    for name, plan in _rect_plans(cuda).items():
+        assert plan.num_edges > 0, name
+        for transposed, (ptr, col, val, split), rows_in in (
+                (False, (plan.row_ptr, plan.col, plan.val, plan.split),
+                 plan.num_cols),
+                (True, (plan.t_row_ptr, plan.t_col, plan.t_val,
+                        plan.t_split), plan.num_nodes)):
+            xin = torch.randn((rows_in, width), device=cuda, generator=g)
+            K1.reset_launch_counts()
+            out = K1.csr_spmm(xin, ptr, col, val, split=split,
+                              transposed=transposed)
+            torch.cuda.synchronize()
+            key = "csr_spmm_transposed" if transposed else "csr_spmm"
+            assert K1.LAUNCHES[key] == 1
+            assert out.shape == (ptr.numel() - 1, width)
+            ref = K1.csr_spmm_plain(xin, ptr, col, val)
+            assert_close(f"{name} transposed={transposed}", out, ref, "spmm",
+                         scale=K1.csr_spmm_abs(xin, ptr, col, val))
+            assert torch.equal(out, K1.csr_spmm(xin, ptr, col, val,
+                                                split=split))
+
+
+def _sharded_run(cuda, world, backend, flavours):
+    """(unsharded losses and final logits, the ranks' results, the
+    partitions) of SHARD_STEPS steps of a 2-layer DIFFormer-s from one set
+    of weights: eager on the card unsharded, and sharded on ``world``
+    ranks of ``backend`` for each exchange in ``flavours``."""
+    from difformer_tpu_torch.parallel import partition_graph
+    from difformer_tpu_torch.parallel.launch import run_ranks
+    from difformer_tpu_torch.parallel.rank_checks import run_checks
+    from difformer_tpu_torch.train.optim import torch_adam
+    from difformer_tpu_torch.train.trainer import nll_loss
+    from difformer_tpu_torch.utils.weights import params_from_torch_state_dict
+
+    x, ei, y, mask = _sharded_graph()
+    kw = dict(in_channels=SHARD_F, hidden_channels=32,
+              out_channels=SHARD_C, num_layers=2, dropout=0.0)
+    model = DIFFormer(SHARD_F, 32, SHARD_C, num_layers=2, dropout=0.0,
+                      seed=3, device=cuda)
+    params = params_from_torch_state_dict(model.state_dict())
+    opt = torch_adam(model.parameters(), 1e-2, 5e-4)
+    args = [torch.as_tensor(a, device=cuda) for a in (x, ei[0], ei[1])]
+    labels, train = (torch.as_tensor(a, device=cuda) for a in (y, mask))
+    losses = []
+    for _ in range(SHARD_STEPS):
+        model.train()
+        opt.zero_grad()
+        loss = nll_loss(model(*args), labels, train)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    model.eval()
+    with torch.no_grad():
+        logits = model(*args).cpu().numpy()
+    halo = partition_graph(x, ei, world, labels=y, label_mask=mask,
+                           build_halo=True)
+    parts = {"gather": partition_graph(x, ei, world, labels=y,
+                                       label_mask=mask),
+             "halo": halo.without_overlap(), "overlap": halo}
+    outs = run_ranks(run_checks, world, backend, "cuda",
+                     [dict(kind="train", sg=parts[f], params=params,
+                           model_kw=kw, steps=SHARD_STEPS)
+                      for f in flavours])
+    return np.array(losses), logits, outs, parts
+
+
+def _check_sharded(outs, parts, flavours, losses, logits):
+    for i, flavour in enumerate(flavours):
+        sg = parts[flavour]
+        got = np.concatenate([o[i]["logits"] for o in outs])
+        got = got[sg.node_mask.reshape(-1)]
+        np.testing.assert_allclose(outs[0][i]["losses"], losses, **GRAD)
+        np.testing.assert_allclose(got, logits, **GRAD)
+        for out in outs:
+            want = SHARD_STEPS * 2 * out[i]["products"]
+            assert out[i]["products"] >= 1
+            assert out[i]["launches"] == {"csr_spmm": want,
+                                          "csr_spmm_transposed": want}
+            assert not out[i]["jax_loaded"]
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_follows_the_unsharded_step(cuda):
+    flavours = ("gather", "halo", "overlap")
+    losses, logits, outs, parts = _sharded_run(cuda, 1, "nccl", flavours)
+    _check_sharded(outs, parts, flavours, losses, logits)
+
+
+@pytest.mark.cuda
+def test_gloo_ranks_sharing_the_card_follow_the_unsharded_step(cuda):
+    flavours = ("gather", "overlap")
+    losses, logits, outs, parts = _sharded_run(cuda, 2, "gloo", flavours)
+    _check_sharded(outs, parts, flavours, losses, logits)
+
+
+@pytest.mark.cuda
+def test_nccl_with_more_ranks_than_cards_raises(cuda):
+    from difformer_tpu_torch.parallel.launch import run_ranks
+    from difformer_tpu_torch.parallel.rank_checks import run_checks
+
+    with pytest.raises(ValueError, match="one rank on a card"):
+        run_ranks(run_checks, torch.cuda.device_count() + 1, "nccl", "cuda",
+                  [])

@@ -134,6 +134,9 @@ def test_head_mean_equals_mean_after_divide():
 
 
 def test_axis_name_raises():
+    """An axis_name that is not a process group (the port has no named
+    axes) raises; the sharded form itself is held to the JAX package's in
+    tests/test_torch_port_sharded.py."""
     q, k, v, _ = (to_torch(a) for a in make_inputs(15, N, N, 1))
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
+    with pytest.raises(TypeError, match="process group"):
         T.simple_attention(q, k, v, axis_name="nodes")

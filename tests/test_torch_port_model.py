@@ -237,7 +237,6 @@ def test_init_is_seeded_and_uniform():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(kernel="simple", axis_name="graph"),
     dict(kernel="sigmoid", axis_name="graph"),
 ])
 def test_unsupported_options_raise(kwargs):
@@ -245,8 +244,7 @@ def test_unsupported_options_raise(kwargs):
         DIFFormer(F, HIDDEN, C, device="cpu", **kwargs)
 
 
-@pytest.mark.parametrize("call_kw", [dict(ell=(1, 2)), dict(halo=(1,)),
-                                     dict(halo={"send_idx": 1})])
+@pytest.mark.parametrize("call_kw", [dict(ell=(1, 2))])
 def test_unsupported_call_options_raise(call_kw):
     _, tg, _ = _graph()
     for kernel in ("sigmoid", "simple"):

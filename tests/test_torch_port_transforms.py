@@ -2,11 +2,12 @@
 transforms.py, splits.py, graph.py's NodeDataset) against the JAX
 package's on the same numpy inputs: exact equality.
 
-``label_propagation`` is held against the JAX function's numpy path
-(``use_native=False``): the JAX package's C++ path agrees with it on only
-part of the nodes (tests/test_native.py), and the port has no C++ loader
-yet. For ``locality_reorder("community")`` the JAX native path is switched
-off with monkeypatch.
+``label_propagation`` and ``locality_reorder("community")`` are held
+against the JAX functions on both of their paths: the C++ one, which both
+packages take by default where their native library is loaded, and the
+numpy one (``use_native=False``; switched on in both packages with
+monkeypatch for ``locality_reorder``). The two paths give other
+communities (tests/test_native.py).
 """
 
 import functools
@@ -44,9 +45,11 @@ def blocks_graph(seed=0, n=240, blocks=6, inner=900, cross=120):
 
 
 @pytest.fixture
-def no_jax_native(monkeypatch):
-    monkeypatch.setattr(jax_T, "label_propagation", functools.partial(
-        jax_T.label_propagation, use_native=False))
+def numpy_paths(monkeypatch):
+    """Both packages' ``label_propagation`` on their numpy paths."""
+    for module in (jax_T, T):
+        monkeypatch.setattr(module, "label_propagation", functools.partial(
+            module.label_propagation, use_native=False))
 
 
 def test_normalize_feat():
@@ -78,14 +81,22 @@ def test_knn_graph_rejects_unknown_metric():
 
 @pytest.mark.parametrize("method", ["rcm", "bfs", "degree", "community"])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_locality_reorder(no_jax_native, method, seed):
+def test_locality_reorder(method, seed):
     ei, n = blocks_graph(seed)
     perm = T.locality_reorder(ei, n, method=method)
     equal(perm, jax_T.locality_reorder(ei, n, method=method))
     np.testing.assert_array_equal(np.sort(perm), np.arange(n))
 
 
-def test_locality_reorder_on_a_random_graph(no_jax_native):
+@pytest.mark.parametrize("seed", [0, 1])
+def test_locality_reorder_community_numpy_path(numpy_paths, seed):
+    ei, n = blocks_graph(seed)
+    perm = T.locality_reorder(ei, n, method="community")
+    equal(perm, jax_T.locality_reorder(ei, n, method="community"))
+    np.testing.assert_array_equal(np.sort(perm), np.arange(n))
+
+
+def test_locality_reorder_on_a_random_graph():
     _, ei, _ = random_graph(500, 2000, 4, 3, seed=9)
     ei = T.standard_preprocess(ei, 500)
     for method in ("rcm", "bfs", "degree", "community"):
@@ -102,7 +113,8 @@ def test_locality_reorder_rejects_unknown_method():
 @pytest.mark.parametrize("iters", [1, 10])
 def test_label_propagation_matches_the_numpy_path(seed, iters):
     ei, n = blocks_graph(seed)
-    equal(T.label_propagation(ei, n, iters=iters, seed=seed),
+    equal(T.label_propagation(ei, n, iters=iters, seed=seed,
+                              use_native=False),
           jax_T.label_propagation(ei, n, iters=iters, seed=seed,
                                   use_native=False))
 
@@ -110,8 +122,9 @@ def test_label_propagation_matches_the_numpy_path(seed, iters):
 def test_label_propagation_without_edges():
     loops = np.stack([np.arange(5), np.arange(5)])
     for ei in (np.zeros((2, 0), np.int64), loops):
-        equal(T.label_propagation(ei, 5),
-              jax_T.label_propagation(ei, 5, use_native=False))
+        for use_native in (None, False):
+            equal(T.label_propagation(ei, 5, use_native=use_native),
+                  jax_T.label_propagation(ei, 5, use_native=use_native))
 
 
 def test_community_chain_order():
