@@ -1694,19 +1694,30 @@ def library_rect_spmm(row_ptr, col, val, rows, cols):
 def phase_sharded_kernel(x, ei, y, train_mask, w=64):
     """K1 on a rectangular plan, the halo exchange's conv of rank 1 of the
     slice's graph cut 4 ways (N_loc rows over the N_loc + S·B rows of
-    [own ‖ halo]), forward and transposed, against its plain version under
-    the "spmm" rule (shown to fail a wrong output), two calls bit-equal,
-    timed by CUDA-graph replay beside its bound, its plain version's and
-    cuSPARSE's device time. Returns the JSON rows."""
-    from difformer_tpu_torch.kernels import spmm as K1
-    from difformer_tpu_torch.kernels.tolerance import assert_close
+    [own ‖ halo]) (:func:`rect_kernel_rows`). Returns the JSON rows."""
     from difformer_tpu_torch.parallel import partition_graph
     from difformer_tpu_torch.parallel.api import rank_plan
 
     sg = partition_graph(x, ei, 4, labels=y, label_mask=train_mask,
                          build_halo=True).without_overlap()
-    rg = sg.rank_graph(1, "cuda")
-    plan = rank_plan(rg, None).conv
+    plan = rank_plan(sg.rank_graph(1, "cuda"), None).conv
+    return rect_kernel_rows(
+        "sharded-s", plan, SHARDED_JSON,
+        lambda n_in, n_out, rows, cols: (
+            f"halo rank 1 of 4: {n_out} x {n_in} (N_loc = {rows}, S·B = "
+            f"{cols - rows})"), w=w)
+
+
+def rect_kernel_rows(phase, plan, suffix, label, w=64):
+    """K1 on the rectangular plan ``plan`` forward and transposed, against
+    its plain version under the "spmm" rule (shown to fail a wrong
+    output), two calls bit-equal, timed by CUDA-graph replay beside its
+    bound, its plain version's and cuSPARSE's device time; ``label(n_in,
+    n_out, rows, cols)`` names the product. Returns the JSON rows, named
+    with ``suffix``."""
+    from difformer_tpu_torch.kernels import spmm as K1
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+
     rows, cols, e = plan.num_nodes, plan.num_cols, plan.num_edges
     g = torch.Generator("cuda").manual_seed(71)
     rows_out = {}
@@ -1721,8 +1732,7 @@ def phase_sharded_kernel(x, ei, y, train_mask, w=64):
         plain = lambda: K1.csr_spmm_plain(xin, ptr, col, val)  # noqa: E731
         out, ref = kernel(), plain()
         scale = K1.csr_spmm_abs(xin, ptr, col, val)
-        tag = (f"{name} halo rank 1 of 4: {n_out} x {n_in} (N_loc = {rows}, "
-               f"S·B = {cols - rows}) E={e} W={w}")
+        tag = f"{name} {label(n_in, n_out, rows, cols)} E={e} W={w}"
         err = assert_close(tag, out, ref, "spmm", scale=scale)
         assert_rejects(tag, ref, "spmm", scale=scale)
         if not torch.equal(out, kernel()):
@@ -1736,13 +1746,13 @@ def phase_sharded_kernel(x, ei, y, train_mask, w=64):
         ms = replay_ms(kernel)
         plain_ms = device_ms(plain)
         library_ms = device_ms(lambda: library(xin))
-        say(f"phase sharded-s: {tag:70s} max_abs_err {err:.3e}, two calls "
+        say(f"phase {phase}: {tag:70s} max_abs_err {err:.3e}, two calls "
             f"bit-equal | kernel {ms:.4f} ms (CUDA-graph replay) | plain "
             f"{plain_ms:.4f} ms | cuSPARSE {library_ms:.4f} ms (max_abs_err "
             f"{lib_err:.3e}) | bound {bound:.4f} ms by {bound_by} "
             f"({nbytes / 1e6:.3f} MB; {100 * bound / ms:.1f}% of the "
             f"kernel's time)")
-        rows_out[f"{name}{SHARDED_JSON}"] = dict(
+        rows_out[f"{name}{suffix}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_by=bound_by, library_ms=library_ms)
     return rows_out
@@ -1760,8 +1770,9 @@ def phase_sharded_s():
     atol 1e-4); (c) the same with 2 and 4 gloo ranks sharing this card,
     and flavour 2b (the locality layout, spmm_first at 2 heads) against
     its own unsharded run. Each rank's K1 launches are its plans'
-    products × layers × steps each way. Returns (the JSON rows of (a), K1's launches of the 4-rank halo
-    run summed over its ranks)."""
+    products × layers × steps each way. Returns (the JSON rows of (a), K1's
+    launches of the 4-rank halo run summed over its ranks, the NCCL run's
+    host ms a step by exchange)."""
     from difformer_tpu_torch.parallel.launch import run_ranks
     from difformer_tpu_torch.parallel.rank_checks import run_checks
     from difformer_tpu_torch.parallel.sharded_ops import (
@@ -1794,9 +1805,10 @@ def phase_sharded_s():
                       for fl in SHARDED_FLAVOURS])
     say(f"phase sharded-s: nccl, 1 rank: {time.perf_counter() - t1:.1f} s "
         f"in run_ranks")
-    bits = {}
+    bits, eager_ms = {}, {}
     for i, fl in enumerate(SHARDED_FLAVOURS):
         out = outs[0][i]
+        eager_ms[fl] = out["step_ms"]
         _, bits[f"nccl 1 {fl}"] = check_sharded_run(
             "nccl, 1 rank", fl, parts[fl], None, [out], ref, layers)
         # the plans are built before the first step: no sort and no
@@ -1870,7 +1882,284 @@ def phase_sharded_s():
                     "staged_through_host_by_the_port": None,
                     "bit_equal_to_unsharded": bits}))
     say(f"phase sharded-s: done in {time.perf_counter() - t0:.1f} s")
-    return rows, halo_launches
+    return rows, halo_launches, eager_ms
+
+
+# phase distributed: the distributed trainer (train/distributed.py)
+DIST_EPOCHS = 100  # the fits' epochs (an eval each, blocks of GRAPH_BLOCK)
+# the fits whose final logits are held to the unsharded fit's under the
+# logit rule (as the graph phases' EPOCHS), and the eager gloo fit on the
+# card. The runs' sums differ in order (PERF.md §6), and training carries
+# the differences on: over DIST_EPOCHS they grow past the rule. The
+# witness: the unsharded fit with its GCN products associated the other way
+# ((ÂX)W, spmm_first=True), the same weights, drifts from it as far; the
+# sharded fit's 100-epoch logits are held within DIST_DRIFT_FACTOR times
+# that drift
+DIST_EXACT_EPOCHS = 20
+DIST_DRIFT_FACTOR = 10.0
+DIST_CLI_EPOCHS = 10  # the command line's runs on gloo ranks (spawns dominate)
+DIST_LAYOUTS = ("contiguous", "balanced", "locality")
+# the largest |test accuracy| difference allowed between the sharded and
+# the unsharded fit at the preset's dropout (other dropout streams: the
+# masks differ, the accuracies only by chance; 0.05 of 1000 test nodes)
+DIST_MARGIN = 0.05
+# K1 on the NCCL rank's internal plan: the JSON line's rows
+DIST_JSON = " distributed"
+
+
+def distributed_references(cfg, epochs, params=None):
+    """The unsharded captured fits the distributed ones follow: the trainer
+    of :func:`make_slice` (preset ``cfg``) fitted with
+    ``fit(epoch_block=GRAPH_BLOCK)`` for each count of ``epochs``, every
+    fit from ``params`` (a params tree; by default the trainer's
+    ``init_state(0)`` weights). Returns one (params, split, summary, final
+    logits, the split's train mask) for each count."""
+    from difformer_tpu_torch.utils.weights import params_from_torch_state_dict
+
+    trainer, split, n, _ = make_slice(cfg)
+    if params is None:
+        params = params_from_torch_state_dict(
+            trainer.init_state(0).model.state_dict())
+    out = []
+    for count in epochs:
+        best = trainer.fit(split, epochs=count, eval_step=1,
+                           epoch_block=GRAPH_BLOCK, init_params=params)[0]
+        logits = trainer.forward_eval(
+            trainer.epoch_runner.state).cpu().numpy()
+        out.append((params, split, best, logits,
+                    np.isin(np.arange(n), split["train"])))
+    return out
+
+
+def logit_drift(a, b):
+    """(max |a - b|, the entries outside the logit rule rtol 1e-3 / atol
+    1e-4 with ``b`` the reference)."""
+    diff = np.abs(a - b)
+    return float(diff.max()), int((diff > 1e-4 + 1e-3 * np.abs(b)).sum())
+
+
+def check_distributed_fit(tag, case, index, ref, layers, epochs, hold):
+    """Hold fit ``index`` of a distributed run (``rank_checks.fit_check``'s
+    result ``case``, one rank) to its unsharded reference of as many
+    epochs, by ``hold``: "logits" (dropout 0) the losses and the final
+    logits under the logit rule, a number (dropout 0) the losses under the
+    rule and the final logits within DIST_DRIFT_FACTOR times that drift
+    (the witness's), "accuracy" (dropout > 0) finite losses and the test
+    accuracy within DIST_MARGIN; and K1's
+    launches: the plan's products × layers × (steps + evals) forward and ×
+    steps transposed. Prints what it found before it raises. Returns K1's
+    launches."""
+    _, _, best, logits, _ = ref
+    out = case["fits"][index]
+    products = case["products"]
+    got = out["summaries"][0]
+    losses, want = np.asarray(got["losses"]), np.asarray(best["losses"])
+    evals = len(out["rows"])
+    want_k1 = {"csr_spmm": products * layers * (epochs + evals),
+               "csr_spmm_transposed": products * layers * epochs}
+    k1 = {k: out["launches"][k] for k in SPMM_NAMES}
+    if hold == "accuracy":
+        detail = (f"test accuracy {got['test']:.4f} against "
+                  f"{best['test']:.4f} unsharded (margin {DIST_MARGIN})")
+    else:
+        drift, outside = logit_drift(out["logits"], logits)
+        detail = (f"losses max_abs_err {np.abs(losses - want).max():.3e} "
+                  f"(bit-equal {np.array_equal(losses, want)}), final "
+                  f"logits max_abs_err {drift:.3e}, {outside} of "
+                  f"{logits.size} outside the logit rule")
+        if hold not in ("logits", "accuracy"):
+            detail += (f" (limit {DIST_DRIFT_FACTOR:g} x the witness's "
+                       f"{hold:.3e})")
+    say(f"phase distributed: {tag}: losses {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f} (unsharded {want[0]:.6f} -> {want[-1]:.6f}); "
+        f"{detail}; best epoch {got['epoch']} (unsharded {best['epoch']}); "
+        f"captured {out['captured']}, graphs {out['graphs']}; K1 {k1} = "
+        f"{products} products x {layers} layers x ({epochs} steps + "
+        f"{evals} evals) forward, x {epochs} steps transposed; fit "
+        f"{out['fit_s']:.2f} s")
+    if case["jax_loaded"]:
+        raise AssertionError(f"{tag}: the rank imported JAX")
+    if losses.shape != want.shape or not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: losses {losses}")
+    if hold == "accuracy":
+        if abs(got["test"] - best["test"]) > DIST_MARGIN:
+            raise AssertionError(f"{tag}: test accuracy off")
+    else:
+        torch.testing.assert_close(torch.from_numpy(losses),
+                                   torch.from_numpy(want), rtol=1e-3,
+                                   atol=1e-4)
+    if hold == "logits":
+        torch.testing.assert_close(torch.from_numpy(out["logits"]),
+                                   torch.from_numpy(logits), rtol=1e-3,
+                                   atol=1e-4)
+    elif hold != "accuracy" and drift > DIST_DRIFT_FACTOR * hold:
+        raise AssertionError(f"{tag}: the final logits drifted {drift:.3e}, "
+                             f"past {DIST_DRIFT_FACTOR:g} x the witness's "
+                             f"{hold:.3e}")
+    if k1 != want_k1:
+        raise AssertionError(f"{tag}: K1 launches {k1}, expected {want_k1}")
+    return k1
+
+
+def phase_distributed(unsharded_ms, eager_ms, tmp):
+    """The distributed trainer (``train/distributed.py``, ROADMAP.md queue
+    A item 10d): (a) one NCCL rank at the cora preset's full width, the
+    epoch-block fit with its step and eval captured as CUDA graphs
+    (collectives included), from the weights of an unsharded
+    ``FullBatchTrainer`` whose own captured fit it follows: at dropout 0
+    the losses and final logits under the logit rule after
+    DIST_EXACT_EPOCHS epochs, after DIST_EPOCHS the losses under the rule
+    and the logits within DIST_DRIFT_FACTOR times the witness's drift (the
+    unsharded fit with its sums reordered), at the preset's dropout 0.2
+    finite losses and the test accuracy within DIST_MARGIN;
+    K1's launches as captured x replays; ms per epoch, device ms and idle
+    share of replayed epochs beside the eager sharded step's
+    (``eager_ms``, phase sharded-s) and the unsharded captured epoch's
+    (``unsharded_ms``, phase slice-s-graph); K1 on the rank's internal plan
+    against its plain version (the JSON rows); (b) ``cli.main(["--dataset",
+    "cora", "--n_shards", "2", ...], backend="gloo")`` on ranks sharing
+    this card, for each layout, its losses under the rule against the
+    unsharded command line's at dropout 0; (c) a gloo trainer (a gloo
+    group of the NCCL rank) does not capture (and a gloo collective in a
+    capture raises), and an NCCL capture that fails raises, and the gloo
+    fit follows the unsharded one as (a) does at dropout 0. Returns (the
+    JSON rows, K1's launches of (a) at dropout 0.2)."""
+    from difformer_tpu_torch import cli
+    from difformer_tpu_torch.parallel import partition_graph
+    from difformer_tpu_torch.parallel.api import rank_plan
+    from difformer_tpu_torch.parallel.launch import run_ranks
+    from difformer_tpu_torch.parallel.rank_checks import run_checks
+    from difformer_tpu_torch.utils.config import make_config
+
+    t0 = time.perf_counter()
+    x, ei, y = cora_graph()
+    (n, f), c = x.shape, int(y.max()) + 1
+    cfg0, cfg = make_config("cora", dropout=0.0), make_config("cora")
+    ref0_short, ref0 = distributed_references(
+        cfg0, (DIST_EXACT_EPOCHS, DIST_EPOCHS))
+    (witness,) = distributed_references(
+        make_config("cora", dropout=0.0, spmm_first=True), (DIST_EPOCHS,),
+        params=ref0[0])
+    drift, outside = logit_drift(witness[3], ref0[3])
+    (ref,) = distributed_references(cfg, (DIST_EPOCHS,))
+    layers = cfg.num_layers
+    w_losses = np.abs(np.asarray(witness[2]["losses"])
+                      - np.asarray(ref0[2]["losses"])).max()
+    say(f"phase distributed: unsharded captured fits at "
+        f"{time.perf_counter() - t0:.1f} s: test {ref0[2]['test']:.4f} "
+        f"(dropout 0, {DIST_EPOCHS} epochs), {ref0_short[2]['test']:.4f} "
+        f"({DIST_EXACT_EPOCHS}), {ref[2]['test']:.4f} (dropout "
+        f"{cfg.dropout}, {DIST_EPOCHS}); the witness (spmm_first=True, the "
+        f"same weights, dropout 0, {DIST_EPOCHS} epochs): losses "
+        f"max_abs_err {w_losses:.3e}, final logits max_abs_err {drift:.3e} "
+        f"from the unsharded fit, {outside} of {ref0[3].size} outside the "
+        f"logit rule")
+    if not drift > 0:
+        raise AssertionError("the witness's sums were not reordered")
+
+    def case(kind, c_, r, **kw):
+        return dict(kind=kind, x=x, ei=ei, y=y, split=r[1],
+                    model_kw=sharded_model_kw(c_, f, c),
+                    trainer_kw=dict(lr=c_.lr, weight_decay=c_.weight_decay,
+                                    seed=c_.seed), **kw)
+
+    fit_kw = dict(epochs=DIST_EPOCHS, eval_step=1, epoch_block=GRAPH_BLOCK)
+    short_kw = dict(fit_kw, epochs=DIST_EXACT_EPOCHS)
+    t1 = time.perf_counter()
+    # both dropout-0 fits start from the same init_state(0) weights; the
+    # gloo cases run eagerly on a gloo group of the same rank, on the card
+    nccl = run_ranks(run_checks, 1, "nccl", "cuda", [
+        case("fit", cfg0, ref0, fits=[short_kw, fit_kw],
+             init_params=ref0[0]),
+        case("fit", cfg, ref, fits=[fit_kw], init_params=ref[0],
+             timing=True, block=GRAPH_BLOCK),
+        case("capture_fault", cfg0, ref0),
+        case("fit", cfg0, ref0_short, init_params=ref0_short[0],
+             fits=[short_kw], backend="gloo"),
+        case("capture_fault", cfg0, ref0, backend="gloo")])[0]
+    say(f"phase distributed: nccl, 1 rank (and gloo on the same card): "
+        f"{time.perf_counter() - t1:.1f} s in run_ranks")
+    check_distributed_fit("nccl 1 rank, dropout 0", nccl[0], 0, ref0_short,
+                          layers, DIST_EXACT_EPOCHS, "logits")
+    check_distributed_fit("nccl 1 rank, dropout 0", nccl[0], 1, ref0,
+                          layers, DIST_EPOCHS, drift)
+    launches = check_distributed_fit(
+        f"nccl 1 rank, dropout {cfg.dropout}", nccl[1], 0, ref, layers,
+        DIST_EPOCHS, "accuracy")
+    if not all(out["captured"] for c_ in nccl[:2] for out in c_["fits"]):
+        raise AssertionError("the NCCL fits did not capture their graphs")
+    timed = nccl[1]
+    idle = 100 * (1 - timed["device_ms"] / timed["ms_per_epoch"])
+    say(f"phase distributed: nccl 1 rank, replayed: {timed['ms_per_epoch']:.3f} "
+        f"ms per epoch (a step and an eval, host clock, median of 3 blocks "
+        f"of {GRAPH_BLOCK}); device {timed['device_ms']:.4f} ms over "
+        f"{timed['ops']:g} device operations per epoch, idle {idle:.1f}% | "
+        f"the eager sharded step (phase sharded-s, overlap) "
+        f"{eager_ms['overlap']:.2f} ms, the unsharded replayed epoch "
+        f"(phase slice-s-graph) {unsharded_ms:.3f} ms")
+    say("phase distributed: nccl 1 rank, replay profile: "
+        + "; ".join(f"{name[:60]} {ms:.4f} ms x{calls:g}"
+                    for name, ms, calls in timed["top"]))
+    fault = nccl[2]
+    say(f"phase distributed: nccl capture with a barrier in the step: "
+        f"raised {fault['raised']!r}; an eager all-reduce after it "
+        f"{'works' if fault['eager_after'] else 'fails'}")
+    if fault["raised"] is None or not fault["eager_after"]:
+        raise AssertionError("a failed NCCL capture did not raise, or left "
+                             "the group broken")
+
+    # gloo on this card: eager by design, from the same weights
+    gloo = nccl[3:]
+    if gloo[0]["fits"][0]["captured"] or gloo[0]["fits"][0]["graphs"]:
+        raise AssertionError("the gloo trainer captured a graph")
+    check_distributed_fit("gloo 1 rank on the card, dropout 0 (eager)",
+                          gloo[0], 0, ref0_short, layers, DIST_EXACT_EPOCHS,
+                          "logits")
+    say(f"phase distributed: gloo 1 rank: no graph captured; a gloo "
+        f"all-reduce in a capture raised {gloo[1]['raised']!r}")
+    if gloo[1]["raised"] is None:
+        raise AssertionError("a gloo collective was captured")
+
+    # the command line on gloo ranks sharing this card, each layout held
+    # to the unsharded command line's run (the same split and weights) at
+    # dropout 0
+    write_planetoid_cora(tmp)
+    base = ["--dataset", "cora", "--data_dir", tmp, "--epochs",
+            str(DIST_CLI_EPOCHS), "--runs", "1", "--dropout", "0"]
+    t1 = time.perf_counter()
+    plain = cli.main(base)[0]
+    say(f"phase distributed: cli unsharded ({DIST_CLI_EPOCHS} epochs, "
+        f"dropout 0): test {plain['test']:.4f}, losses "
+        f"{plain['losses'][0]:.4f} -> {plain['losses'][-1]:.4f}, "
+        f"{time.perf_counter() - t1:.1f} s")
+    for layout in DIST_LAYOUTS:
+        t1 = time.perf_counter()
+        res = cli.main(base + ["--n_shards", "2", "--layout", layout],
+                       backend="gloo")
+        if len(res) != 1 or not np.isfinite(res[0]["losses"]).all():
+            raise AssertionError(f"--layout {layout}: {res}")
+        got = np.asarray(res[0]["losses"])
+        say(f"phase distributed: cli --n_shards 2 --layout {layout} "
+            f"(gloo, 2 ranks on one card, {DIST_CLI_EPOCHS} epochs): test "
+            f"{res[0]['test']:.4f} (unsharded {plain['test']:.4f}), losses "
+            f"{got[0]:.4f} -> {got[-1]:.4f}, max_abs_err "
+            f"{np.abs(got - plain['losses']).max():.3e} from the unsharded "
+            f"run's, {time.perf_counter() - t1:.1f} s")
+        torch.testing.assert_close(
+            torch.from_numpy(got),
+            torch.from_numpy(np.asarray(plain["losses"], got.dtype)),
+            rtol=1e-3, atol=1e-4)
+
+    # K1 on the NCCL rank's plan: the internal edges of a one-rank cut
+    sg = partition_graph(x, ei, 1, labels=y, label_mask=ref[4],
+                         build_halo=True)
+    plan = rank_plan(sg.rank_graph(0, "cuda"), None).internal
+    rows = rect_kernel_rows(
+        "distributed", plan, DIST_JSON,
+        lambda n_in, n_out, r, cols: f"nccl rank 0 of 1 internal: {n_out} "
+                                     f"x {n_in}", w=cfg.hidden_channels)
+    say(f"phase distributed: done in {time.perf_counter() - t0:.1f} s")
+    return rows, launches
 
 
 def phase_kernels_wide():
@@ -4601,15 +4890,20 @@ def main():
     f32_a = phase_graph("slice-graph", make_config("cora", kernel="sigmoid"),
                         attention=True)
     say(f"phase graph: done at {time.perf_counter() - t0:.1f} s")
-    sharded_rows, launches_sharded = phase_sharded_s()
+    sharded_rows, launches_sharded, eager_ms = phase_sharded_s()
     say(f"phase sharded-s: done at {time.perf_counter() - t0:.1f} s")
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist_rows, launches_dist = phase_distributed(
+            f32_s["ms"]["graph"], eager_ms, tmp)
+    say(f"phase distributed: done at {time.perf_counter() - t0:.1f} s")
     launches_bf16 = phase_graph_bf16("slice-s-bf16-graph", make_config("cora"),
                                      False, f32_s)
     phase_graph_bf16("slice-bf16-graph", make_config("cora", kernel="sigmoid"),
                      True, f32_a)
     del f32_s, f32_a
     say(f"phase bf16 graph: done at {time.perf_counter() - t0:.1f} s")
-    import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         launches_cli = phase_cli(tmp)
@@ -4713,6 +5007,15 @@ def main():
          "replaces": SPMM_REPLACES,
          "launches": launches_sharded[name.split()[0]], **row}
         for name, row in sharded_rows.items()
+    ]
+    kernels += [
+        # K1 on the NCCL rank's internal plan (the distributed trainer at
+        # one rank, the cora preset); launches are the distributed phase's
+        # captured fit at the preset's dropout (captured x replays)
+        {"name": name, "route": "cuda", "source": SPMM_SOURCE,
+         "replaces": SPMM_REPLACES,
+         "launches": launches_dist[name.split()[0]], **row}
+        for name, row in dist_rows.items()
     ]
     kernels += [
         # K1-dval at GAT's shapes on the slice's graph and on cifar10's kNN

@@ -32,7 +32,14 @@ missing, as the JAX command line does). ``--method dcrnn`` and
 command line does. The baseline zoo (``--method`` mlp, manireg, gcn, gat,
 sgc, link, mixhop, gcnjk, gatjk, h2gcn, appnp, gprgnn) trains full-batch with
 ``FullBatchTrainer`` as DIFFormer does, and ``--method lp``/``multilp``
-propagates labels and scores every split, per run, with no trainer; a zoo
+propagates labels and scores every split, per run, with no trainer.
+``--n_shards N`` (N > 1) trains DIFFormer-s node-sharded over N ranks with
+``DistributedTrainer`` (``--layout``, ``--balance_edges``), as
+``difformer_tpu/cli.py:177-199`` does: ranks spawned on this machine (NCCL,
+a card each, or the gloo backend asked for with ``main(...,
+backend="gloo")``, which ``device="cpu"`` implies), or, where
+``DIFFORMER_NUM_PROCESSES`` is set, this process as one rank of a cluster
+(``parallel/launch.py:initialize_cluster``); only rank 0 prints. A zoo
 method in mini-batch (``--use_minibatch``, the pokec and ogbn-proteins
 presets) is not ported. DIFFormer's GCN branch on the full-batch node task
 takes the JAX command line's sparse layout: ``--spmm`` (or, when it is
@@ -44,7 +51,8 @@ degree (``bsr-sorted``), or lets ``choose_spmm`` elect one from the graph
 Every other model, and the mini-batch route, runs K1. ``--eval_only`` reads a checkpoint the port wrote
 with ``--save_model``, or a reference ``.pt``/``.pth``/``.pkl`` state_dict; it
 does not read the JAX package's orbax checkpoints. Every other route raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``NotImplementedError`` naming its ROADMAP.md item (``--n_shards`` with
+``--kernel sigmoid`` or ``--spmm bsr``: item 10b).
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ import dataclasses
 import os
 
 import numpy as np
+import torch
 
 from difformer_tpu_torch.data.graph import GraphData
 from difformer_tpu_torch.data.loaders import load_dataset
@@ -78,6 +87,7 @@ from difformer_tpu_torch.ops.bsr import (
     choose_spmm,
 )
 from difformer_tpu_torch.ops.ell import build_ell_gcn
+from difformer_tpu_torch.parallel.launch import is_primary
 from difformer_tpu_torch.train.graph_level import GraphLevelTrainer
 from difformer_tpu_torch.train.checkpoint import (
     restore_checkpoint,
@@ -92,9 +102,8 @@ from difformer_tpu_torch.utils.weights import load_torch_checkpoint
 
 # the routes that the port does not run yet, by ROADMAP.md queue A item
 _ITEMS = {
-    10: ("the parallel layer's distributed trainer and command line, "
-         "ROADMAP.md queue A item 10 (10d); the node-sharded model and "
-         "step of 10a are in difformer_tpu_torch/parallel/"),
+    "10b": ("the ring sigmoid attention and the sharded block-sparse "
+            "hybrid, ROADMAP.md queue A item 10b"),
 }
 
 
@@ -157,8 +166,6 @@ def parse_method(cfg: Config, n_nodes: int, n_classes: int,
     m = cfg.method.lower()
     if m not in _PORTED_METHODS or m in _LP:
         raise ValueError(f"unknown method {cfg.method!r}")
-    if cfg.n_shards > 1:
-        raise _not_ported("--n_shards > 1", 10)
     if m in _ZOO:
         return _zoo_model(cfg, m, n_nodes, n_classes, in_channels, device)
     if m == "dcrnn":
@@ -192,7 +199,21 @@ def _check_ported(cfg: Config):
     if m in _LP:
         return  # the JAX command line reads no other flag on this route
     if cfg.n_shards > 1:
-        raise _not_ported("--n_shards > 1", 10)
+        if m != "difformer":
+            # the JAX route hands any model to its DistributedTrainer: the
+            # zoo's BatchNorm models and LINK fail there, and the others
+            # train each shard on its own rows and halo table as if it were
+            # the whole graph (ROADMAP.md queue C)
+            raise ValueError(
+                f"--n_shards > 1 trains --method difformer only, not "
+                f"--method {cfg.method}")
+        if cfg.kernel == "sigmoid":
+            raise _not_ported('--kernel sigmoid with --n_shards > 1 (the '
+                              'ring attention)', "10b")
+        if cfg.spmm == "bsr":
+            raise _not_ported("--spmm bsr with --n_shards > 1 (the sharded "
+                              "block-sparse hybrid)", "10b")
+        return
     if cfg.use_minibatch and m in _ZOO:
         raise NotImplementedError(
             f"--method {cfg.method} with --use_minibatch (the pokec and "
@@ -251,12 +272,50 @@ def _sparse_layout(cfg: Config, spmm, graph, x, label, ei, perm, device):
     return layout, graph, x, label, ei, perm
 
 
-def run_node_task(cfg: Config, device=None):
+def _backend(backend, device):
+    """The backend of the ``--n_shards`` route: the caller's, else gloo for
+    the CPU and NCCL (a card a rank) for the GPU."""
+    if backend is not None:
+        return backend
+    if device is not None and torch.device(device).type == "cpu":
+        return "gloo"
+    return "nccl"
+
+
+def run_sharded(cfg: Config, x, ei, label, n_classes, splits, loss,
+                device=None, backend=None):
+    """The ``--n_shards`` route: ``cfg.runs`` runs of ``DistributedTrainer``
+    (``train/distributed.py:cli_rank``) on ``cfg.n_shards`` ranks, spawned
+    here, or, where ``DIFFORMER_NUM_PROCESSES`` is set, this process as one
+    rank of the cluster it names (which must hold ``cfg.n_shards`` ranks).
+    Returns the summaries, which every rank holds alike."""
+    from difformer_tpu_torch.parallel.launch import (initialize_cluster,
+                                                     run_ranks)
+    from difformer_tpu_torch.parallel.mesh import close_mesh
+    from difformer_tpu_torch.train.distributed import cli_rank
+
+    backend = _backend(backend, device)
+    device = "cuda" if device is None else device
+    args = (cfg, x, ei, label, n_classes, splits, loss)
+    mesh = initialize_cluster(backend=backend, device=device)
+    if mesh is None:
+        return run_ranks(cli_rank, cfg.n_shards, backend, device, *args)[0]
+    try:
+        if mesh.size != cfg.n_shards:
+            raise ValueError(f"--n_shards {cfg.n_shards} in a cluster of "
+                             f"{mesh.size} processes")
+        return cli_rank(mesh, *args)
+    finally:
+        close_mesh(mesh)
+
+
+def run_node_task(cfg: Config, device=None, backend=None):
     """Load ``cfg.dataset``, preprocess its graph as the reference does and
     train (or, with ``eval_only``, evaluate) ``--method`` full-batch on
     ``device`` (the GPU unless told otherwise), or DIFFormer in node chunks
-    with ``use_minibatch``; label propagation needs no training. Returns one
-    summary per run."""
+    with ``use_minibatch``, or node-sharded over ``--n_shards`` ranks on
+    ``backend`` (:func:`run_sharded`); label propagation needs no
+    training. Returns one summary per run."""
     _check_ported(cfg)
     ds = load_dataset(cfg.data_dir, cfg.dataset, cfg.sub_dataset)
     x = ds.graph["node_feat"]
@@ -287,7 +346,8 @@ def run_node_task(cfg: Config, device=None):
 
     loss = "bce" if cfg.dataset in BCE_DATASETS else "nll"
     method = cfg.method.lower()
-    model = (None if method in _LP
+    sharded = cfg.n_shards > 1 and method not in _LP
+    model = (None if method in _LP or sharded
              else parse_method(cfg, n, n_classes, x.shape[1], device=device))
     logger = RunLogger(cfg.runs)
 
@@ -327,6 +387,13 @@ def run_node_task(cfg: Config, device=None):
             logger.add_result(run, (r["train"], r["valid"], r["test"]))
             res.append({**r, "epoch": 0})
         return _final(res)
+
+    if sharded:
+        # each rank builds its own model and trainer (train/distributed.py)
+        res = run_sharded(cfg, x, ei, label, n_classes,
+                          [split_for(run) for run in range(cfg.runs)], loss,
+                          device=device, backend=backend)
+        return _final(res) if is_primary() else res
 
     if cfg.use_minibatch:
         trainer = MiniBatchTrainer(
@@ -505,20 +572,22 @@ def build_parser():
     return p
 
 
-def main(argv=None, *, device=None):
+def main(argv=None, *, device=None, backend=None):
     """Parse ``argv`` (the process's arguments when None), apply the
     dataset's preset and run it on ``device`` (the GPU unless told
-    otherwise)."""
+    otherwise); ``backend`` ("nccl" or "gloo") is the ``--n_shards``
+    route's (:func:`run_sharded`)."""
     args = build_parser().parse_args(argv)
     overrides = {k: v for k, v in vars(args).items() if v is not None}
     dataset = overrides.pop("dataset", "cora")
     cfg = make_config(dataset, **overrides)
-    print(cfg)
+    if is_primary():
+        print(cfg)
     if cfg.task == "temporal":
         return run_temporal_task(cfg, device=device)
     if cfg.task == "graph":
         return run_graph_task(cfg, device=device)
-    return run_node_task(cfg, device=device)
+    return run_node_task(cfg, device=device, backend=backend)
 
 
 if __name__ == "__main__":

@@ -22,6 +22,14 @@ collectives on CUDA tensors in the torch of the H100 machine, copying
 through the host itself, as ``chip_smoke.py``'s phase sharded-s shows by
 running them there). A collective that fails raises; nothing is retried
 another way.
+
+Under NCCL every one of them can be recorded in a CUDA graph (the
+distributed trainer's captured step and eval, ``train/distributed.py``):
+the collective's stream joins the capture, and :meth:`Pending.wait`
+records the join back. Gloo cannot be recorded (it moves CUDA tensors
+through the host), so a gloo collective called while the current stream
+is capturing raises instead of running once outside the graph; gloo steps
+stay eager, which the trainer chooses by the backend.
 """
 
 from __future__ import annotations
@@ -45,14 +53,29 @@ def check_group(group):
                         f"{group!r}")
 
 
+def _check_capture(group):
+    """Raise when the current stream is capturing a CUDA graph and
+    ``group``'s backend cannot be recorded in one (every backend but
+    NCCL)."""
+    if (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing()
+            and dist.get_backend(group) != "nccl"):
+        raise RuntimeError(
+            f"a {dist.get_backend(group)} collective cannot be recorded in a "
+            f"CUDA graph: only NCCL's can (capture under NCCL, or run the "
+            f"step eagerly)")
+
+
 def all_reduce_(tensor, group):
     """Sum ``tensor`` over the group in place (no gradient)."""
     check_group(group)
+    _check_capture(group)
     dist.all_reduce(tensor, group=group)
     return tensor
 
 
 def _gather(tensor, group, size):
+    _check_capture(group)
     tensor = tensor.contiguous()
     out = tensor.new_empty((size * tensor.shape[0],) + tuple(tensor.shape[1:]))
     _ALL_GATHER(out, tensor, group=group)
@@ -60,6 +83,7 @@ def _gather(tensor, group, size):
 
 
 def _scatter(tensor, group, size):
+    _check_capture(group)
     tensor = tensor.contiguous()
     out = tensor.new_empty((tensor.shape[0] // size,)
                            + tuple(tensor.shape[1:]))
@@ -68,6 +92,7 @@ def _scatter(tensor, group, size):
 
 
 def _exchange(tensor, group):
+    _check_capture(group)
     tensor = tensor.contiguous()
     out = torch.empty_like(tensor)
     dist.all_to_all_single(out, tensor, group=group)
@@ -148,6 +173,7 @@ def all_to_all_start(tensor, group) -> Pending:
     :class:`Pending` exchange; under NCCL ``wait()`` makes the current
     stream wait for it."""
     check_group(group)
+    _check_capture(group)
     tensor = tensor.contiguous()
     out = torch.empty_like(tensor)
     work = dist.all_to_all_single(out, tensor, group=group, async_op=True)

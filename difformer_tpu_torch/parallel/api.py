@@ -20,9 +20,11 @@ says the summing out loud:
 
 Dropout draws from a generator per rank seeded from (seed, rank)
 (:func:`rank_generator`): the JAX step folds the axis index into its key,
-whose bits the port cannot match. Steps run eagerly; the K1 plans of the
-rank's exchange are built once (:func:`rank_plan`) and passed to every
-call.
+whose bits the port cannot match. The K1 plans of the rank's exchange
+are built once (:func:`rank_plan`) and passed to every call. The step runs
+eagerly, or, under NCCL, captured as a CUDA graph by the distributed
+trainer (``train/distributed.py``), which it allows: its gradients live in
+one buffer allocated when the step is made.
 
 :func:`train_sharded` is a rank function for ``launch.run_ranks``: it
 builds the model from a JAX params tree (``utils/weights.py``), checks
@@ -102,27 +104,38 @@ def make_sharded_train_step(model, mesh: Mesh, optimizer,
     step of this rank (the module's docstring): ``loss_fn(logits, labels,
     mask) -> (sum, count)`` over the rank's nodes; the loss returned, a
     0-d tensor, is the global mean, the same on every rank. ``plan`` is
-    :func:`rank_plan`'s (the model builds it per call without it)."""
+    :func:`rank_plan`'s (the model builds it per call without it).
+
+    The step can be captured in a CUDA graph under NCCL: one flat buffer,
+    allocated here, holds every parameter's gradient (each ``p.grad`` a
+    view into it, which the backward accumulates into in place) and, in
+    its last slot, the loss sum, so that one all-reduce sums both in place;
+    the step allocates nothing that outlives it and reads nothing on the
+    host."""
     group = mesh.group
     params = [p for p in model.parameters() if p.requires_grad]
+    numel = sum(p.numel() for p in params)
+    device = params[0].device if params else mesh.device
+    flat = torch.zeros(numel + 1, device=device)
+    views, offset = [], 0
+    for p in params:
+        views.append(flat[offset:offset + p.numel()].view_as(p))
+        offset += p.numel()
 
     def step(rg: RankGraph, generator=None, plan=None):
         model.train()
-        optimizer.zero_grad(set_to_none=True)
+        for p, view in zip(params, views):
+            if p.grad is not view:  # set to None or replaced elsewhere
+                p.grad = view
+        flat.zero_()
         s, c = loss_fn(_forward(model, rg, plan, generator), rg.labels,
                        rg.label_mask)
         count = comm.all_reduce_(c.detach().float().reshape(1).clone(),
                                  group).clamp(min=1.0)
         (s / count[0]).backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in params]
         # the parameters' gradients and the loss sum, in one all-reduce
-        flat = comm.all_reduce_(torch.cat(
-            [g.reshape(-1) for g in grads] + [s.detach().reshape(1)]), group)
-        offset = 0
-        for p, g in zip(params, grads):
-            p.grad = flat[offset:offset + g.numel()].view_as(g)
-            offset += g.numel()
+        flat[-1:].copy_(s.detach().reshape(1))
+        comm.all_reduce_(flat, group)
         optimizer.step()
         return flat[-1] / count[0]
 

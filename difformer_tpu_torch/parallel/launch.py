@@ -7,8 +7,15 @@ caller's test module, nor JAX), joins each to the graph axis
 (``parallel/mesh.py``: an explicit backend, a file store in a directory of
 its own) and calls ``fn(mesh, *args)`` there. ``fn`` must be importable by
 name (a module-level function of the port's package) and its arguments and
-results picklable: numpy arrays, numbers and dicts of them. The JAX
-package's ``initialize_cluster`` (several hosts) is not ported here.
+results picklable: numpy arrays, numbers and dicts of them.
+
+:func:`initialize_cluster` is the other way in, the counterpart of
+``difformer_tpu/parallel/launch.py:16-53``: a process started by the user
+(one a host, or several) joins a group of ranks that it names itself, from
+its arguments or from the JAX package's variables ``DIFFORMER_NUM_PROCESSES``,
+``DIFFORMER_COORDINATOR`` and ``DIFFORMER_PROCESS_ID`` (:func:`cluster_env`
+reads them); :func:`is_primary` and :func:`global_device_count` answer as
+the JAX functions do.
 """
 
 from __future__ import annotations
@@ -21,9 +28,11 @@ import time
 import traceback
 
 import torch
+import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from difformer_tpu_torch.parallel.mesh import (check_world, close_mesh,
+from difformer_tpu_torch.parallel.mesh import (Mesh, check_world,
+                                               close_mesh, join_mesh,
                                                make_mesh)
 
 
@@ -110,3 +119,64 @@ def run_ranks(fn, world, backend, device, *args, timeout_s=900.0, **kwargs):
         raise RuntimeError(f"{len(errors)} of {world} ranks failed "
                            f"({backend} on {device}):\n{detail}")
     return outs
+
+
+def cluster_env():
+    """(coordinator address, process count, process id) from the JAX
+    package's variables ``DIFFORMER_COORDINATOR``,
+    ``DIFFORMER_NUM_PROCESSES`` and ``DIFFORMER_PROCESS_ID`` (default 0),
+    or None where no count is set: the process is not one of a cluster."""
+    env_procs = os.environ.get("DIFFORMER_NUM_PROCESSES")
+    if env_procs is None:
+        return None
+    return (os.environ.get("DIFFORMER_COORDINATOR"), int(env_procs),
+            int(os.environ.get("DIFFORMER_PROCESS_ID", 0)))
+
+
+def initialize_cluster(coordinator_address=None, num_processes=None,
+                       process_id=None, *, backend, device) -> Mesh | None:
+    """Join this process to a group of ``num_processes`` ranks as rank
+    ``process_id``, meeting the others at ``coordinator_address``
+    (``host:port``, rank 0's; ``tcp://`` is added), on ``backend``, which
+    is always the caller's choice. With no address and no count they come
+    from the JAX package's variables (:func:`cluster_env`).
+    Returns the :class:`~difformer_tpu_torch.parallel.mesh.Mesh` of the
+    group, or None for one process (no variable, or a count of 1), as the
+    JAX function returns False.
+
+    Under NCCL rank r takes card ``r % cards`` of its host (a cluster of
+    hosts with as many cards each, ranks numbered host by host); two ranks
+    on one card fail in NCCL. Under gloo every rank takes ``device``."""
+    if num_processes is None and coordinator_address is None:
+        env = cluster_env()
+        if env is None:
+            return None  # one process
+        coordinator_address, num_processes, process_id = env
+    if not num_processes or num_processes <= 1:
+        return None
+    if coordinator_address is None or process_id is None:
+        raise ValueError("a cluster of several processes needs the "
+                         "coordinator's address and this process's id")
+    address = (coordinator_address if "://" in coordinator_address
+               else f"tcp://{coordinator_address}")
+    card = None
+    if backend == "nccl" and torch.cuda.is_available():
+        card = process_id % torch.cuda.device_count()
+    return join_mesh(num_processes, process_id, backend=backend,
+                     init_method=address, device=device, card=card)
+
+
+def is_primary() -> bool:
+    """True on rank 0 of the process group; where there is none (before
+    :func:`initialize_cluster` or after the group closed), on process 0 of
+    the cluster that :func:`cluster_env` names, and on a process of its
+    own."""
+    if dist.is_initialized():
+        return dist.get_rank() == 0
+    env = cluster_env()
+    return env is None or env[1] <= 1 or env[2] == 0
+
+
+def global_device_count() -> int:
+    """The ranks of the process group (one device each), 1 without one."""
+    return dist.get_world_size() if dist.is_initialized() else 1

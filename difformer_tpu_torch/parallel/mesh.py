@@ -57,34 +57,51 @@ def rank_device(backend, device, rank) -> torch.device:
     return dev
 
 
+def _require_card(dev):
+    """``dev``, or raise where it is a card and there is none."""
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "(with the gloo backend) to run on the CPU")
+    return dev
+
+
 def check_world(backend, device, world_size):
     """Raise unless ``world_size`` ranks of ``backend`` fit the machine:
     NCCL takes one card a rank (it does not put two ranks on one card)."""
     if world_size < 1:
         raise ValueError(f"world_size must be at least 1, got {world_size}")
-    rank_device(backend, device, 0)
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "(with the gloo backend) to run on the CPU")
+    _require_card(rank_device(backend, device, 0))
     if backend == "nccl" and world_size > torch.cuda.device_count():
         raise ValueError(
             f"nccl puts one rank on a card: {world_size} ranks need "
             f"{world_size} cards, this machine has "
-            f"{torch.cuda.device_count()}; ask for the gloo backend to put "
-            f"several ranks on one card")
+            f"{torch.cuda.device_count()}; ask for the gloo backend "
+            f"(backend=\"gloo\") to put several ranks on one card")
 
 
 def make_mesh(world_size, rank, *, backend, init_method,
               device="cuda") -> Mesh:
     """Join this process to the graph axis as ``rank`` of ``world_size``
-    (``torch.distributed.init_process_group`` with ``backend`` and the
-    rendezvous ``init_method``, a ``file://`` path that every rank of the
-    run shares and no other run uses). Under NCCL the process's current
-    card becomes card ``rank``. :func:`close_mesh` leaves the group."""
+    ranks that all run on this machine (:func:`check_world` first), through
+    :func:`join_mesh`. Under NCCL the process's current card becomes card
+    ``rank``. :func:`close_mesh` leaves the group."""
     check_world(backend, device, world_size)
+    return join_mesh(world_size, rank, backend=backend,
+                     init_method=init_method, device=device)
+
+
+def join_mesh(world_size, rank, *, backend, init_method, device="cuda",
+              card=None) -> Mesh:
+    """``torch.distributed.init_process_group`` with ``backend`` and the
+    rendezvous ``init_method`` (a ``file://`` path that every rank of the
+    run shares and no other run uses, or rank 0's ``tcp://`` address), and
+    the :class:`Mesh` of the group. Under NCCL the rank runs on card
+    ``card`` (``rank`` when None), which becomes the process's current
+    card."""
     if not 0 <= rank < world_size:
         raise ValueError(f"rank {rank} outside [0, {world_size})")
-    dev = rank_device(backend, device, rank)
+    dev = _require_card(rank_device(backend, device,
+                                    rank if card is None else card))
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     dist.init_process_group(
@@ -95,17 +112,18 @@ def make_mesh(world_size, rank, *, backend, init_method,
                 size=dist.get_world_size(group), backend=backend, device=dev)
 
 
-def sub_mesh(mesh: Mesh, size: int):
+def sub_mesh(mesh: Mesh, size: int, backend=None):
     """The graph axis of the first ``size`` ranks of ``mesh`` (a new group
-    on the same backend), for those ranks, and None for the others. Every
-    rank of ``mesh`` must call it, in the same order."""
+    on ``backend``, by default the same one), for those ranks, and None for
+    the others. Every rank of ``mesh`` must call it, in the same order."""
     if not 1 <= size <= mesh.size:
         raise ValueError(f"a sub-axis of {size} ranks of {mesh.size}")
-    group = dist.new_group(list(range(size)), backend=mesh.backend)
+    backend = backend or mesh.backend
+    group = dist.new_group(list(range(size)), backend=backend)
     if mesh.rank >= size:
         return None
     return Mesh(group=group, rank=dist.get_rank(group), size=size,
-                backend=mesh.backend, device=mesh.device)
+                backend=backend, device=mesh.device)
 
 
 def close_mesh(mesh: Mesh) -> None:

@@ -4,25 +4,39 @@ call them; a spawned rank imports them from here, never from a test).
 
 :func:`run_checks` runs a list of cases in one spawn of the ranks: each
 case is ``{"kind": name, **arguments}``, with ``"world": k`` to run on the
-first k ranks only (``mesh.sub_mesh``; the others give None), ``kind`` one
-of ``conv``
+first k ranks only (``mesh.sub_mesh``; the others give None) and
+``"backend": name`` to run on a group of that backend (gloo cases in a
+spawn of NCCL ranks), ``kind`` one of ``conv``
 (:func:`conv_check`: the graph branch's product and its gradient with
 respect to x), ``attention`` (:func:`attention_check`: the sharded linear
-attention in one of its three forms and its gradients) and ``train``
-(``api.train_sharded``). Global arrays [S·N_loc, ...] come in the
+attention in one of its three forms and its gradients), ``train``
+(``api.train_sharded``), ``dropout`` (:func:`dropout_check`: sharded
+training at dropout > 0 over several seeds, and the ranks' dropout
+streams), and the distributed trainer's (``train/distributed.py``):
+``fit`` (:func:`fit_check`: fits with their launches, final logits and, on
+a card, the steady time of replayed epochs), ``eval`` (:func:`eval_check`),
+``resume`` (:func:`resume_check`) and ``capture_fault``
+(:func:`capture_fault_check`). Global arrays [S·N_loc, ...] come in the
 partition's padded node order; each rank takes its N_loc rows.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import sys
+import time
+
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from difformer_tpu_torch.kernels import spmm as K1
 from difformer_tpu_torch.ops.linear_attention import (
     simple_attention,
     simple_attention_head_mean_factored,
 )
-from difformer_tpu_torch.parallel.api import rank_plan, train_sharded
+from difformer_tpu_torch.parallel.api import (rank_generator, rank_plan,
+                                              train_sharded)
 from difformer_tpu_torch.parallel.mesh import sub_mesh
 from difformer_tpu_torch.parallel.sharded_ops import sharded_conv
 
@@ -80,19 +94,227 @@ def attention_check(mesh, form, q, k, v, key_mask, cot, n_loc, w=None,
                 db=_np(None if bt is None else bt.grad))
 
 
+def dropout_check(mesh, sg, params, model_kw, seeds, steps, lr=1e-2,
+                  weight_decay=5e-4):
+    """``api.train_sharded`` at ``model_kw``'s dropout for each seed of
+    ``seeds`` (the rank's generator seeded from (seed, rank)): ``losses``
+    [seeds, steps]; ``again``, the first seed's run repeated; and the
+    dropout masks that the model's dropout draws first on each rank from
+    ``seeds[0]``: ``reproducible`` (two generators of the same (seed,
+    rank) draw the same mask) and ``masks_differ`` (no two ranks draw the
+    same)."""
+    from difformer_tpu_torch.nn.common import dropout
+
+    def run(seed):
+        return train_sharded(mesh, sg, params, model_kw, steps=steps, lr=lr,
+                             weight_decay=weight_decay, seed=seed)["losses"]
+
+    losses = np.stack([run(seed) for seed in seeds])
+    ones = torch.ones(256, device=mesh.device)
+    masks = [dropout(ones, model_kw["dropout"], True,
+                     rank_generator(seeds[0], mesh.rank, mesh.device))
+             .cpu().numpy() for _ in range(2)]
+    every = [None] * mesh.size
+    dist.all_gather_object(every, masks[0].tobytes(), group=mesh.group)
+    return dict(losses=losses, again=run(seeds[0]),
+                reproducible=bool(np.array_equal(*masks)),
+                masks_differ=len(set(every)) == mesh.size,
+                kept=float((masks[0] > 0).mean()))
+
+
+class _Rows:
+    """A ``fit`` logger: every eval's (train, valid, test)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add_result(self, run, result):
+        self.rows.append(result)
+
+
+def _trainer(mesh, x, ei, y, split, model_kw, trainer_kw):
+    """This rank's DIFFormer (``model_kw`` with ``in_channels``,
+    ``hidden_channels`` and ``out_channels``) and its DistributedTrainer
+    on the whole graph (``trainer_kw``, the split's training mask)."""
+    from difformer_tpu_torch.nn.difformer import DIFFormer
+    from difformer_tpu_torch.train.distributed import DistributedTrainer
+    from difformer_tpu_torch.train.trainer import idx_to_mask
+
+    kw = dict(model_kw)
+    model = DIFFormer(kw.pop("in_channels"), kw.pop("hidden_channels"),
+                      kw.pop("out_channels"), axis_name=mesh.group,
+                      device=mesh.device, **kw)
+    return DistributedTrainer(model, x, ei, y,
+                              train_mask=idx_to_mask(split["train"],
+                                                     x.shape[0]),
+                              mesh=mesh, **(trainer_kw or {}))
+
+
+def fit_check(mesh, x, ei, y, split, model_kw, fits, trainer_kw=None,
+              init_params=None, timing=False, block=10):
+    """One trainer's ``fit(split, **kw)`` for each ``kw`` of ``fits``, from
+    ``init_params`` (a JAX params tree) when given. For each fit: the
+    ``summaries``, the logger's ``rows``, the final weights' ``logits``
+    [N_loc, C]; whether its epoch-block runner ``captured`` (under NCCL;
+    False for gloo and for the per-epoch loop), the runner's ``graphs``
+    (each graph's K1 launches seen at capture and its replays) and K1's
+    ``launches`` (captured × replays, else the wrappers' count); ``fit_s``
+    (host seconds). Also the rank's plan's ``products`` with entries and
+    ``jax_loaded``. With ``timing`` (on a card; the last fit's runner):
+    ``ms_per_epoch``, the host clock of ``block`` more epochs (a step and
+    an eval each), the median of 3, and one more such block under the
+    profiler: ``device_ms`` and ``ops`` a epoch, and ``top``, its longest
+    device operations as (name, ms a epoch, calls a epoch)."""
+    from difformer_tpu_torch.parallel.api import _profiled
+
+    trainer = _trainer(mesh, x, ei, y, split, model_kw, trainer_kw)
+    sync = (torch.cuda.synchronize if mesh.device.type == "cuda"
+            else (lambda: None))
+    out = []
+    for kw in fits:
+        log = _Rows()
+        K1.reset_launch_counts()
+        trainer.epoch_runner = None  # set again by an epoch-block fit
+        start = time.perf_counter()
+        summaries = trainer.fit(split, logger=log, init_params=init_params,
+                                **kw)
+        sync()
+        fit_s = time.perf_counter() - start
+        counted = dict(K1.LAUNCHES)
+        runner = trainer.epoch_runner
+        captured = runner is not None and runner.captured
+        out.append(dict(
+            summaries=summaries, rows=np.asarray(log.rows),
+            logits=trainer.forward_eval().cpu().numpy(), captured=captured,
+            graphs={} if runner is None else {
+                name: dict(captured={k: v for k, v in g["captured"].items()
+                                     if v}, replays=g["replays"])
+                for name, g in runner.graphs.items()},
+            launches=({k: v for k, v in runner.launches().items()
+                       if k in counted} if captured else counted),
+            fit_s=fit_s))
+    result = dict(fits=out, products=sum(
+        getattr(trainer.plan, f.name).num_edges > 0
+        for f in dataclasses.fields(trainer.plan)),
+        jax_loaded="jax" in sys.modules)
+    if timing:
+        runner = trainer.epoch_runner
+
+        def epochs():
+            runner.rewind()
+            runner.block(block, 1)
+
+        times = []
+        for _ in range(3):
+            sync()
+            t0 = time.perf_counter()
+            epochs()
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0) / block)
+        prof, _ = _profiled(epochs, sync, top=8)
+        result.update(ms_per_epoch=float(np.median(times)),
+                      device_ms=prof["device_ms"] / block,
+                      ops=sum(n for _, _, n in prof["device"]) / block,
+                      top=[(name, ms / block, n / block)
+                           for name, ms, n in prof["device"][:8]])
+    return result
+
+
+def eval_check(mesh, x, ei, y, split, model_kw, trainer_kw=None,
+               init_params=None):
+    """The trainer's ``evaluate`` of run 0's weights (``device``: the
+    device path's metrics), this rank's logits [N_loc, C] and the
+    layout's node permutation (None for the contiguous one)."""
+    trainer = _trainer(mesh, x, ei, y, split, model_kw, trainer_kw)
+    state = trainer.init_state(0, init_params)
+    return dict(device=trainer.evaluate(state, split),
+                logits=trainer.forward_eval(state).cpu().numpy(),
+                perm=trainer._node_perm)
+
+
+def resume_check(mesh, x, ei, y, split, model_kw, ckpt_dir, trainer_kw=None,
+                 stop=6, epochs=10, every=3, eval_step=2):
+    """An interrupted run (``stop`` epochs, a checkpoint every ``every``
+    into ``ckpt_dir``) resumed by a new trainer to ``epochs``, and an
+    uninterrupted run to ``epochs`` into ``ckpt_dir + "_whole"``: their
+    summaries (``resumed``, ``whole``); the checkpoint files are read by
+    the caller. A checkpoint of another world size that cannot be resumed
+    gives ``error`` instead."""
+    def fit(directory, n, resume):
+        trainer = _trainer(mesh, x, ei, y, split, model_kw, trainer_kw)
+        return trainer.fit(split, epochs=n, eval_step=eval_step,
+                           ckpt_dir=directory, checkpoint_every=every,
+                           resume=resume)
+
+    if stop is None:  # resume a checkpoint written at another world size
+        try:
+            fit(ckpt_dir, epochs, True)
+        except ValueError as e:
+            return dict(error=str(e))
+        return dict(error=None)
+    fit(ckpt_dir, stop, False)
+    return dict(resumed=fit(ckpt_dir, epochs, True),
+                whole=fit(ckpt_dir + "_whole", epochs, False))
+
+
+def capture_fault_check(mesh, x, ei, y, split, model_kw, trainer_kw=None):
+    """A capture that must fail, and fail loudly: under NCCL the trainer's
+    step with a barrier in it (which waits on the host, so no CUDA graph
+    can record it), under gloo one all-reduce of a card's tensor (gloo
+    cannot be recorded). Returns ``raised``, the error's type and message,
+    or None if the capture went through; under NCCL also
+    ``eager_after``, whether an eager all-reduce still works after."""
+    from difformer_tpu_torch.ops import comm
+    from difformer_tpu_torch.train.distributed import ShardedEpochRunner
+
+    raised = None
+    if mesh.backend == "nccl":
+        trainer = _trainer(mesh, x, ei, y, split, model_kw, trainer_kw)
+        state = trainer.init_state(0)
+        step = trainer.step_fn
+
+        def step_with_barrier(*args, **kwargs):
+            dist.barrier(group=mesh.group)
+            return step(*args, **kwargs)
+
+        trainer.step_fn = step_with_barrier
+        try:
+            ShardedEpochRunner(trainer, state, trainer.generator(0),
+                               trainer._eval_tables(split), 4)
+        except Exception as e:  # reported to the caller, which checks it
+            raised = f"{type(e).__name__}: {str(e)[:300]}"
+        ones = torch.ones(4, device=mesh.device)
+        comm.all_reduce_(ones, mesh.group)
+        return dict(raised=raised,
+                    eager_after=bool((ones == mesh.size).all()))
+    graph = torch.cuda.CUDAGraph()
+    tensor = torch.ones(4, device=mesh.device)
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            comm.all_reduce_(tensor, mesh.group)
+    except RuntimeError as e:
+        raised = f"{type(e).__name__}: {str(e)[:300]}"
+    return dict(raised=raised)
+
+
 CHECKS = {"conv": conv_check, "attention": attention_check,
-          "train": train_sharded}
+          "train": train_sharded, "dropout": dropout_check,
+          "fit": fit_check, "eval": eval_check, "resume": resume_check,
+          "capture_fault": capture_fault_check}
 
 
 def run_checks(mesh, cases):
     """[the result of each case] (the module's docstring)."""
-    worlds = sorted({case.get("world", mesh.size) for case in cases})
-    meshes = {k: mesh if k == mesh.size else sub_mesh(mesh, k)
-              for k in worlds}
+    def key(case):
+        return case.get("world", mesh.size), case.get("backend", mesh.backend)
+
+    meshes = {k: mesh if k == (mesh.size, mesh.backend) else sub_mesh(mesh, *k)
+              for k in sorted({key(case) for case in cases})}
     out = []
     for case in cases:
-        on = meshes[case.get("world", mesh.size)]
-        args = {k: v for k, v in case.items() if k not in ("kind", "world")}
+        on = meshes[key(case)]
+        args = {k: v for k, v in case.items()
+                if k not in ("kind", "world", "backend")}
         out.append(None if on is None else CHECKS[case["kind"]](on, **args))
     return out
 

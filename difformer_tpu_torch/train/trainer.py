@@ -392,12 +392,8 @@ class FullBatchTrainer:
                          epoch_block, eval_step, logger, verbose,
                          display_step, init_params):
         """One run on the epoch-block schedule of ``_fit_run_scanned``
-        (``:343-430``): blocks of ``groups = max(1, epoch_block //
-        eval_step)`` groups, each a step, an eval and ``eval_step - 1``
-        steps; eval-free blocks after the epoch-0 eval when ``eval_step >=
-        epochs``; the remaining epochs one at a time; the final epoch's
-        forced eval. The host reads a block's record once, then picks the
-        best epoch from those scalars."""
+        (``:343-430``, :func:`run_epoch_blocks`). The host reads a block's
+        record once, then picks the best epoch from those scalars."""
         n = self.graph.num_nodes
         split_masks = torch.as_tensor(
             np.stack([idx_to_mask(split_idx[k], n) for k in _SPLITS]),
@@ -422,40 +418,8 @@ class FullBatchTrainer:
                       f"train {res['train']:.4f} valid {res['valid']:.4f} "
                       f"test {res['test']:.4f}")
 
-        epoch = 0
-        last_eval = -1
-        if eval_step < epochs:
-            groups = max(1, epoch_block // eval_step)
-            length = groups * eval_step
-            while epoch + length <= epochs:
-                runner.block(groups, eval_step)
-                rows = runner.fetch(epoch, epoch + length)
-                for gi in range(groups):     # evals at the groups' starts
-                    take(epoch + gi * eval_step, rows[gi * eval_step])
-                epoch += length
-        else:
-            # evals only at the end, but the per-epoch loop evals at epoch
-            # 0 too (0 % eval_step == 0): one step and an eval, then steps
-            runner.step()
-            runner.evaluate()
-            take(0, runner.fetch(0, 1)[0])
-            last_eval = 0
-            for _ in range(1, epochs):
-                runner.step()
-            epoch = epochs
-        # the remaining epochs, one at a time, with the same device metrics
-        while epoch < epochs:
-            runner.step()
-            if epoch % eval_step == 0 or epoch == epochs - 1:
-                runner.evaluate()
-                take(epoch, runner.fetch(epoch, epoch + 1)[0])
-                last_eval = epoch
-            epoch += 1
-        if last_eval != epochs - 1 and (epochs - 1) % eval_step != 0:
-            # the blocks covered the final epoch, whose eval the per-epoch
-            # loop forces (reference main.py:133)
-            runner.evaluate()
-            take(epochs - 1, runner.fetch(epochs - 1, epochs)[0])
+        run_epoch_blocks(runner, take, epochs=epochs, epoch_block=epoch_block,
+                         eval_step=eval_step)
         best["losses"] = runner.fetch(0, epochs)[:, 0].tolist()
         return best
 
@@ -559,15 +523,61 @@ class FullBatchTrainer:
                 for run in range(runs)]
 
 
+def run_epoch_blocks(runner, take, *, epochs, epoch_block, eval_step):
+    """Drive ``runner`` (an :class:`EpochRunner`) through one run of
+    ``epochs`` epochs on the JAX package's epoch-block schedule, calling
+    ``take(epoch, record row)`` at each eval as the per-epoch loop would:
+    blocks of ``groups = max(1, epoch_block // eval_step)`` groups, each a
+    step, an eval and ``eval_step - 1`` steps, read once a block; without
+    evals inside the run (``eval_step >= epochs``) one step and an eval,
+    then steps alone; the remaining epochs one at a time on the per-epoch
+    rule; and the final epoch's eval forced where the blocks covered it
+    (reference main.py:133)."""
+    epoch = 0
+    last_eval = -1
+    if eval_step < epochs:
+        groups = max(1, epoch_block // eval_step)
+        length = groups * eval_step
+        while epoch + length <= epochs:
+            runner.block(groups, eval_step)
+            rows = runner.fetch(epoch, epoch + length)
+            for gi in range(groups):     # evals at the groups' starts
+                take(epoch + gi * eval_step, rows[gi * eval_step])
+                last_eval = epoch + gi * eval_step
+            epoch += length
+    else:
+        # evals only at the end, but the per-epoch loop evals at epoch 0
+        # too (0 % eval_step == 0): one step and an eval, then steps
+        runner.step()
+        runner.evaluate()
+        take(0, runner.fetch(0, 1)[0])
+        last_eval = 0
+        for _ in range(1, epochs):
+            runner.step()
+        epoch = epochs
+    while epoch < epochs:
+        runner.step()
+        if epoch % eval_step == 0 or epoch == epochs - 1:
+            runner.evaluate()
+            take(epoch, runner.fetch(epoch, epoch + 1)[0])
+            last_eval = epoch
+        epoch += 1
+    if last_eval != epochs - 1 and (epochs - 1) % eval_step != 0:
+        runner.evaluate()
+        take(epochs - 1, runner.fetch(epochs - 1, epochs)[0])
+
+
 class EpochRunner:
     """The train steps and device evals of one epoch-block run.
 
     A step writes its loss, and an eval the split metrics of the state the
-    last step left, into one device record [epochs, 4] (loss; train, valid,
-    test), at the row a device cursor holds (the step advances it), so the
-    host reads any span of epochs in one copy (:meth:`fetch`).
+    last step left, into one device record [epochs, ``width``] (loss; by
+    default train, valid, test), at the row a device cursor holds (the step
+    advances it), so the host reads any span of epochs in one copy
+    (:meth:`fetch`).
 
-    On the CPU :meth:`step` and :meth:`evaluate` run eagerly. On CUDA the
+    Without ``capture`` (by default on the CPU) :meth:`step` and
+    :meth:`evaluate` run eagerly. With it (by default on CUDA) the
     constructor captures each once as a CUDA graph and they replay it:
     first :data:`WARMUP_STEPS` steps and evals on the device's capture
     stream (one for every run, :func:`_capture_stream`), whose
@@ -586,18 +596,21 @@ class EpochRunner:
     """
 
     def __init__(self, trainer, state, generator, train_mask, split_masks,
-                 epochs):
+                 epochs, *, width=4, capture=None):
         self.trainer = trainer
         self.state = state
         self.generator = generator
         self.train_mask = train_mask
         self.split_masks = split_masks
         device = trainer.device
-        self.record = torch.full((epochs, 4), float("nan"), device=device)
+        self.record = torch.full((epochs, width), float("nan"),
+                                 device=device)
         self.cursor = torch.zeros(1, dtype=torch.long, device=device)
         self.graphs = {}
         self._step_graph = self._eval_graph = None
-        if device.type == "cuda":
+        self.captured = (device.type == "cuda" if capture is None
+                         else capture)
+        if self.captured:
             self._capture()
 
     def _run_step(self):

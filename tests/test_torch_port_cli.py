@@ -222,9 +222,11 @@ ZOO_MINIBATCH = "the zoo in mini-batch"
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--n_shards", "2"], 10),
-    (["--use_minibatch", "true", "--n_shards", "2"], 10),
-    (["--spmm", "bsr", "--n_shards", "4"], 10),
+    (["--kernel", "sigmoid", "--n_shards", "2"], "item 10b"),
+    (["--spmm", "bsr", "--n_shards", "2"], "item 10b"),
+    (["--use_minibatch", "true", "--kernel", "sigmoid", "--n_shards", "2"],
+     "item 10b"),
+    (["--spmm", "bsr", "--n_shards", "4"], "item 10b"),
     (["--dataset", "pokec", "--method", "gcn"], ZOO_MINIBATCH),
 ])
 def test_unported_routes_raise_naming_their_item(tmp_path, extra, item):
@@ -233,6 +235,37 @@ def test_unported_routes_raise_naming_their_item(tmp_path, extra, item):
     match = f"item {item}\\b" if isinstance(item, int) else item
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv, **CPU)
+
+
+def test_sharded_route_runs_on_the_card_or_asks_for_the_cpu(monkeypatch):
+    # --n_shards > 1 never trains on the CPU unasked: without a card it
+    # raises naming device='cpu'; NCCL on the CPU raises too
+    argv = ["--dataset", "synthetic-60-200-4-3", "--epochs", "1",
+            "--n_shards", "2"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(argv)
+    with pytest.raises(ValueError, match="CUDA devices"):
+        cli.main(argv, device="cpu", backend="nccl")
+
+
+def test_sharded_route_with_more_nccl_ranks_than_cards_raises(monkeypatch):
+    # NCCL takes a card a rank; with fewer cards the route raises naming
+    # the gloo backend instead of switching to it
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match='backend="gloo"'):
+        cli.main(["--dataset", "synthetic-60-200-4-3", "--epochs", "1",
+                  "--n_shards", "2"])
+
+
+@pytest.mark.parametrize("method", ["gcn", "sgc", "mlp"])
+def test_sharded_route_trains_difformer_only(method):
+    # the JAX route fails for the zoo's BatchNorm models and trains the
+    # others shard by shard as if each were the whole graph
+    with pytest.raises(ValueError, match="--method difformer only"):
+        cli.main(["--dataset", "synthetic-60-200-4-3", "--epochs", "1",
+                  "--method", method, "--n_shards", "2"], **CPU)
 
 
 # --------------------------------------------------------------------------

@@ -2168,3 +2168,42 @@ def test_nccl_with_more_ranks_than_cards_raises(cuda):
     with pytest.raises(ValueError, match="one rank on a card"):
         run_ranks(run_checks, torch.cuda.device_count() + 1, "nccl", "cuda",
                   [])
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_captured_fit_follows_the_unsharded_fit(cuda):
+    # the distributed trainer's epoch-block fit at one NCCL rank: its step
+    # and eval captured as CUDA graphs (the collectives in them), against
+    # FullBatchTrainer's captured fit from the same weights, at dropout 0
+    from difformer_tpu_torch.data.splits import rand_train_test_idx
+    from difformer_tpu_torch.parallel.launch import run_ranks
+    from difformer_tpu_torch.parallel.rank_checks import run_checks
+    from difformer_tpu_torch.utils.weights import params_from_torch_state_dict
+
+    x, ei, y, _ = _sharded_graph()
+    split = rand_train_test_idx(y, 0.5, 0.25, rng=0)
+    model = DIFFormer(SHARD_F, 32, SHARD_C, num_layers=2, dropout=0.0,
+                      seed=3, device=cuda)
+    params = params_from_torch_state_dict(model.state_dict())
+    trainer = FullBatchTrainer(model, GraphData.from_numpy(x, ei,
+                                                           device=cuda),
+                               y, lr=1e-2, weight_decay=5e-4, device=cuda)
+    fit_kw = dict(epochs=12, eval_step=1, epoch_block=4)
+    best = trainer.fit(split, init_params=params, **fit_kw)[0]
+    logits = trainer.forward_eval(trainer.epoch_runner.state).cpu().numpy()
+    case = run_ranks(run_checks, 1, "nccl", "cuda", [dict(
+        kind="fit", x=x, ei=ei, y=y, split=split,
+        model_kw=dict(in_channels=SHARD_F, hidden_channels=32,
+                      out_channels=SHARD_C, num_layers=2, dropout=0.0),
+        trainer_kw=dict(lr=1e-2, weight_decay=5e-4), fits=[fit_kw],
+        init_params=params)])[0][0]
+    out = case["fits"][0]
+    assert out["captured"] and not case["jax_loaded"]
+    assert {name: g["replays"] for name, g in out["graphs"].items()} == {
+        "step": 12, "eval": 12}
+    np.testing.assert_allclose(out["summaries"][0]["losses"],
+                               best["losses"], **GRAD)
+    np.testing.assert_allclose(out["logits"], logits, **GRAD)
+    products = case["products"]
+    assert out["launches"] == {"csr_spmm": products * 2 * 24,
+                               "csr_spmm_transposed": products * 2 * 12}

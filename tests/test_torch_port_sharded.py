@@ -21,7 +21,11 @@ parity rule:
 - ``make_sharded_train_step``'s losses and parameters after 3 Adam steps
   with dropout off, for ``dryrun_multichip``'s flavours 1 (all-gather),
   2 (halo) and 2b (the locality layout, spmm_first at 2 heads), and the
-  overlapped halo.
+  overlapped halo;
+- the same step at dropout 0.5 on 2 ranks, over several seeds, held to the
+  JAX step's distribution of losses (the two draw their masks from
+  different generators, so no step can match), with each rank's dropout
+  stream reproducible from (seed, rank) and the ranks' masks different.
 """
 
 import jax
@@ -54,6 +58,11 @@ N, E, F, C, HIDDEN, LAYERS = 96, 420, 8, 3, 16, 2
 H, D, M = 2, 4, 4          # the ops' heads and widths
 STEPS, LR, WD = 3, 1e-2, 5e-4
 FLAVOURS = ("gather", "halo", "overlap", "locality")
+# the dropout case: 2 ranks on the overlapped halo, DROP_SEEDS seeds of
+# DROP_STEPS steps at dropout DROPOUT in each package; the packages' mean
+# losses may differ by at most DROP_Z standard errors
+DROPOUT, DROP_SEEDS, DROP_STEPS = 0.5, 128, 5
+DROP_Z = 4.0
 
 
 def graph():
@@ -152,6 +161,13 @@ def runs():
         out[world] = dict(ins=ins, ours=ours, theirs=theirs, perm=perm,
                           params=params, x=x, ei=ei, y=y, mask=mask,
                           n_loc=n_loc, cases=len(cases))
+    # sharded dropout on 2 ranks, last
+    drop = out[2]
+    every.append(dict(kind="dropout", world=2, sg=drop["ours"]["overlap"],
+                      params=params["overlap"],
+                      model_kw=dict(model_kw("overlap"), dropout=DROPOUT),
+                      seeds=list(range(DROP_SEEDS)), steps=DROP_STEPS, lr=LR,
+                      weight_decay=WD))
     results = run_ranks(run_checks, max(WORLDS), "gloo", "cpu", every)
     first = 0
     for world in WORLDS:
@@ -161,6 +177,8 @@ def runs():
         assert all(r[first:first + n] == [None] * n
                    for r in results[world:])
         first += n
+    out["dropout"] = [r[first] for r in results[:2]]
+    assert all(r[first] is None for r in results[2:])
     return out
 
 
@@ -370,6 +388,57 @@ def test_sharded_apply_and_train_step(runs, world, index, flavour):
                        torch.from_numpy(run["ei"][1])).numpy()
     np.testing.assert_allclose(real_rows(run, flavour, ours0), single,
                                **TOL)
+
+
+def jax_dropout_losses(sg, params, world, seeds, steps):
+    """[seeds, steps]: the JAX sharded step's losses at dropout DROPOUT
+    from ``params``, seed s drawing its keys from PRNGKey(s)."""
+    model = JDIFFormer(hidden_channels=HIDDEN, out_channels=C,
+                       num_layers=LAYERS, num_heads=1, dropout=DROPOUT,
+                       axis_name="graph")
+    tx = torch_adam(LR, WD)
+    step = make_sharded_train_step(model, jax_mesh(world), tx, jax_loss_fn)
+    out = []
+    for seed in seeds:
+        p = jax.tree_util.tree_map(jnp.asarray, params)
+        opt_state = tx.init(p)
+        losses = []
+        for key in jax.random.split(jax.random.PRNGKey(seed), steps):
+            p, opt_state, loss = step(p, opt_state, sg, key)
+            losses.append(float(loss))
+        out.append(losses)
+    return np.asarray(out)
+
+
+def test_sharded_dropout_is_held_to_the_jax_distribution(runs):
+    # The statistic: each seed's mean loss over its DROP_STEPS steps. The
+    # two packages' means over the DROP_SEEDS seeds must lie within DROP_Z
+    # standard errors of their difference (Welch's z), a distributional
+    # comparison as tests/test_reference_convergence.py:173 makes. Readings
+    # on the CPU at 128 seeds: z = 1.25 (a gap of 0.0062 on a mean of
+    # 1.204, standard error 0.0050); with a mask not rescaled by 1 / (1 - p)
+    # in the port's dropout, z = 24.4, and with p = 0.25 for 0.5, z = 16.0.
+    run = runs[2]
+    ours = runs["dropout"]
+    losses = ours[0]["losses"]
+    theirs = jax_dropout_losses(run["theirs"]["overlap"],
+                                run["params"]["overlap"], 2,
+                                range(DROP_SEEDS), DROP_STEPS)
+    assert losses.shape == theirs.shape == (DROP_SEEDS, DROP_STEPS)
+    per_t, per_j = losses.mean(1), theirs.mean(1)
+    se = np.hypot(per_t.std(ddof=1), per_j.std(ddof=1)) / np.sqrt(DROP_SEEDS)
+    z = abs(per_t.mean() - per_j.mean()) / se
+    assert z <= DROP_Z, (per_t.mean(), per_j.mean(), se)
+    # the masks act: the seeds differ, and every loss departs from the
+    # dropout-free run's from the same weights
+    assert per_t.std() > 0 and per_j.std() > 0
+    plain = run["results"][0][6 + FLAVOURS.index("overlap")]["losses"]
+    assert not np.allclose(losses[:, :STEPS], plain, rtol=1e-4)
+    for r in ours:
+        np.testing.assert_array_equal(r["losses"], losses)  # the same mean
+        np.testing.assert_array_equal(r["again"], losses[0])  # reproducible
+        assert r["reproducible"] and r["masks_differ"]
+        assert 0.35 < r["kept"] < 0.65
 
 
 def test_unported_sharded_options_raise():
