@@ -78,6 +78,24 @@ non-zero before the last line:
    no index_add_; device and host time by operation); a JSON line of the
    phase (gloo takes the CUDA tensors of all four collectives: the port
    stages nothing through the host).
+8d. sharded-a-bsr (run after distributed): the ring sigmoid attention and
+   the node-sharded block-sparse hybrid: the cora preset as DIFFormer-a
+   through ``DistributedTrainer`` at one NCCL rank, captured (20 epochs at
+   dropout 0 under the logit rule against the unsharded captured fit from
+   the same weights, 100 within 10 x the witness's drift), K2-K4 launched
+   layers x ring steps a step and an eval; eager steps on 2 and 4 gloo
+   ranks sharing the card against the unsharded steps; K2-K4 at the ring's
+   step (N_loc = L = 1354) against their plain versions; K7 on rank 1's
+   shard of bench.py's clustered graph cut in two and on the whole graph
+   at one rank (int8 counts with their row and column scales, f32 values;
+   W = 64 and 65) against its plain version, timed beside its bound,
+   the plain version and cuSPARSE BSR; bench.py's model with
+   ``spmm="bsr"`` at one NCCL rank, captured, against the unsharded
+   trainer on its hybrid, its epoch time and idle share; the command line
+   with --kernel sigmoid --spmm bsr --n_shards 2 on 2 gloo ranks against
+   the unsharded command line's losses. Its references are made before
+   phase sharded-s, and its rank cases run in the spawns of sharded-s
+   (gloo) and distributed (NCCL), two spawns fewer.
 9. kernels-wide (run right after the kernels phase): K2-K4 on their wide
    path at the set track's widths, M = D = 300 and 400 at N = L = 15000
    (f32 with and without a key mask, and bf16), each against its plain
@@ -110,7 +128,8 @@ non-zero before the last line:
    ``difformer_tpu_torch.cli.main`` on Planetoid raw files written for the
    slice's synthetic graph, its GCN branch on the default ELL layout (K6,
    no K1); again with --kernel sigmoid (K2-K4 and K6), with --reorder rcm
-   and with --spmm coo (K1); then --save_model cut to 50 epochs and 1 run,
+   and with --spmm coo (K1), each cut to 1 run (the script's time limit);
+   then --save_model cut to 50 epochs and 1 run,
    and --eval_only, which must give the saved run's metrics. Each run's
    test accuracy above chance, its kernels launched, host seconds of load
    and preprocess and of the fit, ms per epoch.
@@ -197,7 +216,8 @@ non-zero before the last line:
    then one epoch on the edge-list plan, whose K1 launches are the JSON
    line's "graph-level" rows'.
 18b. capture-repeat: the actstrack preset's sigmoid trainer (the dense
-   plan) captures its train step 30 times while its packing threads
+   plan) captures its train step 10 times (cut from 30 for the script's
+   time limit) while its packing threads
    allocate pinned buffers: no capture is invalidated (the trainers
    capture in thread-local mode).
 19. cli-actstrack: ``python -m difformer_tpu_torch.cli --dataset
@@ -1634,7 +1654,8 @@ def sharded_partitions(world, x, ei, y, train_mask):
                                         nodes_per_shard=n_loc, **kw)}, perm
 
 
-def check_sharded_run(tag, flavour, sg, perm, outs, ref, layers):
+def check_sharded_run(tag, flavour, sg, perm, outs, ref, layers,
+                      phase="sharded-s"):
     """Hold one sharded run (every rank's ``train_sharded`` result) to the
     unsharded reference under the logit rule, and each rank's K1 launches
     to its plans' products × layers × steps in each direction. Returns
@@ -1670,7 +1691,7 @@ def check_sharded_run(tag, flavour, sg, perm, outs, ref, layers):
         for name in SPMM_NAMES:
             total[name] += out["launches"][name]
     step_ms = max(o["step_ms"] for o in outs)
-    say(f"phase sharded-s: {tag} {flavour}: losses {losses[0]:.6f} -> "
+    say(f"phase {phase}: {tag} {flavour}: losses {losses[0]:.6f} -> "
         f"{losses[-1]:.6f} (unsharded {ref_losses[0]:.6f} -> "
         f"{ref_losses[-1]:.6f}); logits max_abs_err "
         f"{np.abs(logits - ref_logits).max():.3e}, bit-equal "
@@ -1758,7 +1779,7 @@ def rect_kernel_rows(phase, plan, suffix, label, w=64):
     return rows_out
 
 
-def phase_sharded_s():
+def phase_sharded_s(extra=()):
     """The main path cut across ranks (ROADMAP.md queue A item 10a):
     (a) K1 on a rectangular halo plan (:func:`phase_sharded_kernel`);
     (b) the cora preset (dropout 0, so that runs can follow one another)
@@ -1770,9 +1791,11 @@ def phase_sharded_s():
     atol 1e-4); (c) the same with 2 and 4 gloo ranks sharing this card,
     and flavour 2b (the locality layout, spmm_first at 2 heads) against
     its own unsharded run. Each rank's K1 launches are its plans'
-    products × layers × steps each way. Returns (the JSON rows of (a), K1's
-    launches of the 4-rank halo run summed over its ranks, the NCCL run's
-    host ms a step by exchange)."""
+    products × layers × steps each way. ``extra``: cases of another phase
+    (each with its ``world``) run in the same gloo spawn, one spawn of
+    ranks fewer. Returns (the JSON rows of (a), K1's launches of the 4-rank
+    halo run summed over its ranks, the NCCL run's host ms a step by
+    exchange, each extra case's results on its ranks)."""
     from difformer_tpu_torch.parallel.launch import run_ranks
     from difformer_tpu_torch.parallel.rank_checks import run_checks
     from difformer_tpu_torch.parallel.sharded_ops import (
@@ -1848,10 +1871,15 @@ def phase_sharded_s():
         cases += [dict(case(parts[fl], ref_2b[0] if fl == "locality"
                             else ref[0], kw_2b if fl == "locality" else kw),
                        world=world) for fl in flavours]
+    base = len(cases)
     t1 = time.perf_counter()
-    every = run_ranks(run_checks, max(SHARDED_WORLDS), "gloo", "cuda", cases)
+    every = run_ranks(run_checks, max(SHARDED_WORLDS), "gloo", "cuda",
+                      cases + list(extra))
     say(f"phase sharded-s: gloo, {max(SHARDED_WORLDS)} ranks: "
-        f"{time.perf_counter() - t1:.1f} s in run_ranks")
+        f"{time.perf_counter() - t1:.1f} s in run_ranks (with "
+        f"{len(extra)} cases of another phase)")
+    extra_results = [[o[base + i] for o in every[:case["world"]]]
+                     for i, case in enumerate(extra)]
     halo_launches = None
     for w, world in enumerate(SHARDED_WORLDS):
         parts, perm = parted[world]
@@ -1882,7 +1910,7 @@ def phase_sharded_s():
                     "staged_through_host_by_the_port": None,
                     "bit_equal_to_unsharded": bits}))
     say(f"phase sharded-s: done in {time.perf_counter() - t0:.1f} s")
-    return rows, halo_launches, eager_ms
+    return rows, halo_launches, eager_ms, extra_results
 
 
 # phase distributed: the distributed trainer (train/distributed.py)
@@ -1938,7 +1966,8 @@ def logit_drift(a, b):
     return float(diff.max()), int((diff > 1e-4 + 1e-3 * np.abs(b)).sum())
 
 
-def check_distributed_fit(tag, case, index, ref, layers, epochs, hold):
+def check_distributed_fit(tag, case, index, ref, layers, epochs, hold,
+                          phase="distributed"):
     """Hold fit ``index`` of a distributed run (``rank_checks.fit_check``'s
     result ``case``, one rank) to its unsharded reference of as many
     epochs, by ``hold``: "logits" (dropout 0) the losses and the final
@@ -1970,7 +1999,7 @@ def check_distributed_fit(tag, case, index, ref, layers, epochs, hold):
         if hold not in ("logits", "accuracy"):
             detail += (f" (limit {DIST_DRIFT_FACTOR:g} x the witness's "
                        f"{hold:.3e})")
-    say(f"phase distributed: {tag}: losses {losses[0]:.6f} -> "
+    say(f"phase {phase}: {tag}: losses {losses[0]:.6f} -> "
         f"{losses[-1]:.6f} (unsharded {want[0]:.6f} -> {want[-1]:.6f}); "
         f"{detail}; best epoch {got['epoch']} (unsharded {best['epoch']}); "
         f"captured {out['captured']}, graphs {out['graphs']}; K1 {k1} = "
@@ -2001,7 +2030,7 @@ def check_distributed_fit(tag, case, index, ref, layers, epochs, hold):
     return k1
 
 
-def phase_distributed(unsharded_ms, eager_ms, tmp):
+def phase_distributed(unsharded_ms, eager_ms, tmp, extra=()):
     """The distributed trainer (``train/distributed.py``, ROADMAP.md queue
     A item 10d): (a) one NCCL rank at the cora preset's full width, the
     epoch-block fit with its step and eval captured as CUDA graphs
@@ -2022,8 +2051,10 @@ def phase_distributed(unsharded_ms, eager_ms, tmp):
     unsharded command line's at dropout 0; (c) a gloo trainer (a gloo
     group of the NCCL rank) does not capture (and a gloo collective in a
     capture raises), and an NCCL capture that fails raises, and the gloo
-    fit follows the unsharded one as (a) does at dropout 0. Returns (the
-    JSON rows, K1's launches of (a) at dropout 0.2)."""
+    fit follows the unsharded one as (a) does at dropout 0. ``extra``:
+    cases of another phase run in the same NCCL spawn (one spawn fewer).
+    Returns (the JSON rows, K1's launches of (a) at dropout 0.2, the extra
+    cases' results)."""
     from difformer_tpu_torch import cli
     from difformer_tpu_torch.parallel import partition_graph
     from difformer_tpu_torch.parallel.api import rank_plan
@@ -2073,12 +2104,17 @@ def phase_distributed(unsharded_ms, eager_ms, tmp):
              init_params=ref0[0]),
         case("fit", cfg, ref, fits=[fit_kw], init_params=ref[0],
              timing=True, block=GRAPH_BLOCK),
+        # the other phase's captures before the failing one
+        *extra,
         case("capture_fault", cfg0, ref0),
         case("fit", cfg0, ref0_short, init_params=ref0_short[0],
              fits=[short_kw], backend="gloo"),
         case("capture_fault", cfg0, ref0, backend="gloo")])[0]
     say(f"phase distributed: nccl, 1 rank (and gloo on the same card): "
-        f"{time.perf_counter() - t1:.1f} s in run_ranks")
+        f"{time.perf_counter() - t1:.1f} s in run_ranks (with {len(extra)} "
+        f"cases of another phase)")
+    extra_results = nccl[2:2 + len(extra)]
+    nccl = nccl[:2] + nccl[2 + len(extra):]
     check_distributed_fit("nccl 1 rank, dropout 0", nccl[0], 0, ref0_short,
                           layers, DIST_EXACT_EPOCHS, "logits")
     check_distributed_fit("nccl 1 rank, dropout 0", nccl[0], 1, ref0,
@@ -2159,7 +2195,477 @@ def phase_distributed(unsharded_ms, eager_ms, tmp):
         lambda n_in, n_out, r, cols: f"nccl rank 0 of 1 internal: {n_out} "
                                      f"x {n_in}", w=cfg.hidden_channels)
     say(f"phase distributed: done in {time.perf_counter() - t0:.1f} s")
-    return rows, launches
+    return rows, launches, extra_results
+
+
+# phase sharded-a-bsr: the ring sigmoid attention at the cora preset
+# (kernel="sigmoid"), K7 on a rank's shard of bench.py's clustered graph,
+# and the node-sharded hybrid under bench.py's model
+RING_EXACT_EPOCHS, RING_EPOCHS = 20, 100  # as phase distributed's fits
+RING_WORLDS = (2, 4)  # the eager steps on gloo ranks sharing the card
+RING_JSON = " ring"  # K2-K4's JSON rows at the ring's step
+RING_CLI_EPOCHS = 10
+HYBRID_EPOCHS = 10
+# the rectangular K7 rows: bench.py's clustered graph cut in two (rank 1's
+# shard) and whole (one rank), int8 counts and f32 values, W = 64 and 65
+RECT_WORLDS = (2, 1)
+RECT_WIDTHS = (64, 65)
+RECT_JSON = " shard"
+BSR_SHARD_REPLACES = "difformer_tpu/ops/bsr.py:781"
+
+
+def ring_kernel_rows(mask):
+    """K2 (the raw numerator and denominator the ring sums), K3 and K4 at
+    one ring step of the cora preset on 2 ranks (N_loc = L = 1354, the
+    length of the shard's key mask ``mask``; H = 1, M = D = 64, f32) against their
+    plain versions under ``kernels/tolerance.py`` (shown to fail a wrong
+    output), two calls bit-equal, timed by CUDA-graph replay beside the
+    plain version's device time and the bound. Returns the JSON rows."""
+    from difformer_tpu_torch.kernels import sigmoid_attention as K
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+
+    n, h, m, d, dtype = len(mask), 1, 64, 64, torch.float32
+    q, k, v, _, g = attention_case(n, n, h, m, d, dtype, False, 22)
+    mask = torch.as_tensor(mask, dtype=torch.float32, device="cuda")
+    label = f"ring step N_loc=L={n} H={h} M={m} D={d} f32"
+    num, den = K.sigmoid_attention_fwd(q, k, v, mask, normalize=False)
+    r_num, r_den = K.sigmoid_attention_fwd_plain(q, k, v, mask,
+                                                 normalize=False)
+    errs = {"sigmoid_attention_fwd": max(
+        assert_close(f"fwd num {label}", num, r_num, "num", den=r_den),
+        assert_close(f"fwd den {label}", den, r_den, "den"))}
+    assert_rejects(f"num {label}", r_num, "num", r_den)
+    # the cotangents of the ring's num / den, with this step's den as the
+    # whole sum
+    dnum = g / den[..., None]
+    dden = -(g * (num / den[..., None])).sum(-1) / den
+    r_dq = K.sigmoid_attention_dq_plain(q, k, v, mask, dnum, dden)
+    r_dk, r_dv = K.sigmoid_attention_dkv_plain(q, k, v, mask, dnum, dden)
+    errs["sigmoid_attention_dq"] = assert_close(
+        f"dq {label}", K.sigmoid_attention_dq(q, k, v, mask, dnum, dden),
+        r_dq, "grad")
+    dk, dv = K.sigmoid_attention_dkv(q, k, v, mask, dnum, dden)
+    errs["sigmoid_attention_dkv"] = max(
+        assert_close(f"dk {label}", dk, r_dk, "grad"),
+        assert_close(f"dv {label}", dv, r_dv, "grad"))
+    for name, ref in (("dq", r_dq), ("dk", r_dk), ("dv", r_dv)):
+        assert_rejects(f"{name} {label}", ref, "grad")
+    cases = {
+        "sigmoid_attention_fwd": (
+            lambda: K.sigmoid_attention_fwd(q, k, v, mask, normalize=False),
+            lambda: K.sigmoid_attention_fwd_plain(q, k, v, mask,
+                                                  normalize=False)),
+        "sigmoid_attention_dq": (
+            lambda: K.sigmoid_attention_dq(q, k, v, mask, dnum, dden),
+            lambda: K.sigmoid_attention_dq_plain(q, k, v, mask, dnum, dden)),
+        "sigmoid_attention_dkv": (
+            lambda: K.sigmoid_attention_dkv(q, k, v, mask, dnum, dden),
+            lambda: K.sigmoid_attention_dkv_plain(q, k, v, mask, dnum,
+                                                  dden)),
+    }
+    rows = {}
+    for name, (kernel, plain) in cases.items():
+        first, second = kernel(), kernel()
+        if not all(torch.equal(a, b) for a, b in zip(
+                first if isinstance(first, tuple) else (first,),
+                second if isinstance(second, tuple) else (second,))):
+            raise AssertionError(f"{name} {label}: two calls differ")
+        ms, plain_ms = replay_ms(kernel), device_ms(plain)
+        bound, bound_by = bound_ms(name, n, n, h, m, d, dtype)
+        say(f"phase sharded-a-bsr: {name:22s} {label} (keys masked "
+            f"{int((mask == 0).sum())}) max_abs_err {errs[name]:.3e}, two "
+            f"calls bit-equal | kernel {ms:.4f} ms (CUDA-graph replay) | "
+            f"plain {plain_ms:.4f} ms | bound {bound:.4f} ms by {bound_by} "
+            f"({100 * bound / ms:.1f}% of the kernel's time) | no PyTorch "
+            f"call computes it")
+        rows[f"{name}{RING_JSON}"] = dict(
+            max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=bound_by, library_ms=None)
+    return rows
+
+
+def rect_bsr_bounds(d, w, x_dtype):
+    """(least ms, "bytes" or "operations", compulsory bytes, live blocks)
+    of K7 on a rank's shard ``d`` at width ``w``: the blocks that hold an
+    edge (and a column index each) read once, the gathered operand's
+    column tiles that some block reads, out written once, and for counts
+    the row and column scales of those rows; the operations as
+    :func:`bsr_bounds` counts them (the faster of the FP32 units and the
+    tensor cores in TF32 passes)."""
+    t = d.tile
+    live = d.blocks.reshape(d.blocks.shape[0], d.blocks.shape[1], -1) \
+        .ne(0).any(-1)
+    blocks = int(live.sum())
+    col_tiles = int(torch.unique(d.block_col[live]).numel())
+    elem_x = torch.tensor([], dtype=x_dtype).element_size()
+    scaled = d.inv_rows is not None
+    nbytes = (blocks * (t * t * d.blocks.element_size() + 4)
+              + col_tiles * t * w * elem_x + d.num_rows * w * elem_x
+              + (4 * (d.num_rows + col_tiles * t) if scaled else 0))
+    flops = 2 * t * t * w * blocks
+    t_bytes = nbytes / PEAK_BYTES
+    passes = 3 if d.blocks.dtype == torch.float32 else 2
+    t_ops = min(flops / PEAK_OPS[torch.float32], passes * flops / 495e12)
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes > t_ops else "operations", nbytes, blocks)
+
+
+def library_rect_bsr(d, x):
+    """cuSPARSE's BSR product (``torch.sparse_bsr_tensor`` [rows_per,
+    pad_n] @ x) of a rank shard's blocks that hold an edge, as f32 copies
+    with the count scales folded in, for its time."""
+    t = d.tile
+    live = d.blocks.reshape(d.blocks.shape[0], d.blocks.shape[1], -1) \
+        .ne(0).any(-1)
+    rt = torch.arange(live.shape[0], device=x.device)[:, None] \
+        .expand_as(live)[live]
+    ct = d.block_col[live].long()
+    v = d.blocks[live].float()
+    if d.inv_rows is not None:
+        v = (v * d.inv_rows.view(-1, t)[rt][:, :, None]
+             * d.inv_cols.view(-1, t)[ct][:, None, :])
+    order = torch.argsort(rt * (d.num_cols // t) + ct)
+    crow = torch.zeros(live.shape[0] + 1, dtype=torch.int64,
+                       device=x.device)
+    crow[1:] = torch.bincount(rt, minlength=live.shape[0]).cumsum(0)
+    a = torch.sparse_bsr_tensor(crow, ct[order], v[order].to(x.dtype),
+                                size=(d.num_rows, d.num_cols))
+    del v
+    call = lambda: a @ x  # noqa: E731
+    call()
+    return call
+
+
+def check_rect_k7(tag, x, d):
+    """K7 on a rank's shard ``d`` of the node-sharded hybrid (``rows_per``
+    rows from the gathered ``x`` [pad_n, W]; the count blocks' row and
+    column scales apart) against its plain version under the "spmm" rule
+    (shown to fail a wrong output), two calls bit-equal, its device
+    kernels a call counted from its CUDA graph (1, one more where the
+    split plan cuts, one more where x is staged), and the shard's whole
+    product (K7, then K1 adding the residual) against the plain one; timed
+    by CUDA-graph replay beside the plain version's and cuSPARSE BSR's
+    device times and the bound. Returns the JSON row."""
+    from difformer_tpu_torch.kernels import bsr as K7
+    from difformer_tpu_torch.kernels import spmm as K1
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+    from difformer_tpu_torch.ops.bsr import bsr_shard_apply
+
+    groups, w = d.groups(), x.shape[1]
+    rect = dict(num_rows=d.num_rows, row_scale=d.inv_rows,
+                col_scale=d.inv_cols)
+    chunks = K7.split_plan(K7.group_shapes(groups), d.tile, w,
+                           K7.sm_count(x.device))
+    staged = K7.staged_x(x)[0] is not x
+    call = lambda: K7.bsr_spmm_blocks(x, groups, d.tile, **rect)  # noqa
+    plain = lambda: K7.bsr_spmm_blocks_plain(x, groups, d.tile, **rect)  # noqa
+    out, ref = call(), plain()
+    sc = K7.bsr_spmm_blocks_abs(x, groups, d.tile, **rect)
+    err = assert_close(tag, out, ref, "spmm", scale=sc)
+    assert_rejects(tag, ref, "spmm", scale=sc)
+    if not torch.equal(out, call()):
+        raise AssertionError(f"{tag}: two calls differ")
+    want = 1 + any(c > 1 for c in chunks) + staged
+    kernels, nodes = graph_kernels(call)
+    if kernels != want or nodes != want:
+        raise AssertionError(f"{tag}: {kernels} device kernels in {nodes} "
+                             f"graph nodes a call, expected {want}")
+    whole = bsr_shard_apply(d, x)
+    p = d.plan
+    whole_ref = ref.float() + K1.csr_spmm_plain(x, p.row_ptr, p.col, p.val)
+    whole_err = assert_close(f"{tag} with the residual", whole, whole_ref,
+                             "spmm", scale=sc.float() + K1.csr_spmm_abs(
+                                 x, p.row_ptr, p.col, p.val).float())
+    del out, ref, sc, whole, whole_ref
+    bound, bound_by, nbytes, blocks = rect_bsr_bounds(d, w, x.dtype)
+    ms, plain_ms = replay_ms(call), device_ms(plain)
+    library_ms = None
+    try:
+        lib = library_rect_bsr(d, x)
+        library_ms = device_ms(lib)
+        del lib
+    except (RuntimeError, NotImplementedError) as ex:
+        say(f"phase sharded-a-bsr: {tag}: cuSPARSE BSR refused: "
+            f"{str(ex).splitlines()[0][:160]}")
+    torch.cuda.empty_cache()
+    slots = int(np.prod(d.block_col.shape))
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    say(f"phase sharded-a-bsr: {tag:44s} max_abs_err {err:.3e} (with the "
+        f"residual {whole_err:.3e}), two calls bit-equal, {want} device "
+        f"kernels a call (chunks {chunks}{', x staged' if staged else ''}) "
+        f"| {d.num_rows} rows over {d.num_cols}, {slots} block slots, "
+        f"{blocks} with edges | kernel {ms:.4f} ms "
+        f"({1e6 * ms / max(slots, 1):.2f} ns a slot) | plain "
+        f"{plain_ms:.4f} ms | cuSPARSE BSR {lib} | bound {bound:.4f} ms by "
+        f"{bound_by} ({nbytes / 1e6:.2f} MB; {100 * bound / ms:.1f}% of "
+        f"the kernel's time)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def rect_k7_rows(s, r):
+    """K7 on rank 1's shard of bench.py's clustered graph cut in two
+    (rows_per 65536 over pad_n 131072, T = 256) and on the whole graph at
+    one rank, int8 counts (with their scales) and f32 values
+    (``scaled_int8=False``), at W = 64 and 65 (:func:`check_rect_k7`).
+    Returns the JSON rows."""
+    from difformer_tpu_torch.ops.bsr import build_bsr_gcn_sharded
+
+    rows = {}
+    g = torch.Generator("cuda").manual_seed(23)
+    for world in RECT_WORLDS:
+        for kind, int8 in (("int8", "auto"), ("f32", False)):
+            t0 = time.perf_counter()
+            fwd, _, rows_per = build_bsr_gcn_sharded(
+                s, r, BENCH_NODES, world, tile=BSR_TILE,
+                min_edges=KERNEL_MIN_EDGES, scaled_int8=int8)
+            rank = world - 1
+            d = fwd.rank_shard(rank, None, "cuda")
+            del fwd
+            build_s = time.perf_counter() - t0
+            for w in RECT_WIDTHS:
+                x = torch.randn((rows_per * world, w), device="cuda",
+                                generator=g)
+                tag = (f"bsr_spmm {kind} rank {rank} of {world} W={w}")
+                rows[f"bsr_spmm{RECT_JSON} {kind} {world}r W={w}"] = \
+                    check_rect_k7(tag, x, d)
+                del x
+            say(f"phase sharded-a-bsr: {kind} shard of {world} built in "
+                f"{build_s:.2f} s (every shard, on the host)")
+            del d
+            torch.cuda.empty_cache()
+    return rows
+
+
+def ring_kernel_launches(tag, out, layers, epochs):
+    """Hold a captured ring fit's K2-K4 launches (captured x replays) to
+    layers x S ring steps (one rank: 1) a step and an eval (K2) and a
+    step (K3, K4); returns them."""
+    evals = len(out["rows"])
+    got = {k: out["launches"].get(k, 0) for k in REPLACES}
+    want = {"sigmoid_attention_fwd": layers * (epochs + evals),
+            "sigmoid_attention_dq": layers * epochs,
+            "sigmoid_attention_dkv": layers * epochs}
+    say(f"phase sharded-a-bsr: {tag}: K2-K4 {got} = {layers} layers x 1 "
+        f"ring step x ({epochs} steps + {evals} evals) forward, x {epochs} "
+        f"steps backward; graphs {out['graphs']}")
+    if got != want:
+        raise AssertionError(f"{tag}: K2-K4 launched {got}, expected {want}")
+    return got
+
+
+def sharded_a_bsr_setup():
+    """The references and the rank cases of phase sharded-a-bsr, made
+    before phase sharded-s: the unsharded captured cora-a fits of
+    RING_EXACT_EPOCHS and RING_EPOCHS epochs and their witness (the same
+    fit with its sums reordered, ``spmm_first=True``), the unsharded eager
+    cora-a steps, and bench.py's model trained on its padded hybrid,
+    unsharded; ``nccl``, the ring's and the hybrid's captured fits at one
+    NCCL rank (run in phase distributed's spawn), and ``gloo``, the ring's
+    eager steps on 2 and 4 gloo ranks (run in phase sharded-s's spawn).
+    Returns a dict of them."""
+    from difformer_tpu_torch.ops.bsr import build_bsr_gcn
+    from difformer_tpu_torch.parallel import partition_graph
+    from difformer_tpu_torch.utils.config import make_config
+    from difformer_tpu_torch.utils.weights import params_from_torch_state_dict
+
+    t0 = time.perf_counter()
+    x, ei, y = cora_graph()
+    (n, f), c = x.shape, int(y.max()) + 1
+    cfg = make_config("cora", kernel="sigmoid", dropout=0.0)
+    ref_short, ref = distributed_references(cfg, (RING_EXACT_EPOCHS,
+                                                  RING_EPOCHS))
+    (witness,) = distributed_references(
+        make_config("cora", kernel="sigmoid", dropout=0.0, spmm_first=True),
+        (RING_EPOCHS,), params=ref[0])
+    drift, outside = logit_drift(witness[3], ref[3])
+    eager = sharded_reference(cfg, SHARDED_STEPS)
+    say(f"phase sharded-a-bsr: unsharded cora-a references: test "
+        f"{ref[2]['test']:.4f} ({RING_EPOCHS} epochs, dropout 0); the "
+        f"witness (spmm_first=True) drifts {drift:.3e} from it, {outside} "
+        f"of {ref[3].size} logits outside the rule")
+
+    # bench.py's model on its clustered graph, unsharded on its hybrid
+    xb, s, r = bench_graph("clustered")
+    nb = BENCH_NODES
+    rng = np.random.default_rng(1)
+    yb = rng.integers(0, BENCH_CLASSES, nb)
+    perm = rng.permutation(nb)
+    split_b = {"train": perm[:nb // 2], "valid": perm[nb // 2:3 * nb // 4],
+               "test": perm[3 * nb // 4:]}
+    trainer = layout_trainer(xb, s, r, yb, build_bsr_gcn(s, r, nb,
+                                                         tile=BSR_TILE))
+    params_b = params_from_torch_state_dict(
+        trainer.init_state(0).model.state_dict())
+    best_b = trainer.fit(split_b, epochs=HYBRID_EPOCHS, eval_step=1,
+                         epoch_block=GRAPH_BLOCK, init_params=params_b)[0]
+    logits_b = trainer.forward_eval(trainer.epoch_runner.state).cpu().numpy()
+    hybrid_ms = steady_epoch_ms(trainer.epoch_runner, GRAPH_BLOCK)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase sharded-a-bsr: unsharded bench.py model on its padded "
+        f"hybrid (T = {BSR_TILE}): losses {best_b['losses'][0]:.6f} -> "
+        f"{best_b['losses'][-1]:.6f}, {hybrid_ms:.3f} ms a steady epoch "
+        f"replayed; references in {time.perf_counter() - t0:.1f} s")
+
+    fit_kw = dict(epochs=RING_EPOCHS, eval_step=1, epoch_block=GRAPH_BLOCK)
+    nccl = [
+        dict(kind="fit", x=x, ei=ei, y=y, split=ref[1],
+             model_kw=sharded_model_kw(cfg, f, c),
+             trainer_kw=dict(lr=cfg.lr, weight_decay=cfg.weight_decay,
+                             seed=cfg.seed),
+             fits=[dict(fit_kw, epochs=RING_EXACT_EPOCHS), fit_kw],
+             init_params=ref[0], timing=True, block=GRAPH_BLOCK),
+        dict(kind="fit", x=xb, ei=np.stack([s, r]), y=yb, split=split_b,
+             model_kw=dict(in_channels=BENCH_FEATURES,
+                           hidden_channels=BENCH_HIDDEN,
+                           out_channels=BENCH_CLASSES,
+                           num_layers=BENCH_LAYERS, dropout=0.0),
+             trainer_kw=dict(lr=1e-2, weight_decay=0.0, loss="nll",
+                             metric="acc", seed=5, spmm="bsr",
+                             bsr_tile=BSR_TILE),
+             fits=[dict(epochs=HYBRID_EPOCHS, eval_step=1,
+                        epoch_block=GRAPH_BLOCK)],
+             init_params=params_b, timing=True, block=GRAPH_BLOCK)]
+    # eager steps on gloo ranks sharing the card, on the all-gather
+    # partition, from the unsharded eager steps' weights
+    sgs = {world: partition_graph(x, ei, world, labels=y,
+                                  label_mask=eager[1])
+           for world in RING_WORLDS}
+    gloo = [dict(kind="train", world=world, sg=sgs[world], params=eager[0],
+                 model_kw=sharded_model_kw(cfg, f, c), steps=SHARDED_STEPS,
+                 lr=cfg.lr, weight_decay=cfg.weight_decay)
+            for world in RING_WORLDS]
+    return dict(cfg=cfg, ref_short=ref_short, ref=ref, drift=drift,
+                eager=eager, sgs=sgs, best_b=best_b, logits_b=logits_b,
+                hybrid_ms=hybrid_ms, s=s, r=r, nccl=nccl, gloo=gloo)
+
+
+def phase_sharded_a_bsr(tmp, setup, nccl, gloo):
+    """ROADMAP.md queue A item 10b, the ring sigmoid attention and the
+    node-sharded block-sparse hybrid (the module's docstring), on the
+    references and the results of :func:`sharded_a_bsr_setup`'s cases
+    (``nccl`` from phase distributed's spawn, ``gloo`` from phase
+    sharded-s's): (a) the cora preset as DIFFormer-a through
+    ``DistributedTrainer`` at one NCCL rank, captured, against the
+    unsharded captured fit from the same weights (RING_EXACT_EPOCHS epochs
+    under the logit rule, RING_EPOCHS within DIST_DRIFT_FACTOR x the
+    witness's drift), K2-K4's launches; eager steps on 2 and 4 gloo ranks
+    sharing the card against the unsharded steps; (b) K2-K4 at the ring's
+    step; (c) K7 on a rank's shard of bench.py's clustered graph; (d)
+    bench.py's model with ``spmm="bsr"`` at one NCCL rank, captured,
+    against the unsharded trainer on its hybrid, with its epoch time and
+    idle share; (e) the command line with --kernel sigmoid --spmm bsr
+    --n_shards 2 on 2 gloo ranks against the unsharded command line.
+    Returns (the JSON rows, the launches of the captured ring fit, those
+    of the captured hybrid fit)."""
+    from difformer_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    cfg, layers = setup["cfg"], setup["cfg"].num_layers
+    ring, hybrid = nccl
+    check_distributed_fit("ring, nccl 1 rank", ring, 0, setup["ref_short"],
+                          layers, RING_EXACT_EPOCHS, "logits",
+                          phase="sharded-a-bsr")
+    check_distributed_fit("ring, nccl 1 rank", ring, 1, setup["ref"], layers,
+                          RING_EPOCHS, setup["drift"], phase="sharded-a-bsr")
+    launches_ring = ring_kernel_launches("ring, nccl 1 rank",
+                                         ring["fits"][1], layers,
+                                         RING_EPOCHS)
+    for tag, case in (("ring", ring), ("hybrid", hybrid)):
+        if not all(out["captured"] for out in case["fits"]):
+            raise AssertionError(f"{tag}: the NCCL fit did not capture")
+        idle = 100 * (1 - case["device_ms"] / case["ms_per_epoch"])
+        say(f"phase sharded-a-bsr: {tag}, nccl 1 rank, replayed: "
+            f"{case['ms_per_epoch']:.3f} ms per epoch (a step and an eval, "
+            f"host clock, median of 3 blocks of {GRAPH_BLOCK}); device "
+            f"{case['device_ms']:.4f} ms over {case['ops']:g} device "
+            f"operations per epoch, idle {idle:.1f}%; top: "
+            + "; ".join(f"{name[:50]} {ms:.4f} ms x{calls:g}"
+                        for name, ms, calls in case["top"][:6]))
+
+    # the hybrid at full width against the unsharded trainer's
+    out = hybrid["fits"][0]
+    nb = BENCH_NODES
+    losses = np.asarray(out["summaries"][0]["losses"])
+    want_b = np.asarray(setup["best_b"]["losses"])
+    logits_b = setup["logits_b"]
+    drift_b, outside_b = logit_drift(out["logits"][:nb], logits_b)
+    evals = len(out["rows"])
+    launches_hybrid = {k: out["launches"].get(k, 0)
+                       for k in BSR_PATH + (BSR_COMBINE,) + SPMM_NAMES}
+    want_launches = {"bsr_spmm": BENCH_LAYERS * (HYBRID_EPOCHS + evals),
+                     "bsr_spmm_transposed": BENCH_LAYERS * HYBRID_EPOCHS,
+                     "csr_spmm": BENCH_LAYERS * (HYBRID_EPOCHS + evals),
+                     "csr_spmm_transposed": BENCH_LAYERS * HYBRID_EPOCHS}
+    say(f"phase sharded-a-bsr: hybrid, nccl 1 rank, bench.py's model on "
+        f"the clustered graph (spmm='bsr', T = {BSR_TILE}): losses "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f} (unsharded {want_b[0]:.6f} -> "
+        f"{want_b[-1]:.6f}), max_abs_err {np.abs(losses - want_b).max():.3e};"
+        f" final logits max_abs_err {drift_b:.3e}, {outside_b} of "
+        f"{logits_b.size} outside the logit rule; launches "
+        f"{launches_hybrid} (K7 and K1's residual, {BENCH_LAYERS} layers x "
+        f"({HYBRID_EPOCHS} steps + {evals} evals) / x {HYBRID_EPOCHS} "
+        f"steps); the unsharded steady epoch {setup['hybrid_ms']:.3f} ms; "
+        f"fit {out['fit_s']:.2f} s")
+    torch.testing.assert_close(torch.from_numpy(losses),
+                               torch.from_numpy(want_b), rtol=1e-3,
+                               atol=1e-4)
+    torch.testing.assert_close(torch.from_numpy(out["logits"][:nb]),
+                               torch.from_numpy(logits_b), rtol=1e-3,
+                               atol=1e-4)
+    if {k: launches_hybrid[k] for k in want_launches} != want_launches:
+        raise AssertionError(f"hybrid: launches {launches_hybrid}, expected "
+                             f"{want_launches}")
+
+    # eager steps on gloo ranks sharing the card
+    for case, outs in zip(setup["gloo"], gloo):
+        world = case["world"]
+        check_sharded_run(f"ring, gloo {world} ranks", "gather",
+                          case["sg"], None, outs, setup["eager"], layers,
+                          phase="sharded-a-bsr")
+        want = SHARDED_STEPS * layers * world
+        for rank, o in enumerate(outs):
+            k2 = {k: o["launches"].get(k, 0) for k in REPLACES}
+            if set(k2.values()) != {want}:
+                raise AssertionError(f"ring, gloo {world}: rank {rank} K2-K4 "
+                                     f"{k2}, expected {want} each")
+        say(f"phase sharded-a-bsr: ring, gloo {world} ranks: K2-K4 "
+            f"{SHARDED_STEPS} steps x {layers} layers x {world} ring steps "
+            f"= {want} each on every rank")
+
+    # the kernels at the ring's step and on a rank's shard
+    rows = ring_kernel_rows(setup["sgs"][2].node_mask[0])
+    rows.update(rect_k7_rows(setup["s"], setup["r"]))
+    say(f"phase sharded-a-bsr: kernels at {time.perf_counter() - t0:.1f} s")
+
+    # the command line on 2 gloo ranks sharing the card, against the
+    # unsharded command line with the same flags
+    write_planetoid_cora(tmp)
+    base = ["--dataset", "cora", "--data_dir", tmp, "--epochs",
+            str(RING_CLI_EPOCHS), "--runs", "1", "--dropout", "0",
+            "--kernel", "sigmoid", "--spmm", "bsr", "--bsr_tile", "64"]
+    t1 = time.perf_counter()
+    plain = cli.main(base)[0]
+    plain_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    res = cli.main(base + ["--n_shards", "2"], backend="gloo")
+    if len(res) != 1 or not np.isfinite(res[0]["losses"]).all():
+        raise AssertionError(f"cli --n_shards 2: {res}")
+    got = np.asarray(res[0]["losses"])
+    say(f"phase sharded-a-bsr: cli --kernel sigmoid --spmm bsr --bsr_tile "
+        f"64 --n_shards 2 (gloo, 2 ranks on one card, {RING_CLI_EPOCHS} "
+        f"epochs): test {res[0]['test']:.4f} (unsharded {plain['test']:.4f}, "
+        f"{plain_s:.1f} s), losses {got[0]:.4f} -> {got[-1]:.4f}, "
+        f"max_abs_err {np.abs(got - plain['losses']).max():.3e} from the "
+        f"unsharded run's, {time.perf_counter() - t1:.1f} s")
+    torch.testing.assert_close(
+        torch.from_numpy(got),
+        torch.from_numpy(np.asarray(plain["losses"], got.dtype)), rtol=1e-3,
+        atol=1e-4)
+    say(f"phase sharded-a-bsr: done in {time.perf_counter() - t0:.1f} s")
+    return rows, launches_ring, launches_hybrid
 
 
 def phase_kernels_wide():
@@ -2486,9 +2992,10 @@ def phase_cli(tmp):
     hidden 64, 8 layers, 500 epochs, 5 runs, epoch_block 8) on Planetoid
     files of a synthetic graph of Cora's size, its GCN branch on the
     default ELL layout (K6, no K1); then with --kernel sigmoid (K2-K4 and
-    K6), with --reorder rcm and with --spmm coo (K1); then a --save_model
-    run cut to 50 epochs and 1 run, and --eval_only on what it saved.
-    Returns the main path's launches (the first run)."""
+    K6), with --reorder rcm and with --spmm coo (K1), each cut to 1 of its
+    5 runs (the script's time limit); then a --save_model run cut to 50
+    epochs and 1 run, and --eval_only on what it saved. Returns the main
+    path's launches (the first run)."""
     from difformer_tpu_torch.utils.config import make_config
 
     write_planetoid_cora(tmp)
@@ -2500,9 +3007,9 @@ def phase_cli(tmp):
     for extra, path in ((["--kernel", "sigmoid"], SIGMOID_PATH),
                         (["--reorder", "rcm"], ()),
                         (["--spmm", "coo"], K1_PATH)):
-        run = CliRun("cli", base + extra)
+        run = CliRun("cli", base + extra + ["--runs", "1"])
         run.check(7, path + (run.ell_path() if path != K1_PATH else ()))
-        run.report()
+        run.report("; cut to 1 of the preset's 5 runs")
 
     cfg = make_config("cora")
     cut = ["--epochs", "50", "--runs", "1"]
@@ -3889,7 +4396,7 @@ BSR_TILE = 256
 KERNEL_MIN_EDGES = 256
 LAYOUT_EPOCHS = 10
 LAYOUT_RTOL = 1e-3  # a layout's losses against K1's (f32 sums reordered)
-CAPTURE_REPEATS = 30
+CAPTURE_REPEATS = 10
 
 
 def bench_graph(kind, n=BENCH_NODES, e=BENCH_EDGES, f=BENCH_FEATURES,
@@ -4890,14 +5397,25 @@ def main():
     f32_a = phase_graph("slice-graph", make_config("cora", kernel="sigmoid"),
                         attention=True)
     say(f"phase graph: done at {time.perf_counter() - t0:.1f} s")
-    sharded_rows, launches_sharded, eager_ms = phase_sharded_s()
+    # phase sharded-a-bsr's rank cases run in the spawns of phases
+    # sharded-s (gloo) and distributed (NCCL): two spawns fewer
+    a_bsr = sharded_a_bsr_setup()
+    say(f"phase sharded-a-bsr: references at {time.perf_counter() - t0:.1f}"
+        f" s")
+    sharded_rows, launches_sharded, eager_ms, a_bsr_gloo = phase_sharded_s(
+        a_bsr["gloo"])
     say(f"phase sharded-s: done at {time.perf_counter() - t0:.1f} s")
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
-        dist_rows, launches_dist = phase_distributed(
-            f32_s["ms"]["graph"], eager_ms, tmp)
+        dist_rows, launches_dist, a_bsr_nccl = phase_distributed(
+            f32_s["ms"]["graph"], eager_ms, tmp, a_bsr["nccl"])
     say(f"phase distributed: done at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        slice_rows, launches_ring, launches_hybrid = phase_sharded_a_bsr(
+            tmp, a_bsr, a_bsr_nccl, a_bsr_gloo)
+    del a_bsr, a_bsr_nccl, a_bsr_gloo
+    say(f"phase sharded-a-bsr: done at {time.perf_counter() - t0:.1f} s")
     launches_bf16 = phase_graph_bf16("slice-s-bf16-graph", make_config("cora"),
                                      False, f32_s)
     phase_graph_bf16("slice-bf16-graph", make_config("cora", kernel="sigmoid"),
@@ -5016,6 +5534,23 @@ def main():
          "replaces": SPMM_REPLACES,
          "launches": launches_dist[name.split()[0]], **row}
         for name, row in dist_rows.items()
+    ]
+    kernels += [
+        # K2-K4 at one ring step of the cora preset cut in two (the ring's
+        # unnormalized K2); launches are the sharded-a-bsr phase's captured
+        # ring fit at one NCCL rank (captured x replays)
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[name.split()[0]],
+         "launches": launches_ring[name.split()[0]], **row}
+        for name, row in slice_rows.items() if name.endswith(RING_JSON)
+    ] + [
+        # K7 on a rank's shard of bench.py's clustered graph (cut in two,
+        # and whole at one rank); launches are the sharded-a-bsr phase's
+        # captured spmm="bsr" fit at one NCCL rank
+        {"name": name, "route": "cuda", "source": BSR_SOURCE,
+         "replaces": BSR_SHARD_REPLACES,
+         "launches": launches_hybrid[name.split()[0]], **row}
+        for name, row in slice_rows.items() if not name.endswith(RING_JSON)
     ]
     kernels += [
         # K1-dval at GAT's shapes on the slice's graph and on cifar10's kNN

@@ -33,8 +33,10 @@ command line does. The baseline zoo (``--method`` mlp, manireg, gcn, gat,
 sgc, link, mixhop, gcnjk, gatjk, h2gcn, appnp, gprgnn) trains full-batch with
 ``FullBatchTrainer`` as DIFFormer does, and ``--method lp``/``multilp``
 propagates labels and scores every split, per run, with no trainer.
-``--n_shards N`` (N > 1) trains DIFFormer-s node-sharded over N ranks with
-``DistributedTrainer`` (``--layout``, ``--balance_edges``), as
+``--n_shards N`` (N > 1) trains DIFFormer node-sharded over N ranks with
+``DistributedTrainer`` (``--layout``, ``--balance_edges``; ``--kernel
+sigmoid`` runs the ring attention, ``--spmm bsr`` the sharded block-sparse
+hybrid at ``--bsr_tile``, any other ``--spmm`` the halo exchange), as
 ``difformer_tpu/cli.py:177-199`` does: ranks spawned on this machine (NCCL,
 a card each, or the gloo backend asked for with ``main(...,
 backend="gloo")``, which ``device="cpu"`` implies), or, where
@@ -48,11 +50,10 @@ kernel K6), the padded block-sparse hybrid (``bsr``, at ``--bsr_tile``: the
 block kernel K7 and K6), the bucketed hybrid after relabelling the nodes by
 degree (``bsr-sorted``), or lets ``choose_spmm`` elect one from the graph
 (``auto``); ``coo`` (or ``--use_ell false``) runs the CSR SpMM kernel K1.
-Every other model, and the mini-batch route, runs K1. ``--eval_only`` reads a checkpoint the port wrote
-with ``--save_model``, or a reference ``.pt``/``.pth``/``.pkl`` state_dict; it
-does not read the JAX package's orbax checkpoints. Every other route raises
-``NotImplementedError`` naming its ROADMAP.md item (``--n_shards`` with
-``--kernel sigmoid`` or ``--spmm bsr``: item 10b).
+Every other model, and the mini-batch route, runs K1. ``--eval_only``
+reads a checkpoint the port wrote with ``--save_model``, or a reference
+``.pt``/``.pth``/``.pkl`` state_dict; it does not read the JAX package's
+orbax checkpoints.
 """
 
 from __future__ import annotations
@@ -99,18 +100,6 @@ from difformer_tpu_torch.utils.config import Config, make_config
 from difformer_tpu_torch.utils.logger import RunLogger
 from difformer_tpu_torch.utils.metrics import METRICS
 from difformer_tpu_torch.utils.weights import load_torch_checkpoint
-
-# the routes that the port does not run yet, by ROADMAP.md queue A item
-_ITEMS = {
-    "10b": ("the ring sigmoid attention and the sharded block-sparse "
-            "hybrid, ROADMAP.md queue A item 10b"),
-}
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to difformer_tpu_torch yet ({_ITEMS[item]})")
-
 
 # the baseline zoo's trained models, and label propagation (no parameters)
 _ZOO = ("mlp", "manireg", "gcn", "gat", "sgc", "link", "mixhop", "gcnjk",
@@ -207,12 +196,6 @@ def _check_ported(cfg: Config):
             raise ValueError(
                 f"--n_shards > 1 trains --method difformer only, not "
                 f"--method {cfg.method}")
-        if cfg.kernel == "sigmoid":
-            raise _not_ported('--kernel sigmoid with --n_shards > 1 (the '
-                              'ring attention)', "10b")
-        if cfg.spmm == "bsr":
-            raise _not_ported("--spmm bsr with --n_shards > 1 (the sharded "
-                              "block-sparse hybrid)", "10b")
         return
     if cfg.use_minibatch and m in _ZOO:
         raise NotImplementedError(

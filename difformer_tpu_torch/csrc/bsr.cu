@@ -16,10 +16,16 @@
 //
 // Blocks are float32, bfloat16 or int8 edge counts. For counts the rank-1
 // GCN scaling of BsrBuckets.inv_scale is fused into the loads and stores:
-// x rows are multiplied by scale[row] as they are loaded into fragments,
-// and each output element by scale[node] as it is stored; the JAX package
-// does the same with two elementwise passes. x and out are float32 or
-// bfloat16; every product and sum is f32, and the output is rounded once.
+// x rows are multiplied by xscale[row] as they are loaded into fragments,
+// and each output element by oscale[node] as it is stored; the JAX package
+// does the same with two elementwise passes. The square call passes one
+// scale as both. A rank's shard of the node-sharded hybrid (BsrShard,
+// _bsr_shard_apply in difformer_tpu/ops/bsr.py:781-811) is rectangular:
+// out has its n rows (rows_per), x the nx rows of the gathered operand
+// (pad_n), xscale the pad_n inverse square-root degrees of the columns and
+// oscale the rank's rows'; a group's row tiles are out's, its column tiles
+// x's. x and out are float32 or bfloat16; every product and sum is f32,
+// and the output is rounded once.
 //
 // What bounds it on this card. The compulsory bytes are the blocks once, x
 // once and out once; the blocks dominate (a 256 x 256 f32 block is 256 KB
@@ -136,7 +142,8 @@ struct Groups {
 };
 
 struct Shape {
-  int64_t n;   // rows of x and out
+  int64_t n;   // rows of out
+  int64_t nx;  // rows of x
   int width;   // columns of x and out
   int ldx;     // row stride of x in elements, a multiple of 16 bytes
   int tile;
@@ -346,7 +353,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     bsr_spmm_kernel(const Groups grp, const Shape sh,
                     const TX* __restrict__ x, TX* __restrict__ out,
                     float* __restrict__ partial,
-                    const float* __restrict__ scale) {
+                    const float* __restrict__ xscale,
+                    const float* __restrict__ oscale) {
   using S = Stage<TB, TX, NW>;
   extern __shared__ __align__(16) unsigned char smem[];
   auto* ring = reinterpret_cast<S*>(smem);
@@ -393,9 +401,9 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int64_t xr = int64_t(__ldg(bcol + slot0 + k)) * tile + c0;
     issue_stage<TB, TX, NW>(
         ring[s % kStages], block0 + int64_t(k) * tile * tile + c0,
-        x + xr * sh.ldx + c_base, x, scale ? scale + xr : nullptr, scale,
+        x + xr * sh.ldx + c_base, x, xscale ? xscale + xr : nullptr, xscale,
         tile - r_base, tile - c0,
-        static_cast<int>(min(int64_t(tile - c0), sh.n - xr)), cols_x, tile,
+        static_cast<int>(min(int64_t(tile - c0), sh.nx - xr)), cols_x, tile,
         sh.ldx, vec_a);
   };
   // each warp runs the loop for its own count of n-tiles, known at
@@ -420,7 +428,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       if (s + kStages - 1 < slices) issue(s + kStages - 1);
       cp_async_commit();
       stage_products<N, SplitA, SplitB>(acc, ring[s % kStages],
-                                        scale != nullptr, wr, wc, gq, tq);
+                                        xscale != nullptr, wr, wc, gq, tq);
     }
     cp_async_wait<0>();
     // acc[mt][nt]: rows wr + 16 mt + gq (+ 8), columns wc + 8 nt + 2 tq
@@ -438,7 +446,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int row = r_base + wr + 16 * mt + gq + 8 * h;
         const int64_t node = row_tile * tile + row;
         if (row >= tile || node >= sh.n) continue;
-        const float sc = scale && !split ? __ldg(scale + node) : 1.0f;
+        const float sc = oscale && !split ? __ldg(oscale + node) : 1.0f;
 #pragma unroll
         for (int nt = 0; nt < N; ++nt) {
 #pragma unroll
@@ -558,47 +566,48 @@ int launch_combine(const CombineGroups& g, int64_t n, int width, int tile,
 // default) is allowed once a process, at the first call.
 template <typename TB, typename TX, bool SplitA, bool SplitB, int NW>
 int launch_blocks(const Groups& g, const Shape& sh, const TX* x, TX* out,
-                  float* partial, const float* scale, unsigned grid,
-                  cudaStream_t stream) {
+                  float* partial, const float* xscale, const float* oscale,
+                  unsigned grid, cudaStream_t stream) {
   constexpr size_t smem = sizeof(Stage<TB, TX, NW>) * kStages;
   static const int rc = cudaFuncSetAttribute(
       bsr_spmm_kernel<TB, TX, SplitA, SplitB, NW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (rc != cudaSuccess) return rc;
   bsr_spmm_kernel<TB, TX, SplitA, SplitB, NW>
-      <<<grid, kThreads, smem, stream>>>(g, sh, x, out, partial, scale);
+      <<<grid, kThreads, smem, stream>>>(g, sh, x, out, partial, xscale,
+                                         oscale);
   return cudaGetLastError();
 }
 
 template <typename TB, typename TX, bool SplitB>
 int launch_nw(const Groups& g, const Shape& sh, const void* x, void* out,
-              float* partial, const float* scale, unsigned grid,
-              cudaStream_t stream) {
+              float* partial, const float* xscale, const float* oscale,
+              unsigned grid, cudaStream_t stream) {
   // f32 block values need two TF32 parts; bf16 values and counts are TF32
   // values
   constexpr bool kSplitA = std::is_same<TB, float>::value;
   const auto* xt = static_cast<const TX*>(x);
   auto* ot = static_cast<TX*>(out);
   if (sh.cols <= 64)
-    return launch_blocks<TB, TX, kSplitA, SplitB, 4>(g, sh, xt, ot, partial,
-                                                     scale, grid, stream);
-  return launch_blocks<TB, TX, kSplitA, SplitB, 5>(g, sh, xt, ot, partial,
-                                                   scale, grid, stream);
+    return launch_blocks<TB, TX, kSplitA, SplitB, 4>(
+        g, sh, xt, ot, partial, xscale, oscale, grid, stream);
+  return launch_blocks<TB, TX, kSplitA, SplitB, 5>(
+      g, sh, xt, ot, partial, xscale, oscale, grid, stream);
 }
 
 template <typename TB>
 int launch_x(int bf16_x, const Groups& g, const Shape& sh, const void* x,
-             void* out, float* partial, const float* scale, unsigned grid,
-             cudaStream_t stream) {
+             void* out, float* partial, const float* xscale,
+             const float* oscale, unsigned grid, cudaStream_t stream) {
   // x needs two parts at f32, and at bf16 too when it is scaled
   if (!bf16_x)
-    return launch_nw<TB, float, true>(g, sh, x, out, partial, scale, grid,
-                                      stream);
-  if (scale)
-    return launch_nw<TB, __nv_bfloat16, true>(g, sh, x, out, partial, scale,
-                                              grid, stream);
-  return launch_nw<TB, __nv_bfloat16, false>(g, sh, x, out, partial, scale,
-                                             grid, stream);
+    return launch_nw<TB, float, true>(g, sh, x, out, partial, xscale, oscale,
+                                      grid, stream);
+  if (xscale)
+    return launch_nw<TB, __nv_bfloat16, true>(g, sh, x, out, partial, xscale,
+                                              oscale, grid, stream);
+  return launch_nw<TB, __nv_bfloat16, false>(g, sh, x, out, partial, xscale,
+                                             oscale, grid, stream);
 }
 
 // The table's groups (blocks, column tiles, row tiles, m, kb, chunks, first
@@ -634,24 +643,27 @@ extern "C" {
 
 // out [n, width] (contiguous) = the dense blocks of the groups of table
 // (host, int64 [groups, 7]: blocks pointer or 0, column tiles pointer, row
-// tiles pointer or 0, m, kb, chunks, first partial of each) times x [n,
+// tiles pointer or 0, m, kb, chunks, first partial of each) times x [nx,
 // width] at row stride ldx (elements, a multiple of 16 bytes; x 16-byte
 // aligned), both float32 (bf16_x == 0) or bfloat16 (1); blocks float32
 // (block_type 0), bfloat16 (1) or int8 counts (2), each group's [m, kb,
-// tile, tile] contiguous; scale float32 [n] or null (counts: x's rows and
-// out's rows multiplied by it). Every row tile of out must be in exactly
-// one group. A thread block covers cols columns (a multiple of 8, at most
-// 80; W is cut into ceil(width / cols) column tiles). A group of chunks >
-// 1 writes f32 partials [chunks, m, tile, width] at its first partial of
-// partial (partial_size floats) in place of its rows of out:
-// bsr_spmm_combine finishes them.
+// tile, tile] contiguous; xscale float32 [nx] and oscale float32 [n], each
+// or null (counts: x's rows multiplied by xscale, out's rows by oscale;
+// the square call, n == nx, passes one scale as both). Every row tile of
+// out must be in exactly one group. A thread block covers cols columns (a
+// multiple of 8, at most 80; W is cut into ceil(width / cols) column
+// tiles). A group of chunks > 1 writes f32 partials [chunks, m, tile,
+// width] at its first partial of partial (partial_size floats) in place of
+// its rows of out: bsr_spmm_combine finishes them.
 int bsr_spmm(const void* x, int64_t ldx, void* out, void* partial,
-             int64_t partial_size, const void* scale, int64_t n,
-             int64_t width, int tile, int cols, int block_type, int bf16_x,
-             const int64_t* table, int groups, void* stream) {
+             int64_t partial_size, const void* xscale, const void* oscale,
+             int64_t n, int64_t nx, int64_t width, int tile, int cols,
+             int block_type, int bf16_x, const int64_t* table, int groups,
+             void* stream) {
   const int elem_x = bf16_x ? 2 : 4;
-  if (n < 0 || width <= 0 || tile < 1 || tile > kMaxTile || block_type < 0 ||
-      block_type > 2 || (bf16_x != 0 && bf16_x != 1) || ldx < width ||
+  if (n < 0 || nx < 0 || width <= 0 || tile < 1 || tile > kMaxTile ||
+      block_type < 0 || block_type > 2 || (bf16_x != 0 && bf16_x != 1) ||
+      ldx < width ||
       ldx > INT_MAX / kDepth || ldx * elem_x % 16 != 0 || !aligned16(x) ||
       cols < 8 || cols % 8 || cols > kMaxCols)
     return cudaErrorInvalidValue;
@@ -660,6 +672,7 @@ int bsr_spmm(const void* x, int64_t ldx, void* out, void* partial,
     return cudaErrorInvalidValue;
   Shape sh;
   sh.n = n;
+  sh.nx = nx;
   sh.width = width;
   sh.ldx = ldx;
   sh.tile = tile;
@@ -686,22 +699,24 @@ int bsr_spmm(const void* x, int64_t ldx, void* out, void* partial,
   const unsigned grid = static_cast<unsigned>(total);
   auto* st = static_cast<cudaStream_t>(stream);
   auto* p = static_cast<float*>(partial);
-  const auto* sc = static_cast<const float*>(scale);
+  const auto* xs = static_cast<const float*>(xscale);
+  const auto* os = static_cast<const float*>(oscale);
   if (block_type == 0)
-    return launch_x<float>(bf16_x, grp, sh, x, out, p, sc, grid, st);
+    return launch_x<float>(bf16_x, grp, sh, x, out, p, xs, os, grid, st);
   if (block_type == 1)
-    return launch_x<__nv_bfloat16>(bf16_x, grp, sh, x, out, p, sc, grid,
+    return launch_x<__nv_bfloat16>(bf16_x, grp, sh, x, out, p, xs, os, grid,
                                    st);
-  return launch_x<int8_t>(bf16_x, grp, sh, x, out, p, sc, grid, st);
+  return launch_x<int8_t>(bf16_x, grp, sh, x, out, p, xs, os, grid, st);
 }
 
 // The split groups' rows of out [n, width] (contiguous): the sum of each
 // one's chunks' partials in chunk order, times scale[node] where scale is
-// not null, rounded once to out's type (bf16_x). table (host, int64
-// [groups, 5]: first band, row tiles pointer or 0, m, chunks, first
-// partial) is the host's combine plan (kernels/bsr.py combine_plan): the
-// bands of combine_rows(width) rows of each group's m row tiles, numbered
-// from 0 in order, one thread block each.
+// not null (out's rows': a rectangular shard's oscale), rounded once to
+// out's type (bf16_x). table (host, int64 [groups, 5]: first band, row
+// tiles pointer or 0, m, chunks, first partial) is the host's combine
+// plan (kernels/bsr.py combine_plan): the bands of combine_rows(width) rows
+// of each group's m row tiles, numbered from 0 in order, one thread block
+// each.
 int bsr_spmm_combine(const void* partial, int64_t partial_size,
                      const void* scale, void* out, int64_t n, int64_t width,
                      int tile, int bf16_x, const int64_t* table, int groups,

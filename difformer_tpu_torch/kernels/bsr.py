@@ -19,6 +19,13 @@ x's rows multiplied by it as they are read and out's as they are written),
 x and out float32 or bfloat16, f32 sums, one rounding. The residual is
 added afterwards by K6 (``ops/bsr.py``).
 
+The square call takes x [N, W] to out [N, W] with one ``scale`` [N]. The
+rectangular call is a rank's shard of the node-sharded hybrid
+(``_bsr_shard_apply``, ``difformer_tpu/ops/bsr.py:781-811``): out
+[num_rows, W] from the gathered x [pad_n, W], with ``col_scale`` [pad_n] on
+x's rows and ``row_scale`` [num_rows] on out's; the groups' row tiles are
+then those of the num_rows rows and their column tiles those of x's pad_n.
+
 A group whose row tiles hold more than :data:`SPLIT_BLOCKS` blocks and
 whose thread blocks fill less than a wave of the card is cut along its
 blocks into chunks (:func:`split_plan`, from shapes and the SM count
@@ -130,8 +137,21 @@ def sm_count(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def _shape(x, scale, num_rows, row_scale, col_scale):
+    """(out's rows, the row scale, the column scale) of a call: the
+    square call's ``scale`` is both, its rows x's."""
+    if scale is not None:
+        if row_scale is not None or col_scale is not None:
+            raise ValueError("pass scale (the square call) or row_scale and "
+                             "col_scale (a rectangular shard), not both")
+        row_scale = col_scale = scale
+    return (x.shape[0] if num_rows is None else int(num_rows), row_scale,
+            col_scale)
+
+
 def _padded_x(x, scale, tile):
-    """x in float32, scaled, zero-padded to whole tiles: [tiles, T, W]."""
+    """x in float32, its rows scaled, zero-padded to whole tiles: [tiles,
+    T, W]."""
     n, w = x.shape
     ntr = -(-n // tile)
     xs = x.float()
@@ -154,46 +174,63 @@ def _block_product(blocks, bcol, xt):
     return torch.einsum("mkrc,mkcw->mrw", blocks.float(), g)
 
 
-def bsr_spmm_blocks_plain(x, groups, tile, scale=None):
+def _out_tiles(xt, n, tile):
+    """A float32 zero output of whole row tiles for ``n`` rows."""
+    return xt.new_zeros((-(-n // tile), tile, xt.shape[2]))
+
+
+def bsr_spmm_blocks_plain(x, groups, tile, scale=None, *, num_rows=None,
+                          row_scale=None, col_scale=None):
     """[N, W] of x's dtype: each group's row tiles (``groups``: (blocks
     [m, kb, T, T] or None, bcol int32 [m, kb], tiles int32 [m] or None)),
     by a gather of x's column tiles and an einsum in float32, with the
     ``scale`` of count blocks applied to x's rows before and to out's rows
-    after, rounded to x's dtype once: K7's arithmetic."""
-    n, w = x.shape
-    xt = _padded_x(x, scale, tile)
-    out = torch.zeros_like(xt)
+    after, rounded to x's dtype once: K7's arithmetic. A rectangular shard
+    gives [num_rows, W], ``col_scale`` on x's rows and ``row_scale`` on
+    out's."""
+    n, row_scale, col_scale = _shape(x, scale, num_rows, row_scale,
+                                     col_scale)
+    w = x.shape[1]
+    xt = _padded_x(x, col_scale, tile)
+    out = _out_tiles(xt, n, tile)
     for blocks, bcol, tiles in groups:
         if blocks is None or bcol.numel() == 0:
             continue
         out.index_copy_(0, _group_rows(bcol, tiles, x.device),
                         _block_product(blocks, bcol, xt))
     out = out.reshape(-1, w)[:n]
-    if scale is not None:
-        out = out * scale[:, None]
+    if row_scale is not None:
+        out = out * row_scale[:, None]
     return out.to(x.dtype)
 
 
-def bsr_spmm_blocks_abs(x, groups, tile, scale=None):
+def bsr_spmm_blocks_abs(x, groups, tile, scale=None, *, num_rows=None,
+                        row_scale=None, col_scale=None):
     """[N, W]: the plain product over |blocks|, |x| and |scale|, the scale
     of float32's rounding of K7's sums (the "spmm" kind of
     ``kernels/tolerance.py``)."""
+    n, row_scale, col_scale = _shape(x, scale, num_rows, row_scale,
+                                     col_scale)
+    absolute = lambda t: None if t is None else t.abs()  # noqa: E731
     return bsr_spmm_blocks_plain(
-        x.abs(), [(None if b is None else b.abs(), c, t)
-                  for b, c, t in groups], tile,
-        None if scale is None else scale.abs())
+        x.abs(), [(absolute(b), c, t) for b, c, t in groups], tile,
+        num_rows=n, row_scale=absolute(row_scale),
+        col_scale=absolute(col_scale))
 
 
-def bsr_spmm_split_plain(x, groups, tile, chunks, scale=None):
+def bsr_spmm_split_plain(x, groups, tile, chunks, scale=None, *,
+                         num_rows=None, row_scale=None, col_scale=None):
     """(out, partial): K7's first kernel under the plan ``chunks``. out
-    [N, W] of x's dtype holds the unsplit groups' rows as
-    :func:`bsr_spmm_blocks_plain` (the split groups' rows 0); partial the
-    split groups' float32 sums over each chunk's blocks
-    (:func:`chunk_ranges`), unscaled, laid out as :func:`partial_offsets`
-    says."""
-    n, w = x.shape
-    xt = _padded_x(x, scale, tile)
-    out = torch.zeros_like(xt)
+    [N, W] (a rectangular shard: [num_rows, W]) of x's dtype holds the
+    unsplit groups' rows as :func:`bsr_spmm_blocks_plain` (the split
+    groups' rows 0); partial the split groups' float32 sums over each
+    chunk's blocks (:func:`chunk_ranges`), unscaled, laid out as
+    :func:`partial_offsets` says."""
+    n, row_scale, col_scale = _shape(x, scale, num_rows, row_scale,
+                                     col_scale)
+    w = x.shape[1]
+    xt = _padded_x(x, col_scale, tile)
+    out = _out_tiles(xt, n, tile)
     offsets, size = partial_offsets(groups, chunks, tile, w)
     partial = torch.zeros(size, dtype=torch.float32, device=x.device)
     for (blocks, bcol, tiles), c, off in zip(groups, chunks, offsets):
@@ -207,15 +244,16 @@ def bsr_spmm_split_plain(x, groups, tile, chunks, scale=None):
             partial[off:off + c * parts[0].numel()] = \
                 torch.stack(parts).reshape(-1)
     out = out.reshape(-1, w)[:n]
-    if scale is not None:
-        out = out * scale[:, None]
+    if row_scale is not None:
+        out = out * row_scale[:, None]
     return out.to(x.dtype), partial
 
 
 def bsr_spmm_combine_plain(partial, out, groups, tile, chunks, scale=None):
     """A copy of ``out`` [N, W] whose split groups' rows are the sums of
-    their chunks' partials in chunk order, times ``scale`` of the row,
-    rounded once to out's dtype: the combine kernel's arithmetic."""
+    their chunks' partials in chunk order, times ``scale`` of the row (a
+    rectangular shard's ``row_scale``), rounded once to out's dtype: the
+    combine kernel's arithmetic."""
     n, w = out.shape
     res = out.clone()
     offsets, _ = partial_offsets(groups, chunks, tile, w)
@@ -267,10 +305,12 @@ def combine_plan(groups, chunks, tile, width):
     return plan, total
 
 
-def _check(x, groups, tile, scale):
+def _check(x, groups, tile, num_rows, row_scale, col_scale):
     if x.dim() != 2 or x.dtype not in _X_TYPES:
         raise TypeError(f"bsr_spmm takes x [N, W] of float32 or bfloat16, "
                         f"got {x.dtype} {tuple(x.shape)}")
+    if num_rows < 0:
+        raise ValueError(f"num_rows must be >= 0, got {num_rows}")
     if not groups or len(groups) > MAX_GROUPS:
         raise ValueError(f"bsr_spmm takes 1 to {MAX_GROUPS} groups, got "
                          f"{len(groups)}")
@@ -289,9 +329,17 @@ def _check(x, groups, tile, scale):
             raise TypeError("column tiles must be int32")
         if tiles is not None and tiles.dtype != torch.int32:
             raise TypeError("row tiles must be int32")
-    if scale is not None and (scale.dtype != torch.float32
-                              or scale.shape != (x.shape[0],)):
-        raise ValueError("scale must be float32 [N]")
+        if tiles is None and bcol is not None and \
+                bcol.shape[0] > -(-num_rows // tile):
+            raise ValueError(f"a group of {bcol.shape[0]} row tiles for "
+                             f"{num_rows} rows of out at T = {tile}")
+    for name, sc, rows in (("row_scale", row_scale, num_rows),
+                           ("col_scale", col_scale, x.shape[0])):
+        if sc is not None and (sc.dtype != torch.float32
+                               or sc.shape != (rows,)):
+            raise ValueError(f"{name} must be float32 [{rows}], got "
+                             f"{sc.dtype} {tuple(sc.shape)} (the square "
+                             f"call's scale is both, [N])")
 
 
 def _check_plan(groups, chunks):
@@ -337,17 +385,21 @@ def _table(groups, chunks, tile, width):
 
 
 def bsr_spmm_split(x, groups, tile, chunks, *, scale=None,
-                   transposed=False):
+                   transposed=False, num_rows=None, row_scale=None,
+                   col_scale=None):
     """K7's first kernel under the plan ``chunks`` (one a group): (out,
     partial) as :func:`bsr_spmm_split_plain`, except that on the card the
     split groups' rows of out are left unwritten and partial is None where
     nothing splits. ``transposed`` names the launch in :data:`LAUNCHES`."""
-    _check(x, groups, tile, scale)
+    n, row_scale, col_scale = _shape(x, scale, num_rows, row_scale,
+                                     col_scale)
+    _check(x, groups, tile, n, row_scale, col_scale)
     _check_plan(groups, chunks)
-    tensors = [t for grp in groups for t in grp] + [x, scale]
+    tensors = [t for grp in groups for t in grp] + [x, row_scale, col_scale]
     if not on_cuda("bsr_spmm", *tensors):
-        return bsr_spmm_split_plain(x, groups, tile, chunks, scale)
-    n, width = x.shape
+        return bsr_spmm_split_plain(x, groups, tile, chunks, num_rows=n,
+                                    row_scale=row_scale, col_scale=col_scale)
+    n_x, width = x.shape
     out = torch.empty((n, width), dtype=x.dtype, device=x.device)
     if n == 0 or width == 0:
         return out.zero_(), None
@@ -357,13 +409,14 @@ def bsr_spmm_split(x, groups, tile, chunks, *, scale=None,
                if size else None)
     block_type = next((_BLOCK_TYPES[b.dtype] for b, _, _ in groups
                        if b is not None), 0)
-    if scale is not None:
-        scale = scale.contiguous()
+    row_scale, col_scale = (None if sc is None else sc.contiguous()
+                            for sc in (row_scale, col_scale))
     rc = load_library().bsr_spmm(
         xs.data_ptr(), ldx, out.data_ptr(),
         None if partial is None else partial.data_ptr(), size,
-        None if scale is None else scale.data_ptr(), n, width, tile,
-        column_tile(width), block_type, _X_TYPES[x.dtype],
+        None if col_scale is None else col_scale.data_ptr(),
+        None if row_scale is None else row_scale.data_ptr(), n, n_x, width,
+        tile, column_tile(width), block_type, _X_TYPES[x.dtype],
         table.ctypes.data, len(groups),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
@@ -375,7 +428,8 @@ def bsr_spmm_split(x, groups, tile, chunks, *, scale=None,
 def bsr_spmm_combine(partial, out, groups, tile, chunks, *, scale=None):
     """K7's second kernel: the split groups' rows of ``out`` [N, W] (in
     place) from their chunks' ``partial`` sums, as
-    :func:`bsr_spmm_combine_plain`; returns out."""
+    :func:`bsr_spmm_combine_plain` (``scale``: out's rows', a rectangular
+    shard's ``row_scale``); returns out."""
     _check_plan(groups, chunks)
     n, width = out.shape
     _, size = partial_offsets(groups, chunks, tile, width)
@@ -409,22 +463,30 @@ def bsr_spmm_combine(partial, out, groups, tile, chunks, *, scale=None):
     return out
 
 
-def bsr_spmm_blocks(x, groups, tile, *, scale=None, transposed=False):
+def bsr_spmm_blocks(x, groups, tile, *, scale=None, transposed=False,
+                    num_rows=None, row_scale=None, col_scale=None):
     """K7. x [N, W] float32 or bfloat16 → [N, W] of x's dtype: the dense
     blocks of ``groups`` (see :func:`bsr_spmm_blocks_plain`; together their
     row tiles must be every tile of the N rows, once) times x, with
-    ``scale`` ([N] float32) for int8 count blocks. On the card, the groups
-    :func:`split_plan` cuts are finished by :func:`bsr_spmm_combine`.
-    ``transposed`` names the launch (the backward's direction) in
-    :data:`LAUNCHES`."""
-    _check(x, groups, tile, scale)
-    tensors = [t for grp in groups for t in grp] + [x, scale]
+    ``scale`` ([N] float32) for int8 count blocks. A rectangular shard
+    (``num_rows``) gives [num_rows, W] from x [pad_n, W], its count blocks
+    scaled by ``col_scale`` [pad_n] on x's rows and ``row_scale``
+    [num_rows] on out's. On the card, the groups :func:`split_plan` cuts
+    are finished by :func:`bsr_spmm_combine`. ``transposed`` names the
+    launch (the backward's direction) in :data:`LAUNCHES`."""
+    n, row_scale, col_scale = _shape(x, scale, num_rows, row_scale,
+                                     col_scale)
+    _check(x, groups, tile, n, row_scale, col_scale)
+    tensors = [t for grp in groups for t in grp] + [x, row_scale, col_scale]
     if not on_cuda("bsr_spmm", *tensors):
-        return bsr_spmm_blocks_plain(x, groups, tile, scale)
+        return bsr_spmm_blocks_plain(x, groups, tile, num_rows=n,
+                                     row_scale=row_scale,
+                                     col_scale=col_scale)
     chunks = split_plan(group_shapes(groups), tile, x.shape[1],
                         sm_count(x.device))
-    out, partial = bsr_spmm_split(x, groups, tile, chunks, scale=scale,
-                                  transposed=transposed)
+    out, partial = bsr_spmm_split(x, groups, tile, chunks,
+                                  transposed=transposed, num_rows=n,
+                                  row_scale=row_scale, col_scale=col_scale)
     if partial is not None:
-        bsr_spmm_combine(partial, out, groups, tile, chunks, scale=scale)
+        bsr_spmm_combine(partial, out, groups, tile, chunks, scale=row_scale)
     return out

@@ -55,8 +55,8 @@ SIGNATURES = {
                      _P],
     },
     "bsr.cu": {
-        "bsr_spmm": [_P, _I64, _P, _P, _I64, _P, _I64, _I64, _I, _I, _I, _I,
-                     _P, _I, _P],
+        "bsr_spmm": [_P, _I64, _P, _P, _I64, _P, _P, _I64, _I64, _I64, _I,
+                     _I, _I, _I, _P, _I, _P],
         "bsr_spmm_combine": [_P, _I64, _P, _P, _I64, _I64, _I, _I, _P, _I,
                              _P],
     },

@@ -47,9 +47,13 @@ does: ``halo`` None runs ``gcn_conv_sharded`` (all-gather), a tuple
 ``gcn_conv_halo`` (one ``all_to_all``), a dict ``gcn_conv_halo_overlap``
 (``parallel/sharded_ops.py``), each on K1 over the rank's plan (``plan``,
 of ``parallel/sharded_ops.py:sharded_plan``, built once; without it each
-call builds one). The sharded sigmoid attention (the ring) and the
-sharded sparse layouts (``ell=`` with ``axis_name``) raise
-``NotImplementedError`` naming ROADMAP.md queue A item 10b.
+call builds one). The sigmoid kernel runs the ring attention
+(``parallel/sharded_ops.py:sigmoid_attention_sharded``, K2–K4 at every ring
+step) with the node mask as its key mask, and ``ell=`` takes the rank's
+pair of the node-sharded block-sparse hybrid (``ops/bsr.py:BsrShard``, K7
+on the rank's rectangular shard and K1 for the residual). Any other layout
+under ``axis_name`` raises ``ValueError``: it would multiply the rank's
+rows as if they were the whole graph.
 """
 
 from __future__ import annotations
@@ -62,6 +66,8 @@ from torch.utils.checkpoint import checkpoint
 
 from difformer_tpu_torch.nn.common import LayerNorm, Linear, dropout
 from difformer_tpu_torch.nn.init import torch_linear_init_
+from difformer_tpu_torch.ops import comm
+from difformer_tpu_torch.ops.bsr import BsrShard
 from difformer_tpu_torch.ops.ell import gcn_conv_ell
 from difformer_tpu_torch.ops.graph_ops import build_csr_plan, gcn_conv
 from difformer_tpu_torch.ops.linear_attention import (
@@ -74,20 +80,32 @@ from difformer_tpu_torch.ops.sigmoid_attention import (
 )
 from difformer_tpu_torch.utils.device import resolve_device
 
-_ITEM_10B = ("the ring sigmoid attention and the sharded sparse layouts, "
-             "ROADMAP.md queue A item 10b")
-
-
-def _not_ported(option):
-    return NotImplementedError(
-        f"{option} is not ported to difformer_tpu_torch yet ({_ITEM_10B})")
-
-
-def _check_kernel(kernel, axis_name=None):
+def _check_kernel(kernel):
     if kernel not in ("simple", "sigmoid"):
         raise ValueError(f"unknown kernel {kernel!r}")
-    if kernel == "sigmoid" and axis_name is not None:
-        raise _not_ported('kernel="sigmoid" with axis_name')
+
+
+def _check_options(kernel, axis_name):
+    _check_kernel(kernel)
+    if axis_name is not None:
+        comm.check_group(axis_name)
+
+
+def _check_layout(ell, axis_name):
+    """Raise unless ``ell`` fits the model: a pair of ``BsrShard``s
+    exactly when node-sharded."""
+    if ell is None:
+        return
+    sharded = isinstance(ell[0], BsrShard)
+    if axis_name is not None and not sharded:
+        raise ValueError(
+            f"a node-sharded model takes the rank's BsrShard pair as ell= "
+            f"(ops/bsr.py:build_bsr_gcn_sharded), not "
+            f"{type(ell[0]).__name__}: a whole-graph layout would multiply "
+            f"the rank's rows as if they were the graph")
+    if axis_name is None and sharded:
+        raise ValueError("a BsrShard pair needs a model built with "
+                         "axis_name, the graph axis's process group")
 
 
 def _dtype(compute_dtype):
@@ -130,7 +148,7 @@ class DIFFormerConv(nn.Module):
                  graph_weight=-1.0, use_source=False, spmm_first=False,
                  fuse_head_mean="auto", remat=False, axis_name=None):
         super().__init__()
-        _check_kernel(kernel, axis_name)
+        _check_options(kernel, axis_name)
         self.axis_name = axis_name
         self.out_channels = out_channels
         self.num_heads = num_heads
@@ -159,8 +177,7 @@ class DIFFormerConv(nn.Module):
                 ell=None, halo=None):
         H, D = self.num_heads, self.out_channels
         axis = self.axis_name
-        if ell is not None and axis is not None:
-            raise _not_ported("ell= with axis_name")
+        _check_layout(ell, axis)
         fuse_mean = self.fuse_head_mean
         if fuse_mean == "auto":
             fuse_mean = H > 1
@@ -207,6 +224,11 @@ class DIFFormerConv(nn.Module):
         elif output_attn:
             attention_output, attn = sigmoid_attention_dense(
                 query, key, value, key_mask=node_mask, output_attn=True)
+        elif axis is not None:
+            from difformer_tpu_torch.parallel.sharded_ops import (
+                sigmoid_attention_sharded)
+            attention_output = sigmoid_attention_sharded(
+                query, key, value, key_mask=node_mask, axis_name=axis)
         else:
             attention_output = sigmoid_attention(query, key, value,
                                                  key_mask=node_mask)
@@ -294,7 +316,8 @@ class DIFFormer(nn.Module):
     on that plan (which replaces senders, receivers, edge_weight and
     edge_mask there); without one, a plan is built once for the call.
     ``forward(..., ell=(fwd, rev))`` runs the graph branch on those
-    layouts instead (``ops/ell.py``, ``ops/bsr.py``), with no plan.
+    layouts instead (``ops/ell.py``, ``ops/bsr.py``; node-sharded, the
+    rank's ``BsrShard`` pair), with no plan.
     ``axis_name``, the graph axis's process group, runs the model
     node-sharded on one rank's shard: ``forward(..., halo=...)`` picks the
     exchange (the module's docstring) and ``plan`` is then the rank's
@@ -308,7 +331,7 @@ class DIFFormer(nn.Module):
                  remat=False, spmm_first=False, fuse_head_mean="auto", *,
                  seed=0, device=None):
         super().__init__()
-        _check_kernel(kernel, axis_name)
+        _check_options(kernel, axis_name)
         self.axis_name = axis_name
         dev = resolve_device(device)
         self.compute_dtype = _dtype(compute_dtype)

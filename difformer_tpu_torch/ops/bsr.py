@@ -29,9 +29,19 @@ this card's (the JAX package's are a TPU v5e's), measured by
 time per block; ``choose_spmm`` elects a layout with them. The block
 budgets and the coverage threshold stay the JAX package's. The JAX
 package's gather budget (``_BSR_GATHER_BUDGET_BYTES``) has no counterpart:
-K7 never makes the gathered [m, kb, T, F] tensor. The node-sharded hybrid
-(``BsrShard``, ``build_bsr_gcn_sharded``, ``bsr_spmm_sharded``) waits for
-the parallel layer, ROADMAP.md queue A item 10.
+K7 never makes the gathered [m, kb, T, F] tensor.
+
+The node-sharded hybrid (``difformer_tpu/ops/bsr.py:657-836``): block rows
+cut into S row slices of ``rows_per`` (tile-aligned) rows over the padded
+``pad_n = S · rows_per`` columns (:func:`build_bsr_gcn_sharded`, the JAX
+package's numpy build, bit-equal, int8 counts on unweighted graphs). The
+build holds every rank's :class:`BsrShard` stacked, as the JAX function
+returns it; each rank keeps its own (:meth:`BsrShard.rank_shard`, on its
+device, with the residual's K1 plan). :func:`bsr_spmm_sharded` all-gathers
+x, runs K7 on the rank's rectangular shard (``rows_per`` rows from the
+``pad_n`` gathered ones, the column and row scales apart) and adds the
+residual by K1 over its rectangular plan; its backward all-gathers the
+gradient and applies the reverse shard, scatter-free across ranks.
 """
 
 from __future__ import annotations
@@ -44,7 +54,10 @@ import torch
 
 from difformer_tpu_torch.kernels.bsr import bsr_spmm_blocks
 from difformer_tpu_torch.kernels.ell import ell_spmm_rows
+from difformer_tpu_torch.kernels.spmm import csr_spmm
+from difformer_tpu_torch.ops import comm
 from difformer_tpu_torch.ops.ell import EllGraph, _build_direction, _gcn_values
+from difformer_tpu_torch.ops.graph_ops import CsrPlan, build_value_plan
 
 # The gather cost of an edge as streaming-equivalent bytes: default_min_edges
 # is then the edges at which a [T, T] block costs what their gathers cost.
@@ -487,6 +500,198 @@ def bsr_spmm(fwd, rev, x):
 
 #: The JAX package's name of the bucketed product: the same Function here.
 bsr_bucketed_spmm = bsr_spmm
+
+
+@dataclasses.dataclass(frozen=True)
+class BsrShard:
+    """One direction of the node-sharded hybrid (``difformer_tpu/ops/bsr.py:
+    662-687``). As :func:`build_bsr_gcn_sharded` returns it, every tensor
+    has a leading axis of the S shards (host tensors, the JAX package's
+    leaves); a rank's own (:meth:`rank_shard`) drops it. A shard owns
+    ``num_rows`` (rows_per) output rows; ``block_col`` and ``res_point``
+    index the ``num_cols`` (pad_n) columns of the all-gathered operand.
+
+    - ``blocks`` f32 values or int8 counts [Ntr_loc, Kb, T, T], ``block_col``
+      int32 [Ntr_loc, Kb] (0 on padding);
+    - the residual: ``res_point`` int32 [Er] (0 on padding), ``res_owner``
+      int32 [Er] local rows, sorted (rows_per − 1 on padding), ``res_val``
+      f32 [Er] (0 on padding);
+    - int8 counts: ``inv_rows`` [rows_per], the shard's inverse
+      square-root in-degrees, and ``inv_cols`` [pad_n], all of them (the
+      JAX package replicates it per shard); both None for value blocks.
+
+    A rank's shard also holds ``axis_name`` (the graph axis's process
+    group) and ``plan``, the residual's rectangular K1 plan (rows_per rows
+    over pad_n columns) with the padding's zero entries kept, so that a NaN
+    in x spreads as in the JAX package."""
+
+    blocks: torch.Tensor
+    block_col: torch.Tensor
+    res_point: torch.Tensor
+    res_owner: torch.Tensor
+    res_val: torch.Tensor
+    inv_rows: Optional[torch.Tensor] = None
+    inv_cols: Optional[torch.Tensor] = None
+    num_rows: int = 0
+    num_cols: int = 0
+    tile: int = 256
+    axis_name: object = None
+    plan: Optional[CsrPlan] = None
+
+    def rank_shard(self, rank, axis_name, device=None) -> "BsrShard":
+        """Shard ``rank``'s own direction on ``device`` (the GPU unless
+        told otherwise), with its residual's K1 plan, for the group
+        ``axis_name``."""
+        from difformer_tpu_torch.utils.device import resolve_device
+
+        dev = resolve_device(device)
+        take = lambda t: None if t is None else t[rank].to(dev)  # noqa: E731
+        local = dataclasses.replace(
+            self, blocks=take(self.blocks), block_col=take(self.block_col),
+            res_point=take(self.res_point), res_owner=take(self.res_owner),
+            res_val=take(self.res_val), inv_rows=take(self.inv_rows),
+            inv_cols=take(self.inv_cols), axis_name=axis_name)
+        return dataclasses.replace(local, plan=build_value_plan(
+            local.res_val, local.res_point.long(), local.res_owner.long(),
+            self.num_rows, self.num_cols))
+
+    def groups(self):
+        """K7's groups: every row tile of the shard, in order."""
+        return [(self.blocks, self.block_col, None)]
+
+
+def build_bsr_gcn_sharded(senders, receivers, num_nodes, n_shards, *,
+                          tile=256, min_edges=None, edge_weight=None,
+                          axis_name=None, scaled_int8="auto"):
+    """The hybrid cut into ``n_shards`` row slices (``difformer_tpu/ops/
+    bsr.py:690-778``): ``(fwd, rev, rows_per)``, each direction a
+    :class:`BsrShard` of host tensors stacked over the shards (each rank
+    takes its own with :meth:`BsrShard.rank_shard`). Nodes are padded to
+    ``n_shards · rows_per`` (rows_per tile-aligned); features are sharded
+    with the same padding. ``scaled_int8``: "auto" stores int8 edge counts
+    on unweighted graphs, rebuilding with value blocks where a tile holds
+    more than 127 parallel edges."""
+    senders = np.asarray(senders)
+    receivers = np.asarray(receivers)
+    if scaled_int8 == "auto":
+        scaled_int8 = edge_weight is None
+    elif scaled_int8 and edge_weight is not None:
+        raise ValueError("scaled_int8 requires an unweighted graph")
+    if min_edges is None:
+        min_edges = default_min_edges(
+            tile, block_elem_bytes=1 if scaled_int8 else 4)
+    val = _gcn_values(senders, receivers, num_nodes, edge_weight)
+
+    rows_per = -(-num_nodes // (n_shards * tile)) * tile
+    pad_n = rows_per * n_shards
+
+    inv_pad = None
+    if scaled_int8:
+        deg = np.bincount(receivers, minlength=num_nodes).astype(np.float64)
+        with np.errstate(divide="ignore"):
+            inv = np.sqrt(1.0 / deg)
+        inv = np.nan_to_num(inv, nan=0.0, posinf=0.0).astype(np.float32)
+        inv_pad = np.zeros(pad_n, np.float32)
+        inv_pad[:num_nodes] = inv
+
+    def build_dir(point_to, owner):
+        shards, n_res = [], []
+        for sh in range(n_shards):
+            m = (owner // rows_per) == sh
+            blocks, block_col, dense_edge = _dense_tiles(
+                point_to[m], owner[m] - sh * rows_per, val[m],
+                rows_per, pad_n, tile=tile, min_edges=min_edges,
+                fill_ones=scaled_int8)
+            r = ~dense_edge
+            shards.append((blocks, block_col, point_to[m][r],
+                           (owner[m] - sh * rows_per)[r], val[m][r]))
+            n_res.append(int(r.sum()))
+        kb = max(part[1].shape[1] for part in shards)
+        er = max(max(n_res), 1)
+        out = []
+        for blocks, block_col, rp, ro, rv in shards:
+            pk = kb - block_col.shape[1]
+            if pk:
+                blocks = np.pad(blocks, ((0, 0), (0, pk), (0, 0), (0, 0)))
+                block_col = np.pad(block_col, ((0, 0), (0, pk)))
+            order = np.argsort(ro, kind="stable")
+            rp, ro, rv = rp[order], ro[order], rv[order]
+            pe = er - rp.shape[0]
+            rp = np.pad(rp.astype(np.int32), (0, pe))
+            ro = np.pad(ro.astype(np.int32), (0, pe),
+                        constant_values=rows_per - 1)
+            rv = np.pad(rv.astype(np.float32), (0, pe))
+            out.append((blocks, block_col, rp, ro, rv))
+        stack = [torch.from_numpy(np.stack([o[i] for o in out]))
+                 for i in range(5)]
+        inv_kw = {}
+        if scaled_int8:
+            inv_kw = dict(
+                inv_rows=torch.from_numpy(inv_pad.reshape(n_shards,
+                                                          rows_per)),
+                inv_cols=torch.from_numpy(
+                    np.broadcast_to(inv_pad, (n_shards, pad_n)).copy()))
+        return BsrShard(blocks=stack[0], block_col=stack[1],
+                        res_point=stack[2], res_owner=stack[3],
+                        res_val=stack[4], **inv_kw, num_rows=rows_per,
+                        num_cols=pad_n, tile=tile, axis_name=axis_name)
+
+    try:
+        fwd = build_dir(senders, receivers)
+        rev = build_dir(receivers, senders)
+    except _Int8CountOverflow:
+        # a multigraph (>127 parallel edges in one tile): value blocks
+        return build_bsr_gcn_sharded(
+            senders, receivers, num_nodes, n_shards, tile=tile,
+            min_edges=None, edge_weight=edge_weight, axis_name=axis_name,
+            scaled_int8=False)
+    return fwd, rev, rows_per
+
+
+def bsr_shard_apply(d: BsrShard, x_full, *, transposed=False):
+    """A rank's rows [rows_per, W] of one direction applied to the gathered
+    operand ``x_full`` [pad_n, W] (``_bsr_shard_apply``): K7 on the
+    rectangular shard, then the residual by K1 on the raw operand (its
+    values are scaled at build time). ``transposed`` names the launches
+    (the backward's direction)."""
+    if d.plan is None:
+        raise ValueError("a BsrShard of every shard: take the rank's own "
+                         "with rank_shard(rank, group, device)")
+    out = bsr_spmm_blocks(x_full, d.groups(), d.tile, transposed=transposed,
+                          num_rows=d.num_rows, row_scale=d.inv_rows,
+                          col_scale=d.inv_cols)
+    p = d.plan
+    return out + csr_spmm(x_full, p.row_ptr, p.col, p.val, split=p.split,
+                          transposed=transposed)
+
+
+class BsrSpmmSharded(torch.autograd.Function):
+    """The rank's rows of ``Â @ x``: x all-gathered, then the forward
+    shard; the backward all-gathers the gradient and applies the reverse
+    shard (``difformer_tpu/ops/bsr.py:814-836``). The shards are data: no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, rev):
+        ctx.rev = rev
+        return bsr_shard_apply(fwd, comm.gather_raw(x, fwd.axis_name))
+
+    @staticmethod
+    def backward(ctx, g):
+        rev = ctx.rev
+        return bsr_shard_apply(rev, comm.gather_raw(g, rev.axis_name),
+                               transposed=True), None, None
+
+
+def bsr_spmm_sharded(fwd: BsrShard, rev: BsrShard, x):
+    """This rank's rows of ``Â @ x`` for its rows x [rows_per, ...] (every
+    trailing dim in one product) over the rank's shards ``fwd`` and
+    ``rev`` (:meth:`BsrShard.rank_shard`), whose group is the graph axis."""
+    n = x.shape[0]
+    if n != fwd.num_rows:
+        raise ValueError(f"x has {n} rows; the shard owns {fwd.num_rows}")
+    return BsrSpmmSharded.apply(x.reshape(n, -1), fwd, rev).reshape(
+        x.shape)
 
 
 def _tile_stats(senders, receivers, num_nodes, *, tile=256, min_edges=None):

@@ -10,14 +10,17 @@ The JAX package has no such module: under ``shard_map``, JAX transposes
 - :func:`all_gather` along dim 0: the backward reduce-scatters (sums) the
   gradient and keeps this rank's rows;
 - :func:`all_to_all` of equal splits along dim 0: the backward is the same
-  exchange, which is its own inverse.
+  exchange, which is its own inverse;
+- :func:`ring_shift`, JAX's ``ppermute`` with ``perm=[(i, i+1 mod S)]``
+  (the ring attention's exchange): the backward shifts the gradient the
+  other way, the transpose of a permutation.
 
 :func:`all_to_all_start` starts the exchange and returns a handle whose
 ``wait()`` gives the result, so that a caller can compute meanwhile (the
 overlapped halo exchange, ``parallel/sharded_ops.py``).
 
 Every collective takes the tensors where they lie: under NCCL on the card,
-under gloo on the CPU or on the card (gloo runs all four of these
+under gloo on the CPU or on the card (gloo runs all of these
 collectives on CUDA tensors in the torch of the H100 machine, copying
 through the host itself, as ``chip_smoke.py``'s phase sharded-s shows by
 running them there). A collective that fails raises; nothing is retried
@@ -99,6 +102,31 @@ def _exchange(tensor, group):
     return out
 
 
+def _shift(tensor, group, offset):
+    """This rank's ``tensor`` sent to rank r + ``offset`` (mod S), rank
+    r − ``offset``'s returned: one ``all_to_all_single`` whose splits are
+    zero but for those two neighbours (at S = 1 the rank itself, at S = 2
+    the same peer both ways)."""
+    _check_capture(group)
+    tensor = tensor.contiguous()
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
+    rows = tensor.shape[0]
+    send, recv = [0] * size, [0] * size
+    send[(rank + offset) % size] = rows
+    recv[(rank - offset) % size] = rows
+    out = torch.empty_like(tensor)
+    dist.all_to_all_single(out, tensor, output_split_sizes=recv,
+                           input_split_sizes=send, group=group)
+    return out
+
+
+def gather_raw(tensor, group):
+    """[S·n, ...]: every rank's ``tensor`` [n, ...] in rank order, with no
+    gradient (for a Function that states its own backward)."""
+    check_group(group)
+    return _gather(tensor, group, dist.get_world_size(group))
+
+
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, tensor, group):
@@ -133,6 +161,17 @@ class _AllToAll(torch.autograd.Function):
         return _exchange(grad, ctx.group), None
 
 
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, group):
+        ctx.group = group
+        return _shift(tensor, group, 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.group, -1), None
+
+
 def all_reduce(tensor, group):
     """The sum of ``tensor`` over the group; its gradient is the sum of the
     ranks' gradients."""
@@ -153,6 +192,14 @@ def all_to_all(tensor, group):
     of ``tensor`` [S·b, ...] cut into S blocks (block j for rank j)."""
     check_group(group)
     return _AllToAll.apply(tensor, group)
+
+
+def ring_shift(tensor, group):
+    """Rank r − 1's ``tensor`` [n, ...] (mod S), this rank's sent on to
+    rank r + 1, every rank's of the same shape; the gradient goes back
+    the other way."""
+    check_group(group)
+    return _RingShift.apply(tensor, group)
 
 
 class Pending:

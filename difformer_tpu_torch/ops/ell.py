@@ -228,14 +228,16 @@ def gcn_conv_ell(x, ell_fwd, ell_rev):
     """``ops.graph_ops.gcn_conv`` on a prebuilt layout: the ELL pair of
     :func:`build_ell_gcn`, or the block-sparse hybrid of ``ops/bsr.py``
     (padded or bucketed); x [N, ...] with heads and channels in the trailing
-    dims. The node-sharded hybrid waits for the parallel layer."""
+    dims. A rank's pair of the node-sharded hybrid (``BsrShard``) gives the
+    rank's rows from its rows x [rows_per, ...] (``bsr_spmm_sharded``)."""
     from difformer_tpu_torch.ops import bsr
 
     if isinstance(ell_fwd, EllGraph):
         return ell_spmm(ell_fwd, ell_rev, x)
+    if isinstance(ell_fwd, bsr.BsrShard):
+        return bsr.bsr_spmm_sharded(ell_fwd, ell_rev, x)
     if isinstance(ell_fwd, (bsr.BsrDirection, bsr.BsrBuckets)):
         return bsr.bsr_spmm(ell_fwd, ell_rev, x)
-    raise NotImplementedError(
-        f"gcn_conv_ell takes EllGraph, BsrDirection or BsrBuckets layouts, "
-        f"got {type(ell_fwd).__name__}; the node-sharded hybrid (BsrShard) "
-        f"waits for the parallel layer, ROADMAP.md queue A item 10")
+    raise TypeError(
+        f"gcn_conv_ell takes EllGraph, BsrDirection, BsrBuckets or BsrShard "
+        f"layouts, got {type(ell_fwd).__name__}")

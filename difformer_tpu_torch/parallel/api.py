@@ -21,10 +21,13 @@ says the summing out loud:
 Dropout draws from a generator per rank seeded from (seed, rank)
 (:func:`rank_generator`): the JAX step folds the axis index into its key,
 whose bits the port cannot match. The K1 plans of the rank's exchange
-are built once (:func:`rank_plan`) and passed to every call. The step runs
-eagerly, or, under NCCL, captured as a CUDA graph by the distributed
-trainer (``train/distributed.py``), which it allows: its gradients live in
-one buffer allocated when the step is made.
+are built once (:func:`rank_plan`) and passed to every call; with the
+block-sparse hybrid the rank's ``BsrShard`` pair (``ops/bsr.py``, its own
+shard of ``build_bsr_gcn_sharded``'s, built once) goes to the model as
+``ell``, as the JAX functions' ``ell=`` does, and no plan is built. The
+step runs eagerly, or, under NCCL, captured as a CUDA graph by the
+distributed trainer (``train/distributed.py``), which it allows: its
+gradients live in one buffer allocated when the step is made.
 
 :func:`train_sharded` is a rank function for ``launch.run_ranks``: it
 builds the model from a JAX params tree (``utils/weights.py``), checks
@@ -44,6 +47,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from difformer_tpu_torch.kernels import bsr as K7
+from difformer_tpu_torch.kernels import sigmoid_attention as K2
 from difformer_tpu_torch.kernels import spmm as K1
 from difformer_tpu_torch.ops import comm
 from difformer_tpu_torch.parallel.mesh import Mesh
@@ -76,35 +81,49 @@ def rank_plan(rg: RankGraph, group):
                         axis_name=group)
 
 
-def _forward(model, rg, plan, generator):
+def _forward(model, rg, plan, generator, ell):
     senders, halo = rg.senders_and_halo()
     return model(rg.node_feat, senders, rg.receivers, rg.edge_weight,
                  node_mask=rg.node_mask, edge_mask=rg.edge_mask,
-                 generator=generator, halo=halo, plan=plan)
+                 generator=generator, halo=halo, plan=plan, ell=ell)
 
 
-def sharded_apply(model, mesh: Mesh):
+def rank_layout(layout, mesh: Mesh):
+    """This rank's pair of the node-sharded hybrid, on its device, from the
+    pair of every shard that ``ops/bsr.py:build_bsr_gcn_sharded`` returns
+    (None stays None)."""
+    if layout is None:
+        return None
+    return tuple(d.rank_shard(mesh.rank, mesh.group, mesh.device)
+                 for d in layout)
+
+
+def sharded_apply(model, mesh: Mesh, ell=None):
     """``fn(rank_graph, plan=None, generator=None, train=False) ->`` this
     rank's logits [N_loc, C]; ``model`` must be built with
     ``axis_name=mesh.group`` and ``plan`` is :func:`rank_plan`'s (the
-    model builds it per call without it). Every rank calls it on its own
-    shard."""
+    model builds it per call without it). ``ell``, the rank's
+    ``BsrShard`` pair (:func:`rank_layout`), runs the graph branch on the
+    block-sparse hybrid, as the JAX function's ``ell=``. Every rank calls
+    it on its own shard."""
 
     def apply_fn(rg: RankGraph, plan=None, generator=None, train=False):
         model.train(train)
         with torch.set_grad_enabled(train):
-            return _forward(model, rg, plan, generator)
+            return _forward(model, rg, plan, generator, ell)
 
     return apply_fn
 
 
 def make_sharded_train_step(model, mesh: Mesh, optimizer,
-                            loss_fn=nll_sum_count):
+                            loss_fn=nll_sum_count, ell=None):
     """``step(rank_graph, generator=None, plan=None) -> loss``, one train
     step of this rank (the module's docstring): ``loss_fn(logits, labels,
     mask) -> (sum, count)`` over the rank's nodes; the loss returned, a
     0-d tensor, is the global mean, the same on every rank. ``plan`` is
-    :func:`rank_plan`'s (the model builds it per call without it).
+    :func:`rank_plan`'s (the model builds it per call without it);
+    ``ell``, the rank's ``BsrShard`` pair, as :func:`sharded_apply` takes
+    it.
 
     The step can be captured in a CUDA graph under NCCL: one flat buffer,
     allocated here, holds every parameter's gradient (each ``p.grad`` a
@@ -128,8 +147,8 @@ def make_sharded_train_step(model, mesh: Mesh, optimizer,
             if p.grad is not view:  # set to None or replaced elsewhere
                 p.grad = view
         flat.zero_()
-        s, c = loss_fn(_forward(model, rg, plan, generator), rg.labels,
-                       rg.label_mask)
+        s, c = loss_fn(_forward(model, rg, plan, generator, ell),
+                       rg.labels, rg.label_mask)
         count = comm.all_reduce_(c.detach().float().reshape(1).clone(),
                                  group).clamp(min=1.0)
         (s / count[0]).backward()
@@ -140,6 +159,19 @@ def make_sharded_train_step(model, mesh: Mesh, optimizer,
         return flat[-1] / count[0]
 
     return step
+
+
+def reset_launch_counts():
+    """Zero the launch counts of K1, K2–K4 and K7."""
+    for counters in (K1, K2, K7):
+        counters.reset_launch_counts()
+
+
+def launch_counts():
+    """K1's launches since :func:`reset_launch_counts`, and those of K2–K4
+    and K7 that launched."""
+    others = {**K2.LAUNCHES, **K7.LAUNCHES}
+    return {**K1.LAUNCHES, **{k: v for k, v in others.items() if v}}
 
 
 def _profiled(fn, sync, top=12):
@@ -185,19 +217,22 @@ def check_replicated(model, group):
 
 def train_sharded(mesh: Mesh, sg: ShardedGraph, params, model_kw, *,
                   steps, lr=1e-2, weight_decay=5e-4, seed=0,
-                  profile=False):
+                  profile=False, ell=None):
     """A rank function for ``launch.run_ranks``: this rank's DIFFormer
     (``model_kw`` with the graph's feature and class counts as
     ``in_channels`` and ``out_channels``, ``axis_name=mesh.group``, on
     ``mesh.device``) loaded with the JAX params tree ``params``, then
     ``steps`` sharded train steps with the port's Adam on ``sg``'s shard
-    ``mesh.rank`` (the exchange its arrays pick). Returns a dict of numpy
+    ``mesh.rank`` (the exchange its arrays pick, or, with ``ell``, the
+    pair of every shard of ``build_bsr_gcn_sharded``, the rank's shard of
+    the block-sparse hybrid). Returns a dict of numpy
     arrays and numbers: ``losses``; ``logits`` [N_loc, C] after the steps
     (eval mode) and ``logits0`` before them; ``params`` (the state_dict
-    after the steps); ``launches`` (K1's, counted over the steps alone)
-    and ``products`` (the rank's K1 plans with at least one entry: K1
-    launches nothing for an empty one, so a step launches ``products`` ×
-    layers K1 forward and as many transposed);
+    after the steps); ``launches`` (K1's, and K2–K4's and K7's where they
+    launched, counted over the steps alone) and ``products`` (the rank's K1 plans with at least
+    one entry: K1 launches nothing for an empty one, so a step launches
+    ``products`` × layers K1 forward and as many transposed; 0 with
+    ``ell``);
     ``step_ms`` (host clock a step, synchronised, the median of the steps
     after the first); ``setup_s`` and ``total_s``, the host seconds of the
     set-up (model, weights, plan, first forward) and of the whole call;
@@ -220,17 +255,18 @@ def train_sharded(mesh: Mesh, sg: ShardedGraph, params, model_kw, *,
     load_params(model, params)
     check_replicated(model, mesh.group)
     rg = sg.rank_graph(mesh.rank, device)
-    plan = rank_plan(rg, mesh.group)
-    apply_fn = sharded_apply(model, mesh)
+    layout = rank_layout(ell, mesh)
+    plan = None if layout is not None else rank_plan(rg, mesh.group)
+    apply_fn = sharded_apply(model, mesh, ell=layout)
     logits0 = apply_fn(rg, plan).cpu().numpy()
     optimizer = torch_adam(model.parameters(), lr, weight_decay)
-    step = make_sharded_train_step(model, mesh, optimizer)
+    step = make_sharded_train_step(model, mesh, optimizer, ell=layout)
     generator = rank_generator(seed, mesh.rank, device)
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (
         lambda: None)
     setup_s = time.perf_counter() - start
-    K1.reset_launch_counts()
+    reset_launch_counts()
     losses, times, profiled = [], [], None
     for i in range(steps):
         sync()
@@ -247,9 +283,10 @@ def train_sharded(mesh: Mesh, sg: ShardedGraph, params, model_kw, *,
     # one pays the profiler
     kept = times[1:len(times) - (1 if profile else 0)] or times
     step_ms = float(np.median(kept)) if kept else 0.0
-    launches = dict(K1.LAUNCHES)
-    products = sum(getattr(plan, f.name).num_edges > 0
-                   for f in dataclasses.fields(plan))
+    launches = launch_counts()
+    products = 0 if plan is None else sum(
+        getattr(plan, f.name).num_edges > 0
+        for f in dataclasses.fields(plan))
     losses = torch.stack(losses).cpu().numpy() if losses else np.zeros(0)
     every = [None] * mesh.size
     dist.all_gather_object(every, losses.tobytes(), group=mesh.group)

@@ -9,14 +9,19 @@ first k ranks only (``mesh.sub_mesh``; the others give None) and
 spawn of NCCL ranks), ``kind`` one of ``conv``
 (:func:`conv_check`: the graph branch's product and its gradient with
 respect to x), ``attention`` (:func:`attention_check`: the sharded linear
-attention in one of its three forms and its gradients), ``train``
-(``api.train_sharded``), ``dropout`` (:func:`dropout_check`: sharded
+attention in one of its three forms and its gradients), ``shift``
+(:func:`shift_check`: the ring's exchange), ``ring`` (:func:`ring_check`:
+the ring sigmoid attention and its gradients), ``bsr``
+(:func:`bsr_check`: the node-sharded block-sparse hybrid and its
+gradient), ``train`` (``api.train_sharded``, on the halo exchanges or,
+with ``ell``, the hybrid), ``dropout`` (:func:`dropout_check`: sharded
 training at dropout > 0 over several seeds, and the ranks' dropout
 streams), and the distributed trainer's (``train/distributed.py``):
 ``fit`` (:func:`fit_check`: fits with their launches, final logits and, on
 a card, the steady time of replayed epochs), ``eval`` (:func:`eval_check`),
-``resume`` (:func:`resume_check`) and ``capture_fault``
-(:func:`capture_fault_check`). Global arrays [S·N_loc, ...] come in the
+``resume`` (:func:`resume_check`), ``capture_fault``
+(:func:`capture_fault_check`) and ``cli`` (:func:`cli_check`: the
+command line's rank function). Global arrays [S·N_loc, ...] come in the
 partition's padded node order; each rank takes its N_loc rows.
 """
 
@@ -35,7 +40,8 @@ from difformer_tpu_torch.ops.linear_attention import (
     simple_attention,
     simple_attention_head_mean_factored,
 )
-from difformer_tpu_torch.parallel.api import (rank_generator, rank_plan,
+from difformer_tpu_torch.parallel.api import (launch_counts, rank_generator,
+                                              rank_plan, reset_launch_counts,
                                               train_sharded)
 from difformer_tpu_torch.parallel.mesh import sub_mesh
 from difformer_tpu_torch.parallel.sharded_ops import sharded_conv
@@ -157,8 +163,9 @@ def fit_check(mesh, x, ei, y, split, model_kw, fits, trainer_kw=None,
     ``summaries``, the logger's ``rows``, the final weights' ``logits``
     [N_loc, C]; whether its epoch-block runner ``captured`` (under NCCL;
     False for gloo and for the per-epoch loop), the runner's ``graphs``
-    (each graph's K1 launches seen at capture and its replays) and K1's
-    ``launches`` (captured × replays, else the wrappers' count); ``fit_s``
+    (each graph's kernel launches seen at capture and its replays) and the
+    ``launches`` of K1, and of K2–K4 and K7 where they launched (captured
+    × replays, else the wrappers' count); ``fit_s``
     (host seconds). Also the rank's plan's ``products`` with entries and
     ``jax_loaded``. With ``timing`` (on a card; the last fit's runner):
     ``ms_per_epoch``, the host clock of ``block`` more epochs (a step and
@@ -173,14 +180,14 @@ def fit_check(mesh, x, ei, y, split, model_kw, fits, trainer_kw=None,
     out = []
     for kw in fits:
         log = _Rows()
-        K1.reset_launch_counts()
+        reset_launch_counts()
         trainer.epoch_runner = None  # set again by an epoch-block fit
         start = time.perf_counter()
         summaries = trainer.fit(split, logger=log, init_params=init_params,
                                 **kw)
         sync()
         fit_s = time.perf_counter() - start
-        counted = dict(K1.LAUNCHES)
+        counted = launch_counts()
         runner = trainer.epoch_runner
         captured = runner is not None and runner.captured
         out.append(dict(
@@ -193,7 +200,7 @@ def fit_check(mesh, x, ei, y, split, model_kw, fits, trainer_kw=None,
             launches=({k: v for k, v in runner.launches().items()
                        if k in counted} if captured else counted),
             fit_s=fit_s))
-    result = dict(fits=out, products=sum(
+    result = dict(fits=out, products=0 if trainer.plan is None else sum(
         getattr(trainer.plan, f.name).num_edges > 0
         for f in dataclasses.fields(trainer.plan)),
         jax_loaded="jax" in sys.modules)
@@ -297,10 +304,85 @@ def capture_fault_check(mesh, x, ei, y, split, model_kw, trainer_kw=None):
     return dict(raised=raised)
 
 
+def shift_check(mesh, x, cot, n_loc, captured=False):
+    """``comm.ring_shift`` of this rank's rows of x [S·N_loc, ...] and the
+    gradient of ``Σ out · cot`` with respect to them. ``captured`` (NCCL on
+    a card): the shift and its backward's shift are recorded in a CUDA
+    graph first and replayed on the inputs, ``replayed`` then True."""
+    from difformer_tpu_torch.ops import comm
+
+    xl = _rows(mesh, x, n_loc, grad=True)
+    gl = _rows(mesh, cot, n_loc)
+    if not captured:
+        out = comm.ring_shift(xl, mesh.group)
+        (out * gl).sum().backward()
+        return dict(out=_np(out), grad=_np(xl.grad))
+    static_x, static_g = torch.zeros_like(xl), torch.zeros_like(gl)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        comm.ring_shift(static_x, mesh.group)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = comm.ring_shift(static_x, mesh.group)
+        back = comm._shift(static_g, mesh.group, -1)
+    static_x.copy_(xl.detach())
+    static_g.copy_(gl)
+    graph.replay()
+    torch.cuda.synchronize()
+    return dict(out=_np(out), grad=_np(back), replayed=True)
+
+
+def ring_check(mesh, q, k, v, cot, n_loc, key_mask=None):
+    """This rank's rows of the ring sigmoid attention
+    (``sharded_ops.sigmoid_attention_sharded``) of q, k, v [S·N_loc, H,
+    ...] with the binary ``key_mask`` [S·N_loc] or none, and the gradients
+    of ``Σ out · cot``; with K2–K4's launches."""
+    from difformer_tpu_torch.parallel.sharded_ops import (
+        sigmoid_attention_sharded)
+
+    ql, kl, vl = (_rows(mesh, a, n_loc, grad=True) for a in (q, k, v))
+    mask = None if key_mask is None else _rows(mesh, key_mask, n_loc)
+    reset_launch_counts()
+    out = sigmoid_attention_sharded(ql, kl, vl, key_mask=mask,
+                                    axis_name=mesh.group)
+    (out * _rows(mesh, cot, n_loc)).sum().backward()
+    return dict(out=_np(out), dq=_np(ql.grad), dk=_np(kl.grad),
+                dv=_np(vl.grad), launches=launch_counts())
+
+
+def bsr_check(mesh, layout, x, cot):
+    """This rank's rows of ``ops.bsr.bsr_spmm_sharded`` over its shards of
+    ``layout`` (the pair of every shard of ``build_bsr_gcn_sharded``) for
+    x [pad_n, ...], and of the gradient of ``Σ out · cot``; with K1's and
+    K7's launches."""
+    from difformer_tpu_torch.ops.bsr import bsr_spmm_sharded
+    from difformer_tpu_torch.parallel.api import rank_layout
+
+    fwd, rev = rank_layout(layout, mesh)
+    xl = _rows(mesh, x, fwd.num_rows, grad=True)
+    reset_launch_counts()
+    out = bsr_spmm_sharded(fwd, rev, xl)
+    (out * _rows(mesh, cot, fwd.num_rows)).sum().backward()
+    return dict(out=_np(out), grad=_np(xl.grad), launches=launch_counts())
+
+
+def cli_check(mesh, args):
+    """The command line's rank function (``train/distributed.py:
+    cli_rank``) on ``args``, what ``cli.run_sharded`` hands it: the runs'
+    summaries, and ``jax_loaded``."""
+    from difformer_tpu_torch.train.distributed import cli_rank
+
+    return dict(summaries=cli_rank(mesh, *args),
+                jax_loaded="jax" in sys.modules)
+
+
 CHECKS = {"conv": conv_check, "attention": attention_check,
           "train": train_sharded, "dropout": dropout_check,
           "fit": fit_check, "eval": eval_check, "resume": resume_check,
-          "capture_fault": capture_fault_check}
+          "capture_fault": capture_fault_check, "shift": shift_check,
+          "ring": ring_check, "bsr": bsr_check, "cli": cli_check}
 
 
 def run_checks(mesh, cases):

@@ -1,6 +1,7 @@
-"""The graph branch of a node-sharded DIFFormer, as
-``difformer_tpu/parallel/sharded_ops.py:31-161``, every local product on
-K1 (``kernels/spmm.py``).
+"""The graph branch and the ring sigmoid attention of a node-sharded
+DIFFormer, as ``difformer_tpu/parallel/sharded_ops.py:31-271``, every local
+product on K1 (``kernels/spmm.py``) and every attention block on K2–K4
+(``kernels/sigmoid_attention.py``).
 
 Each rank holds N_loc nodes and the edges whose receivers it owns
 (``parallel/partition.py``). The three exchanges of sender rows:
@@ -27,6 +28,18 @@ vector once, where the JAX function all-gathers it on every call: the graph
 is fixed, so the values are the same. A plan holds every entry of the JAX
 function's arrays, the padding's zeros included, so that a NaN or Inf in x
 spreads as it does there.
+
+:func:`sigmoid_attention_sharded` is DIFFormer-a's attention across ranks:
+each rank's queries meet every rank's keys in S ring steps, each step K2's
+raw (numerator, denominator) of the local queries against the (k, v, mask)
+shard in hand, summed in float32, then the shard shifted on to the next
+rank (``comm.ring_shift``). k, v and the key mask travel as one packed
+tensor, one exchange a step. The backward is autograd's through the loop:
+K3 and K4 at every step, dq summed over the steps, and dk, dv carried home
+by the shifts' transposes. The JAX package's rule that runs its Pallas
+kernels only on a TPU at N_loc ≥ 4096 is a TPU's: on a CUDA tensor every
+ring step launches K2 (K3, K4 in the backward), on a CPU tensor the same
+Functions run their plain versions.
 """
 
 from __future__ import annotations
@@ -37,6 +50,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from difformer_tpu_torch.kernels.sigmoid_attention import (
+    sigmoid_attention_flash_unnormalized)
 from difformer_tpu_torch.kernels.spmm import csr_spmm
 from difformer_tpu_torch.ops import comm
 from difformer_tpu_torch.ops.graph_ops import (CsrPlan, _csr_product,
@@ -251,6 +266,50 @@ def _checked(plan, kind):
         raise TypeError(f"the exchange that halo picks runs on a "
                         f"{kind.__name__}, got {type(plan).__name__}")
     return plan
+
+
+def _pack_width(width, dtype):
+    """``width`` rounded up to whole 16-byte granules of ``dtype``."""
+    per = 16 // dtype.itemsize
+    return -(-width // per) * per
+
+
+def sigmoid_attention_sharded(qs, ks, vs, *, key_mask=None, axis_name):
+    """The ring sigmoid attention (the module's docstring): qs [N_loc, H,
+    M], ks [N_loc, H, M], vs [N_loc, H, D] (or [N_loc, 1, D], broadcast
+    over the heads) this rank's shards, ``key_mask`` [N_loc] its binary
+    key mask or None; returns this rank's rows of the attention over the
+    whole graph, [N_loc, H, D] in q's dtype. ``axis_name`` is the graph
+    axis's process group."""
+    comm.check_group(axis_name)
+    size = dist.get_world_size(axis_name)
+    if vs.shape[1] != qs.shape[1]:
+        vs = vs.expand(-1, qs.shape[1], -1)
+    rows, heads, m = ks.shape
+    d = vs.shape[2]
+    # [k | v | mask | 0] a row, each part at a 16-byte boundary
+    kw, vw = _pack_width(heads * m, ks.dtype), _pack_width(heads * d,
+                                                            ks.dtype)
+    width = _pack_width(kw + vw + (key_mask is not None), ks.dtype)
+    parts = [ks.reshape(rows, -1), ks.new_zeros((rows, kw - heads * m)),
+             vs.reshape(rows, -1).to(ks.dtype),
+             ks.new_zeros((rows, vw - heads * d))]
+    if key_mask is not None:
+        parts.append(key_mask.to(ks.dtype).reshape(rows, 1))
+    parts.append(ks.new_zeros((rows, width - kw - vw
+                               - (key_mask is not None))))
+    shard = torch.cat(parts, 1)
+    num = den = None
+    for _ in range(size):
+        k = shard[:, :heads * m].reshape(rows, heads, m)
+        v = shard[:, kw:kw + heads * d].reshape(rows, heads, d)
+        mask = None if key_mask is None else shard[:, kw + vw]
+        num_p, den_p = sigmoid_attention_flash_unnormalized(qs, k, v, mask)
+        num = num_p if num is None else num + num_p
+        den = den_p if den is None else den + den_p
+        # every step shifts, the last one too, as the JAX package's scan
+        shard = comm.ring_shift(shard, axis_name)
+    return (num / den[..., None]).to(qs.dtype)
 
 
 def collective_bytes_per_layer(sg, *, feat_dim, num_heads=1, dtype_bytes=4):

@@ -11,10 +11,13 @@ plans of its halo exchange built once, before any step.
 - **Layouts** (``:70-136``): ``contiguous`` (equal node blocks),
   ``balanced`` (degree-balanced cuts, ``balance_edges=True``) and
   ``locality`` (label-propagation communities, cuts snapped to their
-  boundaries); each runs the overlapped halo exchange. The JAX trainer's
-  ``spmm="bsr"`` (the sharded block-sparse hybrid) is not ported yet
-  (ROADMAP.md queue A item 10b): the trainer takes no such option, and
-  the command line raises for ``--spmm bsr``.
+  boundaries); each runs the overlapped halo exchange. ``spmm="bsr"``
+  runs the GCN branch on the node-sharded block-sparse hybrid instead
+  (``ops/bsr.py``: K7 on the rank's rectangular shard, K1 for its
+  residual): uniform shards aligned to ``bsr_tile`` (a balanced or
+  locality layout is ignored with the JAX trainer's warning), the rank's
+  ``BsrShard`` pair built once, before any step or capture. The layouts
+  are data, not state: checkpoints hold none.
 - **Steps**: ``parallel/api.py:make_sharded_train_step`` with the port's
   Adam; dropout draws from the rank's generator, seeded from
   (``seed + run``, rank) (``api.rank_generator``): the JAX step folds the
@@ -44,6 +47,7 @@ route (``cli.py``).
 from __future__ import annotations
 
 import hashlib
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -52,10 +56,12 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from difformer_tpu_torch.ops import comm
+from difformer_tpu_torch.ops.bsr import build_bsr_gcn_sharded
 from difformer_tpu_torch.parallel.api import (check_replicated,
                                               make_sharded_train_step,
                                               nll_sum_count, rank_generator,
-                                              rank_plan, sharded_apply)
+                                              rank_layout, rank_plan,
+                                              sharded_apply)
 from difformer_tpu_torch.parallel.mesh import Mesh
 from difformer_tpu_torch.parallel.partition import (edge_balanced_layout,
                                                     locality_layout,
@@ -68,6 +74,8 @@ from difformer_tpu_torch.utils.metrics import METRICS, device_rocauc_tasks
 from difformer_tpu_torch.utils.weights import load_params
 
 LAYOUTS = ("contiguous", "balanced", "locality")
+#: The GCN branch's exchanges: the halo (``layout``'s) or the hybrid's.
+SPMM = ("halo", "bsr")
 
 
 def bce_sum_count(logits, labels, mask):
@@ -105,18 +113,32 @@ class DistributedTrainer:
     docstring). ``model`` is the rank's DIFFormer, built with
     ``axis_name=mesh.group``; ``node_feat``, ``edge_index``, ``labels`` and
     ``train_mask`` describe the whole graph, the same on every rank.
-    Every rank builds its trainer and calls its methods in the same order,
-    since most of them run collectives."""
+    ``spmm`` is the GCN branch's exchange: "halo" (the layout's overlapped
+    halo) or "bsr" (the block-sparse hybrid at ``bsr_tile``). Every rank
+    builds its trainer and calls its methods in the same order, since most
+    of them run collectives."""
 
     def __init__(self, model, node_feat, edge_index, labels, *, train_mask,
                  mesh: Mesh, lr=1e-2, weight_decay=5e-4, loss="nll",
-                 metric="acc", seed=123, balance_edges=False, layout=None):
+                 metric="acc", seed=123, spmm="halo", bsr_tile=256,
+                 balance_edges=False, layout=None):
         if layout is None:
             layout = "balanced" if balance_edges else "contiguous"
         elif layout not in LAYOUTS:
             raise ValueError(f"unknown layout {layout!r}: expected "
                              f"'contiguous', 'balanced', or 'locality'")
-        if getattr(model, "axis_name", None) is not mesh.group:
+        if spmm not in SPMM:
+            raise ValueError(f"unknown spmm {spmm!r}: expected 'halo' or "
+                             f"'bsr'")
+        if spmm == "bsr" and layout != "contiguous":
+            warnings.warn(
+                "balance_edges=True is ignored with spmm='bsr': BSR shards "
+                "must stay tile-aligned (node_align=bsr_tile), which is "
+                "incompatible with degree-balanced cut points; using uniform "
+                "tile-aligned shards instead", stacklevel=2)
+            layout = "contiguous"
+        group = getattr(mesh, "group", None)
+        if group is None or getattr(model, "axis_name", None) is not group:
             raise ValueError("the model must be a DIFFormer built with "
                              "axis_name=mesh.group")
         self.mesh = mesh
@@ -126,22 +148,37 @@ class DistributedTrainer:
         self.labels_eval = labels_np
         edge_index = np.asarray(edge_index)
         n = int(np.asarray(node_feat).shape[0])
-        perm_kw = {}
+        # the halo exchange's partition (its layout's node order), or the
+        # hybrid's uniform tile-aligned shards
+        part_kw = (dict(build_halo=False, node_align=bsr_tile)
+                   if spmm == "bsr" else dict(build_halo=True))
         self._node_perm = None
         if layout != "contiguous":
             make_layout = (locality_layout if layout == "locality"
                            else edge_balanced_layout)
             perm, n_loc = make_layout(edge_index, n, mesh.size)
-            perm_kw = dict(node_perm=perm, nodes_per_shard=n_loc)
+            part_kw.update(node_perm=perm, nodes_per_shard=n_loc)
             self._node_perm = perm
         self.sg = partition_graph(
             np.asarray(node_feat, np.float32), edge_index, mesh.size,
             labels=train_labels(labels_np, loss), label_mask=train_mask,
-            build_halo=True, **perm_kw)
+            **part_kw)
         self.rg = self.sg.rank_graph(mesh.rank, self.device)
-        self.plan = rank_plan(self.rg, mesh.group)
+        #: The rank's ``BsrShard`` pair (``spmm="bsr"``), else None; the
+        #: rank's K1 plans (the halo exchange's), else None.
+        self.ell = self.plan = None
+        if spmm == "bsr":
+            fwd, rev, rows_per = build_bsr_gcn_sharded(
+                edge_index[0], edge_index[1], n, mesh.size, tile=bsr_tile)
+            if rows_per != self.sg.nodes_per_shard:
+                raise AssertionError(
+                    f"the hybrid's {rows_per} rows a shard against the "
+                    f"partition's {self.sg.nodes_per_shard}")
+            self.ell = rank_layout((fwd, rev), mesh)
+        else:
+            self.plan = rank_plan(self.rg, mesh.group)
         self.model = model.to(self.device)
-        self._apply = sharded_apply(self.model, mesh)
+        self._apply = sharded_apply(self.model, mesh, ell=self.ell)
         self.lr, self.weight_decay, self.seed = lr, weight_decay, seed
         self.loss_fn = LOSSES[loss]
         self.metric_name = metric
@@ -164,7 +201,7 @@ class DistributedTrainer:
         check_replicated(self.model, self.mesh.group)
         opt = torch_adam(self.model.parameters(), self.lr, self.weight_decay)
         self.step_fn = make_sharded_train_step(self.model, self.mesh, opt,
-                                               self.loss_fn)
+                                               self.loss_fn, ell=self.ell)
         return TrainState(self.model, opt, 0)
 
     def generator(self, run: int = 0):
@@ -452,7 +489,8 @@ def cli_rank(mesh: Mesh, cfg, x, edge_index, labels, n_classes, splits,
             model, x, edge_index, labels,
             train_mask=idx_to_mask(split["train"], n), mesh=mesh, lr=cfg.lr,
             weight_decay=cfg.weight_decay, loss=loss, metric=cfg.metric,
-            seed=cfg.seed, layout=cfg.layout or None,
+            seed=cfg.seed, spmm="bsr" if cfg.spmm == "bsr" else "halo",
+            bsr_tile=cfg.bsr_tile, layout=cfg.layout or None,
             balance_edges=cfg.balance_edges)
         res.extend(trainer.fit(split, epochs=cfg.epochs, runs=1,
                                eval_step=cfg.eval_step, logger=logger,

@@ -4,7 +4,9 @@ test's floor, exactly what each CLI hands its trainer (features, edges,
 labels, each run's split and the fit options) on the same files, the
 baseline zoo's routes (what a zoo trainer is handed, label propagation's
 metrics, every zoo method trained on the CPU), the sparse layouts of the GCN
-branch (the layout each CLI hands its trainer, bit for bit),
+branch (the layout each CLI hands its trainer, bit for bit), what the
+``--n_shards`` route hands its distributed trainer on the ring and the
+block-sparse hybrid (``--kernel sigmoid``, ``--spmm bsr``),
 ``NotImplementedError`` for every route the port does not run yet, and the
 ``--save_model``/``--eval_only`` round trip, also from a reference ``.pt``
 state_dict.
@@ -222,11 +224,6 @@ ZOO_MINIBATCH = "the zoo in mini-batch"
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--kernel", "sigmoid", "--n_shards", "2"], "item 10b"),
-    (["--spmm", "bsr", "--n_shards", "2"], "item 10b"),
-    (["--use_minibatch", "true", "--kernel", "sigmoid", "--n_shards", "2"],
-     "item 10b"),
-    (["--spmm", "bsr", "--n_shards", "4"], "item 10b"),
     (["--dataset", "pokec", "--method", "gcn"], ZOO_MINIBATCH),
 ])
 def test_unported_routes_raise_naming_their_item(tmp_path, extra, item):
@@ -235,6 +232,86 @@ def test_unported_routes_raise_naming_their_item(tmp_path, extra, item):
     match = f"item {item}\\b" if isinstance(item, int) else item
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv, **CPU)
+
+
+class DistRecorder:
+    """A stand-in distributed trainer of either package that keeps what it
+    is given (the JAX one also gets the axis-free init model)."""
+
+    made = []
+
+    def __init__(self, model, *args, **kw):
+        if len(args) == 4:      # the JAX trainer: init model first
+            args = args[1:]
+        x, ei, labels = args
+        self.kernel = getattr(model, "kernel", None)
+        self.x, self.ei, self.labels = (np.asarray(a) for a in (x, ei,
+                                                                  labels))
+        self.kw = kw
+        self.made.append(self)
+
+    def fit(self, split_idx, **kw):
+        self.split = {k: np.asarray(v) for k, v in split_idx.items()}
+        self.fit_kw = {k: kw[k] for k in ("epochs", "runs", "eval_step")}
+        return [{"train": 0.5, "valid": 0.5, "test": 0.5, "epoch": 0}]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--kernel", "sigmoid", "--n_shards", "2"],
+    ["--spmm", "bsr", "--n_shards", "2"],
+    ["--use_minibatch", "true", "--kernel", "sigmoid", "--n_shards", "2"],
+    ["--spmm", "bsr", "--n_shards", "4", "--bsr_tile", "32"],
+])
+def test_sharded_route_hands_the_same_trainer_options(monkeypatch, tmp_path,
+                                                      extra):
+    """The ``--n_shards`` routes of the ring and the block-sparse hybrid:
+    each CLI's distributed trainer gets the same data, split, options and
+    fit options, and the same ``spmm``, ``bsr_tile`` and model kernel
+    (the port's rank function run in this process on a stand-in mesh,
+    with the trainer and the model recorded)."""
+    import types
+
+    import difformer_tpu.train.distributed as jax_dist
+    from difformer_tpu_torch.nn import difformer as nn_difformer
+    from difformer_tpu_torch.train import distributed as dist
+
+    ours = type("OurDist", (DistRecorder,), {"made": []})
+    theirs = type("TheirDist", (DistRecorder,), {"made": []})
+
+    def model(*args, **kw):
+        return types.SimpleNamespace(kernel=kw["kernel"])
+
+    def run_sharded(cfg, x, ei, label, n_classes, splits, loss, device=None,
+                    backend=None):
+        mesh = types.SimpleNamespace(group=object(), rank=0, size=2,
+                                     device=torch.device("cpu"))
+        return dist.cli_rank(mesh, cfg, x, ei, label, n_classes, splits,
+                             loss)
+
+    monkeypatch.setattr(dist, "DistributedTrainer", ours)
+    monkeypatch.setattr(nn_difformer, "DIFFormer", model)
+    monkeypatch.setattr(cli, "run_sharded", run_sharded)
+    monkeypatch.setattr(jax_dist, "DistributedTrainer", theirs)
+    argv = ["--dataset", "synthetic-60-200-4-3", "--epochs", "1",
+            "--data_dir", str(tmp_path), "--runs", "2",
+            "--rand_split", "true"] + extra
+    cli.main(argv, **CPU)
+    jax_cli.main(argv)
+    assert len(ours.made) == len(theirs.made) == 2
+    for a, b in zip(ours.made, theirs.made):
+        for name in ("x", "ei", "labels"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name),
+                                          err_msg=name)
+        for key in ("lr", "weight_decay", "loss", "metric", "seed", "spmm",
+                    "bsr_tile", "layout", "balance_edges"):
+            assert a.kw[key] == b.kw[key], key
+        assert a.kernel == b.kernel == (
+            "sigmoid" if "sigmoid" in extra else "simple")
+        assert a.kw["spmm"] == ("bsr" if "bsr" in extra else "halo")
+        assert set(a.split) == set(b.split)
+        for k in a.split:
+            np.testing.assert_array_equal(a.split[k], b.split[k], err_msg=k)
+        assert a.fit_kw == b.fit_kw
 
 
 def test_sharded_route_runs_on_the_card_or_asks_for_the_cpu(monkeypatch):

@@ -24,7 +24,12 @@ second its combine), two calls bit-equal, K6's split hub captured and
 replayed, its padding never read, K7 at every width, tile and block type, on a split hub
 bucket and on strided x, and the epoch-block fit on each layout bit-equal to
 the loop; the graph-level capture repeated while the packing threads allocate
-(``-k repeated``).
+(``-k repeated``). The ring sigmoid attention and the node-sharded hybrid
+(``-k "rectangular_shard or ring or hybrid"``): K7 on a rank's rectangular
+shard against its plain version, the ring's exchange captured under NCCL
+and on gloo ranks sharing the card, the ring and the hybrid trained at one
+NCCL rank and on 2 gloo ranks against the unsharded steps, and the
+distributed trainer's captured fit with both.
 """
 
 import dataclasses
@@ -1793,21 +1798,25 @@ def _splits(groups, tile, width, device):
                                  K7.sm_count(device))) > 1)
 
 
-def _check_k7(x, groups, tile, scale=None):
+def _check_k7(x, groups, tile, scale=None, **rect):
     """K7 against its plain version under the "spmm" rule, two calls
     bit-equal, a call captured in a CUDA graph equal to the eager one;
-    returns the launches of one call."""
+    returns the launches of one call. ``rect``: a rectangular shard's
+    ``num_rows``, ``row_scale`` and ``col_scale``."""
     from difformer_tpu_torch.kernels import bsr as K7
 
     K7.reset_launch_counts()
-    got = K7.bsr_spmm_blocks(x, groups, tile, scale=scale)
+    got = K7.bsr_spmm_blocks(x, groups, tile, scale=scale, **rect)
     launches = dict(K7.LAUNCHES)
-    assert_close("K7", got, K7.bsr_spmm_blocks_plain(x, groups, tile, scale),
-                 "spmm", scale=K7.bsr_spmm_blocks_abs(x, groups, tile, scale))
-    assert torch.equal(got, K7.bsr_spmm_blocks(x, groups, tile, scale=scale))
+    assert_close("K7", got,
+                 K7.bsr_spmm_blocks_plain(x, groups, tile, scale, **rect),
+                 "spmm", scale=K7.bsr_spmm_blocks_abs(x, groups, tile, scale,
+                                                      **rect))
+    assert torch.equal(got, K7.bsr_spmm_blocks(x, groups, tile, scale=scale,
+                                               **rect))
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        captured = K7.bsr_spmm_blocks(x, groups, tile, scale=scale)
+        captured = K7.bsr_spmm_blocks(x, groups, tile, scale=scale, **rect)
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(got, captured)
@@ -2207,3 +2216,204 @@ def test_nccl_world_one_captured_fit_follows_the_unsharded_fit(cuda):
     products = case["products"]
     assert out["launches"] == {"csr_spmm": products * 2 * 24,
                                "csr_spmm_transposed": products * 2 * 12}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 65])
+@pytest.mark.parametrize("int8", ["auto", False])
+@pytest.mark.parametrize("rank", [0, 1])
+def test_bsr_kernel_on_a_rectangular_shard(cuda, rank, int8, width):
+    """K7 on a rank's shard of the node-sharded hybrid (rows_per rows over
+    the pad_n gathered ones; rank 0 holds a hub row tile, and the split
+    plan cuts both shards),
+    int8 counts with their row and column scales or value blocks, against
+    the plain version; the whole shard's product (K7 and K1's residual)
+    against the plain one."""
+    from difformer_tpu_torch.kernels import bsr as K7
+    from difformer_tpu_torch.ops import bsr as B
+
+    n, tile = 4096, 64
+    rng = np.random.default_rng(width)
+    hub = np.nonzero(rng.random((tile, n)) < 0.3)
+    blocks = [np.stack([hub[1], hub[0]])]
+    for c in range(n // tile):
+        r, co = np.nonzero(rng.random((tile, tile)) < 0.2)
+        blocks.append(np.stack([co + c * tile, r + c * tile]))
+    blocks.append(rng.integers(0, n, (2, 3000)))
+    ei = np.concatenate(blocks, 1)
+    fwd, _, rows_per = B.build_bsr_gcn_sharded(ei[0], ei[1], n, 2, tile=tile,
+                                               min_edges=64,
+                                               scaled_int8=int8)
+    d = fwd.rank_shard(rank, None, cuda)
+    x = torch.randn((2 * rows_per, width), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(rank))
+    rect = dict(num_rows=rows_per, row_scale=d.inv_rows,
+                col_scale=d.inv_cols)
+    # every shard is padded to the hub row tile's blocks (the JAX build's
+    # one Kb), so the split plan, which reads shapes alone, cuts both
+    split = _splits(d.groups(), tile, width, cuda)
+    assert split == 1
+    assert _check_k7(x, d.groups(), tile, **rect) == {
+        "bsr_spmm": 1, "bsr_spmm_transposed": 0, "bsr_spmm_combine": split}
+    got = B.bsr_shard_apply(d, x)
+    cpu = fwd.rank_shard(rank, None, "cpu")
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               B.bsr_shard_apply(cpu, x.cpu()).numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
+def _slice_graph_run(cuda, world, backend, flavours):
+    """(unsharded losses and logits, the ranks' results, the partitions) of
+    SHARD_STEPS steps from one set of weights of a 2-layer DIFFormer for
+    each of ``flavours``: "ring" (kernel="sigmoid" on the all-gather
+    partition), "bsr" (the block-sparse hybrid at T = 64), "ring-bsr"."""
+    from difformer_tpu_torch.ops.bsr import build_bsr_gcn_sharded
+    from difformer_tpu_torch.parallel import partition_graph
+    from difformer_tpu_torch.parallel.launch import run_ranks
+    from difformer_tpu_torch.parallel.rank_checks import run_checks
+    from difformer_tpu_torch.train.optim import torch_adam
+    from difformer_tpu_torch.train.trainer import nll_loss
+    from difformer_tpu_torch.utils.weights import params_from_torch_state_dict
+
+    x, ei, y, mask = _sharded_graph()
+    n = x.shape[0]
+    refs, cases, parts = {}, [], {}
+    for flavour in flavours:
+        kernel = "sigmoid" if flavour.startswith("ring") else "simple"
+        model = DIFFormer(SHARD_F, 32, SHARD_C, num_layers=2, dropout=0.0,
+                          kernel=kernel, seed=3, device=cuda)
+        params = params_from_torch_state_dict(model.state_dict())
+        opt = torch_adam(model.parameters(), 1e-2, 5e-4)
+        args = [torch.as_tensor(a, device=cuda) for a in (x, ei[0], ei[1])]
+        labels, train = (torch.as_tensor(a, device=cuda) for a in (y, mask))
+        losses = []
+        for _ in range(SHARD_STEPS):
+            model.train()
+            opt.zero_grad()
+            loss = nll_loss(model(*args), labels, train)
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        model.eval()
+        with torch.no_grad():
+            refs[flavour] = (np.array(losses), model(*args).cpu().numpy())
+        ell = None
+        kw = dict(labels=y, label_mask=mask)
+        if "bsr" in flavour:
+            kw.update(build_halo=False, node_align=64)
+            ell = build_bsr_gcn_sharded(ei[0], ei[1], n, world, tile=64,
+                                        min_edges=8)[:2]
+        parts[flavour] = partition_graph(x, ei, world, **kw)
+        cases.append(dict(kind="train", sg=parts[flavour], params=params,
+                          model_kw=dict(in_channels=SHARD_F,
+                                        hidden_channels=32,
+                                        out_channels=SHARD_C, num_layers=2,
+                                        dropout=0.0, kernel=kernel),
+                          steps=SHARD_STEPS, ell=ell))
+    outs = run_ranks(run_checks, world, backend, "cuda", cases)
+    return refs, outs, parts
+
+
+def _check_slice(refs, outs, parts, flavours):
+    """Each flavour's sharded run against its unsharded one, and its
+    kernels launched: K2 per layer and ring step, K3 and K4 in the
+    backward, K7 and K1 per layer and direction on the hybrid."""
+    for i, flavour in enumerate(flavours):
+        losses, logits = refs[flavour]
+        got = np.concatenate([o[i]["logits"] for o in outs])
+        got = got[parts[flavour].node_mask.reshape(-1)]
+        np.testing.assert_allclose(outs[0][i]["losses"], losses, **GRAD)
+        np.testing.assert_allclose(got, logits, **GRAD)
+        ring = SHARD_STEPS * 2 * len(outs)
+        for out in outs:
+            launches = out[i]["launches"]
+            assert not out[i]["jax_loaded"]
+            if flavour.startswith("ring"):
+                assert launches["sigmoid_attention_fwd"] == ring
+                assert launches["sigmoid_attention_dq"] == ring
+                assert launches["sigmoid_attention_dkv"] == ring
+            if "bsr" in flavour:
+                assert out[i]["products"] == 0
+                assert launches["bsr_spmm"] == SHARD_STEPS * 2
+                assert launches["bsr_spmm_transposed"] == SHARD_STEPS * 2
+                assert launches["csr_spmm"] == SHARD_STEPS * 2
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_ring_and_hybrid_follow_the_unsharded_step(cuda):
+    flavours = ("ring", "bsr", "ring-bsr")
+    refs, outs, parts = _slice_graph_run(cuda, 1, "nccl", flavours)
+    _check_slice(refs, outs, parts, flavours)
+
+
+@pytest.mark.cuda
+def test_gloo_ranks_sharing_the_card_run_the_ring_and_hybrid(cuda):
+    flavours = ("ring", "ring-bsr")
+    refs, outs, parts = _slice_graph_run(cuda, 2, "gloo", flavours)
+    _check_slice(refs, outs, parts, flavours)
+
+
+@pytest.mark.cuda
+def test_ring_shift_under_nccl_capture_and_gloo_on_the_card(cuda):
+    """The ring's exchange at one NCCL rank recorded in a CUDA graph and
+    replayed, and on 2 gloo ranks sharing the card (rank r gets rank
+    r − 1's rows, the gradient goes back)."""
+    from difformer_tpu_torch.parallel.launch import run_ranks
+    from difformer_tpu_torch.parallel.rank_checks import run_checks
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(8, 3, 5)).astype(np.float32)
+    cot = rng.normal(size=(8, 3, 5)).astype(np.float32)
+    outs = run_ranks(run_checks, 2, "gloo", "cuda", [
+        dict(kind="shift", x=x, cot=cot, n_loc=4)])
+    np.testing.assert_array_equal(
+        np.concatenate([o[0]["out"] for o in outs]),
+        np.roll(x.reshape(2, 4, 3, 5), 1, 0).reshape(x.shape))
+    np.testing.assert_array_equal(
+        np.concatenate([o[0]["grad"] for o in outs]),
+        np.roll(cot.reshape(2, 4, 3, 5), -1, 0).reshape(x.shape))
+    (out,) = run_ranks(run_checks, 1, "nccl", "cuda", [
+        dict(kind="shift", x=x, cot=cot, n_loc=8, captured=True)])
+    np.testing.assert_array_equal(out[0]["out"], x)
+    np.testing.assert_array_equal(out[0]["grad"], cot)
+    assert out[0]["replayed"]
+
+
+@pytest.mark.cuda
+def test_nccl_world_one_captured_fit_on_the_ring_and_hybrid(cuda):
+    # the distributed trainer with kernel="sigmoid" and spmm="bsr" at one
+    # NCCL rank, step and eval captured, against FullBatchTrainer's
+    # captured fit from the same weights at dropout 0
+    from difformer_tpu_torch.data.splits import rand_train_test_idx
+    from difformer_tpu_torch.parallel.launch import run_ranks
+    from difformer_tpu_torch.parallel.rank_checks import run_checks
+    from difformer_tpu_torch.utils.weights import params_from_torch_state_dict
+
+    x, ei, y, _ = _sharded_graph()
+    split = rand_train_test_idx(y, 0.5, 0.25, rng=0)
+    model = DIFFormer(SHARD_F, 32, SHARD_C, num_layers=2, dropout=0.0,
+                      kernel="sigmoid", seed=3, device=cuda)
+    params = params_from_torch_state_dict(model.state_dict())
+    trainer = FullBatchTrainer(model, GraphData.from_numpy(x, ei,
+                                                           device=cuda),
+                               y, lr=1e-2, weight_decay=5e-4, device=cuda)
+    fit_kw = dict(epochs=12, eval_step=1, epoch_block=4)
+    best = trainer.fit(split, init_params=params, **fit_kw)[0]
+    logits = trainer.forward_eval(trainer.epoch_runner.state).cpu().numpy()
+    case = run_ranks(run_checks, 1, "nccl", "cuda", [dict(
+        kind="fit", x=x, ei=ei, y=y, split=split,
+        model_kw=dict(in_channels=SHARD_F, hidden_channels=32,
+                      out_channels=SHARD_C, num_layers=2, dropout=0.0,
+                      kernel="sigmoid"),
+        trainer_kw=dict(lr=1e-2, weight_decay=5e-4, spmm="bsr",
+                        bsr_tile=64), fits=[fit_kw], init_params=params)])
+    out = case[0][0]["fits"][0]
+    assert out["captured"]
+    np.testing.assert_allclose(out["summaries"][0]["losses"],
+                               best["losses"], **GRAD)
+    np.testing.assert_allclose(out["logits"][:x.shape[0]], logits, **GRAD)
+    launches = out["launches"]
+    assert launches["sigmoid_attention_fwd"] == 2 * 24
+    assert launches["sigmoid_attention_dkv"] == 2 * 12
+    assert launches["bsr_spmm"] == 2 * 24
+    assert launches["bsr_spmm_transposed"] == 2 * 12

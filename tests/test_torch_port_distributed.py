@@ -22,7 +22,13 @@ atol 2e-5 (the port's parity rule):
   stream restored), and a resume at another world size, which raises;
 - the command line's ``--n_shards 2`` with ranks spawned, against the same
   run as two processes joined through the ``DIFFORMER_*`` variables: the
-  same summaries, and only rank 0 prints.
+  same summaries, and only rank 0 prints;
+- the trainer on the ring (``kernel="sigmoid"``) and on the node-sharded
+  block-sparse hybrid (``spmm="bsr"`` at ``bsr_tile=8``, flavour 7's), and
+  on both, against the JAX trainer with the same options; the command
+  line's rank function on ``--kernel sigmoid --spmm bsr --n_shards 2`` and
+  ``--spmm bsr --n_shards 4`` in the same spawn; ``spmm="bsr"`` with a
+  balanced layout warns as the JAX trainer does.
 """
 
 import json
@@ -65,6 +71,14 @@ JAX_CASES = ([(w, layout, "nll", "acc") for w in WORLDS for layout in LAYOUTS]
              + [(2, "contiguous", "bce", "acc"), (2, "balanced", "bce",
                                                   "rocauc"),
                 (2, "locality", "nll", "f1")])
+# the ring and the hybrid: (world, kernel, spmm) of the fits held against
+# the JAX trainer with those options, at flavour 7's tile
+BSR_TILE = 8
+SLICE_CASES = [(2, "simple", "bsr"), (4, "simple", "bsr"),
+               (2, "sigmoid", "halo"), (4, "sigmoid", "bsr")]
+# the command line's rank function on the ring and the hybrid
+SLICE_ARGV = {2: ["--kernel", "sigmoid", "--spmm", "bsr"],
+              4: ["--spmm", "bsr"]}
 
 
 def graph():
@@ -86,7 +100,8 @@ def model_kw(out=C, dropout=0.0):
                 num_layers=LAYERS, dropout=dropout)
 
 
-def jax_run(world, layout, loss, metric, x, ei, y, split):
+def jax_run(world, layout, loss, metric, x, ei, y, split, kernel="simple",
+            spmm="halo"):
     """The JAX trainer's init params, its fit's logger rows and summary,
     and the per-epoch losses of its own step from the same weights
     (dropout 0: the keys do not matter). The fit is the JAX per-epoch loop,
@@ -96,14 +111,15 @@ matches_loop): one compiled step serves both, where the scanned blocks
     would compile again."""
     out = y.shape[1] if y.ndim > 1 else C
     model = JDIFFormer(hidden_channels=HIDDEN, out_channels=out,
-                       num_layers=LAYERS, dropout=0.0, axis_name="graph")
+                       num_layers=LAYERS, dropout=0.0, kernel=kernel,
+                       axis_name="graph")
     init = JDIFFormer(hidden_channels=HIDDEN, out_channels=out,
-                      num_layers=LAYERS, dropout=0.0)
+                      num_layers=LAYERS, dropout=0.0, kernel=kernel)
     tr = JTrainer(model, init, x, ei, y,
                   train_mask=idx_to_mask(split["train"], N),
                   mesh=jax_make_mesh((world,), ("graph",)), lr=LR,
                   weight_decay=WD, loss=loss, metric=metric, seed=SEED,
-                  layout=layout)
+                  layout=layout, spmm=spmm, bsr_tile=BSR_TILE)
     params, opt = tr.init_state(0)
     params_np = jax.tree_util.tree_map(np.asarray, params)
     losses, rng = [], jax.random.PRNGKey(1000 + SEED)
@@ -167,6 +183,20 @@ def runs(tmp_path_factory):
         model_kw=dict(model_kw(dropout=0.3), spmm_first=True),
         trainer_kw=dict(layout="locality"), ckpt_dir=str(ckpt / "w2"),
         stop=None))
+    for key in SLICE_CASES:
+        world, kernel, spmm = key
+        refs[key] = jax_run(world, "contiguous", "nll", "acc", x, ei, y,
+                            split, kernel=kernel, spmm=spmm)
+        add(key, dict(kind="fit", world=world, y=y, **common,
+                      model_kw=dict(model_kw(), kernel=kernel),
+                      trainer_kw=dict(lr=LR, weight_decay=WD, seed=SEED,
+                                      spmm=spmm, bsr_tile=BSR_TILE),
+                      init_params=refs[key]["params"],
+                      fits=[dict(epochs=EPOCHS, eval_step=EVAL_STEP,
+                                 epoch_block=BLOCK)]))
+    for world, extra in SLICE_ARGV.items():
+        add(("cli", world), dict(kind="cli", world=world,
+                                 args=cli_rank_args(world, extra)))
     results = run_ranks(run_checks, max(WORLDS), "gloo", "cpu", cases)
 
     def ranks(key):
@@ -192,6 +222,59 @@ def test_distributed_fit_matches_jax(runs, key):
         assert best["epoch"] == ref["best"]["epoch"]
         for k in ("train", "valid", "test"):
             np.testing.assert_allclose(best[k], ref["best"][k], **TOL)
+
+
+@pytest.mark.parametrize("key", SLICE_CASES,
+                         ids=lambda k: "-".join(map(str, k)))
+def test_distributed_fit_on_the_ring_and_hybrid_matches_jax(runs, key):
+    ref = runs["refs"][key]
+    for rank, out in enumerate(runs["ranks"](key)):
+        assert out["jax_loaded"] is False
+        assert out["products"] == (0 if key[2] == "bsr" else 3)
+        fit = out["fits"][0]
+        best = fit["summaries"][0]
+        np.testing.assert_allclose(best["losses"], ref["losses"],
+                                   err_msg=f"rank {rank}", **TOL)
+        np.testing.assert_allclose(fit["rows"], ref["rows"],
+                                   err_msg=f"rank {rank}", **TOL)
+        assert best["epoch"] == ref["best"]["epoch"]
+        for k in ("train", "valid", "test"):
+            np.testing.assert_allclose(best[k], ref["best"][k], **TOL)
+        # the plain versions count no launch
+        assert not any(fit["launches"].values())
+
+
+def cli_rank_args(world, extra):
+    """What the command line hands its rank function for
+    ``CLI_ARGV``-like flags on ``world`` ranks (``cli.run_sharded``
+    replaced by a recorder, so that nothing is spawned)."""
+    argv = ["--dataset", "synthetic-160-700-10-3", "--epochs", "4",
+            "--runs", "1", "--rand_split", "true", "--n_shards", str(world),
+            "--dropout", "0", "--hidden_channels", "16", "--num_layers",
+            "2", "--bsr_tile", str(BSR_TILE)] + extra
+    seen = []
+
+    def record(cfg, x, ei, label, n_classes, splits, loss, device=None,
+               backend=None):
+        seen.append((cfg, x, ei, label, n_classes, splits, loss))
+        return [dict(train=0.0, valid=0.0, test=0.0, epoch=0)]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cli, "run_sharded", record)
+        cli.main(argv, device="cpu")
+    (args,) = seen
+    return args
+
+
+@pytest.mark.parametrize("world", sorted(SLICE_ARGV))
+def test_cli_rank_runs_the_ring_and_hybrid(runs, world):
+    outs = runs["ranks"](("cli", world))
+    assert all(o["summaries"] == outs[0]["summaries"] for o in outs)
+    for out in outs:
+        assert out["jax_loaded"] is False
+        (best,) = out["summaries"]
+        assert len(best["losses"]) == 4 and np.isfinite(best["losses"]).all()
+        assert 0.0 <= best["test"] <= 1.0
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -265,19 +348,25 @@ def test_resume_at_another_world_size_raises(runs):
 
 
 def test_unknown_layout_and_bsr_raise_before_any_collective():
-    # no mesh at all: both raise before the trainer reaches the group. The
-    # JAX trainer's spmm="bsr" (item 10b) is no option of the port's yet,
-    # so it is refused by the signature, and --spmm bsr on the command line
-    # raises naming the item (test_torch_port_cli.py)
+    # no mesh at all: each raises before the trainer reaches the group. An
+    # unknown layout or spmm is refused; spmm="bsr" with a balanced layout
+    # warns as the JAX trainer does (uniform tile-aligned shards instead),
+    # and without a mesh the model's group is then refused
     x, ei, y, split = graph()
     mask = idx_to_mask(split["train"], N)
     model = DIFFormer(F, HIDDEN, C, num_layers=LAYERS, device="cpu")
     with pytest.raises(ValueError, match="unknown layout"):
         DistributedTrainer(model, x, ei, y, train_mask=mask, mesh=None,
                            layout="local")
-    with pytest.raises(TypeError, match="spmm"):
+    with pytest.raises(ValueError, match="unknown spmm"):
         DistributedTrainer(model, x, ei, y, train_mask=mask, mesh=None,
-                           spmm="bsr")
+                           spmm="ell")
+    for kw in (dict(layout="balanced"), dict(balance_edges=True),
+               dict(layout="locality")):
+        with pytest.warns(UserWarning, match="uniform tile-aligned shards"), \
+                pytest.raises(ValueError, match="axis_name=mesh.group"):
+            DistributedTrainer(model, x, ei, y, train_mask=mask, mesh=None,
+                               spmm="bsr", **kw)
 
 
 def test_one_process_is_no_cluster(monkeypatch):

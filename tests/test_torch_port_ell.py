@@ -180,7 +180,8 @@ def test_wrapper_checks_its_inputs():
 
 
 def test_unknown_layout_names_the_parallel_layer():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # the layouts it takes, the parallel layer's BsrShard among them
+    with pytest.raises(TypeError, match="BsrShard"):
         E.gcn_conv_ell(torch.zeros(4, 2), object(), object())
 
 

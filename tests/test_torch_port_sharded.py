@@ -25,7 +25,18 @@ parity rule:
 - the same step at dropout 0.5 on 2 ranks, over several seeds, held to the
   JAX step's distribution of losses (the two draw their masks from
   different generators, so no step can match), with each rank's dropout
-  stream reproducible from (seed, rank) and the ranks' masks different.
+  stream reproducible from (seed, rank) and the ranks' masks different;
+- the ring (``comm.ring_shift``, against ``np.roll``, and its gradient);
+  the ring sigmoid attention and its q, k and v gradients against the JAX
+  ``sigmoid_attention_sharded``, with and without a key mask, within rtol
+  1e-4 / atol 1e-5 (gradients 2e-4 / 2e-5, tests/test_sharded.py's);
+- ``bsr_spmm_sharded`` of the node-sharded block-sparse hybrid and its
+  gradient against the JAX package's, int8 counts and value blocks on
+  tests/test_bsr.py's clustered graph (rtol 1e-4 / atol 1e-5), and with a
+  NaN in x, which must spread as it does there;
+- the train step of DIFFormer-a on the ring, of DIFFormer-s on the hybrid
+  (``ell=``, the rank's ``BsrShard`` pair) and of both at once, against
+  the JAX ``make_sharded_train_step``.
 """
 
 import jax
@@ -36,6 +47,7 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 from difformer_tpu.nn import DIFFormer as JDIFFormer
+from difformer_tpu.ops import bsr as JB
 from difformer_tpu.ops import linear_attention as jla
 from difformer_tpu.parallel import make_mesh as jax_make_mesh
 from difformer_tpu.parallel import partition as JP
@@ -46,6 +58,7 @@ from difformer_tpu.parallel.api import (_senders_and_halo,
 from difformer_tpu.train.optim import torch_adam
 from difformer_tpu_torch import DIFFormer
 from difformer_tpu_torch.data import random_graph, standard_preprocess
+from difformer_tpu_torch.ops import bsr as B
 from difformer_tpu_torch.parallel import partition as PP
 from difformer_tpu_torch.parallel.launch import run_ranks
 from difformer_tpu_torch.parallel.rank_checks import run_checks
@@ -63,6 +76,17 @@ FLAVOURS = ("gather", "halo", "overlap", "locality")
 # losses may differ by at most DROP_Z standard errors
 DROPOUT, DROP_SEEDS, DROP_STEPS = 0.5, 128, 5
 DROP_Z = 4.0
+# the ring attention's tolerances (tests/test_sharded.py) and the hybrid's
+# graph, tile and threshold (tests/test_bsr.py), its product BSR_W wide
+RING_TOL, RING_GRAD_TOL = dict(rtol=1e-4, atol=1e-5), dict(rtol=2e-4,
+                                                          atol=2e-5)
+BSR_N, BSR_TILE, BSR_MIN_EDGES, BSR_W = 512, 32, 6, 16
+# the hybrid under the train step: the model's graph at T = 16, a third of
+# its tiles dense at 24 edges (the rest the residual); 4 ranks pad it
+TRAIN_TILE, TRAIN_MIN_EDGES = 16, 24
+# the train-step flavours of this slice: DIFFormer-a on the ring, -s on
+# the hybrid, and both
+SLICE_FLAVOURS = ("ring", "bsr", "ring-bsr")
 
 
 def graph():
@@ -90,9 +114,37 @@ def partitions(package, world, x, ei, y, mask):
 
 def model_kw(flavour):
     heads = 2 if flavour == "locality" else 1
-    return dict(in_channels=F, hidden_channels=HIDDEN, out_channels=C,
-                num_layers=LAYERS, num_heads=heads, dropout=0.0,
-                spmm_first=flavour == "locality")
+    kw = dict(in_channels=F, hidden_channels=HIDDEN, out_channels=C,
+              num_layers=LAYERS, num_heads=heads, dropout=0.0,
+              spmm_first=flavour == "locality")
+    if flavour.startswith("ring"):
+        kw["kernel"] = "sigmoid"
+    return kw
+
+
+def bsr_graph():
+    from test_bsr import _clustered
+
+    return _clustered(BSR_N, 64, p_in=0.25, n_cross=300)
+
+
+def slice_partition(package, flavour, world, x, ei, y, mask):
+    """The partition of a train-step flavour of this slice: the all-gather
+    one for the ring, uniform TRAIN_TILE-aligned shards for the hybrid."""
+    kw = dict(labels=y, label_mask=mask)
+    if "bsr" in flavour:
+        kw.update(build_halo=False, node_align=TRAIN_TILE)
+    return package.partition_graph(x, ei, world, **kw)
+
+
+def train_layout(package, flavour, world, ei):
+    """The hybrid of a train-step flavour in ``package`` (None for the
+    ring alone)."""
+    if "bsr" not in flavour:
+        return None
+    fwd, rev, _ = package.build_bsr_gcn_sharded(
+        ei[0], ei[1], N, world, tile=TRAIN_TILE, min_edges=TRAIN_MIN_EDGES)
+    return fwd, rev
 
 
 def jax_params(kw, x, ei):
@@ -121,7 +173,30 @@ def op_inputs(world, n_loc):
         w=rng.normal(size=(F, H, D)).astype(np.float32),
         b=rng.normal(size=(H, D)).astype(np.float32),
         cot_mean=rng.normal(size=(rows, D)).astype(np.float32),
+        ring_mask=(rng.random(rows) > 0.25).astype(np.float32),
     )
+
+
+def bsr_inputs(world):
+    """The hybrid's layouts (both packages, int8 counts and value blocks)
+    and operands on ``world`` shards, x and its cotangent padded to
+    pad_n (``x_nan``: a NaN in row 0)."""
+    ei = bsr_graph()
+    rng = np.random.default_rng(100 + world)
+    out = {}
+    for name, int8 in (("int8", "auto"), ("values", False)):
+        kw = dict(tile=BSR_TILE, min_edges=BSR_MIN_EDGES, scaled_int8=int8)
+        ours = B.build_bsr_gcn_sharded(ei[0], ei[1], BSR_N, world, **kw)
+        out[name] = dict(ours=ours[:2], theirs=JB.build_bsr_gcn_sharded(
+            ei[0], ei[1], BSR_N, world, **kw)[:2])
+    pad_n = ours[2] * world
+    x = np.zeros((pad_n, BSR_W), np.float32)
+    x[:BSR_N] = rng.normal(size=(BSR_N, BSR_W))
+    cot = np.zeros_like(x)
+    cot[:BSR_N] = rng.normal(size=(BSR_N, BSR_W))
+    x_nan = x.copy()
+    x_nan[0, 0] = np.nan
+    return dict(out, x=x, cot=cot, x_nan=x_nan, rows_per=ours[2])
 
 
 @pytest.fixture(scope="module")
@@ -133,7 +208,8 @@ def runs():
     mask = np.zeros(N, bool)
     mask[: N // 2] = True
     out, every = {}, []
-    params = {f: jax_params(model_kw(f), x, ei) for f in FLAVOURS}
+    params = {f: jax_params(model_kw(f), x, ei)
+              for f in FLAVOURS + SLICE_FLAVOURS}
     for world in WORLDS:
         ours, perm = partitions(PP, world, x, ei, y, mask)
         theirs, _ = partitions(JP, world, x, ei, y, mask)
@@ -157,10 +233,38 @@ def runs():
                        weight_decay=WD) for f in FLAVOURS]
         cases += [dict(kind="conv", sg=ours[f], x=ins["x_nan"],
                        cot=ins["cot"]) for f in ("gather", "halo", "overlap")]
+        # this slice's cases, after the others (whose indices stay)
+        index = {}
+
+        def add(name, case):
+            index[name] = len(cases)
+            cases.append(case)
+
+        add("shift", dict(kind="shift", x=ins["x"], cot=ins["cot"],
+                          n_loc=n_loc))
+        ring = dict(kind="ring", q=ins["q"], k=ins["k"], v=ins["v"],
+                    cot=ins["cot"], n_loc=n_loc)
+        add("ring", ring)
+        add("ring-masked", dict(ring, key_mask=ins["ring_mask"]))
+        bins = bsr_inputs(world)
+        for name in ("int8", "values"):
+            add(f"bsr-{name}", dict(kind="bsr", layout=bins[name]["ours"],
+                                    x=bins["x"], cot=bins["cot"]))
+        add("bsr-nan", dict(kind="bsr", layout=bins["int8"]["ours"],
+                            x=bins["x_nan"], cot=bins["cot"]))
+        slice_sg = {f: (slice_partition(PP, f, world, x, ei, y, mask),
+                        slice_partition(JP, f, world, x, ei, y, mask))
+                    for f in SLICE_FLAVOURS}
+        for f in SLICE_FLAVOURS:
+            add(f"train-{f}", dict(
+                kind="train", sg=slice_sg[f][0], params=params[f],
+                model_kw=model_kw(f), steps=STEPS, lr=LR, weight_decay=WD,
+                ell=train_layout(B, f, world, ei)))
         every += [dict(case, world=world) for case in cases]
         out[world] = dict(ins=ins, ours=ours, theirs=theirs, perm=perm,
                           params=params, x=x, ei=ei, y=y, mask=mask,
-                          n_loc=n_loc, cases=len(cases))
+                          n_loc=n_loc, cases=len(cases), index=index,
+                          bsr=bins, slice_sg=slice_sg)
     # sharded dropout on 2 ranks, last
     drop = out[2]
     every.append(dict(kind="dropout", world=2, sg=drop["ours"]["overlap"],
@@ -270,16 +374,17 @@ def jax_loss_fn(logits, labels, mask):
     return -jnp.sum(ll * m), jnp.sum(m)
 
 
-def jax_train(flavour, sg, params, world):
+def jax_train(flavour, sg, params, world, ell=None):
     kw = model_kw(flavour)
     model = JDIFFormer(hidden_channels=HIDDEN, out_channels=C,
                        num_layers=LAYERS, num_heads=kw["num_heads"],
                        dropout=0.0, spmm_first=kw["spmm_first"],
-                       axis_name="graph")
+                       kernel=kw.get("kernel", "simple"), axis_name="graph")
     mesh = jax_mesh(world)
-    logits0 = np.asarray(jax.jit(sharded_apply(model, mesh))(params, sg))
+    logits0 = np.asarray(jax.jit(sharded_apply(model, mesh, ell=ell))(
+        params, sg))
     tx = torch_adam(LR, WD)
-    step = make_sharded_train_step(model, mesh, tx, jax_loss_fn)
+    step = make_sharded_train_step(model, mesh, tx, jax_loss_fn, ell=ell)
     params = jax.tree_util.tree_map(jnp.asarray, params)
     opt_state = tx.init(params)
     losses = []
@@ -441,15 +546,136 @@ def test_sharded_dropout_is_held_to_the_jax_distribution(runs):
         assert 0.35 < r["kept"] < 0.65
 
 
+@pytest.mark.parametrize("world", WORLDS)
+def test_ring_shift_and_its_gradient(runs, world):
+    # rank r receives rank r-1's rows; the gradient goes back to r-1
+    run = runs[world]
+    i, n_loc, ins = run["index"]["shift"], run["n_loc"], run["ins"]
+    shards = lambda a: a.reshape((world, n_loc) + a.shape[1:])  # noqa: E731
+    want = np.roll(shards(ins["x"]), 1, axis=0).reshape(ins["x"].shape)
+    grad = np.roll(shards(ins["cot"]), -1, axis=0).reshape(ins["x"].shape)
+    np.testing.assert_array_equal(stacked(run["results"], i, "out"), want)
+    np.testing.assert_array_equal(stacked(run["results"], i, "grad"), grad)
+
+
+def jax_ring(ins, world, masked):
+    """The JAX ring sigmoid attention under ``shard_map``, and its q, k, v
+    gradients of ``Σ out · cot``."""
+    def body(q, k, v, m):
+        return jso.sigmoid_attention_sharded(
+            q[0], k[0], v[0], key_mask=m[0] if masked else None,
+            axis_name="graph")[None]
+
+    f = jax.shard_map(body, mesh=jax_mesh(world),
+                      in_specs=(P("graph"),) * 4, out_specs=P("graph"))
+
+    def split(a):
+        return jnp.asarray(a.reshape((world, -1) + a.shape[1:]))
+
+    q, k, v, m, cot = (split(ins[n]) for n in ("q", "k", "v", "ring_mask",
+                                               "cot"))
+    out, grads = jax.jit(lambda q, k, v: (f(q, k, v, m), jax.grad(
+        lambda *a: jnp.sum(f(*a, m) * cot), argnums=(0, 1, 2))(q, k, v)))(
+        q, k, v)
+    return (np.asarray(out).reshape(ins["cot"].shape),
+            [np.asarray(g).reshape((-1,) + g.shape[2:]) for g in grads])
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("form", ["ring", "ring-masked"])
+def test_ring_sigmoid_attention_and_its_gradients(runs, world, form):
+    run = runs[world]
+    i, results = run["index"][form], run["results"]
+    out, grads = jax_ring(run["ins"], world, form == "ring-masked")
+    np.testing.assert_allclose(stacked(results, i, "out"), out, **RING_TOL)
+    for name, want in zip(("dq", "dk", "dv"), grads):
+        np.testing.assert_allclose(stacked(results, i, name), want,
+                                   err_msg=name, **RING_GRAD_TOL)
+    for r in results:  # the plain versions count no launch
+        assert not any(r[i]["launches"].values())
+
+
+def jax_bsr(layout, x, cot, world):
+    """The JAX ``bsr_spmm_sharded`` under ``shard_map`` and its vjp."""
+    def body(fwd, rev, xp, gp):
+        sq = lambda t: jax.tree_util.tree_map(lambda a: a[0], t)  # noqa
+        fwd, rev = sq(fwd), sq(rev)
+        y, pull = jax.vjp(lambda v: JB.bsr_spmm_sharded(fwd, rev, v), xp)
+        return y, pull(gp)[0]
+
+    f = jax.shard_map(body, mesh=jax_mesh(world),
+                      in_specs=(P("graph"),) * 4,
+                      out_specs=(P("graph"), P("graph")))
+    out, grad = jax.jit(f)(*layout, jnp.asarray(x), jnp.asarray(cot))
+    return np.asarray(out), np.asarray(grad)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("case", ["int8", "values", "nan"])
+def test_sharded_hybrid_and_its_gradient(runs, world, case):
+    run = runs[world]
+    bins = run["bsr"]
+    i, results = run["index"][f"bsr-{case}"], run["results"]
+    layout = bins["values" if case == "values" else "int8"]["theirs"]
+    x = bins["x_nan" if case == "nan" else "x"]
+    out, grad = jax_bsr(layout, x, bins["cot"], world)
+    if case == "nan":
+        # the residual's padding (value 0 on point 0) and the zero blocks
+        # that gather tile 0 carry the NaN of row 0 where the JAX package's
+        # padding does
+        assert np.isnan(out).any() and not np.isnan(out).all()
+    np.testing.assert_allclose(stacked(results, i, "out"), out, rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(stacked(results, i, "grad"), grad, rtol=1e-4,
+                               atol=1e-5)
+    for r in results:  # the plain versions count no launch
+        assert not any(r[i]["launches"].values())
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("flavour", SLICE_FLAVOURS)
+def test_ring_and_hybrid_train_step_matches_jax(runs, world, flavour):
+    run = runs[world]
+    i, results = run["index"][f"train-{flavour}"], run["results"]
+    sg = run["slice_sg"][flavour][1]
+    ell = train_layout(JB, flavour, world, run["ei"])
+    if ell is not None:
+        assert ell[0].blocks.any() and bool((ell[0].res_val != 0).any())
+    logits0, losses, params = jax_train(flavour, sg, run["params"][flavour],
+                                        world, ell=ell)
+    np.testing.assert_allclose(stacked(results, i, "logits0"), logits0,
+                               **TOL)
+    want = W.torch_state_dict_from_params(
+        jax.tree_util.tree_map(np.asarray, params))
+    for r in results:
+        np.testing.assert_allclose(r[i]["losses"], losses, **TOL)
+        assert r[i]["jax_loaded"] is False and r[i]["products"] == (
+            0 if ell is not None else 1)
+    for name in want:
+        np.testing.assert_allclose(results[0][i]["params"][name], want[name],
+                                   err_msg=name, **TOL)
+
+
 def test_unported_sharded_options_raise():
+    # what was not ported before the ring and the hybrid now runs; what
+    # stays refused is a whole-graph layout under axis_name, which would
+    # multiply a rank's rows as if they were the graph, and a rank's shard
+    # without the graph axis
     x, ei, _ = graph()
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        DIFFormer(F, HIDDEN, C, kernel="sigmoid", axis_name=object(),
+    args = (torch.from_numpy(x), torch.from_numpy(ei[0]),
+            torch.from_numpy(ei[1]))
+    ell = B.build_bsr_gcn(ei[0], ei[1], N, tile=16)
+    with pytest.raises(TypeError, match="process group"):
+        DIFFormer(F, HIDDEN, C, kernel="sigmoid", axis_name="graph",
                   device="cpu")
-    model = DIFFormer(F, HIDDEN, C, axis_name=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        model(torch.from_numpy(x), torch.from_numpy(ei[0]),
-              torch.from_numpy(ei[1]), ell=(None, None))
+    model = DIFFormer(F, HIDDEN, C, device="cpu")
+    model.convs[0].axis_name = object()  # a group, as far as the check goes
+    with pytest.raises(ValueError, match="BsrShard pair"):
+        model.convs[0](model.fcs[0](args[0]), model.fcs[0](args[0]),
+                       *args[1:], ell=ell)
+    shard = B.build_bsr_gcn_sharded(ei[0], ei[1], N, 2, tile=16)
+    with pytest.raises(ValueError, match="needs a model built with"):
+        DIFFormer(F, HIDDEN, C, device="cpu")(*args, ell=shard[:2])
 
 
 def test_a_failed_rank_fails_the_caller():
