@@ -96,6 +96,26 @@ non-zero before the last line:
    the unsharded command line's losses. Its references are made before
    phase sharded-s, and its rank cases run in the spawns of sharded-s
    (gloo) and distributed (NCCL), two spawns fewer.
+8e. dp-tp (run after distributed): data and tensor parallelism. The
+   actstrack preset's model (hidden 64, 2 layers) at dropout 0 on 1024
+   stand-in graphs, ``make_dp_train_step`` at one NCCL rank (1024 graphs)
+   and on 2 and 4 gloo ranks sharing the card (512 and 256 each), on the
+   edge list (K1) and on the dense plan, 5 steps each against the
+   unsharded graph-level step under the same rule (the trainer's model,
+   Adam and packing, one batch a shard, the BCE sums over the whole
+   count, one Adam step); the cora preset at 8 heads as DIFFormer-s
+   (every "auto" rewrite on) and DIFFormer-a, ``make_tp_train_step`` at
+   one NCCL rank (T = 1), on 2 gloo ranks (T = 2) and on the 2 x 2 graph x
+   model grid of 4 gloo ranks, 5 steps against the unsharded eager steps
+   (losses and final logits within rtol 1e-3 / atol 1e-4; the logits of
+   DIFFormer-a's grid held to the same steps in float64, as the float32
+   ones leave the rule there, and the ring alone, at weight decay 0, to
+   the unsharded steps at that decay: TP_RING_DECAY); each rank's K1
+   and K2-K4 launches, ms a step (ranks sharing one card, not a scaling
+   number); K2-K4 at a T = 2 rank's shape (N = L = 2708, H = 4, M = D =
+   64) against their plain versions, timed beside their bound. Its
+   references are made before phase sharded-s, and its rank cases run in
+   the spawns of sharded-s (gloo) and distributed (NCCL).
 9. kernels-wide (run right after the kernels phase): K2-K4 on their wide
    path at the set track's widths, M = D = 300 and 400 at N = L = 15000
    (f32 with and without a key mask, and bf16), each against its plain
@@ -1153,6 +1173,62 @@ def through_plain_versions():
     return stack
 
 
+def in_float64():
+    """A context in which the model computes in float64 where its kernels
+    take float32 and bfloat16 only: its sigmoid attention the dense form
+    (``ops/sigmoid_attention.py:sigmoid_attention_dense``) and its GCN
+    products an ``index_add`` over the GCN values of the edges, in the
+    input's dtype."""
+    import difformer_tpu_torch.nn.difformer as difformer_module
+    from difformer_tpu_torch.ops.graph_ops import gcn_norm_weights_masked
+    from difformer_tpu_torch.ops.sigmoid_attention import (
+        sigmoid_attention_dense)
+
+    def gcn(x, senders, receivers, edge_weight=None, *, num_nodes=None,
+            edge_mask=None, **_):
+        n = x.shape[0] if num_nodes is None else num_nodes
+        w = gcn_norm_weights_masked(senders, receivers, n, edge_weight,
+                                    edge_mask).to(x.dtype)
+        msg = x.index_select(0, senders.long()) * w.reshape(
+            (-1,) + (1,) * (x.dim() - 1))
+        return x.new_zeros((n,) + tuple(x.shape[1:])).index_add(
+            0, receivers.long(), msg)
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(unittest.mock.patch.object(
+        difformer_module, "sigmoid_attention",
+        lambda q, k, v, key_mask=None: sigmoid_attention_dense(
+            q, k, v, key_mask=key_mask)))
+    stack.enter_context(unittest.mock.patch.object(difformer_module,
+                                                   "gcn_conv", gcn))
+    return stack
+
+
+def exact_reference(cfg, params, steps):
+    """:func:`sharded_reference`'s steps from ``params`` in float64: the
+    weights, the features and Adam in float64, the model
+    :func:`in_float64`. Returns the logits after the steps, numpy
+    float64."""
+    from difformer_tpu_torch.train.optim import torch_adam
+
+    trainer, split, n, _ = make_slice(cfg)
+    state = trainer.init_state(0, init_params=params)
+    state.model.double()
+    trainer.graph.node_feat = trainer.graph.node_feat.double()
+    state.optimizer = torch_adam(state.model.parameters(), cfg.lr,
+                                 cfg.weight_decay)
+    mask = torch.as_tensor(np.isin(np.arange(n), split["train"]),
+                           device="cuda")
+    with in_float64():
+        for _ in range(steps):
+            trainer.train_step(state, None, mask)
+        logits = trainer.forward_eval(state).cpu().numpy()
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return logits
+
+
 def preset_model(cfg, f, c, **model_kw):
     """DIFFormer as the command line builds it for preset ``cfg`` (``f``
     features, ``c`` outputs) on the card, with the model options
@@ -1607,17 +1683,17 @@ def sharded_model_kw(cfg, f, c):
                 fuse_head_mean=cfg.fuse_head_mean)
 
 
-def sharded_reference(cfg, steps):
+def sharded_reference(cfg, steps, phase="sharded-s", params=None):
     """The unsharded run the sharded ones follow: the trainer of
-    :func:`make_slice` (preset ``cfg``), its weights as a params tree,
-    then ``steps`` eager train steps, each timed (host clock,
-    synchronised; the median of the steps after the first is printed).
-    Returns (params, train mask, losses, logits after the steps),
-    numpy."""
+    :func:`make_slice` (preset ``cfg``), its weights (``params``, a params
+    tree, where given) as a params tree, then ``steps`` eager train
+    steps, each timed (host clock, synchronised; the median of the steps
+    after the first is printed). Returns (params, train mask, losses,
+    logits after the steps), numpy."""
     from difformer_tpu_torch.utils.weights import params_from_torch_state_dict
 
     trainer, split, n, _ = make_slice(cfg)
-    state = trainer.init_state(0)
+    state = trainer.init_state(0, init_params=params)
     params = params_from_torch_state_dict(state.model.state_dict())
     train_mask = np.isin(np.arange(n), split["train"])
     mask_t = torch.as_tensor(train_mask, device="cuda")
@@ -1629,7 +1705,7 @@ def sharded_reference(cfg, steps):
         losses.append(trainer.train_step(state, gen, mask_t)[1])
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-    say(f"phase sharded-s: the unsharded eager step (heads "
+    say(f"phase {phase}: the unsharded eager step (heads "
         f"{cfg.num_heads}, spmm_first {cfg.spmm_first}): "
         f"{float(np.median(times[1:])):.2f} ms (host clock, median of "
         f"steps 2-{steps})")
@@ -1792,7 +1868,8 @@ def phase_sharded_s(extra=()):
     and flavour 2b (the locality layout, spmm_first at 2 heads) against
     its own unsharded run. Each rank's K1 launches are its plans'
     products × layers × steps each way. ``extra``: cases of another phase
-    (each with its ``world``) run in the same gloo spawn, one spawn of
+    (each with its ``world``, or a ``grid`` of every rank) run in the same
+    gloo spawn, one spawn of
     ranks fewer. Returns (the JSON rows of (a), K1's launches of the 4-rank
     halo run summed over its ranks, the NCCL run's host ms a step by
     exchange, each extra case's results on its ranks)."""
@@ -1878,7 +1955,9 @@ def phase_sharded_s(extra=()):
     say(f"phase sharded-s: gloo, {max(SHARDED_WORLDS)} ranks: "
         f"{time.perf_counter() - t1:.1f} s in run_ranks (with "
         f"{len(extra)} cases of another phase)")
-    extra_results = [[o[base + i] for o in every[:case["world"]]]
+    # a case on a grid runs on every rank
+    extra_results = [[o[base + i] for o in every[:case.get("world",
+                                                           len(every))]]
                      for i, case in enumerate(extra)]
     halo_launches = None
     for w, world in enumerate(SHARDED_WORLDS):
@@ -2217,17 +2296,29 @@ BSR_SHARD_REPLACES = "difformer_tpu/ops/bsr.py:781"
 def ring_kernel_rows(mask):
     """K2 (the raw numerator and denominator the ring sums), K3 and K4 at
     one ring step of the cora preset on 2 ranks (N_loc = L = 1354, the
-    length of the shard's key mask ``mask``; H = 1, M = D = 64, f32) against their
-    plain versions under ``kernels/tolerance.py`` (shown to fail a wrong
-    output), two calls bit-equal, timed by CUDA-graph replay beside the
-    plain version's device time and the bound. Returns the JSON rows."""
+    length of the shard's key mask ``mask``; H = 1, M = D = 64, f32)
+    (:func:`step_kernel_rows`). Returns the JSON rows."""
+    n = len(mask)
+    return step_kernel_rows(
+        "sharded-a-bsr", f"ring step N_loc=L={n} H=1 M=64 D=64 f32",
+        RING_JSON, n, 1, mask, normalize=False)
+
+
+def step_kernel_rows(phase, label, suffix, n, h, mask, normalize):
+    """K2 (normalised, or the raw numerator and denominator the ring
+    sums), K3 and K4 at N = L = ``n``, ``h`` heads, M = D = 64, f32, with
+    the key mask ``mask`` (or none) against their plain versions under
+    ``kernels/tolerance.py`` (shown to fail a wrong output), two calls
+    bit-equal, timed by CUDA-graph replay beside the plain version's
+    device time and the bound. Returns the JSON rows, named with
+    ``suffix``."""
     from difformer_tpu_torch.kernels import sigmoid_attention as K
     from difformer_tpu_torch.kernels.tolerance import assert_close
 
-    n, h, m, d, dtype = len(mask), 1, 64, 64, torch.float32
+    m, d, dtype = 64, 64, torch.float32
     q, k, v, _, g = attention_case(n, n, h, m, d, dtype, False, 22)
-    mask = torch.as_tensor(mask, dtype=torch.float32, device="cuda")
-    label = f"ring step N_loc=L={n} H={h} M={m} D={d} f32"
+    if mask is not None:
+        mask = torch.as_tensor(mask, dtype=torch.float32, device="cuda")
     num, den = K.sigmoid_attention_fwd(q, k, v, mask, normalize=False)
     r_num, r_den = K.sigmoid_attention_fwd_plain(q, k, v, mask,
                                                  normalize=False)
@@ -2235,8 +2326,14 @@ def ring_kernel_rows(mask):
         assert_close(f"fwd num {label}", num, r_num, "num", den=r_den),
         assert_close(f"fwd den {label}", den, r_den, "den"))}
     assert_rejects(f"num {label}", r_num, "num", r_den)
-    # the cotangents of the ring's num / den, with this step's den as the
-    # whole sum
+    if normalize:
+        out, den_n = K.sigmoid_attention_fwd(q, k, v, mask)
+        r_out, r_den_n = K.sigmoid_attention_fwd_plain(q, k, v, mask)
+        errs["sigmoid_attention_fwd"] = max(
+            assert_close(f"fwd out {label}", out, r_out, "out"),
+            assert_close(f"fwd den {label}", den_n, r_den_n, "den"))
+        assert_rejects(f"out {label}", r_out, "out")
+    # the cotangents of num / den, with this step's den as the whole sum
     dnum = g / den[..., None]
     dden = -(g * (num / den[..., None])).sum(-1) / den
     r_dq = K.sigmoid_attention_dq_plain(q, k, v, mask, dnum, dden)
@@ -2252,9 +2349,10 @@ def ring_kernel_rows(mask):
         assert_rejects(f"{name} {label}", ref, "grad")
     cases = {
         "sigmoid_attention_fwd": (
-            lambda: K.sigmoid_attention_fwd(q, k, v, mask, normalize=False),
+            lambda: K.sigmoid_attention_fwd(q, k, v, mask,
+                                            normalize=normalize),
             lambda: K.sigmoid_attention_fwd_plain(q, k, v, mask,
-                                                  normalize=False)),
+                                                  normalize=normalize)),
         "sigmoid_attention_dq": (
             lambda: K.sigmoid_attention_dq(q, k, v, mask, dnum, dden),
             lambda: K.sigmoid_attention_dq_plain(q, k, v, mask, dnum, dden)),
@@ -2272,13 +2370,14 @@ def ring_kernel_rows(mask):
             raise AssertionError(f"{name} {label}: two calls differ")
         ms, plain_ms = replay_ms(kernel), device_ms(plain)
         bound, bound_by = bound_ms(name, n, n, h, m, d, dtype)
-        say(f"phase sharded-a-bsr: {name:22s} {label} (keys masked "
-            f"{int((mask == 0).sum())}) max_abs_err {errs[name]:.3e}, two "
+        masked = 0 if mask is None else int((mask == 0).sum())
+        say(f"phase {phase}: {name:22s} {label} (keys masked "
+            f"{masked}) max_abs_err {errs[name]:.3e}, two "
             f"calls bit-equal | kernel {ms:.4f} ms (CUDA-graph replay) | "
             f"plain {plain_ms:.4f} ms | bound {bound:.4f} ms by {bound_by} "
             f"({100 * bound / ms:.1f}% of the kernel's time) | no PyTorch "
             f"call computes it")
-        rows[f"{name}{RING_JSON}"] = dict(
+        rows[f"{name}{suffix}"] = dict(
             max_abs_err=errs[name], ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_by=bound_by, library_ms=None)
     return rows
@@ -2666,6 +2765,371 @@ def phase_sharded_a_bsr(tmp, setup, nccl, gloo):
         atol=1e-4)
     say(f"phase sharded-a-bsr: done in {time.perf_counter() - t0:.1f} s")
     return rows, launches_ring, launches_hybrid
+
+
+# phase dp-tp: data parallelism over padded graph batches and tensor
+# parallelism over heads (parallel/data_parallel.py, tensor_parallel.py)
+DP_WORLDS = (1, 2, 4)        # one NCCL rank; gloo ranks sharing the card
+DP_PLANS = ("edges", "dense")
+TP_LAYOUTS = ("nccl-1", "gloo-2", "grid-2x2")
+TP_HEADS = 8                 # slice-s-h8's model: every "auto" rewrite on
+TP_JSON = " tp"              # K2-K4's JSON rows at a TP rank's shape
+# DIFFormer-a at TP_HEADS heads with the preset's weight decay: the
+# unsharded float32 steps end SHARDED_STEPS Adam steps farther from the
+# same steps in float64 (exact_reference) than the logit rule allows, and
+# the node-sharded ring, whose attention sums over keys are cut across
+# ranks, ends within the rule of the float64 steps but not of the float32
+# ones; at weight decay 0 the ring follows the float32 steps within the
+# rule (PERF.md §6).
+# So the grid (preset decay) is held to the float64 steps under the
+# rule, the node-sharded ring alone runs at decay 0 and is held to the
+# float32 steps at decay 0 under the rule, and every other run to the
+# unsharded float32 steps
+TP_RING_DECAY = 0.0
+
+
+def dp_model_kw(f):
+    """The actstrack preset's model (:func:`graph_level_trainer`'s) at
+    dropout 0 as ``data_parallel.dp_model`` takes it."""
+    from difformer_tpu_torch.utils.config import make_config
+
+    cfg = make_config("actstrack")
+    return dict(in_channels=f, hidden_channels=cfg.hidden_channels,
+                out_channels=cfg.hidden_channels, num_layers=cfg.num_layers,
+                kernel=cfg.kernel, alpha=cfg.alpha, dropout=0.0,
+                use_bn=cfg.use_bn, use_residual=cfg.use_residual,
+                use_weight=cfg.use_weight, use_graph=cfg.use_graph,
+                graph_weight=cfg.graph_weight,
+                graph_pooling=cfg.graph_pooling)
+
+
+def dp_reference(graphs, params, world, plan, steps):
+    """The unsharded graph-level step under the data-parallel rule: the
+    actstrack preset's ``GraphLevelTrainer`` model and Adam (dropout 0)
+    from ``params``, its batches of ``len(graphs) / world`` graphs on
+    ``plan`` packed as the trainer packs them
+    (``graph_level.batch_layout``, through ``data_parallel.device_batch``);
+    each eager step sums the BCE of its ``world`` batches over their graph
+    count, then one Adam step. Returns (losses, logits [len(graphs)] after
+    the steps in eval mode, host ms a step, the median after the
+    first)."""
+    import dataclasses
+
+    from difformer_tpu_torch.data.batching import batch_iterator, dense_adj
+    from difformer_tpu_torch.parallel.data_parallel import (device_batch,
+                                                            dp_forward)
+    from difformer_tpu_torch.train.graph_level import bce_sum_count
+
+    b = len(graphs) // world
+    trainer = graph_level_trainer(graphs, "simple", use_graphs=False,
+                                  batch=b, dropout=0.0)
+    state = trainer.init_state(0, init_params=params)
+    batches = []
+    for batch in batch_iterator(graphs, np.arange(len(graphs)), b,
+                                max_nodes=trainer.max_nodes,
+                                max_edges=trainer.max_edges):
+        if plan == "dense":
+            batch = dataclasses.replace(batch, dense_adj=dense_adj(batch))
+        batches.append(device_batch(batch, "cuda"))
+    if any(db.layout.plan != plan for db in batches):
+        raise AssertionError(f"the reference's plan is not {plan}")
+    model, opt = state.model, state.optimizer
+    count = float(sum(db.views["graph_mask"].sum().item() for db in batches))
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        total = 0.0
+        for db in batches:
+            s, _ = bce_sum_count(dp_forward(model, db), db.views["labels"],
+                                 db.views["graph_mask"] != 0)
+            (s / count).backward()
+            total = total + s.detach()
+        opt.step()
+        losses.append(total / count)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    model.eval()
+    with torch.no_grad():
+        logits = [dp_forward(model, db) for db in batches]
+    return (torch.stack(losses).cpu().numpy(),
+            torch.cat(logits).cpu().numpy(), float(np.median(times[1:])))
+
+
+def dp_tp_setup():
+    """The references and the rank cases of phase dp-tp, made before phase
+    sharded-s: (a) data parallelism: the actstrack preset's model at
+    dropout 0 on ``ACTSTRACK_BATCH`` stand-in graphs cut into 1, 2 and 4
+    shards, each on both conv plans (``shard_batches``), from one set of
+    weights, with the unsharded reference of each (:func:`dp_reference`);
+    (b) tensor parallelism: the cora preset at ``TP_HEADS`` heads as
+    DIFFormer-s (every "auto" rewrite on) and DIFFormer-a, its unsharded
+    eager steps (:func:`sharded_reference`) and the partition of the
+    2 × 2 grid's graph axis (the overlapped halo); for DIFFormer-a also
+    the same steps in float64 (:func:`exact_reference`), the steps at
+    weight decay ``TP_RING_DECAY`` and the node-sharded ring alone on that
+    partition at that decay (``api.train_sharded``, 2 ranks, every head on
+    each).
+    ``nccl``: the cases at one NCCL rank (phase distributed's spawn);
+    ``gloo``: those on 2 gloo ranks and on the grid of 4 (phase
+    sharded-s's spawn), then the ring's."""
+    from difformer_tpu_torch.parallel import partition_graph
+    from difformer_tpu_torch.parallel.data_parallel import (dp_model,
+                                                            shard_batches)
+    from difformer_tpu_torch.utils.config import make_config
+    from difformer_tpu_torch.utils.weights import v2_params_from_state_dict
+
+    t0 = time.perf_counter()
+    graphs = actstrack_standin(ACTSTRACK_BATCH, seed=17)
+    f = graphs[0][0].shape[1]
+    kw = dp_model_kw(f)
+    params = v2_params_from_state_dict(
+        {k: v.cpu().numpy() for k, v in dp_model(kw, "cpu").state_dict()
+         .items()})
+    max_nodes = max(g[0].shape[0] for g in graphs)
+    max_e = max(g[1].shape[1] for g in graphs)
+    dp = {}
+    for world in DP_WORLDS:
+        for plan in DP_PLANS:
+            b = ACTSTRACK_BATCH // world
+            stacked = next(iter(shard_batches(
+                graphs, np.arange(ACTSTRACK_BATCH), b, world,
+                max_nodes=max_nodes, max_edges=b * max_e,
+                dense_plan=plan == "dense")))
+            dp[world, plan] = dict(
+                ref=dp_reference(graphs, params, world, plan, SHARDED_STEPS),
+                case=dict(kind="dp", stacked=stacked, params=params,
+                          model_kw=kw, steps=SHARDED_STEPS,
+                          lr=make_config("actstrack").lr,
+                          weight_decay=make_config("actstrack").weight_decay,
+                          **({} if world == 1 else dict(world=world))))
+            say(f"phase dp-tp: the unsharded graph-level step under the "
+                f"data-parallel rule, {world} batch(es) of {b} graphs, "
+                f"{plan} plan: {dp[world, plan]['ref'][2]:.2f} ms a step "
+                f"(host clock, median of steps 2-{SHARDED_STEPS})")
+
+    x, ei, y = cora_graph()
+    (n, f_), c = x.shape, int(y.max()) + 1
+    tp = {}
+    for kernel in ("simple", "sigmoid"):
+        cfg = make_config("cora", dropout=0.0, num_heads=TP_HEADS,
+                          kernel=kernel)
+        ref = sharded_reference(cfg, SHARDED_STEPS, phase="dp-tp")
+        extra = {}
+        if kernel == "sigmoid":
+            exact = exact_reference(cfg, ref[0], SHARDED_STEPS)
+            extra = dict(exact=exact, ref_ring=sharded_reference(
+                make_config("cora", dropout=0.0, num_heads=TP_HEADS,
+                            kernel=kernel, weight_decay=TP_RING_DECAY),
+                SHARDED_STEPS, phase=f"dp-tp (weight decay "
+                f"{TP_RING_DECAY:g})", params=ref[0]))
+            say(f"phase dp-tp: {kernel} at {TP_HEADS} heads: the float32 "
+                f"steps' logits from the float64 steps' (max_abs_err, "
+                f"entries of {ref[3].size} outside the rule): "
+                f"{logit_drift(ref[3], exact)}")
+        common = dict(kind="tp", params=ref[0],
+                      model_kw=sharded_model_kw(cfg, f_, c),
+                      steps=SHARDED_STEPS, lr=cfg.lr,
+                      weight_decay=cfg.weight_decay)
+        graph = (x, ei, y, ref[1])
+        sg = partition_graph(x, ei, 2, labels=y, label_mask=ref[1],
+                             build_halo=True)
+        tp[kernel] = dict(cfg=cfg, ref=ref, sg=sg, **extra, cases={
+            "nccl-1": dict(common, graph=graph),
+            "gloo-2": dict(common, graph=graph, world=2),
+            "grid-2x2": dict(common, sg=sg, grid=(2, 2))})
+    ring = dict(tp["sigmoid"]["cases"]["grid-2x2"], kind="train", world=2,
+                weight_decay=TP_RING_DECAY)
+    del ring["grid"]
+    say(f"phase dp-tp: references in {time.perf_counter() - t0:.1f} s")
+    return dict(
+        dp=dp, tp=tp, layers=make_config("cora").num_layers,
+        dp_layers=kw["num_layers"],
+        nccl=[dp[1, p]["case"] for p in DP_PLANS]
+        + [tp[k]["cases"]["nccl-1"] for k in tp],
+        gloo=[dp[w, p]["case"] for w in DP_WORLDS[1:] for p in DP_PLANS]
+        + [tp[k]["cases"][t] for k in tp for t in TP_LAYOUTS[1:]] + [ring])
+
+
+def check_dp_run(tag, outs, ref, layers, plan):
+    """Hold one data-parallel run (every rank's ``train_dp`` result) to its
+    unsharded reference under the logit rule (losses, and the logits of
+    the shards in rank order), and each rank's K1 launches to layers x
+    steps each way on the edge list, none on the dense plan. Returns each
+    rank's launches."""
+    losses = outs[0]["losses"]
+    logits = np.concatenate([o["logits"] for o in outs])
+    ref_losses, ref_logits, ref_ms = ref
+    if logits.shape != ref_logits.shape or not np.isfinite(logits).all():
+        raise AssertionError(f"{tag}: logits {logits.shape}")
+    for got, want in ((losses, ref_losses), (logits, ref_logits)):
+        torch.testing.assert_close(torch.from_numpy(got),
+                                   torch.from_numpy(want), rtol=1e-3,
+                                   atol=1e-4)
+    want = SHARDED_STEPS * layers if plan == "edges" else 0
+    for rank, out in enumerate(outs):
+        if out["jax_loaded"] or out["plan"] != plan:
+            raise AssertionError(f"{tag}: rank {rank} imported JAX or ran "
+                                 f"the {out['plan']} plan")
+        if any(out["launches"].get(name, 0) != want for name in SPMM_NAMES):
+            raise AssertionError(f"{tag}: rank {rank} launched K1 "
+                                 f"{out['launches']}, expected {want} each "
+                                 f"way")
+    say(f"phase dp-tp: dp {tag}, {plan} plan: losses {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f} (unsharded {ref_losses[0]:.6f} -> "
+        f"{ref_losses[-1]:.6f}, max_abs_err "
+        f"{np.abs(losses - ref_losses).max():.3e}); logits max_abs_err "
+        f"{np.abs(logits - ref_logits).max():.3e} | K1 a rank "
+        f"{[o['launches'].get('csr_spmm', 0) for o in outs]} forward, "
+        f"{[o['launches'].get('csr_spmm_transposed', 0) for o in outs]} "
+        f"transposed | {max(o['step_ms'] for o in outs):.2f} ms a step "
+        f"(host clock, median, slowest rank; ranks sharing one card, not a "
+        f"scaling number; unsharded {ref_ms:.2f}) | set-up "
+        f"{max(o['setup_s'] for o in outs):.1f} s")
+    return [o["launches"] for o in outs]
+
+
+def hold_split_sums(tag, logits, setup):
+    """Hold the final logits of a DIFFormer-a run on the ring (the grid) to
+    the float64 steps under the logit rule (``TP_RING_DECAY``'s comment);
+    returns its distances from them and from the float32 steps for the
+    print."""
+    ref, exact = setup["ref"][3], setup["exact"]
+    got, outside = logit_drift(logits, ref)
+    far, far_out = logit_drift(logits, exact)
+    text = (f"logits max_abs_err {far:.3e} from the float64 steps, "
+            f"{far_out} of {ref.size} outside the rule (the float32 steps "
+            f"{logit_drift(ref, exact)[0]:.3e}, "
+            f"{logit_drift(ref, exact)[1]} outside); {got:.3e} from the "
+            f"float32 steps, {outside} outside")
+    torch.testing.assert_close(torch.from_numpy(logits.astype(np.float64)),
+                               torch.from_numpy(exact), rtol=1e-3,
+                               atol=1e-4, msg=lambda m: f"{tag}: {text}\n{m}")
+    return text
+
+
+def check_tp_run(tag, kernel, outs, setup, layers):
+    """Hold one tensor-parallel run (every rank's ``train_tp`` result) to
+    the unsharded eager steps: the losses under the logit rule, the final
+    logits under it too, or, where DIFFormer-a's attention runs on the
+    ring (a graph axis), to the float64 steps (:func:`hold_split_sums`);
+    and each rank's
+    launches: K1 its products x layers x steps each way; with the sigmoid
+    kernel K2, K3 and K4 layers x steps x the ring's steps (the graph
+    axis's size). Returns the launches summed over the ranks."""
+    _, _, ref_losses, ref_logits = setup["ref"]
+    losses = outs[0]["losses"]
+    graph_ranks = 1 + max(o["graph_rank"] for o in outs)
+    rows = np.concatenate([o["logits"] for o in sorted(
+        (o for o in outs if o["model_rank"] == 0),
+        key=lambda o: o["graph_rank"])])
+    real = setup["sg"].node_mask.reshape(-1)
+    logits = rows if graph_ranks == 1 else rows[real]
+    if logits.shape != ref_logits.shape or not np.isfinite(logits).all():
+        raise AssertionError(f"{tag}: logits {logits.shape}")
+    torch.testing.assert_close(torch.from_numpy(losses),
+                               torch.from_numpy(ref_losses), rtol=1e-3,
+                               atol=1e-4)
+    if kernel == "sigmoid" and graph_ranks > 1:
+        held = hold_split_sums(f"tp {tag}, {kernel}", logits, setup)
+    else:
+        torch.testing.assert_close(torch.from_numpy(logits),
+                                   torch.from_numpy(ref_logits), rtol=1e-3,
+                                   atol=1e-4)
+        held = (f"logits max_abs_err "
+                f"{np.abs(logits - ref_logits).max():.3e}")
+        if "exact" in setup:
+            held += (f" (from the float64 steps, with the entries outside "
+                     f"the rule: {logit_drift(logits, setup['exact'])})")
+    total = {}
+    for rank, out in enumerate(outs):
+        want = {name: SHARDED_STEPS * layers * out["products"]
+                for name in SPMM_NAMES}
+        if kernel == "sigmoid":
+            want.update({name: SHARDED_STEPS * layers * graph_ranks
+                         for name in REPLACES})
+        if out["jax_loaded"] or any(out["launches"].get(k, 0) != v
+                                    for k, v in want.items()):
+            raise AssertionError(f"{tag}: rank {rank} launched "
+                                 f"{out['launches']}, expected {want}")
+        for k, v in out["launches"].items():
+            total[k] = total.get(k, 0) + v
+    say(f"phase dp-tp: tp {tag}, {kernel} at {TP_HEADS} heads: losses "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f} (unsharded "
+        f"{ref_losses[0]:.6f} -> {ref_losses[-1]:.6f}, max_abs_err "
+        f"{np.abs(losses - ref_losses).max():.3e}); {held} | launches a "
+        f"rank "
+        f"{[o['launches'] for o in outs]} | "
+        f"{max(o['step_ms'] for o in outs):.2f} ms a step (host clock, "
+        f"median, slowest rank; ranks sharing one card, not a scaling "
+        f"number) | set-up {max(o['setup_s'] for o in outs):.1f} s")
+    return total
+
+
+def phase_dp_tp(setup, nccl, gloo):
+    """ROADMAP.md queue A item 10c on the results of :func:`dp_tp_setup`'s
+    cases (``nccl`` from phase distributed's spawn, ``gloo`` from phase
+    sharded-s's): (a) the data-parallel step (``make_dp_train_step``) of
+    the actstrack preset's model at dropout 0, ``SHARDED_STEPS`` steps on
+    1024 graphs as one NCCL rank's batch, two gloo ranks' of 512 and four
+    of 256, on the edge list (K1) and on the dense plan, each against the
+    unsharded graph-level step under the same rule (losses and logits
+    within rtol 1e-3 / atol 1e-4); (b) the head-sharded step
+    (``make_tp_train_step``) of the cora preset at ``TP_HEADS`` heads, as
+    DIFFormer-s and -a, at one NCCL rank (T = 1), on 2 gloo ranks (T = 2)
+    and on the 2 × 2 graph × model grid of 4 gloo ranks, against the
+    unsharded eager steps (:func:`check_tp_run`; the node-sharded ring
+    alone at weight decay ``TP_RING_DECAY`` to the steps at that decay);
+    each rank's K1 and K2–K4 launches
+    and ms a step; (c) K2–K4 at a T = 2 rank's shape (N = L = 2708, H = 4, M = D =
+    64) against their plain versions, timed beside their bound. Returns
+    (the JSON rows of (c), the K2–K4 launches of the T = 2 DIFFormer-a run
+    summed over its ranks)."""
+    t0 = time.perf_counter()
+    nccl_dp, nccl_tp = nccl[:len(DP_PLANS)], nccl[len(DP_PLANS):]
+    n_dp = len(DP_PLANS) * (len(DP_WORLDS) - 1)
+    gloo_dp, gloo_tp, ring = gloo[:n_dp], gloo[n_dp:-1], gloo[-1]
+    runs = {(1, p): out for p, out in zip(DP_PLANS, nccl_dp)}
+    runs.update({key: out for key, out in zip(
+        [(w, p) for w in DP_WORLDS[1:] for p in DP_PLANS], gloo_dp)})
+    for (world, plan), outs in runs.items():
+        check_dp_run("nccl, 1 rank" if world == 1 else
+                     f"gloo, {world} ranks on one card", outs,
+                     setup["dp"][world, plan]["ref"], setup["dp_layers"],
+                     plan)
+    tp_runs = {(k, "nccl-1"): out for k, out in zip(setup["tp"], nccl_tp)}
+    tp_runs.update({key: out for key, out in zip(
+        [(k, t) for k in setup["tp"] for t in TP_LAYOUTS[1:]], gloo_tp)})
+    launches = None
+    sig = setup["tp"]["sigmoid"]
+    ring_logits = np.concatenate([o["logits"] for o in ring])[
+        sig["sg"].node_mask.reshape(-1)]
+    _, _, want_losses, want_logits = sig["ref_ring"]
+    for got, want in ((ring[0]["losses"], want_losses),
+                      (ring_logits, want_logits)):
+        torch.testing.assert_close(torch.from_numpy(got),
+                                   torch.from_numpy(want), rtol=1e-3,
+                                   atol=1e-4)
+    say(f"phase dp-tp: the node-sharded ring alone on the grid's partition "
+        f"(2 gloo ranks, {TP_HEADS} heads each) at weight decay "
+        f"{TP_RING_DECAY:g}: losses max_abs_err "
+        f"{np.abs(ring[0]['losses'] - want_losses).max():.3e}, logits "
+        f"max_abs_err, entries outside the rule "
+        f"{logit_drift(ring_logits, want_logits)} from the unsharded steps "
+        f"at that decay")
+    for (kernel, layout), outs in tp_runs.items():
+        total = check_tp_run(layout, kernel, outs, setup["tp"][kernel],
+                             setup["layers"])
+        if kernel == "sigmoid" and layout == "gloo-2":
+            launches = total
+    rows = step_kernel_rows(
+        "dp-tp", f"T = 2 rank N=L=2708 H={TP_HEADS // 2} M=D=64 f32",
+        TP_JSON, 2708, TP_HEADS // 2, None, normalize=True)
+    say(f"phase dp-tp: done in {time.perf_counter() - t0:.1f} s (its rank "
+        f"cases ran in the spawns of phases sharded-s and distributed)")
+    return rows, launches
 
 
 def phase_kernels_wide():
@@ -3973,11 +4437,11 @@ def write_actstrack_cache(root, graphs, seed=42):
 
 
 def graph_level_trainer(graphs, kernel, use_graphs=True,
-                        batch=ACTSTRACK_BATCH):
+                        batch=ACTSTRACK_BATCH, dropout=None):
     """The actstrack preset's model (DIFFormer-v2, hidden 64, 2 layers,
-    dropout 0.4, mean pooling) and ``GraphLevelTrainer`` (lr 1.5e-3, wd
-    1e-3, ROC-AUC) over ``graphs`` on the card, at ``batch`` graphs a
-    batch."""
+    dropout 0.4 unless ``dropout`` is given, mean pooling) and
+    ``GraphLevelTrainer`` (lr 1.5e-3, wd 1e-3, ROC-AUC) over ``graphs`` on
+    the card, at ``batch`` graphs a batch."""
     from difformer_tpu_torch.nn.difformer_v2 import (
         DIFFormerV2,
         GraphLevelModel,
@@ -3986,6 +4450,8 @@ def graph_level_trainer(graphs, kernel, use_graphs=True,
     from difformer_tpu_torch.utils.config import make_config
 
     cfg = make_config("actstrack", kernel=kernel)
+    if dropout is not None:
+        cfg = make_config("actstrack", kernel=kernel, dropout=dropout)
     enc = DIFFormerV2(
         graphs[0][0].shape[1], cfg.hidden_channels, cfg.hidden_channels,
         num_layers=cfg.num_layers, kernel=kernel, alpha=cfg.alpha,
@@ -5402,15 +5868,27 @@ def main():
     a_bsr = sharded_a_bsr_setup()
     say(f"phase sharded-a-bsr: references at {time.perf_counter() - t0:.1f}"
         f" s")
-    sharded_rows, launches_sharded, eager_ms, a_bsr_gloo = phase_sharded_s(
-        a_bsr["gloo"])
+    # and phase dp-tp's, in the same two spawns
+    dp_tp = dp_tp_setup()
+    say(f"phase dp-tp: references at {time.perf_counter() - t0:.1f} s")
+    n_gloo, n_nccl = len(a_bsr["gloo"]), len(a_bsr["nccl"])
+    sharded_rows, launches_sharded, eager_ms, gloo_extra = phase_sharded_s(
+        a_bsr["gloo"] + dp_tp["gloo"])
+    a_bsr_gloo, dp_tp_gloo = gloo_extra[:n_gloo], gloo_extra[n_gloo:]
     say(f"phase sharded-s: done at {time.perf_counter() - t0:.1f} s")
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
-        dist_rows, launches_dist, a_bsr_nccl = phase_distributed(
-            f32_s["ms"]["graph"], eager_ms, tmp, a_bsr["nccl"])
+        dist_rows, launches_dist, nccl_extra = phase_distributed(
+            f32_s["ms"]["graph"], eager_ms, tmp,
+            a_bsr["nccl"] + dp_tp["nccl"])
+    # one NCCL rank: each case's result is that rank's
+    a_bsr_nccl = nccl_extra[:n_nccl]
+    dp_tp_nccl = [[out] for out in nccl_extra[n_nccl:]]
     say(f"phase distributed: done at {time.perf_counter() - t0:.1f} s")
+    tp_rows, launches_tp = phase_dp_tp(dp_tp, dp_tp_nccl, dp_tp_gloo)
+    del dp_tp, dp_tp_nccl, dp_tp_gloo
+    say(f"phase dp-tp: done at {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         slice_rows, launches_ring, launches_hybrid = phase_sharded_a_bsr(
             tmp, a_bsr, a_bsr_nccl, a_bsr_gloo)
@@ -5551,6 +6029,15 @@ def main():
          "replaces": BSR_SHARD_REPLACES,
          "launches": launches_hybrid[name.split()[0]], **row}
         for name, row in slice_rows.items() if not name.endswith(RING_JSON)
+    ]
+    kernels += [
+        # K2-K4 at a tensor-parallel rank's shape (the cora preset at 8
+        # heads on 2 ranks: H = 4 a rank); launches are the dp-tp phase's
+        # T = 2 DIFFormer-a run's, summed over its 2 ranks
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[name.split()[0]],
+         "launches": launches_tp[name.split()[0]], **row}
+        for name, row in tp_rows.items()
     ]
     kernels += [
         # K1-dval at GAT's shapes on the slice's graph and on cifar10's kNN

@@ -9,7 +9,9 @@ The mini-batch trainer calls :func:`induced_subgraph` (its edge capacity),
 (``ops/ell.py``). :func:`label_propagation` finds the communities behind
 ``data/transforms.py``'s ``label_propagation``, so behind
 ``locality_reorder(method="community")`` and ``parallel/partition.py``'s
-``locality_layout``. :func:`gcn_norm_values` is the JAX package's other native
+``locality_layout``. :func:`knn_neighbors` is the JAX package's brute-force
+kNN, bit for bit (no module of either package calls it; ``knn_graph`` is
+numpy in both). :func:`gcn_norm_values` is the JAX package's other native
 entry with its signature: nothing in the port calls it; it keeps the port's
 native API the JAX package's (``chunk_csr`` gives its values), and
 ``tests/test_torch_port_native.py`` holds the entries equal to the JAX ones.
@@ -19,7 +21,8 @@ The library is compiled with ``g++`` at first use into
 that carries a hash of the source and the flags; the compiler writes a
 temporary file that is renamed into place under a file lock, so processes
 that start together (test workers) build it once and never load a partial
-file. Every entry but :func:`label_propagation` has a numpy path that
+file. Every entry but :func:`label_propagation` and
+:func:`knn_neighbors` has a numpy path that
 gives the same arrays, taken where the library cannot be built or loaded
 (no compiler): :func:`available` says
 which, and :data:`load_error` why. This is host code, not a device kernel.
@@ -64,6 +67,7 @@ _SIGNATURES = {
                  None),
     "label_propagation": ([_I32P, _I32P, _I64, _I64, ctypes.c_int32,
                            ctypes.c_int, _I64P], None),
+    "knn_graph": ([_F32P, _I64, _I64, _I64, ctypes.c_int, _I64P], None),
 }
 
 
@@ -325,3 +329,25 @@ def label_propagation(senders, receivers, num_nodes, iters=10, threads=None):
         (os.cpu_count() or 1) if threads is None else int(threads),
         _p(labels, ctypes.c_int64))
     return labels
+
+
+def knn_neighbors(x, k, *, include_self=True):
+    """int64 [N, min(k, N)]: the k nearest rows of each row of x [N, d]
+    (cast to float32) by Euclidean distance, nearest first, as the JAX
+    package's ``native.knn_neighbors``, bit for bit: float64 distances as
+    |a|² − 2a·b + |b|², ties to the lower index, and with
+    ``include_self=False`` the row itself at distance 1e300, so that it
+    comes last (and is kept when k ≥ N). Every hardware thread takes rows.
+    Raises where the library is not loaded."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError(f"the native library is not loaded: {load_error}")
+    x = np.ascontiguousarray(x, np.float32)
+    if x.ndim != 2:
+        raise ValueError(f"x must be [N, d], got {x.shape}")
+    n, d = x.shape
+    kk = min(int(k), n)
+    nbr = np.empty((n, kk), np.int64)
+    lib.knn_graph(_p(x, ctypes.c_float), n, d, kk, int(include_self),
+                  _p(nbr, ctypes.c_int64))
+    return nbr

@@ -19,6 +19,10 @@
 //   "community" order and parallel/partition.py's locality_layout, as
 //   difformer_tpu/native/graphprep.cpp's, with the thread count an
 //   argument (the labels do not depend on it).
+// - knn_graph: brute-force k nearest neighbours of every row, as
+//   difformer_tpu/native/graphprep.cpp's (f64 distances as
+//   |a|^2 - 2 a.b + |b|^2, ties to the lower index, self at 1e300 when
+//   excluded), its rows shared by every hardware thread.
 //
 // The reference delegates this work to PyG's subgraph and torch_sparse
 // (node classification/main-batch.py:131, data_utils.py:183-200).
@@ -306,6 +310,45 @@ void label_propagation(const int32_t* senders, const int32_t* receivers,
     if (remap[labels[i]] < 0) remap[labels[i]] = next_id++;
     labels_out[i] = remap[labels[i]];
   }
+}
+
+
+// Brute-force kNN over the rows of x [n, d]: nbr [n, k'] (k' = min(k, n))
+// sorted by distance, (distance, index) pairs ordered so that ties go to
+// the lower index. include_self = 0 gives the point itself the distance
+// 1e300 (so it comes last, and is kept when k >= n). Rows are shared by
+// every hardware thread.
+void knn_graph(const float* x, int64_t n, int64_t d, int64_t k,
+               int include_self, int64_t* nbr) {
+  const int64_t kk = std::min<int64_t>(k, n);
+  std::vector<double> sq(n);
+  for (int64_t i = 0; i < n; ++i) {
+    double s = 0;
+    for (int64_t j = 0; j < d; ++j) s += (double)x[i * d + j] * x[i * d + j];
+    sq[i] = s;
+  }
+  std::atomic<int64_t> next(0);
+  auto worker = [&]() {
+    std::vector<std::pair<double, int64_t>> dist(n);
+    for (;;) {
+      const int64_t i = next.fetch_add(1);
+      if (i >= n) break;
+      for (int64_t j = 0; j < n; ++j) {
+        double dot = 0;
+        for (int64_t c = 0; c < d; ++c)
+          dot += (double)x[i * d + c] * x[j * d + c];
+        double dd = sq[i] - 2.0 * dot + sq[j];
+        if (!include_self && j == i) dd = 1e300;
+        dist[j] = {dd, j};
+      }
+      std::partial_sort(dist.begin(), dist.begin() + kk, dist.end());
+      for (int64_t j = 0; j < kk; ++j) nbr[i * kk + j] = dist[j].second;
+    }
+  };
+  const unsigned threads = std::max(1u, std::thread::hardware_concurrency());
+  std::vector<std::thread> pool;
+  for (unsigned t = 0; t < threads; ++t) pool.emplace_back(worker);
+  for (auto& t : pool) t.join();
 }
 
 }  // extern "C"

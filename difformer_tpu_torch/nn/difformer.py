@@ -54,6 +54,26 @@ pair of the node-sharded block-sparse hybrid (``ops/bsr.py:BsrShard``, K7
 on the rank's rectangular shard and K1 for the residual). Any other layout
 under ``axis_name`` raises ``ValueError``: it would multiply the rank's
 rows as if they were the whole graph.
+
+Head-sharded (``head_axis``, the process group of the model axis,
+``parallel/tensor_parallel.py``; T ranks, T dividing ``num_heads``): each
+rank's Wq, Wk and Wv hold its block of H/T heads, rows [m·H/T·D,
+(m+1)·H/T·D) of the unsharded layer's (drawn from the same generator, so
+the ranks' blocks make up the unsharded model). The Frobenius sums of
+squares are summed over the model axis (``ops/linear_attention.py``); the
+per-head key aggregates stay on the rank; every mean over heads, in the
+fused and factored forms too (the head-averaged Wv and bias), becomes the
+sum over the rank's heads divided by H; and the layer's head-averaged
+output [N, D] is summed over the model axis, one all-reduce a layer.
+Every rank of the model axis holds the same rows and backpropagates the
+whole loss, through Megatron's pair (``ops/comm.py``): the layer's input
+enters the rank's heads by ``copy_to_group`` (its gradient all-reduced,
+one all-reduce a layer in the backward) and the output leaves by
+``reduce_from_group``. The ``auto`` rewrites decide on the whole H, so
+every rank takes the unsharded model's path. With ``axis_name`` as well
+the layer runs on a graph × model grid: the nodes cut over the graph axis
+as above, the heads over the model axis. ``output_attn`` needs every head
+and raises.
 """
 
 from __future__ import annotations
@@ -61,6 +81,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -85,10 +106,17 @@ def _check_kernel(kernel):
         raise ValueError(f"unknown kernel {kernel!r}")
 
 
-def _check_options(kernel, axis_name):
+def _check_options(kernel, axis_name, head_axis=None, num_heads=1):
     _check_kernel(kernel)
     if axis_name is not None:
         comm.check_group(axis_name)
+    if head_axis is not None:
+        comm.check_group(head_axis)
+        parts = dist.get_world_size(head_axis)
+        if num_heads % parts:
+            raise ValueError(
+                f"the model axis has {parts} ranks, which does not divide "
+                f"num_heads={num_heads}: each rank holds whole heads")
 
 
 def _check_layout(ell, axis_name):
@@ -141,15 +169,23 @@ class DIFFormerConv(nn.Module):
     when H·D ≥ 2·(F+1). It needs ``use_graph`` and ``use_weight`` and no
     ``output_attn``. ``remat`` recomputes the JAX package's checkpointed
     regions in the backward (the module's docstring). ``axis_name``, the
-    graph axis's process group, runs the layer node-sharded."""
+    graph axis's process group, runs the layer node-sharded; ``head_axis``,
+    the model axis's, head-sharded."""
 
     def __init__(self, in_channels, out_channels, num_heads=1,
                  kernel="simple", use_graph=True, use_weight=True,
                  graph_weight=-1.0, use_source=False, spmm_first=False,
-                 fuse_head_mean="auto", remat=False, axis_name=None):
+                 fuse_head_mean="auto", remat=False, axis_name=None,
+                 head_axis=None):
         super().__init__()
-        _check_options(kernel, axis_name)
+        _check_options(kernel, axis_name, head_axis, num_heads)
         self.axis_name = axis_name
+        self.head_axis = head_axis
+        #: (this rank's block, the blocks): the heads it holds
+        self.head_block = ((0, 1) if head_axis is None else
+                           (dist.get_rank(head_axis),
+                            dist.get_world_size(head_axis)))
+        self.local_heads = num_heads // self.head_block[1]
         self.out_channels = out_channels
         self.num_heads = num_heads
         self.kernel = kernel
@@ -160,7 +196,7 @@ class DIFFormerConv(nn.Module):
         self.spmm_first = spmm_first
         self.fuse_head_mean = fuse_head_mean
         self.remat = remat
-        width = out_channels * num_heads
+        width = out_channels * self.local_heads
         self.Wq = Linear(in_channels, width)
         self.Wk = Linear(in_channels, width)
         self.Wv = Linear(in_channels, width) if use_weight else None
@@ -168,7 +204,14 @@ class DIFFormerConv(nn.Module):
     def reset_parameters(self, generator: torch.Generator):
         for lin in (self.Wq, self.Wk, self.Wv):
             if lin is not None:
-                torch_linear_init_(lin, generator)
+                torch_linear_init_(lin, generator, block=self.head_block)
+
+    def _head_mean(self, t, dim):
+        """The mean over ``dim``'s heads, or with ``head_axis`` this rank's
+        part of it (the sum over its heads over all H)."""
+        if self.head_axis is None:
+            return t.mean(dim)
+        return t.sum(dim) / self.num_heads
 
     def forward(self, query_input, source_input, senders=None, receivers=None,
                 edge_weight=None, x_0=None, *, node_mask=None, edge_mask=None,
@@ -176,8 +219,19 @@ class DIFFormerConv(nn.Module):
                 output_attn=False, edge_chunk_size=None, plan=None,
                 ell=None, halo=None):
         H, D = self.num_heads, self.out_channels
+        h_loc, heads = self.local_heads, self.head_axis
         axis = self.axis_name
         _check_layout(ell, axis)
+        if heads is not None:
+            if output_attn:
+                raise ValueError("output_attn needs every head on one rank;"
+                                 " the model is head-sharded (head_axis)")
+            # the replicated input enters this rank's heads; its gradient
+            # sums every rank's heads' parts
+            shared = query_input is source_input
+            source_input = comm.copy_to_group(source_input, heads)
+            query_input = (source_input if shared
+                           else comm.copy_to_group(query_input, heads))
         fuse_mean = self.fuse_head_mean
         if fuse_mean == "auto":
             fuse_mean = H > 1
@@ -188,18 +242,20 @@ class DIFFormerConv(nn.Module):
         # [N, H, D] value tensor never exists
         factored = fuse_mean and self.use_weight
 
-        query = self.Wq(query_input).reshape(-1, H, D)
-        key = self.Wk(source_input).reshape(-1, H, D)
+        query = self.Wq(query_input).reshape(-1, h_loc, D)
+        key = self.Wk(source_input).reshape(-1, h_loc, D)
         value = None
         if not self.use_weight:
             # reference difformer.py:120: raw features as a single head
             value = source_input.reshape(-1, 1, D)
         elif not factored:
-            value = self.Wv(source_input).reshape(-1, H, D)
+            value = self.Wv(source_input).reshape(-1, h_loc, D)
         if fuse_mean and self.use_weight:
-            wv_k3 = self.Wv.weight.t().reshape(-1, H, D)    # [F, H, D]
-            wv_b2 = self.Wv.bias.reshape(H, D)              # [H, D]
+            wv_k3 = self.Wv.weight.t().reshape(-1, h_loc, D)    # [F, H, D]
+            wv_b2 = self.Wv.bias.reshape(h_loc, D)              # [H, D]
         ckpt = lambda fn: _remat(fn, self.remat)  # noqa: E731
+        mean = self._head_mean
+        shard = dict(head_axis=heads, num_heads=H)
 
         attn = None
         if self.kernel == "simple":
@@ -212,14 +268,15 @@ class DIFFormerConv(nn.Module):
                 attention_output = ckpt(
                     lambda q, k, xx, w, b: simple_attention_head_mean_factored(
                         q, k, xx, w, b, key_mask=node_mask,
-                        num_queries=num_nodes_global, axis_name=axis))(
+                        num_queries=num_nodes_global, axis_name=axis,
+                        **shard))(
                     query, key, source_input, wv_k3, wv_b2)
             else:
                 attention_output = ckpt(
                     lambda q, k, v: simple_attention(
                         q, k, v, key_mask=node_mask,
                         num_queries=num_nodes_global,
-                        head_mean=fuse_mean, axis_name=axis))(
+                        head_mean=fuse_mean, axis_name=axis, **shard))(
                     query, key, value)
         elif output_attn:
             attention_output, attn = sigmoid_attention_dense(
@@ -266,11 +323,12 @@ class DIFFormerConv(nn.Module):
                         # the head mean folded into the projection:
                         # mean_h((ÂX)W_h + r·b_h) = (ÂX)·W̄ + r·b̄
                         k3, b2 = weights
-                        return (u_x @ k3.mean(1).to(u.dtype)
-                                + rowsum * b2.mean(0).to(u.dtype))
+                        return (u_x @ mean(k3, 1).to(u.dtype)
+                                + rowsum * mean(b2, 0).to(u.dtype))
                     # Wv(ÂX) carries +b once; (ÂX)W + (Â1)bᵀ needs (r−1)·b
                     return (self.Wv(u_x) + (rowsum - 1.0)
-                            * self.Wv.bias.to(u.dtype)).reshape(-1, H, D)
+                            * self.Wv.bias.to(u.dtype)).reshape(
+                                -1, h_loc, D)
 
                 weights = (wv_k3, wv_b2) if fuse_mean else ()
                 graph_output = ckpt(branch)(x_aug, *weights)
@@ -279,8 +337,8 @@ class DIFFormerConv(nn.Module):
                 # with it: conv the head-averaged value ([N, 1, D])
                 if factored:
                     dt = source_input.dtype
-                    conv_in = (source_input @ wv_k3.mean(1).to(dt)
-                               + wv_b2.mean(0).to(dt))[:, None, :]
+                    conv_in = (source_input @ mean(wv_k3, 1).to(dt)
+                               + mean(wv_b2, 0).to(dt))[:, None, :]
                 elif fuse_mean:
                     conv_in = value.mean(1, keepdim=True)
                 else:
@@ -297,7 +355,10 @@ class DIFFormerConv(nn.Module):
             final_output = attention_output
 
         if not fuse_mean:
-            final_output = final_output.mean(dim=1)
+            final_output = mean(final_output, 1)
+        if heads is not None:
+            # every rank's part of the mean over heads, summed
+            final_output = comm.reduce_from_group(final_output, heads)
         if self.use_source:
             final_output = final_output + x_0
         if output_attn:
@@ -321,7 +382,9 @@ class DIFFormer(nn.Module):
     ``axis_name``, the graph axis's process group, runs the model
     node-sharded on one rank's shard: ``forward(..., halo=...)`` picks the
     exchange (the module's docstring) and ``plan`` is then the rank's
-    plan of ``parallel/sharded_ops.py:sharded_plan``."""
+    plan of ``parallel/sharded_ops.py:sharded_plan``. ``head_axis``, the
+    model axis's process group, runs it head-sharded (the module's
+    docstring); ``num_heads`` stays the whole model's."""
 
     def __init__(self, in_channels, hidden_channels, out_channels,
                  num_layers=2, num_heads=1, kernel="simple", alpha=0.5,
@@ -329,10 +392,11 @@ class DIFFormer(nn.Module):
                  use_graph=True, graph_weight=-1.0, use_source=False,
                  axis_name: Optional[str] = None, compute_dtype=None,
                  remat=False, spmm_first=False, fuse_head_mean="auto", *,
-                 seed=0, device=None):
+                 head_axis=None, seed=0, device=None):
         super().__init__()
-        _check_options(kernel, axis_name)
+        _check_options(kernel, axis_name, head_axis, num_heads)
         self.axis_name = axis_name
+        self.head_axis = head_axis
         dev = resolve_device(device)
         self.compute_dtype = _dtype(compute_dtype)
         self.remat = remat
@@ -353,7 +417,7 @@ class DIFFormer(nn.Module):
                           graph_weight=graph_weight, use_source=use_source,
                           spmm_first=spmm_first,
                           fuse_head_mean=fuse_head_mean, remat=remat,
-                          axis_name=axis_name)
+                          axis_name=axis_name, head_axis=head_axis)
             for _ in range(num_layers)
         ])
         self.reset_parameters(torch.Generator().manual_seed(seed))

@@ -12,18 +12,25 @@ from torch import nn
 
 
 @torch.no_grad()
-def torch_linear_init_(linear: nn.Linear, generator: torch.Generator):
+def torch_linear_init_(linear: nn.Linear, generator: torch.Generator, *,
+                       block=(0, 1)):
     """Draw ``linear``'s weight, then its bias, from ``generator``.
 
     The draw happens on the CPU and is copied to the layer's device, so the
-    same generator gives the same weights on every device."""
+    same generator gives the same weights on every device. ``block`` =
+    (i, n): draw the weight and bias of a layer with n times the output
+    rows and keep row block i of n (a head-sharded projection's rows of
+    the unsharded layer's draw)."""
     bound = 1.0 / linear.in_features ** 0.5
+    index, count = block
     for p in (linear.weight, linear.bias):
         if p is None:
             continue
-        cpu = torch.empty(p.shape, dtype=p.dtype)
+        rows = p.shape[0]
+        cpu = torch.empty((rows * count,) + tuple(p.shape[1:]),
+                          dtype=p.dtype)
         nn.init.uniform_(cpu, -bound, bound, generator=generator)
-        p.copy_(cpu)
+        p.copy_(cpu[index * rows:(index + 1) * rows])
 
 
 def flax_lstm_init_(cell: nn.LSTMCell, generator: torch.Generator):

@@ -15,6 +15,13 @@ The JAX package has no such module: under ``shard_map``, JAX transposes
   (the ring attention's exchange): the backward shifts the gradient the
   other way, the transpose of a permutation.
 
+Over the model axis of tensor parallelism, where every rank holds the
+same rows and backpropagates the whole loss, Megatron's pair:
+:func:`copy_to_group` (identity forward, the gradient all-reduced: a
+replicated input entering the rank's heads) and :func:`reduce_from_group`
+(all-reduce forward, the gradient as it is: the heads' parts of the
+layer's output summed).
+
 :func:`all_to_all_start` starts the exchange and returns a handle whose
 ``wait()`` gives the result, so that a caller can compute meanwhile (the
 overlapped halo exchange, ``parallel/sharded_ops.py``).
@@ -200,6 +207,41 @@ def ring_shift(tensor, group):
     the other way."""
     check_group(group)
     return _RingShift.apply(tensor, group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, group):
+        ctx.group = group
+        return tensor.view_as(tensor)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.clone(), ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tensor, group):
+        return all_reduce_(tensor.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_group(tensor, group):
+    """``tensor`` as it is; its gradient is the sum of the ranks'
+    gradients (every rank holds the same ``tensor``)."""
+    check_group(group)
+    return _CopyToGroup.apply(tensor, group)
+
+
+def reduce_from_group(tensor, group):
+    """The sum of ``tensor`` over the group; its gradient is the output's
+    gradient as it is (every rank holds the same one)."""
+    check_group(group)
+    return _ReduceFromGroup.apply(tensor, group)
 
 
 class Pending:

@@ -22,6 +22,14 @@ global key count, then the key aggregates (kv, Σk and Σv, or the factored
 form's kx, Σk and Σx) in one flat buffer. ``num_queries`` then defaults to
 the global key count, as in the JAX package (queries are keys on every
 model path).
+
+Head-sharded (``head_axis``, the process group of the model axis,
+``parallel/tensor_parallel.py``; each rank holds H/T of the ``num_heads``
+heads): the two Frobenius sums of squares span every head, so they are
+summed over the model axis too (before the graph axis's all-reduce); the
+per-head aggregates stay on their rank; a head-mean form divides its sum
+over the rank's heads by ``num_heads``, and the caller sums the ranks'
+parts (``nn/difformer.py``: one all-reduce a layer).
 """
 
 from __future__ import annotations
@@ -48,10 +56,16 @@ def _frobenius_normalize(t, sumsq=None):
     return (t.float() / norm).to(t.dtype)
 
 
-def _global_stats(qs, ks, count, axis_name):
-    """(Σq², Σk², count) summed over the graph axis, in one all-reduce."""
-    stats = torch.stack([qs.float().square().sum(), ks.float().square().sum(),
-                         count.float()])
+def _global_stats(qs, ks, count, axis_name, head_axis=None):
+    """(Σq², Σk², count): the sums of squares summed over the model axis
+    (``head_axis``; the count is the same on each of its ranks), then
+    all three over the graph axis in one all-reduce."""
+    sq = [qs.float().square().sum(), ks.float().square().sum()]
+    if head_axis is not None:
+        sq = comm.all_reduce(torch.stack(sq), head_axis).unbind(0)
+    if axis_name is None:
+        return (*sq, count)
+    stats = torch.stack([*sq, count.float()])
     return comm.all_reduce(stats, axis_name).unbind(0)
 
 
@@ -87,19 +101,21 @@ def simple_attention_aggregates(ks, vs, key_mask=None):
     return kv, ks.sum(0), vs.sum(0), count
 
 
-def _rescale(qs, kv, k_sum, v_sum, num_queries):
-    """The head-averaged output [N, D]: each head divides by its own
+def _rescale(qs, kv, k_sum, v_sum, num_queries, num_heads=None):
+    """The head-averaged output [N, D] (the sum over qs's heads divided by
+    ``num_heads``, by default their count): each head divides by its own
     denominator (q is scaled by it), then h and m contract in one matmul."""
     denominator = torch.einsum("nhm,hm->nh", qs, k_sum) + _scalar(
         num_queries, qs)
     inv_den = 1.0 / denominator                       # [N, H]
     q_scaled = qs * inv_den[..., None]
     return (torch.einsum("nhm,hmd->nd", q_scaled, kv)
-            + inv_den @ v_sum) / qs.shape[1]
+            + inv_den @ v_sum) / (num_heads or qs.shape[1])
 
 
 def simple_attention_head_mean_factored(qs, ks, x, w, b, *, key_mask=None,
-                                        num_queries=None, axis_name=None):
+                                        num_queries=None, axis_name=None,
+                                        head_axis=None, num_heads=None):
     """Head-mean DIFFormer-s attention with the value projection factored
     through the key aggregates: ``simple_attention(qs, ks, x @ w + b,
     head_mean=True)`` up to float reassociation, without the [N, H, D] value
@@ -110,7 +126,9 @@ def simple_attention_head_mean_factored(qs, ks, x, w, b, *, key_mask=None,
 
     qs/ks [N, H, M]; x [N, F]; w [F, H, D]; b [H, D] or None → [N, D].
     With ``axis_name`` the sums of squares, kx, Σk, Σx and the key count
-    are summed over the graph axis."""
+    are summed over the graph axis; with ``head_axis`` the sums of squares
+    over the model axis, and the output is this rank's part of the mean
+    over ``num_heads`` heads (the module's docstring)."""
     count = _key_count(ks, key_mask)
     if key_mask is not None:
         m = key_mask.to(qs.dtype)[:, None, None]
@@ -118,11 +136,12 @@ def simple_attention_head_mean_factored(qs, ks, x, w, b, *, key_mask=None,
         if qs.shape[0] == ks.shape[0]:
             qs = qs * m
         x = x * key_mask.to(x.dtype)[:, None]
-    if axis_name is None:
+    if axis_name is None and head_axis is None:
         sumsq_q = qs.float().square().sum()
         sumsq_k = ks.float().square().sum()
     else:
-        sumsq_q, sumsq_k, count = _global_stats(qs, ks, count, axis_name)
+        sumsq_q, sumsq_k, count = _global_stats(qs, ks, count, axis_name,
+                                                head_axis)
     kx = torch.einsum("lhm,lf->hmf", ks, x)          # [H, M, F]
     k_sum = ks.sum(0)                                 # [H, M]
     x_sum = x.sum(0)                                  # [F]
@@ -143,11 +162,12 @@ def simple_attention_head_mean_factored(qs, ks, x, w, b, *, key_mask=None,
         v_sum = v_sum + count.to(qs.dtype) * b
     kv = (kv.float() * inv_scale).to(qs.dtype)
     k_sum = (k_sum.float() * inv_scale).to(qs.dtype)
-    return _rescale(qs, kv, k_sum, v_sum, num_queries)
+    return _rescale(qs, kv, k_sum, v_sum, num_queries, num_heads)
 
 
 def simple_attention(qs, ks, vs, *, key_mask=None, num_queries=None,
-                     output_attn=False, axis_name=None, head_mean=False):
+                     output_attn=False, axis_name=None, head_mean=False,
+                     head_axis=None, num_heads=None):
     """DIFFormer-s attention. qs [N,H,M], ks [L,H,M], vs [L,H,D] → [N,H,D].
 
     ``num_queries`` overrides the ``+N`` denominator term. ``key_mask``
@@ -158,17 +178,21 @@ def simple_attention(qs, ks, vs, *, key_mask=None, num_queries=None,
     returns the explicit [N, L, H] attention, divided by the intended
     [N, 1, H] normaliser (the reference's [N, H, 1] fails for H > 1).
     With ``axis_name`` the sums of squares, the aggregates and the key
-    count are summed over the graph axis (the module's docstring)."""
+    count are summed over the graph axis; with ``head_axis`` the sums of
+    squares over the model axis, and ``head_mean`` gives this rank's part
+    of the mean over ``num_heads`` heads (the module's docstring)."""
+    if output_attn and head_axis is not None:
+        raise ValueError("output_attn needs every head on one rank")
     if key_mask is not None:
         m = key_mask.to(qs.dtype)[:, None, None]
         ks = ks * m
         if qs.shape[0] == ks.shape[0]:  # queries == keys on every model path
             qs = qs * m
     sumsq_q = sumsq_k = None
-    if axis_name is not None:
+    if axis_name is not None or head_axis is not None:
         sumsq_q, sumsq_k, count = _global_stats(
-            qs, ks, _key_count(ks, key_mask), axis_name)
-        if num_queries is None:
+            qs, ks, _key_count(ks, key_mask), axis_name, head_axis)
+        if axis_name is not None and num_queries is None:
             num_queries = count
     if num_queries is None:
         num_queries = qs.shape[0]
@@ -180,14 +204,14 @@ def simple_attention(qs, ks, vs, *, key_mask=None, num_queries=None,
         return _global_sums(axis_name, kv, k_sum, v_sum)
 
     if head_mean and not output_attn:
-        if axis_name is None:
+        if sumsq_q is None:
             sumsq_q = qs.float().square().sum()
             sumsq_k = ks.float().square().sum()
         inv_scale = torch.rsqrt(sumsq_q) * torch.rsqrt(sumsq_k)
         kv, k_sum, v_sum = aggregates(ks)
         kv = (kv.float() * inv_scale).to(qs.dtype)
         k_sum = (k_sum.float() * inv_scale).to(qs.dtype)
-        return _rescale(qs, kv, k_sum, v_sum, num_queries)
+        return _rescale(qs, kv, k_sum, v_sum, num_queries, num_heads)
     qs = _frobenius_normalize(qs, sumsq_q)
     ks = _frobenius_normalize(ks, sumsq_k)
     kv, k_sum, v_sum = aggregates(ks)

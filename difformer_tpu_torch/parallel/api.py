@@ -115,6 +115,30 @@ def sharded_apply(model, mesh: Mesh, ell=None):
     return apply_fn
 
 
+def flat_gradients(params, device, extra=0):
+    """(buffer, views): one zeroed float32 buffer with a slot for every
+    entry of ``params`` and ``extra`` more at its end, and each parameter's
+    view of its slots (shaped as the parameter). :func:`attach_gradients`
+    makes the views the parameters' ``.grad``, so that the backward
+    accumulates into the buffer in place and one collective reduces every
+    gradient at once."""
+    flat = torch.zeros(sum(p.numel() for p in params) + extra,
+                       device=device)
+    views, offset = [], 0
+    for p in params:
+        views.append(flat[offset:offset + p.numel()].view_as(p))
+        offset += p.numel()
+    return flat, views
+
+
+def attach_gradients(params, views):
+    """Set each parameter's ``.grad`` to its view of the flat buffer where
+    it is not (set to None or replaced elsewhere)."""
+    for p, view in zip(params, views):
+        if p.grad is not view:
+            p.grad = view
+
+
 def make_sharded_train_step(model, mesh: Mesh, optimizer,
                             loss_fn=nll_sum_count, ell=None):
     """``step(rank_graph, generator=None, plan=None) -> loss``, one train
@@ -133,19 +157,12 @@ def make_sharded_train_step(model, mesh: Mesh, optimizer,
     host."""
     group = mesh.group
     params = [p for p in model.parameters() if p.requires_grad]
-    numel = sum(p.numel() for p in params)
     device = params[0].device if params else mesh.device
-    flat = torch.zeros(numel + 1, device=device)
-    views, offset = [], 0
-    for p in params:
-        views.append(flat[offset:offset + p.numel()].view_as(p))
-        offset += p.numel()
+    flat, views = flat_gradients(params, device, extra=1)
 
     def step(rg: RankGraph, generator=None, plan=None):
         model.train()
-        for p, view in zip(params, views):
-            if p.grad is not view:  # set to None or replaced elsewhere
-                p.grad = view
+        attach_gradients(params, views)
         flat.zero_()
         s, c = loss_fn(_forward(model, rg, plan, generator, ell),
                        rg.labels, rg.label_mask)

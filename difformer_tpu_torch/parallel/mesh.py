@@ -8,6 +8,13 @@ this process's membership (world size, rank, an explicit backend, a file
 store for the rendezvous) and returns a :class:`Mesh` with the group of the
 graph axis, which the model and the sharded ops take as ``axis_name``.
 
+:func:`make_grid` lays a run's ranks out as the JAX package's 2-D
+``make_mesh((G, T), ("graph", "model"))``: rank g·T + m is row g of the
+model axis and column m of the graph axis, and gets a :class:`Grid` of its
+graph group (the G ranks of its column: its node shard g of G) and its
+model group (the T ranks of its row: heads block m of T), each a
+:class:`Mesh`.
+
 Backends: ``nccl`` puts one rank on each card, so asking for more NCCL
 ranks than there are cards raises; ``gloo`` runs on the CPU, and on a card
 where several ranks share one (every rank on ``cuda:0``). A backend is
@@ -124,6 +131,49 @@ def sub_mesh(mesh: Mesh, size: int, backend=None):
         return None
     return Mesh(group=group, rank=dist.get_rank(group), size=size,
                 backend=backend, device=mesh.device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """One rank's view of a graph × model grid: ``graph``, the group of
+    its column (the ranks of its heads block, one a node shard, ``graph.
+    rank`` = g), ``model``, the group of its row (the ranks of its node
+    shard, one a heads block, ``model.rank`` = m), and ``world``, every
+    rank of the run (rank g·T + m)."""
+
+    graph: Mesh
+    model: Mesh
+    world: Mesh
+
+    @property
+    def device(self):
+        return self.world.device
+
+
+def make_grid(mesh: Mesh, graph: int, model: int) -> Grid:
+    """This rank's :class:`Grid` of ``graph`` × ``model`` ranks over
+    ``mesh``, which must be the whole run (every rank of the default
+    group, ``graph · model`` of them). Every rank calls it: each makes the
+    group of every column, then of every row, in that order (a rank that
+    made fewer would leave the others waiting)."""
+    if graph < 1 or model < 1 or graph * model != mesh.size:
+        raise ValueError(f"a grid of {graph} x {model} ranks needs "
+                         f"{graph * model} ranks, the mesh has {mesh.size}")
+    if mesh.size != dist.get_world_size():
+        raise ValueError(f"a grid spans the whole run: the mesh has "
+                         f"{mesh.size} of its {dist.get_world_size()} ranks")
+    g, m = divmod(mesh.rank, model)
+    columns = [dist.new_group([r * model + c for r in range(graph)],
+                              backend=mesh.backend) for c in range(model)]
+    rows = [dist.new_group([r * model + c for c in range(model)],
+                           backend=mesh.backend) for r in range(graph)]
+
+    def axis(group, rank, size):
+        return Mesh(group=group, rank=rank, size=size, backend=mesh.backend,
+                    device=mesh.device)
+
+    return Grid(graph=axis(columns[m], g, graph),
+                model=axis(rows[g], m, model), world=mesh)
 
 
 def close_mesh(mesh: Mesh) -> None:

@@ -4,9 +4,12 @@ call them; a spawned rank imports them from here, never from a test).
 
 :func:`run_checks` runs a list of cases in one spawn of the ranks: each
 case is ``{"kind": name, **arguments}``, with ``"world": k`` to run on the
-first k ranks only (``mesh.sub_mesh``; the others give None) and
+first k ranks only (``mesh.sub_mesh``; the others give None),
 ``"backend": name`` to run on a group of that backend (gloo cases in a
-spawn of NCCL ranks), ``kind`` one of ``conv``
+spawn of NCCL ranks) and ``"grid": (G, T)`` to run on the ranks laid out
+as a graph × model grid (``mesh.make_grid``, over every rank; the case
+gets the :class:`~difformer_tpu_torch.parallel.mesh.Grid`), ``kind`` one
+of ``conv``
 (:func:`conv_check`: the graph branch's product and its gradient with
 respect to x), ``attention`` (:func:`attention_check`: the sharded linear
 attention in one of its three forms and its gradients), ``shift``
@@ -21,8 +24,13 @@ streams), and the distributed trainer's (``train/distributed.py``):
 a card, the steady time of replayed epochs), ``eval`` (:func:`eval_check`),
 ``resume`` (:func:`resume_check`), ``capture_fault``
 (:func:`capture_fault_check`) and ``cli`` (:func:`cli_check`: the
-command line's rank function). Global arrays [S·N_loc, ...] come in the
-partition's padded node order; each rank takes its N_loc rows.
+command line's rank function), and the data- and tensor-parallel ones:
+``dp`` (``data_parallel.train_dp``), ``dp_dropout``
+(:func:`dp_dropout_check`), ``dp_fit`` (:func:`dp_fit_check`) and ``tp``
+(``tensor_parallel.train_tp``). Global arrays [S·N_loc, ...] come in the
+partition's padded node order; each rank takes its N_loc rows. The groups
+every case needs are made before the first case, in the same order on
+every rank.
 """
 
 from __future__ import annotations
@@ -43,8 +51,15 @@ from difformer_tpu_torch.ops.linear_attention import (
 from difformer_tpu_torch.parallel.api import (launch_counts, rank_generator,
                                               rank_plan, reset_launch_counts,
                                               train_sharded)
-from difformer_tpu_torch.parallel.mesh import sub_mesh
+from difformer_tpu_torch.parallel.data_parallel import (device_batch,
+                                                        dp_forward, dp_model,
+                                                        make_dp_train_step,
+                                                        rank_shard,
+                                                        shard_batches,
+                                                        train_dp)
+from difformer_tpu_torch.parallel.mesh import make_grid, sub_mesh
 from difformer_tpu_torch.parallel.sharded_ops import sharded_conv
+from difformer_tpu_torch.parallel.tensor_parallel import train_tp
 
 
 def _rows(mesh, a, n_loc, grad=False):
@@ -378,11 +393,65 @@ def cli_check(mesh, args):
                 jax_loaded="jax" in sys.modules)
 
 
+def dp_dropout_check(mesh, stacked, params, model_kw, *, seed,
+                     steps=2, lr=1e-2):
+    """``data_parallel``'s step at ``model_kw``'s dropout (> 0):
+    ``reproducible``, two runs of ``steps`` steps from the same (seed,
+    rank) give the same losses; ``masks_differ``, the model in train mode
+    on shard 0 (the same input on every rank) with each rank's generator
+    gives a different output on every rank (its dropout masks differ)."""
+    first = train_dp(mesh, stacked, params, model_kw, steps=steps, lr=lr,
+                     seed=seed)["losses"]
+    again = train_dp(mesh, stacked, params, model_kw, steps=steps, lr=lr,
+                     seed=seed)["losses"]
+    from difformer_tpu_torch.utils.weights import load_params
+
+    model = dp_model(model_kw, mesh.device)
+    load_params(model, params)
+    model.train()
+    batch = device_batch(rank_shard(stacked, 0), mesh.device)
+    with torch.no_grad():
+        out = dp_forward(model, batch,
+                         rank_generator(seed, mesh.rank, mesh.device))
+    every = [None] * mesh.size
+    dist.all_gather_object(every, out.cpu().numpy().tobytes(),
+                           group=mesh.group)
+    return dict(losses=first,
+                reproducible=bool(np.array_equal(first, again)),
+                masks_differ=len(set(every)) == mesh.size)
+
+
+def dp_fit_check(mesh, dataset, params, model_kw, *, per_device_batch,
+                 epochs, lr=1e-2, max_nodes, max_edges, seed=0):
+    """``epochs`` epochs of data-parallel steps over every stacked batch
+    of ``dataset`` (``shard_batches`` in order, this rank's shard of
+    each): every step's loss, as ``tests/test_data_parallel.py``'s
+    ``test_dp_training_learns`` trains the JAX step (``data_parallel``'s
+    functions)."""
+    from difformer_tpu_torch.train.optim import torch_adam
+    from difformer_tpu_torch.utils.weights import load_params
+
+    model = dp_model(model_kw, mesh.device)
+    load_params(model, params)
+    step = make_dp_train_step(model, mesh, torch_adam(model.parameters(),
+                                                      lr, 0.0))
+    batches = [device_batch(rank_shard(b, mesh.rank), mesh.device)
+               for b in shard_batches(dataset, np.arange(len(dataset)),
+                                      per_device_batch, mesh.size,
+                                      max_nodes=max_nodes,
+                                      max_edges=max_edges)]
+    generator = rank_generator(seed, mesh.rank, mesh.device)
+    losses = [step(b, generator) for _ in range(epochs) for b in batches]
+    return dict(losses=torch.stack(losses).cpu().numpy())
+
+
 CHECKS = {"conv": conv_check, "attention": attention_check,
           "train": train_sharded, "dropout": dropout_check,
           "fit": fit_check, "eval": eval_check, "resume": resume_check,
           "capture_fault": capture_fault_check, "shift": shift_check,
-          "ring": ring_check, "bsr": bsr_check, "cli": cli_check}
+          "ring": ring_check, "bsr": bsr_check, "cli": cli_check,
+          "dp": train_dp, "dp_dropout": dp_dropout_check,
+          "dp_fit": dp_fit_check, "tp": train_tp}
 
 
 def run_checks(mesh, cases):
@@ -392,11 +461,14 @@ def run_checks(mesh, cases):
 
     meshes = {k: mesh if k == (mesh.size, mesh.backend) else sub_mesh(mesh, *k)
               for k in sorted({key(case) for case in cases})}
+    grids = {g: make_grid(mesh, *g)
+             for g in sorted({tuple(c["grid"]) for c in cases if "grid" in c})}
     out = []
     for case in cases:
-        on = meshes[key(case)]
+        on = (grids[tuple(case["grid"])] if "grid" in case
+              else meshes[key(case)])
         args = {k: v for k, v in case.items()
-                if k not in ("kind", "world", "backend")}
+                if k not in ("kind", "world", "backend", "grid")}
         out.append(None if on is None else CHECKS[case["kind"]](on, **args))
     return out
 

@@ -164,12 +164,79 @@ def pack_edges(v, batch, num_nodes):
              (v["rows"].shape[0], v["seg_begin"].shape[0]))
 
 
+def _most_edges(ends):
+    """The largest count of one node among the index arrays ``ends``."""
+    return max((int(np.bincount(np.asarray(a)).max()) for a in ends
+                if np.asarray(a).size), default=0)
+
+
+def edge_split(edge_indices, capacity):
+    """K1's split schedule (heavy rows, segments) of an edge-list plan held
+    at ``capacity`` edges over the edges ``edge_indices`` ([2, e] arrays):
+    ``split_capacity(capacity)`` where a node has more than
+    ``SPLIT_THRESHOLD`` in- or out-edges, else none (one launch a product,
+    as on kNN graphs)."""
+    most = _most_edges(a for ei in edge_indices for a in (ei[0], ei[1]))
+    return (0, 0) if most <= SPLIT_THRESHOLD else split_capacity(capacity)
+
+
+def batch_layout(batch, plan, *, table=None, split=None):
+    """The :class:`BatchLayout` of ``batch`` (a
+    :class:`~difformer_tpu_torch.data.batching.PaddedGraphBatch`) on
+    ``plan``: "dense"; "table" at the widths of the gather table ``table``;
+    or "edges" at the batch's edge capacity with K1's ``split`` schedule
+    (default: :func:`edge_split` of the batch's real edges)."""
+    b, m, f = batch.node_feat.shape
+    if plan == "dense":
+        return BatchLayout("dense", b, m, f)
+    if plan == "table":
+        k_rev = 0 if table[2] is None else table[2].shape[1]
+        return BatchLayout("table", b, m, f, k=table[0].shape[1],
+                           k_rev=k_rev)
+    edges = int(np.asarray(batch.senders).shape[0])
+    if split is None:
+        em = np.asarray(batch.edge_mask)
+        split = edge_split([(np.asarray(batch.senders)[em],
+                             np.asarray(batch.receivers)[em])], edges)
+    return BatchLayout("edges", b, m, f, edges=edges, heavy=split[0],
+                       segments=split[1])
+
+
+def pack_batch(batch, layout, table=None, pin=False):
+    """The packed int32 host buffer of ``layout`` holding ``batch`` (a
+    :class:`~difformer_tpu_torch.data.batching.PaddedGraphBatch`) and its
+    plan: the dense adjacency made here, the gather table ``table``, or
+    the edge list's CSRs (:func:`pack_edges`); ``pin`` pins it."""
+    buf = torch.empty(layout.size, dtype=torch.int32, pin_memory=pin)
+    v = layout.views(buf.numpy())
+    v["node_feat"][...] = batch.node_feat
+    v["node_mask"][...] = batch.node_mask
+    v["n_nodes"][...] = batch.n_nodes
+    v["labels"][...] = batch.labels
+    v["graph_mask"][...] = batch.graph_mask
+    if layout.plan == "dense":
+        dense_adj(batch, out=v["dense_adj"])
+    elif layout.plan == "table":
+        for name, a in zip(("idx", "w", "ridx", "rw"), table):
+            if a is not None:
+                v[name][...] = a
+    else:
+        pack_edges(v, batch, layout.batch_size * layout.max_nodes)
+    return buf
+
+
+def bce_sum_count(out, labels, graph_mask):
+    """(Σ BCE with logits over the real graphs, their count)."""
+    per = F.binary_cross_entropy_with_logits(out, labels, reduction="none")
+    m = graph_mask.to(out.dtype)
+    return (per * m).sum(), m.sum()
+
+
 def bce_loss(out, labels, graph_mask):
     """The JAX trainer's loss (``:75-80``): BCE with logits, summed over the
     real graphs and divided by their count (at least 1)."""
-    per = F.binary_cross_entropy_with_logits(out, labels, reduction="none")
-    m = graph_mask.to(out.dtype)
-    return (per * m).sum() / m.sum().clamp(min=1.0)
+    total, count = bce_sum_count(out, labels, graph_mask)
+    return total / count.clamp(min=1.0)
 
 
 class GraphLevelTrainer:
@@ -202,16 +269,11 @@ class GraphLevelTrainer:
         self.feat_dim = int(dataset[0][0].shape[1])
         # the dataset-wide largest out-degree, rounded up to a multiple of
         # 8: the transposed table's width, the same for every batch
-        k_rev = max((int(np.bincount(np.asarray(g[1][0])).max(initial=0))
-                     for g in dataset if g[1].shape[1]), default=0)
+        k_rev = _most_edges(g[1][0] for g in dataset)
         self._k_rev_pad = -(-k_rev // 8) * 8 if k_rev else 0
-        # edges never cross graphs: without a node of more than T in- or
-        # out-edges in the dataset no batch has a heavy row for K1, and the
-        # edge-list plan holds no split schedule (one launch a product)
-        k_in = max((int(np.bincount(np.asarray(g[1][1])).max(initial=0))
-                    for g in dataset if g[1].shape[1]), default=0)
-        self._split = ((0, 0) if max(k_in, k_rev) <= SPLIT_THRESHOLD
-                       else split_capacity(self.max_edges))
+        # edges never cross graphs, so the dataset's degrees decide K1's
+        # split schedule for every batch
+        self._split = edge_split([g[1] for g in dataset], self.max_edges)
         self._knn_mode = None    # probed on the batches (k-in-regular plan)
         self._dense_mode = None  # probed on the batches (block-dense plan)
         #: The :class:`GraphLevelRunner` of the last ``fit``.
@@ -221,22 +283,16 @@ class GraphLevelTrainer:
     def _layout(self, batch):
         """The probe of the JAX trainer's ``_to_device``: the layout of
         ``batch``'s plan, and the gather table when that is the plan."""
-        base = dict(batch_size=self.batch_size, max_nodes=self.max_nodes,
-                    feat_dim=self.feat_dim)
         if self._dense_mode is not False:
             self._dense_mode = dense_fits(self.batch_size, self.max_nodes)
             if self._dense_mode:
-                return BatchLayout("dense", **base), None
+                return batch_layout(batch, "dense"), None
         if self._knn_mode is not False:
             t = regular_knn_table(batch, k_rev_pad=self._k_rev_pad)
             self._knn_mode = t is not None
             if t is not None:
-                k_rev = 0 if t[2] is None else t[2].shape[1]
-                return BatchLayout("table", k=t[0].shape[1], k_rev=k_rev,
-                                   **base), t
-        return BatchLayout("edges", edges=self.max_edges,
-                           heavy=self._split[0], segments=self._split[1],
-                           **base), None
+                return batch_layout(batch, "table", table=t), t
+        return batch_layout(batch, "edges", split=self._split), None
 
     def pack(self, batch):
         """(layout, packed int32 host tensor, graph_mask, labels) of one
@@ -245,22 +301,8 @@ class GraphLevelTrainer:
         return self._fill(batch, *self._layout(batch))
 
     def _fill(self, batch, layout, table):
-        buf = torch.empty(layout.size, dtype=torch.int32,
-                          pin_memory=self.device.type == "cuda")
-        v = layout.views(buf.numpy())
-        v["node_feat"][...] = batch.node_feat
-        v["node_mask"][...] = batch.node_mask
-        v["n_nodes"][...] = batch.n_nodes
-        v["labels"][...] = batch.labels
-        v["graph_mask"][...] = batch.graph_mask
-        if layout.plan == "dense":
-            dense_adj(batch, out=v["dense_adj"])
-        elif layout.plan == "table":
-            for name, a in zip(("idx", "w", "ridx", "rw"), table):
-                if a is not None:
-                    v[name][...] = a
-        else:
-            pack_edges(v, batch, self.batch_size * self.max_nodes)
+        buf = pack_batch(batch, layout, table,
+                         pin=self.device.type == "cuda")
         return layout, buf, np.asarray(batch.graph_mask), np.asarray(
             batch.labels)
 
