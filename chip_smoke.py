@@ -202,6 +202,20 @@ non-zero before the last line:
    K1's replays against the remat-aware count, K1's bf16 capacity launch
    on the chunk with the most segments, peak memory and ms per chunk
    step of both, and the chunk losses of both compared.
+   minibatch-zoo: the baseline zoo in node chunks, ``--dataset pokec
+   --method gcn`` and ``--method gat`` (2 heads) through the command line
+   on the same stand-in, the preset unchanged (hidden 128, 3 layers, batch
+   100000, BatchNorm) but cut to 2 epochs and 1 run: each chunk's step on
+   the model's own chunk plan (GCN's ``gcn_norm`` with self-loops, GAT's
+   edges and loops with their maps and incidences) replayed as a CUDA
+   graph; the test metric in [0, 1]; K1's (and K1-dval's) replays equal
+   to the captured step's count, which the model's layers give, times the
+   chunk steps; the full graph's logits against the plain versions; the
+   best state's BatchNorm statistics those of its epoch; the first epoch
+   again through the loop, bit-equal; host ms of an epoch's plans, ms per
+   chunk step and per steady epoch, the idle share, peak memory; K1's
+   capacity launch on GCN's chunk plan and K1-dval's on GAT's, against
+   their plain versions, cuSPARSE and ``sampled_addmm``.
 15. minibatch-proteins: ``MiniBatchTrainer`` at ogbn-proteins' shape
    (132,534 nodes, 79,122,504 directed edges with hubs of thousands, 8
    features, 112 binary tasks, BCE and ROC-AUC, batch 10000, hidden 64, 3
@@ -1105,13 +1119,25 @@ def phase_dval_kernels():
 
 class PlainSpmm:
     """K1's autograd Function with the plain version in its place, for a
-    reference forward on the card."""
+    reference forward on the card: per-head values (GAT's messages) a
+    head at a time, and the edges ``edge_chunk_size`` at a time where the
+    call asks for none (the zoo's full-graph eval at Pokec's size, whose
+    [E, W] messages would not fit at once)."""
 
-    @staticmethod
-    def apply(x, fwd, bwd, edge_chunk_size):
+    def __init__(self, edge_chunk_size=None):
+        self.edge_chunk_size = edge_chunk_size
+
+    def apply(self, x, fwd, bwd, edge_chunk_size, values=None, maps=None,
+              dval_split=None):
         from difformer_tpu_torch.kernels.spmm import csr_spmm_plain
 
-        return csr_spmm_plain(x, *fwd[:3], edge_chunk_size=edge_chunk_size)
+        chunk = edge_chunk_size or self.edge_chunk_size
+        if values is None:
+            return csr_spmm_plain(x, *fwd[:3], edge_chunk_size=chunk)
+        vals = values.reshape(values.shape[0], -1).t()[:, maps[0]]
+        return torch.stack([csr_spmm_plain(x[:, h], fwd[0], fwd[1], vals[h],
+                                           edge_chunk_size=chunk)
+                            for h in range(x.shape[1])], 1)
 
 
 def plain_attention(qs, ks, vs, *, key_mask=None):
@@ -1160,8 +1186,10 @@ def reset_launch_counts():
         kernels.reset_launch_counts()
 
 
-def through_plain_versions():
-    """A context in which the model runs every kernel's plain version."""
+def through_plain_versions(edge_chunk_size=None):
+    """A context in which the model runs every kernel's plain version (K1's
+    streaming ``edge_chunk_size`` edges at a time where a call asks for
+    no chunks)."""
     import difformer_tpu_torch.nn.difformer as difformer_module
     from difformer_tpu_torch.ops import graph_ops
 
@@ -1169,7 +1197,7 @@ def through_plain_versions():
     stack.enter_context(unittest.mock.patch.object(
         difformer_module, "sigmoid_attention", plain_attention))
     stack.enter_context(unittest.mock.patch.object(
-        graph_ops, "CsrSpmm", PlainSpmm))
+        graph_ops, "CsrSpmm", PlainSpmm(edge_chunk_size)))
     return stack
 
 
@@ -3738,7 +3766,8 @@ def proteins_standin(seed=31):
     return x.cpu().numpy(), ei.int().cpu().numpy(), y.cpu().numpy()
 
 
-def phase_spmm_chunk(trainer, w, seed=5, dtype=torch.float32):
+def phase_spmm_chunk(trainer, w, seed=5, dtype=torch.float32,
+                     phase="minibatch-pokec", label="pokec chunk"):
     """K1 as the mini-batch trainer launches it, on the trainer's own chunk
     with the most segments: an epoch's plans packed as ``fit`` packs them
     (induced subgraphs of the symmetrised graph with self loops, CSRs at
@@ -3748,8 +3777,10 @@ def phase_spmm_chunk(trainer, w, seed=5, dtype=torch.float32):
     the "spmm" rule of the plain version, the rule shown to fail a wrong
     output; CUDA-event times of both launches, the plain version and
     cuSPARSE, beside the bound (x counted by the rows some edge gathers).
-    x is of ``dtype`` (the rows' names end in " bf16" at bfloat16).
-    Returns the JSON rows."""
+    x is of ``dtype`` (the rows' names end in " bf16" at bfloat16). The
+    rows are named ``label`` and the lines ``phase``'s; a zoo model's
+    trainer packs its own kind of plan (GCN's: self-loops, ``gcn_norm``'s
+    values). Returns the JSON rows."""
     from difformer_tpu_torch.kernels import spmm as K1
     from difformer_tpu_torch.kernels.tolerance import assert_close
     from difformer_tpu_torch.train.minibatch import chunk_plan
@@ -3790,11 +3821,11 @@ def phase_spmm_chunk(trainer, w, seed=5, dtype=torch.float32):
             library(x)
         except RuntimeError as ex:
             library = None
-            say(f"phase minibatch-pokec: cuSPARSE through torch.sparse.mm "
+            say(f"phase {phase}: cuSPARSE through torch.sparse.mm "
                 f"refused {str(dtype)[6:]}: {str(ex).splitlines()[0][:160]}")
         out, ref = kernel(), plain()
         scale = K1.csr_spmm_abs(x, ptr, col, val)
-        tag = (f"{name}{suffix} pokec chunk {c} of the trainer's epoch "
+        tag = (f"{name}{suffix} {label} {c} of the trainer's epoch "
                f"N={batch} E={real} (capacity {layout.edges}) W={w}")
         err = assert_close(tag, out, ref, "spmm", scale=scale)
         assert_rejects(tag, ref, "spmm", scale=scale)
@@ -3816,7 +3847,7 @@ def phase_spmm_chunk(trainer, w, seed=5, dtype=torch.float32):
         plain_ms = cuda_ms(plain)
         library_ms = None if library is None else cuda_ms(lambda: library(x))
         lib_ms = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        say(f"phase minibatch-pokec: K1 {tag} max_abs_err {err:.3e}, "
+        say(f"phase {phase}: K1 {tag} max_abs_err {err:.3e}, "
             f"bit-equal to the exact-count launch | {heavy} heavy rows, "
             f"{segs} segments (capacity {cap.num_heavy}, "
             f"{cap.num_segments}) | CUDA events: capacity launch "
@@ -3824,10 +3855,10 @@ def phase_spmm_chunk(trainer, w, seed=5, dtype=torch.float32):
             f"{exact_ms:.4f}, {exact2_ms:.4f} ms (alternated) | plain "
             f"{plain_ms:.4f} ms | cuSPARSE {lib_ms} | bound "
             f"{bound:.4f} ms by {bound_by} ({nbytes / 1e6:.2f} MB)")
-        rows[f"{name} pokec chunk{suffix}"] = dict(
+        rows[f"{name} {label}{suffix}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_by=bound_by, library_ms=library_ms)
-    say(f"phase minibatch-pokec: K1's chunk is the one with the most "
+    say(f"phase {phase}: K1's chunk is the one with the most "
         f"segments of an epoch whose {trainer.n_chunks} chunks hold "
         f"{stats['segments']} segments ({stats['heavy_chunks']} with heavy "
         f"rows); segments of its full-size chunks {segments}")
@@ -3915,7 +3946,7 @@ def chunk_timings(phase, trainer, seed=99, top=0):
             dev_ms, ops = profile_window(fn, 1)
         idle = (f"idle {100 * (1 - dev_ms / ms):.1f}%" if ops > 0 else
                 "the profiler saw no device operation (idle not measured)")
-        out[path] = ms / chunks
+        out[path], out[f"{path}_device"] = ms / chunks, dev_ms
         say(f"phase {phase}: {path}: {ms:.3f} ms per epoch of {chunks} "
             f"chunks = {ms / chunks:.3f} ms per chunk step; device "
             f"{dev_ms:.3f} ms over {ops:g} device operations "
@@ -3944,12 +3975,13 @@ def report_plans(phase, trainer):
         f"{[s['max_edges'] for s in stats]}")
 
 
-def check_minibatch_result(phase, trainer, best):
+def check_minibatch_result(phase, trainer, best, plain_chunk=None):
     """Finite losses that fall from the first epoch to the last (at the
     presets' lr the first steps overshoot, and 3 epochs do not reach the
     data's accuracy), finite metrics, and the full graph's logits through
     the kernels against the same weights through the plain versions (the
-    plain K1 in chunks of edges, as the eval asks)."""
+    plain K1 in chunks of edges, as the eval asks, or of ``plain_chunk``
+    edges where it asks for none)."""
     losses = best["losses"]
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite or not falling: {losses}")
@@ -3957,7 +3989,7 @@ def check_minibatch_result(phase, trainer, best):
         raise AssertionError(f"non-finite metrics: {best}")
     state = trainer.runner.state
     logits = trainer.forward_full(state)
-    with through_plain_versions():
+    with through_plain_versions(plain_chunk):
         ref = trainer.forward_full(state)
     if logits.shape != ref.shape or logits.shape[0] != trainer.n:
         raise AssertionError(f"logits shape {tuple(logits.shape)}")
@@ -4001,29 +4033,19 @@ def check_minibatch_launches(phase, trainer, counted, layers, epochs,
     return {k: counted[k] + replayed[k] for k in counted}
 
 
-def phase_minibatch_pokec(tmp):
-    """The pokec preset through the command line (DIFFormer-s, hidden 128,
-    3 layers, batch 100000, lr 0.01, a random 50/25/25 split) on a stand-in
-    ``pokec.mat`` of Pokec's size, cut to 3 epochs and 1 run; the first
-    epoch again through the loop (``use_scan=False``), whose chunk losses
-    must equal the graphs' bit for bit; K1's capacity launch on the
-    trainer's chunk (:func:`phase_spmm_chunk`); the steady state of both
-    paths. Returns the path's launches and K1's JSON rows."""
+def minibatch_cli(phase, argv, record_evals=False):
+    """``cli.main(argv)`` on a mini-batch route, its ``MiniBatchTrainer``
+    timed on the host (load and preprocess, the trainer, fit), the launch
+    counts set to 0 just before and read just after (K1-dval's under
+    ``DVAL_NAME``); prints the run's result, peak memory and host seconds.
+    Returns (trainer, best run, its split, launches, the model's buffers at
+    each of fit's evals, recorded when ``record_evals``)."""
     from difformer_tpu_torch import cli
     from difformer_tpu_torch.train import minibatch as M
-    from difformer_tpu_torch.utils.config import make_config
 
-    check_native()
-    t0 = time.perf_counter()
-    x, ei, y = pokec_standin()
-    write_pokec_mat(tmp, x, ei, y)
-    del x, ei, y
-    say(f"phase minibatch-pokec: stand-in written in "
-        f"{time.perf_counter() - t0:.1f} s: N={POKEC_NODES} "
-        f"E={POKEC_EDGES} directed (power-law) F={POKEC_FEATURES} "
-        f"C={POKEC_CLASSES}")
-    times, made = {"fit_s": 0.0}, []
+    times, made, evals = {"fit_s": 0.0}, [], []
     real_init, real_fit = M.MiniBatchTrainer.__init__, M.MiniBatchTrainer.fit
+    real_eval = M.MiniBatchTrainer.evaluate
     start = [0.0]
 
     def timed_init(self, *args, **kw):
@@ -4043,27 +4065,85 @@ def phase_minibatch_pokec(tmp):
         times["fit_s"] += time.perf_counter() - t
         return res
 
-    argv = ["--dataset", "pokec", "--data_dir", tmp] + POKEC_CUT
-    with unittest.mock.patch.object(M.MiniBatchTrainer, "__init__",
-                                    timed_init), \
-            unittest.mock.patch.object(M.MiniBatchTrainer, "fit", timed_fit):
+    def recorded_eval(self, state, split_idx):
+        evals.append({k: v.detach().cpu().clone()
+                      for k, v in state.model.named_buffers()})
+        return real_eval(self, state, split_idx)
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(unittest.mock.patch.object(
+        M.MiniBatchTrainer, "__init__", timed_init))
+    stack.enter_context(unittest.mock.patch.object(
+        M.MiniBatchTrainer, "fit", timed_fit))
+    if record_evals:
+        stack.enter_context(unittest.mock.patch.object(
+            M.MiniBatchTrainer, "evaluate", recorded_eval))
+    torch.cuda.reset_peak_memory_stats()
+    with stack:
         reset_launch_counts()
         start[0] = time.perf_counter()
         res = cli.main(argv)
         torch.cuda.synchronize()
         launches = launch_counts()
+        launches[DVAL_NAME] = dval_count()
+    peak = torch.cuda.max_memory_allocated() / 2**30
     trainer, best = made[0], res[0]
     epochs = len(best["losses"])
-    say(f"phase minibatch-pokec: {' '.join(argv)} -> best epoch "
-        f"{best['epoch']} train {best['train']:.4f} valid "
-        f"{best['valid']:.4f} test {best['test']:.4f}; losses "
-        f"{best['losses']}")
-    say(f"phase minibatch-pokec: host seconds: load and preprocess "
+    say(f"phase {phase}: {' '.join(argv)} -> best epoch {best['epoch']} "
+        f"train {best['train']:.4f} valid {best['valid']:.4f} test "
+        f"{best['test']:.4f}; losses {best['losses']}; peak memory "
+        f"{peak:.2f} GiB")
+    say(f"phase {phase}: host seconds: load and preprocess "
         f"{times['prep_s']:.3f} s, the trainer (edge capacity, features and "
         f"the full graph's plan on the card) {times['init_s']:.3f} s, fit "
         f"{times['fit_s']:.3f} s for {epochs} epochs = "
         f"{1e3 * times['fit_s'] / epochs:.1f} ms per epoch (2 evals and the "
         f"captures included); cut from 500 epochs and 5 runs")
+    return trainer, best, times["split"], launches, evals
+
+
+def check_loop_epoch(phase, trainer, split, best):
+    """The first epoch again through the per-chunk loop (``use_scan=False``,
+    exact plans, eager steps): its chunk losses bit-equal to the graphs'."""
+    trainer.use_scan = False
+    t = time.perf_counter()
+    loop = trainer.fit(split, epochs=1, eval_step=9)[0]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t
+    trainer.use_scan = True
+    same = loop["chunk_losses"][0] == best["chunk_losses"][0]
+    say(f"phase {phase}: first epoch through the loop in {loop_s:.3f} s (an "
+        f"eval included): chunk losses bit-equal to the graphs': {same}")
+    if not same:
+        raise AssertionError(f"loop {loop['chunk_losses'][0]} != graphs "
+                             f"{best['chunk_losses'][0]}")
+
+
+def phase_minibatch_pokec(tmp):
+    """The pokec preset through the command line (DIFFormer-s, hidden 128,
+    3 layers, batch 100000, lr 0.01, a random 50/25/25 split) on a stand-in
+    ``pokec.mat`` of Pokec's size, cut to 3 epochs and 1 run; the first
+    epoch again through the loop (``use_scan=False``), whose chunk losses
+    must equal the graphs' bit for bit; K1's capacity launch on the
+    trainer's chunk (:func:`phase_spmm_chunk`); the steady state of both
+    paths. Returns the path's launches and K1's JSON rows."""
+    from difformer_tpu_torch.utils.config import make_config
+
+    check_native()
+    t0 = time.perf_counter()
+    x, ei, y = pokec_standin()
+    write_pokec_mat(tmp, x, ei, y)
+    del x, ei, y
+    say(f"phase minibatch-pokec: stand-in written in "
+        f"{time.perf_counter() - t0:.1f} s: N={POKEC_NODES} "
+        f"E={POKEC_EDGES} directed (power-law) F={POKEC_FEATURES} "
+        f"C={POKEC_CLASSES}")
+    argv = ["--dataset", "pokec", "--data_dir", tmp] + POKEC_CUT
+    trainer, best, split, launches, _ = minibatch_cli("minibatch-pokec", argv)
+    if launches.pop(DVAL_NAME):
+        raise AssertionError("phase minibatch-pokec: DIFFormer's chunk steps "
+                             "launched K1-dval; its values take no gradient")
+    epochs = len(best["losses"])
     report_plans("minibatch-pokec", trainer)
     cfg = make_config("pokec")
     launches = check_minibatch_launches("minibatch-pokec", trainer, launches,
@@ -4072,21 +4152,223 @@ def phase_minibatch_pokec(tmp):
     # the width the preset's model gives K1: hidden 128, one head
     rows = phase_spmm_chunk(trainer, cfg.hidden_channels * cfg.num_heads)
 
-    trainer.use_scan = False
-    t = time.perf_counter()
-    loop = trainer.fit(times["split"], epochs=1, eval_step=9)[0]
-    torch.cuda.synchronize()
-    loop_s = time.perf_counter() - t
-    trainer.use_scan = True
-    same = loop["chunk_losses"][0] == best["chunk_losses"][0]
-    say(f"phase minibatch-pokec: first epoch through the loop in "
-        f"{loop_s:.3f} s (an eval included): chunk losses bit-equal to the "
-        f"graphs': {same}")
-    if not same:
-        raise AssertionError(f"loop {loop['chunk_losses'][0]} != graphs "
-                             f"{best['chunk_losses'][0]}")
+    check_loop_epoch("minibatch-pokec", trainer, split, best)
     chunk_timings("minibatch-pokec", trainer, top=GRAPH_TOP)
-    return launches, rows, trainer, times["split"]
+    return launches, rows, trainer, split
+
+
+# ---------------------------------------------------------------------------
+# minibatch-zoo: the baseline zoo's GCN and GAT through MiniBatchTrainer at
+# the pokec preset, K1 on GCN's chunk plan and K1-dval on GAT's
+# ---------------------------------------------------------------------------
+
+# the pokec preset's 500 epochs x 5 runs cut to 2 epochs of 1 run: the
+# evals at epochs 0 and 1
+ZOO_POKEC_CUT = ["--epochs", "2", "--runs", "1"]
+# edges at a time of the plain K1 in the full-graph check: the zoo's eval
+# streams no edges, and Pokec's [E, 128] messages would not fit at once
+ZOO_PLAIN_CHUNK = 2 * 1024 * 1024
+
+
+def zoo_step_launches(model):
+    """(K1's forward and transposed launches, K1-dval's) in one train step
+    of a zoo model: a GCN layer one K1 each way; a GAT layer of H heads
+    4 + H each way (the two score gathers, the softmax sum and its
+    gather, a product a head) and one K1-dval."""
+    from difformer_tpu_torch.nn.gnns import GATLayer, GCNLayer
+
+    heads = [m.heads for m in model.modules() if isinstance(m, GATLayer)]
+    k1 = sum(isinstance(m, GCNLayer) for m in model.modules()) + sum(
+        4 + h for h in heads)
+    return {"csr_spmm": k1, "csr_spmm_transposed": k1}, len(heads)
+
+
+def check_zoo_replays(phase, method, trainer, epochs):
+    """Each chunk graph's captured launches equal a train step's
+    (:func:`zoo_step_launches`), no other kernel captured, and the replays
+    one a chunk step: K1's and K1-dval's device launches are the step's
+    times the chunk steps. Returns the replayed launches (K1-dval's under
+    ``DVAL_NAME``)."""
+    per_step, dval = zoo_step_launches(trainer.model)
+    graphs = trainer.runner.graphs
+    steps = trainer.n_chunks * epochs
+    replays = sum(g["replays"] for g in graphs.values())
+    replayed = trainer.runner.launches()
+    replayed[DVAL_NAME] = sum(g["captured_dval"] * g["replays"]
+                              for g in graphs.values())
+    say(f"phase {phase}: --method {method}: a chunk step captures "
+        f"{ {k: (g['captured']['csr_spmm'], g['captured']['csr_spmm_transposed'], g['captured_dval'], g['replays']) for k, g in graphs.items()} }"
+        f" (K1 forward, transposed, K1-dval, replays); the model's layers "
+        f"give {per_step} and {dval} K1-dval a step; replayed on the device "
+        f"{ {k: v for k, v in replayed.items() if v} } over {steps} chunk "
+        f"steps")
+    for name, g in graphs.items():
+        want = {k: per_step.get(k, 0) for k in g["captured"]}
+        if g["captured"] != want or g["captured_dval"] != dval:
+            raise AssertionError(
+                f"phase {phase}: --method {method}'s {name} graph captured "
+                f"{g['captured']} and {g['captured_dval']} K1-dval, the "
+                f"model's layers give {per_step} and {dval}")
+    wrong = {k: v for k, v in replayed.items()
+             if v != steps * (dval if k == DVAL_NAME else per_step.get(k, 0))}
+    if replays != steps or wrong:
+        raise AssertionError(f"phase {phase}: --method {method}: {replays} "
+                             f"replays for {steps} chunk steps, replayed "
+                             f"launches off the step's count: {wrong}")
+    return replayed
+
+
+def zoo_dval_chunk(trainer, seed=7):
+    """K1-dval as GAT's chunk step launches it: GAT's plan of the trainer's
+    chunk with the most edges, packed at capacity as ``fit`` packs it
+    (K1-dval's schedule at capacity with its counts read on the device),
+    at the hidden layer's shape (H = 2 heads of the preset's 128), against
+    the plain version on the chunk's real edges (the "spmm" rule, shown to
+    fail a wrong output) and bit-equal to the exact-count launch on the
+    exact plan; CUDA-event times of both launches (alternated), the plain
+    version and ``sampled_addmm`` (a call a head), beside the bound on the
+    real edges. Returns the JSON row."""
+    from difformer_tpu_torch.kernels import spmm as K1
+    from difformer_tpu_torch.kernels.tolerance import assert_close
+    from difformer_tpu_torch.train.minibatch import chunk_plan
+
+    batch = trainer.batch_size
+    layout = trainer.layouts[batch]
+    perm = np.random.default_rng(seed).permutation(trainer.n)
+    packed, _ = trainer.pack_epoch(perm)
+    chunks = trainer._subgraphs(perm)
+    c = int(np.argmax([sub.shape[1] if nodes.shape[0] == batch else -1
+                       for nodes, sub in chunks]))
+    buf = packed[c][1].to("cuda")
+    plan = chunk_plan(layout, buf).plan
+    exact = trainer._exact_plan(batch, chunks[c][1])[0].plan
+    e = exact.num_edges
+    heads = trainer.model.conv_0.heads
+    d = trainer.model.conv_0.out_channels
+    g, x = dval_inputs(batch, heads, d, 300)
+    kernel = lambda: K1.csr_spmm_dval(  # noqa: E731
+        g, x, plan.rows, plan.col, row_ptr=plan.row_ptr,
+        split=plan.dval_split)
+    exact_call = lambda: K1.csr_spmm_dval(  # noqa: E731
+        g, x, exact.rows, exact.col, row_ptr=exact.row_ptr,
+        split=exact.dval_split)
+    plain = lambda: K1.csr_spmm_dval_plain(  # noqa: E731
+        g, x, exact.rows, exact.col)
+    out, ref = kernel()[:e], plain()
+    scale = K1.csr_spmm_dval_abs(g, x, exact.rows, exact.col)
+    split = exact.dval_split
+    segs = plan.dval_split.counts.tolist()
+    tag = (f"{DVAL_NAME} pokec gat chunk {c} of the trainer's epoch N={batch} "
+           f"E={e} (capacity {layout.edges}) H={heads} D={d}")
+    err = assert_close(tag, out, ref, "spmm", scale=scale)
+    assert_rejects(tag, ref, "spmm", scale=scale)
+    if not torch.equal(out, exact_call()):
+        raise AssertionError(f"{tag}: the capacity launch differs from the "
+                             f"exact-count launch")
+    if segs[1] != split.num_segments:
+        raise AssertionError(f"{tag}: packed segments {segs[1]} != "
+                             f"row_split's {split.num_segments}")
+    library = library_dval(exact, g, x)
+    del out, ref, scale
+    cap_ms, exact_ms, cap2_ms, exact2_ms = (
+        cuda_ms(f) for f in (kernel, exact_call, kernel, exact_call))
+    ms = (cap_ms + cap2_ms) / 2
+    plain_ms = cuda_ms(plain)
+    library_ms = cuda_ms(library)
+    bound, bound_by, nbytes = dval_bound_ms(batch, e, heads, d)
+    say(f"phase minibatch-zoo: K1-dval {tag} max_abs_err {err:.3e}, "
+        f"bit-equal to the exact-count launch | {split.num_heavy} heavy "
+        f"rows in {split.num_segments} segments (T={split.threshold}; "
+        f"capacity {plan.dval_split.num_heavy}, "
+        f"{plan.dval_split.num_segments}) | CUDA events: capacity launch "
+        f"{cap_ms:.4f}, {cap2_ms:.4f} ms, exact-count launch "
+        f"{exact_ms:.4f}, {exact2_ms:.4f} ms (alternated) | plain "
+        f"{plain_ms:.4f} ms | sampled_addmm, {heads} calls "
+        f"{library_ms:.4f} ms | bound {bound:.4f} ms by {bound_by} "
+        f"({nbytes / 1e6:.2f} MB)")
+    del buf, plan, exact, g, x, library
+    torch.cuda.empty_cache()
+    return {f"{DVAL_NAME} pokec gat chunk": dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+        bound_by=bound_by, library_ms=library_ms)}
+
+
+def zoo_minibatch_run(tmp, method):
+    """``--dataset pokec --method <method>`` through the command line on
+    the stand-in of phase minibatch-pokec, cut to ``ZOO_POKEC_CUT``: the
+    test metric finite in [0, 1], the kernels of :func:`zoo_expected` and
+    no other, the chunk graphs' launches (:func:`check_zoo_replays`), the
+    full graph's logits against the plain versions, the best state's
+    BatchNorm statistics those of its epoch's eval, and the first epoch
+    again through the loop, bit-equal to the graphs'; host seconds, peak
+    memory and the steady state (:func:`chunk_timings`). Returns (the
+    trainer, its launches: the wrappers' counts plus the replays')."""
+    phase = "minibatch-zoo"
+    argv = (["--dataset", "pokec", "--data_dir", tmp, "--method", method]
+            + ZOO_POKEC_CUT)
+    trainer, best, split, counted, evals = minibatch_cli(
+        phase, argv, record_evals=True)
+    epochs = len(best["losses"])
+    if not (math.isfinite(best["test"]) and 0.0 <= best["test"] <= 1.0):
+        raise AssertionError(f"phase {phase}: --method {method}: test "
+                             f"metric {best['test']}")
+    report_plans(phase, trainer)
+    replayed = check_zoo_replays(phase, method, trainer, epochs)
+    launched = {k: v + replayed.get(k, 0) for k, v in counted.items()}
+    expect = zoo_expected(method)
+    off = {k: v for k, v in launched.items()
+           if (v > 0) != bool(expect.get(k, False))}
+    if off:
+        raise AssertionError(f"phase {phase}: --method {method} launched "
+                             f"{off} against {expect}")
+    check_minibatch_result(phase, trainer, best, plain_chunk=ZOO_PLAIN_CHUNK)
+    # the best state holds the statistics of its epoch's eval
+    eval_epochs = [e for e in range(epochs) if e % 9 == 0 or e == epochs - 1]
+    want = evals[eval_epochs.index(best["epoch"])]
+    stats = [k for k in want if k.endswith(("running_mean", "running_var"))]
+    if not stats or any(not torch.equal(best["params"][k], want[k])
+                        for k in stats):
+        raise AssertionError(f"phase {phase}: --method {method}'s best "
+                             f"state does not hold the BatchNorm statistics "
+                             f"of epoch {best['epoch']} ({stats})")
+    say(f"phase {phase}: --method {method}: the best state (epoch "
+        f"{best['epoch']}) holds that epoch's {len(stats)} BatchNorm "
+        f"statistics")
+    check_loop_epoch(phase, trainer, split, best)
+    steady = chunk_timings(phase, trainer)
+    say(f"phase {phase}: --method {method}: the steady epoch's idle share "
+        f"{100 * (1 - steady['graph_device'] / steady['steady']):.1f}% "
+        f"(the replayed epoch's device {steady['graph_device']:.3f} ms of "
+        f"the steady epoch's {steady['steady']:.1f} ms)")
+    return trainer, launched
+
+
+def phase_minibatch_zoo(tmp):
+    """The baseline zoo in node chunks: ``--dataset pokec --method gcn``
+    (hidden 128, 3 layers, BatchNorm) and ``--method gat`` (2 heads of
+    128, BatchNorm) through the command line on the stand-in ``pokec.mat``
+    that phase minibatch-pokec wrote in ``tmp``, the preset unchanged but
+    cut to 2 epochs and 1 run (:func:`zoo_minibatch_run`); K1's capacity
+    launch on GCN's self-looped chunk plan (:func:`phase_spmm_chunk`, W =
+    128) and K1-dval's on GAT's (:func:`zoo_dval_chunk`). Returns
+    ({method: launches}, JSON rows)."""
+    from difformer_tpu_torch.utils.config import make_config
+
+    cfg = make_config("pokec")
+    launches, rows = {}, {}
+    for method in ("gcn", "gat"):
+        trainer, launches[method] = zoo_minibatch_run(tmp, method)
+        if method == "gcn":
+            rows.update(phase_spmm_chunk(trainer, cfg.hidden_channels,
+                                         phase="minibatch-zoo",
+                                         label="pokec gcn chunk"))
+        else:
+            rows.update(zoo_dval_chunk(trainer))
+        trainer.runner = None
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, rows
 
 
 def phase_minibatch_remat(base, split):
@@ -5920,7 +6202,10 @@ def main():
     say(f"phase zoo-cifar10: done at {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         launches_mb, chunk_rows, base, split = phase_minibatch_pokec(tmp)
-    say(f"phase minibatch-pokec: done at {time.perf_counter() - t0:.1f} s")
+        say(f"phase minibatch-pokec: done at "
+            f"{time.perf_counter() - t0:.1f} s")
+        launches_zoo, zoo_rows = phase_minibatch_zoo(tmp)
+    say(f"phase minibatch-zoo: done at {time.perf_counter() - t0:.1f} s")
     launches_remat, chunk_bf16_rows = phase_minibatch_remat(base, split)
     del base
     say(f"phase minibatch-pokec-remat: done at "
@@ -5978,6 +6263,18 @@ def main():
          "replaces": SPMM_REPLACES,
          "launches": launches_mb[name.split()[0]], **row}
         for name, row in chunk_rows.items()
+    ] + [
+        # K1 on GCN's self-looped chunk plan and K1-dval on GAT's, packed
+        # at capacity by the mini-batch trainer of the zoo's pokec runs;
+        # launches are the minibatch-zoo phase's GCN run's (K1) and GAT
+        # run's (K1-dval): wrappers (warm-up, capture, eager evals) plus
+        # the replays
+        {"name": name, "route": "cuda", "source": SPMM_SOURCE,
+         "replaces": (DVAL_REPLACES if name.startswith(DVAL_NAME)
+                      else SPMM_REPLACES),
+         "launches": launches_zoo["gat" if name.startswith(DVAL_NAME)
+                                  else "gcn"][name.split()[0]], **row}
+        for name, row in zoo_rows.items()
     ] + [
         # the same at bf16 on the minibatch-pokec-remat phase's trainer;
         # launches are that phase's remat run's

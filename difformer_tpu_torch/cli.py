@@ -42,8 +42,14 @@ a card each, or the gloo backend asked for with ``main(...,
 backend="gloo")``, which ``device="cpu"`` implies), or, where
 ``DIFFORMER_NUM_PROCESSES`` is set, this process as one rank of a cluster
 (``parallel/launch.py:initialize_cluster``); only rank 0 prints. A zoo
-method in mini-batch (``--use_minibatch``, the pokec and ogbn-proteins
-presets) is not ported. DIFFormer's GCN branch on the full-batch node task
+method in mini-batch (``--use_minibatch``, which the pokec and
+ogbn-proteins presets set) trains in node chunks with ``MiniBatchTrainer``
+on the plan its model names, as the JAX command line hands it any model:
+manireg there trains its MLP without the smoothness term (the JAX route
+passes none), label propagation ignores the flag, and LINK raises
+``ValueError`` before any data is read (its weight is indexed by the global
+node id, which a chunk's relabelled edges cannot address; the JAX route
+fails on it too). DIFFormer's GCN branch on the full-batch node task
 takes the JAX command line's sparse layout: ``--spmm`` (or, when it is
 empty, ``--use_ell``, on by default) picks the ELL layout (``ell``, the ELL
 kernel K6), the padded block-sparse hybrid (``bsr``, at ``--bsr_tile``: the
@@ -197,13 +203,13 @@ def _check_ported(cfg: Config):
                 f"--n_shards > 1 trains --method difformer only, not "
                 f"--method {cfg.method}")
         return
-    if cfg.use_minibatch and m in _ZOO:
-        raise NotImplementedError(
-            f"--method {cfg.method} with --use_minibatch (the pokec and "
-            f"ogbn-proteins presets set it) is not ported to "
-            f"difformer_tpu_torch yet: the zoo in mini-batch needs chunk "
-            f"plans per model (ROADMAP.md queue A, leftover \"the zoo in "
-            f"mini-batch\")")
+    if cfg.use_minibatch and m == "link":
+        # the JAX route fails on it with a broadcast error
+        raise ValueError(
+            "--method link cannot train with --use_minibatch (the pokec and "
+            "ogbn-proteins presets set it): LINK's weight is indexed by the "
+            "global node id, which a chunk's edges, relabelled to positions "
+            "in the chunk, cannot address")
 
 
 def _restore(cfg: Config, trainer: FullBatchTrainer, split):
@@ -295,8 +301,8 @@ def run_sharded(cfg: Config, x, ei, label, n_classes, splits, loss,
 def run_node_task(cfg: Config, device=None, backend=None):
     """Load ``cfg.dataset``, preprocess its graph as the reference does and
     train (or, with ``eval_only``, evaluate) ``--method`` full-batch on
-    ``device`` (the GPU unless told otherwise), or DIFFormer in node chunks
-    with ``use_minibatch``, or node-sharded over ``--n_shards`` ranks on
+    ``device`` (the GPU unless told otherwise), or in node chunks with
+    ``use_minibatch``, or node-sharded over ``--n_shards`` ranks on
     ``backend`` (:func:`run_sharded`); label propagation needs no
     training. Returns one summary per run."""
     _check_ported(cfg)

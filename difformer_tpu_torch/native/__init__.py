@@ -4,7 +4,9 @@ CSRs and GCN values) and of the ELL layout's builder (:func:`ell_fill`,
 ``ops/ell.py``).
 
 The mini-batch trainer calls :func:`induced_subgraph` (its edge capacity),
-:func:`chunk_subgraphs` and :func:`chunk_csr` (every epoch's chunk plans).
+:func:`chunk_subgraphs` and, for every epoch's chunk plans, :func:`chunk_csr`
+(DIFFormer's), :func:`chunk_norm_csr` (the baseline zoo's ``gcn_norm``
+plans, with or without self-loops) or :func:`chunk_gat_csr` (GAT's).
 :func:`sort_edges_by_receiver` and :func:`ell_fill` build the ELL layout
 (``ops/ell.py``). :func:`label_propagation` finds the communities behind
 ``data/transforms.py``'s ``label_propagation``, so behind
@@ -63,6 +65,10 @@ _SIGNATURES = {
                          ctypes.c_int, _I64P, _I32P, _I32P], _I64),
     "chunk_csr": ([_I32P, _I32P, _I64, _I64, _I32P, _I32P, _F32P, _I32P,
                    _I32P, _F32P], None),
+    "chunk_norm_csr": ([_I32P, _I32P, _I64, _I64, ctypes.c_int, _I32P,
+                        _I32P, _F32P, _I32P, _I32P, _F32P], None),
+    "chunk_gat_csr": ([_I32P, _I32P, _I64, _I64, _I32P, _I32P, _I32P,
+                       _I32P, _I32P, _I32P], None),
     "ell_fill": ([_I64P, _I64, _I64, _I64P, _I32P, _F32P, _I32P, _F32P],
                  None),
     "label_propagation": ([_I32P, _I32P, _I64, _I64, ctypes.c_int32,
@@ -273,6 +279,99 @@ def chunk_csr(senders, receivers, num_nodes, out=None):
         num_nodes, _p(row_ptr, ctypes.c_int32), _p(col, ctypes.c_int32),
         _p(val, ctypes.c_float), _p(t_row_ptr, ctypes.c_int32),
         _p(t_col, ctypes.c_int32), _p(t_val, ctypes.c_float))
+    return out
+
+
+def _new_csr(num_nodes, e, float_values=True):
+    """Six arrays of a CSR pair: row pointers [N + 1], columns [E] and
+    values [E] (float32, or int32 without ``float_values``), twice."""
+    def one():
+        return (np.empty(num_nodes + 1, np.int32), np.empty(e, np.int32),
+                np.empty(e, np.float32 if float_values else np.int32))
+    return one() + one()
+
+
+def _check_out(out):
+    for a in out:
+        if not a.flags.c_contiguous:
+            raise ValueError("the chunk plans are written into contiguous "
+                             "arrays only")
+
+
+def _with_loops(senders, receivers, num_nodes):
+    loop = np.arange(num_nodes, dtype=np.int32)
+    return np.concatenate([senders, loop]), np.concatenate([receivers, loop])
+
+
+def _csr_numpy(key, other, num_nodes, out):
+    """The stable CSR of ``other`` by ``key`` into ``out`` (row pointers,
+    columns); returns the order."""
+    order = np.argsort(key, kind="stable")
+    out[0][0] = 0
+    np.cumsum(np.bincount(key, minlength=num_nodes), out=out[0][1:])
+    out[1][:order.size] = other[order]
+    return order
+
+
+def chunk_norm_csr(senders, receivers, num_nodes, self_loops, out=None):
+    """A chunk's plan of the baseline zoo's ``gcn_norm`` adjacency, as
+    ``nn/gnns.py:norm_plan`` builds it on the device (on the CPU: bit for
+    bit), as ``(row_ptr, col, val, t_row_ptr, t_col, t_val)``: with
+    ``self_loops``, a loop of weight 1 appended on every node (so each
+    row's loop comes after its edges in both stable orders); the values
+    ``inv[s]·inv[r]`` with ``inv`` ``gcn_norm``'s float32 ``deg^-1/2`` of
+    the weighted in-degree (the loop counted), a float square root and a
+    float quotient, which round twice where :func:`chunk_csr`'s values
+    round once, so the two differ in the last bit at some degrees. E
+    counts the loops; ``out`` as :func:`chunk_csr`'s."""
+    senders, receivers = _i32(senders), _i32(receivers)
+    e = senders.shape[0] + (num_nodes if self_loops else 0)
+    out = _new_csr(num_nodes, e) if out is None else out
+    lib = get_lib()
+    if lib is None:
+        s, r = (_with_loops(senders, receivers, num_nodes) if self_loops
+                else (senders, receivers))
+        deg = np.bincount(r, minlength=num_nodes).astype(np.float32)
+        with np.errstate(divide="ignore"):
+            inv = np.where(deg > 0, np.float32(1) / np.sqrt(deg),
+                           np.float32(0)).astype(np.float32)
+        val = inv[s] * inv[r]
+        for part, key, other in ((out[:3], r, s), (out[3:], s, r)):
+            order = _csr_numpy(key, other, num_nodes, part)
+            part[2][:e] = val[order]
+        return out
+    _check_out(out)
+    lib.chunk_norm_csr(
+        _p(senders, ctypes.c_int32), _p(receivers, ctypes.c_int32),
+        senders.shape[0], num_nodes, int(bool(self_loops)),
+        *(_p(a, ctypes.c_float if a.dtype == np.float32 else ctypes.c_int32)
+          for a in out))
+    return out
+
+
+def chunk_gat_csr(senders, receivers, num_nodes, out=None):
+    """A chunk's GAT plan, as ``nn/gnns.py:gat_plan`` builds it on the
+    device, bit for bit, as ``(row_ptr, col, rows, t_row_ptr, t_col,
+    t_pos)``, int32: the edges and a self-loop on every node (appended)
+    stably sorted by receiver (``col`` the senders, ``rows`` the
+    receivers, [E + N]), and that list's transposed CSR, stable by sender
+    (``t_col`` the receivers, ``t_pos`` each entry's receiver-order
+    position: the plan's ``t_order``). ``out`` as :func:`chunk_csr`'s."""
+    senders, receivers = _i32(senders), _i32(receivers)
+    e = senders.shape[0] + num_nodes
+    out = _new_csr(num_nodes, e, float_values=False) if out is None else out
+    lib = get_lib()
+    if lib is None:
+        s, r = _with_loops(senders, receivers, num_nodes)
+        order = _csr_numpy(r, s, num_nodes, out[:2])
+        out[2][:e] = r[order]
+        t_order = _csr_numpy(out[1][:e], out[2][:e], num_nodes, out[3:5])
+        out[5][:e] = t_order
+        return out
+    _check_out(out)
+    lib.chunk_gat_csr(_p(senders, ctypes.c_int32),
+                      _p(receivers, ctypes.c_int32), senders.shape[0],
+                      num_nodes, *(_p(a, ctypes.c_int32) for a in out))
     return out
 
 

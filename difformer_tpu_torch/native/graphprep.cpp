@@ -1,7 +1,7 @@
 // graphprep: host-side graph preparation of the mini-batch trainer, in C++
 // for speed, loaded with ctypes (native/__init__.py). The port's own copy of
 // difformer_tpu/native/graphprep.cpp's sort_edges_by_receiver,
-// gcn_norm_values and induced_subgraph, with the same arithmetic, and two
+// gcn_norm_values and induced_subgraph, with the same arithmetic, and
 // entries of its own for the trainer's chunk plans:
 //
 // - chunk_subgraphs: the induced subgraphs of every node chunk of an epoch
@@ -12,6 +12,13 @@
 // - chunk_csr: a chunk's two CSRs (by receiver, and the transposed one by
 //   sender) with their GCN values, by two stable counting sorts: the arrays
 //   that sort_edges_by_receiver and gcn_norm_values give, in one call.
+// - chunk_norm_csr: a chunk's two CSRs with the baseline zoo's gcn_norm
+//   values (ops/graph_ops.py:gcn_norm's float32 arithmetic), with a
+//   self-loop on every node or without, as nn/gnns.py:norm_plan builds
+//   them.
+// - chunk_gat_csr: a chunk's GAT plan (nn/gnns.py:gat_plan): the edges and
+//   a self-loop on every node in receiver order, each position's receiver,
+//   and the transposed CSR with the receiver-order position of its entries.
 //
 // - ell_fill: one degree bucket of the ELL layout (ops/ell.py), as
 //   difformer_tpu/native/graphprep.cpp's.
@@ -193,6 +200,99 @@ void chunk_csr(const int32_t* senders, const int32_t* receivers, int64_t e,
     value[i] = gcn_value(1.0f, inv[receivers[i]], inv[senders[i]]);
   csr_by(receivers, senders, value.data(), e, n, row_ptr, col, val);
   csr_by(senders, receivers, value.data(), e, n, t_row_ptr, t_col, t_val);
+}
+
+// 1 / sqrt of every node's in-degree, plus one for its self-loop with
+// self_loops, as gcn_norm computes it: the degree summed in double and
+// rounded to float, then a float square root and a float quotient (two
+// roundings, not the double ones of inv_sqrt_degrees); 0 for a node
+// without in-edges.
+static std::vector<float> rsqrt_degrees(const int32_t* receivers, int64_t e,
+                                        int64_t n, int self_loops) {
+  std::vector<double> deg(n, self_loops ? 1.0 : 0.0);
+  for (int64_t i = 0; i < e; ++i) deg[receivers[i]] += 1.0;
+  std::vector<float> inv(n);
+  for (int64_t i = 0; i < n; ++i) {
+    const float d = (float)deg[i];
+    inv[i] = d > 0.0f ? 1.0f / std::sqrt(d) : 0.0f;
+  }
+  return inv;
+}
+
+// Stable counting sort of the edges by key, each row followed by its node's
+// self-loop with self_loops (the loops appended after every edge, as
+// gcn_norm and gat_plan append them): ptr [n + 1], and in CSR order other[i]
+// into col, value[i] into val (when val is given) and key[i] into rows (when
+// given); a loop's value is loop_val[v].
+static void csr_by_with_loops(const int32_t* key, const int32_t* other,
+                              const float* value, const float* loop_val,
+                              int64_t e, int64_t n, int self_loops,
+                              int32_t* ptr, int32_t* col, float* val,
+                              int32_t* rows) {
+  std::vector<int64_t> cursor(n + 1, 0);
+  for (int64_t i = 0; i < e; ++i) cursor[key[i] + 1]++;
+  if (self_loops)
+    for (int64_t v = 0; v < n; ++v) cursor[v + 1]++;
+  for (int64_t i = 0; i < n; ++i) cursor[i + 1] += cursor[i];
+  for (int64_t i = 0; i <= n; ++i) ptr[i] = (int32_t)cursor[i];
+  for (int64_t i = 0; i < e; ++i) {
+    const int64_t p = cursor[key[i]]++;
+    col[p] = other[i];
+    if (val) val[p] = value[i];
+    if (rows) rows[p] = key[i];
+  }
+  if (!self_loops) return;
+  for (int64_t v = 0; v < n; ++v) {
+    const int64_t p = cursor[v]++;
+    col[p] = (int32_t)v;
+    if (val) val[p] = loop_val[v];
+    if (rows) rows[p] = (int32_t)v;
+  }
+}
+
+// A chunk's plan of the gcn_norm adjacency (e edges among n nodes, plus a
+// self-loop on every node with self_loops; fewer than 2^31 in all): the
+// receivers' CSR (row_ptr [n + 1], col = senders, val) and the senders'
+// (t_row_ptr, t_col = receivers, t_val), both stable, each row's loop after
+// its edges, with val = inv[s] * w * inv[r] (w = 1) of rsqrt_degrees.
+void chunk_norm_csr(const int32_t* senders, const int32_t* receivers,
+                    int64_t e, int64_t n, int self_loops, int32_t* row_ptr,
+                    int32_t* col, float* val, int32_t* t_row_ptr,
+                    int32_t* t_col, float* t_val) {
+  const std::vector<float> inv = rsqrt_degrees(receivers, e, n, self_loops);
+  std::vector<float> value(e), loop(self_loops ? n : 0);
+  for (int64_t i = 0; i < e; ++i)
+    value[i] = inv[senders[i]] * 1.0f * inv[receivers[i]];
+  for (int64_t v = 0; v < (int64_t)loop.size(); ++v)
+    loop[v] = inv[v] * 1.0f * inv[v];
+  csr_by_with_loops(receivers, senders, value.data(), loop.data(), e, n,
+                    self_loops, row_ptr, col, val, nullptr);
+  csr_by_with_loops(senders, receivers, value.data(), loop.data(), e, n,
+                    self_loops, t_row_ptr, t_col, t_val, nullptr);
+}
+
+// A chunk's GAT plan (e edges among n nodes and a self-loop on every node,
+// e + n < 2^31): the receivers' CSR of the edges and loops, stable, each
+// row's loop after its edges (row_ptr [n + 1], col = senders, rows = each
+// position's receiver, [e + n]), and the transposed CSR of those positions
+// by sender, stable (t_row_ptr [n + 1], t_col = receivers, t_pos = the
+// receiver-order position of each entry).
+void chunk_gat_csr(const int32_t* senders, const int32_t* receivers,
+                   int64_t e, int64_t n, int32_t* row_ptr, int32_t* col,
+                   int32_t* rows, int32_t* t_row_ptr, int32_t* t_col,
+                   int32_t* t_pos) {
+  csr_by_with_loops(receivers, senders, nullptr, nullptr, e, n, 1, row_ptr,
+                    col, nullptr, rows);
+  const int64_t total = e + n;
+  std::vector<int64_t> cursor(n + 1, 0);
+  for (int64_t p = 0; p < total; ++p) cursor[col[p] + 1]++;
+  for (int64_t i = 0; i < n; ++i) cursor[i + 1] += cursor[i];
+  for (int64_t i = 0; i <= n; ++i) t_row_ptr[i] = (int32_t)cursor[i];
+  for (int64_t p = 0; p < total; ++p) {
+    const int64_t q = cursor[col[p]]++;
+    t_col[q] = rows[p];
+    t_pos[q] = (int32_t)p;
+  }
 }
 
 // One bucket of the ELL layout (ops/ell.py): for each of its nb rows, the

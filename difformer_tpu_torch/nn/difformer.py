@@ -423,6 +423,10 @@ class DIFFormer(nn.Module):
         self.reset_parameters(torch.Generator().manual_seed(seed))
         self.to(dev)
 
+    #: The plan a node chunk needs (``train/minibatch.py``): the CSR plan
+    #: of :meth:`build_plan`.
+    chunk_plan_kind = "csr"
+
     @staticmethod
     def build_plan(senders, receivers, num_nodes, edge_weight=None,
                    edge_mask=None):

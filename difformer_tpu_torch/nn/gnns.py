@@ -14,7 +14,11 @@ receiver order, with both edge orders). With a plan a forward sorts
 nothing and reads nothing back from the device, so a step can be captured
 in a CUDA graph; without one it builds its own. Padded edges
 (``edge_mask`` False) weigh 0 in the normalised plans and are left out of
-GAT's; the JAX zoo reads no mask (ROADMAP.md queue C).
+GAT's; the JAX zoo reads no mask (ROADMAP.md queue C). In node chunks
+(``train/minibatch.py``) a model names the plan a chunk needs
+(``chunk_plan_kind``: none, ``gcn_norm`` with or without loops, GAT's),
+which the host builds (``native/``) and the trainer views on the device
+(``views_plan``, :func:`gat_plan_from_views`); LINK refuses.
 
 GAT's attention is a softmax over each receiver's edges. On the card no sum
 that feeds the loss goes through ``index_add_`` (atomics in no fixed order):
@@ -37,12 +41,18 @@ and ``_JK_0`` is ``jk`` (``lstm_fwd``, ``lstm_bwd``, ``att``).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from difformer_tpu_torch.kernels.spmm import (
+    DVAL_SPLIT_THRESHOLD,
+    SPLIT_THRESHOLD,
+    RowSplit,
+)
 from difformer_tpu_torch.nn.common import Linear, TorchBatchNorm, dropout
 from difformer_tpu_torch.nn.init import flax_lstm_init_, torch_linear_init_
 from difformer_tpu_torch.ops.graph_ops import (
@@ -51,6 +61,7 @@ from difformer_tpu_torch.ops.graph_ops import (
     build_spmm_plan,
     edge_incidence,
     gcn_norm,
+    splits_of,
     spmm,
 )
 from difformer_tpu_torch.ops.segment import segment_max
@@ -84,7 +95,12 @@ def _hop(x, plan):
 class _Model(nn.Module):
     """A zoo model's construction: parameters drawn from
     ``torch.Generator().manual_seed(seed)``, placed on ``device`` (the GPU
-    unless told otherwise)."""
+    unless told otherwise).
+
+    In node chunks (``train/minibatch.py``) a model names the kind of plan
+    a chunk needs, ``chunk_plan_kind`` (None: it reads no graph)."""
+
+    chunk_plan_kind = None
 
     def _finish(self, seed, device):
         dev = resolve_device(device)
@@ -157,6 +173,11 @@ class _GraphModel(_Model):
         return norm_plan(senders, receivers, num_nodes, edge_weight,
                          edge_mask, add_self_loops=self.add_self_loops)
 
+    @property
+    def chunk_plan_kind(self):
+        """``native.chunk_norm_csr``'s plan, with or without loops."""
+        return "norm_loops" if self.add_self_loops else "norm"
+
     def _plan(self, plan, x, senders, receivers, edge_weight, edge_mask,
               num_nodes=None):
         if plan is not None:
@@ -170,6 +191,16 @@ class LINK(_GraphModel):
     A · W + b, row i the sum of W's rows at i's neighbours. The "input" is
     the weight ``kernel`` [num_nodes, C] itself, through K1 with senders and
     receivers swapped (``out[s] += kernel[r]``); x is not read."""
+
+    @property
+    def chunk_plan_kind(self):
+        """None LINK can train on: the weight has a row per node id of the
+        whole graph, which a chunk's edges, relabelled to positions in the
+        chunk, cannot address."""
+        raise ValueError(
+            "LINK cannot train on node chunks: its weight is indexed by the "
+            "global node id, which a chunk's edges, relabelled to positions "
+            "in the chunk, cannot address")
 
     def __init__(self, num_nodes, out_channels, *, seed=0, device=None):
         super().__init__()
@@ -298,12 +329,22 @@ class GATPlan:
     every node, in receiver order (so the plan's edge order is its CSR
     order), with both edge orders for per-call values; the incidences of
     those edges with their receivers (``dst``) and senders (``src``); and
-    ``rows`` (int64 [E]), each edge's receiver."""
+    ``rows`` ([E], int64 or int32), each edge's receiver. ``positions``
+    (int64 [E]: 0 … E − 1) marks a plan held at a capacity, whose edges
+    past ``plan.row_ptr[-1]`` are padding (None: every edge is real)."""
 
     plan: CsrPlan
     dst: EdgeIncidence
     src: EdgeIncidence
     rows: torch.Tensor
+    positions: Optional[torch.Tensor] = None
+
+    def padded(self):
+        """[E, 1] bool, True on the padded edges of a plan held at a
+        capacity, or None. On the device, with nothing read back."""
+        if self.positions is None:
+            return None
+        return (self.positions >= self.plan.row_ptr[-1])[:, None]
 
 
 def gat_plan(senders, receivers, num_nodes, edge_mask=None,
@@ -322,6 +363,45 @@ def gat_plan(senders, receivers, num_nodes, edge_mask=None,
     plan = build_spmm_plan(None, s, r, num_nodes, value_grad=True)
     return GATPlan(plan, edge_incidence(plan, "receiver"),
                    edge_incidence(plan, "sender"), r)
+
+
+def gat_plan_from_views(v, num_nodes) -> GATPlan:
+    """The :class:`GATPlan` of ``num_nodes`` nodes over the views ``v`` of
+    the arrays the host built for a chunk (``native.chunk_gat_csr``:
+    ``row_ptr``, ``col``, ``edge_row``, ``t_row_ptr``, ``t_col``,
+    ``t_pos``; K1's two split schedules and K1-dval's, ``d_``), equal to
+    :func:`gat_plan`'s for the chunk's edges. What the views do not hold
+    is fixed by their sizes and made here: the unit values, the identity
+    edge orders and the edges' one-entry rows (never heavy). With
+    ``counts`` the views are held at a capacity and the plan marks its
+    padding (``positions``); without, the plan is exact."""
+    col = v["col"]
+    e, dev = col.numel(), col.device
+    counts = v.get("counts")
+
+    def part(i):  # the i-th schedule's counts, at a capacity
+        return None if counts is None else counts[2 * i:2 * i + 2]
+
+    ones = torch.ones(e, device=dev)
+    order = torch.arange(e, device=dev)
+    split, t_split = splits_of(v, "", part(0)), splits_of(v, "t_", part(1))
+    plan = CsrPlan(num_nodes=num_nodes, row_ptr=v["row_ptr"], col=col,
+                   val=ones, t_row_ptr=v["t_row_ptr"], t_col=v["t_col"],
+                   t_val=ones, split=split, t_split=t_split, order=order,
+                   t_order=v["t_pos"], inv_order=order, rows=v["edge_row"],
+                   dval_split=splits_of(v, "d_", part(2),
+                                        DVAL_SPLIT_THRESHOLD))
+    edge_ptr = torch.arange(e + 1, dtype=torch.int32, device=dev)
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    edge_split = RowSplit(SPLIT_THRESHOLD, empty, torch.zeros(
+        1, dtype=torch.int32, device=dev), empty, empty)
+    dst = EdgeIncidence(
+        (edge_ptr, v["edge_row"], ones, edge_split),
+        (v["row_ptr"], order.to(torch.int32), ones, split))
+    src = EdgeIncidence((edge_ptr, col, ones, edge_split),
+                        (v["t_row_ptr"], v["t_pos"], ones, t_split))
+    return GATPlan(plan, dst, src, v["edge_row"],
+                   None if counts is None else order)
 
 
 class GATLayer(nn.Module):
@@ -363,6 +443,12 @@ class GATLayer(nn.Module):
         e = F.leaky_relu(plan.src.gather(score_src)
                          + plan.dst.gather(score_dst),
                          self.negative_slope)               # [E, H]
+        padded = plan.padded()
+        if padded is not None:
+            # a plan at a capacity: a padded edge (which every sum over the
+            # CSRs leaves out) joins no max, weighs exp(-inf) = 0 and takes
+            # no gradient, whatever K1-dval leaves in its slot
+            e = e.masked_fill(padded, float("-inf"))
         with torch.no_grad():
             top = segment_max(e, plan.rows, n)
             top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
@@ -377,6 +463,8 @@ class GATLayer(nn.Module):
 
 
 class _GATModel(_Model):
+    chunk_plan_kind = "gat"
+
     def build_plan(self, senders, receivers, num_nodes, edge_weight=None,
                    edge_mask=None):
         """The :class:`GATPlan` of the graph (edge weights are not read, as

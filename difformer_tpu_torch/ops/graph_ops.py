@@ -13,6 +13,8 @@ each CSR's split schedule of heavy rows. A plan may be rectangular
 (:func:`build_value_plan`: rows and columns counted apart, as the
 node-sharded products of ``parallel/sharded_ops.py`` need); the others
 are square.
+:func:`views_plan` builds a plan over arrays the host built (the
+mini-batch trainer's chunks, packed at a capacity or exact).
 ``gcn_conv``'s plan, with the normalised values, depends only on the
 graph's indices, ``edge_weight`` and ``edge_mask``, so a caller that runs
 many convolutions on one graph builds it once (``GraphData.csr_plan()``)
@@ -42,6 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from difformer_tpu_torch.kernels import spmm as K1
 from difformer_tpu_torch.kernels.spmm import (DVAL_SPLIT_THRESHOLD, CsrSpmm,
                                                RowSplit, row_split)
 from difformer_tpu_torch.ops.segment import segment_sum
@@ -187,6 +190,31 @@ def _plan(senders, receivers, num_nodes, value, maps=False,
         t_col=receivers[t_order].to(torch.int32), t_val=value[t_order],
         split=row_split(row_ptr), t_split=row_split(t_row_ptr),
         num_cols=num_cols, **kept)
+
+
+def splits_of(v, prefix, counts, threshold=None):
+    """The :class:`RowSplit` of the fields ``{prefix}rows``,
+    ``{prefix}seg_ptr``, ``{prefix}seg_begin`` and ``{prefix}seg_end`` of
+    the views ``v``, at ``threshold`` (K1's ``SPLIT_THRESHOLD`` unless
+    given), held at a capacity with ``counts`` (None: exact)."""
+    return RowSplit(K1.SPLIT_THRESHOLD if threshold is None else threshold,
+                    v[f"{prefix}rows"], v[f"{prefix}seg_ptr"],
+                    v[f"{prefix}seg_begin"], v[f"{prefix}seg_end"], counts)
+
+
+def views_plan(v, num_nodes):
+    """The :class:`CsrPlan` of ``num_nodes`` nodes over the views ``v`` of
+    a plan built on the host (``row_ptr``, ``col``, ``val``, their ``t_``
+    twins and the two split schedules; ``train/minibatch.py`` packs them):
+    with ``counts``, a plan packed at a capacity, K1's schedules at
+    capacity with their counts in it; without, an exact plan."""
+    counts = v.get("counts")
+    return CsrPlan(
+        num_nodes=num_nodes, row_ptr=v["row_ptr"], col=v["col"],
+        val=v["val"], t_row_ptr=v["t_row_ptr"], t_col=v["t_col"],
+        t_val=v["t_val"],
+        split=splits_of(v, "", None if counts is None else counts[:2]),
+        t_split=splits_of(v, "t_", None if counts is None else counts[2:4]))
 
 
 def build_csr_plan(senders, receivers, num_nodes, edge_weight=None,
@@ -355,6 +383,13 @@ def edge_incidence(plan: CsrPlan, end: str) -> EdgeIncidence:
     return EdgeIncidence((edge_ptr, node, ones, edge_split), node_csr)
 
 
+def _degree_host(index, weight, num_nodes):
+    """:func:`weighted_degree` as a float32 numpy array."""
+    return np.bincount(index.detach().cpu().numpy(),
+                       weights=weight.detach().double().cpu().numpy(),
+                       minlength=num_nodes).astype(np.float32)
+
+
 def weighted_degree(index, weight, num_nodes):
     """``segment_sum(weight, index, num_nodes)`` (float32 on ``index``'s
     device), summed on the host in float64 in edge order, so that a plan is
@@ -362,10 +397,8 @@ def weighted_degree(index, weight, num_nodes):
     weights with atomics in no fixed order. (Unit weights need no such
     care: their sums are exact integers.) For plan building, once per
     graph."""
-    deg = np.bincount(index.detach().cpu().numpy(),
-                      weights=weight.detach().double().cpu().numpy(),
-                      minlength=num_nodes)
-    return torch.as_tensor(deg.astype(np.float32), device=index.device)
+    return torch.as_tensor(_degree_host(index, weight, num_nodes),
+                           device=index.device)
 
 
 def gcn_norm(senders, receivers, num_nodes, edge_weight=None, *,
@@ -375,7 +408,14 @@ def gcn_norm(senders, receivers, num_nodes, edge_weight=None, *,
     appended on every node (``add_self_loops``), and
     ``value = deg^-1/2[s] · w · deg^-1/2[r]`` with the weighted degrees
     counted over receivers (:func:`weighted_degree`), 0 where a degree is
-    0. The edges are int64 and the values float32 on the edges' device."""
+    0. ``deg^-1/2`` is taken on the host with the degrees, a float square
+    root and a float quotient each rounded once, as the CPU's
+    ``torch.rsqrt`` gives it (the card's ``rsqrt`` is approximate: on an
+    H100 80GB HBM3 at 700 W it differs in the last bits at 35 % of the
+    integer degrees up to 2 million), so that
+    the values are the same on either device and the mini-batch trainer's
+    host plans (``native.chunk_norm_csr``) are them bit for bit. The edges
+    are int64 and the values float32 on the edges' device."""
     senders, receivers = senders.long(), receivers.long()
     if edge_weight is None:
         edge_weight = torch.ones(senders.shape, dtype=torch.float32,
@@ -388,9 +428,11 @@ def gcn_norm(senders, receivers, num_nodes, edge_weight=None, *,
         edge_weight = torch.cat([edge_weight, torch.full(
             (num_nodes,), fill_value, dtype=torch.float32,
             device=senders.device)])
-    deg = weighted_degree(receivers, edge_weight, num_nodes)
-    inv_sqrt = torch.where(deg > 0, torch.rsqrt(deg.clamp(min=1e-30)),
-                           torch.zeros_like(deg))
+    deg = _degree_host(receivers, edge_weight, num_nodes)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv = np.where(deg > 0, np.float32(1) / np.sqrt(
+            np.maximum(deg, np.float32(1e-30))), np.float32(0))
+    inv_sqrt = torch.as_tensor(inv, device=senders.device)
     norm = inv_sqrt[senders] * edge_weight * inv_sqrt[receivers]
     return senders, receivers, norm
 

@@ -160,8 +160,7 @@ def pack_edges(v, batch, num_nodes):
     if senders.size > v["col"].shape[0]:
         raise ValueError(f"{senders.size} edges exceed the capacity "
                          f"{v['col'].shape[0]}")
-    pack_csr(v, senders, np.asarray(batch.receivers)[em], num_nodes,
-             (v["rows"].shape[0], v["seg_begin"].shape[0]))
+    pack_csr(v, senders, np.asarray(batch.receivers)[em], num_nodes)
 
 
 def _most_edges(ends):

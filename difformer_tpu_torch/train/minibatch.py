@@ -15,12 +15,30 @@ as the reference runs it. (The JAX trainer pads it to ``batch_size`` with
 copies of node 0 and no node mask, so the copies enter its global
 attention; ROADMAP.md queue C.)
 
+The model is DIFFormer or a model of the baseline zoo (``nn/gnns.py``) but
+LINK, whose weight is indexed by the global node id, which a chunk's
+relabelled edges cannot address (the JAX route fails on it too). The JAX
+trainer hands any model the chunk; the port does not carry the two faults
+that leaves in the zoo (ROADMAP.md queue C): its step applies
+``{"params": p}`` alone, so no BatchNorm model trains there (here the
+running statistics are the model's buffers, moved by every chunk step and
+kept in the best state), and the zoo reads no ``edge_mask``, so the JAX
+trainer's padded 0 → 0 edges enter its normalisation (here a chunk's plan
+holds its real edges only). ManiReg trains its MLP without the smoothness
+term, as the JAX route does.
+
 The host builds each epoch's chunk plans (``native/``): the induced
 subgraphs of all chunks in one pass over the edges, then for each chunk
-its two CSRs with their GCN values and K1's split schedule
-(``kernels/spmm.py``). The device holds the features and labels and
-gathers a chunk's rows itself. Two ways to run an epoch, with the same
-plans and the same numbers:
+the plan its model names (``chunk_plan_kind``, :data:`PLAN_KINDS`):
+DIFFormer's two CSRs with their GCN values, the zoo's ``gcn_norm`` CSRs
+with or without a self-loop on every node, or GAT's edges and loops in
+receiver order with their transposed positions, each with K1's split
+schedules (GAT's also K1-dval's; ``kernels/spmm.py``), bit-equal to the
+plans built on the device (``nn/gnns.py:norm_plan``, ``gat_plan``); none
+for a model that reads no graph. The device holds the features and labels
+and gathers a chunk's rows itself; the plan of the kind is built over
+views of the host's arrays (:func:`chunk_plan`). Two ways to run an epoch, with the
+same plans and the same numbers:
 
 - ``use_scan=False``, the per-chunk loop: each chunk's plan is copied to
   the device at its exact size and the step runs eagerly.
@@ -34,7 +52,11 @@ plans and the same numbers:
   chunk size and at the last chunk's size as CUDA graphs
   (:class:`ChunkRunner`), which every chunk replays; on the CPU the same
   loop runs without capture. A failed capture or replay raises; nothing
-  falls back to eager execution.
+  falls back to eager execution. GAT's edge tensors there run over the
+  capacity: a padded edge joins no sum and no max and takes no gradient
+  (``GATPlan.padded``). Its attention dropout draws a value an edge, over
+  the chunk's edges in the loop and over the capacity here, so at
+  attention dropout above 0 the two paths draw other masks.
 
 A chunk whose induced subgraph has more edges than the capacity raises, as
 ``pad_edges`` does in the JAX trainer. Losses stay on the device and the
@@ -47,6 +69,7 @@ import dataclasses
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -54,13 +77,14 @@ import torch
 from difformer_tpu_torch import native
 from difformer_tpu_torch.data.transforms import edge_bucket, pad_edges
 from difformer_tpu_torch.kernels.spmm import (
+    DVAL_SPLIT_THRESHOLD,
     SPLIT_THRESHOLD,
-    RowSplit,
     padded_split,
     row_split_host,
     split_capacity,
 )
-from difformer_tpu_torch.ops.graph_ops import CsrPlan, build_csr_plan
+from difformer_tpu_torch.nn.gnns import gat_plan_from_views
+from difformer_tpu_torch.ops.graph_ops import views_plan
 from difformer_tpu_torch.train.optim import torch_adam
 from difformer_tpu_torch.train.trainer import (
     LOSSES,
@@ -77,15 +101,69 @@ from difformer_tpu_torch.utils.metrics import METRICS
 from difformer_tpu_torch.utils.weights import load_params
 
 _FLOAT_FIELDS = ("val", "t_val")
+_SPLIT_FIELDS = ("rows", "seg_ptr", "seg_begin", "seg_end")
+#: The plan arrays of each kind, as its native entry gives them.
+_PLAN_FIELDS = {
+    "csr": ("row_ptr", "col", "val", "t_row_ptr", "t_col", "t_val"),
+    "gat": ("row_ptr", "col", "edge_row", "t_row_ptr", "t_col", "t_pos"),
+}
+_PLAN_FIELDS["norm"] = _PLAN_FIELDS["norm_loops"] = _PLAN_FIELDS["csr"]
+#: The kinds of chunk plan (a model's ``chunk_plan_kind``; DIFFormer's is
+#: "csr"): DIFFormer's two CSRs with the reference's GCN values
+#: (``native.chunk_csr``); the baseline zoo's ``gcn_norm`` plans without
+#: and with a self-loop on every node (``native.chunk_norm_csr``); GAT's
+#: (``native.chunk_gat_csr``); None for a model that reads no graph.
+PLAN_KINDS = tuple(_PLAN_FIELDS) + (None,)
+_LOOPED = ("norm_loops", "gat")
+#: The plan of each kind over views of its arrays on the device (the
+#: models' ``forward(plan=)``): a :class:`CsrPlan`, or a ``GATPlan``.
+_VIEW_PLANS = {"csr": views_plan, "norm": views_plan,
+               "norm_loops": views_plan, "gat": gat_plan_from_views,
+               None: lambda views, num_nodes: None}
+
+
+def plan_kind(model):
+    """The chunk plan kind that ``model`` names (``chunk_plan_kind``; a
+    model that cannot train on node chunks raises there)."""
+    kind = model.chunk_plan_kind
+    if kind not in PLAN_KINDS:
+        raise ValueError(f"{type(model).__name__} names an unknown chunk "
+                         f"plan kind {kind!r} (known: {PLAN_KINDS})")
+    return kind
+
+
+def _split_sources(kind):
+    """(prefix, row pointers, threshold) of each split schedule of a plan
+    of ``kind``: K1's of its two CSRs, and for GAT K1-dval's of the
+    receivers' CSR."""
+    out = [("", "row_ptr", SPLIT_THRESHOLD),
+           ("t_", "t_row_ptr", SPLIT_THRESHOLD)]
+    if kind == "gat":
+        out.append(("d_", "row_ptr", DVAL_SPLIT_THRESHOLD))
+    return out
+
+
+def _fill(kind, senders, receivers, num_nodes, out=None):
+    """The plan arrays of ``kind`` (``_PLAN_FIELDS``) from its native
+    entry, into ``out`` where given."""
+    if kind == "csr":
+        return native.chunk_csr(senders, receivers, num_nodes, out=out)
+    if kind == "gat":
+        return native.chunk_gat_csr(senders, receivers, num_nodes, out=out)
+    return native.chunk_norm_csr(senders, receivers, num_nodes,
+                                 kind == "norm_loops", out=out)
 
 
 @dataclasses.dataclass(frozen=True)
 class ChunkLayout:
     """Where each field of a chunk plan of ``nodes`` nodes lies in its flat
-    int32 buffer, at ``edges`` edges and K1's split capacity."""
+    int32 buffer, at ``edges`` edges (the CSRs' capacity, self-loops
+    included) and K1's split capacity, for a plan of ``kind``
+    (:data:`PLAN_KINDS`; None holds the node ids alone)."""
 
     nodes: int
     edges: int
+    kind: Optional[str] = "csr"
 
     @property
     def capacity(self):
@@ -99,12 +177,17 @@ class ChunkLayout:
         """The fields in buffer order with their lengths in int32 words; val
         and t_val hold float32 bits."""
         m, e = self.nodes, self.edges
-        h, s = self.capacity
-        csr = [("nodes", m), ("row_ptr", m + 1), ("col", e), ("val", e),
-               ("t_row_ptr", m + 1), ("t_col", e), ("t_val", e)]
-        split = [(f"{p}{k}", n) for p in ("", "t_") for k, n in (
-            ("rows", h), ("seg_ptr", h + 1), ("seg_begin", s), ("seg_end", s))]
-        return csr + split + [("counts", 4)]
+        if self.kind is None:
+            return [("nodes", m)]
+        a, b, c, d, f, g = _PLAN_FIELDS[self.kind]
+        plan = [("nodes", m), (a, m + 1), (b, e), (c, e), (d, m + 1),
+                (f, e), (g, e)]
+        sources = _split_sources(self.kind)
+        split = [(f"{p}{k}", n) for p, _, t in sources
+                 for (h, s) in [split_capacity(e, t)] for k, n in (
+                     ("rows", h), ("seg_ptr", h + 1), ("seg_begin", s),
+                     ("seg_end", s))]
+        return plan + split + [("counts", 2 * len(sources))]
 
     def views(self, buf):
         """{field: view of ``buf``} (a numpy array or a tensor of int32;
@@ -120,53 +203,51 @@ class ChunkLayout:
         return out
 
 
-def _splits_of(v, prefix, counts):
-    return RowSplit(SPLIT_THRESHOLD, v[f"{prefix}rows"], v[f"{prefix}seg_ptr"],
-                    v[f"{prefix}seg_begin"], v[f"{prefix}seg_end"], counts)
-
-
-def views_plan(v, num_nodes):
-    """The :class:`CsrPlan` of ``num_nodes`` nodes over the views ``v`` of
-    a packed plan on the device (``row_ptr``, ``col``, ``val``, their
-    ``t_`` twins, the split fields and ``counts``): K1's schedules at
-    capacity with their counts in it."""
-    return CsrPlan(
-        num_nodes=num_nodes, row_ptr=v["row_ptr"], col=v["col"],
-        val=v["val"], t_row_ptr=v["t_row_ptr"], t_col=v["t_col"],
-        t_val=v["t_val"], split=_splits_of(v, "", v["counts"][:2]),
-        t_split=_splits_of(v, "t_", v["counts"][2:]))
-
-
 def chunk_plan(layout, buf):
-    """The :class:`CsrPlan` over a packed chunk buffer (a device tensor)."""
-    return views_plan(layout.views(buf), layout.nodes)
+    """The plan of a packed chunk buffer (a device tensor) of ``layout``,
+    over views of it."""
+    return _VIEW_PLANS[layout.kind](layout.views(buf), layout.nodes)
 
 
-def pack_csr(v, senders, receivers, num_nodes, capacity):
-    """Write the two CSRs of the edges (senders, receivers) with their GCN
-    values (``native.chunk_csr``), and K1's schedules at ``capacity`` (H, S)
-    with their counts, into the numpy views ``v`` of a packed plan;
-    returns (heavy rows, segments) of the two CSRs."""
-    native.chunk_csr(senders, receivers, num_nodes, out=tuple(
-        v[k] for k in ("row_ptr", "col", "val", "t_row_ptr", "t_col",
-                       "t_val")))
+def pack_csr(v, senders, receivers, num_nodes, kind="csr"):
+    """Write the plan of ``kind`` for the edges (senders, receivers) into
+    the numpy views ``v`` of a packed plan: DIFFormer's two CSRs with
+    their GCN values (``native.chunk_csr``), or the zoo's (``"norm"``,
+    ``"norm_loops"``, ``"gat"``), and each split schedule (K1's two, GAT's
+    also K1-dval's) at the capacity of its views with its counts; returns
+    (heavy rows, segments) of K1's two CSRs."""
+    _fill(kind, senders, receivers, num_nodes,
+          out=tuple(v[k] for k in _PLAN_FIELDS[kind]))
     counts = []
-    for prefix in ("", "t_"):
-        counts += padded_split(
-            row_split_host(v[f"{prefix}row_ptr"]), capacity,
-            tuple(v[f"{prefix}{k}"] for k in ("rows", "seg_ptr", "seg_begin",
-                                              "seg_end")))
+    for prefix, ptr, threshold in _split_sources(kind):
+        split = tuple(v[prefix + k] for k in _SPLIT_FIELDS)
+        counts += padded_split(row_split_host(v[ptr], threshold),
+                               (split[0].size, split[2].size), split)
     v["counts"][:] = counts
     return counts[0] + counts[2], counts[1] + counts[3]
 
 
 def pack_chunk(layout, buf, nodes, sub):
     """Write the plan of the chunk ``nodes`` with induced subgraph ``sub``
-    ([2, E] int32, relabelled) into ``buf`` (numpy int32 [layout.size]);
-    returns (heavy rows, segments) of its two CSRs."""
+    ([2, E] int32, relabelled; None for a plan of kind None) into ``buf``
+    (numpy int32 [layout.size]); returns (heavy rows, segments) of its two
+    CSRs."""
     v = layout.views(buf)
     v["nodes"][:] = nodes
-    return pack_csr(v, sub[0], sub[1], layout.nodes, layout.capacity)
+    if layout.kind is None:
+        return 0, 0
+    return pack_csr(v, sub[0], sub[1], layout.nodes, layout.kind)
+
+
+def exact_views(kind, senders, receivers, num_nodes):
+    """A chunk's plan of ``kind`` at its exact size: {field: numpy array},
+    its split schedules exact (no counts)."""
+    v = dict(zip(_PLAN_FIELDS[kind],
+                 _fill(kind, senders, receivers, num_nodes)))
+    for prefix, ptr, threshold in _split_sources(kind):
+        v.update(zip((prefix + k for k in _SPLIT_FIELDS),
+                     row_split_host(v[ptr], threshold)))
+    return v
 
 
 def minibatch_labels(labels, loss):
@@ -191,13 +272,17 @@ def minibatch_labels(labels, loss):
 class MiniBatchTrainer:
     """Train a node-level model on chunks of a large graph.
 
-    ``model(x, plan=p, generator=g, edge_chunk_size=c)`` gives the logits of
-    the nodes of ``x`` over the graph of CSR plan ``p``. ``node_feat``
-    [N, F], ``edge_index`` [2, E] and ``labels`` are numpy; features and
-    labels go to ``device`` (the GPU unless told otherwise) once, with the
-    full graph's CSR plan for the eval. The constructor and ``fit`` take
-    the JAX trainer's arguments; ``edge_bucket_growth`` sets the growth of
-    the edge capacity's ladder (the JAX trainer takes it and keeps 1.3).
+    ``model(x, plan=p, generator=g)`` gives the logits of the nodes of
+    ``x`` over the graph of plan ``p``: DIFFormer (over a CSR plan, with
+    ``edge_chunk_size=c`` in the eval) or a model of the baseline zoo
+    (``nn/gnns.py``) but LINK, over the plan its ``chunk_plan_kind`` names
+    (:data:`PLAN_KINDS`). ``node_feat`` [N, F], ``edge_index`` [2, E] and
+    ``labels`` are numpy; features and labels go to ``device`` (the GPU
+    unless told otherwise) once, with the full graph's plan for the eval
+    (the model's ``build_plan``). The
+    constructor and ``fit`` take the JAX trainer's arguments;
+    ``edge_bucket_growth`` sets the growth of the edge capacity's ladder
+    (the JAX trainer takes it and keeps 1.3).
     """
 
     def __init__(self, model, node_feat, edge_index, labels, *,
@@ -207,6 +292,8 @@ class MiniBatchTrainer:
                  edge_bucket_growth: float = 1.3, use_scan: bool = True,
                  device=None):
         self.device = resolve_device(device)
+        #: The chunk plan kind of the model (:data:`PLAN_KINDS`).
+        self.kind = plan_kind(model)
         self.model = model.to(self.device)
         x = np.asarray(node_feat, np.float32)
         ei = np.asarray(edge_index)
@@ -229,14 +316,16 @@ class MiniBatchTrainer:
                                           device=self.device)
         #: The edge capacity of a chunk's induced subgraph (the JAX rule).
         self.edge_capacity = self._estimate_chunk_edges()
-        self.layouts = {m: ChunkLayout(m, self.edge_capacity)
-                        for m in {self.batch_size, self.last_size}}
+        # a self-looped plan holds a loop on each of a chunk's m nodes
+        self.layouts = {m: ChunkLayout(
+            m, self.edge_capacity + (m if self.kind in _LOOPED else 0),
+            self.kind) for m in {self.batch_size, self.last_size}}
         self._ones = {m: torch.ones(m, dtype=torch.bool, device=self.device)
                       for m in self.layouts}
         # the full graph, for the eval: its plan is built once
-        self.full_plan = build_csr_plan(
-            torch.as_tensor(self.senders, device=self.device),
-            torch.as_tensor(self.receivers, device=self.device), self.n)
+        senders = torch.as_tensor(self.senders, device=self.device)
+        receivers = torch.as_tensor(self.receivers, device=self.device)
+        self.full_plan = self.model.build_plan(senders, receivers, self.n)
         # the plain version streams the edges as the JAX eval does
         self._eval_edge_chunk = (2 * 1024 * 1024 if edge_bucket(ei.shape[1])
                                  > 8 * 1024 * 1024 else None)
@@ -249,15 +338,17 @@ class MiniBatchTrainer:
         self.runner = None
 
     # -- state ---------------------------------------------------------------
-    def init_state(self, run: int = 0, init_params=None) -> TrainState:
-        """Fresh weights drawn from ``seed + run`` (or ``init_params``, a
-        flax params tree), written into the model in place, and a fresh
-        Adam."""
-        if init_params is None:
-            self.model.reset_parameters(
-                torch.Generator().manual_seed(self.seed + run))
-        else:
-            load_params(self.model, init_params)
+    def init_state(self, run: int = 0, init_params=None,
+                   init_batch_stats=None) -> TrainState:
+        """Fresh weights drawn from ``seed + run`` (then ``init_params``, a
+        flax params tree, and ``init_batch_stats``, a zoo model's flax
+        ``batch_stats``, where given), written into the model's parameters
+        and buffers in place, and a fresh Adam. Without
+        ``init_batch_stats`` the BatchNorm statistics are fresh."""
+        self.model.reset_parameters(
+            torch.Generator().manual_seed(self.seed + run))
+        if init_params is not None:
+            load_params(self.model, init_params, init_batch_stats)
         opt = torch_adam(self.model.parameters(), self.lr, self.weight_decay)
         return TrainState(self.model, opt, 0)
 
@@ -298,38 +389,43 @@ class MiniBatchTrainer:
 
     # -- chunk plans ---------------------------------------------------------
     def _subgraphs(self, perm):
-        """Every chunk's (nodes, induced subgraph) for permutation ``perm``;
-        raises for a chunk above the edge capacity."""
+        """Every chunk's (nodes, induced subgraph) for permutation ``perm``
+        (the subgraph None for a model that reads no graph); raises for a
+        chunk above the edge capacity."""
+        bs = self.batch_size
+        if self.kind is None:
+            return [(perm[c * bs:(c + 1) * bs], None)
+                    for c in range(self.n_chunks)]
         subs = native.chunk_subgraphs(self.senders, self.receivers, perm,
                                       self.batch_size)
         for sub in subs:
             if sub.shape[1] > self.edge_capacity:
                 pad_edges(sub, None, self.edge_capacity)  # raises
-        bs = self.batch_size
         return [(perm[c * bs:(c + 1) * bs], sub)
                 for c, sub in enumerate(subs)]
 
     def _exact_plan(self, m, sub):
-        """A chunk's CSR plan on the device at its exact size (the loop)."""
-        arrays = native.chunk_csr(sub[0], sub[1], m)
-        t = [torch.as_tensor(a, device=self.device) for a in arrays]
-        splits = [RowSplit(SPLIT_THRESHOLD, *(
-            torch.as_tensor(a, device=self.device)
-            for a in row_split_host(ptr))) for ptr in (arrays[0], arrays[3])]
-        stats = sum(s.num_heavy for s in splits), sum(
-            s.num_segments for s in splits)
-        return CsrPlan(m, *t[:3], *t[3:], *splits), stats
+        """A chunk's plan on the device at its exact size (the loop), from
+        the host's arrays, and (heavy rows, segments) of K1's two CSRs."""
+        if self.kind is None:
+            return None, (0, 0)
+        v = {k: torch.as_tensor(a, device=self.device)
+             for k, a in exact_views(self.kind, sub[0], sub[1], m).items()}
+        stats = (v["rows"].numel() + v["t_rows"].numel(),
+                 v["seg_begin"].numel() + v["t_seg_begin"].numel())
+        return _VIEW_PLANS[self.kind](v, m), stats
 
     def _host_buffers(self, slot):
         """The packed plans' host buffers of one of two slots (an epoch uses
         one while the worker fills the other), pinned on CUDA."""
         if self._host_sets is None:
+            # zeros: a GAT plan's padded edges, past the real ones, keep the
+            # node ids of an earlier chunk of the size, or 0, valid rows
             pin = self.device.type == "cuda"
             self._host_sets = [
-                {m: torch.empty((self.n_chunks, lay.size), dtype=torch.int32,
-                                pin_memory=pin) if m == self.batch_size
-                 else torch.empty((1, lay.size), dtype=torch.int32,
-                                  pin_memory=pin)
+                {m: torch.zeros((self.n_chunks if m == self.batch_size else 1,
+                                 lay.size), dtype=torch.int32,
+                                pin_memory=pin)
                  for m, lay in self.layouts.items()} for _ in range(2)]
         return self._host_sets[slot]
 
@@ -358,7 +454,8 @@ class MiniBatchTrainer:
             host_s=time.perf_counter() - t0, subgraph_s=subgraph_s,
             heavy_chunks=sum(h > 0 for _, (h, _) in done),
             segments=sum(s for _, (_, s) in done),
-            max_edges=max(sub.shape[1] for _, sub in chunks))
+            max_edges=max(0 if sub is None else sub.shape[1]
+                          for _, sub in chunks))
 
     # -- epochs --------------------------------------------------------------
     def _loop_epoch(self, state, generator, perm):
@@ -372,7 +469,7 @@ class MiniBatchTrainer:
             plan, (heavy, segs) = self._exact_plan(nodes.shape[0], sub)
             heavy_chunks += heavy > 0
             segments += segs
-            most = max(most, sub.shape[1])
+            most = max(most, 0 if sub is None else sub.shape[1])
             nodes = torch.as_tensor(nodes, device=self.device)
             losses.append(self.train_step(state, generator, nodes, plan))
         self.plan_stats.append(dict(host_s=time.perf_counter() - t0,
@@ -386,8 +483,9 @@ class MiniBatchTrainer:
     def forward_full(self, state):
         """Eval-mode logits [N, C] of the full graph, on the device."""
         state.model.eval()
-        return state.model(self.x_dev, plan=self.full_plan,
-                           edge_chunk_size=self._eval_edge_chunk)
+        kw = ({"edge_chunk_size": self._eval_edge_chunk}
+              if self.kind == "csr" else {})
+        return state.model(self.x_dev, plan=self.full_plan, **kw)
 
     def _device_metric_labels(self):
         """The labels of the device metric, or None where the metric is
@@ -423,19 +521,21 @@ class MiniBatchTrainer:
     # -- fit -----------------------------------------------------------------
     def fit(self, split_idx, *, epochs: int = 50, runs: int = 1,
             eval_step: int = 9, logger=None, verbose: bool = False,
-            init_params=None):
+            init_params=None, init_batch_stats=None):
         """Train ``runs`` runs of ``epochs`` epochs (the JAX trainer's
         schedule, ``:283-342``). One summary per run: ``train``/``valid``/
         ``test`` at the best eval epoch, ``epoch``, ``params`` (a CPU copy
-        of that epoch's ``state_dict``), ``losses`` (each epoch's mean chunk
-        loss) and ``chunk_losses`` (each epoch's chunk losses).
-        ``init_params`` (a flax params tree) replaces the drawn weights."""
+        of that epoch's ``state_dict``, BatchNorm statistics included),
+        ``losses`` (each epoch's mean chunk loss) and ``chunk_losses`` (each
+        epoch's chunk losses). ``init_params`` (a flax params tree) and
+        ``init_batch_stats`` replace the drawn weights and statistics."""
         return [self._fit_run(run, split_idx, epochs, eval_step, logger,
-                              verbose, init_params) for run in range(runs)]
+                              verbose, init_params, init_batch_stats)
+                for run in range(runs)]
 
     def _fit_run(self, run, split_idx, epochs, eval_step, logger, verbose,
-                 init_params):
-        state = self.init_state(run, init_params)
+                 init_params, init_batch_stats):
+        state = self.init_state(run, init_params, init_batch_stats)
         generator = torch.Generator(self.device).manual_seed(777 + run)
         rng = np.random.default_rng(self.seed + run)
 

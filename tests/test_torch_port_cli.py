@@ -6,8 +6,9 @@ baseline zoo's routes (what a zoo trainer is handed, label propagation's
 metrics, every zoo method trained on the CPU), the sparse layouts of the GCN
 branch (the layout each CLI hands its trainer, bit for bit), what the
 ``--n_shards`` route hands its distributed trainer on the ring and the
-block-sparse hybrid (``--kernel sigmoid``, ``--spmm bsr``),
-``NotImplementedError`` for every route the port does not run yet, and the
+block-sparse hybrid (``--kernel sigmoid``, ``--spmm bsr``), the zoo in
+mini-batch (what its trainer is handed, a run of each chunk plan kind, and
+LINK's ``ValueError``, the one route refused), and the
 ``--save_model``/``--eval_only`` round trip, also from a reference ``.pt``
 state_dict.
 """
@@ -216,21 +217,20 @@ def test_bce_datasets_use_bce(monkeypatch, tmp_path):
 
 
 # --------------------------------------------------------------------------
-# routes not ported yet
+# routes refused
 # --------------------------------------------------------------------------
 
-# the leftover of ROADMAP.md queue A that a zoo method in mini-batch names
-ZOO_MINIBATCH = "the zoo in mini-batch"
-
-
-@pytest.mark.parametrize("extra,item", [
-    (["--dataset", "pokec", "--method", "gcn"], ZOO_MINIBATCH),
+@pytest.mark.parametrize("extra,error,match", [
+    # LINK's weight is indexed by global node ids, which a chunk's edges
+    # cannot address: refused before the (missing) data is read
+    (["--dataset", "pokec", "--method", "link"], ValueError,
+     "global node id"),
 ])
-def test_unported_routes_raise_naming_their_item(tmp_path, extra, item):
+def test_unported_routes_raise_naming_their_item(tmp_path, extra, error,
+                                                 match):
     argv = ["--dataset", "synthetic-60-200-4-3", "--epochs", "1",
             "--data_dir", str(tmp_path)] + extra
-    match = f"item {item}\\b" if isinstance(item, int) else item
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         cli.main(argv, **CPU)
 
 
@@ -563,6 +563,7 @@ class MiniBatchRecorder:
     """A stand-in MiniBatchTrainer that keeps what it is given."""
 
     def __init__(self, model, node_feat, edge_index, labels, **kw):
+        self.model = type(model).__name__
         self.x, self.ei = np.asarray(node_feat), np.asarray(edge_index)
         self.labels, self.kw = np.asarray(labels), kw
         self.splits, self.fits = [], []
@@ -588,6 +589,7 @@ def run_both_minibatch(monkeypatch, argv):
     assert len(res) == len(ref)
     assert len(ours.made) == len(theirs.made) == 1
     a, b = ours.made[0], theirs.made[0]
+    assert a.model == b.model
     np.testing.assert_array_equal(a.x, b.x)
     np.testing.assert_array_equal(a.ei, b.ei)
     assert a.labels.dtype == b.labels.dtype
@@ -643,13 +645,18 @@ def _write_proteins(root, n=90, e=400, tasks=6):
         write(split / f"{name}.csv.gz", part)
 
 
-@pytest.mark.parametrize("dataset", ["pokec", "ogbn-proteins", "synthetic"])
+@pytest.mark.parametrize("dataset", ["pokec", "ogbn-proteins", "synthetic",
+                                     "pokec-gcn", "pokec-gat"])
 def test_use_minibatch_hands_the_same_data(monkeypatch, tmp_path, dataset):
     """The presets that set use_minibatch, and the flag on a synthetic
-    graph: both command lines build MiniBatchTrainer with the same
-    features, edges (proteins: not symmetrised), labels and options, and
-    fit each run's split with the same schedule."""
+    graph: both command lines build MiniBatchTrainer with the same model
+    (DIFFormer, or the zoo's GCN and GAT on the pokec preset), features,
+    edges (proteins: not symmetrised), labels and options, and fit each
+    run's split with the same schedule."""
     argv = ["--data_dir", str(tmp_path), "--runs", "2", "--epochs", "3"]
+    if dataset.startswith("pokec-"):
+        argv += ["--method", dataset.split("-")[1]]
+        dataset = "pokec"
     if dataset == "pokec":
         _write_pokec(tmp_path)
         argv += ["--dataset", "pokec", "--batch_size", "50"]
@@ -660,6 +667,9 @@ def test_use_minibatch_hands_the_same_data(monkeypatch, tmp_path, dataset):
         argv += ["--dataset", "synthetic-80-300-6-3", "--use_minibatch",
                  "true", "--rand_split", "true", "--spmm", "bsr"]
     made = run_both_minibatch(monkeypatch, argv)
+    assert made.model == {"gcn": "GCN", "gat": "GAT"}.get(
+        argv[argv.index("--method") + 1] if "--method" in argv else None,
+        "DIFFormer")
     assert made.kw["loss"] == ("bce" if dataset == "ogbn-proteins"
                                else "nll")
     assert made.fits == [{"epochs": 3, "runs": 1, "eval_step": (
@@ -677,3 +687,31 @@ def test_use_minibatch_trains_on_the_cpu():
         "--num_layers", "2", "--lr", "0.01", "--dropout", "0.0"], **CPU)
     assert len(res) == 1 and res[0]["test"] > 0.5, res
     assert len(res[0]["losses"]) == 20
+
+
+@pytest.mark.parametrize("method,kind", [
+    ("mlp", None), ("h2gcn", "norm"), ("gcn", "norm_loops"),
+    ("gat", "gat")])
+def test_zoo_in_minibatch_trains_on_the_cpu(monkeypatch, method, kind):
+    """A zoo model of each chunk plan kind through the port's command line
+    in node chunks (the last chunk of 100): it learns the homophilous
+    graph, with BatchNorm (GCN, MLP) and GAT's two heads."""
+    from difformer_tpu_torch.train import minibatch
+
+    kinds = []
+    real = minibatch.MiniBatchTrainer.__init__
+
+    def init(self, *args, **kw):
+        real(self, *args, **kw)
+        kinds.append(self.kind)
+
+    monkeypatch.setattr(minibatch.MiniBatchTrainer, "__init__", init)
+    res = cli.main([
+        "--dataset", "synthetic-300-1500-10-3", "--use_minibatch", "true",
+        "--batch_size", "200", "--epochs", "12", "--eval_step", "3",
+        "--runs", "1", "--rand_split", "true", "--hidden_channels", "16",
+        "--num_layers", "2", "--lr", "0.01", "--dropout", "0.0",
+        "--method", method], **CPU)
+    assert kinds == [kind]
+    assert len(res) == 1 and res[0]["test"] > 0.5, res
+    assert len(res[0]["losses"]) == 12

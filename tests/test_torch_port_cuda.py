@@ -1075,6 +1075,112 @@ def test_minibatch_trainer_matches_cpu(cuda):
         np.testing.assert_allclose(res[0][k], res[1][k], atol=2e-3)
 
 
+def _zoo_minibatch(device, use_scan, method, n=2000, batch=600,
+                   capacity_scale=1):
+    """A zoo model (BatchNorm on; GAT with 2 heads, attention dropout 0)
+    in the mini-batch trainer; ``capacity_scale`` multiplies the edge
+    capacity, so that a chunk's real edges fill a fraction of it."""
+    from difformer_tpu_torch.nn import gnns as Z
+    from difformer_tpu_torch.train import minibatch as M
+
+    x, ei, y = random_graph(n, 8 * n, 16, 4, seed=2, homophily=0.8)
+    ei = standard_preprocess(ei, n)
+    model = (Z.GCN(16, 32, 4, num_layers=3, dropout=0.3, device=device)
+             if method == "gcn" else
+             Z.GAT(16, 16, 4, num_layers=2, dropout=0.0, use_bn=True,
+                   device=device))
+    trainer = M.MiniBatchTrainer(model, x, ei, y, batch_size=batch,
+                                 use_scan=use_scan, device=device)
+    if capacity_scale != 1:
+        trainer.edge_capacity *= capacity_scale
+        loops = trainer.kind in ("norm_loops", "gat")
+        trainer.layouts = {m: M.ChunkLayout(
+            m, trainer.edge_capacity + (m if loops else 0), trainer.kind)
+            for m in trainer.layouts}
+    return trainer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,scale", [("gcn", 1), ("gat", 1),
+                                          ("gat", 4)])
+def test_zoo_minibatch_graphs_match_the_loop_on_the_card(cuda, method,
+                                                         scale):
+    """A zoo model's chunk steps replayed as CUDA graphs (GCN's self-looped
+    ``gcn_norm`` plan; GAT's edges and loops, also at 4 times the edge
+    capacity, most of it padding) against the eager loop on exact plans:
+    the same chunk losses, logged metrics and best epoch bit for bit, and
+    the BatchNorm statistics after the fit (the capture's warm-up undone);
+    K1 (and K1-dval for GAT) captured once a step and replayed for every
+    chunk."""
+    split = {k: np.arange(i, 2000, 3) for i, k in enumerate(
+        ("train", "valid", "test"))}
+    runs = []
+    for use_scan in (False, True):
+        trainer = _zoo_minibatch(cuda, use_scan, method,
+                                 capacity_scale=scale)
+        log = RowLog()
+        best = trainer.fit(split, epochs=3, eval_step=1, logger=log)[0]
+        runs.append((best, log.rows, trainer, {
+            k: b.clone() for k, b in trainer.model.named_buffers()}))
+    (loop, loop_rows, _, loop_bufs), (scan, scan_rows, trainer,
+                                      scan_bufs) = runs
+    assert scan["chunk_losses"] == loop["chunk_losses"]
+    assert scan_rows == loop_rows and scan["epoch"] == loop["epoch"]
+    assert loop_bufs and set(loop_bufs) == set(scan_bufs)
+    for k in loop_bufs:
+        assert torch.equal(loop_bufs[k], scan_bufs[k]), k
+    graphs = trainer.runner.graphs
+    assert [g["replays"] for g in graphs.values()] == [9, 3]
+    k1 = 3 if method == "gcn" else (4 + 2) + (4 + 1)
+    for g in graphs.values():
+        assert g["captured"]["csr_spmm"] == k1
+        assert g["captured"]["csr_spmm_transposed"] == k1
+        assert g["captured_dval"] == (0 if method == "gcn" else 2)
+    assert trainer.runner.launches()["csr_spmm"] == k1 * 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["norm", "norm_loops", "gat"])
+def test_zoo_host_chunk_plans_equal_the_device_plans_on_the_card(cuda,
+                                                                   kind):
+    """The mini-batch trainer's host plans (``native.chunk_norm_csr``,
+    ``chunk_gat_csr``) against ``norm_plan`` and ``gat_plan`` built on the
+    card, bit for bit: ``gcn_norm`` takes its inverse square roots on the
+    host, where the card's ``rsqrt`` would round them otherwise."""
+    from difformer_tpu_torch import native
+    from difformer_tpu_torch.nn.gnns import gat_plan, norm_plan
+
+    rng = np.random.default_rng(0)
+    n, e = 20_000, 200_000
+    s = rng.integers(0, n, e).astype(np.int32)
+    r = np.minimum((n * rng.random(e) ** 2).astype(np.int64),
+                   n - 1).astype(np.int32)
+    st, rt = torch.as_tensor(s, device=cuda), torch.as_tensor(r, device=cuda)
+    if kind == "gat":
+        host = native.chunk_gat_csr(s, r, n)
+        p = gat_plan(st, rt, n).plan
+        want = (p.row_ptr, p.col, p.rows, p.t_row_ptr, p.t_col, p.t_order)
+    else:
+        host = native.chunk_norm_csr(s, r, n, kind == "norm_loops")
+        p = norm_plan(st, rt, n, add_self_loops=kind == "norm_loops")
+        want = (p.row_ptr, p.col, p.val, p.t_row_ptr, p.t_col, p.t_val)
+    for got, ref in zip(host, want):
+        np.testing.assert_array_equal(got, ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_zoo_minibatch_trainer_matches_cpu(cuda):
+    """GAT's chunk fit on the card and on the CPU: losses and the eval's
+    metrics at the model's float32 tolerance."""
+    split = {k: np.arange(i, 2000, 3) for i, k in enumerate(
+        ("train", "valid", "test"))}
+    res = [_zoo_minibatch(device, True, "gat").fit(
+        split, epochs=2, eval_step=1)[0] for device in (cuda, "cpu")]
+    np.testing.assert_allclose(res[0]["losses"], res[1]["losses"], **GRAD)
+    for k in ("train", "valid", "test"):
+        np.testing.assert_allclose(res[0][k], res[1][k], atol=2e-3)
+
+
 # --- K1 at bf16, compute_dtype and remat in the CUDA-graph fits -------------
 
 BF16_SPMM_SHAPES = [("cora", 64), ("cora", 65), ("cora", 8), ("cora", 1),

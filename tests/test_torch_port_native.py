@@ -6,8 +6,10 @@ equal. The GCN values equal the JAX package's C++ values exactly; its numpy
 path computes them in float64 and differs from its own C++ path by up to
 one float32 rounding, which is the tolerance against it. Also: the one-pass
 chunk subgraphs equal the per-chunk ones, the chunk CSRs equal the sorts
-and values they replace, K1's host split schedule equals the device one,
-and the library is built once by processes that start together.
+and values they replace, the baseline zoo's chunk plans (``gcn_norm`` with
+and without self-loops, GAT's) equal the port's plans built on the device
+bit for bit, K1's host split schedule equals the device one, and the
+library is built once by processes that start together.
 """
 
 import subprocess
@@ -218,6 +220,60 @@ def test_chunk_csr_equals_sorts_and_values(path, kind):
             np.testing.assert_array_equal(v[:e], val[order])
             assert ptr.dtype == col.dtype == np.int32 and v.dtype == np.float32
     assert (outs[1][1][e:] == -9).all()
+
+
+def _chunk(kind):
+    s, r, n = _graph(kind)
+    sub = native.induced_subgraph(s, r, np.arange(0, n, 2), n)
+    return sub, n // 2
+
+
+@pytest.mark.parametrize("kind", GRAPHS)
+@pytest.mark.parametrize("loops", [True, False])
+def test_chunk_norm_csr_is_norm_plan(path, kind, loops):
+    """The zoo's ``gcn_norm`` plan of a chunk, with self-loops (GCN, SGC,
+    GCNJK, APPNP, GPRGNN) and without (MixHop, H2GCN): the arrays of
+    ``nn/gnns.py:norm_plan`` on the CPU, bit for bit; written into longer
+    arrays, the first E entries."""
+    from difformer_tpu_torch.nn.gnns import norm_plan
+
+    sub, m = _chunk(kind)
+    e = sub.shape[1] + (m if loops else 0)
+    plan = norm_plan(torch.from_numpy(sub[0]), torch.from_numpy(sub[1]), m,
+                     add_self_loops=loops)
+    want = [getattr(plan, f).numpy() for f in (
+        "row_ptr", "col", "val", "t_row_ptr", "t_col", "t_val")]
+    room = [np.full(m + 1, -9, np.int32), np.full(e + 5, -9, np.int32),
+            np.full(e + 5, -9.0, np.float32)]
+    for out in (native.chunk_norm_csr(sub[0], sub[1], m, loops),
+                native.chunk_norm_csr(sub[0], sub[1], m, loops, out=tuple(
+                    a.copy() for a in room + room))):
+        for got, ref in zip(out, want):
+            assert got.dtype == ref.dtype
+            np.testing.assert_array_equal(got[:ref.size], ref)
+        assert (out[1][e:] == -9).all() or out[1].size == e
+
+
+@pytest.mark.parametrize("kind", GRAPHS)
+def test_chunk_gat_csr_is_gat_plan(path, kind):
+    """GAT's plan of a chunk (its edges and a self-loop on every node):
+    ``nn/gnns.py:gat_plan``'s CSRs, receivers and transposed order on the
+    CPU, bit for bit, also written into longer arrays."""
+    from difformer_tpu_torch.nn.gnns import gat_plan
+
+    sub, m = _chunk(kind)
+    e = sub.shape[1] + m
+    plan = gat_plan(torch.from_numpy(sub[0]), torch.from_numpy(sub[1]),
+                    m).plan
+    want = [t.numpy() for t in (plan.row_ptr, plan.col, plan.rows,
+                                plan.t_row_ptr, plan.t_col, plan.t_order)]
+    room = [np.full(m + 1, -9, np.int32)] + [np.full(e + 5, -9, np.int32)] * 2
+    for out in (native.chunk_gat_csr(sub[0], sub[1], m),
+                native.chunk_gat_csr(sub[0], sub[1], m, out=tuple(
+                    a.copy() for a in room + room))):
+        for got, ref in zip(out, want):
+            assert got.dtype == np.int32
+            np.testing.assert_array_equal(got[:ref.size], ref)
 
 
 # --- K1's host split schedule ---------------------------------------------------
